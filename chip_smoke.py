@@ -7,14 +7,26 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
 
 It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, holds
 each against its plain PyTorch version on the card, times it, and then
-drives the port's serving path at the full width of BERT-base
-(vocab 30522, seq 128, d_model 768, d_ff 3072, 12 heads, 12 layers; random
-weights from seed 11): layers -> Program -> Executor (startup on the card)
--> io.save_inference_model -> ServingEngine -> Predictor -> op interpreter
--> kernels. Each phase prints one JSON line; any failure raises and exits
-non-zero. The line before the last is ``{"kernels": [...]}``, the last
-``{"ok": true, "device": {...}}``. Without CUDA, or outside the
-repository, it exits non-zero and prints no result.
+drives the port's two main paths at full width, each with the kernels'
+launch counts set to 0 just before it and read just after:
+
+* serving BERT-base (vocab 30522, seq 128, d_model 768, d_ff 3072, 12
+  heads, 12 layers; random weights from seed 11): layers -> Program ->
+  Executor (startup on the card) -> io.save_inference_model ->
+  ServingEngine -> Predictor -> op interpreter -> kernels;
+* training Transformer-base (vocab 30000/30000, seq 256, d_model 512,
+  d_ff 2048, 8 heads, 6+6 layers, dropout 0.1, Adam 1e-4, 128 x 256 tokens
+  per step; random weights from seed 11): layers -> Program ->
+  optimizer.minimize (autodiff + adam ops) -> Executor -> forward ops ->
+  torch.autograd backward through the kernels' autograd Functions ->
+  adam, for 3 warm-up and 20 timed steps on one fixed batch.
+
+Before the training path, ``train_check`` runs one full-width step (batch
+2, dropout 0) on the card and the same step with the port on the CPU from
+the same weights and feed. Each phase prints one JSON line; any failure
+raises and exits non-zero. The line before the last is ``{"kernels":
+[...]}``, the last ``{"ok": true, "device": {...}}``. Without CUDA, or
+outside the repository, it exits non-zero and prints no result.
 """
 
 import json
@@ -37,7 +49,13 @@ F32_FLOPS = 67e12
 
 BERT = dict(vocab=30522, seq=128, d_model=768, d_ff=3072, heads=12,
             layers=12)
+# Transformer-base as paddle_tpu's bench.py trains it (:174-177, :229)
+TRANSFORMER = dict(src_vocab=30000, trg_vocab=30000, seq_len=256,
+                   d_model=512, d_ff=2048, n_head=8, n_layer=6)
+TRAIN_BATCH = 128
 SEED = 11
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm_fwd",
+           "layer_norm_bwd", "fused_ce_fwd")
 
 
 def emit(obj):
@@ -68,6 +86,48 @@ def time_ms(fn, iters=50, warmup=5):
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def kernel_fns():
+    """name -> the wrapper whose ``launches`` counts that kernel."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fce
+    from paddle_tpu_torch.ops import fused_layer_norm as fln
+
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "layer_norm_fwd": fln.layer_norm_fwd,
+            "layer_norm_bwd": fln.layer_norm_bwd,
+            "fused_ce_fwd": fce.fused_ce_fwd}
+
+
+def reset_counts():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def max_err(got, want):
+    """(max abs error, max abs error / max |want|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def check_close(phase, case, pairs, tol, **extra):
+    """Emit one line per case with each tensor's max abs and relative
+    error; fail if any max abs error exceeds tol * max(1, max |want|)."""
+    errs, ok = {}, True
+    for name, got, want in pairs:
+        a, r = max_err(got, want)
+        errs[name] = {"max_abs_err": a, "max_rel_err": r}
+        ok = ok and a <= tol * max(1.0, want.abs().max().item())
+    emit(dict({"phase": phase, "case": case, "errors": errs,
+               "tol": "%g * max(1, max|plain|)" % tol}, **extra))
+    check(ok, "%s %s: errors %s above tolerance" % (phase, case, errs))
+    return max(e["max_abs_err"] for e in errs.values())
 
 
 def bound(nbytes, flops):
@@ -186,6 +246,156 @@ def phase_ln_check(torch, dev):
     return errs
 
 
+def phase_flash_bwd_check(torch, dev):
+    """The flash kernels through their autograd Function (forward with
+    dropout, backward) against autograd of the plain version on the same
+    inputs and the same dropout seed, f32, TF32 off: first at the training
+    path's own shape and configurations (B=128, T=Tk=256, H=8, D=64; the
+    encoder self, decoder self and cross calls with dropout 0.1, and
+    without dropout with the key bias requiring grad), then at ragged
+    extras. dq is summed across key tiles with atomics, in no fixed order;
+    tolerance 2e-4 * max(1, max|plain|) on out, dq, dk, dv and dbias."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(SEED)
+    b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
+    h = TRANSFORMER["n_head"]
+    d = TRANSFORMER["d_model"] // h
+    cases = [
+        # name, B, Tq, Tk, H, D, causal, bias ("key", "key1" broadcast
+        # over B, "+grad": it requires grad), dropout rate
+        ("enc_self_bias_grad", b, t, t, h, d, False, "key+grad", 0.0),
+        ("dec_self_causal", b, t, t, h, d, True, None, 0.0),
+        ("enc_self_dropout_0.1", b, t, t, h, d, False, "key+grad", 0.1),
+        ("dec_self_causal_dropout_0.1", b, t, t, h, d, True, None, 0.1),
+        ("dec_cross_dropout_0.1", b, t, t, h, d, False, "key", 0.1),
+        ("causal_tq_lt_tk", 2, 64, 128, 4, 64, True, None, 0.0),
+        ("causal_tq_gt_tk", 2, 128, 64, 4, 64, True, "key", 0.0),
+        ("ragged_100x77_d32", 3, 100, 77, 2, 32, False, "key1+grad", 0.0),
+        ("causal_d128_dropout_0.1", 2, 96, 96, 2, 128, True, "key", 0.1),
+    ]
+    errs = {}
+    for i, (name, b_, tq, tk, h_, d_, causal, bias_kind, rate) in \
+            enumerate(cases):
+        q, k, v, dout = (torch.randn(b_, n, h_ * d_, generator=gen).to(dev)
+                         for n in (tq, tk, tk, tq))
+        kb = None
+        if bias_kind is not None:
+            kb = _padding_bias(torch, gen, b_, tk, dev)
+            if bias_kind.startswith("key1"):
+                kb = kb[:1]
+        bias_grad = bias_kind is not None and bias_kind.endswith("+grad")
+        seed = (torch.tensor([1000 + i], dtype=torch.int64, device=dev)
+                if rate > 0 else None)
+        inputs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        kbk = kb.clone().requires_grad_(bias_grad) if kb is not None \
+            else None
+        out = fa._FlashAttention.apply(*inputs, kbk, seed, h_, causal, rate)
+        wrt = inputs + ([kbk] if bias_grad else [])
+        grads = torch.autograd.grad(out, wrt, dout)
+        plain_in = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        kbp = kb.clone().requires_grad_(bias_grad) if kb is not None \
+            else None
+        want, _ = fa.attention_plain(*plain_in, h_, kbp, causal, rate, seed)
+        pwrt = plain_in + ([kbp] if bias_grad else [])
+        want_grads = torch.autograd.grad(want, pwrt, dout)
+        torch.cuda.synchronize()
+        pairs = [("out", out, want)] + list(zip(
+            ("dq", "dk", "dv", "dbias"), grads, want_grads))
+        errs[name] = check_close(
+            "flash_attention_bwd", name, pairs, 2e-4,
+            shape=[b_, tq, tk, h_, d_], causal=causal, bias=bias_kind,
+            dropout=rate)
+        del out, grads, want, want_grads, plain_in, inputs
+    return errs
+
+
+def phase_ln_bwd_check(torch, dev):
+    """The LayerNorm kernels through their autograd Function against
+    autograd of the plain version, f32: dx, dgamma, dbeta within 1e-4 *
+    max(1, max|plain|) (dgamma/dbeta sum all rows, in another order)."""
+    from paddle_tpu_torch.ops import fused_layer_norm as fln
+
+    gen = torch.Generator().manual_seed(SEED)
+    rows = TRAIN_BATCH * TRANSFORMER["seq_len"]
+    cases = [("train_%dx512" % rows, rows, 512, (True, True)),
+             ("ragged_1000x768_gamma", 1000, 768, (True, False)),
+             ("rows3x512_no_affine", 3, 512, (False, False))]
+    errs = {}
+    for name, n, d, affine in cases:
+        x = (torch.randn(n, d, generator=gen) * 2 + 0.5).to(dev)
+        dy = torch.randn(n, d, generator=gen).to(dev)
+        g = torch.randn(d, generator=gen).to(dev) if affine[0] else None
+        bb = torch.randn(d, generator=gen).to(dev) if affine[1] else None
+        outs = []
+        for via_kernel in (True, False):
+            xs = x.clone().requires_grad_(True)
+            gs = g.clone().requires_grad_(True) if g is not None else None
+            bs = bb.clone().requires_grad_(True) if bb is not None else None
+            if via_kernel:
+                y = fln._FusedLN.apply(xs, gs, bs, 1e-5)[0]
+            else:
+                y = fln.layer_norm_plain(xs, gs, bs, 1e-5)[0]
+            wrt = [t for t in (xs, gs, bs) if t is not None]
+            outs.append(torch.autograd.grad(y, wrt, dy))
+        torch.cuda.synchronize()
+        names = ["dx"] + (["dgamma"] if g is not None else []) + (
+            ["dbeta"] if bb is not None else [])
+        errs[name] = check_close("layer_norm_bwd", name,
+                                 list(zip(names, outs[0], outs[1])), 1e-4,
+                                 shape=[n, d])
+    return errs
+
+
+def phase_ce_check(torch, dev):
+    """The fused CE kernel against the plain projection + closed-form CE
+    (loss and lse, within 2e-5 * max(1, max|plain|)), at the slice's shape
+    and at ragged T, D and V; and its autograd Function (kernel forward,
+    chunked backward) against autograd of the plain version (dx, dW, db
+    within 1e-4 * max(1, max|plain|))."""
+    from paddle_tpu_torch.ops import fused_ce as fce
+
+    gen = torch.Generator().manual_seed(SEED)
+    rows = TRAIN_BATCH * TRANSFORMER["seq_len"]
+    d, v = TRANSFORMER["d_model"], TRANSFORMER["trg_vocab"]
+    cases = [("train_%dx%dx%d" % (rows, d, v), rows, d, v, False, 0.1),
+             ("bias_1000x512x1000", 1000, 512, 1000, True, 0.1),
+             ("eps0_777x72x300", 777, 72, 300, True, 0.0)]
+    errs = {}
+    for name, t, d_, v_, with_bias, eps in cases:
+        x = torch.randn(t, d_, generator=gen).to(dev)
+        w = (torch.randn(d_, v_, generator=gen) / d_ ** 0.5).to(dev)
+        b = torch.randn(v_, generator=gen).to(dev) if with_bias else None
+        y = torch.randint(0, v_, (t,), generator=gen).to(dev)
+        loss, lse = fce.fused_ce_fwd(x, w, b, y, eps)
+        want, want_lse = fce.linear_smooth_ce_plain(x, w, b, y, eps)
+        torch.cuda.synchronize()
+        errs[name] = check_close("fused_ce_fwd", name,
+                                 [("loss", loss, want), ("lse", lse,
+                                                         want_lse)],
+                                 2e-5, shape=[t, d_, v_], eps=eps)
+        del want, want_lse
+    # the Function: kernel forward + chunked backward, at 4,096 rows
+    t = 4096
+    x = torch.randn(t, d, generator=gen).to(dev)
+    w = (torch.randn(d, v, generator=gen) / d ** 0.5).to(dev)
+    y = torch.randint(0, v, (t,), generator=gen).to(dev)
+    g = torch.randn(t, generator=gen).to(dev)
+    grads = []
+    for via_kernel in (True, False):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        if via_kernel:
+            loss = fce._FusedCE.apply(xs, ws, None, y, 0.1)
+        else:
+            loss = fce.linear_smooth_ce_plain(xs, ws, None, y, 0.1)[0]
+        grads.append(torch.autograd.grad(loss, (xs, ws), g))
+    torch.cuda.synchronize()
+    check_close("fused_ce_fwd", "function_grads_%dx%dx%d" % (t, d, v),
+                list(zip(("dx", "dw"), grads[0], grads[1])), 1e-4,
+                shape=[t, d, v])
+    return errs
+
+
 def phase_timing(torch, dev):
     """Each kernel at the served shapes (the top batch rung, 8 x 128
     tokens, f32), beside its plain version, one PyTorch library call as a
@@ -232,8 +442,103 @@ def phase_timing(torch, dev):
         library_ms=time_ms(lambda: F.layer_norm(x, (hd,), g, bb, 1e-5)),
         bound_ms=bnd, bound_by=by, shape=[n_rows, hd], bytes=nbytes,
         flops=flops)
+    rows.update(_train_kernel_timing(torch, dev, gen))
     for name, r in rows.items():
         emit(dict({"phase": "timing", "kernel": name}, **r))
+    return rows
+
+
+def _train_kernel_timing(torch, dev, gen):
+    """The three training kernels at Transformer-base's training shapes
+    (128 x 256 tokens, f32), each beside its plain version, one PyTorch
+    call as a yardstick where one computes the same function (timed here
+    only; the port never calls it), and its bound."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fce
+    from paddle_tpu_torch.ops import fused_layer_norm as fln
+
+    rows = {}
+    b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
+    h, hd = TRANSFORMER["n_head"], TRANSFORMER["d_model"]
+    d = hd // h
+
+    # flash backward: the encoder self-attention call (key padding bias)
+    q, k, v, dout = (torch.randn(b, t, hd, generator=gen).to(dev)
+                     for _ in range(4))
+    kb = _padding_bias(torch, gen, b, t, dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, h, kb)
+    plain_in = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    plain_out, _ = fa.attention_plain(*plain_in, h, kb)
+
+    def split(x):
+        return x.view(b, t, h, d).transpose(1, 2)
+
+    lib_in = [split(x).detach().requires_grad_(True) for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in,
+                                             attn_mask=kb[:, None, None, :])
+    lib_dout = split(dout)
+    nbytes = 4 * (8 * b * t * hd + b * h * t + b * t)
+    flops = 10 * b * h * t * t * d
+    bnd, by = bound(nbytes, flops)
+    rows["flash_attention_bwd"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, h,
+                                                  kb), iters=20),
+        plain_ms=time_ms(lambda: torch.autograd.grad(
+            plain_out, plain_in, dout, retain_graph=True), iters=20),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_in, lib_dout, retain_graph=True), iters=20),
+        library="F.scaled_dot_product_attention backward (autograd)",
+        bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes,
+        flops=flops)
+    del plain_out, plain_in, lib_out, lib_in
+
+    # LayerNorm backward: one [B*T, 512] normalisation
+    n = b * t
+    x = torch.randn(n, hd, generator=gen).to(dev)
+    dy = torch.randn(n, hd, generator=gen).to(dev)
+    g = torch.randn(hd, generator=gen).to(dev)
+    bb = torch.randn(hd, generator=gen).to(dev)
+    _, mean, var = fln.layer_norm_fwd(x, g, bb, 1e-5)
+    p_in = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
+            bb.clone().requires_grad_(True)]
+    p_out = fln.layer_norm_plain(*p_in, 1e-5)[0]
+    l_in = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
+            bb.clone().requires_grad_(True)]
+    l_out = F.layer_norm(l_in[0], (hd,), l_in[1], l_in[2], 1e-5)
+    nbytes = 4 * (3 * n * hd + 2 * n + 3 * hd)
+    flops = 12 * n * hd
+    bnd, by = bound(nbytes, flops)
+    rows["layer_norm_bwd"] = dict(
+        ms=time_ms(lambda: fln.layer_norm_bwd(x, g, mean, var, dy, 1e-5)),
+        plain_ms=time_ms(lambda: torch.autograd.grad(p_out, p_in, dy,
+                                                      retain_graph=True)),
+        library_ms=time_ms(lambda: torch.autograd.grad(l_out, l_in, dy,
+                                                       retain_graph=True)),
+        library="F.layer_norm backward (autograd)",
+        bound_ms=bnd, bound_by=by, shape=[n, hd], bytes=nbytes, flops=flops)
+    del p_out, p_in, l_out, l_in
+
+    # fused CE forward: the loss head, [B*T, 512] x [512, 30000]
+    v = TRANSFORMER["trg_vocab"]
+    x = torch.randn(n, hd, generator=gen).to(dev)
+    w = (torch.randn(hd, v, generator=gen) / hd ** 0.5).to(dev)
+    y = torch.randint(0, v, (n,), generator=gen).to(dev)
+    nbytes = 4 * (n * hd + hd * v + n + 2 * n)
+    flops = 2 * n * hd * v
+    bnd, by = bound(nbytes, flops)
+    rows["fused_ce_fwd"] = dict(
+        ms=time_ms(lambda: fce.fused_ce_fwd(x, w, None, y, 0.1), iters=10,
+                   warmup=2),
+        plain_ms=time_ms(lambda: fce.linear_smooth_ce_plain(x, w, None, y,
+                                                            0.1),
+                         iters=10, warmup=2),
+        library_ms=None,
+        library="none: no single PyTorch call fuses the projection with "
+                "the label-smoothed CE",
+        bound_ms=bnd, bound_by=by, shape=[n, hd, v], bytes=nbytes,
+        flops=flops)
     return rows
 
 
@@ -407,6 +712,230 @@ def phase_profile(torch, fluid, model_dir, feeds, runs=20):
           "device_busy_share": busy / wall_ms if wall_ms else None})
 
 
+def build_transformer(fluid, dropout_rate):
+    """Transformer-base with Adam(1e-4), as paddle_tpu's bench.py trains
+    it, in fresh programs. Returns (main, startup, spec)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        spec = fluid.models.transformer.transformer_base(
+            dropout_rate=dropout_rate, **TRANSFORMER)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(spec.loss)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, spec
+
+
+PER_STEP = {"flash_attention_fwd": 3 * TRANSFORMER["n_layer"],
+            "flash_attention_bwd": 3 * TRANSFORMER["n_layer"],
+            "layer_norm_fwd": 5 * TRANSFORMER["n_layer"] + 2,
+            "layer_norm_bwd": 5 * TRANSFORMER["n_layer"] + 2,
+            "fused_ce_fwd": 1}
+
+
+def phase_train_check(torch, smi_line, batch=2):
+    """One full-width step (dropout 0) on the card and the same step with
+    the port on the CPU (plain versions), from the same weights and feed
+    (f32, TF32 off): loss, the global grad norm and five named parameters'
+    grad norms agree within 1e-4 relative, and every parameter's gradient
+    within 1e-2 in relative L2 error (|card - CPU| / |CPU|), which a wrong
+    direction or a wrong gradient in any parameter exceeds by far. An
+    element-wise bound cannot hold across the whole net: a ReLU input
+    within rounding of 0 may take another sign on the card than on the
+    CPU, which moves that unit's column of the FFN weight gradient by one
+    token's whole contribution. It reports those sign flips and the
+    largest element-wise error (over the parameter's max |CPU grad|)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, spec = build_transformer(fluid, dropout_rate=0.0)
+    names = [p.name for p in main.all_parameters()]
+    gb = main.global_block()
+    relu_in = [op.input("X").name for op in gb.ops if op.type == "relu"]
+    fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in names] + relu_in
+    feed = spec.sample_batch(batch, np.random.RandomState(SEED))
+    seq = TRANSFORMER["seq_len"]
+    feed["src_len"] = np.array([seq, seq * 3 // 4][:batch], "int64")
+    feed["trg_len"] = np.array([seq, seq * 2 // 3][:batch], "int64")
+
+    gpu_scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=gpu_scope)
+    params = {n: gpu_scope.get(n).cpu().numpy() for n in names}
+    reset_counts()
+    gpu = exe.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+    counts = read_counts()
+    check(counts == PER_STEP, "train_check launches %s != %s"
+          % (counts, PER_STEP))
+
+    cpu_scope = fluid.Scope()
+    cexe = fluid.Executor(fluid.CPUPlace())
+    cexe.run(startup, scope=cpu_scope)
+    fluid.bridge.load_program_params(cpu_scope, params, main, "cpu")
+    t0 = time.perf_counter()
+    cpu = cexe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    check(read_counts() == counts, "the CPU step launched a kernel")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    n_p = len(names)
+    gnorm = [float(np.sqrt(sum(float(np.square(g.astype("f8")).sum())
+                               for g in run[1:1 + n_p])))
+             for run in (gpu, cpu)]
+    last = TRANSFORMER["n_layer"] - 1
+    named = ["src_word_emb", "enc0_attn.q", "dec%d_cross.k" % last,
+             "dec%d_ffn_fc1.w" % last, "out_proj.w"]
+    norms = {}
+    for n in named:
+        i = 1 + names.index(n)
+        norms[n] = [float(np.linalg.norm(run[i].astype("f8")))
+                    for run in (gpu, cpu)]
+    l2, elem = {}, {}
+    for n, g, c in zip(names, gpu[1:1 + n_p], cpu[1:1 + n_p]):
+        diff = np.abs(g.astype("f8") - c)
+        l2[n] = float(np.linalg.norm(diff)) / max(
+            float(np.linalg.norm(c.astype("f8"))), 1e-30)
+        elem[n] = (float(diff.max()) / max(float(np.abs(c).max()), 1e-30),
+                   [int(i) for i in np.unravel_index(diff.argmax(),
+                                                     diff.shape)])
+    worst_l2 = max(l2, key=l2.get)
+    worst_elem = max(elem, key=lambda n: elem[n][0])
+    flips = {}
+    for n, a, c in zip(relu_in, gpu[1 + n_p:], cpu[1 + n_p:]):
+        at = np.argwhere((a > 0) != (c > 0))
+        if len(at):
+            flips[n] = {"count": len(at), "units": sorted(
+                {int(i[-1]) for i in at}), "max_abs_input": max(
+                max(abs(float(a[tuple(i)])), abs(float(c[tuple(i)])))
+                for i in at)}
+    errs = {"loss": rel(float(gpu[0]), float(cpu[0])),
+            "grad_norm": rel(*gnorm)}
+    errs.update({"grad_norm:" + n: rel(*v) for n, v in norms.items()})
+    emit({"phase": "train_check", "batch": batch, "config": TRANSFORMER,
+          "dropout": 0.0, "loss_gpu": float(gpu[0]),
+          "loss_cpu": float(cpu[0]), "grad_norm_gpu": gnorm[0],
+          "grad_norm_cpu": gnorm[1], "named_grad_norms": norms,
+          "rel_errors": errs, "tol_rel": 1e-4, "grads_compared": n_p,
+          "grad_rel_l2_max": l2[worst_l2], "grad_rel_l2_param": worst_l2,
+          "tol_rel_l2": 1e-2, "grad_max_elem": elem[worst_elem][0],
+          "grad_max_elem_param": worst_elem,
+          "grad_max_elem_index": elem[worst_elem][1],
+          "relu_sign_flips": flips, "launches": counts,
+          "cpu_step_s": cpu_s, "device": smi_line})
+    check(np.isfinite([float(gpu[0]), gnorm[0]]).all(),
+          "non-finite loss or grads on the card")
+    check(max(errs.values()) <= 1e-4, "train_check errors %s" % errs)
+    check(l2[worst_l2] <= 1e-2, "train_check: %s gradient off by %g (rel L2)"
+          % (worst_l2, l2[worst_l2]))
+    return errs
+
+
+def _profile_steps(torch, run_step, steps):
+    """Device time by kind over ``steps`` training steps under
+    torch.profiler, and the profiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        wall = time.perf_counter() - t0
+    kinds = dict.fromkeys(("gemm",) + KERNELS + ("other",), 0.0)
+    n_kernels = 0
+    marks = (("flash_fwd_kernel", "flash_attention_fwd"),
+             ("flash_bwd_kernel", "flash_attention_bwd"),
+             ("layer_norm_fwd_kernel", "layer_norm_fwd"),
+             ("layer_norm_bwd_", "layer_norm_bwd"),
+             ("fused_ce_", "fused_ce_fwd"))
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        n_kernels += e.count
+        name = e.key.lower()
+        kind = next((k for m, k in marks if m in name), None)
+        if kind is None:
+            kind = ("gemm" if ("gemm" in name or "cutlass" in name
+                               or "xmma" in name) else "other")
+        kinds[kind] += us
+    return ({k: v / steps / 1e3 for k, v in kinds.items()},
+            n_kernels / steps, wall / steps * 1e3)
+
+
+def phase_train(torch, smi_line, warmup=3, steps=20, prof_steps=3):
+    """The main path: Transformer-base trained with dropout 0.1 and
+    Adam(1e-4) at 128 x 256 tokens per step on one fixed batch (an
+    overfit check). Launch counts are zeroed just before the first step
+    and read after the last; every step must launch each kernel exactly
+    PER_STEP times."""
+    import paddle_tpu_torch as fluid
+
+    t0 = time.perf_counter()
+    main, startup, spec = build_transformer(fluid, dropout_rate=0.1)
+    scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    feed = spec.sample_batch(TRAIN_BATCH, np.random.RandomState(SEED))
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    losses, step_s = [], []
+
+    def run_step():
+        before = read_counts()
+        t = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
+                        scope=scope)  # to numpy: ends synchronised
+        dt = time.perf_counter() - t
+        after = read_counts()
+        per = {k: after[k] - before[k] for k in after}
+        check(per == PER_STEP, "step %d launches %s != %s"
+              % (len(losses), per, PER_STEP))
+        losses.append(float(loss))
+        return dt
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + steps):
+        dt = run_step()
+        if i >= warmup:
+            step_s.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    device_ms, kernels_per_step, prof_wall_ms = _profile_steps(
+        torch, run_step, prof_steps)
+    launches = read_counts()
+
+    tokens = TRAIN_BATCH * TRANSFORMER["seq_len"]
+    med = statistics.median(step_s)
+    busy = sum(device_ms.values())
+    flops = spec.flops_per_example * TRAIN_BATCH
+    emit({"phase": "train", "model": "transformer_base",
+          "config": dict(TRANSFORMER, dropout_rate=0.1), "params": n_params,
+          "batch": TRAIN_BATCH, "tokens_per_step": tokens,
+          "optimizer": "Adam(1e-4)", "warmup_steps": warmup, "steps": steps,
+          "step_ms_median": med * 1e3,
+          "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
+          "step_ms": [x * 1e3 for x in step_s],
+          "tokens_per_s": tokens / med,
+          "model_tflops_per_s": flops / med / 1e12,
+          "losses": losses, "peak_memory_bytes": peak,
+          "device_ms_per_step": device_ms,
+          "kernels_per_step": kernels_per_step,
+          "profiled_wall_ms_per_step": prof_wall_ms,
+          "device_busy_share": busy / (med * 1e3),
+          "fused_ce_share_of_device": device_ms["fused_ce_fwd"] / busy,
+          "launches": launches, "launches_per_step": PER_STEP,
+          "setup_s": setup_s, "device": smi_line})
+    check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
+    check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
+    n_steps = warmup + steps + prof_steps
+    check(launches == {k: n * n_steps for k, n in PER_STEP.items()},
+          "train launches %s" % launches)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -430,25 +959,43 @@ def main():
 
     smi_line = phase_device(torch)
     phase_build()
-    flash_errs = phase_flash_check(torch, dev)
-    ln_errs = phase_ln_check(torch, dev)
+    errs = {"flash_attention_fwd": phase_flash_check(torch, dev)["bert_f32"],
+            "layer_norm_fwd": phase_ln_check(torch, dev)["1024x768_float32"]}
+    errs["flash_attention_bwd"] = phase_flash_bwd_check(
+        torch, dev)["enc_self_bias_grad"]
+    errs["layer_norm_bwd"] = phase_ln_bwd_check(
+        torch, dev)["train_%dx512" % (TRAIN_BATCH * TRANSFORMER["seq_len"])]
+    errs["fused_ce_fwd"] = phase_ce_check(torch, dev)["train_%dx%dx%d" % (
+        TRAIN_BATCH * TRANSFORMER["seq_len"], TRANSFORMER["d_model"],
+        TRANSFORMER["trg_vocab"])]
     times = phase_timing(torch, dev)
-    launches = phase_serve(torch, smi_line)
+    serve_launches = phase_serve(torch, smi_line)
+    phase_train_check(torch, smi_line)
+    train_launches = phase_train(torch, smi_line)
 
-    src = {"flash_attention_fwd": (
-               "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-               "paddle_tpu/ops/flash_attention.py:1001",
-               flash_errs["bert_f32"]),
-           "layer_norm_fwd": (
-               "paddle_tpu_torch/csrc/layer_norm_fwd.cu",
-               "paddle_tpu/ops/fused_layer_norm.py:42",
-               ln_errs["1024x768_float32"])}
+    src = {"flash_attention_fwd": ("flash_attention_fwd.cu",
+                                   "paddle_tpu/ops/flash_attention.py:1001"),
+           "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                   "paddle_tpu/ops/flash_attention.py:1058"),
+           "layer_norm_fwd": ("layer_norm_fwd.cu",
+                              "paddle_tpu/ops/fused_layer_norm.py:42"),
+           "layer_norm_bwd": ("layer_norm_bwd.cu",
+                              "paddle_tpu/ops/fused_layer_norm.py:57"),
+           "fused_ce_fwd": ("fused_ce_fwd.cu",
+                            "paddle_tpu/ops/fused_ce.py:57")}
     kernels = []
-    for name, (source, replaces, err) in src.items():
+    for name in KERNELS:
+        source, replaces = src[name]
         r = times[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": r["ms"],
+        by_path = {"train": train_launches[name]}
+        if name in serve_launches:
+            by_path["serve"] = serve_launches[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "paddle_tpu_torch/csrc/" + source,
+                        "replaces": replaces,
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
+                        "max_abs_err": errs[name], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})

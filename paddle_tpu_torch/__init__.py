@@ -11,6 +11,11 @@ Hopper (``ops/``, sources in ``csrc/``, built on first use):
     exe.run(fluid.default_startup_program())
     out, = exe.run(feed={"x": batch}, fetch_list=[y])
 
+Training appends the backward and the optimizer's update ops to the same
+program (``fluid.optimizer.Adam(1e-4).minimize(loss)``); each
+``exe.run`` is then one step: forward, ``torch.autograd`` backward and
+update.
+
 This package imports neither ``jax`` nor ``paddle_tpu``. Entry points run
 on the GPU unless given ``CPUPlace()`` / ``device="cpu"``; without a GPU
 they raise rather than fall back.
@@ -24,9 +29,15 @@ from .core.executor import (CPUPlace, CUDAPlace, Executor, Scope,  # noqa: F401
                             global_scope, scope_guard)
 from .core.framework import (Parameter, Program, Variable,  # noqa: F401
                              default_main_program, default_startup_program,
-                             program_guard)
+                             name_scope, program_guard)
 from .core.param_attr import ParamAttr  # noqa: F401
 from . import layers  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import backward  # noqa: F401
+from .backward import append_backward, calc_gradient, gradients  # noqa: F401
+from . import regularizer  # noqa: F401
+from . import clip  # noqa: F401
+from .clip import set_gradient_clip  # noqa: F401
 from . import io  # noqa: F401
 from . import inference  # noqa: F401
 from . import bridge  # noqa: F401

@@ -1,0 +1,96 @@
+"""Autodiff API (ref ``python/paddle/fluid/backward.py``: ``append_backward
+:394``, ``calc_gradient:613``; the port's copy of ``paddle_tpu/backward.py``).
+
+As in ``paddle_tpu``, the backward pass is one symbolic ``autodiff`` op
+appended after the forward ops. Its implementation
+(``core/opimpl/control_ops.py``) is ``torch.autograd.grad`` over the tape
+the forward ops recorded while the Executor ran them. Grad variables follow
+the reference's ``<name>@GRAD`` convention, so clip, regularizer and
+optimizer code composes as in ``paddle_tpu``.
+"""
+
+from .core.framework import Variable, grad_var_name
+
+__all__ = ["append_backward", "calc_gradient", "gradients",
+           "require_merged_sparse"]
+
+
+def _collect_params(program, parameter_list=None, no_grad_set=None):
+    params = [p for p in program.all_parameters() if p.trainable]
+    if parameter_list is not None:
+        wanted = {p.name if isinstance(p, Variable) else str(p)
+                  for p in parameter_list}
+        params = [p for p in params if p.name in wanted]
+    if no_grad_set:
+        banned = {v.name if isinstance(v, Variable) else str(v)
+                  for v in no_grad_set}
+        params = [p for p in params if p.name not in banned]
+    return params
+
+
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None, checkpoints=None):
+    """Append gradient computation for ``loss`` w.r.t. trainable
+    parameters; returns ``[(param, grad_var), ...]`` like the reference.
+    Every gradient is dense. A table that ``paddle_tpu`` would give a
+    sparse (rows, values) gradient (``embedding(is_sparse=True)`` read
+    only by lookups, ``paddle_tpu/backward.py:51-59``) and ``checkpoints``
+    (rematerialization) raise until their slices are ported."""
+    if checkpoints:
+        raise NotImplementedError(
+            "append_backward(checkpoints=...): rematerialization comes with "
+            "the memory slice of paddle_tpu_torch")
+    prog = loss.block.program
+    gb = prog.global_block()
+    fwd_ops = list(gb.ops)
+    params = _collect_params(prog, parameter_list, no_grad_set)
+    for p in params:
+        uses = [o for o in fwd_ops if p.name in o.input_arg_names]
+        if getattr(p, "is_sparse_grad", False) and uses and all(
+                o.type == "lookup_table" and o.attr("is_sparse", True)
+                and o.input("W").name == p.name for o in uses):
+            raise NotImplementedError(
+                "append_backward: %s would take a sparse (SelectedRows) "
+                "gradient, which comes with the DeepFM slice of "
+                "paddle_tpu_torch" % p.name)
+    grad_vars = [gb.create_var(name=grad_var_name(p.name), shape=p.shape,
+                               dtype=str(p.dtype)) for p in params]
+    op = gb.append_op(
+        "autodiff", {"Loss": loss}, {"Grads": grad_vars},
+        {"fwd_ops": fwd_ops, "wrt_names": [p.name for p in params]})
+    prog._backward_ops.append(op)
+    return list(zip(params, grad_vars))
+
+
+def require_merged_sparse(program):
+    """Sparse grads are not ported: see ``paddle_tpu/backward.py:84``."""
+    raise NotImplementedError(
+        "require_merged_sparse: sparse gradients come with the DeepFM slice "
+        "of paddle_tpu_torch")
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Gradients of ``targets`` w.r.t. arbitrary ``inputs`` (ref
+    ``backward.py:613``). ``target_gradients`` supplies the cotangent;
+    defaults to ones."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    if target_gradients is not None and not isinstance(
+            target_gradients, (list, tuple)):
+        target_gradients = [target_gradients]
+    prog = targets[0].block.program
+    gb = prog.global_block()
+    fwd_ops = list(gb.ops)
+    grad_vars = [gb.create_var(name=grad_var_name(v.name), shape=v.shape,
+                               dtype=str(v.dtype)) for v in inputs]
+    gb.append_op(
+        "autodiff_vjp",
+        {"Targets": list(targets),
+         **({"TargetGrads": list(target_gradients)}
+            if target_gradients else {})},
+        {"Grads": grad_vars},
+        {"fwd_ops": fwd_ops, "wrt_names": [v.name for v in inputs]})
+    return grad_vars
+
+
+gradients = calc_gradient

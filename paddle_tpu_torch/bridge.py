@@ -12,7 +12,8 @@ import numpy as np
 
 from .core.executor import resolve_device, to_tensor
 
-__all__ = ["load_numpy_params", "load_reference_params"]
+__all__ = ["load_numpy_params", "load_program_params",
+           "load_reference_params"]
 
 
 def load_numpy_params(scope, params, device=None, program=None):
@@ -30,6 +31,20 @@ def load_numpy_params(scope, params, device=None, program=None):
             var = gb.var(name)
         scope.set(name, to_tensor(np.asarray(arr), device, var))
     return sorted(params)
+
+
+def load_program_params(scope, params, program, device=None):
+    """Carry the trainable parameters of a program initialised elsewhere
+    (``{name: np.ndarray}``, e.g. read from a ``paddle_tpu`` scope) into
+    ``scope`` for the port's copy of that program. Every parameter of
+    ``program`` must be given, and nothing else. Optimizer state needs no
+    carrying: the port's startup program fills it with constants."""
+    want = {p.name for p in program.all_parameters()}
+    if set(params) != want:
+        raise KeyError("parameters missing: %s; unknown: %s"
+                       % (sorted(want - set(params)),
+                          sorted(set(params) - want)))
+    return load_numpy_params(scope, params, device, program)
 
 
 def load_reference_params(model_dir, scope, device=None, program=None,

@@ -9,6 +9,16 @@ device, and the ops that ``paddle_tpu`` gave to Pallas launch the port's
 CUDA kernels. A program without backward ops runs under
 ``torch.inference_mode()``.
 
+Training mode: a program holding an ``autodiff`` (or ``autodiff_vjp``) op
+runs with autograd recording. At step start the op's ``wrt_names`` that the
+step reads from the scope or the feed become leaf tensors with
+``requires_grad=True``; the forward ops record the tape as they run, and
+the autodiff op takes ``torch.autograd.grad`` over it. ``paddle_tpu``
+re-traces the forward under ``jax.grad`` from a step-start snapshot
+(``ENV0_KEY``) because JAX differentiates functions, not tapes; the port
+has no such replay. Ops marked ``is_optimizer_op`` run under
+``torch.no_grad()``, and everything written back to the scope is detached.
+
 Places are real: ``CUDAPlace(i)`` is ``cuda:i`` and ``CPUPlace()`` is the
 host. The default is ``CUDAPlace(0)``; on a machine without CUDA, an entry
 point that was not asked for the CPU raises instead of falling back.
@@ -30,6 +40,9 @@ from .op_registry import DEVICE_KEY, RNG_KEY, run_op
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "CPUPlace",
            "CUDAPlace", "resolve_device", "place_for"]
+
+
+_AUTODIFF_OPS = ("autodiff", "autodiff_vjp")
 
 
 class CPUPlace:
@@ -173,14 +186,30 @@ class Executor:
         env[DEVICE_KEY] = self.device
 
         ops = gb.ops
-        grad_free = not any(op.type == "autodiff" for op in ops)
-        with torch.inference_mode() if grad_free else contextlib.nullcontext():
-            written = set()
+        wrt = {n for op in ops if op.type in _AUTODIFF_OPS
+               for n in op.attr("wrt_names")}
+        written = set()
+        if not wrt:
+            with torch.inference_mode():
+                for op in ops:
+                    run_op(env, op)
+                    written.update(op.output_arg_names)
+        else:
+            for n in wrt:
+                t = env.get(n)
+                if t is not None and t.is_floating_point():
+                    # a tensor made under inference_mode (a grad-free
+                    # startup run) cannot join a tape: copy it once, and
+                    # the copy is what the step writes back
+                    t = t.clone() if t.is_inference() else t.detach()
+                    env[n] = t.requires_grad_(True)
             for op in ops:
-                run_op(env, op)
+                with (torch.no_grad() if op.attr("is_optimizer_op")
+                      else contextlib.nullcontext()):
+                    run_op(env, op)
                 written.update(op.output_arg_names)
         for n in persist & written:
-            scope.set(n, env[n])
+            scope.set(n, env[n].detach())
         fetches = [env[n] for n in fetch_names]
         if return_numpy:
             return [to_numpy(f) for f in fetches]

@@ -32,6 +32,8 @@ __all__ = [
     "program_guard",
     "convert_np_dtype",
     "torch_dtype",
+    "grad_var_name",
+    "name_scope",
 ]
 
 _SUPPORTED_DTYPES = {
@@ -61,6 +63,12 @@ def convert_np_dtype(dtype):
             raise ValueError("unsupported dtype: %s" % dtype)
         return np.dtype(_SUPPORTED_DTYPES[dtype])
     return np.dtype(dtype)
+
+
+def grad_var_name(name):
+    """Gradient variable naming convention (ref: framework ``@GRAD``
+    suffix)."""
+    return name + "@GRAD"
 
 
 # 32-bit execution convention: ``paddle_tpu`` runs JAX without x64, so an
@@ -297,6 +305,8 @@ class Program:
         self._version = 0  # bumped on mutation
         self._params = {}
         self._is_test = False
+        # set by append_backward: the program's autodiff ops
+        self._backward_ops = []
 
     def global_block(self):
         return self.blocks[0]
@@ -443,3 +453,16 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(prev_main)
         if prev_startup is not None:
             switch_startup_program(prev_startup)
+
+
+_name_scope_stack = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """Introspection name scope (ref ``framework.py`` name_scope)."""
+    _name_scope_stack.append(prefix or "")
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()

@@ -1,22 +1,39 @@
-"""Elementwise / activation / matmul ops (the subset of
-``paddle_tpu/core/opimpl/math_ops.py`` the served models run). All are
-plain PyTorch ops; ``paddle_tpu`` left them to XLA as well."""
+"""Elementwise / activation / reduction / matmul ops (the subset of
+``paddle_tpu/core/opimpl/math_ops.py`` the served and trained models run,
+and the clip ops of ``clip.py``). All are plain PyTorch ops; ``paddle_tpu``
+left them to XLA as well."""
 
 import torch
 import torch.nn.functional as F
 
 from ..op_registry import register, get, get_list, put, bcast_y
 
-@register("elementwise_add")
-def _elementwise_add(env, op):
-    x = get(env, op.input("X"))
-    y = bcast_y(x, get(env, op.input("Y")), op.attr("axis", -1))
-    put(env, op.output("Out"), x + y)
+_BINOPS = {
+    "elementwise_add": torch.add,
+    "elementwise_sub": torch.sub,
+    "elementwise_mul": torch.mul,
+    "elementwise_div": torch.div,
+    "elementwise_max": torch.maximum,
+}
+
+
+def _make_binop(name, fn):
+    @register(name)
+    def _impl(env, op, fn=fn):
+        x = get(env, op.input("X"))
+        y = bcast_y(x, get(env, op.input("Y")), op.attr("axis", -1))
+        put(env, op.output("Out"), fn(x, y))
+
+
+for _n, _f in _BINOPS.items():
+    _make_binop(_n, _f)
 
 
 _UNARY = {
     "tanh": torch.tanh,
     "relu": torch.relu,
+    "sqrt": torch.sqrt,
+    "sign": torch.sign,
 }
 
 
@@ -104,3 +121,49 @@ def _sum(env, op):
     for x in xs[1:]:
         out = out + x
     put(env, op.output("Out"), out)
+
+
+@register("mean")
+def _mean(env, op):
+    put(env, op.output("Out"), get(env, op.input("X")).mean().reshape(()))
+
+
+def _make_reduce(name, fn):
+    @register(name)
+    def _impl(env, op, fn=fn):
+        x = get(env, op.input("X"))
+        keep = op.attr("keep_dim", False)
+        dim = op.attr("dim", [0])
+        if op.attr("reduce_all", False) or dim is None:
+            out = fn(x)
+            if keep:
+                out = out.reshape((1,) * x.dim())
+        else:
+            out = fn(x, dim=tuple(d if d >= 0 else d + x.dim() for d in dim),
+                     keepdim=keep)
+        put(env, op.output("Out"), out)
+
+
+_make_reduce("reduce_sum", torch.sum)
+
+
+@register("clip")
+def _clip(env, op):
+    put(env, op.output("Out"),
+        torch.clamp(get(env, op.input("X")), op.attr("min"), op.attr("max")))
+
+
+@register("clip_by_norm")
+def _clip_by_norm(env, op):
+    x = get(env, op.input("X"))
+    max_norm = op.attr("max_norm")
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    put(env, op.output("Out"),
+        torch.where(norm > max_norm,
+                    x * (max_norm / torch.clamp_min(norm, 1e-12)), x))
+
+
+@register("squared_l2_norm")
+def _squared_l2_norm(env, op):
+    x = get(env, op.input("X"))
+    put(env, op.output("Out"), torch.sum(torch.square(x)).reshape(()))

@@ -1,5 +1,8 @@
-"""Normalization / dropout / softmax ops (the subset of
-``paddle_tpu/core/opimpl/nn_ops.py`` the served models run)."""
+"""Normalization / dropout / softmax / loss ops (the subset of
+``paddle_tpu/core/opimpl/nn_ops.py`` the served and trained models run).
+``layer_norm`` over the last axis and ``fused_linear_smooth_ce`` call the
+port's hand-written kernels on CUDA (``paddle_tpu_torch/ops``), forward and
+backward."""
 
 import torch
 
@@ -66,3 +69,19 @@ def _softmax(env, op):
     x = get(env, op.input("X"))
     out = torch.softmax(x.float(), dim=op.attr("axis", -1))
     put(env, op.output("Out"), out.to(x.dtype))
+
+
+@register("fused_linear_smooth_ce")
+def _fused_linear_smooth_ce(env, op):
+    """Vocab projection + label-smoothed softmax CE in one kernel: the
+    [.., V] logits never reach device memory (``ops/fused_ce.py``).
+    ``paddle_tpu``'s AMP cast (``mxu_cast``) waits for the AMP slice."""
+    from ...ops.fused_ce import linear_smooth_ce
+
+    x = get(env, op.input("X"))
+    ids = get(env, op.input("Label"))
+    if ids.dim() == x.dim():
+        ids = ids.squeeze(-1)
+    put(env, op.output("Loss"), linear_smooth_ce(
+        x, get(env, op.input("W")), get(env, op.input("Bias")), ids,
+        op.attr("epsilon", 0.0)))

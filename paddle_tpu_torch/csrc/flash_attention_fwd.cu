@@ -16,7 +16,13 @@
 //   a masked logit is FLT_MAX's negative (finfo(f32).min, not -inf), so a
 //   query with no allowed key averages V uniformly over all Tk keys;
 //   out = softmax(logits) . v in the input dtype, lse = logsumexp(logits)
-//   in f32 ([B, H, Tq], for the backward of the training slice).
+//   in f32 ([B, H, Tq], saved for flash_attention_bwd.cu).
+// Attention dropout (paddle_tpu's _dropout_keep, :80) drops weights after
+// the softmax: weight (t, j) of head (b, h) is kept iff the counter-based
+// hash of flash_dropout.cuh, keyed by (seed, b*H + h, t*Tk + j), falls
+// below the keep threshold, and kept weights are scaled by 1/(1 - rate).
+// The hash needs no state, so the backward regenerates the same mask, and
+// the plain PyTorch version computes the same bits.
 //
 // What bounds it on the card: at BERT-base serving shapes (T = 128, D = 64)
 // the operations (4*T*Tk*D per head, here on the f32 FMA pipes) outweigh the
@@ -41,6 +47,8 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+
+#include "flash_dropout.cuh"
 
 namespace {
 
@@ -87,6 +95,8 @@ struct Args {
   int H, Tq, Tk;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, bias_sb;
   float scale; int causal;
+  const long long* seed;  // null: no dropout
+  unsigned keep_thresh; float inv_keep;
 };
 
 template <typename T, int D>
@@ -113,6 +123,7 @@ flash_fwd_kernel(Args a) {
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * D;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * D;
   const float* biasb = a.bias ? a.bias + b * a.bias_sb : nullptr;
+  const uint32_t dkey = a.seed ? dropout_key(*a.seed, bh) : 0u;
 
   for (int i = tid; i < BQ * D; i += NWARPS * 32) {
     const int r = i / D, c = i % D, t = q0 + r;
@@ -195,12 +206,19 @@ flash_fwd_kernel(Args a) {
         }
       }
       const float m_new = fmaxf(m[r], warp_max(fmaxf(v2[0], v2[1])));
-      const float p0 = expf(v2[0] - m_new), p1 = expf(v2[1] - m_new);
+      float p0 = expf(v2[0] - m_new), p1 = expf(v2[1] - m_new);
       const float alpha = expf(m[r] - m_new);  // 0 on the first tile
       l[r] = l[r] * alpha + warp_sum(p0 + p1);
       m[r] = m_new;
 #pragma unroll
       for (int d = 0; d < DS; ++d) o[r][d] *= alpha;
+      if (a.seed) {  // the normaliser l keeps every weight; P.V drops
+        const long long ctr = (long long)t * a.Tk + k0;
+        p0 = dropout_keep(dkey, ctr + lane, a.keep_thresh) ? p0 * a.inv_keep
+                                                          : 0.f;
+        p1 = dropout_keep(dkey, ctr + lane + 32, a.keep_thresh)
+                 ? p1 * a.inv_keep : 0.f;
+      }
       Pw[r * BK + lane] = p0;
       Pw[r * BK + lane + 32] = p1;
     }
@@ -271,17 +289,21 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
 // (feature) dimension of q/k/v/out must be contiguous. bias is f32
-// [B or 1, Tk] with batch stride bias_sb (0 broadcasts), or null.
+// [B or 1, Tk] with batch stride bias_sb (0 broadcasts), or null. seed is
+// one int64 on the device (null: no dropout); keep_thresh and inv_keep
+// come from the dropout rate (flash_dropout.cuh).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* bias, void* out, void* lse, int dtype,
                         int B, int H, int Tq, int Tk, int D,
                         long long q_sb, long long q_st, long long k_sb,
                         long long k_st, long long v_sb, long long v_st,
                         long long o_sb, long long o_st, long long bias_sb,
-                        float scale, int causal, void* stream) {
+                        float scale, int causal, const void* seed,
+                        unsigned keep_thresh, float inv_keep, void* stream) {
   Args a{q, k, v, static_cast<const float*>(bias), out,
          static_cast<float*>(lse), H, Tq, Tk, q_sb, q_st, k_sb, k_st, v_sb,
-         v_st, o_sb, o_st, bias_sb, scale, causal};
+         v_st, o_sb, o_st, bias_sb, scale, causal,
+         static_cast<const long long*>(seed), keep_thresh, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(a, B, D, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(a, B, D, s);

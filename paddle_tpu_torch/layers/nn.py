@@ -13,8 +13,9 @@ from ..core.op_registry import static_bcast_shape
 from ..core.param_attr import ParamAttr
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "dropout", "softmax", "scale",
-    "elementwise_add", "multi_head_attention",
+    "fc", "embedding", "layer_norm", "dropout", "softmax", "scale", "mean",
+    "elementwise_add", "elementwise_mul", "elementwise_div", "reduce_sum",
+    "fused_linear_smooth_ce", "multi_head_attention",
 ]
 
 
@@ -65,11 +66,16 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32", name=None):
-    """Embedding lookup (ref ``nn.py`` embedding / ``lookup_table_op``)."""
+    """Embedding lookup (ref ``nn.py`` embedding / ``lookup_table_op``).
+    ``is_sparse`` marks the gradient for scatter-style updates, as in
+    ``paddle_tpu``; ``append_backward`` refuses it until the sparse
+    optimizer branches are ported."""
     helper = LayerHelper("embedding", param_attr=param_attr, name=name)
     w = helper.create_parameter(helper.param_attr, shape=list(size),
                                 dtype=dtype)
     w.is_distributed = is_distributed
+    if is_sparse:
+        w.is_sparse_grad = True
     in_shape = input.shape
     base = in_shape[:-1] if (in_shape and in_shape[-1] == 1) else in_shape
     out = helper.create_variable_for_type_inference(
@@ -139,17 +145,88 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return helper.append_activation(out)
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", act=act, name=name)
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                    shape=())
+    helper.append_op("mean", {"X": x}, {"Out": out}, {})
+    return out
+
+
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, act=act, name=name)
     try:
         out_shape = static_bcast_shape(x.shape, y.shape, axis)
     except ValueError:
         out_shape = x.shape  # infeasible: the op reports it when run
     out = helper.create_variable_for_type_inference(dtype=_dtype(x),
                                                     shape=out_shape)
-    helper.append_op("elementwise_add", {"X": x, "Y": y}, {"Out": out},
-                     {"axis": axis})
+    helper.append_op(op_type, {"X": x, "Y": y}, {"Out": out}, {"axis": axis})
     return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def _reduce_layer(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, name=name)
+    if dim is None:
+        out_shape = ()
+        reduce_all = True
+        dims = [0]
+    else:
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        reduce_all = False
+        nd = len(input.shape)
+        axes = {d % nd for d in dims}
+        if keep_dim:
+            out_shape = tuple(1 if i in axes else s
+                              for i, s in enumerate(input.shape))
+        else:
+            out_shape = tuple(s for i, s in enumerate(input.shape)
+                              if i not in axes)
+    out = helper.create_variable_for_type_inference(dtype=_dtype(input),
+                                                    shape=out_shape)
+    helper.append_op(op_type, {"X": input}, {"Out": out},
+                     {"dim": list(dims), "keep_dim": keep_dim,
+                      "reduce_all": reduce_all})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def fused_linear_smooth_ce(input, label, size, epsilon=0.0,
+                           param_attr=None, bias_attr=None, name=None):
+    """Vocab projection + label-smoothed softmax CE, fused
+    (``paddle_tpu/layers/nn.py:766``: the [.., V] logits never reach device
+    memory — ``ops/fused_ce.py``). ``input``: [..., D]; ``label``: int ids
+    shaped like ``input[:-1]``. Returns the per-position f32 loss of shape
+    ``input.shape[:-1]``."""
+    helper = LayerHelper("fused_linear_smooth_ce", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    d_in = int(input.shape[-1])
+    w = helper.create_parameter(helper.param_attr, shape=[d_in, size],
+                                dtype=_dtype(input))
+    inputs = {"X": input, "W": w, "Label": label}
+    if bias_attr is not False:
+        inputs["Bias"] = helper.create_parameter(
+            helper.bias_attr, shape=[size], dtype=_dtype(input), is_bias=True)
+    loss = helper.create_variable_for_type_inference(
+        dtype="float32", shape=tuple(input.shape[:-1]))
+    helper.append_op("fused_linear_smooth_ce", inputs, {"Loss": loss},
+                     {"epsilon": float(epsilon)})
+    return loss
 
 
 def multi_head_attention(queries, keys, values, attn_bias=None, d_key=None,

@@ -1,3 +1,5 @@
-"""Model builders (the subset of ``paddle_tpu.models`` this slice carries)."""
+"""Model builders (the subset of ``paddle_tpu.models`` the port carries)."""
 
 from . import bert  # noqa: F401
+from . import common  # noqa: F401
+from . import transformer  # noqa: F401

@@ -13,8 +13,9 @@ machine without ``nvcc``.
 
 Calling convention of every C entry: pointers and the stream are
 ``ctypes.c_void_p``; the entry launches on the given stream, synchronises
-nothing, and returns ``cudaGetLastError()`` (0 on success), which
-:func:`check` turns into an exception.
+nothing, and returns ``cudaGetLastError()`` (0 on success). The wrappers
+call it through :func:`launch`, which passes the stream and turns an error
+into an exception.
 """
 
 import ctypes
@@ -121,6 +122,24 @@ def load(name):
             t0 = time.perf_counter()
             _finish(name, *_start(name), t0)
         return _libs[name]
+
+
+def launch(fn, name, device, *args):
+    """Call the C entry ``fn`` of library ``name`` with ``args`` and the
+    raw handle of ``device``'s current stream, with that device current,
+    and raise on a CUDA error. The raw handle and the guard taken only when
+    another device is current keep the host's cost per launch low: serving
+    issues a few dozen kernel launches per dispatch from Python."""
+    import torch
+
+    idx = device.index
+    if torch.cuda.current_device() == idx:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err:
+        check(load(name), err, name)
 
 
 def check(lib, err, what):

@@ -1,15 +1,21 @@
-"""LayerNorm over the last axis: the hand-written CUDA forward kernel
-(``csrc/layer_norm_fwd.cu``) and its plain PyTorch version.
+"""LayerNorm over the last axis: the hand-written CUDA forward and backward
+kernels (``csrc/layer_norm_fwd.cu``, ``csrc/layer_norm_bwd.cu``) and their
+plain PyTorch version.
 
-Replaces the Pallas TPU forward ``_fwd_kernel`` of
-``paddle_tpu/ops/fused_layer_norm.py`` (:42, via ``_fwd_impl`` :95). The
-kernel is bound by bytes (one read and one write per element); see the
-source's header for what its design does about that. The backward comes
-with the training slice.
+Replaces the Pallas TPU kernels of ``paddle_tpu/ops/fused_layer_norm.py``:
+the forward ``_fwd_kernel`` (:42, via ``_fwd_impl`` :95) and the backward
+``_bwd_kernel`` (:57, via ``_bwd_impl`` :142). Both kernels are bound by
+bytes; see the sources' headers for what their designs do about that.
 
-``fused_layer_norm`` launches the kernel for a CUDA tensor and takes the
-plain version only for a tensor on the CPU; there is no fallback from one
-device to the other.
+``fused_layer_norm`` is a ``torch.autograd.Function`` on CUDA tensors while
+autograd may record: its forward is ``layer_norm_fwd``, its backward
+``layer_norm_bwd``. With grad disabled (serving) it launches the forward
+kernel alone: the Function's own host cost, tens of microseconds a call,
+is a tenth of a served dispatch's host time (``PERF.md``). For a tensor on
+the CPU it takes the plain version, differentiated by autograd.
+There is no fallback from one device to the other. As in ``paddle_tpu``
+(``fused_layer_norm.py:213-219``), cotangents arriving through the Mean and
+Variance outputs are ignored: those are saved statistics.
 """
 
 import ctypes
@@ -18,7 +24,8 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_plain"]
+__all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_bwd",
+           "layer_norm_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,15 +76,11 @@ def layer_norm_fwd(x, scale, bias, eps):
     var = torch.empty(rows, device=x.device, dtype=torch.float32)
     if rows == 0:
         return y, mean, var
-    fn = _c_fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(),
-                 params[0].data_ptr() if params[0] is not None else None,
-                 params[1].data_ptr() if params[1] is not None else None,
-                 y.data_ptr(), mean.data_ptr(), var.data_ptr(),
-                 _DTYPE_CODES[x.dtype], rows, d, float(eps), stream)
-    _build.check(_build.load("layer_norm_fwd"), err, "layer_norm_fwd")
+    _build.launch(_c_fn(), "layer_norm_fwd", x.device, x.data_ptr(),
+                  params[0].data_ptr() if params[0] is not None else None,
+                  params[1].data_ptr() if params[1] is not None else None,
+                  y.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                  _DTYPE_CODES[x.dtype], rows, d, float(eps))
     layer_norm_fwd.launches += 1
     return y, mean, var
 
@@ -85,14 +88,89 @@ def layer_norm_fwd(x, scale, bias, eps):
 layer_norm_fwd.launches = 0
 
 
+def _bwd_c_fn():
+    fn = _build.load("layer_norm_bwd").layer_norm_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def layer_norm_bwd(x, scale, mean, var, dy, eps):
+    """Launch the CUDA backward. x, dy: CUDA f32 contiguous [rows, D];
+    scale: [D] or None; mean/var: the forward's f32 [rows]. Returns
+    (dx, dscale or None when scale is None, dbias), all f32."""
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("layer_norm_bwd wants a contiguous [rows, D] x, "
+                         "got shape %s" % (tuple(x.shape),))
+    for t in (x, dy, mean, var) + ((scale,) if scale is not None else ()):
+        if t.dtype != torch.float32:
+            raise TypeError("layer_norm_bwd takes f32 tensors (bf16 comes "
+                            "with AMP), got %s" % t.dtype)
+        if t.device != x.device:
+            raise ValueError("layer_norm_bwd: tensors on %s and %s"
+                             % (x.device, t.device))
+    rows, d = x.shape
+    if dy.shape != x.shape or mean.numel() != rows or var.numel() != rows:
+        raise ValueError("layer_norm_bwd: dy %s, mean %s, var %s against x %s"
+                         % (tuple(dy.shape), tuple(mean.shape),
+                            tuple(var.shape), tuple(x.shape)))
+    dy = dy.contiguous()
+    g = scale.reshape(d).contiguous() if scale is not None else None
+    dx = torch.empty_like(x)
+    dg = torch.zeros(d, device=x.device, dtype=torch.float32) \
+        if g is not None else None
+    db = torch.zeros(d, device=x.device, dtype=torch.float32)
+    if rows == 0:
+        return dx, dg, db
+    # a few blocks per SM, each summing a contiguous range of rows into one
+    # partial [2, D] row; a second launch sums the partials in order
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nblocks = max(1, min(-(-rows // 8), 4 * sms))
+    partial = torch.empty(nblocks, 2, d, device=x.device, dtype=torch.float32)
+    mean, var = mean.contiguous(), var.contiguous()
+    _build.launch(_bwd_c_fn(), "layer_norm_bwd", x.device, x.data_ptr(),
+                  g.data_ptr() if g is not None else None, dy.data_ptr(),
+                  mean.data_ptr(), var.data_ptr(), dx.data_ptr(),
+                  dg.data_ptr() if dg is not None else None, db.data_ptr(),
+                  partial.data_ptr(), rows, d, nblocks, float(eps))
+    layer_norm_bwd.launches += 1
+    return dx, dg, db
+
+
+layer_norm_bwd.launches = 0
+
+
+class _FusedLN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, scale, bias, eps):
+        y, mean, var = layer_norm_fwd(x2, scale, bias, eps)
+        ctx.save_for_backward(x2, scale, mean, var)
+        ctx.eps = eps
+        ctx.has_bias = bias is not None
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x2, scale, mean, var = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x2, scale, mean, var, dy, ctx.eps)
+        if dg is not None:
+            dg = dg.reshape(scale.shape)
+        return dx, dg, db if ctx.has_bias else None, None
+
+
 def fused_layer_norm(x, scale, bias, eps):
     """x: [..., D]; normalize over the LAST axis. Returns (y [..., D] in
     x.dtype, mean [...], var [...]) with f32 statistics. CUDA tensors go
-    through the kernel, CPU tensors through the plain version."""
+    through the kernels, CPU tensors through the plain version."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     if x.device.type == "cpu":
-        return layer_norm_plain(x, scale, bias, eps)
-    y, mean, var = layer_norm_fwd(x.reshape(-1, d).contiguous(), scale,
-                                  bias, eps)
+        y, mean, var = layer_norm_plain(x, scale, bias, eps)
+        return y, mean.detach(), var.detach()
+    # no tape (serving): skip the Function's host cost
+    fwd = _FusedLN.apply if torch.is_grad_enabled() else layer_norm_fwd
+    y, mean, var = fwd(x.reshape(-1, d).contiguous(), scale, bias, eps)
     return y.reshape(*lead, d), mean.reshape(lead), var.reshape(lead)

@@ -1,8 +1,11 @@
 """The port's plain LayerNorm version and ``layer_norm`` op against
-``paddle_tpu``'s Pallas kernel (interpret mode) and its composed op, on the
-CPU: y, mean and var, with and without gamma/beta, atol 1e-5."""
+``paddle_tpu``'s Pallas kernels (interpret mode) and its composed op, on the
+CPU: y, mean and var, with and without gamma/beta, atol 1e-5; dx, dgamma
+and dbeta against the Pallas backward's vjp, atol 1e-4 (sums over 40 rows
+in another order)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -62,6 +65,44 @@ def test_plain_matches_pallas_kernel(monkeypatch, rng, affine):
     via_entry = tfln.fused_layer_norm(_t(x), _t(g), _t(b), EPS)
     for a, c in zip(got, via_entry):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("affine", AFFINE)
+def test_plain_gradients_match_pallas_backward(monkeypatch, rng, affine):
+    """dx, dgamma, dbeta of the port's ``fused_layer_norm`` on the CPU
+    (autograd of the plain version) against the vjp of ``paddle_tpu``'s
+    ``_fused_ln`` (Pallas backward ``_bwd_kernel``, interpret mode). Mean
+    and Variance cotangents are ignored by both."""
+    monkeypatch.setattr(fln, "_INTERPRET", True)
+    x, g, b = _data(rng, affine)
+    dy = rng.normal(0, 1, (ROWS, D)).astype("f4")
+    _, vjp = jax.vjp(lambda x, g, b: fln._fused_ln(x, g, b, EPS),
+                     _j(x), _j(g), _j(b))
+    zeros = jnp.zeros((ROWS,), jnp.float32)
+    want = vjp((jnp.asarray(dy), zeros, zeros))
+
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tg = None if g is None else torch.from_numpy(g).requires_grad_(True)
+    tb = None if b is None else torch.from_numpy(b).requires_grad_(True)
+    y, mean, var = tfln.fused_layer_norm(tx, tg, tb, EPS)
+    assert not mean.requires_grad and not var.requires_grad
+    (y * torch.from_numpy(dy)).sum().backward()
+    for name, t, w in zip(("dx", "dgamma", "dbeta"), (tx, tg, tb), want):
+        if t is None:
+            assert w is None
+            continue
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_backward_wrapper_validates_before_building():
+    x = torch.empty(4, 8, device="meta")
+    stats = torch.empty(4, device="meta")
+    with pytest.raises(TypeError, match="f32"):
+        tfln.layer_norm_bwd(x.bfloat16(), None, stats, stats, x.bfloat16(),
+                            EPS)
+    with pytest.raises(ValueError, match="dy"):
+        tfln.layer_norm_bwd(x, None, stats, stats, x[:2], EPS)
 
 
 def _layer_norm_program(pkg, shape, begin, affine):

@@ -127,8 +127,13 @@ def test_port_predictor_matches_jax_predictor(tmp_path, rng):
             np.testing.assert_array_equal(a[n], b[n])
 
 
-def test_serving_engine_cpu_answers_concurrent_requests_bitwise(tmp_path,
-                                                                rng):
+def test_serving_engine_cpu_answers_concurrent_requests_as_solo_runs(
+        tmp_path, rng):
+    """Each request served inside a padded batch of 2, 4 or 8 rows equals
+    the same request run alone within f32 rounding (rtol 1e-6, atol 1e-7):
+    CPU BLAS blocks a product differently at different row counts, so
+    bitwise equality depends on the machine; ``paddle_tpu``'s own serving
+    test compares within a tolerance too."""
     _, t_dir = _export_both(tmp_path)
     solo = _cpu_predictor(t_dir)
     feeds = [make_feed(rng, int(rng.randint(1, 4))) for _ in range(16)]
@@ -142,7 +147,8 @@ def test_serving_engine_cpu_answers_concurrent_requests_bitwise(tmp_path,
     finally:
         engine.shutdown()
     for feed, out in zip(feeds, got):
-        np.testing.assert_array_equal(out, solo.run(feed)[0])
+        np.testing.assert_allclose(out, solo.run(feed)[0], rtol=1e-6,
+                                   atol=1e-7)
     assert snap["requests_completed"] == 16
     assert snap["requests_failed"] == 0
     assert snap["batches"] < 16  # requests were coalesced
