@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
 
 It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, holds
 each against its plain PyTorch version on the card, times it, and then
-drives the port's two main paths at full width, each with the kernels'
-launch counts set to 0 just before it and read just after:
+drives the port's main paths at full width, each with the kernels' launch
+counts set to 0 just before it and read just after:
 
 * serving BERT-base (vocab 30522, seq 128, d_model 768, d_ff 3072, 12
   heads, 12 layers; random weights from seed 11): layers -> Program ->
@@ -19,13 +19,19 @@ launch counts set to 0 just before it and read just after:
   per step; random weights from seed 11): layers -> Program ->
   optimizer.minimize (autodiff + adam ops) -> Executor -> forward ops ->
   torch.autograd backward through the kernels' autograd Functions ->
-  adam, for 3 warm-up and 20 timed steps on one fixed batch.
+  adam, for 3 warm-up and 20 timed steps on one fixed batch;
+* training ResNet-50 (224 x 224 x 3, 1000 classes, batch 128, Adam 1e-4;
+  random weights from seed 11) the same way, with the executor's epilogue
+  fusion turning 49 of its 53 conv -> BN (+ add)(+ relu) chains into the
+  fused-conv kernels, for 3 warm-up and 10 timed steps;
+* evaluating ResNet-50 through ``main.clone(for_test=True)`` at batch 128
+  (the inference kernel at the same 49 sites).
 
-Before the training path, ``train_check`` runs one full-width step (batch
-2, dropout 0) on the card and the same step with the port on the CPU from
-the same weights and feed. Each phase prints one JSON line; any failure
-raises and exits non-zero. The line before the last is ``{"kernels":
-[...]}``, the last ``{"ok": true, "device": {...}}``. Without CUDA, or
+Before each training path, ``train_check`` and ``resnet_train_check`` run
+one full-width step at batch 2 on the card and the same step with the port
+on the CPU from the same weights and feed. Each phase prints one JSON
+line; any failure raises and exits non-zero. The line before the last is
+``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``. Without CUDA, or
 outside the repository, it exits non-zero and prints no result.
 """
 
@@ -53,9 +59,14 @@ BERT = dict(vocab=30522, seq=128, d_model=768, d_ff=3072, heads=12,
 TRANSFORMER = dict(src_vocab=30000, trg_vocab=30000, seq_len=256,
                    d_model=512, d_ff=2048, n_head=8, n_layer=6)
 TRAIN_BATCH = 128
+# ResNet-50 as paddle_tpu's bench.py trains it (BASELINE config 2,
+# :200-207, :229), in f32 (the port has no AMP yet)
+RESNET = dict(depth=50, class_num=1000, image_shape=(3, 224, 224))
+RESNET_BATCH = 128
 SEED = 11
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm_fwd",
-           "layer_norm_bwd", "fused_ce_fwd")
+           "layer_norm_bwd", "fused_ce_fwd", "conv_moments", "bn_apply",
+           "conv_apply")
 
 
 def emit(obj):
@@ -92,13 +103,16 @@ def kernel_fns():
     """name -> the wrapper whose ``launches`` counts that kernel."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as fce
+    from paddle_tpu_torch.ops import fused_conv as fc
     from paddle_tpu_torch.ops import fused_layer_norm as fln
 
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
             "layer_norm_fwd": fln.layer_norm_fwd,
             "layer_norm_bwd": fln.layer_norm_bwd,
-            "fused_ce_fwd": fce.fused_ce_fwd}
+            "fused_ce_fwd": fce.fused_ce_fwd,
+            "conv_moments": fc.conv_moments, "bn_apply": fc.bn_apply,
+            "conv_apply": fc.conv_apply}
 
 
 def reset_counts():
@@ -108,6 +122,11 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def per_run(**counts):
+    """Launches of every kernel in one run of a path (0 unless named)."""
+    return dict(dict.fromkeys(KERNELS, 0), **counts)
 
 
 def max_err(got, want):
@@ -443,6 +462,7 @@ def phase_timing(torch, dev):
         bound_ms=bnd, bound_by=by, shape=[n_rows, hd], bytes=nbytes,
         flops=flops)
     rows.update(_train_kernel_timing(torch, dev, gen))
+    rows.update(_conv_kernel_timing(torch, dev))
     for name, r in rows.items():
         emit(dict({"phase": "timing", "kernel": name}, **r))
     return rows
@@ -565,8 +585,6 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
     counts are zeroed just before it and read just after; the CPU
     comparison runs the plain versions and launches nothing."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import fused_layer_norm as fln
 
     rng = np.random.RandomState(SEED)
     s = BERT["seq"]
@@ -578,8 +596,7 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
             "segment_ids": rng.randint(0, 2, (n, s)),
             "input_len": rng.randint(1, s + 1, (n,))})
 
-    fa.flash_attention_fwd.launches = 0
-    fln.layer_norm_fwd.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -615,8 +632,7 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
         snap = engine.metrics()
     finally:
         engine.shutdown()
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                "layer_norm_fwd": fln.layer_norm_fwd.launches}
+    launches = read_counts()
     dispatches = warmed + snap["batches"]
 
     for f, r in zip(feeds, results):
@@ -633,9 +649,7 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
     for i in (0, n_requests - 1):
         want, = cpu.run(feeds[i])
         cpu_err = max(cpu_err, float(np.abs(results[i] - want).max()))
-    check(fa.flash_attention_fwd.launches == launches["flash_attention_fwd"]
-          and fln.layer_norm_fwd.launches == launches["layer_norm_fwd"],
-          "the CPU check launched a kernel")
+    check(read_counts() == launches, "the CPU check launched a kernel")
     phase_profile(torch, fluid, model_dir, feeds)
     shutil.rmtree(model_dir)
 
@@ -724,11 +738,11 @@ def build_transformer(fluid, dropout_rate):
     return main, startup, spec
 
 
-PER_STEP = {"flash_attention_fwd": 3 * TRANSFORMER["n_layer"],
-            "flash_attention_bwd": 3 * TRANSFORMER["n_layer"],
-            "layer_norm_fwd": 5 * TRANSFORMER["n_layer"] + 2,
-            "layer_norm_bwd": 5 * TRANSFORMER["n_layer"] + 2,
-            "fused_ce_fwd": 1}
+PER_STEP = per_run(flash_attention_fwd=3 * TRANSFORMER["n_layer"],
+                   flash_attention_bwd=3 * TRANSFORMER["n_layer"],
+                   layer_norm_fwd=5 * TRANSFORMER["n_layer"] + 2,
+                   layer_norm_bwd=5 * TRANSFORMER["n_layer"] + 2,
+                   fused_ce_fwd=1)
 
 
 def phase_train_check(torch, smi_line, batch=2):
@@ -829,9 +843,38 @@ def phase_train_check(torch, smi_line, batch=2):
     return errs
 
 
+_MARKS = (("flash_fwd_kernel", "flash_attention_fwd"),
+          ("flash_bwd_kernel", "flash_attention_bwd"),
+          ("layer_norm_fwd_kernel", "layer_norm_fwd"),
+          ("layer_norm_bwd_", "layer_norm_bwd"),
+          ("fused_ce_", "fused_ce_fwd"),
+          ("moments_reduce", "conv_moments"),
+          ("bn_apply_kernel", "bn_apply"))
+_CUDNN_MARKS = ("convolve", "conv2d", "_conv", "dgrad", "wgrad", "fprop",
+                "winograd", "implicit_gemm", "cudnn")
+
+
+def _kernel_kind(name):
+    """The kind of a device kernel by its (lower-case) name: one of the
+    port's kernels (conv_kernel<..., false> is conv_moments' main launch,
+    <..., true> conv_apply's), a cuDNN convolution, a GEMM, or other."""
+    if "conv_kernel<" in name:
+        return "conv_apply" if "true>" in name else "conv_moments"
+    kind = next((k for m, k in _MARKS if m in name), None)
+    if kind is not None:
+        return kind
+    if any(m in name for m in _CUDNN_MARKS):
+        return "cudnn_conv"
+    if "gemm" in name or "cutlass" in name or "xmma" in name:
+        return "gemm"
+    return "other"
+
+
 def _profile_steps(torch, run_step, steps):
-    """Device time by kind over ``steps`` training steps under
-    torch.profiler, and the profiled wall."""
+    """Device ms per step by kind over ``steps`` training steps under
+    torch.profiler, kernels per step, the profiled wall per step, and the
+    eight costliest kernels of kind "other" as [name, ms, launches] per
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -840,27 +883,23 @@ def _profile_steps(torch, run_step, steps):
         for _ in range(steps):
             run_step()
         wall = time.perf_counter() - t0
-    kinds = dict.fromkeys(("gemm",) + KERNELS + ("other",), 0.0)
+    kinds = dict.fromkeys(("gemm", "cudnn_conv") + KERNELS + ("other",),
+                          0.0)
     n_kernels = 0
-    marks = (("flash_fwd_kernel", "flash_attention_fwd"),
-             ("flash_bwd_kernel", "flash_attention_bwd"),
-             ("layer_norm_fwd_kernel", "layer_norm_fwd"),
-             ("layer_norm_bwd_", "layer_norm_bwd"),
-             ("fused_ce_", "fused_ce_fwd"))
+    other = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         n_kernels += e.count
-        name = e.key.lower()
-        kind = next((k for m, k in marks if m in name), None)
-        if kind is None:
-            kind = ("gemm" if ("gemm" in name or "cutlass" in name
-                               or "xmma" in name) else "other")
+        kind = _kernel_kind(e.key.lower())
         kinds[kind] += us
+        if kind == "other":
+            other.append([e.key[:120], us / steps / 1e3, e.count / steps])
     return ({k: v / steps / 1e3 for k, v in kinds.items()},
-            n_kernels / steps, wall / steps * 1e3)
+            n_kernels / steps, wall / steps * 1e3,
+            sorted(other, key=lambda r: -r[1])[:8])
 
 
 def phase_train(torch, smi_line, warmup=3, steps=20, prof_steps=3):
@@ -903,7 +942,7 @@ def phase_train(torch, smi_line, warmup=3, steps=20, prof_steps=3):
         if i >= warmup:
             step_s.append(dt)
     peak = torch.cuda.max_memory_allocated()
-    device_ms, kernels_per_step, prof_wall_ms = _profile_steps(
+    device_ms, kernels_per_step, prof_wall_ms, top_other = _profile_steps(
         torch, run_step, prof_steps)
     launches = read_counts()
 
@@ -923,6 +962,7 @@ def phase_train(torch, smi_line, warmup=3, steps=20, prof_steps=3):
           "losses": losses, "peak_memory_bytes": peak,
           "device_ms_per_step": device_ms,
           "kernels_per_step": kernels_per_step,
+          "top_other_kernels": top_other,
           "profiled_wall_ms_per_step": prof_wall_ms,
           "device_busy_share": busy / (med * 1e3),
           "fused_ce_share_of_device": device_ms["fused_ce_fwd"] / busy,
@@ -933,6 +973,446 @@ def phase_train(torch, smi_line, warmup=3, steps=20, prof_steps=3):
     n_steps = warmup + steps + prof_steps
     check(launches == {k: n * n_steps for k, n in PER_STEP.items()},
           "train launches %s" % launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# ResNet-50: the fused conv + BN (+ residual)(+ relu) kernels
+# ---------------------------------------------------------------------------
+
+# ResNet-50's own conv -> BN geometries at batch 128: name, C_in, C_out, k,
+# stride, H = W, residual, relu
+CONV_GEOMS = [
+    ("reduce_1x1_256to64_56", 256, 64, 1, 1, 56, False, True),
+    ("body_3x3_64to64_56", 64, 64, 3, 1, 56, False, True),
+    ("expand_1x1_64to256_56_res", 64, 256, 1, 1, 56, True, True),
+    ("shortcut_1x1s2_256to512_56", 256, 512, 1, 2, 56, False, False),
+    ("body_3x3_512to512_7", 512, 512, 3, 1, 7, False, True),
+]
+RESNET_PER_STEP = per_run(conv_moments=49, bn_apply=49)
+RESNET_PER_EVAL = per_run(conv_apply=49)
+# the four chains outside supported_geometry, which replay their ops
+RESNET_DECLINED = [((64, 3, 7, 7), [2, 2]), ((128, 128, 3, 3), [2, 2]),
+                   ((256, 256, 3, 3), [2, 2]), ((512, 512, 3, 3), [2, 2])]
+
+
+def _conv_case(torch, gen, dev, c, o, k, stride, hw, residual,
+               n=RESNET_BATCH):
+    """x, w (He-scaled), gamma, beta, moving mean, moving var, residual."""
+    ho = (hw - 1) // stride + 1
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    return (randn(n, c, hw, hw), randn(o, c, k, k) * (2.0 / (c * k * k))
+            ** 0.5, rand(o) + 0.5, randn(o) * 0.1, randn(o) * 0.1,
+            rand(o) + 0.5, randn(n, o, ho, ho) if residual else None)
+
+
+def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
+    """The three fused-conv kernels against their plain versions at
+    ResNet-50's geometries, batch 128, f32, TF32 off: conv_moments (co, and
+    the moments as mean and mean square), bn_apply on the plain co, the
+    training forward through ``fused_conv_bn_act`` (y, mean_out, var_out,
+    saved mean and variance) against the unfused math, ``_FusedTrain``'s
+    backward (dx, dw, dgamma, dbeta, dres) against autograd through the
+    plain composition, and conv_apply (inference). Tolerance tol * max(1,
+    max|plain|): the conv sums up to 4,608 products per output and the
+    moments 401,408 outputs per channel, in other orders than cuDNN and
+    torch.sum."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    errs = dict.fromkeys(("conv_moments", "bn_apply", "conv_apply"), 0.0)
+    for name, c, o, k, stride, hw, residual, relu in CONV_GEOMS:
+        x, w, g, b, mean, var, res = _conv_case(torch, gen, dev, c, o, k,
+                                                stride, hw, residual)
+        pad = (k - 1) // 2
+        shape = dict(x=list(x.shape), w=list(w.shape), stride=stride,
+                     residual=residual, relu=relu)
+        co, s1, s2 = fc.conv_moments(x, w, stride)
+        wco, ws1, ws2 = fc.conv_moments_plain(x, w, stride)
+        count = wco.numel() // o
+        torch.cuda.synchronize()
+        errs["conv_moments"] = max(errs["conv_moments"], check_close(
+            "fused_conv_check", name, [("co", co, wco),
+                                   ("mean", s1 / count, ws1 / count),
+                                   ("mean_sq", s2 / count, ws2 / count)],
+            tol, check="conv_moments", **shape))
+        del co
+        bm, bv = fc.bn_stats(wco)
+        scale, shift = fc._scale_shift(g, b, bm, bv, eps)
+        y = fc.bn_apply(wco, scale, shift, res, relu)
+        want = fc.bn_apply_plain(wco, scale, shift, res, relu)
+        torch.cuda.synchronize()
+        errs["bn_apply"] = max(errs["bn_apply"], check_close(
+            "fused_conv_check", name, [("y", y, want)], tol,
+            check="bn_apply", **shape))
+        del y, want
+
+        outs = fc.fused_conv_bn_act(
+            x, w, g, b, mean, var, strides=(stride, stride),
+            paddings=(pad, pad), eps=eps, momentum=momentum,
+            act="relu" if relu else None, residual=res)
+        want = [fc.epilogue_reference(wco, g, b, res, None, None, eps, relu),
+                momentum * mean + (1 - momentum) * bm,
+                momentum * var + (1 - momentum) * bv, bm, bv]
+        torch.cuda.synchronize()
+        check_close("fused_conv_check", name, list(zip(
+            ("y", "mean_out", "var_out", "saved_mean", "saved_var"), outs,
+            want)), tol, check="fused_conv_bn_act_train", **shape)
+        del outs, want
+
+        dy = torch.randn(wco.shape, generator=gen, device=dev)
+        grads = []
+        for kernel in (True, False):
+            ins = [t.clone().requires_grad_(True)
+                   for t in (x, w, g, b, res) if t is not None]
+            r = ins[4] if residual else None
+            if kernel:
+                out = fc._FusedTrain.apply(ins[0], ins[1], ins[2], ins[3], r,
+                                           stride, eps, relu)[0]
+            else:
+                out = fc.epilogue_reference(
+                    F.conv2d(ins[0], ins[1], stride=stride, padding=pad),
+                    ins[2], ins[3], r, None, None, eps, relu)
+            grads.append(torch.autograd.grad(out, ins, dy))
+            del out, ins
+        torch.cuda.synchronize()
+        check_close("fused_conv_check", name, list(zip(
+            ("dx", "dw", "dgamma", "dbeta", "dres"), *grads)), tol,
+            check="_FusedTrain_backward", **shape)
+        del grads, dy, wco
+
+        scale, shift = fc._scale_shift(g, b, mean, var, eps)
+        y = fc.conv_apply(x, w, scale, shift, res, relu, stride)
+        want = fc.conv_apply_plain(x, w, scale, shift, res, relu, stride)
+        torch.cuda.synchronize()
+        errs["conv_apply"] = max(errs["conv_apply"], check_close(
+            "fused_conv_check", name, [("y", y, want)], tol,
+            check="conv_apply", **shape))
+        del x, y, want, res
+    return errs
+
+
+def _conv_kernel_timing(torch, dev):
+    """The three fused-conv kernels, batch 128, f32: rows 10 and 12 on the
+    3x3 64 -> 64 body at 56x56, row 11 on the 256-channel expand at 56x56
+    with residual and relu. The library yardstick of rows 10 and 12 is
+    cuDNN's F.conv2d alone (TF32 off): no single PyTorch call computes the
+    conv with its moments or with a folded BN."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n, hw, c, o, k = RESNET_BATCH, 56, 64, 64, 3
+    x, w, g, b, mean, var, _ = _conv_case(torch, gen, dev, c, o, k, 1, hw,
+                                          False)
+    scale, shift = fc._scale_shift(g, b, mean, var, 1e-5)
+    out = n * hw * hw * o
+    conv_flops = 2 * out * c * k * k
+    nbytes = 4 * (x.numel() + w.numel() + out + 2 * o)
+    lib = time_ms(lambda: F.conv2d(x, w, padding=1), iters=20)
+    rows = {}
+    bnd, by = bound(nbytes, conv_flops + 3 * out)
+    rows["conv_moments"] = dict(
+        ms=time_ms(lambda: fc.conv_moments(x, w, 1), iters=20),
+        plain_ms=time_ms(lambda: fc.conv_moments_plain(x, w, 1), iters=20),
+        library_ms=lib, library="F.conv2d alone (cuDNN, TF32 off): conv "
+        "only, no moments", bound_ms=bnd, bound_by=by,
+        shape=[n, c, hw, hw, o, k], bytes=nbytes, flops=conv_flops + 3 * out)
+    bnd, by = bound(nbytes, conv_flops + 3 * out)
+    rows["conv_apply"] = dict(
+        ms=time_ms(lambda: fc.conv_apply(x, w, scale, shift, None, True, 1),
+                   iters=20),
+        plain_ms=time_ms(lambda: fc.conv_apply_plain(x, w, scale, shift,
+                                                     None, True, 1),
+                         iters=20),
+        library_ms=lib, library="F.conv2d alone (cuDNN, TF32 off): conv "
+        "only, no folded BN", bound_ms=bnd, bound_by=by,
+        shape=[n, c, hw, hw, o, k], bytes=nbytes, flops=conv_flops + 3 * out)
+    del x
+    o = 256
+    co = torch.randn(n, o, hw, hw, generator=gen, device=dev)
+    res = torch.randn(n, o, hw, hw, generator=gen, device=dev)
+    scale = torch.rand(o, generator=gen, device=dev) + 0.5
+    shift = torch.randn(o, generator=gen, device=dev)
+    nbytes = 4 * (3 * co.numel() + 2 * o)
+    bnd, by = bound(nbytes, 3 * co.numel())
+    rows["bn_apply"] = dict(
+        ms=time_ms(lambda: fc.bn_apply(co, scale, shift, res, True)),
+        plain_ms=time_ms(lambda: fc.bn_apply_plain(co, scale, shift, res,
+                                                   True)),
+        library_ms=None, library="none: no single PyTorch call applies a "
+        "per-channel affine, a residual add and relu",
+        bound_ms=bnd, bound_by=by, shape=[n, o, hw, hw], bytes=nbytes,
+        flops=3 * co.numel())
+    return rows
+
+
+def build_resnet(fluid):
+    """ResNet-50 with Adam(1e-4), as paddle_tpu's bench.py trains it, in
+    fresh programs, and its for_test clone. Returns (main, startup, test,
+    spec)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        spec = fluid.models.resnet.resnet_imagenet(**RESNET)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(spec.loss)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, main.clone(for_test=True), spec
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a.astype("f8") - b)) / max(
+        float(np.linalg.norm(b.astype("f8"))), 1e-30)
+
+
+def _elem_err(a, b):
+    return float(np.abs(a.astype("f8") - b).max()) / max(
+        float(np.abs(b).max()), 1.0)
+
+
+def phase_resnet_train_check(torch, smi_line, batch=2):
+    """One full-width ResNet-50 step (224 x 224, 1000 classes, batch 2) on
+    the card and with the port on the CPU from the same weights and feed
+    (f32, TF32 off), plus a second CPU step on the input scaled by
+    1 + 2^-20 (a few ulps), which measures how far f32 rounding alone moves
+    each quantity. Randomly initialised ResNet-50 with batch statistics has
+    an exploding input-to-gradient Jacobian, so each quantity is held to
+    the larger of its stated tolerance and 5x that rounding sensitivity:
+    the loss to 1e-4 relative, every gradient to 1e-2 in relative L2 error,
+    the BN moving statistics after the step to 1e-4 of max(1, max|CPU|).
+    ReLU sign flips between card and CPU are counted at every ReLU
+    output."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, _, spec = build_resnet(fluid)
+    names = [p.name for p in main.all_parameters()]
+    trainable = [p.name for p in main.all_parameters() if p.trainable]
+    moving = [n for n in names if n not in set(trainable)]
+    gb = main.global_block()
+    relu_out = [op.output("Out").name for op in gb.ops if op.type == "relu"]
+    fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in trainable] + relu_out
+    feed = spec.sample_batch(batch, np.random.RandomState(SEED))
+
+    gpu_scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=gpu_scope)
+    params = {n: gpu_scope.get(n).cpu().numpy() for n in names}
+    reset_counts()
+    gpu = exe.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+    counts = read_counts()
+    check(counts == RESNET_PER_STEP, "resnet_train_check launches %s != %s"
+          % (counts, RESNET_PER_STEP))
+    gpu_moving = [gpu_scope.get(n).cpu().numpy() for n in moving]
+
+    cpu_runs, cpu_s = [], []
+    for scale in (1.0, 1.0 + 2.0 ** -20):
+        cpu_scope = fluid.Scope()
+        cexe = fluid.Executor(fluid.CPUPlace())
+        cexe.run(startup, scope=cpu_scope)
+        fluid.bridge.load_program_params(cpu_scope, params, main, "cpu")
+        f = dict(feed, img=(feed["img"] * np.float32(scale)).astype("f4"))
+        t0 = time.perf_counter()
+        out = cexe.run(main, feed=f, fetch_list=fetch, scope=cpu_scope)
+        cpu_s.append(time.perf_counter() - t0)
+        cpu_runs.append((out, [cpu_scope.get(n).numpy() for n in moving]))
+    check(read_counts() == counts, "the CPU steps launched a kernel")
+    (cpu, cpu_moving), (pert, pert_moving) = cpu_runs
+
+    n_t = len(trainable)
+    loss = (abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0])),
+            abs(float(pert[0]) - float(cpu[0])) / abs(float(cpu[0])))
+    grads = {n: (_rel_l2(g, c), _rel_l2(p, c)) for n, g, c, p in zip(
+        trainable, gpu[1:1 + n_t], cpu[1:1 + n_t], pert[1:1 + n_t])}
+    stats = {n: (_elem_err(g, c), _elem_err(p, c)) for n, g, c, p in zip(
+        moving, gpu_moving, cpu_moving, pert_moving)}
+    flips = {"card_vs_cpu": 0, "perturbed_cpu_vs_cpu": 0, "elements": 0}
+    for g, c, p in zip(gpu[1 + n_t:], cpu[1 + n_t:], pert[1 + n_t:]):
+        flips["card_vs_cpu"] += int(((g > 0) != (c > 0)).sum())
+        flips["perturbed_cpu_vs_cpu"] += int(((p > 0) != (c > 0)).sum())
+        flips["elements"] += int(c.size)
+
+    def over(errs, tol):
+        return sorted(n for n, (e, s) in errs.items() if e > max(tol, 5 * s))
+
+    worst_g = max(grads, key=lambda n: grads[n][0])
+    worst_s = max(stats, key=lambda n: stats[n][0])
+    bad = over({"loss": loss}, 1e-4) + over(grads, 1e-2) + over(stats, 1e-4)
+    emit({"phase": "resnet_train_check", "batch": batch, "config": RESNET,
+          "loss_gpu": float(gpu[0]), "loss_cpu": float(cpu[0]),
+          "loss_rel_err": loss[0], "loss_rel_sensitivity": loss[1],
+          "grads_compared": n_t,
+          "grad_rel_l2_max": grads[worst_g][0], "grad_rel_l2_param": worst_g,
+          "grad_rel_l2_median": float(np.median([e for e, _ in
+                                                 grads.values()])),
+          "grad_sensitivity_max": max(s for _, s in grads.values()),
+          "grad_sensitivity_median": float(np.median([s for _, s in
+                                                      grads.values()])),
+          "grads_past_1e-2": sum(e > 1e-2 for e, _ in grads.values()),
+          "moving_stats_compared": len(moving),
+          "moving_err_max": stats[worst_s][0], "moving_err_param": worst_s,
+          "moving_sensitivity_max": max(s for _, s in stats.values()),
+          "relu_sign_flips": flips,
+          "tol": "max(stated, 5 x sensitivity): loss 1e-4 rel, grads 1e-2 "
+                 "rel L2, moving stats 1e-4 of max(1, max|cpu|)",
+          "over_tolerance": bad, "launches": counts, "cpu_step_s": cpu_s,
+          "device": smi_line})
+    check(np.isfinite(float(gpu[0])), "non-finite loss on the card")
+    check(not bad, "resnet_train_check: over tolerance: %s" % bad)
+    return loss[0]
+
+
+def phase_resnet_train(torch, smi_line, warmup=3, steps=10, prof_steps=2):
+    """The main path: ResNet-50 trained with Adam(1e-4) at batch 128 (224
+    x 224 x 3, 1000 classes, f32) on one fixed batch. Launch counts are
+    zeroed just before the first step and read after the last; every step
+    must launch conv_moments and bn_apply 49 times each and nothing else of
+    the port's. The fusion report must hold 53 sites, the four declined
+    ones those of RESNET_DECLINED, each for its geometry."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import fused_ops
+
+    t0 = time.perf_counter()
+    main, startup, test, spec = build_resnet(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    feed = spec.sample_batch(RESNET_BATCH, np.random.RandomState(SEED))
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters()
+                   if p.trainable)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    losses, step_s = [], []
+
+    def run_step():
+        before = read_counts()
+        t = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
+                        scope=scope)  # to numpy: ends synchronised
+        dt = time.perf_counter() - t
+        after = read_counts()
+        per = {k: after[k] - before[k] for k in after}
+        check(per == RESNET_PER_STEP, "resnet step %d launches %s != %s"
+              % (len(losses), per, RESNET_PER_STEP))
+        losses.append(float(loss))
+        return dt
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + steps):
+        dt = run_step()
+        if i >= warmup:
+            step_s.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    device_ms, kernels_per_step, prof_wall_ms, top_other = _profile_steps(
+        torch, run_step, prof_steps)
+    launches = read_counts()
+
+    ops, report = fused_ops(main, [spec.loss.name])
+    sites = [o for o in ops if o.type == "fused_conv2d"]
+    declined = [(tuple(o.input("Filter").shape), list(o.attr("strides")))
+                for o in sites if not o.attrs["_kernel_choice"]["admitted"]]
+    reasons = [o.attrs["_kernel_choice"]["reason"] for o in sites
+               if not o.attrs["_kernel_choice"]["admitted"]]
+    kernels_used = sorted({o.attrs["_kernel_choice"]["kernel"]
+                           for o in sites})
+
+    med = statistics.median(step_s)
+    busy = sum(device_ms.values())
+    flops = spec.flops_per_example * RESNET_BATCH
+    emit({"phase": "resnet_train", "model": "resnet50",
+          "config": RESNET, "params": n_params, "batch": RESNET_BATCH,
+          "dtype": "float32", "optimizer": "Adam(1e-4)",
+          "warmup_steps": warmup, "steps": steps,
+          "step_ms_median": med * 1e3,
+          "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
+          "step_ms": [x * 1e3 for x in step_s],
+          "images_per_s": RESNET_BATCH / med,
+          "model_tflops_per_s": flops / med / 1e12,
+          "losses": losses, "peak_memory_bytes": peak,
+          "device_ms_per_step": device_ms,
+          "kernels_per_step": kernels_per_step,
+          "top_other_kernels": top_other,
+          "profiled_wall_ms_per_step": prof_wall_ms,
+          "device_busy_share": busy / (med * 1e3),
+          "fusion": {"sites": len(report.fused), "refused":
+                     [str(r) for r in report.refused],
+                     "kernel_sites": len(sites) - len(declined),
+                     "declined": declined, "declined_reasons": reasons,
+                     "kernels": kernels_used},
+          "launches": launches, "launches_per_step": RESNET_PER_STEP,
+          "setup_s": setup_s, "device": smi_line})
+    check(len(report.fused) == len(sites) == 53 and not report.refused,
+          "fusion report: %s" % report.summary())
+    check(declined == RESNET_DECLINED
+          and kernels_used == ["cuda_fused_conv", "unfused_replay"],
+          "declined sites %s, kernels %s" % (declined, kernels_used))
+    check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
+    check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
+    n_steps = warmup + steps + prof_steps
+    check(launches == {k: n * n_steps for k, n in RESNET_PER_STEP.items()},
+          "resnet_train launches %s" % launches)
+    return launches, (exe, scope, main, test, spec, feed)
+
+
+def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2):
+    """The main path: the trained model's ``main.clone(for_test=True)`` at
+    batch 128 (moving statistics, the inference kernel at the 49 admitted
+    sites), each pass launching conv_apply 49 times and nothing else of
+    the port's; then the same clone at batch 2 on the card and with the
+    port on the CPU from the card's trained weights: logits within 1e-4 of
+    max(1, max|CPU|), loss within 1e-4 relative, accuracy equal."""
+    import paddle_tpu_torch as fluid
+
+    exe, scope, main, test, spec, feed = trained
+    logits = [op.input("X").name for op in test.global_block().ops
+              if op.type == "softmax"][0]
+    fetch = [spec.loss.name, spec.fetches["acc"].name, logits]
+    pass_s = []
+    reset_counts()
+    for _ in range(passes + 1):
+        before = read_counts()
+        t = time.perf_counter()
+        exe.run(test, feed=feed, fetch_list=fetch[:2], scope=scope)
+        pass_s.append(time.perf_counter() - t)
+        after = read_counts()
+        per = {k: after[k] - before[k] for k in after}
+        check(per == RESNET_PER_EVAL, "eval pass launches %s != %s"
+              % (per, RESNET_PER_EVAL))
+    launches = read_counts()
+
+    small_feed = {k: v[:small] for k, v in feed.items()}
+    gpu = exe.run(test, feed=small_feed, fetch_list=fetch, scope=scope)
+    params = {p.name: scope.get(p.name).cpu().numpy()
+              for p in main.all_parameters()}
+    cpu_scope = fluid.Scope()
+    fluid.bridge.load_program_params(cpu_scope, params, main, "cpu")
+    before = read_counts()
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=small_feed, fetch_list=fetch, scope=cpu_scope)
+    check(read_counts() == before, "the CPU eval launched a kernel")
+    errs = {"loss": abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0])),
+            "logits": _elem_err(gpu[2], cpu[2])}
+    med = statistics.median(pass_s[1:])
+    emit({"phase": "resnet_eval", "model": "resnet50", "config": RESNET,
+          "batch": RESNET_BATCH, "passes": passes,
+          "pass_ms_median": med * 1e3, "pass_ms": [x * 1e3 for x in pass_s],
+          "images_per_s": RESNET_BATCH / med,
+          "small_batch": small, "loss_gpu": float(gpu[0]),
+          "loss_cpu": float(cpu[0]), "acc_gpu": float(gpu[1]),
+          "acc_cpu": float(cpu[1]), "errors": errs, "tol": 1e-4,
+          "launches": launches, "launches_per_pass": RESNET_PER_EVAL,
+          "device": smi_line})
+    check(max(errs.values()) <= 1e-4, "resnet_eval errors %s" % errs)
+    check(float(gpu[1]) == float(cpu[1]), "accuracy differs")
     return launches
 
 
@@ -968,10 +1448,15 @@ def main():
     errs["fused_ce_fwd"] = phase_ce_check(torch, dev)["train_%dx%dx%d" % (
         TRAIN_BATCH * TRANSFORMER["seq_len"], TRANSFORMER["d_model"],
         TRANSFORMER["trg_vocab"])]
+    errs.update(phase_fused_conv_check(torch, dev))
     times = phase_timing(torch, dev)
-    serve_launches = phase_serve(torch, smi_line)
+    paths = {"serve": phase_serve(torch, smi_line)}
     phase_train_check(torch, smi_line)
-    train_launches = phase_train(torch, smi_line)
+    paths["train"] = phase_train(torch, smi_line)
+    phase_resnet_train_check(torch, smi_line)
+    paths["resnet_train"], trained = phase_resnet_train(torch, smi_line)
+    paths["resnet_eval"] = phase_resnet_eval(torch, smi_line, trained)
+    del trained
 
     src = {"flash_attention_fwd": ("flash_attention_fwd.cu",
                                    "paddle_tpu/ops/flash_attention.py:1001"),
@@ -982,14 +1467,17 @@ def main():
            "layer_norm_bwd": ("layer_norm_bwd.cu",
                               "paddle_tpu/ops/fused_layer_norm.py:57"),
            "fused_ce_fwd": ("fused_ce_fwd.cu",
-                            "paddle_tpu/ops/fused_ce.py:57")}
+                            "paddle_tpu/ops/fused_ce.py:57"),
+           "conv_moments": ("fused_conv.cu",
+                            "paddle_tpu/ops/fused_conv.py:159"),
+           "bn_apply": ("fused_conv.cu", "paddle_tpu/ops/fused_conv.py:187"),
+           "conv_apply": ("fused_conv.cu",
+                          "paddle_tpu/ops/fused_conv.py:198")}
     kernels = []
     for name in KERNELS:
         source, replaces = src[name]
         r = times[name]
-        by_path = {"train": train_launches[name]}
-        if name in serve_launches:
-            by_path["serve"] = serve_launches[name]
+        by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({"name": name, "route": "cuda",
                         "source": "paddle_tpu_torch/csrc/" + source,
                         "replaces": replaces,
@@ -998,7 +1486,8 @@ def main():
                         "max_abs_err": errs[name], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "library": r.get("library")})
     print(smi_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

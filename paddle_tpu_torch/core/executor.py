@@ -19,6 +19,13 @@ re-traces the forward under ``jax.grad`` from a step-start snapshot
 has no such replay. Ops marked ``is_optimizer_op`` run under
 ``torch.no_grad()``, and everything written back to the scope is detached.
 
+Epilogue fusion: before the ops run, conv2d -> batch_norm (+elementwise_add)
+(+relu) chains become ``fused_conv2d`` ops (``core/epilogue_fusion.py``),
+as ``paddle_tpu`` rewrites the op list it traces (its ``build_step_fn``).
+Fetched vars are protected. ``paddle_tpu`` pays for the rewrite once per
+compile; the port keeps the rewritten list per (program, version, fetch
+set) so that no step rebuilds the dataflow region (:func:`fused_ops`).
+
 Places are real: ``CUDAPlace(i)`` is ``cuda:i`` and ``CPUPlace()`` is the
 host. The default is ``CUDAPlace(0)``; on a machine without CUDA, an entry
 point that was not asked for the CPU raises instead of falling back.
@@ -133,6 +140,24 @@ class scope_guard:
         _scope_stack.pop()
 
 
+def fused_ops(program, fetch_names=()):
+    """``(ops, report)``: the op list the Executor runs for ``program``,
+    with its conv->BN(+add)(+relu) chains fused, and the
+    :class:`~.epilogue_fusion.FusionReport`. Built once per (version, fetch
+    set) and kept on the program; a new version drops the older ones."""
+    from .epilogue_fusion import fuse_ops
+
+    cache = program._fusion_cache
+    key = (program._version, frozenset(fetch_names))
+    hit = cache.get(key)
+    if hit is None:
+        for stale in [k for k in cache if k[0] != program._version]:
+            del cache[stale]
+        hit = cache[key] = fuse_ops(program.global_block().ops,
+                                    protected=set(fetch_names))
+    return hit
+
+
 def to_numpy(t):
     """Host copy of a tensor; bf16 widens to float32 (numpy has no bf16)."""
     t = t.detach()
@@ -185,7 +210,7 @@ class Executor:
         env[RNG_KEY] = scope.get(RNG_KEY)
         env[DEVICE_KEY] = self.device
 
-        ops = gb.ops
+        ops, _ = fused_ops(program, fetch_names)
         wrt = {n for op in ops if op.type in _AUTODIFF_OPS
                for n in op.attr("wrt_names")}
         written = set()

@@ -307,6 +307,8 @@ class Program:
         self._is_test = False
         # set by append_backward: the program's autodiff ops
         self._backward_ops = []
+        # the executor's fused op lists, by (version, fetch names, switch)
+        self._fusion_cache = {}
 
     def global_block(self):
         return self.blocks[0]

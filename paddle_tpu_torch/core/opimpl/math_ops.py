@@ -167,3 +167,12 @@ def _clip_by_norm(env, op):
 def _squared_l2_norm(env, op):
     x = get(env, op.input("X"))
     put(env, op.output("Out"), torch.sum(torch.square(x)).reshape(()))
+
+
+@register("top_k")
+def _top_k(env, op):
+    """The k largest along the last axis, and their int32 indices (the
+    32-bit convention of ``paddle_tpu``'s ``math_ops.py:416``)."""
+    vals, idx = torch.topk(get(env, op.input("X")), op.attr("k", 1), dim=-1)
+    put(env, op.output("Out"), vals)
+    put(env, op.output("Indices"), idx.to(torch.int32))

@@ -7,20 +7,33 @@ import copy
 
 import numpy as np
 
-from ..core.initializer import ConstantInitializer, XavierInitializer
+from ..core.initializer import (ConstantInitializer, NormalInitializer,
+                                XavierInitializer)
 from ..core.layer_helper import LayerHelper
 from ..core.op_registry import static_bcast_shape
 from ..core.param_attr import ParamAttr
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "dropout", "softmax", "scale", "mean",
-    "elementwise_add", "elementwise_mul", "elementwise_div", "reduce_sum",
-    "fused_linear_smooth_ce", "multi_head_attention",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    "dropout", "softmax", "scale", "mean", "elementwise_add",
+    "elementwise_mul", "elementwise_div", "reduce_sum", "topk",
+    "softmax_with_cross_entropy", "fused_linear_smooth_ce",
+    "multi_head_attention",
 ]
 
 
 def _dtype(x):
     return str(x.dtype)
+
+
+def _conv_out(size, k, s, p, d=1):
+    if size is None or size < 0:
+        return -1
+    return (size + 2 * p - (d * (k - 1) + 1)) // s + 1
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -85,6 +98,105 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         {"is_sparse": is_sparse,
          "padding_idx": padding_idx if padding_idx is not None else -1})
     return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """2-D convolution, NCHW (ref ``nn.py`` conv2d / ``conv_op.cc``); the
+    filter is drawn from N(0, 2 / (k*k*C)) as in ``paddle_tpu``.
+    ``use_cudnn`` is accepted for parity."""
+    helper = LayerHelper("conv2d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    k, s, p, d = (_pair(v) for v in (filter_size, stride, padding, dilation))
+    n, c, h, w_ = input.shape
+    std = (2.0 / (k[0] * k[1] * c)) ** 0.5
+    filt = helper.create_parameter(
+        helper.param_attr, shape=[num_filters, c // groups, k[0], k[1]],
+        dtype=_dtype(input), default_initializer=NormalInitializer(0.0, std))
+    out_shape = (n, num_filters, _conv_out(h, k[0], s[0], p[0], d[0]),
+                 _conv_out(w_, k[1], s[1], p[1], d[1]))
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=out_shape)
+    helper.append_op(
+        "conv2d", {"Input": input, "Filter": filt}, {"Output": out},
+        {"strides": list(s), "paddings": list(p), "dilations": list(d),
+         "groups": groups})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, shape=[num_filters],
+                                    dtype=_dtype(input), is_bias=True)
+        tmp = helper.create_variable_for_type_inference(
+            dtype=_dtype(input), shape=out_shape)
+        helper.append_op("elementwise_add", {"X": out, "Y": b}, {"Out": tmp},
+                         {"axis": 1})
+        out = tmp
+    return helper.append_activation(out)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    k, s, p = _pair(pool_size), _pair(pool_stride), _pair(pool_padding)
+    n, c, h, w_ = input.shape
+    if global_pooling:
+        out_shape = (n, c, 1, 1)
+    else:
+        rnd = (lambda a, b: -(-a // b)) if ceil_mode else (lambda a, b: a // b)
+        oh = rnd(h + 2 * p[0] - k[0], s[0]) + 1 if h > 0 else -1
+        ow = rnd(w_ + 2 * p[1] - k[1], s[1]) + 1 if w_ > 0 else -1
+        out_shape = (n, c, oh, ow)
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=out_shape)
+    helper.append_op(
+        "pool2d", {"X": input}, {"Out": out},
+        {"pooling_type": pool_type, "ksize": list(k), "strides": list(s),
+         "paddings": list(p), "global_pooling": global_pooling,
+         "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """BatchNorm (ref ``nn.py`` batch_norm / ``batch_norm_op.cc``). The
+    moving mean and variance are ``trainable=False`` parameters, updated
+    by the op each training step (``MeanOut``/``VarianceOut`` alias them)."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    dtype = _dtype(input)
+    scale = helper.create_parameter(
+        helper.param_attr, shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(
+        helper.bias_attr, shape=[c], dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False), shape=[c],
+        dtype=dtype, default_initializer=ConstantInitializer(0.0))
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False), shape=[c],
+        dtype=dtype, default_initializer=ConstantInitializer(1.0))
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    shape=input.shape)
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(c,), stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(c,), stop_gradient=True)
+    helper.append_op(
+        "batch_norm",
+        {"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+         "Variance": variance},
+        {"Y": out, "MeanOut": mean, "VarianceOut": variance,
+         "SavedMean": saved_mean, "SavedVariance": saved_var},
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout, "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -204,6 +316,35 @@ def _reduce_layer(op_type, input, dim, keep_dim, name):
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    out_shape = tuple(input.shape[:-1]) + (k,)
+    values = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=out_shape)
+    indices = helper.create_variable_for_type_inference(
+        dtype="int32", shape=out_shape, stop_gradient=True)
+    helper.append_op("top_k", {"X": input},
+                     {"Out": values, "Indices": indices}, {"k": k})
+    return values, indices
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    loss = helper.create_variable_for_type_inference(
+        dtype=_dtype(logits), shape=tuple(logits.shape[:-1]) + (1,))
+    softmax_out = helper.create_variable_for_type_inference(
+        dtype=_dtype(logits), shape=logits.shape)
+    helper.append_op("softmax_with_cross_entropy",
+                     {"Logits": logits, "Label": label},
+                     {"Loss": loss, "Softmax": softmax_out},
+                     {"soft_label": soft_label, "ignore_index": ignore_index})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
 
 
 def fused_linear_smooth_ce(input, label, size, epsilon=0.0,

@@ -2,4 +2,5 @@
 
 from . import bert  # noqa: F401
 from . import common  # noqa: F401
+from . import resnet  # noqa: F401
 from . import transformer  # noqa: F401

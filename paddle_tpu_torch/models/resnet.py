@@ -1,0 +1,109 @@
+"""ResNet (the port's copy of ``paddle_tpu/models/resnet.py``; ref
+``benchmark/fluid/models/resnet.py``: cifar10 + flowers/ImageNet layouts;
+bottleneck ResNet-50 per He et al.). BASELINE config 2.
+
+NCHW layout. The executor's epilogue fusion (``core/epilogue_fusion.py``)
+turns every conv -> batch_norm (+ residual add)(+ relu) chain into one
+``fused_conv2d`` op: at 224x224, 49 of ResNet-50's 53 chains take the
+fused CUDA kernels, and the 7x7 stem and the three stride-2 3x3 convs
+replay their original ops (``F.conv2d`` + ``batch_norm``)."""
+
+from .. import layers
+from ..layers import metric_op
+from .common import FeedSpec, ModelSpec
+
+__all__ = ["resnet_imagenet", "resnet_cifar10", "resnet50_flops"]
+
+
+def _conv_bn(x, num_filters, filter_size, stride=1, act=None, name=None):
+    conv = layers.conv2d(x, num_filters=num_filters, filter_size=filter_size,
+                         stride=stride, padding=(filter_size - 1) // 2,
+                         bias_attr=False, name=name)
+    return layers.batch_norm(conv, act=act)
+
+
+def _shortcut(x, ch_out, stride):
+    ch_in = x.shape[1]
+    if ch_in != ch_out or stride != 1:
+        return _conv_bn(x, ch_out, 1, stride)
+    return x
+
+
+def _bottleneck(x, ch_out, stride):
+    short = _shortcut(x, ch_out * 4, stride)
+    y = _conv_bn(x, ch_out, 1, act="relu")
+    y = _conv_bn(y, ch_out, 3, stride, act="relu")
+    y = _conv_bn(y, ch_out * 4, 1)
+    return layers.elementwise_add(short, y, act="relu")
+
+
+def _basicblock(x, ch_out, stride):
+    short = _shortcut(x, ch_out, stride)
+    y = _conv_bn(x, ch_out, 3, stride, act="relu")
+    y = _conv_bn(y, ch_out, 3)
+    return layers.elementwise_add(short, y, act="relu")
+
+
+def _layer_warp(block_fn, x, ch_out, count, stride):
+    x = block_fn(x, ch_out, stride)
+    for _ in range(count - 1):
+        x = block_fn(x, ch_out, 1)
+    return x
+
+
+def resnet_imagenet(depth=50, class_num=1000, image_shape=(3, 224, 224)):
+    """Bottleneck ResNet-{50,101,152} on ImageNet-shaped input."""
+    cfg = {18: ([2, 2, 2, 2], _basicblock),
+           34: ([3, 4, 6, 3], _basicblock),
+           50: ([3, 4, 6, 3], _bottleneck),
+           101: ([3, 4, 23, 3], _bottleneck),
+           152: ([3, 8, 36, 3], _bottleneck)}
+    stages, block_fn = cfg[depth]
+    img = layers.data("img", shape=list(image_shape), dtype="float32")
+    # int32: the 32-bit convention both packages share
+    label = layers.data("label", shape=[1], dtype="int32")
+    x = _conv_bn(img, 64, 7, 2, act="relu")
+    x = layers.pool2d(x, pool_size=3, pool_stride=2, pool_padding=1,
+                      pool_type="max")
+    for i, count in enumerate(stages):
+        x = _layer_warp(block_fn, x, 64 * (2 ** i), count,
+                        1 if i == 0 else 2)
+    x = layers.pool2d(x, pool_type="avg", global_pooling=True)
+    logits = layers.fc(x, size=class_num)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+    acc = metric_op.accuracy(layers.softmax(logits), label)
+    return ModelSpec(
+        loss,
+        feeds={"img": FeedSpec(list(image_shape), "float32", -1.0, 1.0),
+               "label": FeedSpec([1], "int32", 0, class_num)},
+        fetches={"acc": acc},
+        flops_per_example=resnet50_flops(image_shape) if depth == 50 else None)
+
+
+def resnet_cifar10(depth=32, class_num=10):
+    """Basic-block ResNet for 32x32 cifar (depth = 6n+2)."""
+    assert (depth - 2) % 6 == 0
+    n = (depth - 2) // 6
+    img = layers.data("img", shape=[3, 32, 32], dtype="float32")
+    label = layers.data("label", shape=[1], dtype="int32")
+    x = _conv_bn(img, 16, 3, 1, act="relu")
+    x = _layer_warp(_basicblock, x, 16, n, 1)
+    x = _layer_warp(_basicblock, x, 32, n, 2)
+    x = _layer_warp(_basicblock, x, 64, n, 2)
+    x = layers.pool2d(x, pool_type="avg", global_pooling=True)
+    logits = layers.fc(x, size=class_num)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+    acc = metric_op.accuracy(layers.softmax(logits), label)
+    return ModelSpec(
+        loss,
+        feeds={"img": FeedSpec([3, 32, 32], "float32", -1.0, 1.0),
+               "label": FeedSpec([1], "int32", 0, class_num)},
+        fetches={"acc": acc})
+
+
+def resnet50_flops(image_shape=(3, 224, 224)):
+    """Analytic fwd+bwd FLOPs/example for ResNet-50 at 224x224 (~3 * fwd;
+    fwd ≈ 4.1 GFLOPs macs*2). Scaled for other input sizes."""
+    base = 4.1e9 * 2  # multiply-accumulate pairs, fwd
+    scale = (image_shape[1] * image_shape[2]) / (224.0 * 224.0)
+    return 3.0 * base * scale

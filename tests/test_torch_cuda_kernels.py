@@ -15,6 +15,7 @@ from paddle_tpu_torch.core import framework as t_framework
 from paddle_tpu_torch.core import unique_name as t_unique_name
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import fused_ce as tfce
+from paddle_tpu_torch.ops import fused_conv as tfc
 from paddle_tpu_torch.ops import fused_layer_norm as tfln
 
 pytestmark = pytest.mark.cuda
@@ -296,3 +297,73 @@ def test_tiny_transformer_step_on_gpu_matches_cpu(dev, fresh_port_programs):
     for name, g, w in zip(["loss"] + names, got, want):
         np.testing.assert_allclose(g, w, atol=1e-4 * max(1.0, np.abs(w).max()),
                                    rtol=0, err_msg=name)
+
+
+CONV_CASES = [
+    # (N, C_in, C_out, k, stride, H = W, residual, relu)
+    (4, 16, 8, 1, 1, 8, False, True),
+    (3, 8, 8, 3, 1, 8, False, True),
+    (2, 8, 16, 1, 1, 7, True, True),
+    (2, 16, 24, 1, 2, 9, False, False),  # odd H: Ho = 5
+    (5, 32, 70, 3, 1, 7, True, True),    # H*W = 49, ragged channel tile
+    (1, 3, 5, 3, 1, 5, False, False),    # fewer pixels than one tile
+]
+
+
+def _conv_inputs(gen, n, cin, cout, k, stride, hw, residual, dev):
+    ho = (hw - 1) // stride + 1
+    x = torch.randn(n, cin, hw, hw, generator=gen).to(dev)
+    w = (torch.randn(cout, cin, k, k, generator=gen)
+         * (2.0 / (cin * k * k)) ** 0.5).to(dev)
+    scale = (torch.rand(cout, generator=gen) + 0.5).to(dev)
+    shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+    res = torch.randn(n, cout, ho, ho, generator=gen).to(dev) \
+        if residual else None
+    return x, w, scale, shift, res
+
+
+@pytest.mark.parametrize("n,cin,cout,k,stride,hw,residual,relu", CONV_CASES)
+def test_fused_conv_kernels_match_plain(dev, n, cin, cout, k, stride, hw,
+                                        residual, relu):
+    """conv_moments, bn_apply and conv_apply against their plain versions
+    (cuDNN conv + torch sums and elementwise ops), within 1e-4 of the
+    largest plain value."""
+    gen = torch.Generator().manual_seed(5)
+    x, w, scale, shift, res = _conv_inputs(gen, n, cin, cout, k, stride, hw,
+                                           residual, dev)
+    co, s1, s2 = tfc.conv_moments(x, w, stride)
+    wco, ws1, ws2 = tfc.conv_moments_plain(x, w, stride)
+    y = tfc.bn_apply(wco, scale, shift, res, relu)
+    wy = tfc.bn_apply_plain(wco, scale, shift, res, relu)
+    ya = tfc.conv_apply(x, w, scale, shift, res, relu, stride)
+    wya = tfc.conv_apply_plain(x, w, scale, shift, res, relu, stride)
+    torch.cuda.synchronize()
+    for got, want in ((co, wco), (s1, ws1), (s2, ws2), (y, wy), (ya, wya)):
+        assert got.shape == want.shape
+        assert _rel_err(got, want) <= 1e-4
+
+
+def test_fused_conv_train_function_matches_plain_autograd(dev):
+    """_FusedTrain (rows 10 + 11 forward, recomputed epilogue + cuDNN conv
+    gradients backward) against autograd through the plain composition."""
+    gen = torch.Generator().manual_seed(6)
+    x, w, _, _, res = _conv_inputs(gen, 4, 16, 32, 3, 1, 7, True, dev)
+    g = (torch.rand(32, generator=gen) + 0.5).to(dev)
+    b = (torch.randn(32, generator=gen) * 0.1).to(dev)
+    dy = torch.randn(4, 32, 7, 7, generator=gen).to(dev)
+    runs = []
+    for kernel in (True, False):
+        ins = [a.clone().requires_grad_(True) for a in (x, w, g, b, res)]
+        if kernel:
+            before = tfc.conv_moments.launches, tfc.bn_apply.launches
+            out = tfc._FusedTrain.apply(*ins, 1, 1e-5, True)[0]
+            assert (tfc.conv_moments.launches - before[0],
+                    tfc.bn_apply.launches - before[1]) == (1, 1)
+        else:
+            co = torch.nn.functional.conv2d(ins[0], ins[1], padding=1)
+            out = tfc.epilogue_reference(co, ins[2], ins[3], ins[4], None,
+                                         None, 1e-5, True)
+        runs.append([out] + list(torch.autograd.grad(out, ins, dy)))
+    torch.cuda.synchronize()
+    for got, want in zip(*runs):
+        assert _rel_err(got, want) <= 1e-4
