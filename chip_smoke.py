@@ -25,11 +25,17 @@ counts set to 0 just before it and read just after:
   fusion turning 49 of its 53 conv -> BN (+ add)(+ relu) chains into the
   fused-conv kernels, for 3 warm-up and 10 timed steps;
 * evaluating ResNet-50 through ``main.clone(for_test=True)`` at batch 128
-  (the inference kernel at the same 49 sites).
+  (the inference kernel at the same 49 sites);
+* training DeepFM (100,000 x 32 fused table, 26 fields, K = 16, MLP 400 x
+  3, 13 dense features, batch 32768, Adam 1e-4; random weights from seed
+  11) the same way: its ``embedding(is_sparse=True)`` gives a (rows,
+  values) gradient, which Adam densifies through the row scatter-add
+  kernel, once per step, for 3 warm-up and 20 timed steps.
 
-Before each training path, ``train_check`` and ``resnet_train_check`` run
-one full-width step at batch 2 on the card and the same step with the port
-on the CPU from the same weights and feed. Each phase prints one JSON
+Before each training path, ``train_check``, ``resnet_train_check`` and
+``deepfm_train_check`` run one full-width step (at batch 2, 2 and 64) on
+the card and the same step with the port on the CPU from the same weights
+and feed. Each phase prints one JSON
 line; any failure raises and exits non-zero. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``. Without CUDA, or
 outside the repository, it exits non-zero and prints no result.
@@ -63,10 +69,16 @@ TRAIN_BATCH = 128
 # :200-207, :229), in f32 (the port has no AMP yet)
 RESNET = dict(depth=50, class_num=1000, image_shape=(3, 224, 224))
 RESNET_BATCH = 128
+# DeepFM as paddle_tpu's bench.py trains it (BASELINE config 5, :208-214,
+# :229), in f32 (the port has no AMP yet); the fused table is 32 wide
+DEEPFM = dict(sparse_feature_dim=100000, num_fields=26, embedding_size=16,
+              dense_dim=13, hidden_sizes=(400, 400, 400))
+DEEPFM_WIDTH = 32
+DEEPFM_BATCH = 32768
 SEED = 11
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm_fwd",
            "layer_norm_bwd", "fused_ce_fwd", "conv_moments", "bn_apply",
-           "conv_apply")
+           "conv_apply", "scatter_add")
 
 
 def emit(obj):
@@ -105,6 +117,7 @@ def kernel_fns():
     from paddle_tpu_torch.ops import fused_ce as fce
     from paddle_tpu_torch.ops import fused_conv as fc
     from paddle_tpu_torch.ops import fused_layer_norm as fln
+    from paddle_tpu_torch.ops import scatter as sc
 
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
@@ -112,7 +125,7 @@ def kernel_fns():
             "layer_norm_bwd": fln.layer_norm_bwd,
             "fused_ce_fwd": fce.fused_ce_fwd,
             "conv_moments": fc.conv_moments, "bn_apply": fc.bn_apply,
-            "conv_apply": fc.conv_apply}
+            "conv_apply": fc.conv_apply, "scatter_add": sc.scatter_add}
 
 
 def reset_counts():
@@ -463,6 +476,7 @@ def phase_timing(torch, dev):
         flops=flops)
     rows.update(_train_kernel_timing(torch, dev, gen))
     rows.update(_conv_kernel_timing(torch, dev))
+    rows.update(_scatter_kernel_timing(torch, dev))
     for name, r in rows.items():
         emit(dict({"phase": "timing", "kernel": name}, **r))
     return rows
@@ -849,7 +863,8 @@ _MARKS = (("flash_fwd_kernel", "flash_attention_fwd"),
           ("layer_norm_bwd_", "layer_norm_bwd"),
           ("fused_ce_", "fused_ce_fwd"),
           ("moments_reduce", "conv_moments"),
-          ("bn_apply_kernel", "bn_apply"))
+          ("bn_apply_kernel", "bn_apply"),
+          ("scatter_add_kernel", "scatter_add"))
 _CUDNN_MARKS = ("convolve", "conv2d", "_conv", "dgrad", "wgrad", "fprop",
                 "winograd", "implicit_gemm", "cudnn")
 
@@ -857,7 +872,8 @@ _CUDNN_MARKS = ("convolve", "conv2d", "_conv", "dgrad", "wgrad", "fprop",
 def _kernel_kind(name):
     """The kind of a device kernel by its (lower-case) name: one of the
     port's kernels (conv_kernel<..., false> is conv_moments' main launch,
-    <..., true> conv_apply's), a cuDNN convolution, a GEMM, or other."""
+    <..., true> conv_apply's), a cuDNN convolution, a GEMM, a row gather
+    (``index_select``, indexing), or other."""
     if "conv_kernel<" in name:
         return "conv_apply" if "true>" in name else "conv_moments"
     kind = next((k for m, k in _MARKS if m in name), None)
@@ -867,6 +883,8 @@ def _kernel_kind(name):
         return "cudnn_conv"
     if "gemm" in name or "cutlass" in name or "xmma" in name:
         return "gemm"
+    if "indexselect" in name or "gather" in name or "index_kernel" in name:
+        return "gather"
     return "other"
 
 
@@ -883,8 +901,8 @@ def _profile_steps(torch, run_step, steps):
         for _ in range(steps):
             run_step()
         wall = time.perf_counter() - t0
-    kinds = dict.fromkeys(("gemm", "cudnn_conv") + KERNELS + ("other",),
-                          0.0)
+    kinds = dict.fromkeys(("gemm", "cudnn_conv", "gather") + KERNELS
+                          + ("other",), 0.0)
     n_kernels = 0
     other = []
     for e in prof.key_averages():
@@ -1154,6 +1172,348 @@ def _conv_kernel_timing(torch, dev):
         bound_ms=bnd, bound_by=by, shape=[n, o, hw, hw], bytes=nbytes,
         flops=3 * co.numel())
     return rows
+
+
+# ---------------------------------------------------------------------------
+# DeepFM: sparse (rows, values) gradients and the row scatter-add kernel
+# ---------------------------------------------------------------------------
+
+DEEPFM_PER_STEP = per_run(scatter_add=1)
+
+
+def _deepfm_rows(torch, kind, n, v, seed):
+    """int32 ids for ``n`` slots of a ``v``-row table: uniform, in
+    [-2v, 2v) (wrap and drop), all on row 7, or Zipf-skewed (exponent 1.2,
+    folded into [0, v): the shape of real CTR id traffic)."""
+    rng = np.random.RandomState(seed)
+    if kind == "uniform":
+        r = rng.randint(0, v, n)
+    elif kind == "wrap_drop":
+        r = rng.randint(-2 * v, 2 * v, n)
+    elif kind == "one_row":
+        r = np.full(n, 7)
+    else:
+        r = (rng.zipf(1.2, n) - 1) % v
+    return torch.from_numpy(r.astype("i4"))
+
+
+def phase_scatter_check(torch, dev, tol=1e-5):
+    """The scatter kernel against its plain version (``index_add``, f32) on
+    the card at the DeepFM shape (851,968 slots into a 100000 x 32 table):
+    the densify form into zeros, the SGD form into a non-zero table, rows
+    in [-2V, 2V), every slot on one row, and Zipf-skewed rows. Both sum a
+    row's duplicates with atomics in no fixed order, so they are held to
+    tol * max(1, sum over the row's slots of |vals|), the scale of a few
+    ulp per duplicate; each is also measured against an f64 sum."""
+    from paddle_tpu_torch.ops import scatter as sc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    v, k = DEEPFM["sparse_feature_dim"], DEEPFM_WIDTH
+    n = DEEPFM_BATCH * DEEPFM["num_fields"]
+    errs = {}
+    cases = [("deepfm_densify_uniform", "uniform", False),
+             ("sgd_nonzero_base", "uniform", True),
+             ("wrap_drop", "wrap_drop", False),
+             ("one_row", "one_row", False),
+             ("zipf_1.2", "zipf", False)]
+    for i, (name, kind, nonzero) in enumerate(cases):
+        rows = _deepfm_rows(torch, kind, n, v, SEED + i).to(dev)
+        vals = torch.randn(n, k, generator=gen, device=dev)
+        base = (torch.randn(v, k, generator=gen, device=dev) if nonzero
+                else torch.zeros(v, k, device=dev))
+        got = sc.scatter_add_rows(base, rows, vals)
+        want = sc.scatter_add_plain(base, rows, vals)
+        exact = sc.scatter_add_plain(base.double(), rows, vals.double())
+        mass = sc.scatter_add_plain(torch.zeros(v, k, device=dev), rows,
+                                    vals.abs())
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        rel = (err / mass.clamp_min(1.0)).max().item()
+        r = rows.long()
+        r = torch.where(r < 0, r + v, r)
+        hot = torch.bincount(r[(r >= 0) & (r < v)], minlength=v).max().item()
+        errs[name] = err.max().item()
+        emit({"phase": "scatter_check", "case": name, "rows": kind,
+              "shape": [v, k, n], "nonzero_base": nonzero,
+              "max_abs_err": errs[name], "max_err_over_row_mass": rel,
+              "kernel_vs_f64": (got.double() - exact).abs().max().item(),
+              "plain_vs_f64": (want.double() - exact).abs().max().item(),
+              "hottest_row_slots": hot,
+              "tol": "%g * max(1, sum over the row's slots of |vals|)" % tol})
+        check(rel <= tol, "scatter %s: error %g of the row mass > %g"
+              % (name, rel, tol))
+        del got, want, exact, mass
+    return errs
+
+
+def _scatter_kernel_timing(torch, dev):
+    """Row 13 at the DeepFM shape: 851,968 uniform ids into the 100000 x
+    32 f32 table, added in place as the densify adds them (the table stays
+    allocated, so every run adds into it). Beside it the plain version,
+    one ``index_add_`` on the in-range int64 rows as the library
+    yardstick (timed here only; the port never calls it), the bound, and
+    the kernel on Zipf-skewed ids."""
+    from paddle_tpu_torch.ops import scatter as sc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    v, k = DEEPFM["sparse_feature_dim"], DEEPFM_WIDTH
+    n = DEEPFM_BATCH * DEEPFM["num_fields"]
+    rows = _deepfm_rows(torch, "uniform", n, v, SEED).to(dev)
+    zipf = _deepfm_rows(torch, "zipf", n, v, SEED).to(dev)
+    rows64 = rows.long()
+    vals = torch.randn(n, k, generator=gen, device=dev)
+    out = torch.zeros(v, k, device=dev)
+    nbytes = 4 * (n * k + n + 2 * v * k)
+    bnd, by = bound(nbytes, n * k)
+    return {"scatter_add": dict(
+        ms=time_ms(lambda: sc.scatter_add(out, rows, vals)),
+        plain_ms=time_ms(lambda: sc.scatter_add_plain(out, rows, vals,
+                                                      inplace=True)),
+        library_ms=time_ms(lambda: out.index_add_(0, rows64, vals)),
+        library="Tensor.index_add_ (int64 rows, all in range)",
+        zipf_ms=time_ms(lambda: sc.scatter_add(out, zipf, vals)),
+        bound_ms=bnd, bound_by=by, shape=[v, k, n], bytes=nbytes,
+        flops=n * k)}
+
+
+def build_deepfm(fluid):
+    """DeepFM with Adam(1e-4), as paddle_tpu's bench.py trains it, in fresh
+    programs. Returns (main, startup, spec)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        spec = fluid.models.deepfm.deepfm(**DEEPFM)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(spec.loss)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, spec
+
+
+def phase_deepfm_train_check(torch, smi_line, batch=64, lr=1e-4,
+                             grad_tol=1e-5):
+    """One full-width DeepFM step at batch 64 on the card and with the
+    port on the CPU from the same weights and feed (f32, TF32 off): the
+    loss within 1e-5 relative, ``prob`` within 1e-5 absolute; the sparse
+    grad of the table with equal rows and its values within ``grad_tol``
+    in relative L2, and each parameter's Adam first moment after the step
+    ((1 - beta1) * g, the table's being the kernel's densify) within
+    ``grad_tol`` in relative L2: these see the gradient's magnitude, which
+    Adam's first update all but drops. Each parameter's update (after -
+    before) within 1e-3 in relative L2 and within lr on every element:
+    that update is about lr * sign(g), so an element whose gradient is
+    within rounding of zero may part by up to lr. The padding columns
+    17..31 of the table must stay exactly zero on both."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, spec = build_deepfm(fluid)
+    gb = main.global_block()
+    names = [p.name for p in main.all_parameters()]
+    moment1 = {o.input("Param").name: o.input("Moment1").name
+               for o in gb.ops if o.type == "adam"}
+    feed = spec.sample_batch(batch, np.random.RandomState(SEED))
+    fetch = [spec.loss, spec.fetches["prob"], gb.var("fm_table@GRAD@ROWS"),
+             gb.var("fm_table@GRAD")]
+    gpu_scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=gpu_scope)
+    params = {n: gpu_scope.get(n).cpu().numpy() for n in names}
+    reset_counts()
+    gpu = exe.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+    counts = read_counts()
+    check(counts == DEEPFM_PER_STEP, "deepfm_train_check launches %s != %s"
+          % (counts, DEEPFM_PER_STEP))
+    gpu_after = {n: gpu_scope.get(n).cpu().numpy() for n in names}
+    gpu_m1 = {n: gpu_scope.get(m).cpu().numpy() for n, m in moment1.items()}
+
+    cpu_scope = fluid.Scope()
+    cexe = fluid.Executor(fluid.CPUPlace())
+    cexe.run(startup, scope=cpu_scope)
+    fluid.bridge.load_program_params(cpu_scope, params, main, "cpu")
+    t0 = time.perf_counter()
+    cpu = cexe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    check(read_counts() == counts, "the CPU step launched a kernel")
+    cpu_after = {n: cpu_scope.get(n).numpy() for n in names}
+    cpu_m1 = {n: cpu_scope.get(m).numpy() for n, m in moment1.items()}
+
+    upd = {}
+    for n in names:
+        du_g, du_c = gpu_after[n] - params[n], cpu_after[n] - params[n]
+        upd[n] = (float(np.linalg.norm(du_g - du_c)) / max(
+            float(np.linalg.norm(du_c)), 1e-30),
+            float(np.abs(du_g - du_c).max()))
+    m1 = {n: _rel_l2(gpu_m1[n], cpu_m1[n]) for n in moment1}
+    rows_equal = bool(np.array_equal(gpu[2], cpu[2]))
+    errs = {"loss": abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0])),
+            "prob": float(np.abs(gpu[1] - cpu[1]).max()),
+            "sparse_grad_rel_l2": _rel_l2(gpu[3], cpu[3]),
+            "moment1_rel_l2_max": max(m1.values())}
+    used = DEEPFM["embedding_size"] + 1
+    pad_zero = [not a["fm_table"][:, used:].any()
+                for a in (gpu_after, cpu_after)]
+    worst = max(upd, key=lambda n: upd[n][0])
+    emit({"phase": "deepfm_train_check", "batch": batch, "config": DEEPFM,
+          "loss_gpu": float(gpu[0]), "loss_cpu": float(cpu[0]),
+          "errors": errs, "sparse_grad_rows_equal": rows_equal,
+          "sparse_grad_slots": int(cpu[2].shape[0]),
+          "moment1_rel_l2": m1,
+          "update_rel_l2": {n: e[0] for n, e in upd.items()},
+          "update_max_abs": {n: e[1] for n, e in upd.items()},
+          "worst_update_param": worst, "padding_zero": pad_zero,
+          "tol": "loss 1e-5 rel, prob 1e-5 abs, sparse grad and first "
+                 "moments %g rel L2, updates 1e-3 rel L2 and lr per "
+                 "element" % grad_tol, "launches": counts,
+          "cpu_step_s": cpu_s, "device": smi_line})
+    check(np.isfinite(gpu[1]).all(), "non-finite prob on the card")
+    check(errs["loss"] <= 1e-5 and errs["prob"] <= 1e-5,
+          "deepfm_train_check errors %s" % errs)
+    check(rows_equal, "the sparse grad's rows differ")
+    check(errs["sparse_grad_rel_l2"] <= grad_tol
+          and errs["moment1_rel_l2_max"] <= grad_tol,
+          "deepfm_train_check gradients %s, moments %s" % (errs, m1))
+    check(all(e[0] <= 1e-3 and e[1] <= lr for e in upd.values()),
+          "deepfm_train_check updates %s" % upd)
+    check(all(pad_zero), "padding columns moved: %s" % pad_zero)
+    return errs
+
+
+def _op_kind(op):
+    if op.attr("is_optimizer_op"):
+        return "optimizer_ops"
+    return "autodiff" if op.type == "autodiff" else "forward_ops"
+
+
+def _profile_by_op_kind(torch, run_step, steps, device_ms):
+    """Device ms per step of the forward ops and of the optimizer ops (Adam,
+    the densify's scatter included): the kernels launched inside a
+    torch.profiler range around each op the executor runs. The backward
+    runs on autograd's device thread, outside those ranges, so the
+    autodiff op's share is the rest of ``device_ms`` (the per-kernel total
+    of the same number of steps). Also the host ops with the most self CPU
+    time, as [name, ms per step, calls per step]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import paddle_tpu_torch.core.executor as ex
+
+    run_op = ex.run_op
+
+    def traced(env, op):
+        with record_function("ptt_ops/" + _op_kind(op)):
+            run_op(env, op)
+
+    ex.run_op = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                run_step()
+    finally:
+        ex.run_op = run_op
+    by_op = dict.fromkeys(("forward_ops", "optimizer_ops"), 0.0)
+    for e in prof.events():
+        kind = e.name[len("ptt_ops/"):]
+        if kind in by_op and e.device_type == DeviceType.CPU:
+            by_op[kind] += e.device_time_total / steps / 1e3
+    by_op["autodiff"] = sum(device_ms.values()) - sum(by_op.values())
+    host = sorted(((e.key[:80], e.self_cpu_time_total / steps / 1e3,
+                    e.count / steps) for e in prof.key_averages()
+                   if not e.key.startswith("ptt_ops/")),
+                  key=lambda r: -r[1])[:10]
+    return by_op, [list(r) for r in host]
+
+
+def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2):
+    """The main path: DeepFM (BASELINE config 5) trained with Adam(1e-4) at
+    batch 32768 on one fixed batch from ``spec.sample_batch(32768,
+    RandomState(0))``, staged on the card once. Launch counts are zeroed
+    just before the first step and read after the last; every step must
+    launch the scatter kernel exactly once and nothing else of the
+    port's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.framework import torch_dtype
+
+    t0 = time.perf_counter()
+    main, startup, spec = build_deepfm(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    gb = main.global_block()
+    # one fixed batch, staged on the card once in the vars' dtypes (ids
+    # and labels int32 under the port's 32-bit convention)
+    feed = {name: torch.from_numpy(a).to(exe.device,
+                                         torch_dtype(gb.var(name).dtype))
+            for name, a in spec.sample_batch(
+                DEEPFM_BATCH, np.random.RandomState(0)).items()}
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    losses, step_s = [], []
+
+    def run_step():
+        before = read_counts()
+        t = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
+                        scope=scope)  # to numpy: ends synchronised
+        dt = time.perf_counter() - t
+        after = read_counts()
+        per = {k: after[k] - before[k] for k in after}
+        check(per == DEEPFM_PER_STEP, "deepfm step %d launches %s != %s"
+              % (len(losses), per, DEEPFM_PER_STEP))
+        losses.append(float(loss))
+        return dt
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + steps):
+        dt = run_step()
+        if i >= warmup:
+            step_s.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    device_ms, kernels_per_step, prof_wall_ms, top_other = _profile_steps(
+        torch, run_step, prof_steps)
+    by_op, top_host = _profile_by_op_kind(torch, run_step, prof_steps,
+                                          device_ms)
+    launches = read_counts()
+
+    adam = [o for o in gb.ops if o.type == "adam"
+            and o.input("Param").name == "fm_table"][0]
+    table = scope.get("fm_table")
+    used = DEEPFM["embedding_size"] + 1
+    pad_zero = not bool(table[:, used:].any())
+    med = statistics.median(step_s)
+    busy = sum(device_ms.values())
+    flops = spec.flops_per_example * DEEPFM_BATCH
+    emit({"phase": "deepfm_train", "model": "deepfm", "config": DEEPFM,
+          "table": [DEEPFM["sparse_feature_dim"], DEEPFM_WIDTH],
+          "params": n_params, "batch": DEEPFM_BATCH, "dtype": "float32",
+          "optimizer": "Adam(1e-4)", "warmup_steps": warmup, "steps": steps,
+          "step_ms_median": med * 1e3,
+          "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
+          "step_ms": [x * 1e3 for x in step_s],
+          "examples_per_s": DEEPFM_BATCH / med,
+          "model_tflops_per_s": flops / med / 1e12,
+          "losses": losses, "peak_memory_bytes": peak,
+          "device_ms_per_step": device_ms,
+          "device_ms_per_step_by_op_kind": by_op,
+          "top_host_ops_ms_per_step": top_host,
+          "kernels_per_step": kernels_per_step,
+          "top_other_kernels": top_other,
+          "profiled_wall_ms_per_step": prof_wall_ms,
+          "device_busy_share": busy / (med * 1e3),
+          "kernel_choice": adam.attrs.get("_kernel_choice"),
+          "padding_zero": pad_zero,
+          "launches": launches, "launches_per_step": DEEPFM_PER_STEP,
+          "setup_s": setup_s, "device": smi_line})
+    check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
+    check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
+    check(adam.attrs.get("_kernel_choice", {}).get("kernel")
+          == "cuda_scatter_add", "adam's kernel choice %s"
+          % adam.attrs.get("_kernel_choice"))
+    check(pad_zero, "the table's padding columns moved")
+    n_steps = warmup + steps + 2 * prof_steps
+    check(launches == {k: n * n_steps for k, n in DEEPFM_PER_STEP.items()},
+          "deepfm_train launches %s" % launches)
+    return launches
 
 
 def build_resnet(fluid):
@@ -1449,6 +1809,8 @@ def main():
         TRAIN_BATCH * TRANSFORMER["seq_len"], TRANSFORMER["d_model"],
         TRANSFORMER["trg_vocab"])]
     errs.update(phase_fused_conv_check(torch, dev))
+    errs["scatter_add"] = phase_scatter_check(
+        torch, dev)["deepfm_densify_uniform"]
     times = phase_timing(torch, dev)
     paths = {"serve": phase_serve(torch, smi_line)}
     phase_train_check(torch, smi_line)
@@ -1457,6 +1819,8 @@ def main():
     paths["resnet_train"], trained = phase_resnet_train(torch, smi_line)
     paths["resnet_eval"] = phase_resnet_eval(torch, smi_line, trained)
     del trained
+    phase_deepfm_train_check(torch, smi_line)
+    paths["deepfm_train"] = phase_deepfm_train(torch, smi_line)
 
     src = {"flash_attention_fwd": ("flash_attention_fwd.cu",
                                    "paddle_tpu/ops/flash_attention.py:1001"),
@@ -1472,7 +1836,9 @@ def main():
                             "paddle_tpu/ops/fused_conv.py:159"),
            "bn_apply": ("fused_conv.cu", "paddle_tpu/ops/fused_conv.py:187"),
            "conv_apply": ("fused_conv.cu",
-                          "paddle_tpu/ops/fused_conv.py:198")}
+                          "paddle_tpu/ops/fused_conv.py:198"),
+           "scatter_add": ("scatter_add.cu",
+                           "paddle_tpu/ops/scatter.py:163")}
     kernels = []
     for name in KERNELS:
         source, replaces = src[name]

@@ -7,6 +7,13 @@ appended after the forward ops. Its implementation
 the forward ops recorded while the Executor ran them. Grad variables follow
 the reference's ``<name>@GRAD`` convention, so clip, regularizer and
 optimizer code composes as in ``paddle_tpu``.
+
+Sparse (SelectedRows) gradients: a table marked ``is_sparse_grad``
+(``embedding(is_sparse=True)``) and read only by sparse lookups gets a
+(rows, values) gradient: ``<name>@GRAD`` holds one value row per looked-up
+id and ``<name>@GRAD@ROWS`` the ids (ref ``lookup_table_op.cc``'s grad
+kernel). The autodiff op takes it from the lookups' outputs, not from the
+table (``core/opimpl/control_ops.py``).
 """
 
 from .core.framework import Variable, grad_var_name
@@ -32,10 +39,8 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None, checkpoints=None):
     """Append gradient computation for ``loss`` w.r.t. trainable
     parameters; returns ``[(param, grad_var), ...]`` like the reference.
-    Every gradient is dense. A table that ``paddle_tpu`` would give a
-    sparse (rows, values) gradient (``embedding(is_sparse=True)`` read
-    only by lookups, ``paddle_tpu/backward.py:51-59``) and ``checkpoints``
-    (rematerialization) raise until their slices are ported."""
+    ``checkpoints`` (rematerialization) raises until the memory slice is
+    ported."""
     if checkpoints:
         raise NotImplementedError(
             "append_backward(checkpoints=...): rematerialization comes with "
@@ -44,29 +49,50 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     gb = prog.global_block()
     fwd_ops = list(gb.ops)
     params = _collect_params(prog, parameter_list, no_grad_set)
-    for p in params:
+
+    # a table consumed by anything but sparse lookups (e.g. weight tying
+    # into an output projection) falls back to the dense grad
+    def _sparse_ok(p):
+        if not getattr(p, "is_sparse_grad", False):
+            return False
         uses = [o for o in fwd_ops if p.name in o.input_arg_names]
-        if getattr(p, "is_sparse_grad", False) and uses and all(
-                o.type == "lookup_table" and o.attr("is_sparse", True)
-                and o.input("W").name == p.name for o in uses):
-            raise NotImplementedError(
-                "append_backward: %s would take a sparse (SelectedRows) "
-                "gradient, which comes with the DeepFM slice of "
-                "paddle_tpu_torch" % p.name)
-    grad_vars = [gb.create_var(name=grad_var_name(p.name), shape=p.shape,
-                               dtype=str(p.dtype)) for p in params]
+        return bool(uses) and all(
+            o.type == "lookup_table" and o.attr("is_sparse", True)
+            and o.input("W") is not None and o.input("W").name == p.name
+            for o in uses)
+
+    sparse_names = [p.name for p in params if _sparse_ok(p)]
+    grad_vars, rows_vars = [], []
+    for p in params:
+        gv = gb.create_var(name=grad_var_name(p.name), shape=p.shape,
+                           dtype=str(p.dtype))
+        if p.name in sparse_names:
+            rv = gb.create_var(name=grad_var_name(p.name) + "@ROWS",
+                               shape=None, dtype="int32")
+            gv.sparse_rows_var = rv
+            rows_vars.append(rv)
+        grad_vars.append(gv)
     op = gb.append_op(
-        "autodiff", {"Loss": loss}, {"Grads": grad_vars},
-        {"fwd_ops": fwd_ops, "wrt_names": [p.name for p in params]})
+        "autodiff", {"Loss": loss},
+        {"Grads": grad_vars, "SparseRows": rows_vars},
+        {"fwd_ops": fwd_ops, "wrt_names": [p.name for p in params],
+         "sparse_wrt_names": sparse_names})
     prog._backward_ops.append(op)
     return list(zip(params, grad_vars))
 
 
 def require_merged_sparse(program):
-    """Sparse grads are not ported: see ``paddle_tpu/backward.py:84``."""
-    raise NotImplementedError(
-        "require_merged_sparse: sparse gradients come with the DeepFM slice "
-        "of paddle_tpu_torch")
+    """Ask the program's autodiff op(s) to emit sparse (rows, values)
+    grads with duplicates merged (each row once, zero-filled duplicate
+    slots on an out-of-range sentinel). Called by consumers whose math
+    needs once-per-row semantics: norm-based clipping and sparse weight
+    decay. Everything else (the scatter-add of sparse SGD and of the
+    non-lazy densify, the lazy optimizers' own merge) is duplicate-safe,
+    and the merge (a sort and a segment sum per table per step) is not
+    free."""
+    for op in getattr(program, "_backward_ops", ()):
+        if op.type == "autodiff":
+            op.attrs["merge_sparse"] = True
 
 
 def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):

@@ -1,7 +1,7 @@
 """Gradient clipping (ref ``python/paddle/fluid/clip.py``; the port's copy
 of ``paddle_tpu/clip.py``): GradientClipByValue/Norm/GlobalNorm,
-set_gradient_clip, append_gradient_clip_ops. Every gradient in the port
-is dense; the sparse (rows, values) branch comes with the DeepFM slice."""
+set_gradient_clip, append_gradient_clip_ops. A sparse (rows, values) grad
+goes through the same ops on its values, with its rows merged."""
 
 from .core.framework import Parameter
 
@@ -108,6 +108,21 @@ def append_gradient_clip_ops(params_grads):
             out.append((p, g))
             continue
         by_attr.setdefault(id(attr), (attr, []))[1].append((p, g))
+    # Sparse (rows, values) grads go through the same clip ops: the
+    # autodiff op emits them row-merged with zeros in the duplicate slots
+    # (asked for here), so a squared_l2_norm of the values equals the dense
+    # grad's norm and scaling the values scales the dense grad (ref clip.py
+    # merges SelectedRows before clipping for the same reason).
+    sparse_rows = {p.name: g.sparse_rows_var
+                   for _, group in by_attr.values() for p, g in group
+                   if getattr(g, "sparse_rows_var", None) is not None}
+    if sparse_rows:
+        from .backward import require_merged_sparse
+
+        require_merged_sparse(params_grads[0][0].block.program)
     for attr, group in by_attr.values():
-        out.extend(attr._process(group))
+        for p, g in attr._process(group):
+            if p.name in sparse_rows:
+                g.sparse_rows_var = sparse_rows[p.name]
+            out.append((p, g))
     return out

@@ -19,6 +19,15 @@ re-traces the forward under ``jax.grad`` from a step-start snapshot
 has no such replay. Ops marked ``is_optimizer_op`` run under
 ``torch.no_grad()``, and everything written back to the scope is detached.
 
+A table with a sparse (rows, values) gradient (the autodiff op's
+``sparse_wrt_names``) is NOT made a leaf: differentiating the table would
+build a dense ``[V, K]`` gradient through the gather's own backward, a
+library scatter outside the port's kernel. Each sparse lookup instead
+makes its OUTPUT a leaf and records the site (table, ids, output) under
+``SPARSE_SITES_KEY``; the autodiff op differentiates w.r.t. the outputs,
+which is ``paddle_tpu``'s zero-delta trick (its ``control_ops.py:71-85``)
+on a tape.
+
 Epilogue fusion: before the ops run, conv2d -> batch_norm (+elementwise_add)
 (+relu) chains become ``fused_conv2d`` ops (``core/epilogue_fusion.py``),
 as ``paddle_tpu`` rewrites the op list it traces (its ``build_step_fn``).
@@ -43,7 +52,7 @@ import torch
 
 from . import framework
 from .framework import Variable, torch_dtype
-from .op_registry import DEVICE_KEY, RNG_KEY, run_op
+from .op_registry import DEVICE_KEY, RNG_KEY, SPARSE_SITES_KEY, run_op
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "CPUPlace",
            "CUDAPlace", "resolve_device", "place_for"]
@@ -211,10 +220,12 @@ class Executor:
         env[DEVICE_KEY] = self.device
 
         ops, _ = fused_ops(program, fetch_names)
+        sparse = {n for op in ops if op.type == "autodiff"
+                  for n in op.attr("sparse_wrt_names") or ()}
         wrt = {n for op in ops if op.type in _AUTODIFF_OPS
-               for n in op.attr("wrt_names")}
+               for n in op.attr("wrt_names")} - sparse
         written = set()
-        if not wrt:
+        if not wrt and not sparse:
             with torch.inference_mode():
                 for op in ops:
                     run_op(env, op)
@@ -228,6 +239,8 @@ class Executor:
                     # the copy is what the step writes back
                     t = t.clone() if t.is_inference() else t.detach()
                     env[n] = t.requires_grad_(True)
+            if sparse:
+                env[SPARSE_SITES_KEY] = {n: [] for n in sparse}
             for op in ops:
                 with (torch.no_grad() if op.attr("is_optimizer_op")
                       else contextlib.nullcontext()):

@@ -10,13 +10,18 @@ CUDA kernels (``paddle_tpu_torch/ops``).
 
 import os
 
+import torch
+
 OP_IMPLS = {}
 
 # reserved env entries: the torch.Generator that random ops draw from
-# (also kept in the scope), and the torch.device that ops which create
-# tensors from nothing create them on
+# (also kept in the scope), the torch.device that ops which create
+# tensors from nothing create them on, and, in a training step with sparse
+# gradients, {table: [(ids, out leaf, padding_idx), ...]}: the sparse
+# lookup sites in the order they ran
 RNG_KEY = "@RNG@"
 DEVICE_KEY = "@DEVICE@"
+SPARSE_SITES_KEY = "@SPARSE_SITES@"
 
 
 def register(*names):
@@ -85,6 +90,33 @@ def next_rng(env):
     """The executor's ``torch.Generator`` (stateful: each draw advances
     it, the torch counterpart of splitting the threaded JAX key)."""
     return env[RNG_KEY]
+
+
+def merge_sparse_rows(rows, vals, sentinel):
+    """Merge the duplicate rows of a (rows, values) sparse grad at static
+    length (``paddle_tpu``'s ``op_registry.py:225``; ref
+    ``math/selected_rows_functor.cc`` MergeAdd): each row appears once, in
+    ascending order, carrying its summed value; every duplicate slot holds
+    ``sentinel`` (an out-of-range row) with a ZERO value, so scatters
+    (which drop out-of-range rows) and norms (which must not count a row
+    twice) are exact. A stable sort keeps each row's values in slot order,
+    and the segment sum adds them in that order."""
+    n = rows.shape[0]
+    if n == 0:
+        return rows, vals
+    order = torch.argsort(rows, stable=True)
+    r = rows[order]
+    v = vals[order]
+    is_start = torch.ones(n, dtype=torch.bool, device=rows.device)
+    is_start[1:] = r[1:] != r[:-1]
+    seg = torch.cumsum(is_start, 0) - 1
+    counts = torch.unique_consecutive(r, return_counts=True)[1]
+    totals = torch.segment_reduce(v, "sum", lengths=counts, axis=0)
+    mask = is_start.reshape((-1,) + (1,) * (v.dim() - 1))
+    vals_u = torch.where(mask, totals[seg], torch.zeros((), dtype=v.dtype,
+                                                        device=v.device))
+    rows_u = torch.where(is_start, r, torch.full_like(r, sentinel))
+    return rows_u, vals_u
 
 
 def bcast_y(x, y, axis):

@@ -30,6 +30,7 @@ for _n, _f in _BINOPS.items():
 
 
 _UNARY = {
+    "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "relu": torch.relu,
     "sqrt": torch.sqrt,
@@ -54,6 +55,12 @@ def _gelu(env, op):
     approx = "tanh" if op.attr("approximate", False) else "none"
     put(env, op.output("Out"), F.gelu(get(env, op.input("X")),
                                       approximate=approx))
+
+
+@register("pow")
+def _pow(env, op):
+    put(env, op.output("Out"),
+        torch.pow(get(env, op.input("X")), op.attr("factor", 1.0)))
 
 
 @register("scale")

@@ -256,3 +256,19 @@ def _softmax_with_cross_entropy(env, op):
         loss = torch.where(ignore[..., None], 0.0, loss)
     put(env, op.output("Loss"), loss)
     put(env, op.output("Softmax"), torch.exp(log_p))
+
+
+@register("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(env, op):
+    """max(x, 0) - x * label + log(1 + exp(-|x|)) elementwise; entries whose
+    label is ``ignore_index`` give 0, and ``normalize`` divides by the
+    count of the others (``paddle_tpu``'s ``nn_ops.py:593-603``)."""
+    x = get(env, op.input("X"))
+    label = get(env, op.input("Label"))
+    loss = torch.clamp_min(x, 0.0) - x * label + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    ignore = label == op.attr("ignore_index", -100)
+    loss = torch.where(ignore, 0.0, loss)
+    if op.attr("normalize", False):
+        loss = loss / torch.clamp_min((~ignore).sum().to(x.dtype), 1.0)
+    put(env, op.output("Out"), loss)

@@ -1,12 +1,13 @@
 """Tensor creation / manipulation / random / embedding ops (the subset of
 ``paddle_tpu/core/opimpl/tensor_ops.py`` that startup programs and the
-served models run). Random ops draw from the executor's
+ported models run). Random ops draw from the executor's
 ``torch.Generator``."""
 
 import torch
 
 from ..framework import convert_np_dtype, torch_dtype
-from ..op_registry import DEVICE_KEY, register, get, put, next_rng
+from ..op_registry import (DEVICE_KEY, SPARSE_SITES_KEY, get, get_list,
+                           next_rng, put, register)
 
 
 def _out_dtype(op):
@@ -34,6 +35,31 @@ def _gaussian_random(env, op):
     n = torch.randn(tuple(op.attr("shape")), generator=next_rng(env),
                     dtype=torch.float32, device=env[DEVICE_KEY])
     put(env, op.output("Out"), (mean + std * n).to(_out_dtype(op)))
+
+
+@register("assign")
+def _assign(env, op):
+    put(env, op.output("Out"), get(env, op.input("X")))
+
+
+@register("assign_value")
+def _assign_value(env, op):
+    dtype = torch_dtype(convert_np_dtype(op.attr("dtype", "float32")))
+    vals = torch.tensor(op.attr("values"), dtype=dtype,
+                        device=env[DEVICE_KEY])
+    put(env, op.output("Out"), vals.reshape(tuple(op.attr("shape"))))
+
+
+@register("cast")
+def _cast(env, op):
+    dtype = torch_dtype(convert_np_dtype(op.attr("out_dtype")))
+    put(env, op.output("Out"), get(env, op.input("X")).to(dtype))
+
+
+@register("concat")
+def _concat(env, op):
+    put(env, op.output("Out"),
+        torch.cat(get_list(env, op, "X"), dim=op.attr("axis", 0)))
 
 
 @register("reshape", "reshape2")
@@ -87,7 +113,13 @@ def _lookup_table(env, op):
     """Embedding lookup (ref ``lookup_table_op.cc``); padding_idx rows give
     zeros. Ids may be int32 or int64. ``paddle_tpu``'s 128-lane packed
     gather (``ops/rowops.py``) exists for TPU lanes; here it is a plain
-    row index."""
+    row index.
+
+    A table with a sparse gradient in a training step (listed under
+    ``SPARSE_SITES_KEY`` by the Executor) is not on the tape: the lookup
+    gathers from it, makes its masked output a leaf and records the site,
+    whose output gradient the ``autodiff`` op turns into (rows, values)."""
+    w_name = op.input("W").name
     w = get(env, op.input("W"))
     ids = get(env, op.input("Ids"))
     if ids.dim() >= 2 and ids.shape[-1] == 1:
@@ -96,4 +128,8 @@ def _lookup_table(env, op):
     padding_idx = op.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
+    sites = env.get(SPARSE_SITES_KEY)
+    if sites is not None and w_name in sites and torch.is_grad_enabled():
+        out = out.detach().requires_grad_(True)
+        sites[w_name].append((ids, out, padding_idx))
     put(env, op.output("Out"), out)

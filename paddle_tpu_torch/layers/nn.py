@@ -15,9 +15,10 @@ from ..core.param_attr import ParamAttr
 
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-    "dropout", "softmax", "scale", "mean", "elementwise_add",
-    "elementwise_mul", "elementwise_div", "reduce_sum", "topk",
-    "softmax_with_cross_entropy", "fused_linear_smooth_ce",
+    "dropout", "softmax", "scale", "mean", "pow", "elementwise_add",
+    "elementwise_sub", "elementwise_mul", "elementwise_div", "reduce_sum",
+    "topk", "softmax_with_cross_entropy",
+    "sigmoid_cross_entropy_with_logits", "fused_linear_smooth_ce",
     "multi_head_attention",
 ]
 
@@ -80,9 +81,10 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32", name=None):
     """Embedding lookup (ref ``nn.py`` embedding / ``lookup_table_op``).
-    ``is_sparse`` marks the gradient for scatter-style updates, as in
-    ``paddle_tpu``; ``append_backward`` refuses it until the sparse
-    optimizer branches are ported."""
+    ``is_sparse`` gives the table a sparse (rows, values) gradient when
+    only such lookups read it (``backward.append_backward``), which the
+    optimizers apply as row updates. ``is_distributed`` is recorded and
+    has no effect on one device."""
     helper = LayerHelper("embedding", param_attr=param_attr, name=name)
     w = helper.create_parameter(helper.param_attr, shape=list(size),
                                 dtype=dtype)
@@ -265,6 +267,14 @@ def mean(x, name=None):
     return out
 
 
+def pow(x, factor=1.0, name=None):
+    helper = LayerHelper("pow", name=name)
+    out = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                    shape=x.shape)
+    helper.append_op("pow", {"X": x}, {"Out": out}, {"factor": factor})
+    return out
+
+
 def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
     helper = LayerHelper(op_type, act=act, name=name)
     try:
@@ -279,6 +289,10 @@ def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
 
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
@@ -345,6 +359,17 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                    shape=x.shape)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     {"X": x, "Label": label}, {"Out": out},
+                     {"ignore_index": ignore_index, "normalize": normalize})
+    return out
 
 
 def fused_linear_smooth_ce(input, label, size, epsilon=0.0,

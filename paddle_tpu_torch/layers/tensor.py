@@ -7,7 +7,8 @@ import numpy as np
 from ..core.framework import Variable, convert_np_dtype
 from ..core.layer_helper import LayerHelper
 
-__all__ = ["fill_constant", "range", "reshape", "squeeze", "slice"]
+__all__ = ["fill_constant", "cast", "concat", "assign", "range", "reshape",
+           "squeeze", "slice"]
 
 
 def _dt(x):
@@ -24,6 +25,47 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                             "dtype": str(convert_np_dtype(dtype)),
                             "value": float(value)})
     return out
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(
+        dtype=str(convert_np_dtype(dtype)), shape=x.shape)
+    helper.append_op("cast", {"X": x}, {"Out": out},
+                     {"out_dtype": str(convert_np_dtype(dtype))})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    ax = axis % len(input[0].shape)
+    dims = [t.shape[ax] for t in input]
+    dim = -1 if any(d < 0 for d in dims) else sum(dims)
+    shape = tuple(dim if i == ax else s for i, s in enumerate(input[0].shape))
+    out = helper.create_variable_for_type_inference(dtype=_dt(input[0]),
+                                                    shape=shape)
+    helper.append_op("concat", {"X": list(input)}, {"Out": out}, {"axis": ax})
+    return out
+
+
+def assign(input, output=None):
+    """Copy a Variable (``assign``) or a numpy array (``assign_value``,
+    the values held in the op) into ``output``."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=_dt(input), shape=input.shape)
+        helper.append_op("assign", {"X": input}, {"Out": output}, {})
+        return output
+    arr = np.asarray(input)
+    if output is None:
+        output = helper.create_variable_for_type_inference(
+            dtype=str(arr.dtype), shape=arr.shape)
+    helper.append_op("assign_value", outputs={"Out": output},
+                     attrs={"shape": arr.shape, "dtype": str(arr.dtype),
+                            "values": arr.flatten().tolist()})
+    return output
 
 
 def range(start, end, step, dtype):

@@ -2,5 +2,7 @@
 
 from . import bert  # noqa: F401
 from . import common  # noqa: F401
+from . import deepfm  # noqa: F401
 from . import resnet  # noqa: F401
 from . import transformer  # noqa: F401
+from . import word2vec  # noqa: F401

@@ -6,8 +6,10 @@ Each optimizer appends symbolic update ops whose Out slots alias the state
 var names; the Executor runs them under ``torch.no_grad()`` and writes the
 new state back to the scope. Accumulators (velocity, moments, beta powers)
 are persistable vars the startup program fills with constants, as the
-reference's ``_add_accumulator`` does. This slice carries SGD, Momentum and
-Adam; the other optimizers and gradient accumulation come later.
+reference's ``_add_accumulator`` does. A parameter with a sparse (rows,
+values) grad gets its rows var wired to the update op as ``GradRows``.
+This slice carries SGD, Momentum and Adam (dense and sparse); the other
+optimizers and gradient accumulation come later.
 """
 
 from .backward import append_backward
@@ -83,6 +85,11 @@ class Optimizer:
             with framework.name_scope("optimizer"):
                 op = self._append_optimize_op(prog.global_block(), (p, g))
                 op.attrs["is_optimizer_op"] = True
+                rows = getattr(g, "sparse_rows_var", None)
+                if rows is not None:
+                    # a (rows, values) grad: the update op takes its
+                    # sparse branch (ref sparse optimizer kernels)
+                    op.inputs["GradRows"] = [rows]
                 ops.append(op)
         return ops
 

@@ -2,8 +2,8 @@
 the port's copy of ``paddle_tpu/regularizer.py``): append
 grad-modification ops ``grad += coeff * penalty'(param)`` before the
 optimizer update, honoring per-param ``ParamAttr.regularizer`` overrides.
-Every gradient in the port is dense; the sparse (rows, values) branch
-comes with the DeepFM slice."""
+A sparse (rows, values) grad decays row-wise on its touched rows only
+(``sparse_decay``), as the reference's SelectedRows branch does."""
 
 __all__ = ["L1Decay", "L2Decay", "L1DecayRegularizer", "L2DecayRegularizer",
            "append_regularization_ops"]
@@ -14,11 +14,29 @@ class WeightDecayRegularizer:
         raise NotImplementedError
 
 
+def _append_sparse_decay(param, grad, block, coeff, mode):
+    """Row-wise decay on the touched rows of a sparse (rows, values) grad
+    (ref regularizer.py SelectedRows branch: merge, then decay the rows).
+    The decay of a row must apply exactly once, so the autodiff op is
+    asked for merged rows (duplicate slots zeroed on the sentinel)."""
+    from .backward import require_merged_sparse
+
+    require_merged_sparse(block.program)
+    block.append_op(
+        "sparse_decay",
+        {"Grad": grad, "Rows": grad.sparse_rows_var, "Param": param},
+        {"Out": grad}, {"coeff": coeff, "mode": mode})
+    return grad
+
+
 class L2DecayRegularizer(WeightDecayRegularizer):
     def __init__(self, regularization_coeff=0.0):
         self._coeff = regularization_coeff
 
     def __call__(self, param, grad, block):
+        if getattr(grad, "sparse_rows_var", None) is not None:
+            return _append_sparse_decay(param, grad, block, self._coeff,
+                                        "l2")
         decay = block.create_var(shape=param.shape, dtype=str(param.dtype))
         block.append_op("scale", {"X": param}, {"Out": decay},
                         {"scale": self._coeff})
@@ -32,6 +50,9 @@ class L1DecayRegularizer(WeightDecayRegularizer):
         self._coeff = regularization_coeff
 
     def __call__(self, param, grad, block):
+        if getattr(grad, "sparse_rows_var", None) is not None:
+            return _append_sparse_decay(param, grad, block, self._coeff,
+                                        "l1")
         sign = block.create_var(shape=param.shape, dtype=str(param.dtype))
         block.append_op("sign", {"X": param}, {"Out": sign}, {})
         decay = block.create_var(shape=param.shape, dtype=str(param.dtype))

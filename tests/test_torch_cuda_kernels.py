@@ -17,6 +17,7 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import fused_ce as tfce
 from paddle_tpu_torch.ops import fused_conv as tfc
 from paddle_tpu_torch.ops import fused_layer_norm as tfln
+from paddle_tpu_torch.ops import scatter as tscatter
 
 pytestmark = pytest.mark.cuda
 
@@ -367,3 +368,109 @@ def test_fused_conv_train_function_matches_plain_autograd(dev):
     torch.cuda.synchronize()
     for got, want in zip(*runs):
         assert _rel_err(got, want) <= 1e-4
+
+
+SCATTER_CASES = [
+    # (V, K, N, row kind): the shape grid of tests/test_scatter.py, then
+    # drop/wrap, one hot row, and a DeepFM-like [B * F] id stream
+    (100, 16, 333, "uniform"), (50, 8, 64, "uniform"), (33, 32, 7, "uniform"),
+    (257, 4, 1025, "uniform"), (120, 128, 40, "uniform"),
+    (40, 16, 200, "wrap_drop"), (64, 16, 500, "one_row"),
+    (1000, 32, 64 * 26, "uniform"), (1000, 33, 999, "uniform"),
+]
+
+
+@pytest.mark.parametrize("v,k,n,kind", SCATTER_CASES)
+@pytest.mark.parametrize("sort", [False, True])
+def test_scatter_kernel_matches_plain(dev, v, k, n, kind, sort):
+    """The kernel's f32 atomics add duplicates in no fixed order: within
+    1e-5 * max(1, sum over a row's slots of |vals|) of the plain version,
+    which bounds a few ulp per duplicate."""
+    gen = torch.Generator().manual_seed(5)
+    base = torch.randn(v, k, generator=gen)
+    if kind == "wrap_drop":
+        rows = torch.randint(-2 * v, 2 * v, (n,), generator=gen)
+    elif kind == "one_row":
+        rows = torch.full((n,), 7)
+    else:
+        rows = torch.randint(0, v, (n,), generator=gen)
+    vals = torch.randn(n, k, generator=gen)
+    want = tscatter.scatter_add_plain(base, rows, vals)
+    mass = tscatter.scatter_add_plain(torch.zeros(v, k), rows, vals.abs())
+    before = tscatter.scatter_add.launches
+    got = tscatter.scatter_add_rows(base.to(dev), rows.to(dev),
+                                    vals.to(dev), sort=sort)
+    torch.cuda.synchronize()
+    assert tscatter.scatter_add.launches == before + 1
+    err = (got.cpu() - want).abs()
+    assert bool((err <= 1e-5 * mass.clamp_min(1.0)).all()), err.max()
+
+
+def test_scatter_kernel_inplace_and_refusals(dev):
+    out = torch.zeros(10, 4, device=dev)
+    rows = torch.tensor([1, 1, -1, 10], dtype=torch.int32, device=dev)
+    got = tscatter.scatter_add_rows(out, rows, torch.ones(4, 4, device=dev),
+                                    inplace=True)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert out[1].tolist() == [2.0] * 4 and out[9].tolist() == [1.0] * 4
+    assert float(out.sum()) == 12.0
+    for dtype in (torch.bfloat16, torch.int32):
+        with pytest.raises(NotImplementedError, match="AMP"):
+            tscatter.scatter_add_rows(torch.zeros(10, 4, device=dev,
+                                                  dtype=dtype),
+                                      rows, torch.ones(4, 4, device=dev))
+
+
+def test_tiny_deepfm_step_on_gpu_matches_cpu(dev, fresh_port_programs):
+    """One Adam step of a tiny DeepFM on the card and on the CPU from the
+    same weights: loss, prob, the sparse grad of fm_table, every Adam
+    first moment and the table after the step agree, and the step
+    launches the scatter kernel once (the densify of fm_table's sparse
+    grad)."""
+    spec = tfluid.models.deepfm.deepfm(
+        sparse_feature_dim=1000, num_fields=6, embedding_size=8,
+        dense_dim=5, hidden_sizes=(16, 16))
+    tfluid.optimizer.Adam(1e-3).minimize(spec.loss)
+    main = tfluid.default_main_program()
+    gb = main.global_block()
+    tfluid.default_startup_program().random_seed = 3
+    feed = spec.sample_batch(16, np.random.RandomState(0))
+    fetch = [spec.loss, spec.fetches["prob"], gb.var("fm_table@GRAD@ROWS"),
+             gb.var("fm_table@GRAD")]
+    moments = [o.input("Moment1").name for o in gb.ops if o.type == "adam"]
+    gpu_scope, cpu_scope = tfluid.Scope(), tfluid.Scope()
+    exe = tfluid.Executor()
+    exe.run(tfluid.default_startup_program(), scope=gpu_scope)
+    params = {p.name: gpu_scope.get(p.name).cpu().numpy()
+              for p in main.all_parameters()}
+    before = tscatter.scatter_add.launches
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+    assert tscatter.scatter_add.launches == before + 1
+    cexe = tfluid.Executor(tfluid.CPUPlace())
+    cexe.run(tfluid.default_startup_program(), scope=cpu_scope)
+    tfluid.bridge.load_program_params(cpu_scope, params, main, "cpu")
+    want = cexe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got[2], want[2])
+    # the gradient itself, in relative L2: the (rows, values) grad, and
+    # after the step each first moment, (1 - beta1) * g, whose fm_table
+    # entry is the kernel's densify
+    assert np.linalg.norm(got[3] - want[3]) <= \
+        1e-5 * np.linalg.norm(want[3])
+    for n in moments:
+        m_gpu = gpu_scope.get(n).cpu().numpy()
+        m_cpu = cpu_scope.get(n).numpy()
+        assert np.linalg.norm(m_gpu - m_cpu) <= \
+            1e-5 * np.linalg.norm(m_cpu), n
+    # Adam's first step moves an element by about lr * sign(g): an element
+    # whose grad is within rounding of zero may part by up to lr, so the
+    # update is held in relative L2 and each element within lr
+    start = params["fm_table"]
+    upd_gpu = gpu_scope.get("fm_table").cpu().numpy() - start
+    upd_cpu = cpu_scope.get("fm_table").numpy() - start
+    assert np.linalg.norm(upd_gpu - upd_cpu) <= \
+        1e-4 * np.linalg.norm(upd_cpu)
+    assert np.abs(upd_gpu - upd_cpu).max() <= 1e-3
+

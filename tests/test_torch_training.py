@@ -15,6 +15,7 @@ can move its parameter by a sizeable share of the learning rate (3e-3)."""
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 import paddle_tpu.ops.flash_attention as jfa
@@ -178,12 +179,22 @@ def test_calc_gradient_matches(rng):
 
 def test_sparse_embedding_gradient_raises():
     """``paddle_tpu`` gives an ``is_sparse`` table a (rows, values)
-    gradient; the port refuses it rather than densify it silently (its
-    sparse optimizer branches are not ported)."""
+    gradient, and so does the port: the update op gets the rows. What
+    raises is the CUDA kernel's wrapper when handed CPU tensors: the
+    sparse update never falls back from the kernel to a library scatter
+    (``tests/test_torch_sparse.py`` holds the branches against the JAX
+    package)."""
+    from paddle_tpu_torch.ops import scatter as tscatter
+
     ids = tfluid.layers.data("ids", shape=[4], dtype="int64")
     emb = tfluid.layers.embedding(ids, size=[10, 3], is_sparse=True)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tfluid.optimizer.SGD(0.1).minimize(tfluid.layers.mean(emb))
+    ops, pg = tfluid.optimizer.SGD(0.1).minimize(tfluid.layers.mean(emb))
+    (_, g), = pg
+    assert ops[0].input("GradRows") is g.sparse_rows_var
+    with pytest.raises(ValueError, match="tensors on cpu"):
+        tscatter.scatter_add(torch.zeros(10, 3),
+                             torch.zeros(4, dtype=torch.int32),
+                             torch.zeros(4, 3))
 
 
 def test_transformer_programs_identical():
