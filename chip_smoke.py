@@ -6,9 +6,12 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, holds
-each against its plain PyTorch version on the card, times it, and then
-drives the port's main paths at full width, each with the kernels' launch
-counts set to 0 just before it and read just after:
+each against its plain PyTorch version on the card (the conv kernels also
+against an f64 conv, beside cuDNN's f32 one, and for bitwise equal moments
+across two runs), times it (the conv kernels at each of ResNet-50's
+distinct fused geometries, read from the fusion's record of the built
+program), and then drives the port's main paths at full width, each with
+the kernels' launch counts set to 0 just before it and read just after:
 
 * serving BERT-base (vocab 30522, seq 128, d_model 768, d_ff 3072, 12
   heads, 12 layers; random weights from seed 11): layers -> Program ->
@@ -54,10 +57,13 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks (dense): HBM3 bytes/s, and f32 FLOP/s on the
-# CUDA cores — both kernels do their arithmetic in f32 without tensor cores
+# H100 SXM data-sheet peaks (dense): HBM3 bytes/s, f32 FLOP/s on the CUDA
+# cores (every kernel but the convs does its arithmetic there, in f32), and
+# TF32 FLOP/s on the tensor cores, where the conv kernels run each f32
+# product as three TF32 products (3xTF32)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 BERT = dict(vocab=30522, seq=128, d_model=768, d_ff=3072, heads=12,
             layers=12)
@@ -162,11 +168,21 @@ def check_close(phase, case, pairs, tol, **extra):
     return max(e["max_abs_err"] for e in errs.values())
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_s=F32_FLOPS):
+    """(least ms, "bytes" or "operations"): nbytes at the HBM rate against
+    flops at ``flops_s``."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def conv_bound(nbytes, conv_flops):
+    """The conv kernels' bound: their 3 x conv_flops TF32 tensor-core
+    operations (3xTF32) or their bytes, and beside it the bound of the same
+    conv on the f32 FMA pipes."""
+    bnd, by = bound(nbytes, 3 * conv_flops, TF32_FLOPS)
+    return bnd, by, bound(nbytes, conv_flops)[0]
 
 
 def phase_device(torch):
@@ -190,6 +206,28 @@ def phase_build():
     per_lib = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": per_lib, "nvcc": _build.nvcc_path()})
+    _conv_sass_check(_build)
+
+
+def _conv_sass_check(_build):
+    """Every instantiation of the conv kernel (conv_moments' and
+    conv_apply's) must carry its products on the tensor cores: cuobjdump's
+    SASS of the built library shows HMMA instructions in each."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build._lib_path("fused_conv")],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, "cuobjdump failed: " + sass.stderr[-2000:])
+    hmma = {}
+    for fn in sass.stdout.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        if "conv_kernel" in name:
+            hmma[name] = sum(ln.split()[1].startswith("HMMA")
+                             for ln in fn.splitlines()
+                             if len(ln.split()) > 1)
+    emit({"phase": "sass", "library": "fused_conv",
+          "hmma_per_conv_kernel": hmma})
+    check(len(hmma) >= 2 and all(hmma.values()),
+          "conv kernels without HMMA: %s" % hmma)
 
 
 def _padding_bias(torch, gen, b, tk, dev):
@@ -871,11 +909,14 @@ _CUDNN_MARKS = ("convolve", "conv2d", "_conv", "dgrad", "wgrad", "fprop",
 
 def _kernel_kind(name):
     """The kind of a device kernel by its (lower-case) name: one of the
-    port's kernels (conv_kernel<..., false> is conv_moments' main launch,
-    <..., true> conv_apply's), a cuDNN convolution, a GEMM, a row gather
-    (``index_select``, indexing), or other."""
+    port's kernels (``conv_kernel<BM, KS, STRIDE, VEC, APPLY>``: APPLY false
+    is conv_moments' main launch, true conv_apply's), a cuDNN convolution, a
+    GEMM, a row gather (``index_select``, indexing), or other."""
     if "conv_kernel<" in name:
-        return "conv_apply" if "true>" in name else "conv_moments"
+        args = name.split("conv_kernel<", 1)[1].split(">", 1)[0]
+        apply = args.replace(" ", "").split(",")[-1]
+        check(apply in ("true", "false"), "conv kernel name %r" % name)
+        return "conv_apply" if apply == "true" else "conv_moments"
     kind = next((k for m, k in _MARKS if m in name), None)
     if kind is not None:
         return kind
@@ -1037,10 +1078,14 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
     training forward through ``fused_conv_bn_act`` (y, mean_out, var_out,
     saved mean and variance) against the unfused math, ``_FusedTrain``'s
     backward (dx, dw, dgamma, dbeta, dres) against autograd through the
-    plain composition, and conv_apply (inference). Tolerance tol * max(1,
-    max|plain|): the conv sums up to 4,608 products per output and the
-    moments 401,408 outputs per channel, in other orders than cuDNN and
-    torch.sum."""
+    plain composition (cuDNN's conv), with dy zeroed on both sides where
+    the two forwards' relu masks differ (their count is emitted), and
+    conv_apply (inference). Tolerance tol * max(1, max|plain|): the conv
+    sums up to 4,608 products per output and the moments 401,408 outputs
+    per channel, in other orders than cuDNN and torch.sum. Then the moments
+    must be bitwise equal across two runs, and at the 3x3 geometries the
+    conv's error against an f64 conv at most twice cuDNN's f32 one
+    (:func:`_conv_f64_check`)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import fused_conv as fc
@@ -1062,7 +1107,13 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
                                    ("mean", s1 / count, ws1 / count),
                                    ("mean_sq", s2 / count, ws2 / count)],
             tol, check="conv_moments", **shape))
-        del co
+        again = fc.conv_moments(x, w, stride)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((co, s1, s2), again)),
+              "%s: conv_moments differs between two runs" % name)
+        del co, again
+        if k == 3:
+            _conv_f64_check(torch, name, x[:8], w)
         bm, bv = fc.bn_stats(wco)
         scale, shift = fc._scale_shift(g, b, bm, bv, eps)
         y = fc.bn_apply(wco, scale, shift, res, relu)
@@ -1086,8 +1137,13 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
             want)), tol, check="fused_conv_bn_act_train", **shape)
         del outs, want
 
-        dy = torch.randn(wco.shape, generator=gen, device=dev)
-        grads = []
+        # both forwards first: the kernel's co differs from cuDNN's in the
+        # last bits, which flips a few relus, and a flip moves one gradient
+        # element by its whole dy; dy is zeroed on both sides where the two
+        # relu masks differ, so the rest is held element-wise. The kernel's
+        # mask is the one its backward applies: the epilogue recomputed on
+        # its co (bn_apply's forward output may round the other way)
+        outs = []
         for kernel in (True, False):
             ins = [t.clone().requires_grad_(True)
                    for t in (x, w, g, b, res) if t is not None]
@@ -1099,12 +1155,24 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
                 out = fc.epilogue_reference(
                     F.conv2d(ins[0], ins[1], stride=stride, padding=pad),
                     ins[2], ins[3], r, None, None, eps, relu)
-            grads.append(torch.autograd.grad(out, ins, dy))
-            del out, ins
+            outs.append((out, ins))
+        dy = torch.randn(wco.shape, generator=gen, device=dev)
+        flips = None
+        if relu:
+            co = fc.conv_moments(x, w, stride)[0]  # bit-equal to the saved
+            keep = (fc.epilogue_reference(co, g, b, res, None, None, eps,
+                                          relu) > 0) == (outs[1][0] > 0)
+            del co
+            flips = int((~keep).sum())
+            dy = dy * keep
+            del keep
+        grads = [torch.autograd.grad(out, ins, dy) for out, ins in outs]
+        del outs
         torch.cuda.synchronize()
         check_close("fused_conv_check", name, list(zip(
             ("dx", "dw", "dgamma", "dbeta", "dres"), *grads)), tol,
-            check="_FusedTrain_backward", **shape)
+            check="_FusedTrain_backward", relu_flips=flips,
+            elements=dy.numel(), **shape)
         del grads, dy, wco
 
         scale, shift = fc._scale_shift(g, b, mean, var, eps)
@@ -1118,44 +1186,157 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
     return errs
 
 
-def _conv_kernel_timing(torch, dev):
-    """The three fused-conv kernels, batch 128, f32: rows 10 and 12 on the
-    3x3 64 -> 64 body at 56x56, row 11 on the 256-channel expand at 56x56
-    with residual and relu. The library yardstick of rows 10 and 12 is
-    cuDNN's F.conv2d alone (TF32 off): no single PyTorch call computes the
-    conv with its moments or with a folded BN."""
+def _conv_f64_check(torch, name, x, w):
+    """The conv kernel's co and cuDNN's f32 conv (TF32 off) against
+    F.conv2d in float64 on the same f32 inputs, by max abs error and
+    relative L2 error; fails if the kernel's error is more than twice
+    cuDNN's in either (3xTF32 with f32 accumulation should match f32; a
+    single TF32 product would be about 1000 times off)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import fused_conv as fc
 
+    pad = (w.shape[2] - 1) // 2
+    exact = F.conv2d(x.double(), w.double(), padding=pad)
+
+    def errs(t):
+        d = t.double() - exact
+        return {"max_abs_err": d.abs().max().item(),
+                "rel_l2": (d.norm() / exact.norm()).item()}
+
+    got = errs(fc.conv_moments(x, w, 1)[0])
+    lib = errs(F.conv2d(x, w, padding=pad))
+    emit({"phase": "fused_conv_check", "case": name, "check": "f64",
+          "x": list(x.shape), "w": list(w.shape),
+          "K": w.shape[1] * w.shape[2] * w.shape[3], "kernel": got,
+          "cudnn_f32": lib, "tol": "kernel <= 2 x cuDNN f32, each error"})
+    check(all(got[e] <= 2 * lib[e] for e in got),
+          "%s: conv error %s against f64, cuDNN f32 %s" % (name, got, lib))
+
+
+def resnet_conv_geometries():
+    """ResNet-50's distinct fused-conv geometries, read from the epilogue
+    fusion's record of the built training program: {(C, O, k, stride, H):
+    {"sites", "residual", "relu"}} over the sites the gate admits, in the
+    order they first appear (H is the input's height and width)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import fused_ops
+    from paddle_tpu_torch.ops import fused_conv as fc
+
+    main, _, _, spec = build_resnet(fluid)
+    ops, _ = fused_ops(main, [spec.loss.name])
+    geoms = {}
+    for op in ops:
+        if op.type != "fused_conv2d":
+            continue
+        xs = (RESNET_BATCH,) + tuple(op.input("Input").shape[1:])
+        ws = op.input("Filter").shape
+        if not fc.gate(xs, ws, op.attr("strides"), op.attr("paddings"),
+                       op.attr("dilations"), op.attr("groups"))["admitted"]:
+            continue
+        key = (int(xs[1]), int(ws[0]), int(ws[2]), int(op.attr("strides")[0]),
+               int(xs[2]))
+        g = geoms.setdefault(key, {"sites": 0, "residual": 0, "relu": 0})
+        g["sites"] += 1
+        g["residual"] += op.input("Residual") is not None
+        g["relu"] += op.attr("act") == "relu"
+    return geoms
+
+
+def _conv_geometry_timing(torch, dev, gen):
+    """Rows 10 and 12 at every distinct fused geometry of ResNet-50 at batch
+    128 beside their plain versions, F.conv2d (cuDNN, TF32 off) and the
+    bound; one line per geometry and one with the sums weighted by sites.
+    conv_apply takes a residual and relu where any site of the geometry
+    does. Returns (the body's timings, the site-weighted sums)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_conv as fc
+
+    geoms = resnet_conv_geometries()
+    n = RESNET_BATCH
+    names = ("conv_moments", "conv_apply", "conv_moments_plain",
+             "conv_apply_plain", "f_conv2d", "bound")
+    total = dict.fromkeys(names, 0.0)
+    body = None
+    for (c, o, k, stride, hw), g in geoms.items():
+        residual, relu = g["residual"] > 0, g["relu"] > 0
+        x, w, gm, b, mean, var, res = _conv_case(torch, gen, dev, c, o, k,
+                                                 stride, hw, residual)
+        scale, shift = fc._scale_shift(gm, b, mean, var, 1e-5)
+        pad = (k - 1) // 2
+        ho = (hw - 1) // stride + 1
+        out = n * o * ho * ho
+        conv_flops = 2 * out * c * k * k
+        nbytes = 4 * (x.numel() + w.numel() + out + 2 * o)
+        bnd, by, bnd_fma = conv_bound(nbytes, conv_flops)
+        t = dict(
+            conv_moments=time_ms(lambda: fc.conv_moments(x, w, stride),
+                                 iters=20),
+            conv_apply=time_ms(lambda: fc.conv_apply(
+                x, w, scale, shift, res, relu, stride), iters=20),
+            conv_moments_plain=time_ms(
+                lambda: fc.conv_moments_plain(x, w, stride), iters=20),
+            conv_apply_plain=time_ms(lambda: fc.conv_apply_plain(
+                x, w, scale, shift, res, relu, stride), iters=20),
+            f_conv2d=time_ms(lambda: F.conv2d(x, w, stride=stride,
+                                              padding=pad), iters=20),
+            bound=bnd)
+        for key in names:
+            total[key] += g["sites"] * t[key]
+        emit(dict({"phase": "conv_geometry",
+                   "geometry": "%dx%d%s %d->%d @%d" % (
+                       k, k, " s2" if stride == 2 else "", c, o, hw),
+                   "x": [n, c, hw, hw], "w": [o, c, k, k], "stride": stride,
+                   "sites": g["sites"], "residual_sites": g["residual"],
+                   "relu_sites": g["relu"], "apply_residual": residual,
+                   "apply_relu": relu, "bound_by": by,
+                   "bound_ms_f32_fma": bnd_fma, "flops": conv_flops,
+                   "bytes": nbytes,
+                   "conv_moments_tflops": conv_flops / t["conv_moments"]
+                   / 1e9,
+                   "moments_over_f_conv2d": t["conv_moments"]
+                   / t["f_conv2d"],
+                   "apply_over_f_conv2d": t["conv_apply"] / t["f_conv2d"]},
+                  **t))
+        if (c, o, k, stride, hw) == (64, 64, 3, 1, 56):
+            body = dict(t, bound_by=by, bound_ms_f32_fma=bnd_fma,
+                        shape=[n, c, hw, hw, o, k], bytes=nbytes,
+                        flops=conv_flops)
+        del x, w, res
+    sites = sum(g["sites"] for g in geoms.values())
+    emit({"phase": "conv_geometry_sum", "geometries": len(geoms),
+          "sites": sites, "site_weighted_ms": total})
+    check(sites == RESNET_PER_STEP["conv_moments"] and body is not None,
+          "fused-conv geometries: %d sites, body found %s" % (
+              sites, body is not None))
+    return body, total
+
+
+def _conv_kernel_timing(torch, dev):
+    """The three fused-conv kernels, batch 128, f32: rows 10 and 12 on the
+    3x3 64 -> 64 body at 56x56 (and at every fused geometry of ResNet-50,
+    see :func:`_conv_geometry_timing`), row 11 on the 256-channel expand at
+    56x56 with residual and relu. The library yardstick of rows 10 and 12
+    is cuDNN's F.conv2d alone (TF32 off): no single PyTorch call computes
+    the conv with its moments or with a folded BN. Their bound is the
+    tensor cores' (3xTF32), the f32 FMA bound beside it."""
+    from paddle_tpu_torch.ops import fused_conv as fc
+
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    n, hw, c, o, k = RESNET_BATCH, 56, 64, 64, 3
-    x, w, g, b, mean, var, _ = _conv_case(torch, gen, dev, c, o, k, 1, hw,
-                                          False)
-    scale, shift = fc._scale_shift(g, b, mean, var, 1e-5)
-    out = n * hw * hw * o
-    conv_flops = 2 * out * c * k * k
-    nbytes = 4 * (x.numel() + w.numel() + out + 2 * o)
-    lib = time_ms(lambda: F.conv2d(x, w, padding=1), iters=20)
+    body, total = _conv_geometry_timing(torch, dev, gen)
     rows = {}
-    bnd, by = bound(nbytes, conv_flops + 3 * out)
-    rows["conv_moments"] = dict(
-        ms=time_ms(lambda: fc.conv_moments(x, w, 1), iters=20),
-        plain_ms=time_ms(lambda: fc.conv_moments_plain(x, w, 1), iters=20),
-        library_ms=lib, library="F.conv2d alone (cuDNN, TF32 off): conv "
-        "only, no moments", bound_ms=bnd, bound_by=by,
-        shape=[n, c, hw, hw, o, k], bytes=nbytes, flops=conv_flops + 3 * out)
-    bnd, by = bound(nbytes, conv_flops + 3 * out)
-    rows["conv_apply"] = dict(
-        ms=time_ms(lambda: fc.conv_apply(x, w, scale, shift, None, True, 1),
-                   iters=20),
-        plain_ms=time_ms(lambda: fc.conv_apply_plain(x, w, scale, shift,
-                                                     None, True, 1),
-                         iters=20),
-        library_ms=lib, library="F.conv2d alone (cuDNN, TF32 off): conv "
-        "only, no folded BN", bound_ms=bnd, bound_by=by,
-        shape=[n, c, hw, hw, o, k], bytes=nbytes, flops=conv_flops + 3 * out)
-    del x
+    for name, lib in (("conv_moments", "moments"),
+                      ("conv_apply", "folded BN")):
+        rows[name] = dict(
+            ms=body[name], plain_ms=body[name + "_plain"],
+            library_ms=body["f_conv2d"],
+            library="F.conv2d alone (cuDNN, TF32 off): conv only, no " + lib,
+            bound_ms=body["bound"], bound_by=body["bound_by"],
+            bound_ms_f32_fma=body["bound_ms_f32_fma"], shape=body["shape"],
+            bytes=body["bytes"], flops=body["flops"],
+            site_weighted_ms=total[name])
+    n, hw = RESNET_BATCH, 56
     o = 256
     co = torch.randn(n, o, hw, hw, generator=gen, device=dev)
     res = torch.randn(n, o, hw, hw, generator=gen, device=dev)
@@ -1629,13 +1810,16 @@ def phase_resnet_train_check(torch, smi_line, batch=2):
     return loss[0]
 
 
-def phase_resnet_train(torch, smi_line, warmup=3, steps=10, prof_steps=2):
+def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
+                       prof_steps=2):
     """The main path: ResNet-50 trained with Adam(1e-4) at batch 128 (224
     x 224 x 3, 1000 classes, f32) on one fixed batch. Launch counts are
     zeroed just before the first step and read after the last; every step
     must launch conv_moments and bn_apply 49 times each and nothing else of
     the port's. The fusion report must hold 53 sites, the four declined
-    ones those of RESNET_DECLINED, each for its geometry."""
+    ones those of RESNET_DECLINED, each for its geometry. The profiled
+    conv_moments ms per step is printed beside ``conv_site_ms``, the sum of
+    its per-geometry times weighted by sites (phase ``conv_geometry``)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core.executor import fused_ops
 
@@ -1703,6 +1887,9 @@ def phase_resnet_train(torch, smi_line, warmup=3, steps=10, prof_steps=2):
           "top_other_kernels": top_other,
           "profiled_wall_ms_per_step": prof_wall_ms,
           "device_busy_share": busy / (med * 1e3),
+          "conv_moments_ms_per_step": {
+              "profiled": device_ms["conv_moments"],
+              "site_weighted_timing": conv_site_ms},
           "fusion": {"sites": len(report.fused), "refused":
                      [str(r) for r in report.refused],
                      "kernel_sites": len(sites) - len(declined),
@@ -1717,6 +1904,8 @@ def phase_resnet_train(torch, smi_line, warmup=3, steps=10, prof_steps=2):
           "declined sites %s, kernels %s" % (declined, kernels_used))
     check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
     check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
+    check(device_ms["conv_moments"] > 0 and device_ms["conv_apply"] == 0,
+          "profiled conv kernels not recognised: %s" % device_ms)
     n_steps = warmup + steps + prof_steps
     check(launches == {k: n * n_steps for k, n in RESNET_PER_STEP.items()},
           "resnet_train launches %s" % launches)
@@ -1816,7 +2005,8 @@ def main():
     phase_train_check(torch, smi_line)
     paths["train"] = phase_train(torch, smi_line)
     phase_resnet_train_check(torch, smi_line)
-    paths["resnet_train"], trained = phase_resnet_train(torch, smi_line)
+    paths["resnet_train"], trained = phase_resnet_train(
+        torch, smi_line, times["conv_moments"]["site_weighted_ms"])
     paths["resnet_eval"] = phase_resnet_eval(torch, smi_line, trained)
     del trained
     phase_deepfm_train_check(torch, smi_line)

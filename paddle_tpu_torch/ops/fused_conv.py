@@ -15,6 +15,13 @@ Replaces the Pallas TPU kernels of ``paddle_tpu/ops/fused_conv.py``:
   :292): the inference form, the BN affine (+ residual)(+ relu) in the
   conv's epilogue, ``co`` never stored.
 
+Arithmetic. The two conv kernels are one implicit GEMM on Hopper's tensor
+cores: each f32 operand splits into two TF32 parts, ``big`` and
+``small``, and three TF32 products (``small*big + big*small + big*big``)
+accumulate in f32 ("3xTF32"), which keeps the conv at f32-level accuracy
+with TF32 off. :func:`conv_3xtf32_emulated` repeats that split on the CPU
+for the tests; it is not on any path.
+
 The geometries are the reference's (``supported_geometry``): groups 1,
 dilation 1, 1x1 stride 1 or 2 (the kernel reads ``x[n, c, 2i, 2j]`` by
 strides, the same function as the reference's pre-slice at :491-493,
@@ -57,7 +64,7 @@ from . import _build
 __all__ = ["supported_geometry", "gate", "fused_conv_bn_act",
            "conv_moments", "bn_apply", "conv_apply", "conv_moments_plain",
            "bn_apply_plain", "conv_apply_plain", "bn_stats",
-           "epilogue_reference"]
+           "epilogue_reference", "tf32_round", "conv_3xtf32_emulated"]
 
 _BN = 128  # output pixels per block of the conv kernels (csrc/fused_conv.cu)
 
@@ -88,8 +95,8 @@ def gate(x_shape, w_shape, strides, paddings, dilations, groups, x=None):
     (None when admitted). Only the geometry declines a site (the
     reference's ``supported_geometry``; it then replays its original ops).
     An admitted site runs the plain versions when ``x`` lies on the CPU and
-    the CUDA kernels otherwise, whose wrappers raise for a tensor they
-    cannot take. bf16 and f16 ``x`` raise ``NotImplementedError`` until AMP
+    the CUDA kernels otherwise (3xTF32 tensor-core products with f32
+    accumulation), whose wrappers raise for a tensor they cannot take. bf16 and f16 ``x`` raise ``NotImplementedError`` until AMP
     is ported."""
     if not supported_geometry(x_shape, w_shape, strides, paddings,
                               dilations, groups):
@@ -137,6 +144,33 @@ def conv_moments_plain(x, w, stride):
     co = _conv_plain(x, w, stride)
     cof = co.float()
     return co, cof.sum(dim=(0, 2, 3)), (cof * cof).sum(dim=(0, 2, 3))
+
+
+def tf32_round(t):
+    """f32 ``t`` rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero on the bit pattern, as ``cvt.rna.tf32.f32`` rounds
+    on the card. Finite values only."""
+    bits = t.float().contiguous().view(torch.int32).to(torch.int64)
+    bits = (bits + 0x1000) & ~0x1FFF
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def conv_3xtf32_emulated(x, w, stride, passes=3):
+    """The conv kernels' products on the CPU, for the tests: x and w split
+    into ``big = tf32(a)`` and ``small = tf32(a - big)``; ``passes=3`` sums
+    ``small*big + big*small + big*big`` (the kernels' 3xTF32), ``passes=1``
+    takes ``big*big`` alone (a single TF32 product). The products and their
+    sum are exact in float64, so the result differs from the exact conv only
+    by the split and the final rounding to f32."""
+    xb, wb = tf32_round(x), tf32_round(w)
+
+    def conv(a, b):
+        return _conv_plain(a.double(), b.double(), stride)
+
+    if passes == 1:
+        return conv(xb, wb).float()
+    xs, ws = tf32_round(x.float() - xb), tf32_round(w.float() - wb)
+    return (conv(xs, wb) + conv(xb, ws) + conv(xb, wb)).float()
 
 
 def _affine(y, scale, shift):

@@ -308,6 +308,15 @@ CONV_CASES = [
     (2, 16, 24, 1, 2, 9, False, False),  # odd H: Ho = 5
     (5, 32, 70, 3, 1, 7, True, True),    # H*W = 49, ragged channel tile
     (1, 3, 5, 3, 1, 5, False, False),    # fewer pixels than one tile
+    (3, 40, 200, 3, 1, 9, True, True),   # C % 32 != 0 (taps split a
+                                         # chunk), O = 200: 128 + 72
+    (3, 20, 48, 1, 1, 8, False, True),   # O < 64, 16-byte pixel copies
+    (4, 16, 96, 3, 1, 7, False, True),   # a 128-pixel tile over three
+                                         # 49-pixel images, no 16-byte path
+    (3, 37, 130, 1, 2, 11, True, False),  # stride 2, odd H, K % 4 != 0
+    (2, 10, 72, 1, 1, 8, True, True),    # 16-byte pixels, 4-byte W rows
+    (2, 64, 64, 3, 1, 56, False, True),  # ResNet-50's body, two images
+    (8, 512, 512, 3, 1, 7, False, True),  # K = 4608: 144 chunks
 ]
 
 
@@ -342,6 +351,39 @@ def test_fused_conv_kernels_match_plain(dev, n, cin, cout, k, stride, hw,
     for got, want in ((co, wco), (s1, ws1), (s2, ws2), (y, wy), (ya, wya)):
         assert got.shape == want.shape
         assert _rel_err(got, want) <= 1e-4
+
+
+def test_fused_conv_moments_are_deterministic(dev):
+    """Partial sums per tile, reduced in a fixed order: two runs on the
+    same input agree bit for bit."""
+    gen = torch.Generator().manual_seed(8)
+    x, w, _, _, _ = _conv_inputs(gen, 8, 64, 64, 3, 1, 28, False, dev)
+    first = tfc.conv_moments(x, w, 1)
+    second = tfc.conv_moments(x, w, 1)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cin,cout,k,hw", [(64, 64, 3, 56),
+                                           (512, 512, 3, 7),
+                                           (512, 2048, 1, 7)])
+def test_fused_conv_tracks_f64_like_cudnn_f32(dev, cin, cout, k, hw):
+    """3xTF32 with f32 accumulation against an f64 conv: max abs and
+    relative L2 error at most twice cuDNN's f32 conv (TF32 off). A single
+    TF32 product would be about 1000 times off."""
+    gen = torch.Generator().manual_seed(9)
+    x, w, _, _, _ = _conv_inputs(gen, 4, cin, cout, k, 1, hw, False, dev)
+    pad = (k - 1) // 2
+    exact = torch.nn.functional.conv2d(x.double(), w.double(), padding=pad)
+
+    def errs(t):
+        d = t.double() - exact
+        return d.abs().max().item(), (d.norm() / exact.norm()).item()
+
+    got = errs(tfc.conv_moments(x, w, 1)[0])
+    lib = errs(torch.nn.functional.conv2d(x, w, padding=pad))
+    assert got[0] <= 2 * lib[0] and got[1] <= 2 * lib[1], (got, lib)
 
 
 def test_fused_conv_train_function_matches_plain_autograd(dev):

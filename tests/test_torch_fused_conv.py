@@ -219,3 +219,53 @@ def test_plain_versions_compose_to_the_unfused_chain(rng):
     y = tfc.conv_apply_plain(x, w, scale, b - mean * scale, r, True, 1)
     want = tfc.epilogue_reference(want_co, g, b, r, mean, var, 1e-5, True)
     np.testing.assert_allclose(y.numpy(), want.numpy(), **FWD_TOL)
+
+
+TF32_CASES = [  # (f32 value, its TF32 rounding: nearest, ties away from 0)
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),        # tie: away, not to even
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),  # tie below zero: away
+    (1.0 + 2.0 ** -11 - 2.0 ** -23, 1.0),        # just below the tie
+    (1.0 + 3 * 2.0 ** -11, 1.0 + 2.0 ** -9),     # tie from an odd ulp
+    (-3.0 * 2.0 ** -30, -3.0 * 2.0 ** -30),      # already TF32
+]
+
+
+@pytest.mark.parametrize("value,want", TF32_CASES)
+def test_tf32_round_is_nearest_ties_away(value, want):
+    """``cvt.rna.tf32.f32``'s rounding, which the kernels' split uses."""
+    got = tfc.tf32_round(torch.tensor([value], dtype=torch.float32))
+    assert got.item() == want
+
+
+def test_tf32_split_keeps_22_bits(rng):
+    """big + small, both TF32, is the f32 value within 2^-22 of its
+    magnitude: the part of a product that 3xTF32 keeps."""
+    a = torch.from_numpy((rng.randn(4096) * 10.0 ** rng.randint(-6, 7, 4096))
+                         .astype("f4"))
+    big = tfc.tf32_round(a)
+    small = tfc.tf32_round(a - big)
+    for part in (big, small):
+        assert torch.equal(tfc.tf32_round(part), part)
+    err = (big.double() + small.double() - a.double()).abs()
+    assert bool((err <= 2.0 ** -22 * a.double().abs()).all())
+
+
+def test_3xtf32_tracks_f64_and_single_tf32_does_not(rng):
+    """At K = 4608 (ResNet-50's 3x3 512 -> 512 at 7x7) the kernels' three
+    TF32 products stay within f32-level error of an f64 conv (relative L2
+    at most 2^-21, and at most twice the CPU's own f32 conv), while a
+    single TF32 product is off by more than 2^-14: the f64 check on the
+    card tells the two designs apart."""
+    x = torch.from_numpy(rng.randn(1, 512, 7, 7).astype("f4"))
+    w = torch.from_numpy((rng.randn(512, 512, 3, 3) * (2.0 / 4608) ** 0.5)
+                         .astype("f4"))
+    exact = torch.nn.functional.conv2d(x.double(), w.double(), padding=1)
+
+    def rel_l2(t):
+        return ((t.double() - exact).norm() / exact.norm()).item()
+
+    three = rel_l2(tfc.conv_3xtf32_emulated(x, w, 1))
+    one = rel_l2(tfc.conv_3xtf32_emulated(x, w, 1, passes=1))
+    f32 = rel_l2(torch.nn.functional.conv2d(x, w, padding=1))
+    assert three <= 2.0 ** -21 and three <= 2 * f32, (three, f32)
+    assert one >= 2.0 ** -14 and one >= 100 * three, (one, three)
