@@ -5,13 +5,18 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, holds
-each against its plain PyTorch version on the card (the conv kernels also
-against an f64 conv, beside cuDNN's f32 one, and for bitwise equal moments
-across two runs), times it (the conv kernels at each of ResNet-50's
-distinct fused geometries, read from the fusion's record of the built
-program), and then drives the port's main paths at full width, each with
-the kernels' launch counts set to 0 just before it and read just after:
+It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, checks
+in their SASS that the conv and flash kernels run on the tensor cores,
+holds each kernel against its plain PyTorch version on the card (the conv
+kernels also against an f64 conv, beside cuDNN's f32 one, and for bitwise
+equal moments across two runs; the flash kernels at head dims 12 to 512,
+with a rich bias, and against an f64 attention, beside the plain
+version's f32 one), times
+it (the conv kernels at each of ResNet-50's distinct fused geometries,
+read from the fusion's record of the built program; the flash forward at
+the served and the training shape), and then drives the port's main paths
+at full width, each with the kernels' launch counts set to 0 just before
+it and read just after:
 
 * serving BERT-base (vocab 30522, seq 128, d_model 768, d_ff 3072, 12
   heads, 12 layers; random weights from seed 11): layers -> Program ->
@@ -58,9 +63,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s, f32 FLOP/s on the CUDA
-# cores (every kernel but the convs does its arithmetic there, in f32), and
-# TF32 FLOP/s on the tensor cores, where the conv kernels run each f32
-# product as three TF32 products (3xTF32)
+# cores (the LayerNorm, CE and scatter kernels do their arithmetic there,
+# in f32), and TF32 FLOP/s on the tensor cores, where the conv and flash
+# kernels run each f32 product as three TF32 products (3xTF32)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
@@ -177,12 +182,12 @@ def bound(nbytes, flops, flops_s=F32_FLOPS):
             else "operations")
 
 
-def conv_bound(nbytes, conv_flops):
-    """The conv kernels' bound: their 3 x conv_flops TF32 tensor-core
-    operations (3xTF32) or their bytes, and beside it the bound of the same
-    conv on the f32 FMA pipes."""
-    bnd, by = bound(nbytes, 3 * conv_flops, TF32_FLOPS)
-    return bnd, by, bound(nbytes, conv_flops)[0]
+def tensor_core_bound(nbytes, flops):
+    """The bound of the conv and flash kernels (rows 1-6, 10, 12): their
+    3 x flops TF32 tensor-core operations (3xTF32) or their bytes, and
+    beside it the bound of the same work on the f32 FMA pipes."""
+    bnd, by = bound(nbytes, 3 * flops, TF32_FLOPS)
+    return bnd, by, bound(nbytes, flops)[0]
 
 
 def phase_device(torch):
@@ -206,34 +211,51 @@ def phase_build():
     per_lib = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": per_lib, "nvcc": _build.nvcc_path()})
-    _conv_sass_check(_build)
+    _sass_check(_build)
 
 
-def _conv_sass_check(_build):
+# library, kernel template, instantiations it has: the kernels whose
+# products must run on the tensor cores
+SASS_KERNELS = (("fused_conv", "conv_kernel", 2),
+                ("flash_attention_fwd", "flash_fwd_kernel", 36),
+                ("flash_attention_bwd", "flash_bwd_kernel", 12))
+
+
+def _sass_check(_build):
     """Every instantiation of the conv kernel (conv_moments' and
-    conv_apply's) must carry its products on the tensor cores: cuobjdump's
-    SASS of the built library shows HMMA instructions in each."""
+    conv_apply's) and of the flash forward and backward kernels (every
+    head-dim width, f32 and bf16, padding-mask and per-query bias) must
+    carry its products on the tensor cores: cuobjdump's SASS of each built
+    library shows HMMA instructions in each."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", _build._lib_path("fused_conv")],
-                          capture_output=True, text=True, timeout=300)
-    check(sass.returncode == 0, "cuobjdump failed: " + sass.stderr[-2000:])
-    hmma = {}
-    for fn in sass.stdout.split("Function : ")[1:]:
-        name = fn.split(None, 1)[0]
-        if "conv_kernel" in name:
-            hmma[name] = sum(ln.split()[1].startswith("HMMA")
-                             for ln in fn.splitlines()
-                             if len(ln.split()) > 1)
-    emit({"phase": "sass", "library": "fused_conv",
-          "hmma_per_conv_kernel": hmma})
-    check(len(hmma) >= 2 and all(hmma.values()),
-          "conv kernels without HMMA: %s" % hmma)
+    for lib, kernel, n_inst in SASS_KERNELS:
+        sass = subprocess.run([tool, "-sass", _build._lib_path(lib)],
+                              capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0,
+              "cuobjdump failed: " + sass.stderr[-2000:])
+        hmma = {}
+        for fn in sass.stdout.split("Function : ")[1:]:
+            name = fn.split(None, 1)[0]
+            if kernel in name:
+                hmma[name] = sum(ln.split()[1].startswith("HMMA")
+                                 for ln in fn.splitlines()
+                                 if len(ln.split()) > 1)
+        emit({"phase": "sass", "library": lib, "kernel": kernel,
+              "instantiations": len(hmma), "hmma_per_instantiation": hmma})
+        check(len(hmma) >= n_inst and all(hmma.values()),
+              "%s instantiations without HMMA: %s" % (kernel, hmma))
 
 
 def _padding_bias(torch, gen, b, tk, dev):
     lengths = torch.randint(1, tk + 1, (b,), generator=gen)
     return torch.where(torch.arange(tk)[None] < lengths[:, None], 0.0,
                        -1e9).to(dev)
+
+
+def _rich_bias(torch, gen, b, h, tq, tk, dev):
+    """A bias with one offset per (b, h, t, j), as relative positions give:
+    the kernels read it by strides."""
+    return torch.randn(b, h, tq, tk, generator=gen).to(dev)
 
 
 def phase_flash_check(torch, dev):
@@ -245,23 +267,40 @@ def phase_flash_check(torch, dev):
     b, t, h = 8, BERT["seq"], BERT["heads"]
     d = BERT["d_model"] // h
     cases = [
-        ("bert_f32", b, t, t, h, d, False, True, torch.float32, 1e-4),
-        ("bert_bf16", b, t, t, h, d, False, True, torch.bfloat16, 2e-2),
-        ("causal_square", 2, 128, 128, 4, 64, True, False, torch.float32,
+        # name, B, Tq, Tk, H, D, causal, bias (None, "key" padding mask,
+        # "full" one offset per logit), dtype, tolerance
+        ("bert_f32", b, t, t, h, d, False, "key", torch.float32, 1e-4),
+        ("bert_bf16", b, t, t, h, d, False, "key", torch.bfloat16, 2e-2),
+        ("causal_square", 2, 128, 128, 4, 64, True, None, torch.float32,
          1e-4),
-        ("causal_tq_lt_tk", 2, 64, 128, 4, 64, True, False, torch.float32,
+        ("causal_tq_lt_tk", 2, 64, 128, 4, 64, True, None, torch.float32,
          1e-4),
-        ("causal_tq_gt_tk", 2, 128, 64, 4, 64, True, False, torch.float32,
+        ("causal_tq_gt_tk", 2, 128, 64, 4, 64, True, None, torch.float32,
          1e-4),
+        # head dims 16 (width 16) and 512 (the columns split over 4 warps)
+        ("d16_causal_129", 2, 129, 129, 4, 16, True, None, torch.float32,
+         1e-4),
+        ("d16_bf16", 2, 65, 65, 4, 16, False, "key", torch.bfloat16, 2e-2),
+        ("d512_padded", 2, 65, 100, 2, 512, False, "key", torch.float32,
+         1e-4),
+        ("d512_bf16_causal", 1, 96, 96, 1, 512, True, None, torch.bfloat16,
+         2e-2),
+        # a rich bias, and head dim 12 (padded to 16 by the wrapper)
+        ("d12_full_bias_causal", 2, 65, 100, 3, 12, True, "full",
+         torch.float32, 1e-4),
+        ("d64_full_bias_bf16", 2, 128, 128, 4, 64, False, "full",
+         torch.bfloat16, 2e-2),
     ]
     errs = {}
-    for name, b_, tq, tk, h_, d_, causal, padded, dtype, tol in cases:
+    for name, b_, tq, tk, h_, d_, causal, bias_kind, dtype, tol in cases:
         q, k, v = (torch.randn(b_, n, h_ * d_, generator=gen).to(dev, dtype)
                    for n in (tq, tk, tk))
-        bias = (_padding_bias(torch, gen, b_, tk, dev)[:, None, None, :]
-                if padded else None)
-        kb = fa.key_bias(bias, b_, tk) if bias is not None else None
-        out, lse = fa.flash_attention_fwd(q, k, v, h_, kb, causal)
+        bias = None
+        if bias_kind == "key":
+            bias = _padding_bias(torch, gen, b_, tk, dev)[:, None, None, :]
+        elif bias_kind == "full":
+            bias = _rich_bias(torch, gen, b_, h_, tq, tk, dev)
+        out, lse = fa.flash_attention_fwd(q, k, v, h_, bias, causal)
         want, want_lse = fa.attention_plain(q.float(), k.float(), v.float(),
                                             h_, bias, causal)
         torch.cuda.synchronize()
@@ -271,8 +310,8 @@ def phase_flash_check(torch, dev):
         check(torch.equal(lse <= -1e30, ~live), name + ": masked rows differ")
         emit({"phase": "flash_attention_fwd", "case": name,
               "shape": [b_, tq, tk, h_, d_], "causal": causal,
-              "dtype": str(dtype), "max_abs_err": err, "lse_err": lse_err,
-              "tol": tol})
+              "bias": bias_kind, "dtype": str(dtype), "max_abs_err": err,
+              "lse_err": lse_err, "tol": tol})
         check(err <= tol and lse_err <= max(tol, 1e-4),
               "flash %s error %g (lse %g) > %g" % (name, err, lse_err, tol))
         errs[name] = err
@@ -333,7 +372,8 @@ def phase_flash_bwd_check(torch, dev):
     d = TRANSFORMER["d_model"] // h
     cases = [
         # name, B, Tq, Tk, H, D, causal, bias ("key", "key1" broadcast
-        # over B, "+grad": it requires grad), dropout rate
+        # over B, "full" one offset per logit, "+grad": it requires grad),
+        # dropout rate
         ("enc_self_bias_grad", b, t, t, h, d, False, "key+grad", 0.0),
         ("dec_self_causal", b, t, t, h, d, True, None, 0.0),
         ("enc_self_dropout_0.1", b, t, t, h, d, False, "key+grad", 0.1),
@@ -343,6 +383,15 @@ def phase_flash_bwd_check(torch, dev):
         ("causal_tq_gt_tk", 2, 128, 64, 4, 64, True, "key", 0.0),
         ("ragged_100x77_d32", 3, 100, 77, 2, 32, False, "key1+grad", 0.0),
         ("causal_d128_dropout_0.1", 2, 96, 96, 2, 128, True, "key", 0.1),
+        ("d16_causal_tq_gt_tk", 2, 129, 64, 4, 16, True, None, 0.0),
+        ("d16_bias_grad_dropout_0.1", 2, 65, 65, 4, 16, False, "key+grad",
+         0.1),
+        ("d512_bias_grad", 1, 70, 129, 2, 512, False, "key+grad", 0.0),
+        ("d512_causal_dropout_0.1", 1, 96, 96, 1, 512, True, None, 0.1),
+        ("d12_full_bias_grad_dropout_0.1", 2, 65, 100, 3, 12, False,
+         "full+grad", 0.1),
+        ("causal_full_bias_grad", 4, 256, 256, 8, 64, True, "full+grad",
+         0.0),
     ]
     errs = {}
     for i, (name, b_, tq, tk, h_, d_, causal, bias_kind, rate) in \
@@ -350,7 +399,9 @@ def phase_flash_bwd_check(torch, dev):
         q, k, v, dout = (torch.randn(b_, n, h_ * d_, generator=gen).to(dev)
                          for n in (tq, tk, tk, tq))
         kb = None
-        if bias_kind is not None:
+        if bias_kind is not None and bias_kind.startswith("full"):
+            kb = _rich_bias(torch, gen, b_, h_, tq, tk, dev)
+        elif bias_kind is not None:
             kb = _padding_bias(torch, gen, b_, tk, dev)
             if bias_kind.startswith("key1"):
                 kb = kb[:1]
@@ -377,7 +428,58 @@ def phase_flash_bwd_check(torch, dev):
             shape=[b_, tq, tk, h_, d_], causal=causal, bias=bias_kind,
             dropout=rate)
         del out, grads, want, want_grads, plain_in, inputs
+    _flash_f64_check(torch, dev)
     return errs
+
+
+def _flash_f64_check(torch, dev):
+    """At the training shape (the encoder self-attention call, key
+    padding bias) the kernels' out, dq, dk and dv and the plain version's
+    f32 ones (cuBLAS, TF32 off) against the plain version in f64 on the
+    same f32 inputs, by max abs and relative L2 error; fails if the
+    kernels' error is more than twice the plain f32 one in either (a
+    single TF32 pass would be about 1000 times off)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
+    h = TRANSFORMER["n_head"]
+    d = TRANSFORMER["d_model"] // h
+    q, k, v, dout = (torch.randn(b, t, h * d, generator=gen).to(dev)
+                     for _ in range(4))
+    kb = _padding_bias(torch, gen, b, t, dev)
+
+    def run(fn, dtype):
+        ins = [x.to(dtype).clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(ins, kb.to(dtype))
+        return [out.detach()] + list(torch.autograd.grad(
+            out, ins, dout.to(dtype)))
+
+    def plain(ins, bias):
+        return fa.attention_plain(*ins, h, bias)[0]
+
+    exact = run(plain, torch.float64)
+    ref = run(plain, torch.float32)
+    got = run(lambda ins, bias: fa._FlashAttention.apply(
+        *ins, bias, None, h, False, 0.0), torch.float32)
+    torch.cuda.synchronize()
+
+    def errs(x, want):
+        dd = x.double() - want
+        return {"max_abs_err": dd.abs().max().item(),
+                "rel_l2": (dd.norm() / want.norm()).item()}
+
+    names = ("out", "dq", "dk", "dv")
+    kernel = {n: errs(g, e) for n, g, e in zip(names, got, exact)}
+    plain_f32 = {n: errs(r, e) for n, r, e in zip(names, ref, exact)}
+    emit({"phase": "flash_attention_f64", "shape": [b, t, t, h, d],
+          "bias": "key", "kernel": kernel, "plain_f32": plain_f32,
+          "ratio": {n: {e: kernel[n][e] / plain_f32[n][e]
+                        for e in kernel[n]} for n in names},
+          "tol": "kernel <= 2 x plain f32, each error"})
+    check(all(kernel[n][e] <= 2 * plain_f32[n][e] for n in names
+              for e in kernel[n]),
+          "flash errors against f64 %s, plain f32 %s" % (kernel, plain_f32))
 
 
 def phase_ln_bwd_check(torch, dev):
@@ -472,33 +574,11 @@ def phase_timing(torch, dev):
     yardstick (timed here only; the port never calls it), and its bound."""
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_layer_norm as fln
 
     gen = torch.Generator().manual_seed(SEED)
-    b, t, h = 8, BERT["seq"], BERT["heads"]
-    hd = BERT["d_model"]
-    d = hd // h
-    q, k, v = (torch.randn(b, t, hd, generator=gen).to(dev) for _ in range(3))
-    bias4 = _padding_bias(torch, gen, b, t, dev)[:, None, None, :]
-    kb = fa.key_bias(bias4, b, t)
-
-    def split(x):
-        return x.view(b, t, h, d).transpose(1, 2)
-
-    qh, kh, vh = split(q), split(k), split(v)
-    rows = {}
-    nbytes = 4 * (4 * b * t * hd + b * t + b * h * t)
-    flops = 4 * b * h * t * t * d
-    bnd, by = bound(nbytes, flops)
-    rows["flash_attention_fwd"] = dict(
-        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb)),
-        plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, bias4)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=bias4)),
-        bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes,
-        flops=flops)
-
+    rows = flash_kernel_timing(torch, dev, gen)
+    b, t, hd = 8, BERT["seq"], BERT["d_model"]
     n_rows = b * t
     x = torch.randn(n_rows, hd, generator=gen).to(dev)
     g = torch.randn(hd, generator=gen).to(dev)
@@ -520,23 +600,41 @@ def phase_timing(torch, dev):
     return rows
 
 
-def _train_kernel_timing(torch, dev, gen):
-    """The three training kernels at Transformer-base's training shapes
-    (128 x 256 tokens, f32), each beside its plain version, one PyTorch
-    call as a yardstick where one computes the same function (timed here
-    only; the port never calls it), and its bound."""
+def flash_kernel_timing(torch, dev, gen):
+    """The flash kernels (rows 1-6), f32, key padding bias, each beside its
+    plain version, ``F.scaled_dot_product_attention`` as a yardstick (timed
+    here only; the port never calls it) and its bound: the forward at
+    BERT-base's served shape (8 x 128 tokens, 12 heads of 64) with the
+    training shape's row in ``trained_shape``, and the backward at
+    Transformer-base's training shape (128 x 256 tokens, 8 heads of 64,
+    the encoder self-attention call). ``tools/flash_ab.py`` times another
+    checkout's kernels through this function."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import fused_ce as fce
-    from paddle_tpu_torch.ops import fused_layer_norm as fln
 
     rows = {}
+    b, t, h = 8, BERT["seq"], BERT["heads"]
+    hd = BERT["d_model"]
+    d = hd // h
+    q, k, v = (torch.randn(b, t, hd, generator=gen).to(dev) for _ in range(3))
+    kb = _padding_bias(torch, gen, b, t, dev)
+    bias4 = kb[:, None, None, :]
+    qh, kh, vh = (x.view(b, t, h, d).transpose(1, 2) for x in (q, k, v))
+    nbytes = 4 * (4 * b * t * hd + b * t + b * h * t)
+    flops = 4 * b * h * t * t * d
+    bnd, by, bnd_fma = tensor_core_bound(nbytes, flops)
+    rows["flash_attention_fwd"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb)),
+        plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, bias4)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias4)),
+        bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma,
+        shape=[b, t, t, h, d], bytes=nbytes, flops=flops)
+
     b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
     h, hd = TRANSFORMER["n_head"], TRANSFORMER["d_model"]
     d = hd // h
-
-    # flash backward: the encoder self-attention call (key padding bias)
     q, k, v, dout = (torch.randn(b, t, hd, generator=gen).to(dev)
                      for _ in range(4))
     kb = _padding_bias(torch, gen, b, t, dev)
@@ -548,12 +646,27 @@ def _train_kernel_timing(torch, dev, gen):
         return x.view(b, t, h, d).transpose(1, 2)
 
     lib_in = [split(x).detach().requires_grad_(True) for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*lib_in,
-                                             attn_mask=kb[:, None, None, :])
+    mask = kb[:, None, None, :]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask)
     lib_dout = split(dout)
+
+    # flash forward at the same shape: the step launches it 18 times
+    nbytes = 4 * (4 * b * t * hd + b * t + b * h * t)
+    flops = 4 * b * h * t * t * d
+    bnd, by, bnd_fma = tensor_core_bound(nbytes, flops)
+    rows["flash_attention_fwd"]["trained_shape"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb), iters=20),
+        plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, kb),
+                         iters=20),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            split(q), split(k), split(v), attn_mask=mask), iters=20),
+        library="F.scaled_dot_product_attention",
+        bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma,
+        shape=[b, t, t, h, d], bytes=nbytes, flops=flops)
+
     nbytes = 4 * (8 * b * t * hd + b * h * t + b * t)
     flops = 10 * b * h * t * t * d
-    bnd, by = bound(nbytes, flops)
+    bnd, by, bnd_fma = tensor_core_bound(nbytes, flops)
     rows["flash_attention_bwd"] = dict(
         ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, h,
                                                   kb), iters=20),
@@ -562,9 +675,24 @@ def _train_kernel_timing(torch, dev, gen):
         library_ms=time_ms(lambda: torch.autograd.grad(
             lib_out, lib_in, lib_dout, retain_graph=True), iters=20),
         library="F.scaled_dot_product_attention backward (autograd)",
-        bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes,
-        flops=flops)
-    del plain_out, plain_in, lib_out, lib_in
+        bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma,
+        shape=[b, t, t, h, d], bytes=nbytes, flops=flops)
+    return rows
+
+
+def _train_kernel_timing(torch, dev, gen):
+    """The LayerNorm backward and fused CE kernels at Transformer-base's
+    training shapes (128 x 256 tokens, f32), each beside its plain version,
+    one PyTorch call as a yardstick where one computes the same function
+    (timed here only; the port never calls it), and its bound."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_ce as fce
+    from paddle_tpu_torch.ops import fused_layer_norm as fln
+
+    rows = {}
+    b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
+    hd = TRANSFORMER["d_model"]
 
     # LayerNorm backward: one [B*T, 512] normalisation
     n = b * t
@@ -961,12 +1089,15 @@ def _profile_steps(torch, run_step, steps):
             sorted(other, key=lambda r: -r[1])[:8])
 
 
-def phase_train(torch, smi_line, warmup=3, steps=20, prof_steps=3):
+def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
+                prof_steps=3):
     """The main path: Transformer-base trained with dropout 0.1 and
     Adam(1e-4) at 128 x 256 tokens per step on one fixed batch (an
     overfit check). Launch counts are zeroed just before the first step
     and read after the last; every step must launch each kernel exactly
-    PER_STEP times."""
+    PER_STEP times. The flash kernels' profiled ms per step is printed
+    beside ``flash_ms`` (the ``timing`` phase's ms at the training shape)
+    times their launches per step."""
     import paddle_tpu_torch as fluid
 
     t0 = time.perf_counter()
@@ -1025,10 +1156,17 @@ def phase_train(torch, smi_line, warmup=3, steps=20, prof_steps=3):
           "profiled_wall_ms_per_step": prof_wall_ms,
           "device_busy_share": busy / (med * 1e3),
           "fused_ce_share_of_device": device_ms["fused_ce_fwd"] / busy,
+          "flash_ms_per_step": {
+              name: {"profiled": device_ms[name],
+                     "timing_x_launches": flash_ms[name] * PER_STEP[name]}
+              for name in ("flash_attention_fwd", "flash_attention_bwd")},
           "launches": launches, "launches_per_step": PER_STEP,
           "setup_s": setup_s, "device": smi_line})
     check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
     check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
+    check(device_ms["flash_attention_fwd"] > 0
+          and device_ms["flash_attention_bwd"] > 0,
+          "profiled flash kernels not recognised: %s" % device_ms)
     n_steps = warmup + steps + prof_steps
     check(launches == {k: n * n_steps for k, n in PER_STEP.items()},
           "train launches %s" % launches)
@@ -1269,7 +1407,7 @@ def _conv_geometry_timing(torch, dev, gen):
         out = n * o * ho * ho
         conv_flops = 2 * out * c * k * k
         nbytes = 4 * (x.numel() + w.numel() + out + 2 * o)
-        bnd, by, bnd_fma = conv_bound(nbytes, conv_flops)
+        bnd, by, bnd_fma = tensor_core_bound(nbytes, conv_flops)
         t = dict(
             conv_moments=time_ms(lambda: fc.conv_moments(x, w, stride),
                                  iters=20),
@@ -2003,7 +2141,10 @@ def main():
     times = phase_timing(torch, dev)
     paths = {"serve": phase_serve(torch, smi_line)}
     phase_train_check(torch, smi_line)
-    paths["train"] = phase_train(torch, smi_line)
+    paths["train"] = phase_train(torch, smi_line, {
+        "flash_attention_fwd": times["flash_attention_fwd"][
+            "trained_shape"]["ms"],
+        "flash_attention_bwd": times["flash_attention_bwd"]["ms"]})
     phase_resnet_train_check(torch, smi_line)
     paths["resnet_train"], trained = phase_resnet_train(
         torch, smi_line, times["conv_moments"]["site_weighted_ms"])
@@ -2044,6 +2185,9 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library": r.get("library")})
+        for key in ("bound_ms_f32_fma", "trained_shape"):
+            if key in r:
+                kernels[-1][key] = r[key]
     print(smi_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

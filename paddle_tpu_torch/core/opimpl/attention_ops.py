@@ -1,5 +1,6 @@
 """The ``flash_attention`` op: bridge to ``paddle_tpu_torch.ops``
-(``paddle_tpu/core/opimpl/attention_ops.py:13``)."""
+(``paddle_tpu/core/opimpl/attention_ops.py:13``); it records the gate's
+decision in ``op.attrs["_kernel_choice"]``, as the reference does."""
 
 from ..op_registry import register, get, put, next_rng
 
@@ -14,5 +15,5 @@ def _flash_attention_op(env, op):
         get(env, op.input("V")), op.attr("num_heads", 1),
         bias=get(env, op.input("Bias")), causal=op.attr("causal", False),
         dropout_rate=dropout,
-        generator=next_rng(env) if dropout > 0.0 else None)
+        generator=next_rng(env) if dropout > 0.0 else None, op=op)
     put(env, op.output("Out"), out)

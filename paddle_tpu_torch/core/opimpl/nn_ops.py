@@ -44,12 +44,9 @@ def _pool2d(env, op):
             else x.mean(dim=(2, 3), keepdim=True)
         put(env, op.output("Out"), out)
         return
-    if ptype == "max":
-        put(env, op.output("Out"), F.max_pool2d(
-            x, ksize, strides, pads, ceil_mode=ceil_mode))
-        return
-    # average: sum over windows of the zero-padded input (padded on the
-    # high side too in ceil mode, as the reference pads)
+    # ceil mode extends the high-side padding so that the last window
+    # fits, as the reference pads; that window is kept even where it
+    # starts in the padding (torch's ceil_mode would drop it)
     hi = [0, 0]
     if ceil_mode:
         for i in range(2):
@@ -57,6 +54,15 @@ def _pool2d(env, op):
             out_i = -(-(size - ksize[i]) // strides[i]) + 1
             hi[i] = max(0, (out_i - 1) * strides[i] + ksize[i] - size)
     cfg = (pads[1], pads[1] + hi[1], pads[0], pads[0] + hi[0])
+    if ptype == "max":
+        if hi == [0, 0] and all(p <= k // 2 for p, k in zip(pads, ksize)):
+            out = F.max_pool2d(x, ksize, strides, pads)  # pads with -inf
+        else:
+            out = F.max_pool2d(F.pad(x, cfg, value=float("-inf")), ksize,
+                               strides)
+        put(env, op.output("Out"), out)
+        return
+    # average: sum over windows of the zero-padded input
     area = float(ksize[0] * ksize[1])
     s = F.avg_pool2d(F.pad(x, cfg), ksize, strides) * area
     if op.attr("exclusive", True) and (pads != (0, 0) or ceil_mode):

@@ -73,6 +73,8 @@
 #include <atomic>
 #include <cstdint>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr int BN = 128, BK = 32, THREADS = 256;
@@ -101,56 +103,6 @@ struct Geo {
   int wvec;  // W rows in 16-byte copies: K % 4 == 0, w 16-byte aligned
   int ovec;  // out (and res) in 16-byte stores: Ho*Wo % 4 == 0, aligned
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 4 or 16 bytes; pred false writes zeros (src-size 0, nothing
-// read from src)
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp16(float* dst, const float* src,
-                                     bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// a = big + small, both TF32, each rounded to nearest with ties away from
-// zero: cvt.rna.tf32.f32 for finite a, written as the add of half a TF32
-// ulp that it compiles to, without its inf/NaN guard (4 instructions, not
-// 8). The tensor cores ignore the low 13 bits of a .tf32 operand, so only
-// the big part that is subtracted needs them cleared; an inf or NaN a
-// still gives a NaN small part and so a NaN product, as cvt.rna does.
-__device__ __forceinline__ void split_tf32(float a, unsigned& big,
-                                           unsigned& small) {
-  big = __float_as_uint(a) + 0x1000u;
-  const float rest = a - __uint_as_float(big & 0xffffe000u);
-  small = __float_as_uint(rest) + 0x1000u;
-}
-
-// d += a * b on the tensor cores: a 16x8 (row), b 8x8 (col), d 16x8 f32
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
-                                         const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // One block: BM channels x BN pixels of C = W X. VEC: 1x1 stride 1 with
 // H*W % 4 == 0 and x 16-byte aligned (X in 16-byte copies).
@@ -340,11 +292,8 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          mma_tf32(part[i][j], as[i], bb[j]);
-          mma_tf32(part[i][j], ab[i], bs[j]);
-          mma_tf32(part[i][j], ab[i], bb[j]);
-        }
+        for (int j = 0; j < NT; ++j)
+          mma_3xtf32(part[i][j], ab[i], as[i], bb[j], bs[j]);
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i)

@@ -75,11 +75,19 @@ def test_conv2d_op_matches_jax(rng, kw):
     dict(pool_size=3, pool_stride=2, pool_padding=1, pool_type="avg",
          exclusive=False),
     dict(pool_size=2, pool_stride=2, pool_type="avg", ceil_mode=True),
+    # max pooling in ceil mode: the last window starts in the padding and
+    # is kept (its value is -inf where it covers padding only)
+    dict(pool_size=2, pool_stride=2, pool_padding=1, pool_type="max",
+         ceil_mode=True, hw=5),
+    dict(pool_size=2, pool_stride=2, pool_padding=1, pool_type="max",
+         ceil_mode=True),
 ])
 def test_pool2d_op_matches_jax(rng, kw):
-    feed = {"x": rng.randn(2, 4, 7, 7).astype("f4")}
+    kw = dict(kw)
+    hw = kw.pop("hw", 7)
+    feed = {"x": rng.randn(2, 4, hw, hw).astype("f4")}
     want, got = _run_both(
-        lambda pkg, L, M: [L.pool2d(_x(L, hw=7), **kw)], feed)
+        lambda pkg, L, M: [L.pool2d(_x(L, hw=hw), **kw)], feed)
     assert got[0].shape == want[0].shape
     np.testing.assert_allclose(got[0], want[0], **OP_TOL)
 

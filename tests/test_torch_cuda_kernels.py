@@ -37,6 +37,31 @@ def _qkv(gen, b, t, tk, h, d, dev, dtype):
     return mk(t), mk(tk), mk(tk)
 
 
+# the rich biases the kernels read by strides: one offset per (b, h, t, j),
+# per (t, j) broadcast over b and h, per (h, j)
+RICH_BIAS = {"full": lambda b, h, t, tk: (b, h, t, tk),
+             "rows": lambda b, h, t, tk: (1, 1, t, tk),
+             "head": lambda b, h, t, tk: (1, h, 1, tk)}
+
+
+def _bias(gen, form, b, h, t, tk, dev):
+    """None, a rich bias (``RICH_BIAS``) or a key padding mask: ``key``
+    [B, Tk], ``key4`` [B, 1, 1, Tk], ``key1`` [1, Tk] (``+grad`` suffixes
+    are the caller's)."""
+    if form is None:
+        return None
+    form = form.split("+")[0]
+    if form in RICH_BIAS:
+        shape = RICH_BIAS[form](b, h, t, tk)
+        return torch.randn(*shape, generator=gen).to(dev)
+    lengths = torch.randint(1, tk + 1, (b,), generator=gen)
+    bias = torch.where(torch.arange(tk)[None] < lengths[:, None], 0.0,
+                       -1e9).to(dev)
+    if form == "key4":
+        return bias[:, None, None, :]
+    return bias[:1] if form == "key1" else bias
+
+
 FLASH_CASES = [
     # (B, Tq, Tk, H, D, causal, bias form)
     (2, 128, 128, 4, 64, False, "key4"),
@@ -46,6 +71,29 @@ FLASH_CASES = [
     (2, 64, 128, 2, 32, True, "key4"),
     (2, 128, 64, 2, 64, True, None),
     (1, 200, 77, 2, 32, False, None),
+    # every head dim a multiple of 8 up to 512 (8, 16, 40 and 256 run on
+    # widths 16, 16, 64 and 256 with zero-filled columns); T = 65 and 129
+    # cross a 64-row tile by one
+    (2, 65, 65, 2, 8, False, "key4"),
+    (2, 129, 129, 2, 16, True, None),
+    (2, 64, 129, 2, 16, True, "key2"),   # causal, Tq < Tk
+    (2, 129, 64, 2, 16, True, None),     # causal, Tq > Tk
+    (2, 65, 100, 3, 40, False, "key4"),
+    (1, 70, 70, 2, 256, True, "key2"),
+    (1, 129, 65, 2, 512, False, "key4"),
+    (2, 96, 96, 1, 512, True, None),
+    # enough rows for the 64-row blocks (two or more an SM)
+    (16, 200, 200, 8, 64, False, "key4"),
+    (16, 129, 129, 16, 16, True, None),
+    (32, 65, 65, 12, 32, False, "key2"),
+    # rich biases and head dims that are not multiples of 8 (padded by the
+    # wrapper), which the reference's gate sends to mha_reference
+    (2, 65, 100, 3, 12, False, "full"),
+    (2, 129, 129, 2, 64, True, "rows"),
+    (1, 70, 70, 2, 256, False, "head"),
+    (2, 96, 96, 2, 20, True, None),
+    (1, 64, 64, 2, 3, False, "full"),
+    (16, 200, 200, 8, 64, True, "full"),
 ]
 
 
@@ -56,15 +104,9 @@ def test_flash_kernel_matches_plain(dev, dtype, tol, b, t, tk, h, d, causal,
                                     bias_form):
     gen = torch.Generator().manual_seed(7)
     q, k, v = _qkv(gen, b, t, tk, h, d, dev, dtype)
-    bias = None
-    if bias_form is not None:
-        lengths = torch.randint(1, tk + 1, (b,), generator=gen)
-        bias = torch.where(torch.arange(tk)[None] < lengths[:, None], 0.0,
-                           -1e9).to(dev)
-        if bias_form == "key4":
-            bias = bias[:, None, None, :]
-        elif bias_form == "key1":
-            bias = bias[:1, None, None, :]
+    bias = _bias(gen, bias_form, b, h, t, tk, dev)
+    if bias_form == "key1":
+        bias = bias[:, None, None, :]
     before = tfa.flash_attention_fwd.launches
     out = tfa.flash_attention(q, k, v, h, bias=bias, causal=causal)
     torch.cuda.synchronize()
@@ -172,6 +214,23 @@ GRAD_CASES = [
     (2, 64, 128, 2, 32, True, "key", 0.0),
     (2, 128, 64, 2, 64, True, None, 0.0),   # rows with no allowed key
     (1, 100, 77, 2, 128, False, "key1+grad", 0.2),
+    (2, 65, 65, 2, 8, False, "key+grad", 0.0),
+    (2, 129, 129, 2, 16, True, None, 0.0),
+    (2, 64, 129, 2, 16, True, "key", 0.0),   # causal, Tq < Tk
+    (2, 129, 64, 2, 16, True, None, 0.0),    # causal, Tq > Tk
+    (2, 100, 100, 3, 40, False, "key+grad", 0.1),  # dropout at D = 40
+    (1, 70, 70, 2, 256, True, "key", 0.1),
+    (1, 129, 65, 2, 512, False, "key1+grad", 0.0),
+    (2, 96, 96, 1, 512, True, None, 0.2),
+    (8, 256, 256, 8, 64, False, "key+grad", 0.1),  # 64-row blocks
+    # rich biases (their gradient is the kernel's dS) and head dims that
+    # are not multiples of 8
+    (2, 65, 100, 3, 12, False, "full+grad", 0.1),
+    (2, 129, 129, 2, 64, True, "rows+grad", 0.0),
+    (1, 70, 70, 2, 256, False, "head+grad", 0.0),
+    (2, 96, 96, 2, 20, True, None, 0.0),
+    (8, 256, 256, 8, 64, True, "full+grad", 0.0),
+    (2, 64, 64, 2, 64, False, "full", 0.1),
 ]
 
 
@@ -184,13 +243,7 @@ def test_flash_kernels_match_plain_gradients(dev, b, t, tk, h, d, causal,
     gen = torch.Generator().manual_seed(11)
     q, k, v = _qkv(gen, b, t, tk, h, d, dev, torch.float32)
     dout = torch.randn(b, t, h * d, generator=gen).to(dev)
-    kb = None
-    if bias_form is not None:
-        lengths = torch.randint(1, tk + 1, (b,), generator=gen)
-        kb = torch.where(torch.arange(tk)[None] < lengths[:, None], 0.0,
-                         -1e9).to(dev)
-        if bias_form.startswith("key1"):
-            kb = kb[:1]
+    kb = _bias(gen, bias_form, b, h, t, tk, dev)
     grad_b = bias_form is not None and bias_form.endswith("+grad")
     seed = torch.tensor([5], dtype=torch.int64, device=dev) if rate else None
     runs = []
@@ -209,6 +262,65 @@ def test_flash_kernels_match_plain_gradients(dev, b, t, tk, h, d, causal,
     torch.cuda.synchronize()
     for got, want in zip(*runs):
         assert _rel_err(got, want) <= 2e-4
+
+
+def test_flash_kernels_track_f64_like_plain_f32(dev):
+    """At Transformer-base's training shape (B=128, T=256, H=8, D=64, key
+    padding bias) the kernels' out, dq, dk and dv against the plain version
+    in f64 on the same f32 inputs, by max abs and relative L2 error: at most
+    twice the plain version's own f32 error (cuBLAS, TF32 off). A single
+    TF32 pass would be about 1000 times off."""
+    gen = torch.Generator().manual_seed(13)
+    b, t, h, d = 128, 256, 8, 64
+    q, k, v = _qkv(gen, b, t, t, h, d, dev, torch.float32)
+    dout = torch.randn(b, t, h * d, generator=gen).to(dev)
+    lengths = torch.randint(1, t + 1, (b,), generator=gen)
+    kb = torch.where(torch.arange(t)[None] < lengths[:, None], 0.0,
+                     -1e9).to(dev)
+
+    def run(fn, dtype):
+        ins = [x.detach().to(dtype).clone().requires_grad_(True)
+               for x in (q, k, v)]
+        out = fn(ins, kb.to(dtype))
+        grads = torch.autograd.grad(out, ins, dout.to(dtype))
+        return [out.detach()] + list(grads)
+
+    def plain(ins, bias):
+        return tfa.attention_plain(*ins, h, bias)[0]
+
+    exact = run(plain, torch.float64)
+    ref = run(plain, torch.float32)
+    got = run(lambda ins, bias: tfa._FlashAttention.apply(
+        *ins, bias, None, h, False, 0.0), torch.float32)
+    torch.cuda.synchronize()
+
+    def errs(x, want):
+        dd = x.double() - want
+        return dd.abs().max().item(), (dd.norm() / want.norm()).item()
+
+    for name, want, r, g in zip(("out", "dq", "dk", "dv"), exact, ref, got):
+        ke, pe = errs(g, want), errs(r, want)
+        assert ke[0] <= 2 * pe[0] and ke[1] <= 2 * pe[1], (name, ke, pe)
+
+
+def test_flash_gate_on_the_card(dev):
+    """On the card the gate admits a rich bias and a head dim that is not
+    a multiple of 8, and both launch the kernels (recorded in the choice,
+    matching the plain version); a head dim above 512 raises."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = _qkv(gen, 2, 32, 32, 2, 12, dev, torch.float32)
+    rich = torch.randn(2, 2, 32, 32, generator=gen).to(dev)
+    assert tfa.kernel_choice(q, 2) == {"kernel": "cuda_flash", "reasons": []}
+    n0 = tfa.flash_attention_fwd.launches
+    out = tfa.flash_attention(q, k, v, 2, bias=rich, causal=True)
+    assert tfa.flash_attention_fwd.launches == n0 + 1
+    want, _ = tfa.attention_plain(q, k, v, 2, bias=rich, causal=True)
+    assert out.shape == q.shape
+    assert (out - want).abs().max().item() <= 1e-4
+    q520 = torch.zeros(1, 4, 520, device=dev)
+    with pytest.raises(NotImplementedError, match="512"):
+        tfa.flash_attention(q520, q520, q520, 1)
+    assert tfa.flash_attention_fwd.launches == n0 + 1
 
 
 @pytest.mark.parametrize("rows,d,affine", [(4096, 512, (True, True)),
