@@ -6,12 +6,14 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, checks
-in their SASS that the conv and flash kernels run on the tensor cores,
-holds each kernel against its plain PyTorch version on the card (the conv
-kernels also against an f64 conv, beside cuDNN's f32 one, and for bitwise
-equal moments across two runs; the flash kernels at head dims 12 to 512,
-with a rich bias, and against an f64 attention, beside the plain
-version's f32 one), times
+in their SASS that the conv, flash and fused CE kernels run on the tensor
+cores, holds each kernel against its plain PyTorch version on the card (the
+conv kernels also against an f64 conv, beside cuDNN's f32 one, and for
+bitwise equal moments across two runs; the flash kernels at head dims 12 to
+512, with a rich bias, and against an f64 attention, beside the plain
+version's f32 one; the fused CE kernel at ragged T, D and V, for bitwise
+equal results across two runs, and against an f64 projection and CE, beside
+the plain version's f32 one), times
 it (the conv kernels at each of ResNet-50's distinct fused geometries,
 read from the fusion's record of the built program; the flash forward at
 the served and the training shape), and then drives the port's main paths
@@ -63,9 +65,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s, f32 FLOP/s on the CUDA
-# cores (the LayerNorm, CE and scatter kernels do their arithmetic there,
-# in f32), and TF32 FLOP/s on the tensor cores, where the conv and flash
-# kernels run each f32 product as three TF32 products (3xTF32)
+# cores (the LayerNorm and scatter kernels do their arithmetic there, in
+# f32), and TF32 FLOP/s on the tensor cores, where the conv, flash and fused
+# CE kernels run each f32 product as three TF32 products (3xTF32)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
@@ -183,8 +185,8 @@ def bound(nbytes, flops, flops_s=F32_FLOPS):
 
 
 def tensor_core_bound(nbytes, flops):
-    """The bound of the conv and flash kernels (rows 1-6, 10, 12): their
-    3 x flops TF32 tensor-core operations (3xTF32) or their bytes, and
+    """The bound of the conv, flash and fused CE kernels (rows 1-6, 9, 10,
+    12): their 3 x flops TF32 tensor-core operations (3xTF32) or their bytes, and
     beside it the bound of the same work on the f32 FMA pipes."""
     bnd, by = bound(nbytes, 3 * flops, TF32_FLOPS)
     return bnd, by, bound(nbytes, flops)[0]
@@ -218,15 +220,17 @@ def phase_build():
 # products must run on the tensor cores
 SASS_KERNELS = (("fused_conv", "conv_kernel", 2),
                 ("flash_attention_fwd", "flash_fwd_kernel", 36),
-                ("flash_attention_bwd", "flash_bwd_kernel", 12))
+                ("flash_attention_bwd", "flash_bwd_kernel", 12),
+                ("fused_ce_fwd", "fused_ce_kernel", 4))
 
 
 def _sass_check(_build):
     """Every instantiation of the conv kernel (conv_moments' and
-    conv_apply's) and of the flash forward and backward kernels (every
-    head-dim width, f32 and bf16, padding-mask and per-query bias) must
-    carry its products on the tensor cores: cuobjdump's SASS of each built
-    library shows HMMA instructions in each."""
+    conv_apply's), of the flash forward and backward kernels (every
+    head-dim width, f32 and bf16, padding-mask and per-query bias) and of
+    the fused CE kernel (16- or 4-byte copies of x and of W) must carry its
+    products on the tensor cores: cuobjdump's SASS of each built library
+    shows HMMA instructions in each."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     for lib, kernel, n_inst in SASS_KERNELS:
         sass = subprocess.run([tool, "-sass", _build._lib_path(lib)],
@@ -519,34 +523,61 @@ def phase_ln_bwd_check(torch, dev):
     return errs
 
 
+# the fused CE kernel's ragged cases: name, T, D, V, bias, eps. T is never a
+# multiple of the 128-row tile; V % 4 != 0 takes the 4-byte W copies, D %
+# 4 != 0 the 4-byte x copies, D % 32 != 0 a ragged k chunk
+CE_CASES = [("bias_1000x512x1000", 1000, 512, 1000, True, 0.1),
+            ("eps0_777x72x300", 777, 72, 300, True, 0.0),
+            ("v30001_1000x512x30001", 1000, 512, 30001, True, 0.1),
+            ("v999_333x72x999", 333, 72, 999, False, 0.1),
+            ("d75_200x75x1000", 200, 75, 1000, False, 0.1),
+            ("d37_129x37x257", 129, 37, 257, True, 0.1)]
+
+
+def _ce_inputs(torch, gen, dev, t, d, v, with_bias):
+    """x, w, b (or None) and y on the card, with the labels of rows 0 and 1
+    at 0 and V - 1 and row 2 of x zero (all its logits equal without a
+    bias)."""
+    x = torch.randn(t, d, generator=gen)
+    x[2] = 0.0
+    w = torch.randn(d, v, generator=gen) / d ** 0.5
+    b = torch.randn(v, generator=gen).to(dev) if with_bias else None
+    y = torch.randint(0, v, (t,), generator=gen)
+    y[0], y[1] = 0, v - 1
+    return x.to(dev), w.to(dev), b, y.to(dev)
+
+
 def phase_ce_check(torch, dev):
     """The fused CE kernel against the plain projection + closed-form CE
     (loss and lse, within 2e-5 * max(1, max|plain|)), at the slice's shape
-    and at ragged T, D and V; and its autograd Function (kernel forward,
-    chunked backward) against autograd of the plain version (dx, dW, db
-    within 1e-4 * max(1, max|plain|))."""
+    and at the ragged ``CE_CASES``, each run twice for bitwise equal
+    results; its autograd Function (kernel forward, chunked backward)
+    against autograd of the plain version (dx, dW within 1e-4 *
+    max(1, max|plain|)); then ``fused_ce_f64``."""
     from paddle_tpu_torch.ops import fused_ce as fce
 
     gen = torch.Generator().manual_seed(SEED)
     rows = TRAIN_BATCH * TRANSFORMER["seq_len"]
     d, v = TRANSFORMER["d_model"], TRANSFORMER["trg_vocab"]
-    cases = [("train_%dx%dx%d" % (rows, d, v), rows, d, v, False, 0.1),
-             ("bias_1000x512x1000", 1000, 512, 1000, True, 0.1),
-             ("eps0_777x72x300", 777, 72, 300, True, 0.0)]
+    cases = [("train_%dx%dx%d" % (rows, d, v), rows, d, v, False, 0.1)]
     errs = {}
-    for name, t, d_, v_, with_bias, eps in cases:
-        x = torch.randn(t, d_, generator=gen).to(dev)
-        w = (torch.randn(d_, v_, generator=gen) / d_ ** 0.5).to(dev)
-        b = torch.randn(v_, generator=gen).to(dev) if with_bias else None
-        y = torch.randint(0, v_, (t,), generator=gen).to(dev)
+    for name, t, d_, v_, with_bias, eps in cases + CE_CASES:
+        x, w, b, y = _ce_inputs(torch, gen, dev, t, d_, v_, with_bias)
         loss, lse = fce.fused_ce_fwd(x, w, b, y, eps)
+        again = fce.fused_ce_fwd(x, w, b, y, eps)
         want, want_lse = fce.linear_smooth_ce_plain(x, w, b, y, eps)
         torch.cuda.synchronize()
+        same = torch.equal(loss, again[0]) and torch.equal(lse, again[1])
         errs[name] = check_close("fused_ce_fwd", name,
                                  [("loss", loss, want), ("lse", lse,
                                                          want_lse)],
-                                 2e-5, shape=[t, d_, v_], eps=eps)
-        del want, want_lse
+                                 2e-5, shape=[t, d_, v_], eps=eps,
+                                 bias=with_bias, bitwise_repeat=same,
+                                 plan=list(fce.split_plan(
+                                     t, v_, torch.cuda.get_device_properties(
+                                         dev).multi_processor_count)))
+        check(same, "fused_ce_fwd %s: two runs differ" % name)
+        del want, want_lse, x, w, b, y, loss, lse, again
     # the Function: kernel forward + chunked backward, at 4,096 rows
     t = 4096
     x = torch.randn(t, d, generator=gen).to(dev)
@@ -565,7 +596,61 @@ def phase_ce_check(torch, dev):
     check_close("fused_ce_fwd", "function_grads_%dx%dx%d" % (t, d, v),
                 list(zip(("dx", "dw"), grads[0], grads[1])), 1e-4,
                 shape=[t, d, v])
+    del grads
+    _ce_f64_check(torch, dev)
     return errs
+
+
+def _ce_f64(torch, x, w, b, y, eps):
+    """The projection and the closed-form smoothed CE in float64."""
+    z = torch.matmul(x.double(), w.double())
+    if b is not None:
+        z = z + b.double()
+    lse = torch.logsumexp(z, dim=-1)
+    zy = z.gather(1, y.long()[:, None])[:, 0]
+    return lse - (1.0 - eps) * zy - eps * z.mean(dim=-1), lse
+
+
+def _ce_f64_check(torch, dev):
+    """The kernel's loss and lse and the plain version's f32 ones (cuBLAS,
+    TF32 off) against the projection and CE in f64 on the same f32 inputs,
+    by max abs and relative L2 error, at 4,096 rows of the training width
+    (D 512, V 30000) and at 4,097 rows of each ragged case; fails if the
+    kernel's error is more than twice the plain f32 one in either (a single
+    TF32 product would be 54-530 times off, as the CPU emulation shows)."""
+    from paddle_tpu_torch.ops import fused_ce as fce
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    d, v = TRANSFORMER["d_model"], TRANSFORMER["trg_vocab"]
+    cases = [("train_4096x%dx%d" % (d, v), 4096, d, v, False, 0.1)] + [
+        (name.split("_")[0] + "_4097x%dx%d" % (d_, v_), 4097, d_, v_, bias,
+         eps) for name, _, d_, v_, bias, eps in CE_CASES]
+    for name, t, d_, v_, with_bias, eps in cases:
+        x, w, b, y = _ce_inputs(torch, gen, dev, t, d_, v_, with_bias)
+        exact = _ce_f64(torch, x, w, b, y, eps)
+        got = fce.fused_ce_fwd(x, w, b, y, eps)
+        ref = fce.linear_smooth_ce_plain(x, w, b, y, eps)
+        torch.cuda.synchronize()
+
+        def errs(out, want):
+            dd = out.double() - want
+            return {"max_abs_err": dd.abs().max().item(),
+                    "rel_l2": (dd.norm() / want.norm()).item()}
+
+        names = ("loss", "lse")
+        kernel = {n: errs(g, e) for n, g, e in zip(names, got, exact)}
+        plain = {n: errs(r, e) for n, r, e in zip(names, ref, exact)}
+        ratio = {n: {e: kernel[n][e] / max(plain[n][e], 1e-30)
+                     for e in kernel[n]} for n in names}
+        emit({"phase": "fused_ce_f64", "case": name, "shape": [t, d_, v_],
+              "bias": with_bias, "eps": eps, "kernel": kernel,
+              "plain_f32": plain, "ratio": ratio,
+              "tol": "kernel <= 2 x plain f32, each error"})
+        check(all(kernel[n][e] <= 2 * plain[n][e] for n in names
+                  for e in kernel[n]),
+              "fused_ce %s errors against f64 %s, plain f32 %s"
+              % (name, kernel, plain))
+        del x, w, b, y, exact, got, ref
 
 
 def phase_timing(torch, dev):
@@ -592,7 +677,9 @@ def phase_timing(torch, dev):
         library_ms=time_ms(lambda: F.layer_norm(x, (hd,), g, bb, 1e-5)),
         bound_ms=bnd, bound_by=by, shape=[n_rows, hd], bytes=nbytes,
         flops=flops)
-    rows.update(_train_kernel_timing(torch, dev, gen))
+    train = _train_kernel_timing(torch, dev, gen)
+    rows["layer_norm_fwd"]["trained_shape"] = train.pop("layer_norm_fwd")
+    rows.update(train)
     rows.update(_conv_kernel_timing(torch, dev))
     rows.update(_scatter_kernel_timing(torch, dev))
     for name, r in rows.items():
@@ -681,10 +768,12 @@ def flash_kernel_timing(torch, dev, gen):
 
 
 def _train_kernel_timing(torch, dev, gen):
-    """The LayerNorm backward and fused CE kernels at Transformer-base's
-    training shapes (128 x 256 tokens, f32), each beside its plain version,
-    one PyTorch call as a yardstick where one computes the same function
-    (timed here only; the port never calls it), and its bound."""
+    """The LayerNorm forward and backward and fused CE kernels at
+    Transformer-base's training shapes (128 x 256 tokens, f32), each beside
+    its plain version, one PyTorch call as a yardstick (timed here only; the
+    port never calls it) and its bound. The CE's yardstick is its projection
+    alone, ``torch.matmul(x, w)`` (cuBLAS SGEMM, TF32 off); no single call
+    computes the fused function."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import fused_ce as fce
@@ -694,12 +783,22 @@ def _train_kernel_timing(torch, dev, gen):
     b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
     hd = TRANSFORMER["d_model"]
 
-    # LayerNorm backward: one [B*T, 512] normalisation
+    # LayerNorm forward and backward: one [B*T, 512] normalisation (the
+    # step launches each 32 times at this shape)
     n = b * t
     x = torch.randn(n, hd, generator=gen).to(dev)
     dy = torch.randn(n, hd, generator=gen).to(dev)
     g = torch.randn(hd, generator=gen).to(dev)
     bb = torch.randn(hd, generator=gen).to(dev)
+    nbytes = 4 * (2 * n * hd + 2 * hd + 2 * n)
+    flops = 8 * n * hd
+    bnd, by = bound(nbytes, flops)
+    rows["layer_norm_fwd"] = dict(
+        ms=time_ms(lambda: fln.layer_norm_fwd(x, g, bb, 1e-5)),
+        plain_ms=time_ms(lambda: fln.layer_norm_plain(x, g, bb, 1e-5)),
+        library_ms=time_ms(lambda: F.layer_norm(x, (hd,), g, bb, 1e-5)),
+        library="F.layer_norm", bound_ms=bnd, bound_by=by, shape=[n, hd],
+        bytes=nbytes, flops=flops)
     _, mean, var = fln.layer_norm_fwd(x, g, bb, 1e-5)
     p_in = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
             bb.clone().requires_grad_(True)]
@@ -727,18 +826,20 @@ def _train_kernel_timing(torch, dev, gen):
     y = torch.randint(0, v, (n,), generator=gen).to(dev)
     nbytes = 4 * (n * hd + hd * v + n + 2 * n)
     flops = 2 * n * hd * v
-    bnd, by = bound(nbytes, flops)
+    bnd, by, bnd_fma = tensor_core_bound(nbytes, flops)
     rows["fused_ce_fwd"] = dict(
         ms=time_ms(lambda: fce.fused_ce_fwd(x, w, None, y, 0.1), iters=10,
                    warmup=2),
         plain_ms=time_ms(lambda: fce.linear_smooth_ce_plain(x, w, None, y,
                                                             0.1),
                          iters=10, warmup=2),
-        library_ms=None,
-        library="none: no single PyTorch call fuses the projection with "
-                "the label-smoothed CE",
-        bound_ms=bnd, bound_by=by, shape=[n, hd, v], bytes=nbytes,
-        flops=flops)
+        library_ms=time_ms(lambda: torch.matmul(x, w), iters=10, warmup=2),
+        library="torch.matmul(x, w), projection only (cuBLAS SGEMM, TF32 "
+                "off)",
+        bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma,
+        plan=list(fce.split_plan(n, v, torch.cuda.get_device_properties(
+            dev).multi_processor_count)),
+        shape=[n, hd, v], bytes=nbytes, flops=flops)
     return rows
 
 

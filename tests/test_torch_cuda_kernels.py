@@ -349,20 +349,39 @@ def test_layer_norm_backward_matches_plain(dev, rows, d, affine):
         assert _rel_err(got, want) <= 1e-4
 
 
-@pytest.mark.parametrize("t,d,v,with_bias,eps", [(2048, 512, 30000, False,
-                                                   0.1),
-                                                  (333, 72, 1000, True, 0.0)])
-def test_fused_ce_kernel_matches_plain(dev, t, d, v, with_bias, eps):
-    """Loss and lse within 2e-5 of max(1, max|plain|); the Function's
-    gradients (chunked backward) within 1e-4."""
-    gen = torch.Generator().manual_seed(9)
-    x = torch.randn(t, d, generator=gen).to(dev)
-    w = (torch.randn(d, v, generator=gen) / d ** 0.5).to(dev)
+# T never a multiple of the 128-row tile past the first case; V % 4 != 0
+# (4-byte W copies), D % 4 != 0 (4-byte x copies), D % 32 != 0 (a ragged
+# k chunk)
+CE_CASES = [(2048, 512, 30000, False, 0.1), (333, 72, 1000, True, 0.0),
+            (1000, 512, 30001, True, 0.1), (333, 72, 999, False, 0.1),
+            (200, 75, 1000, False, 0.1), (129, 37, 257, True, 0.1),
+            (777, 72, 300, True, 0.0)]
+
+
+def _ce_inputs(gen, t, d, v, with_bias, dev):
+    """Labels 0 and V - 1 in rows 0 and 1; row 2 of x zero (equal logits
+    without a bias)."""
+    x = torch.randn(t, d, generator=gen)
+    x[2] = 0.0
+    w = torch.randn(d, v, generator=gen) / d ** 0.5
     b = torch.randn(v, generator=gen).to(dev) if with_bias else None
-    y = torch.randint(0, v, (t,), generator=gen).to(dev)
+    y = torch.randint(0, v, (t,), generator=gen)
+    y[0], y[1] = 0, v - 1
+    return x.to(dev), w.to(dev), b, y.to(dev)
+
+
+@pytest.mark.parametrize("t,d,v,with_bias,eps", CE_CASES)
+def test_fused_ce_kernel_matches_plain(dev, t, d, v, with_bias, eps):
+    """Loss and lse within 2e-5 of max(1, max|plain|), bitwise equal over
+    two runs (no atomics); the Function's gradients (chunked backward)
+    within 1e-4."""
+    gen = torch.Generator().manual_seed(9)
+    x, w, b, y = _ce_inputs(gen, t, d, v, with_bias, dev)
     loss, lse = tfce.fused_ce_fwd(x, w, b, y, eps)
+    again = tfce.fused_ce_fwd(x, w, b, y, eps)
     want, want_lse = tfce.linear_smooth_ce_plain(x, w, b, y, eps)
     assert _rel_err(loss, want) <= 2e-5 and _rel_err(lse, want_lse) <= 2e-5
+    assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
     g = torch.randn(t, generator=gen).to(dev)
     runs = []
     for kernel in (True, False):
@@ -377,6 +396,30 @@ def test_fused_ce_kernel_matches_plain(dev, t, d, v, with_bias, eps):
     torch.cuda.synchronize()
     for got, want in zip(*runs):
         assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("t,d,v,with_bias,eps", [(4096, 512, 30000, False,
+                                                   0.1),
+                                                  (4097, 37, 257, True, 0.1)])
+def test_fused_ce_kernel_tracks_f64_like_plain_f32(dev, t, d, v, with_bias,
+                                                   eps):
+    """Against the projection and CE in f64: the kernel's loss and lse
+    within 2x the plain f32 version's max abs and relative L2 errors (a
+    single TF32 product is 54-530x off on the CPU emulation)."""
+    gen = torch.Generator().manual_seed(10)
+    x, w, b, y = _ce_inputs(gen, t, d, v, with_bias, dev)
+    z = torch.matmul(x.double(), w.double())
+    if b is not None:
+        z = z + b.double()
+    lse = torch.logsumexp(z, dim=-1)
+    exact = (lse - (1 - eps) * z.gather(1, y.long()[:, None])[:, 0]
+             - eps * z.mean(dim=-1), lse)
+    got = tfce.fused_ce_fwd(x, w, b, y, eps)
+    ref = tfce.linear_smooth_ce_plain(x, w, b, y, eps)
+    for g, r, e in zip(got, ref, exact):
+        dg, dr = g.double() - e, r.double() - e
+        assert dg.abs().max() <= 2 * dr.abs().max()
+        assert dg.norm() <= 2 * dr.norm()
 
 
 def test_tiny_transformer_step_on_gpu_matches_cpu(dev, fresh_port_programs):

@@ -114,3 +114,112 @@ def test_kernel_wrapper_validates_before_building():
         tfce.fused_ce_fwd(x, w, None, y[:2], 0.1)
     with pytest.raises(ValueError, match="w"):
         tfce.fused_ce_fwd(x, w.t(), None, y, 0.1)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's split plan and its arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t,v,sms", [(32768, 30000, 132), (4096, 30000, 132),
+                                     (777, 300, 132), (1000, 30001, 132),
+                                     (1, 1, 132), (129, 999, 7),
+                                     (5000, 129, 1), (300, 257, 132)])
+def test_split_plan_covers_every_column_once(t, v, sms):
+    """Every vocabulary column lies in exactly one split, every split is
+    non-empty and made of whole 128-column tiles (the last may be ragged),
+    and rows go 128 a block, as the C entry requires."""
+    nsplit, per, rows = tfce.split_plan(t, v, sms)
+    assert rows == 128 and per > 0 and per % 128 == 0
+    owner = np.zeros(v, dtype=int)
+    for k in range(nsplit):
+        lo, hi = k * per, min(v, (k + 1) * per)
+        assert lo < hi, "split %d is empty" % k
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+
+
+def test_split_plan_splits_only_to_fill_the_card():
+    """One row tile on 132 SMs splits the vocabulary as far as its tiles go;
+    row tiles filling whole waves on their own keep one split."""
+    assert tfce.split_plan(128, 30000, 132)[0] == 118   # 235 tiles, 2 each
+    assert tfce.split_plan(132 * 128, 30000, 132)[0] == 1
+    assert tfce.split_plan(4096, 30000, 132)[:2] == (4, 59 * 128)
+
+
+def _f64_ce(x, w, b, y, eps):
+    z = torch.matmul(x.double(), w.double())
+    if b is not None:
+        z = z + b.double()
+    lse = torch.logsumexp(z, dim=-1)
+    zy = z.gather(1, y.long()[:, None])[:, 0]
+    return lse - (1 - eps) * zy - eps * z.mean(dim=-1), lse
+
+
+def test_3xtf32_emulation_tracks_f64_and_single_tf32_does_not(rng):
+    """At the training width (D 512) and a ragged vocabulary (V 3000 =
+    23 tiles + 56 columns, 24 splits on 132 SMs), the kernel's arithmetic
+    (3xTF32 products, its order of online statistics and merges) lands as
+    close to an f64 projection + closed-form CE as the plain f32 version
+    does: loss and lse within 2x its max abs and relative L2 errors (both
+    are f32 roundings of values near 10: 0.9-1.13x over three seeds), and
+    relative L2 at most 2^-22. A single TF32 product is 54-530x the plain
+    error, so the f64 check on the card (at most 2x) tells them apart; the
+    bound here is 16x."""
+    t, d, v = 256, 512, 3000
+    x = torch.from_numpy(rng.randn(t, d).astype("f4"))
+    w = torch.from_numpy((rng.randn(d, v) / np.sqrt(d)).astype("f4"))
+    b = torch.from_numpy((rng.randn(v) * 0.5).astype("f4"))
+    y = torch.from_numpy(rng.randint(0, v, t))
+    exact = _f64_ce(x, w, b, y, 0.1)
+    plan = tfce.split_plan(t, v, 132)
+    assert plan[0] == 24
+
+    def errs(got):
+        out = []
+        for g, e in zip(got, exact):
+            dd = g.double() - e
+            out.append((dd.abs().max().item(), (dd.norm() / e.norm()).item()))
+        return out
+
+    plain = errs(tfce.linear_smooth_ce_plain(x, w, b, y, 0.1))
+    three = errs(tfce.linear_smooth_ce_3xtf32_emulated(x, w, b, y, 0.1, plan))
+    one = errs(tfce.linear_smooth_ce_3xtf32_emulated(x, w, b, y, 0.1, plan,
+                                                     passes=1))
+    for name, p, th, on in zip(("loss", "lse"), plain, three, one):
+        assert th[0] <= 2 * p[0] and th[1] <= 2 * p[1], (name, th, p)
+        assert th[1] <= 2.0 ** -22, (name, th)
+        assert on[1] >= 16 * p[1] and on[1] > 2 * p[1], (name, on, p)
+
+
+@pytest.mark.parametrize("plan", ["one_split", "split_per_tile"])
+@pytest.mark.parametrize("t,d,v,with_bias,eps", [
+    (24, 16, 200, True, 0.1), (16, 8, 128, False, 0.0),
+    (130, 72, 300, True, 0.1), (7, 37, 257, False, 0.1)])
+def test_3xtf32_emulation_matches_pallas_kernel(rng, plan, t, d, v,
+                                                with_bias, eps):
+    """The emulated kernel against the JAX package's Pallas kernel in
+    interpret mode, with labels at 0, at V - 1 and out of range (both add
+    z[y] = 0) and a row of equal logits (x = 0), over one split and over a
+    split per tile: loss and lse within 1e-5 (f32 sums in other orders)."""
+    x, w, b, y, _ = _data(rng, t, d, v, with_bias)
+    x[0] = 0.0
+    y[:3] = [0, v - 1, v + 5]
+    want_loss, want_lse = jfce._fwd_impl(
+        jnp.asarray(x), jnp.asarray(w), None if b is None else jnp.asarray(b),
+        jnp.asarray(y), eps)
+    p = (1, -(-v // 128) * 128, 128) if plan == "one_split" else \
+        (-(-v // 128), 128, 128)
+    tx, tw, tb, ty = _torch(x, w, b, y)
+    loss, lse = tfce.linear_smooth_ce_3xtf32_emulated(tx, tw, tb, ty, eps, p)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss),
+                               atol=1e-5, rtol=1e-6)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5,
+                               rtol=1e-6)
+
+
+def test_emulation_rejects_a_plan_the_kernel_refuses():
+    x, w = torch.zeros(4, 8), torch.zeros(8, 300)
+    y = torch.zeros(4, dtype=torch.int64)
+    for plan in [(2, 100, 128), (1, 256, 128), (3, 128, 64)]:
+        with pytest.raises(ValueError, match="plan"):
+            tfce.linear_smooth_ce_3xtf32_emulated(x, w, None, y, 0.1, plan)
