@@ -224,30 +224,67 @@ SASS_KERNELS = (("fused_conv", "conv_kernel", 2),
                 ("fused_ce_fwd", "fused_ce_kernel", 4))
 
 
+# library, the mangled stem of the instantiations that move 16 bytes a
+# lane, how many there are, the kind of instruction and the mark of its
+# 128-bit form each must hold: the scatter's float4 reduction (VEC 4;
+# REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU on sm_90a) and the LayerNorm
+# forward's 16-byte loads (f32 and bf16, every VPL; LDG.E.128.CONSTANT)
+SASS_WIDE = (("scatter_add", "scatter_add_kernelILi4E", 1, "RED", "F32x4"),
+             ("layer_norm_fwd", "layer_norm_fwd_kernelIfLb1E", 7, "LDG",
+              ".128"),
+             ("layer_norm_fwd", "layer_norm_fwd_kernelI13__nv_bfloat16Lb1E",
+              7, "LDG", ".128"))
+
+
+def _sass_functions(_build, lib):
+    """{mangled kernel name: [mnemonics]} from cuobjdump's SASS of ``lib``."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build._lib_path(lib)],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, "cuobjdump failed: " + sass.stderr[-2000:])
+    fns = {}
+    for fn in sass.stdout.split("Function : ")[1:]:
+        ops = []
+        for ln in fn.splitlines()[1:]:
+            tok = ln.split()
+            if len(tok) > 1 and tok[0].startswith("/*"):
+                ops.append(tok[2] if tok[1].startswith("@") and len(tok) > 2
+                           else tok[1])
+        fns[fn.split(None, 1)[0]] = ops
+    return fns
+
+
 def _sass_check(_build):
     """Every instantiation of the conv kernel (conv_moments' and
     conv_apply's), of the flash forward and backward kernels (every
     head-dim width, f32 and bf16, padding-mask and per-query bias) and of
     the fused CE kernel (16- or 4-byte copies of x and of W) must carry its
     products on the tensor cores: cuobjdump's SASS of each built library
-    shows HMMA instructions in each."""
-    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    shows HMMA instructions in each. Every float4 instantiation of the
+    scatter kernel must hold a 128-bit reduction, and every 16-byte
+    instantiation of the LayerNorm forward a 128-bit global load
+    (``SASS_WIDE``); the mnemonics found are printed."""
     for lib, kernel, n_inst in SASS_KERNELS:
-        sass = subprocess.run([tool, "-sass", _build._lib_path(lib)],
-                              capture_output=True, text=True, timeout=300)
-        check(sass.returncode == 0,
-              "cuobjdump failed: " + sass.stderr[-2000:])
-        hmma = {}
-        for fn in sass.stdout.split("Function : ")[1:]:
-            name = fn.split(None, 1)[0]
-            if kernel in name:
-                hmma[name] = sum(ln.split()[1].startswith("HMMA")
-                                 for ln in fn.splitlines()
-                                 if len(ln.split()) > 1)
+        hmma = {name: sum(op.startswith("HMMA") for op in ops)
+                for name, ops in _sass_functions(_build, lib).items()
+                if kernel in name}
         emit({"phase": "sass", "library": lib, "kernel": kernel,
               "instantiations": len(hmma), "hmma_per_instantiation": hmma})
         check(len(hmma) >= n_inst and all(hmma.values()),
               "%s instantiations without HMMA: %s" % (kernel, hmma))
+    for lib, stem, n_inst, kind, wide in SASS_WIDE:
+        fns = _sass_functions(_build, lib)
+        found = {name: sorted({op for op in ops if op.startswith(kind)})
+                 for name, ops in fns.items() if stem in name}
+        others = sorted({op for name, ops in fns.items() if stem not in name
+                         for op in ops if op.startswith(kind)})
+        emit({"phase": "sass", "library": lib, "kernel": stem,
+              "instantiations": len(found), kind.lower(): found,
+              "other_instantiations": others})
+        check(len(found) == n_inst and all(
+            any(wide in op for op in ops) for ops in found.values()),
+            "%s instantiations without a 128-bit %s: %s"
+            % (stem, kind, found))
 
 
 def _padding_bias(torch, gen, b, tk, dev):
@@ -322,21 +359,44 @@ def phase_flash_check(torch, dev):
     return errs
 
 
+# the LayerNorm forward's timed shapes, (rows, D): BERT-base served at the
+# top batch rung (8 x 128 tokens), and Transformer-base trained (32
+# launches a step)
+LN_SERVED = (8 * BERT["seq"], BERT["d_model"])
+LN_TRAINED = (TRAIN_BATCH * TRANSFORMER["seq_len"], TRANSFORMER["d_model"])
+# (rows, D, gamma and beta, x 16-byte aligned): the two timed shapes, a
+# ragged count at the served width, then every instantiation family of
+# the kernel (ops/fused_layer_norm.py ln_fwd_plan): register-resident
+# 16-byte at 512 and 1000, single-element at 1, 3 and 37, looped at 4096
+# and 5000, single-element and looped from an unaligned x
+LN_CASES = [LN_SERVED + (True, True), LN_TRAINED + (True, True),
+            (1000, 768, True, True),
+            (1000, 512, True, True), (1000, 512, False, True),
+            (1000, 1, True, True), (1000, 3, True, True),
+            (1000, 37, False, True), (1000, 1000, True, True),
+            (1000, 4096, True, True), (1000, 5000, True, True),
+            (1000, 768, True, False)]
+
+
 def phase_ln_check(torch, dev):
-    """Kernel vs plain version (in f32 on the same inputs). f32: y within
-    1e-5 absolute. bf16: y within one bf16 ulp (2^-8 relative to |y|, at
-    least 2^-8 absolute), since the kernel rounds y once to bf16. Mean and
-    var are f32 in both: 1e-4 absolute."""
+    """Kernel vs plain version (in f32 on the same inputs), f32 and bf16,
+    at each of ``LN_CASES``. f32: y within 1e-5 absolute. bf16: y within
+    one bf16 ulp (2^-8 relative to |y|, at least 2^-8 absolute), since the
+    kernel rounds y once to bf16. Mean and var are f32 in both: 1e-4
+    absolute. Fails unless the plans ``_ln_fwd_timing`` times (f32, at
+    ``LN_SERVED`` and ``LN_TRAINED``) are among those checked."""
     from paddle_tpu_torch.ops import fused_layer_norm as fln
 
     gen = torch.Generator().manual_seed(SEED)
-    d = BERT["d_model"]
-    g = torch.randn(d, generator=gen).to(dev)
-    bb = torch.randn(d, generator=gen).to(dev)
-    errs = {}
-    for rows in (1024, 1000):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs, checked = {}, set()
+    for rows, d, affine, aligned in LN_CASES:
+        g = torch.randn(d, generator=gen).to(dev) if affine else None
+        bb = torch.randn(d, generator=gen).to(dev) if affine else None
         for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn(rows, d, generator=gen) * 2 + 0.5).to(dev, dtype)
+            x = (torch.randn(rows * d + 1, generator=gen) * 2 + 0.5).to(
+                dev, dtype)
+            x = (x[:-1] if aligned else x[1:]).view(rows, d)
             y, mean, var = fln.layer_norm_fwd(x, g, bb, 1e-5)
             wy, wm, wv = fln.layer_norm_plain(x.float(), g, bb, 1e-5)
             torch.cuda.synchronize()
@@ -347,8 +407,13 @@ def phase_ln_check(torch, dev):
                 y_ok = bool((dy <= 2.0 ** -8 * wy.abs().clamp_min(1.0)).all())
             e = (dy.max().item(), (mean - wm).abs().max().item(),
                  (var - wv).abs().max().item())
-            name = "%dx%d_%s" % (rows, d, str(dtype).split(".")[1])
+            name = "%dx%d_%s%s%s" % (rows, d, str(dtype).split(".")[1],
+                                     "" if affine else "_noaffine",
+                                     "" if aligned else "_unaligned")
+            plan = fln.ln_fwd_plan(rows, d, dtype, sms, aligned)
+            checked.add((rows, d, dtype, plan))
             emit({"phase": "layer_norm_fwd", "case": name,
+                  "plan": list(plan),
                   "max_abs_err_y": e[0], "max_abs_err_mean": e[1],
                   "max_abs_err_var": e[2], "y_within_tol": y_ok,
                   "tol_y": "1e-5 abs" if dtype == torch.float32
@@ -356,6 +421,12 @@ def phase_ln_check(torch, dev):
             check(y_ok and e[1] <= 1e-4 and e[2] <= 1e-4,
                   "layer_norm %s errors %s" % (name, e))
             errs[name] = max(e)
+            del x, y, mean, var, wy, wm, wv, dy
+    for rows, d in (LN_SERVED, LN_TRAINED):
+        timed = fln.ln_fwd_plan(rows, d, torch.float32, sms)
+        check((rows, d, torch.float32, timed) in checked,
+              "layer_norm %dx%d: the timed plan %s is not checked"
+              % (rows, d, list(timed)))
     return errs
 
 
@@ -657,31 +728,12 @@ def phase_timing(torch, dev):
     """Each kernel at the served shapes (the top batch rung, 8 x 128
     tokens, f32), beside its plain version, one PyTorch library call as a
     yardstick (timed here only; the port never calls it), and its bound."""
-    import torch.nn.functional as F
-
-    from paddle_tpu_torch.ops import fused_layer_norm as fln
-
     gen = torch.Generator().manual_seed(SEED)
     rows = flash_kernel_timing(torch, dev, gen)
-    b, t, hd = 8, BERT["seq"], BERT["d_model"]
-    n_rows = b * t
-    x = torch.randn(n_rows, hd, generator=gen).to(dev)
-    g = torch.randn(hd, generator=gen).to(dev)
-    bb = torch.randn(hd, generator=gen).to(dev)
-    nbytes = 4 * (2 * n_rows * hd + 2 * hd + 2 * n_rows)
-    flops = 8 * n_rows * hd
-    bnd, by = bound(nbytes, flops)
-    rows["layer_norm_fwd"] = dict(
-        ms=time_ms(lambda: fln.layer_norm_fwd(x, g, bb, 1e-5)),
-        plain_ms=time_ms(lambda: fln.layer_norm_plain(x, g, bb, 1e-5)),
-        library_ms=time_ms(lambda: F.layer_norm(x, (hd,), g, bb, 1e-5)),
-        bound_ms=bnd, bound_by=by, shape=[n_rows, hd], bytes=nbytes,
-        flops=flops)
-    train = _train_kernel_timing(torch, dev, gen)
-    rows["layer_norm_fwd"]["trained_shape"] = train.pop("layer_norm_fwd")
-    rows.update(train)
+    rows.update(_train_kernel_timing(torch, dev, gen))
     rows.update(_conv_kernel_timing(torch, dev))
-    rows.update(_scatter_kernel_timing(torch, dev))
+    rows.update(bandwidth_kernel_timing(torch, dev))
+    _add_bandwidth_plans(torch, dev, rows)
     for name, r in rows.items():
         emit(dict({"phase": "timing", "kernel": name}, **r))
     return rows
@@ -768,7 +820,7 @@ def flash_kernel_timing(torch, dev, gen):
 
 
 def _train_kernel_timing(torch, dev, gen):
-    """The LayerNorm forward and backward and fused CE kernels at
+    """The LayerNorm backward and fused CE kernels at
     Transformer-base's training shapes (128 x 256 tokens, f32), each beside
     its plain version, one PyTorch call as a yardstick (timed here only; the
     port never calls it) and its bound. The CE's yardstick is its projection
@@ -783,22 +835,13 @@ def _train_kernel_timing(torch, dev, gen):
     b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
     hd = TRANSFORMER["d_model"]
 
-    # LayerNorm forward and backward: one [B*T, 512] normalisation (the
-    # step launches each 32 times at this shape)
+    # LayerNorm backward: one [B*T, 512] normalisation (the step launches
+    # it 32 times at this shape; the forward is _ln_fwd_timing's)
     n = b * t
     x = torch.randn(n, hd, generator=gen).to(dev)
     dy = torch.randn(n, hd, generator=gen).to(dev)
     g = torch.randn(hd, generator=gen).to(dev)
     bb = torch.randn(hd, generator=gen).to(dev)
-    nbytes = 4 * (2 * n * hd + 2 * hd + 2 * n)
-    flops = 8 * n * hd
-    bnd, by = bound(nbytes, flops)
-    rows["layer_norm_fwd"] = dict(
-        ms=time_ms(lambda: fln.layer_norm_fwd(x, g, bb, 1e-5)),
-        plain_ms=time_ms(lambda: fln.layer_norm_plain(x, g, bb, 1e-5)),
-        library_ms=time_ms(lambda: F.layer_norm(x, (hd,), g, bb, 1e-5)),
-        library="F.layer_norm", bound_ms=bnd, bound_by=by, shape=[n, hd],
-        bytes=nbytes, flops=flops)
     _, mean, var = fln.layer_norm_fwd(x, g, bb, 1e-5)
     p_in = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
             bb.clone().requires_grad_(True)]
@@ -1630,18 +1673,29 @@ def phase_scatter_check(torch, dev, tol=1e-5):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     v, k = DEEPFM["sparse_feature_dim"], DEEPFM_WIDTH
     n = DEEPFM_BATCH * DEEPFM["num_fields"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {}
-    cases = [("deepfm_densify_uniform", "uniform", False),
-             ("sgd_nonzero_base", "uniform", True),
-             ("wrap_drop", "wrap_drop", False),
-             ("one_row", "one_row", False),
-             ("zipf_1.2", "zipf", False)]
-    for i, (name, kind, nonzero) in enumerate(cases):
+    # name, ids, non-zero table, K, table 16-byte aligned, merged first
+    # (sort=True: duplicates summed, their slots parked on the sentinel V)
+    cases = [("deepfm_densify_uniform", "uniform", False, k, True, False),
+             ("sgd_nonzero_base", "uniform", True, k, True, False),
+             ("wrap_drop", "wrap_drop", False, k, True, False),
+             ("one_row", "one_row", False, k, True, False),
+             ("zipf_1.2", "zipf", False, k, True, False),
+             ("zipf_1.2_sorted", "zipf", False, k, True, True),
+             ("zipf_1.2_k4_unaligned", "zipf", True, 4, False, False),
+             ("zipf_1.2_k33", "zipf", True, 33, True, False)]
+    for i, (name, kind, nonzero, k, aligned, sort) in enumerate(cases):
         rows = _deepfm_rows(torch, kind, n, v, SEED + i).to(dev)
         vals = torch.randn(n, k, generator=gen, device=dev)
         base = (torch.randn(v, k, generator=gen, device=dev) if nonzero
                 else torch.zeros(v, k, device=dev))
-        got = sc.scatter_add_rows(base, rows, vals)
+        if aligned:
+            got = sc.scatter_add_rows(base, rows, vals, sort=sort)
+        else:  # added in place into a table one float past an alignment
+            got = torch.empty(v * k + 1, device=dev)[1:].view(v, k)
+            got.copy_(base)
+            sc.scatter_add_rows(got, rows, vals, sort=sort, inplace=True)
         want = sc.scatter_add_plain(base, rows, vals)
         exact = sc.scatter_add_plain(base.double(), rows, vals.double())
         mass = sc.scatter_add_plain(torch.zeros(v, k, device=dev), rows,
@@ -1654,7 +1708,8 @@ def phase_scatter_check(torch, dev, tol=1e-5):
         hot = torch.bincount(r[(r >= 0) & (r < v)], minlength=v).max().item()
         errs[name] = err.max().item()
         emit({"phase": "scatter_check", "case": name, "rows": kind,
-              "shape": [v, k, n], "nonzero_base": nonzero,
+              "shape": [v, k, n], "nonzero_base": nonzero, "sort": sort,
+              "plan": list(sc.scatter_plan(n, k, aligned, sms)),
               "max_abs_err": errs[name], "max_err_over_row_mass": rel,
               "kernel_vs_f64": (got.double() - exact).abs().max().item(),
               "plain_vs_f64": (want.double() - exact).abs().max().item(),
@@ -1672,7 +1727,8 @@ def _scatter_kernel_timing(torch, dev):
     allocated, so every run adds into it). Beside it the plain version,
     one ``index_add_`` on the in-range int64 rows as the library
     yardstick (timed here only; the port never calls it), the bound, and
-    the kernel on Zipf-skewed ids."""
+    the kernel on Zipf-skewed ids with their own bound (the bytes of the
+    rows they touch)."""
     from paddle_tpu_torch.ops import scatter as sc
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1685,15 +1741,72 @@ def _scatter_kernel_timing(torch, dev):
     out = torch.zeros(v, k, device=dev)
     nbytes = 4 * (n * k + n + 2 * v * k)
     bnd, by = bound(nbytes, n * k)
-    return {"scatter_add": dict(
+    touched = int(torch.unique(zipf).numel())
+    z_bytes = 4 * (n * k + n + 2 * touched * k)
+    z_bnd, _ = bound(z_bytes, n * k)
+    row = dict(
         ms=time_ms(lambda: sc.scatter_add(out, rows, vals)),
         plain_ms=time_ms(lambda: sc.scatter_add_plain(out, rows, vals,
                                                       inplace=True)),
         library_ms=time_ms(lambda: out.index_add_(0, rows64, vals)),
         library="Tensor.index_add_ (int64 rows, all in range)",
         zipf_ms=time_ms(lambda: sc.scatter_add(out, zipf, vals)),
+        zipf_bound_ms=z_bnd, zipf_rows_touched=touched, zipf_bytes=z_bytes,
         bound_ms=bnd, bound_by=by, shape=[v, k, n], bytes=nbytes,
-        flops=n * k)}
+        flops=n * k)
+    return {"scatter_add": row}
+
+
+def _ln_fwd_timing(torch, dev):
+    """Row 7, f32, at the served shape ``LN_SERVED`` with the training
+    shape ``LN_TRAINED`` in ``trained_shape``: each beside its plain
+    version, ``F.layer_norm`` as a yardstick (timed here only; the port
+    never calls it) and its bound."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_layer_norm as fln
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    out = {}
+    for key, (n, hd) in (("served", LN_SERVED), ("trained", LN_TRAINED)):
+        x = torch.randn(n, hd, generator=gen).to(dev)
+        g = torch.randn(hd, generator=gen).to(dev)
+        bb = torch.randn(hd, generator=gen).to(dev)
+        nbytes = 4 * (2 * n * hd + 2 * hd + 2 * n)
+        flops = 8 * n * hd
+        bnd, by = bound(nbytes, flops)
+        out[key] = dict(
+            ms=time_ms(lambda: fln.layer_norm_fwd(x, g, bb, 1e-5)),
+            plain_ms=time_ms(lambda: fln.layer_norm_plain(x, g, bb, 1e-5)),
+            library_ms=time_ms(lambda: F.layer_norm(x, (hd,), g, bb, 1e-5)),
+            library="F.layer_norm", bound_ms=bnd, bound_by=by,
+            shape=[n, hd], bytes=nbytes, flops=flops)
+    out["served"]["trained_shape"] = out["trained"]
+    return {"layer_norm_fwd": out["served"]}
+
+
+def bandwidth_kernel_timing(torch, dev):
+    """Rows 7 and 13, the kernels bound by bytes: ``_ln_fwd_timing`` and
+    ``_scatter_kernel_timing``, through the wrappers' own API only, so
+    ``tools/bandwidth_ab.py`` times another checkout's kernels through this
+    function."""
+    rows = _ln_fwd_timing(torch, dev)
+    rows.update(_scatter_kernel_timing(torch, dev))
+    return rows
+
+
+def _add_bandwidth_plans(torch, dev, rows):
+    """The plans rows 7 and 13 ran under in ``bandwidth_kernel_timing``,
+    into their rows (``plan``)."""
+    from paddle_tpu_torch.ops import fused_layer_norm as fln
+    from paddle_tpu_torch.ops import scatter as sc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ln = rows["layer_norm_fwd"]
+    for r, (n, hd) in ((ln, LN_SERVED), (ln["trained_shape"], LN_TRAINED)):
+        r["plan"] = list(fln.ln_fwd_plan(n, hd, torch.float32, sms))
+    v, k, n = rows["scatter_add"]["shape"]
+    rows["scatter_add"]["plan"] = list(sc.scatter_plan(n, k, True, sms))
 
 
 def build_deepfm(fluid):
@@ -2286,7 +2399,8 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library": r.get("library")})
-        for key in ("bound_ms_f32_fma", "trained_shape"):
+        for key in ("bound_ms_f32_fma", "trained_shape", "plan", "zipf_ms",
+                    "zipf_bound_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
     print(smi_line, flush=True)

@@ -19,6 +19,7 @@ into an exception.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -122,6 +123,15 @@ def load(name):
             t0 = time.perf_counter()
             _finish(name, *_start(name), t0)
         return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """SMs of CUDA device ``index``, read once: the plans size grids by it
+    on every launch."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(fn, name, device, *args):

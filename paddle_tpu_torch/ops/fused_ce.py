@@ -45,8 +45,9 @@ _BM = 128
 _BN = 128
 # what starting a block costs (filling its ring, writing its partials), in
 # vocabulary tiles of work. With 0.25 the plan picks the fastest of the
-# split counts tools/ce_plans.py times on an H100 at 4,096 rows (4 splits)
-# and within 0.1% of it at 32,768 rows (17 splits; one split is 2.9% slower)
+# split counts tools/kernel_plans.py times on an H100 at 4,096 rows (4
+# splits) and within 0.1% of it at 32,768 rows (17 splits; one split is
+# 2.9% slower)
 _BLOCK_COST = 0.25
 
 
@@ -271,7 +272,7 @@ def fused_ce_fwd(x, w, b, y, eps):
     lse = torch.empty(t, device=x.device, dtype=torch.float32)
     if t == 0:
         return loss, lse
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _build.sm_count(x.device.index)
     nsplit, per, rows = split_plan(t, v, sms)
     partial = torch.empty(nsplit, t, 4, device=x.device,
                           dtype=torch.float32)

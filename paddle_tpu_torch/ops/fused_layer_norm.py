@@ -16,23 +16,59 @@ the CPU it takes the plain version, differentiated by autograd.
 There is no fallback from one device to the other. As in ``paddle_tpu``
 (``fused_layer_norm.py:213-219``), cotangents arriving through the Mean and
 Variance outputs are ignored: those are saved statistics.
+
+The forward kernel's launch is planned here (:func:`ln_fwd_plan`: 16-byte
+or single-element vectors, how many a lane holds in registers, warps a
+block), where the CPU tests reach it.
 """
 
+import collections
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
 __all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_bwd",
-           "layer_norm_plain"]
+           "layer_norm_plain", "ln_fwd_plan", "LnFwdPlan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the vectors a lane may hold in registers: the register-resident
+# instantiations of csrc/layer_norm_fwd.cu (0 is its looped form)
+LN_FWD_VPL = (1, 2, 3, 4, 6, 8)
+
+LnFwdPlan = collections.namedtuple("LnFwdPlan", "vec vpl warps blocks")
+
+
+@functools.lru_cache(maxsize=256)
+def ln_fwd_plan(rows, d, dtype, sms, aligned=True):
+    """The forward kernel's launch for ``rows`` rows of width ``d`` in
+    ``dtype`` (f32 or bf16) on ``sms`` SMs: a :class:`LnFwdPlan` ``(vec,
+    vpl, warps, blocks)``.
+
+    ``vec``: elements of a vector, 16 bytes' worth (4 f32, 8 bf16) where
+    ``d`` is a multiple and the pointers are 16-byte ``aligned``, else 1.
+    ``vpl``: the fewest vectors of ``LN_FWD_VPL`` a lane holds so that a
+    warp holds the row, or 0 (the looped form) where 8 do not. ``warps``
+    a block, one row each: 4, or fewer where that leaves under two blocks
+    an SM; ``blocks = ceil(rows / warps)``."""
+    if rows <= 0 or d < 0 or sms <= 0 or dtype not in _DTYPE_CODES:
+        raise ValueError("ln_fwd_plan: rows %d, D %d, SMs %d, dtype %s"
+                         % (rows, d, sms, dtype))
+    wide = 128 // torch.finfo(dtype).bits
+    vec = wide if d % wide == 0 and aligned else 1
+    need = -(-(d // vec) // 32)
+    vpl = next((p for p in LN_FWD_VPL if p >= need), 0)
+    warps = next(w for w in (4, 2, 1) if w == 1 or -(-rows // w) >= 2 * sms)
+    return LnFwdPlan(vec, vpl, warps, -(-rows // warps))
 
 
 def layer_norm_plain(x, scale, bias, eps):
     """x: [..., D] -> (y [..., D] in x.dtype, mean [...] f32, var [...]
-    f32): the same arithmetic as the kernel, in f32 (two-pass variance)."""
+    f32): the kernel's two passes in f32 (mean, then the mean of squared
+    deviations), on the row itself where the kernel shifts it by its first
+    element first."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     xc = xf - mean
@@ -49,14 +85,15 @@ def _c_fn():
     fn = _build.load("layer_norm_fwd").layer_norm_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def layer_norm_fwd(x, scale, bias, eps):
-    """Launch the CUDA kernel. x: CUDA [rows, D] f32/bf16, contiguous;
-    scale/bias: [D] or None. Returns (y, mean, var)."""
+    """Launch the CUDA kernel under :func:`ln_fwd_plan`'s plan (the C entry
+    refuses one that does not fit the call). x: CUDA [rows, D] f32/bf16,
+    contiguous; scale/bias: [D] or None. Returns (y, mean, var)."""
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("layer_norm_fwd wants a contiguous [rows, D] "
                          "tensor, got shape %s" % (tuple(x.shape),))
@@ -76,11 +113,14 @@ def layer_norm_fwd(x, scale, bias, eps):
     var = torch.empty(rows, device=x.device, dtype=torch.float32)
     if rows == 0:
         return y, mean, var
+    ptrs = [p.data_ptr() if p is not None else None for p in params]
+    aligned = (x.data_ptr() | (ptrs[0] or 0) | (ptrs[1] or 0)) % 16 == 0
+    plan = ln_fwd_plan(rows, d, x.dtype, _build.sm_count(x.device.index),
+                       aligned)
     _build.launch(_c_fn(), "layer_norm_fwd", x.device, x.data_ptr(),
-                  params[0].data_ptr() if params[0] is not None else None,
-                  params[1].data_ptr() if params[1] is not None else None,
-                  y.data_ptr(), mean.data_ptr(), var.data_ptr(),
-                  _DTYPE_CODES[x.dtype], rows, d, float(eps))
+                  ptrs[0], ptrs[1], y.data_ptr(), mean.data_ptr(),
+                  var.data_ptr(), _DTYPE_CODES[x.dtype], rows, d, float(eps),
+                  *plan)
     layer_norm_fwd.launches += 1
     return y, mean, var
 
@@ -126,7 +166,7 @@ def layer_norm_bwd(x, scale, mean, var, dy, eps):
         return dx, dg, db
     # a few blocks per SM, each summing a contiguous range of rows into one
     # partial [2, D] row; a second launch sums the partials in order
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _build.sm_count(x.device.index)
     nblocks = max(1, min(-(-rows // 8), 4 * sms))
     partial = torch.empty(nblocks, 2, d, device=x.device, dtype=torch.float32)
     mean, var = mean.contiguous(), var.contiguous()

@@ -155,6 +155,86 @@ def test_layer_norm_kernel_matches_plain(dev, rows, affine, dtype):
     assert (var - wv).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("d", [1, 3, 37, 512, 768, 1000, 4096, 5000])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_layer_norm_kernel_widths(dev, d, affine, dtype, aligned):
+    """Every instantiation family of the forward (``ln_fwd_plan``):
+    16-byte register-resident, single-element, looped, and an x one
+    element past a 16-byte boundary; the tolerances of the test above."""
+    gen = torch.Generator().manual_seed(8)
+    rows = 1000
+    x = (torch.randn(rows * d + 1, generator=gen) * 2 + 0.5).to(dev, dtype)
+    x = (x[:-1] if aligned else x[1:]).view(rows, d)
+    g = torch.randn(d, generator=gen).to(dev) if affine else None
+    bb = torch.randn(d, generator=gen).to(dev) if affine else None
+    y, mean, var = tfln.fused_layer_norm(x, g, bb, 1e-5)
+    wy, wm, wv = tfln.layer_norm_plain(x.float(), g, bb, 1e-5)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * wy.abs().clamp_min(
+        1.0)
+    assert bool(((y.float() - wy).abs() <= tol).all())
+    assert (mean - wm).abs().max().item() <= 1e-5
+    assert (var - wv).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_kernel_at_the_trained_shape(dev, monkeypatch, affine,
+                                                dtype):
+    """Transformer-base's [32768, 512], which a training step normalises
+    32 times: the launch runs under ``ln_fwd_plan``'s plan for that shape
+    (the one ``chip_smoke.py`` times), and y, mean and var keep the
+    tolerances above."""
+    gen = torch.Generator().manual_seed(9)
+    rows, d = 32768, 512
+    x = (torch.randn(rows, d, generator=gen) * 2 + 0.5).to(dev, dtype)
+    g = torch.randn(d, generator=gen).to(dev) if affine else None
+    bb = torch.randn(d, generator=gen).to(dev) if affine else None
+    planned = []
+    plan_fn = tfln.ln_fwd_plan
+    monkeypatch.setattr(tfln, "ln_fwd_plan",
+                        lambda *a: planned.append(plan_fn(*a)) or planned[-1])
+    y, mean, var = tfln.layer_norm_fwd(x, g, bb, 1e-5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert planned == [plan_fn(rows, d, dtype, sms)]
+    assert planned[0].vpl > 0 and planned[0].vec == 16 // x.element_size()
+    wy, wm, wv = tfln.layer_norm_plain(x.float(), g, bb, 1e-5)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * wy.abs().clamp_min(
+        1.0)
+    assert bool(((y.float() - wy).abs() <= tol).all())
+    assert (mean - wm).abs().max().item() <= 1e-5
+    assert (var - wv).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("d", [3, 768, 5000])
+def test_layer_norm_kernel_tracks_f64_on_a_large_mean(dev, d):
+    """f32 rows whose mean is large against their spread (100 + 0.01 x
+    noise): the kernel's statistics of the row shifted by its first
+    element keep y within 2e-6 x max(1, |x_hat * gamma| + |beta|) of an
+    f64 LayerNorm of the same inputs in every form (single-element at 3,
+    register-resident at 768, looped at 5000), where unshifted f32
+    statistics lose the mean's rounding times rstd (about 100)."""
+    gen = torch.Generator().manual_seed(10)
+    x = (100.0 + 0.01 * torch.randn(512, d, generator=gen)).to(dev)
+    g = torch.randn(d, generator=gen).to(dev)
+    bb = torch.randn(d, generator=gen).to(dev)
+    y, mean, var = tfln.layer_norm_fwd(x, g, bb, 1e-5)
+    xd = x.double()
+    mu = xd.mean(-1, keepdim=True)
+    vd = ((xd - mu) ** 2).mean(-1, keepdim=True)
+    scaled = (xd - mu) * torch.rsqrt(vd + 1e-5) * g.double()
+    want = scaled + bb.double()
+    torch.cuda.synchronize()
+    tol = 2e-6 * (scaled.abs() + bb.double().abs()).clamp_min(1.0)
+    assert bool(((y.double() - want).abs() <= tol).all())
+    assert (mean.double() - mu.squeeze(-1)).abs().max().item() <= 1e-4
+    assert (var.double() - vd.squeeze(-1)).abs().max().item() <= 1e-7
+
+
 @pytest.fixture
 def fresh_port_programs():
     prev_main = t_framework.switch_main_program(t_framework.Program())
@@ -574,7 +654,35 @@ SCATTER_CASES = [
     (257, 4, 1025, "uniform"), (120, 128, 40, "uniform"),
     (40, 16, 200, "wrap_drop"), (64, 16, 500, "one_row"),
     (1000, 32, 64 * 26, "uniform"), (1000, 33, 999, "uniform"),
+    # Zipf(1.2) ids folded into [0, V), a hot row straddling every chunk
+    # boundary of the kernel's plan, and a table wider than a warp's lanes
+    (5000, 32, 20000, "zipf"), (5000, 4, 20000, "zipf"),
+    (1000, 32, 5000, "straddle"), (300, 256, 3000, "zipf"),
 ]
+
+
+def _scatter_ids(gen, kind, v, n, k):
+    if kind == "wrap_drop":
+        return torch.randint(-2 * v, 2 * v, (n,), generator=gen)
+    if kind == "one_row":
+        return torch.full((n,), 7)
+    if kind == "zipf":
+        rng = np.random.RandomState(int(torch.randint(1 << 30, (1,),
+                                                      generator=gen)))
+        return torch.from_numpy((rng.zipf(1.2, n) - 1) % v)
+    rows = torch.randint(0, v, (n,), generator=gen)
+    if kind == "straddle":
+        chunk = tscatter.scatter_plan(n, k, True, torch.cuda.
+                                      get_device_properties(0).
+                                      multi_processor_count).chunk
+        for c in range(chunk, n, chunk):
+            rows[c - 3:c + 3] = 5
+    return rows
+
+
+def _scatter_tol(v, k, rows, vals):
+    mass = tscatter.scatter_add_plain(torch.zeros(v, k), rows, vals.abs())
+    return 1e-5 * mass.clamp_min(1.0)
 
 
 @pytest.mark.parametrize("v,k,n,kind", SCATTER_CASES)
@@ -585,22 +693,62 @@ def test_scatter_kernel_matches_plain(dev, v, k, n, kind, sort):
     which bounds a few ulp per duplicate."""
     gen = torch.Generator().manual_seed(5)
     base = torch.randn(v, k, generator=gen)
-    if kind == "wrap_drop":
-        rows = torch.randint(-2 * v, 2 * v, (n,), generator=gen)
-    elif kind == "one_row":
-        rows = torch.full((n,), 7)
-    else:
-        rows = torch.randint(0, v, (n,), generator=gen)
+    rows = _scatter_ids(gen, kind, v, n, k)
     vals = torch.randn(n, k, generator=gen)
     want = tscatter.scatter_add_plain(base, rows, vals)
-    mass = tscatter.scatter_add_plain(torch.zeros(v, k), rows, vals.abs())
     before = tscatter.scatter_add.launches
     got = tscatter.scatter_add_rows(base.to(dev), rows.to(dev),
                                     vals.to(dev), sort=sort)
     torch.cuda.synchronize()
     assert tscatter.scatter_add.launches == before + 1
     err = (got.cpu() - want).abs()
-    assert bool((err <= 1e-5 * mass.clamp_min(1.0)).all()), err.max()
+    assert bool((err <= _scatter_tol(v, k, rows, vals)).all()), err.max()
+
+
+@pytest.mark.parametrize("k", [4, 32, 33])
+@pytest.mark.parametrize("kind", ["uniform", "zipf", "wrap_drop"])
+def test_scatter_kernel_unaligned_table(dev, k, kind):
+    """A table one float past a 16-byte boundary (a row-offset view of a
+    flat buffer) takes the kernel's single-float instantiation, in place;
+    same tolerance as above."""
+    gen = torch.Generator().manual_seed(6)
+    v, n = 2000, 9000
+    base = torch.randn(v, k, generator=gen)
+    rows = _scatter_ids(gen, kind, v, n, k)
+    vals = torch.randn(n, k, generator=gen)
+    out = torch.empty(v * k + 1, device=dev)[1:].view(v, k)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    out.copy_(base)
+    tscatter.scatter_add_rows(out, rows.to(dev), vals.to(dev), inplace=True)
+    torch.cuda.synchronize()
+    err = (out.cpu() - tscatter.scatter_add_plain(base, rows, vals)).abs()
+    assert bool((err <= _scatter_tol(v, k, rows, vals)).all()), err.max()
+
+
+@pytest.mark.parametrize("chunk", [1, 37, 538, 1024])
+@pytest.mark.parametrize("kind", ["uniform", "zipf", "one_row"])
+def test_scatter_kernel_under_explicit_plans(dev, monkeypatch, chunk, kind):
+    """The kernel at chunk sizes the default plan does not pick; a plan
+    that does not fit the call is refused."""
+    gen = torch.Generator().manual_seed(7)
+    v, k, n = 3000, 32, 7000
+    base = torch.randn(v, k, generator=gen)
+    rows = _scatter_ids(gen, kind, v, n, k)
+    vals = torch.randn(n, k, generator=gen)
+    plan = tscatter.ScatterPlan(4, chunk, 8, -(-n // chunk), 6)
+    out = base.to(dev)
+    monkeypatch.setattr(tscatter, "scatter_plan", lambda *_a: plan)
+    tscatter.scatter_add(out, rows.to(dev, torch.int32), vals.to(dev))
+    torch.cuda.synchronize()
+    err = (out.cpu() - tscatter.scatter_add_plain(base, rows, vals)).abs()
+    assert bool((err <= _scatter_tol(v, k, rows, vals)).all()), err.max()
+    for bad in (plan._replace(blocks=plan.blocks + 1),
+                plan._replace(group=16), plan._replace(chunk=2048),
+                plan._replace(per_sm=8)):
+        monkeypatch.setattr(tscatter, "scatter_plan", lambda *_a, _p=bad: _p)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tscatter.scatter_add(out, rows.to(dev, torch.int32),
+                                 vals.to(dev))
 
 
 def test_scatter_kernel_inplace_and_refusals(dev):

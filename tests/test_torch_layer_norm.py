@@ -4,6 +4,9 @@ CPU: y, mean and var, with and without gamma/beta, atol 1e-5; dx, dgamma
 and dbeta against the Pallas backward's vjp, atol 1e-4 (sums over 40 rows
 in another order)."""
 
+import os
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -148,3 +151,67 @@ def test_kernel_wrapper_validates_before_building():
     with pytest.raises(TypeError, match="dtype"):
         tfln.layer_norm_fwd(torch.empty(2, 4, dtype=torch.float16,
                                         device="meta"), None, None, EPS)
+
+
+PLAN_WIDTHS = [1, 3, 37, 512, 768, 1000, 4096, 5000]
+
+
+@pytest.mark.parametrize("d", PLAN_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_fwd_plan_maps_to_a_declared_instantiation(d, dtype):
+    """Every (rows, D, dtype) gets a plan the C entry takes: 16-byte
+    vectors only where D is a multiple of one (and the pointers aligned),
+    a register-resident form that holds the row (at 512 and 768 always)
+    or the looped one, one row a warp, ceil(rows / warps) blocks."""
+    wide = 4 if dtype == torch.float32 else 8
+    for rows in (1, 7, 1024, 32768):
+        for aligned in (True, False):
+            p = tfln.ln_fwd_plan(rows, d, dtype, 132, aligned)
+            assert p.vec == (wide if aligned and d % wide == 0 else 1)
+            assert p.vpl == 0 or p.vpl in tfln.LN_FWD_VPL
+            if p.vpl:
+                assert 32 * p.vpl * p.vec >= d
+            else:  # looped only where no register-resident form holds it
+                assert 32 * max(tfln.LN_FWD_VPL) * p.vec < d
+            assert p.warps in (1, 2, 4, 8)
+            assert p.blocks == -(-rows // p.warps)
+            if d in (512, 768) and aligned:
+                assert p.vec == wide and p.vpl > 0
+            if d % 4:
+                assert p.vec == 1
+    served = tfln.ln_fwd_plan(1024, 768, torch.float32, 132)
+    assert served == (4, 6, 2, 512)  # two blocks an SM or more
+    assert tfln.ln_fwd_plan(32768, 512, torch.float32, 132) == (4, 4, 4,
+                                                                 8192)
+
+
+def test_ln_fwd_plan_refuses_nonsense():
+    for args in ((0, 8, torch.float32, 1), (4, 8, torch.float16, 1),
+                 (4, 8, torch.float32, 0)):
+        with pytest.raises(ValueError, match="ln_fwd_plan"):
+            tfln.ln_fwd_plan(*args)
+
+
+def test_ln_fwd_vpl_matches_the_kernel_source():
+    """The vectors a lane may hold (``LN_FWD_VPL``) and the looped form 0
+    are the instantiations csrc/layer_norm_fwd.cu's launch switch
+    declares, so every plan lands on a compiled kernel."""
+    src = os.path.join(os.path.dirname(tfln.__file__), os.pardir, "csrc",
+                       "layer_norm_fwd.cu")
+    with open(src) as f:
+        cases = re.findall(r"^\s*PTT_LN_CASE\((\d+)\)\s*$", f.read(), re.M)
+    assert [int(c) for c in cases] == [0] + list(tfln.LN_FWD_VPL)
+
+
+@pytest.mark.parametrize("d", PLAN_WIDTHS)
+def test_plain_matches_pallas_kernel_at_plan_widths(monkeypatch, rng, d):
+    """y, mean and var of the plain version against the Pallas forward
+    (interpret mode) at every width the plan tests cover, atol 1e-5."""
+    monkeypatch.setattr(fln, "_INTERPRET", True)
+    x = rng.normal(0.5, 2.0, (8, d)).astype("f4")
+    g = rng.normal(1.0, 0.3, d).astype("f4")
+    b = rng.normal(0.0, 0.3, d).astype("f4")
+    want = fln.fused_layer_norm(_j(x), _j(g), _j(b), EPS)
+    got = tfln.layer_norm_plain(_t(x), _t(g), _t(b), EPS)
+    for w, o in zip(want, got):
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), **TOL)

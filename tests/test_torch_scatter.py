@@ -8,6 +8,9 @@ recorded path and the wrapper's refusals. Tolerances are the JAX test's own:
 1e-6 (the plain version and ``.at[].add`` both add in slot order) and 1e-4
 where 500 slots land on one row."""
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -179,3 +182,117 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                              torch.zeros(3, dtype=torch.int32),
                              torch.zeros(3, 2))
     assert tscatter.scatter_add.launches == before
+
+
+def _ids(kind, n, v, rng):
+    """numpy int32 ids for ``n`` slots of a ``v``-row table."""
+    if kind == "uniform":
+        return rng.randint(0, v, size=(n,)).astype("i4")
+    if kind == "wrap_drop":
+        return rng.randint(-2 * v, 2 * v, size=(n,)).astype("i4")
+    if kind == "one_row":
+        return np.full((n,), 7, "i4")
+    if kind == "zipf":
+        return ((rng.zipf(1.2, n) - 1) % v).astype("i4")
+    # a hot row whose slots straddle every chunk boundary, among uniform ids
+    r = rng.randint(0, v, size=(n,)).astype("i4")
+    for c in range(CHUNK, n, CHUNK):
+        r[c - 3:c + 3] = 5
+    return r
+
+
+CHUNK = 128
+ID_KINDS = ["uniform", "wrap_drop", "one_row", "zipf", "straddle"]
+
+
+def _row_mass(v, k, rows, vals):
+    return tscatter.scatter_add_plain(torch.zeros(v, k), torch.from_numpy(
+        rows), torch.from_numpy(np.abs(vals))).clamp_min(1.0).numpy()
+
+
+@pytest.mark.parametrize("chunk", [CHUNK, 1024])
+@pytest.mark.parametrize("kind", ID_KINDS)
+def test_chunked_emulation_matches_jax_and_plain(kind, chunk, rng):
+    """The kernel's per-chunk aggregation (sum each chunk's duplicate
+    rows, then add each sum once), in many chunks and in one, against the
+    Pallas kernel in interpret mode and the plain version, within the
+    card's tolerance: 1e-5 * max(1, sum over the row's slots of |vals|)."""
+    v, k, n = 300, 8, 1000
+    base = rng.randn(v, k).astype("f4")
+    rows = _ids(kind, n, v, rng)
+    vals = rng.randn(n, k).astype("f4")
+    plan = tscatter.ScatterPlan(4, chunk, 2, -(-n // chunk), 6)
+    got = tscatter.scatter_add_chunked_emulated(
+        torch.from_numpy(base), torch.from_numpy(rows),
+        torch.from_numpy(vals), plan).numpy()
+    want = np.asarray(jscatter.scatter_add_rows(
+        jnp.asarray(base), jnp.asarray(rows), jnp.asarray(vals)))
+    plain = tscatter.scatter_add_plain(torch.from_numpy(base),
+                                       torch.from_numpy(rows),
+                                       torch.from_numpy(vals)).numpy()
+    tol = 1e-5 * _row_mass(v, k, rows, vals)
+    assert (np.abs(got - want) <= tol).all()
+    assert (np.abs(got - plain) <= tol).all()
+
+
+def test_chunked_emulation_drops_sorted_sentinels(rng):
+    """``sort=True`` merges duplicates first and parks the merged slots on
+    the sentinel row V, which the kernel drops like any row out of range."""
+    v, k, n = 64, 32, 700
+    base = rng.randn(v, k).astype("f4")
+    rows = _ids("zipf", n, v, rng)
+    vals = rng.randn(n, k).astype("f4")
+    mr, mv = t_merge(torch.from_numpy(rows).long(), torch.from_numpy(vals),
+                     v)
+    assert int((mr == v).sum()) > 0
+    plan = tscatter.scatter_plan(n, k, True, 1)
+    got = tscatter.scatter_add_chunked_emulated(torch.from_numpy(base), mr,
+                                                mv, plan).numpy()
+    want = np.asarray(jscatter.scatter_add_rows(
+        jnp.asarray(base), jnp.asarray(rows), jnp.asarray(vals), sort=True))
+    tol = 1e-5 * _row_mass(v, k, rows, vals)
+    assert (np.abs(got - want) <= tol).all()
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 851968])
+@pytest.mark.parametrize("k", [1, 4, 16, 32, 33, 128])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_scatter_plan_fits_the_kernel(n, k, aligned):
+    """Always a plan: float4 only for K % 4 == 0 on aligned tensors; lanes
+    per group a power of two covering K's column groups up to 32; chunks
+    within the kernel's 1024 slots; ceil(N / chunk) blocks, none empty."""
+    for sms in (1, 132):
+        p = tscatter.scatter_plan(n, k, aligned, sms)
+        assert p.vec == (4 if aligned and k % 4 == 0 else 1)
+        cols = k // p.vec
+        assert p.group in (1, 2, 4, 8, 16, 32)
+        assert p.group >= min(cols, 32) and (p.group == 1
+                                             or p.group // 2 < cols)
+        assert 1 <= p.chunk <= 1024 and p.per_sm == 6
+        assert p.blocks == -(-n // p.chunk)
+        assert n == 0 or (p.blocks - 1) * p.chunk < n  # no empty block
+        assert n == 0 or p.chunk >= min(n, 128)
+    # the DeepFM step fills whole waves of 6 blocks an SM
+    deepfm = tscatter.scatter_plan(851968, 32, True, 132)
+    assert deepfm.blocks % (132 * 6) == 0 and deepfm.chunk == 538
+    # a batch of 256 leaves SMs without a block: 128-slot chunks
+    assert tscatter.scatter_plan(256 * 26, 32, True, 132).chunk == 128
+
+
+def test_scatter_plan_refuses_nonsense():
+    for args in ((-1, 4, True, 1), (3, 0, True, 1), (3, 4, True, 0)):
+        with pytest.raises(ValueError, match="scatter_plan"):
+            tscatter.scatter_plan(*args)
+
+
+@pytest.mark.parametrize("py_name,c_name", [("_BLOCKS_PER_SM", "MIN_BLOCKS"),
+                                            ("_MAX_CHUNK", "MAX_CHUNK")])
+def test_scatter_plan_limits_match_the_kernel_source(py_name, c_name):
+    """The plan's resident blocks an SM and largest chunk are the kernel's
+    ``__launch_bounds__`` minimum and shared-memory chunk, read from
+    csrc/scatter_add.cu, so the waves the plan sizes are the card's."""
+    src = os.path.join(os.path.dirname(tscatter.__file__), os.pardir, "csrc",
+                       "scatter_add.cu")
+    with open(src) as f:
+        found = re.findall(r"constexpr int %s = (\d+);" % c_name, f.read())
+    assert found == [str(getattr(tscatter, py_name))]
