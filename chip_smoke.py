@@ -40,12 +40,24 @@ it and read just after:
   3, 13 dense features, batch 32768, Adam 1e-4; random weights from seed
   11) the same way: its ``embedding(is_sparse=True)`` gives a (rows,
   values) gradient, which Adam densifies through the row scatter-add
-  kernel, once per step, for 3 warm-up and 20 timed steps.
+  kernel, once per step, for 3 warm-up and 20 timed steps;
+* serving generation at GPT-2 small's widths (the repo's ``transformer_lm``:
+  vocab 50257, d_model 768, d_ff 3072, 12 heads, 12 layers, 1024
+  positions, 163,000,320 parameters; random weights from seed 11): the
+  step program saved with ``save_inference_model`` and its
+  ``decode_spec.json`` -> ``ServingEngine(dir, decode=True, ...)`` ->
+  ``DecodeBatcher`` (slot recycling; in a second arm chunked prefill,
+  speculative decode with the full program as draft, and the prefix
+  cache) -> step and chunk dispatches -> the LayerNorm forward kernel, and
+  the flash forward in the draft's passes; 64 requests in a closed loop
+  of 16.
 
 Before each training path, ``train_check``, ``resnet_train_check`` and
 ``deepfm_train_check`` run one full-width step (at batch 2, 2 and 64) on
 the card and the same step with the port on the CPU from the same weights
-and feed. Each phase prints one JSON
+and feed; before decode, ``decode_check`` holds four step dispatches and
+a chunk against the CPU, out-of-range cache positions, and the ids of
+solo, batched, chunked and speculative decode. Each phase prints one JSON
 line; any failure raises and exits non-zero. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``. Without CUDA, or
 outside the repository, it exits non-zero and prints no result.
@@ -331,6 +343,11 @@ def phase_flash_check(torch, dev):
          torch.float32, 1e-4),
         ("d64_full_bias_bf16", 2, 128, 128, 4, 64, False, "full",
          torch.bfloat16, 2e-2),
+        # the decode tier's draft pass: GPT-2 small's heads over the
+        # draft's 16 positions at the top batch rung
+        ("draft_causal_16", 8, DRAFT_SEQ, DRAFT_SEQ, GPT2["n_head"],
+         GPT2["d_model"] // GPT2["n_head"], True, None, torch.float32,
+         1e-4),
     ]
     errs = {}
     for name, b_, tq, tk, h_, d_, causal, bias_kind, dtype, tol in cases:
@@ -2317,6 +2334,528 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2):
     return launches
 
 
+# GPT-2 small's published widths (Radford et al. 2019, the ``gpt2`` config:
+# n_embd 768, n_head 12, n_layer 12, n_inner 3072, vocab_size 50257,
+# n_positions 1024) on the repo's transformer_lm architecture (pre-norm,
+# ReLU FFN, untied bias-free output projection)
+GPT2 = dict(vocab=50257, d_model=768, d_ff=3072, n_head=12, n_layer=12,
+            ctx_cap=1024, pos_cap=1024)
+GPT2_PARAMS = 163000320
+DRAFT_SEQ = 16
+# launches of one step or chunk dispatch, and of one draft pass (the full
+# causal program: its 12 attention layers take the flash forward)
+PER_DISPATCH = per_run(layer_norm_fwd=2 * GPT2["n_layer"] + 1)
+PER_DRAFT_PASS = per_run(layer_norm_fwd=2 * GPT2["n_layer"] + 1,
+                         flash_attention_fwd=GPT2["n_layer"])
+SYSTEM_PREFIX = 128
+
+
+def build_lm_family(fluid, place):
+    """The weight-sharing ``transformer_lm`` family at GPT-2-small widths
+    in one scope on ``place``, random weights from seed 11 (the full
+    program's startup): predictors of the step and chunk programs and the
+    draft (the full program at seq 16, pruned to its logits, so no loss is
+    computed), the specs, and the programs for the CPU copy."""
+    from paddle_tpu_torch.inference import ProgramPredictor
+
+    tr = fluid.models.transformer
+    full_cfg = {k: v for k, v in GPT2.items() if k != "ctx_cap"}
+    built = {}
+    for name, build in (
+            ("full", lambda: tr.transformer_lm(seq_len=DRAFT_SEQ, **full_cfg)),
+            ("step", lambda: tr.transformer_lm_step(**GPT2)),
+            ("chunk", lambda: tr.transformer_lm_chunk(**GPT2))):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            built[name] = (main, startup, build())
+    full_main, full_start, spec = built["full"]
+    full_start.random_seed = SEED
+    scope = fluid.Scope()
+    fluid.Executor(place).run(full_start, scope=scope)
+    logits = spec.extras["logits"]
+    draft_main = full_main.prune([logits])
+    op_types = [op.type for op in draft_main.global_block().ops]
+    check("softmax_with_cross_entropy" not in op_types
+          and op_types.count("flash_attention") == GPT2["n_layer"],
+          "the pruned draft program's ops: %s" % sorted(set(op_types)))
+    fam = {"scope": scope, "place": place, "programs": {},
+           "n_params": sum(int(np.prod(p.shape))
+                           for p in full_main.all_parameters()),
+           "param_names": [p.name for p in full_main.all_parameters()]}
+    for name in ("step", "chunk"):
+        main, _startup, (fetch_vars, dspec) = built[name]
+        feeds = [dspec["token_feed"], dspec["pos_feed"]] \
+            + [c["feed"] for c in dspec["cache_feeds"]]
+        fam["programs"][name] = (main, feeds, fetch_vars)
+        fam[name] = ProgramPredictor(main, feeds, fetch_vars, scope=scope,
+                                     place=place)
+        fam[name + "_spec"] = dspec
+    fam["programs"]["draft"] = (draft_main, ["ids"],
+                                [draft_main.global_block().var(logits)])
+    fam["draft"] = ProgramPredictor(*fam["programs"]["draft"], scope=scope,
+                                    place=place)
+    fam["logits"] = logits
+    return fam
+
+
+def _dispatch(pred, spec, caches, tokens, pos):
+    """One step or chunk dispatch: (logits, the updated caches)."""
+    feed = dict(caches)
+    feed[spec["token_feed"]] = tokens
+    feed[spec["pos_feed"]] = pos
+    outs = pred.run(feed, return_numpy=False)
+    return outs[0], {cf["feed"]: o
+                     for cf, o in zip(spec["cache_feeds"], outs[1:])}
+
+
+def _zero_caches(torch, spec, b, c, device):
+    return {cf["feed"]: torch.zeros(b, c, GPT2["d_model"], device=device)
+            for cf in spec["cache_feeds"]}
+
+
+def _rel_l2_t(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def _greedy_run(fluid, fam, reqs, ctx, **kw):
+    """Greedy ids of ``reqs`` [(prompt, max_new)] through one
+    ``DecodeBatcher`` driven on the calling thread at batch rung 4."""
+    bat = fluid.serving.DecodeBatcher(fam["step"], fam["step_spec"],
+                                      ladder=(4,), ctx_ladder=(ctx,),
+                                      start=False, **kw)
+    futs = [bat.submit(p, max_new_tokens=n) for p, n in reqs]
+    bat.drive()
+    check(bat.draft_failures == 0, "a draft pass raised")
+    return [[int(t) for t in f.result(0)] for f in futs], bat
+
+
+def phase_decode_check(torch, smi_line, tol=1e-4):
+    """The decode tier at GPT-2-small widths against the port on the CPU
+    and against itself (f32, TF32 off):
+
+    * four teacher-forced step dispatches and one chunk dispatch of K = 16
+      on the card and on the CPU from the same weights: logits within
+      ``tol`` in relative L2 (and the carried caches);
+    * exact launches: 25 ``layer_norm_fwd`` a step or chunk dispatch, 25 +
+      12 ``flash_attention_fwd`` a draft pass;
+    * the draft (the pruned full program, whose causal attention is the
+      flash forward) at [8, 16] over histories of at most 16 tokens, where
+      its positions are the target's: logits within ``tol`` of the CPU's
+      and of the target's step logits, and each proposal the plain
+      chain's next token, or a miss at a position whose top-2 margin is
+      within 10x their largest difference;
+    * ``kv_cache_write`` at positions -1 (wraps), C and C + 3 (drop) on
+      the card, bitwise as on the CPU, with no device assert;
+    * a request decoded alone and batched with strangers: bitwise the
+      same ids at one (batch rung, ctx rung);
+    * plain step-only, chunked-prefill and speculative decode: the same
+      greedy ids, or a divergence at a position whose top-2 margin is
+      within 10x the largest step-vs-chunk logit difference (a tie under
+      another product shape, not a fault)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.opimpl.attention_ops import cache_write
+
+    t0 = time.perf_counter()
+    fam = build_lm_family(fluid, fluid.CUDAPlace(0))
+    dev = fam["place"].torch_device()
+    check(fam["n_params"] == GPT2_PARAMS, "%d parameters, not %d"
+          % (fam["n_params"], GPT2_PARAMS))
+    cpu_scope = fluid.Scope()
+    for n in fam["param_names"]:
+        cpu_scope.set(n, fam["scope"].get(n).cpu())
+    cpu = {name: fluid.inference.ProgramPredictor(
+        *fam["programs"][name], scope=cpu_scope, place=fluid.CPUPlace())
+        for name in ("step", "chunk", "draft")}
+    setup_s = time.perf_counter() - t0
+
+    # (1) four steps and a chunk of 16, card against CPU
+    rng = np.random.RandomState(SEED)
+    b, c, k = 4, 64, 16
+    toks = rng.randint(0, GPT2["vocab"], (b, 4 + k)).astype("int64")
+    sspec, cspec = fam["step_spec"], fam["chunk_spec"]
+    side = {"gpu": (fam["step"], fam["chunk"], dev),
+            "cpu": (cpu["step"], cpu["chunk"], torch.device("cpu"))}
+    logits, caches, counts = {}, {}, []
+    for key, (step, chunk, d) in side.items():
+        cache = _zero_caches(torch, sspec, b, c, d)
+        outs = []
+        for t in range(4):
+            reset_counts()
+            lg, cache = _dispatch(step, sspec, cache, toks[:, t],
+                                  np.full((b,), t, "int32"))
+            outs.append(lg)
+            counts.append((key, "step", read_counts()))
+        reset_counts()
+        lg, cache = _dispatch(chunk, cspec, cache, toks[:, 4:],
+                              np.tile(np.arange(4, 4 + k, dtype="int32"),
+                                      (b, 1)))
+        outs.append(lg.reshape(b * k, -1))
+        counts.append((key, "chunk", read_counts()))
+        logits[key] = torch.cat([o.cpu() for o in outs])
+        caches[key] = cache
+    for key, kind, n in counts:
+        want = PER_DISPATCH if key == "gpu" else per_run()
+        check(n == want, "decode_check %s %s dispatch launched %s"
+              % (key, kind, n))
+    l2 = _rel_l2_t(logits["gpu"], logits["cpu"])
+    max_abs = float((logits["gpu"] - logits["cpu"]).abs().max())
+    cache_l2 = max(_rel_l2_t(caches["gpu"][n], caches["cpu"][n])
+                   for n in caches["cpu"])
+    check(bool(torch.isfinite(logits["gpu"]).all()), "non-finite logits")
+
+    draft = fluid.serving.DraftLM(fam["draft"], fam["logits"], DRAFT_SEQ,
+                                  lbl_feed=None)
+
+    # (3) out-of-range cache positions on the card
+    gen = torch.Generator().manual_seed(SEED)
+    cache0 = torch.randn(4, c, GPT2["d_model"], generator=gen)
+    rows = torch.randn(4, 3, GPT2["d_model"], generator=gen)
+    pos = torch.tensor([[-1, 0, 1], [c, c, c], [c + 3, 2, c], [5, -c, 7]],
+                       dtype=torch.int32)
+    got = cache_write(cache0.to(dev), rows.to(dev), pos.to(dev))
+    torch.cuda.synchronize()
+    want = cache_write(cache0, rows, pos)
+    check(torch.equal(got.cpu(), want), "kv_cache_write out of range: the "
+          "card differs from the CPU")
+    check(torch.equal(want[0, c - 1], rows[0, 0])
+          and torch.equal(want[1], cache0[1])
+          and torch.equal(want[2, 2], rows[2, 1])
+          and torch.equal(want[3, 0], rows[3, 1]),
+          "kv_cache_write did not wrap -1 and -C or drop C and C + 3")
+
+    # (4) solo vs batched with strangers, one (batch rung, ctx rung)
+    prompt = list(rng.randint(0, GPT2["vocab"], 40))
+    strangers = [(list(rng.randint(0, GPT2["vocab"], n)), m)
+                 for n, m in ((23, 9), (9, 16), (57, 5))]
+    solo, _ = _greedy_run(fluid, fam, [(prompt, 16)], 128)
+    batched, _ = _greedy_run(fluid, fam, [(prompt, 16)] + strangers, 128)
+    check(batched[0] == solo[0], "solo %s != batched %s"
+          % (solo[0], batched[0]))
+
+    # (5) plain vs chunked prefill vs speculative decode
+    reqs = [(prompt, 16)] + [(p, 16) for p, _m in strangers]
+    ladder = {"ladder": (4, 8, 16, 32, 64)}
+    prefill = dict(ladder, predictor=fam["chunk"], spec=cspec)
+    plain, _ = _greedy_run(fluid, fam, reqs, 128)
+    chunked, cb = _greedy_run(fluid, fam, reqs, 128, prefill=prefill)
+    spec_ids, sb = _greedy_run(
+        fluid, fam, reqs, 128, prefill=prefill,
+        speculative={"draft": draft, "k": 4})
+    # teacher-forced along the plain chain: every fed position through
+    # step dispatches and through one chunk dispatch
+    fed = [p + ids[:-1] for (p, _m), ids in zip(reqs, plain)]
+    cap = 128
+    step_lg = torch.zeros(len(fed), cap, GPT2["vocab"])
+    cache = _zero_caches(torch, sspec, len(fed), cap, dev)
+    for t in range(max(len(f) for f in fed)):
+        tk = np.array([f[t] if t < len(f) else 0 for f in fed], "int64")
+        ps = np.array([t if t < len(f) else cap for f in fed], "int32")
+        lg, cache = _dispatch(fam["step"], sspec, cache, tk, ps)
+        step_lg[:, t] = lg.cpu()
+    tk = np.zeros((len(fed), cap), "int64")
+    ps = np.full((len(fed), cap), cap, "int32")
+    for r, f in enumerate(fed):
+        tk[r, :len(f)] = f
+        ps[r, :len(f)] = np.arange(len(f))
+    chunk_lg, _ = _dispatch(fam["chunk"], cspec,
+                            _zero_caches(torch, sspec, len(fed), cap, dev),
+                            tk, ps)
+    chunk_lg = chunk_lg.cpu()
+    diffs = [float((step_lg[r, :len(f)] - chunk_lg[r, :len(f)]).abs().max())
+             for r, f in enumerate(fed)]
+    divergences = []
+    for arm, ids in (("chunked", chunked), ("speculative", spec_ids)):
+        for r, ((p, _m), want, got) in enumerate(zip(reqs, plain, ids)):
+            if got == want:
+                continue
+            j = next(i for i, (a, w) in enumerate(zip(got, want)) if a != w)
+            top2 = torch.topk(step_lg[r, len(p) - 1 + j], 2).values
+            margin = float(top2[0] - top2[1])
+            divergences.append({"arm": arm, "request": r, "token": j,
+                                "margin": margin,
+                                "step_vs_chunk_max_diff": diffs[r]})
+            check(margin <= 10 * diffs[r],
+                  "%s decode diverged from plain at request %d token %d "
+                  "with top-2 margin %g > 10 x %g" % (arm, r, j, margin,
+                                                       diffs[r]))
+
+    # (6) the draft where its positions are the target's (histories of at
+    # most DRAFT_SEQ tokens, here the 9-token request's along its plain
+    # chain, one pass at the top rung of 8): its logits on the card
+    # against the CPU and against the target's teacher-forced step logits,
+    # and its proposals against the plain chain's next tokens
+    r = 2
+    chain = fed[r] + plain[r][-1:]
+    hists = [chain[:n] for n in range(len(reqs[r][0]), DRAFT_SEQ + 1)]
+    check(len(hists) == 8, "%d draft histories" % len(hists))
+    ids = np.zeros((len(hists), DRAFT_SEQ), "int64")
+    for j, h in enumerate(hists):
+        ids[j, :len(h)] = h
+    draft_lg = {key: torch.as_tensor(pred.run({"ids": ids},
+                                              return_numpy=False)[0]).cpu()
+                for key, pred in (("gpu", fam["draft"]),
+                                  ("cpu", cpu["draft"]))}
+    draft_l2 = _rel_l2_t(draft_lg["gpu"], draft_lg["cpu"])
+    at = torch.tensor([len(h) - 1 for h in hists])
+    last = draft_lg["gpu"][torch.arange(len(hists)), at]
+    target = step_lg[r, at]
+    draft_vs_target = _rel_l2_t(last, target)
+    reset_counts()
+    proposed = [t for t, in draft.propose(hists, 1)]
+    draft_counts = read_counts()
+    check(draft_counts == PER_DRAFT_PASS,
+          "a draft pass launched %s" % draft_counts)
+    draft_misses = []
+    for j, h in enumerate(hists):
+        if proposed[j] == chain[len(h)]:
+            continue
+        top2 = torch.topk(target[j], 2).values
+        margin = float(top2[0] - top2[1])
+        diff = float((last[j] - target[j]).abs().max())
+        draft_misses.append({"history": len(h), "margin": margin,
+                             "draft_vs_target_max_diff": diff})
+        check(margin <= 10 * diff,
+              "the draft proposed %d, not the plain chain's %d, after %d "
+              "tokens with top-2 margin %g > 10 x %g"
+              % (proposed[j], chain[len(h)], len(h), margin, diff))
+    # speculative decode of that request alone, up to DRAFT_SEQ tokens:
+    # the draft sees the target's positions (reported, not held)
+    _ids, shb = _greedy_run(
+        fluid, fam, [(reqs[r][0], DRAFT_SEQ - len(reqs[r][0]))], 128,
+        prefill=prefill, speculative={"draft": draft, "k": 4})
+    cm, sm, shm = cb.metrics(), sb.metrics(), shb.metrics()
+    emit({"phase": "decode_check", "config": GPT2,
+          "params": fam["n_params"], "batch": b, "ctx": c, "chunk": k,
+          "logits_rel_l2": l2, "logits_max_abs_err": max_abs,
+          "caches_rel_l2": cache_l2, "tol_rel_l2": tol,
+          "launches_per_dispatch": PER_DISPATCH["layer_norm_fwd"],
+          "draft_pass_launches": draft_counts,
+          "draft_logits_rel_l2": draft_l2,
+          "draft_logits_max_abs_err": float(
+              (draft_lg["gpu"] - draft_lg["cpu"]).abs().max()),
+          "draft_vs_target_rel_l2": draft_vs_target,
+          "draft_proposals": proposed, "draft_misses": draft_misses,
+          "short_spec_accepted": shm["spec_accepted"],
+          "short_spec_rejected": shm["spec_rejected"],
+          "solo_equals_batched": True, "plain_ids": plain,
+          "chunked_equal": chunked == plain,
+          "speculative_equal": spec_ids == plain,
+          "divergences": divergences,
+          "step_vs_chunk_max_diff": max(diffs),
+          "chunked_dispatches": cm["decode_steps"],
+          "spec_accepted": sm["spec_accepted"],
+          "spec_rejected": sm["spec_rejected"],
+          "setup_s": setup_s, "device": smi_line})
+    check(l2 <= tol and cache_l2 <= tol and draft_l2 <= tol
+          and draft_vs_target <= tol,
+          "decode_check: card vs CPU rel L2 %g (caches %g, draft %g; draft "
+          "vs target %g) > %g" % (l2, cache_l2, draft_l2, draft_vs_target,
+                                  tol))
+    return fam
+
+
+def decode_workload(rng, n=64):
+    """``n`` requests behind one 128-token system prefix: 80% bodies of
+    16-64 tokens with max_new 32, every fifth a body of 256-512 with
+    max_new 128 (random ids from ``rng``)."""
+    prefix = list(rng.randint(0, GPT2["vocab"], SYSTEM_PREFIX))
+    reqs = []
+    for i in range(n):
+        long = i % 5 == 4
+        body = rng.randint(256, 513) if long else rng.randint(16, 65)
+        reqs.append((prefix + list(rng.randint(0, GPT2["vocab"], body)),
+                     128 if long else 32))
+    return reqs
+
+
+def _decode_kind(name):
+    kind = _kernel_kind(name)
+    if kind != "other":
+        return kind
+    for mark in ("copy", "softmax", "index", "reduce", "elementwise"):
+        if mark in name:
+            return mark
+    return "other"
+
+
+def _decode_profile(torch, make_batcher, reqs, skip, window):
+    """Device ms per dispatch by kernel kind over dispatches [skip, skip +
+    window) of ``reqs`` through a fresh batcher driven on this thread:
+    once timed by the host clock, once more under torch.profiler (whose
+    CPU tracing slows the host); busy share = device time / the
+    unprofiled wall of the same dispatches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def drive(prof):
+        bat = make_batcher()
+        futs = [bat.submit(p, max_new_tokens=n) for p, n in reqs]
+        bat.drive(max_steps=skip)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if prof is None:
+            n = bat.drive(max_steps=window)
+        else:
+            with prof:
+                n = bat.drive(max_steps=window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bat.drive()
+        check(n == window and all(f.done() for f in futs),
+              "profile window: %d dispatches of %d" % (n, window))
+        return wall
+
+    wall = drive(None)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof_wall = drive(prof)
+    kinds, n_kernels = {}, 0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        kind = _decode_kind(e.key.lower())
+        kinds[kind] = kinds.get(kind, 0.0) + us
+        n_kernels += e.count
+    device_ms = sum(kinds.values()) / 1e3
+    return {"requests": len(reqs), "dispatches": [skip, skip + window],
+            "wall_ms_per_dispatch": wall / window * 1e3,
+            "profiled_wall_ms_per_dispatch": prof_wall / window * 1e3,
+            "device_ms_per_dispatch": {k: v / window / 1e3
+                                       for k, v in sorted(kinds.items())},
+            "kernels_per_dispatch": n_kernels / window,
+            "device_busy_share": device_ms / (wall * 1e3)}
+
+
+def _decode_arm(torch, fluid, model_dir, reqs, in_flight, **engine_kw):
+    """One engine over the saved step program serving ``reqs`` in a closed
+    loop of ``in_flight`` outstanding requests, after ``warmup()``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = fluid.serving.ServingEngine(model_dir, decode=True, **engine_kw)
+    try:
+        t0 = time.perf_counter()
+        warmed = eng.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        futs = []
+        t0 = time.perf_counter()
+        for i, (p, n) in enumerate(reqs):
+            if i >= in_flight:
+                futs[i - in_flight].result(timeout=600)
+            futs.append(eng.submit(p, max_new_tokens=n))
+        outs = [[int(t) for t in f.result(timeout=600)] for f in futs]
+        wall = time.perf_counter() - t0
+        snap = eng.metrics()
+        geometries = eng.compiled_shape_counts()
+        draft_failures = eng.draft_failures
+    finally:
+        eng.shutdown()
+    check(draft_failures == 0, "%d draft passes raised" % draft_failures)
+    peak = torch.cuda.max_memory_allocated()
+    for (p, n), ids in zip(reqs, outs):
+        check(len(ids) == n and all(0 <= t < GPT2["vocab"] for t in ids),
+              "a request returned %d ids, not %d in range" % (len(ids), n))
+    tokens = sum(len(ids) for ids in outs)
+    check(snap["requests_completed"] == len(reqs)
+          and snap["requests_failed"] == 0, "decode requests failed: %s"
+          % snap)
+    return outs, {
+        "requests": len(reqs), "in_flight": in_flight, "wall_s": wall,
+        "tokens": tokens, "tokens_per_s": tokens / wall,
+        "requests_per_s": len(reqs) / wall,
+        "ttft_ms": {k: v * 1e3 for k, v in snap["ttft_s"].items()},
+        "tpot_ms": {k: v * 1e3 for k, v in snap["tpot_s"].items()},
+        "latency_ms": {k: v * 1e3 for k, v in snap["latency_s"].items()},
+        "dispatches": snap["decode_steps"],
+        "prefill_chunks": snap["prefill_chunks"],
+        "prefill_tokens": snap["prefill_tokens"],
+        "slot_occupancy": snap["slot_occupancy"],
+        "prefix_hits": snap["prefix_hits"],
+        "prefix_tokens_reused": snap["prefix_tokens_reused"],
+        "prefix_evictions": snap["prefix_evictions"],
+        "spec_accepted": snap["spec_accepted"],
+        "spec_rejected": snap["spec_rejected"],
+        "spec_accept_rate": snap["spec_accept_rate"],
+        "warmup_dispatches": warmed, "warmup_s": warm_s,
+        "geometries": geometries, "peak_memory_bytes": peak}
+
+
+def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
+    """The main path: ``ServingEngine(model_dir, decode=True, ...)`` over a
+    ``save_inference_model`` directory of the step program with its
+    ``decode_spec.json``, serving ``decode_workload`` in two arms: plain
+    step-only decode, then chunked prefill + speculative decode (k = 4,
+    the full program at seq 16 over the same weights as draft) + the
+    prefix cache. Launch counts are zeroed just before the first engine
+    and read after the second: every step or chunk dispatch (warmup
+    included) launches 25 ``layer_norm_fwd``, every draft pass 25 more and
+    12 ``flash_attention_fwd``. Then each arm's device time per dispatch
+    by kind, over a window of a replay of 8 short requests (in the fast
+    arm a dispatch is a chunk or a step, and the window's draft passes
+    count in its time)."""
+    import paddle_tpu_torch as fluid
+
+    rng = np.random.RandomState(SEED + 1)
+    reqs = decode_workload(rng, n_requests)
+    model_dir = tempfile.mkdtemp(prefix="gpt2_step_")
+    step_main, feeds, fetch_vars = fam["programs"]["step"]
+    t0 = time.perf_counter()
+    with fluid.scope_guard(fam["scope"]):
+        fluid.io.save_inference_model(model_dir, feeds, fetch_vars,
+                                      fluid.Executor(fam["place"]),
+                                      main_program=step_main)
+    fluid.serving.save_decode_spec(model_dir, fam["step_spec"])
+    save_s = time.perf_counter() - t0
+    prefill = {"predictor": fam["chunk"], "spec": fam["chunk_spec"]}
+    draft = fluid.serving.DraftLM(fam["draft"], fam["logits"], DRAFT_SEQ,
+                                  lbl_feed=None)
+    fast = {"decode_prefill": prefill,
+            "decode_speculative": {"draft": draft, "k": 4},
+            "prefix_cache": {"max_bytes": 1 << 30}}
+
+    reset_counts()
+    plain_ids, plain = _decode_arm(torch, fluid, model_dir, reqs, in_flight)
+    fast_ids, fast_arm = _decode_arm(torch, fluid, model_dir, reqs,
+                                     in_flight, **fast)
+    launches = read_counts()
+    passes = draft.passes
+    shutil.rmtree(model_dir)
+
+    dispatches = (plain["warmup_dispatches"] + plain["dispatches"]
+                  + fast_arm["warmup_dispatches"] + fast_arm["dispatches"])
+    want = {k: dispatches * PER_DISPATCH[k] + passes * PER_DRAFT_PASS[k]
+            for k in KERNELS}
+    same = sum(a == b for a, b in zip(plain_ids, fast_ids))
+
+    short = [r for i, r in enumerate(decode_workload(
+        np.random.RandomState(SEED + 2), 10)) if i % 5 != 4]
+
+    def batcher(**kw):
+        return lambda: fluid.serving.DecodeBatcher(
+            fam["step"], fam["step_spec"], ladder=(1, 2, 4, 8),
+            start=False, **kw)
+
+    plain["profile"] = _decode_profile(torch, batcher(), short, 8, 40)
+    fast_arm["profile"] = _decode_profile(torch, batcher(
+        prefill=prefill, speculative={"draft": draft, "k": 4},
+        prefix_cache={"max_bytes": 1 << 30}), short, 4, 12)
+    for name, arm in (("plain", plain), ("fast", fast_arm)):
+        emit(dict({"phase": "decode", "arm": name, "config": GPT2,
+                   "params": fam["n_params"], "ladder": [1, 2, 4, 8],
+                   "system_prefix": SYSTEM_PREFIX, "device": smi_line},
+                  **arm))
+    emit({"phase": "decode", "launches": launches, "want": want,
+          "dispatches": dispatches, "draft_passes": passes,
+          "requests_with_equal_ids": same, "save_s": save_s})
+    check(launches == want, "decode launches %s != %s" % (launches, want))
+    check(passes > 0 and fast_arm["spec_accepted"] > 0
+          and fast_arm["prefix_hits"] > 0
+          and fast_arm["prefill_chunks"] > 0,
+          "the fast arm skipped a fast path: %s" % fast_arm)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2366,6 +2905,9 @@ def main():
     del trained
     phase_deepfm_train_check(torch, smi_line)
     paths["deepfm_train"] = phase_deepfm_train(torch, smi_line)
+    fam = phase_decode_check(torch, smi_line)
+    paths["decode"] = phase_decode(torch, smi_line, fam)
+    del fam
 
     src = {"flash_attention_fwd": ("flash_attention_fwd.cu",
                                    "paddle_tpu/ops/flash_attention.py:1001"),

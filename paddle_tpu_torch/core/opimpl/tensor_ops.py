@@ -86,6 +86,14 @@ def _squeeze(env, op):
     put(env, op.output("Out"), out)
 
 
+@register("unsqueeze", "unsqueeze2")
+def _unsqueeze(env, op):
+    out = get(env, op.input("X"))
+    for a in sorted(op.attr("axes")):
+        out = out.unsqueeze(a)
+    put(env, op.output("Out"), out)
+
+
 @register("slice")
 def _slice(env, op):
     x = get(env, op.input("Input"))
@@ -113,7 +121,14 @@ def _lookup_table(env, op):
     """Embedding lookup (ref ``lookup_table_op.cc``); padding_idx rows give
     zeros. Ids may be int32 or int64. ``paddle_tpu``'s 128-lane packed
     gather (``ops/rowops.py``) exists for TPU lanes; here it is a plain
-    row index.
+    row index. A lookup whose op carries ``out_of_range="fill"`` indexes
+    as ``jnp.take`` does (the reference's gather for tables whose width
+    does not divide 128): an id in [-V, 0) counts from the end, and any
+    other outside [0, V) gives a row of NaN, not an index error (on the
+    card, a device assert). Only the decode chunk's position lookup
+    carries it (``models.transformer``): its pad lanes feed position C,
+    past the position table when C is its size, and their outputs are
+    ignored. Every other lookup is one ``index_select``.
 
     A table with a sparse gradient in a training step (listed under
     ``SPARSE_SITES_KEY`` by the Executor) is not on the tape: the lookup
@@ -124,7 +139,16 @@ def _lookup_table(env, op):
     ids = get(env, op.input("Ids"))
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
-    out = w.index_select(0, ids.reshape(-1)).reshape(*ids.shape, w.shape[1])
+    flat = ids.reshape(-1)
+    if op.attr("out_of_range") == "fill":
+        v = w.shape[0]
+        flat = torch.where(flat < 0, flat + v, flat)
+        valid = (flat >= 0) & (flat < v)
+        out = w.index_select(0, torch.where(valid, flat, 0))
+        out = torch.where(valid.unsqueeze(1), out, float("nan"))
+    else:
+        out = w.index_select(0, flat)
+    out = out.reshape(*ids.shape, w.shape[1])
     padding_idx = op.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)

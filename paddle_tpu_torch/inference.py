@@ -47,6 +47,11 @@ class ProgramPredictor:
         self.fetch_names = [v.name if hasattr(v, "name") else str(v)
                             for v in fetch_vars]
 
+    @property
+    def device(self):
+        """The ``torch.device`` the weights and the outputs live on."""
+        return self._exe.device
+
     def run(self, inputs, return_numpy=True):
         """``inputs``: dict name->array, or a list/tuple in feed order.
         Returns outputs in fetch order."""

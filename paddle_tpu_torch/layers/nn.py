@@ -19,7 +19,8 @@ __all__ = [
     "elementwise_sub", "elementwise_mul", "elementwise_div", "reduce_sum",
     "topk", "softmax_with_cross_entropy",
     "sigmoid_cross_entropy_with_logits", "fused_linear_smooth_ce",
-    "multi_head_attention",
+    "multi_head_attention", "kv_cache_write", "cached_multi_head_attention",
+    "kv_cache_write_chunk", "cached_multi_head_attention_chunk",
 ]
 
 
@@ -439,3 +440,84 @@ def multi_head_attention(queries, keys, values, attn_bias=None, d_key=None,
         dtype=dtype, shape=tuple(queries.shape[:-1]) + (d_model,))
     helper.append_op("matmul", {"X": ctx, "Y": wo}, {"Out": out}, {})
     return out
+
+
+def kv_cache_write(cache, x, pos, name=None):
+    """Per-row KV-cache update ``cache[b, pos[b]] = x[b]``
+    (``paddle_tpu/layers/nn.py:1737``; ``core/opimpl/attention_ops.py``).
+    ``cache``: [B, C, ...], ``x``: [B, ...], ``pos``: [B] int. Returns the
+    updated cache (a new tensor: the input cache is left as it was)."""
+    helper = LayerHelper("kv_cache_write", name=name)
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(cache), shape=cache.shape)
+    helper.append_op("kv_cache_write",
+                     {"Cache": cache, "X": x, "Pos": pos}, {"Out": out}, {})
+    return out
+
+
+def kv_cache_write_chunk(cache, x, pos, name=None):
+    """K-row KV-cache update ``cache[b, pos[b, j]] = x[b, j]``
+    (``paddle_tpu/layers/nn.py:1794``). ``x``: [B, K, ...], ``pos``: [B, K]
+    int; an out-of-range position writes nothing, so a padded chunk lane
+    (pos = capacity) is dropped."""
+    helper = LayerHelper("kv_cache_write_chunk", name=name)
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(cache), shape=cache.shape)
+    helper.append_op("kv_cache_write_chunk",
+                     {"Cache": cache, "X": x, "Pos": pos}, {"Out": out}, {})
+    return out
+
+
+def _cached_mha(x, cache_k, cache_v, pos, d_model, n_head, name, layer,
+                write, attend):
+    """The body both cached attention layers share: ``name.q/.k/.v/.out``
+    projections (:func:`multi_head_attention`'s parameters), the K/V rows
+    written at each row's ``pos``, attention over the filled prefix."""
+    helper = LayerHelper(layer, name=name)
+    d_model = d_model or x.shape[-1]
+    dtype = _dtype(x)
+
+    def proj(inp, tag, sharding):
+        w = helper.create_parameter(
+            ParamAttr(name=None if name is None else name + "." + tag,
+                      initializer=XavierInitializer(), sharding=sharding),
+            shape=[inp.shape[-1], d_model], dtype=dtype)
+        out = helper.create_variable_for_type_inference(
+            dtype=dtype, shape=tuple(inp.shape[:-1]) + (d_model,))
+        helper.append_op("matmul", {"X": inp, "Y": w}, {"Out": out}, {})
+        return out
+
+    q = proj(x, "q", (None, "mp"))
+    k = proj(x, "k", (None, "mp"))
+    v = proj(x, "v", (None, "mp"))
+    new_k = write(cache_k, k, pos, name=helper.name + "_kw")
+    new_v = write(cache_v, v, pos, name=helper.name + "_vw")
+    ctx = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=tuple(x.shape[:-1]) + (d_model,))
+    helper.append_op(attend,
+                     {"Q": q, "CacheK": new_k, "CacheV": new_v, "Pos": pos},
+                     {"Out": ctx}, {"num_heads": n_head})
+    return proj(ctx, "out", ("mp", None)), new_k, new_v
+
+
+def cached_multi_head_attention(x, cache_k, cache_v, pos, d_model=None,
+                                n_head=1, name=None):
+    """One-token incremental attention for KV-cached decode step programs
+    (``paddle_tpu/layers/nn.py:1749``), sharing
+    :func:`multi_head_attention`'s weights by ``name``: ``x`` [B, d_model],
+    caches [B, C, d_model], ``pos`` [B]. Returns ``(out [B, d_model],
+    new_cache_k, new_cache_v)``."""
+    return _cached_mha(x, cache_k, cache_v, pos, d_model, n_head, name,
+                       "cached_multi_head_attention", kv_cache_write,
+                       "cached_attention")
+
+
+def cached_multi_head_attention_chunk(x, cache_k, cache_v, pos,
+                                      d_model=None, n_head=1, name=None):
+    """K-token incremental attention (chunked prefill, speculative verify;
+    ``paddle_tpu/layers/nn.py:1807``): ``x`` [B, K, d_model], ``pos`` [B, K];
+    query j of row b attends positions <= pos[b, j]. Returns ``(out [B, K,
+    d_model], new_cache_k, new_cache_v)``."""
+    return _cached_mha(x, cache_k, cache_v, pos, d_model, n_head, name,
+                       "cached_multi_head_attention_chunk",
+                       kv_cache_write_chunk, "cached_attention_chunk")

@@ -8,7 +8,7 @@ from ..core.framework import Variable, convert_np_dtype
 from ..core.layer_helper import LayerHelper
 
 __all__ = ["fill_constant", "cast", "concat", "assign", "range", "reshape",
-           "squeeze", "slice"]
+           "squeeze", "unsqueeze", "slice", "sampling_id"]
 
 
 def _dt(x):
@@ -110,6 +110,18 @@ def squeeze(input, axes, name=None):
     return out
 
 
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    shape = list(input.shape)
+    for a in sorted(axes):
+        shape.insert(a, 1)
+    out = helper.create_variable_for_type_inference(dtype=_dt(input),
+                                                    shape=tuple(shape))
+    helper.append_op("unsqueeze", {"X": input}, {"Out": out},
+                     {"axes": list(axes)})
+    return out
+
+
 def slice(input, axes, starts, ends):
     helper = LayerHelper("slice")
     shape = list(input.shape)
@@ -126,4 +138,16 @@ def slice(input, axes, starts, ends):
     helper.append_op("slice", {"Input": input}, {"Out": out},
                      {"axes": list(axes), "starts": list(starts),
                       "ends": list(ends)})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    """One categorical draw per row of ``x`` [B, C] (probabilities): ids
+    [B] (an int64 var, held in int32 under the 32-bit convention), from the
+    executor's generator. ``min``/``max``/``seed`` are accepted for parity
+    and unused, as in ``paddle_tpu``."""
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference(dtype="int64",
+                                                    shape=(x.shape[0],))
+    helper.append_op("sampling_id", {"X": x}, {"Out": out}, {})
     return out

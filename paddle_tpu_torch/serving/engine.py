@@ -16,12 +16,19 @@ front batches requests. Here:
 door with ``ServerOverloadedError``; ``shutdown(drain=True)`` stops intake,
 serves what is queued and joins the workers.
 
+Decode mode (``decode=``, ``paddle_tpu/serving/engine.py:180-231``):
+continuous batching replaces the one-shot pipeline. Each replica is a
+``DecodeBatcher`` over a clone of the step predictor (with an optional
+chunk program, speculative draft and one prefix cache for the fleet);
+``submit(prompt)`` goes to the least-loaded replica and resolves to the
+generated ids.
+
 The device is CUDA unless the caller passes ``device="cpu"`` (or a
 CPU-configured ``AnalysisConfig``/predictor); without CUDA the default
-raises. Not ported yet: the decode tier, the prefix cache, router/worker
-processes, the reliability and observability hooks (retry, circuit
-breaker, supervisor, EDF shedding, spans), hot-swap, and mp/per-device
-placement.
+raises. Not ported yet: one-shot sequence bucketing, router/worker
+processes, the reliability hooks (retry, circuit breaker, supervisor, EDF
+shedding), the decode build's static verification (``analysis``),
+hot-swap, and mp/per-device placement.
 """
 
 import threading
@@ -47,14 +54,27 @@ class EngineShutdownError(RuntimeError):
 class ServingEngine:
     def __init__(self, model, num_replicas=1, max_batch_size=8,
                  ladder=None, max_wait_ms=5.0, max_queue_depth=256,
-                 clock=None, device=None):
+                 clock=None, device=None, seq_ladder=None, decode=None,
+                 default_max_new_tokens=64, eos_id=None, prefix_cache=None,
+                 decode_prefill=None, decode_speculative=None):
         """``model``: a model directory, an ``AnalysisConfig``, or a
         predictor exposing ``run``/``clone``/``feed_names``. ``device``
         (``"cuda"``, ``"cuda:1"``, ``"cpu"``, a place or a
         ``torch.device``) places a model loaded here; None means
-        ``CUDAPlace(0)``."""
+        ``CUDAPlace(0)``.
+
+        Decode mode: ``decode=`` a decode-spec dict (a step builder's,
+        e.g. ``transformer_lm_step``), or True with a model directory
+        holding ``decode_spec.json``. ``seq_ladder`` is then the ctx
+        ladder (default ``default_ctx_ladder(spec)``); ``decode_prefill``
+        (``{"predictor", "spec"[, "ladder"]}``), ``decode_speculative``
+        (``{"draft", "k"}``), ``prefix_cache`` (True, a kwargs dict or a
+        ``PrefixCache``), ``default_max_new_tokens`` and ``eos_id`` go to
+        every ``DecodeBatcher``."""
         if num_replicas < 1:
             raise ValueError("num_replicas must be >= 1")
+        model_dir = model if isinstance(model, str) else getattr(
+            model, "model_dir", None)
         if isinstance(model, (str, AnalysisConfig)):
             config = (AnalysisConfig(model_dir=model)
                       if isinstance(model, str) else model)
@@ -68,17 +88,32 @@ class ServingEngine:
             ladder if ladder is not None else pow2_ladder(max_batch_size))))
         self.max_batch_size = max(self.ladder)
         self.feed_names = list(getattr(model, "feed_names", []))
+        self.seq_ladder = (tuple(sorted(set(seq_ladder)))
+                           if seq_ladder else None)
+        self._closed = False
+        self._lock = threading.Lock()
+        self.metrics_ = ServingMetrics()
+
+        decode_spec = self._resolve_decode_spec(decode, model_dir)
+        self._decoders = None
+        if decode_spec is not None:
+            self._start_decoders(
+                model, num_replicas, decode_spec, max_queue_depth, clock,
+                default_max_new_tokens, eos_id, prefix_cache,
+                decode_prefill, decode_speculative)
+            return
+        if self.seq_ladder is not None:
+            raise NotImplementedError(
+                "ServingEngine(seq_ladder=...) outside decode mode: "
+                "sequence bucketing of one-shot requests is not ported yet")
 
         self._batcher = DynamicBatcher(self.max_batch_size,
                                        max_wait_ms=max_wait_ms, clock=clock)
         self._admission = AdmissionController(max_queue_depth)
-        self.metrics_ = ServingMetrics()
         self.metrics_.bind_gauges(self._batcher.depth,
                                   lambda: self._admission.in_flight)
         self._replicas = [model] + [model.clone()
                                     for _ in range(num_replicas - 1)]
-        self._closed = False
-        self._lock = threading.Lock()
         self._threads = []
         for i, pred in enumerate(self._replicas):
             t = threading.Thread(target=self._worker_loop, args=(pred,),
@@ -87,17 +122,87 @@ class ServingEngine:
             t.start()
             self._threads.append(t)
 
+    def _start_decoders(self, model, num_replicas, spec, max_queue_depth,
+                        clock, default_max_new_tokens, eos_id, prefix_cache,
+                        decode_prefill, decode_speculative):
+        """One ``DecodeBatcher`` (with its loop thread) per replica, over
+        clones of the step predictor and of the chunk predictor, sharing
+        the engine's metrics and one prefix cache: any replica's harvest
+        serves any replica's admission."""
+        from .decode_batcher import DecodeBatcher, make_prefix_cache
+
+        shared_prefix = make_prefix_cache(prefix_cache, self.metrics_)
+        if shared_prefix is not None:
+            self.metrics_.bind_prefix_bytes(lambda: shared_prefix.nbytes)
+        self._decoders = []
+        for i in range(num_replicas):
+            prefill = None
+            if decode_prefill is not None:
+                prefill = dict(decode_prefill)
+                if i > 0:
+                    prefill["predictor"] = decode_prefill["predictor"].clone()
+            self._decoders.append(DecodeBatcher(
+                model if i == 0 else model.clone(), spec,
+                ladder=self.ladder, ctx_ladder=self.seq_ladder,
+                max_queue_depth=max_queue_depth,
+                default_max_new_tokens=default_max_new_tokens,
+                eos_id=eos_id, clock=clock, metrics=self.metrics_,
+                prefix_cache=shared_prefix, prefill=prefill,
+                speculative=decode_speculative))
+        decoders = self._decoders
+        # aggregate gauges over every replica (each batcher was handed the
+        # shared metrics and bound none of its own)
+        self.metrics_.bind_gauges(
+            lambda: sum(len(d._pending) for d in decoders),
+            lambda: sum(d._admission.in_flight for d in decoders))
+
+    @staticmethod
+    def _resolve_decode_spec(decode, model_dir):
+        if decode is None or decode is False:
+            return None
+        if isinstance(decode, dict):
+            return decode
+        if decode is True:
+            if model_dir is None:
+                raise ValueError("decode=True needs a model DIRECTORY "
+                                 "holding decode_spec.json; pass the spec "
+                                 "dict for in-process predictors")
+            from .decode_batcher import load_decode_spec
+
+            return load_decode_spec(model_dir)
+        raise TypeError("decode must be None, True, or a decode-spec "
+                        "dict; got %r" % (decode,))
+
     # -- client surface -----------------------------------------------------
-    def submit(self, feed, timeout_s=None):
-        """Enqueue one request (dict/list of arrays with a leading batch
-        dim); returns a ``concurrent.futures.Future`` resolving to the
-        fetch list sliced to this request's rows; ``timeout_s`` (None:
-        no deadline) fails it if it is still queued that long. Raises
-        :class:`ServerOverloadedError` when the bounded queue is full,
-        ``BucketError`` when the batch exceeds the top rung, and
-        ``RuntimeError`` after shutdown."""
+    def submit(self, feed, timeout_s=None, max_new_tokens=None,
+               eos_id=None):
+        """Enqueue one request; returns a ``concurrent.futures.Future``.
+
+        One-shot mode: ``feed`` is a dict/list of arrays with a leading
+        batch dim, and the future resolves to the fetch list sliced to
+        this request's rows; ``timeout_s`` (None: no deadline) fails it if
+        it is still queued that long. Decode mode: ``feed`` is the prompt
+        (1-D ids, or ``{"prompt_ids": ids}``) and the future resolves to
+        the generated ids. Raises :class:`ServerOverloadedError` when the
+        bounded queue is full, ``BucketError`` when the batch (or prompt +
+        ``max_new_tokens``) exceeds the top rung, and ``RuntimeError``
+        after shutdown."""
         if self._closed:
             raise RuntimeError("ServingEngine is shut down")
+        if self._decoders is not None:
+            if isinstance(feed, dict):
+                if set(feed) != {"prompt_ids"}:
+                    raise ValueError(
+                        "decode-mode submit takes a prompt (1-D ids) or "
+                        "{'prompt_ids': ids}; got keys %s" % sorted(feed))
+                feed = feed["prompt_ids"]
+            # least-loaded replica: queued + occupied slots
+            dec = min(self._decoders, key=lambda d: d._admission.in_flight)
+            return dec.submit(feed, max_new_tokens=max_new_tokens,
+                              eos_id=eos_id, timeout_s=timeout_s)
+        if max_new_tokens is not None or eos_id is not None:
+            raise ValueError("max_new_tokens/eos_id are decode-mode "
+                             "arguments")
         if isinstance(feed, (list, tuple)):
             if len(feed) != len(self.feed_names):
                 raise ValueError("expected %d inputs (%s), got %d"
@@ -130,16 +235,20 @@ class ServingEngine:
             raise RuntimeError("ServingEngine is shut down")
         return req.future
 
-    def predict(self, feed, timeout_s=None):
+    def predict(self, feed, timeout_s=None, **decode_kw):
         """Synchronous convenience: submit + wait."""
-        return self.submit(feed, timeout_s=timeout_s).result(timeout_s)
+        return self.submit(feed, timeout_s=timeout_s,
+                           **decode_kw).result(timeout_s)
 
     def warmup(self, example_feed=None):
         """Run every batch rung once on every replica,
         so the first real request at any bucket finds its shapes warm and
         the kernels built. ``example_feed`` is one example (leading dim 1);
         by default one is made from the program's var metadata. Returns
-        the number of (replica, bucket) runs."""
+        the number of (replica, bucket) runs. Decode mode: every step
+        and chunk geometry of every replica (``DecodeBatcher.warmup``)."""
+        if self._decoders is not None:
+            return sum(d.warmup() for d in self._decoders)
         feed = example_feed
         if feed is None:
             feed = self._synthesize_example()
@@ -155,6 +264,25 @@ class ServingEngine:
     def metrics(self):
         return self.metrics_.snapshot()
 
+    def metrics_report(self):
+        return self.metrics_.report()
+
+    def compiled_shape_counts(self):
+        """Decode mode: the distinct dispatch geometries of each replica,
+        each at most its ``compile_cache_bound()``."""
+        if self._decoders is None:
+            raise NotImplementedError(
+                "compiled_shape_counts() of a one-shot engine: the port "
+                "keeps no per-replica shape record outside decode mode")
+        return [c for d in self._decoders
+                for c in d.compiled_shape_counts()]
+
+    @property
+    def draft_failures(self):
+        """Decode mode: draft passes that raised, over every replica (each
+        degraded its rows to one token of progress); 0 outside it."""
+        return sum(d.draft_failures for d in self._decoders or ())
+
     def shutdown(self, drain=True, timeout_s=None):
         """Stop intake; with ``drain`` serve everything queued, otherwise
         cancel it. Joins the worker threads; requests still queued after
@@ -163,6 +291,10 @@ class ServingEngine:
             if self._closed:
                 return
             self._closed = True
+        if self._decoders is not None:
+            for d in self._decoders:
+                d.shutdown(drain=drain, timeout_s=timeout_s)
+            return
         if not drain:
             for r in self._batcher.drain():
                 if r.future.cancel():

@@ -819,3 +819,94 @@ def test_tiny_deepfm_step_on_gpu_matches_cpu(dev, fresh_port_programs):
         1e-4 * np.linalg.norm(upd_cpu)
     assert np.abs(upd_gpu - upd_cpu).max() <= 1e-3
 
+
+
+# -- the decode tier --------------------------------------------------------
+
+def test_decode_step_and_chunk_on_gpu_match_cpu(dev):
+    """A tiny KV-cached family on the card and on the CPU from the same
+    weights: three step dispatches, then one chunk dispatch with a padded
+    lane (pos = C), logits and caches within 1e-5; every dispatch launches
+    the LayerNorm forward 2 * layers + 1 times and nothing else."""
+    from test_torch_decode_serving import TINY, build_family
+
+    gpu_fam = build_family(tfluid, tfluid.Scope(), place=tfluid.CUDAPlace(0))
+    cpu_scope = tfluid.Scope()
+    for p in gpu_fam["full_main"].all_parameters():
+        cpu_scope.set(p.name, gpu_fam["step"]._scope.get(p.name).cpu())
+    cpu_fam = build_family(tfluid, cpu_scope, init=False)
+    rng = np.random.RandomState(0)
+    b, c, d = 3, 32, TINY["d_model"]
+    ids = rng.randint(0, TINY["vocab"], (b, 8)).astype("int64")
+    cpos = np.tile(np.arange(3, 8, dtype="int32"), (b, 1))
+    cpos[1, 3:] = c   # a partial lane: its writes drop
+    results = {}
+    for key, fam, where in (("gpu", gpu_fam, dev),
+                            ("cpu", cpu_fam, torch.device("cpu"))):
+        caches = {cf["feed"]: torch.zeros(b, c, d, device=where)
+                  for cf in fam["dspec"]["cache_feeds"]}
+        logits = []
+        for t in range(3):
+            before = tfln.layer_norm_fwd.launches
+            outs = fam["step"].run(dict(caches, tok_ids=ids[:, t],
+                                        pos=np.full((b,), t, "int32")),
+                                   return_numpy=False)
+            if key == "gpu":
+                assert tfln.layer_norm_fwd.launches - before == \
+                    2 * TINY["n_layer"] + 1
+            logits.append(outs[0].cpu())
+            caches = {cf["feed"]: o for cf, o in
+                      zip(fam["dspec"]["cache_feeds"], outs[1:])}
+        outs = fam["chunk"].run(dict(caches, tok_chunk=ids[:, 3:],
+                                     chunk_pos=cpos), return_numpy=False)
+        results[key] = (torch.stack(logits, 1), outs[0].cpu(),
+                        [o.cpu() for o in outs[1:]])
+    (gs, gc, gk), (cs, cc, ck) = results["gpu"], results["cpu"]
+    for got, want in [(gs, cs), (gc[0], cc[0]), (gc[1, :3], cc[1, :3])] \
+            + list(zip(gk, ck)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * max(1.0, float(
+                                       want.abs().max())))
+    for k in gk:   # the padded lanes wrote nothing
+        assert not bool(k[1, 6:].any())
+
+
+def test_decode_cache_positions_out_of_range_on_gpu(dev):
+    """kv_cache_write at -1 (wraps), C and C + 3 (drop) and a lookup
+    marked ``out_of_range="fill"`` past the table (a NaN row, as jnp.take
+    fills, the decode chunk's position lookup): bitwise as on the CPU,
+    with no device assert."""
+    from paddle_tpu_torch.core.opimpl.attention_ops import cache_write
+
+    gen = torch.Generator().manual_seed(0)
+    c = 16
+    cache = torch.randn(4, c, 8, generator=gen)
+    rows = torch.randn(4, 2, 8, generator=gen)
+    pos = torch.tensor([[-1, 0], [c, c + 3], [3, c], [-c, -c - 1]],
+                       dtype=torch.int32)
+    got = cache_write(cache.to(dev), rows.to(dev), pos.to(dev))
+    torch.cuda.synchronize()
+    want = cache_write(cache, rows, pos)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want[0, c - 1], rows[0, 0])
+    assert torch.equal(want[1], cache[1])
+    L = tfluid.layers
+    main, start = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, start):
+        out = L.embedding(L.data("ids", shape=[], dtype="int64"),
+                          size=[5, 3])
+    out.op.attrs["out_of_range"] = "fill"
+    ids = np.array([0, 4, -1, 5, 7], "int64")
+    res = []
+    for place in (tfluid.CUDAPlace(0), tfluid.CPUPlace()):
+        scope = tfluid.Scope()
+        exe = tfluid.Executor(place)
+        exe.run(start, scope=scope)
+        if res:
+            scope.set(main.all_parameters()[0].name, w_cpu)
+        else:
+            w_cpu = scope.get(main.all_parameters()[0].name).cpu()
+        res.append(exe.run(main, feed={"ids": ids}, fetch_list=[out],
+                           scope=scope)[0])
+    np.testing.assert_array_equal(res[0], res[1])
+    assert np.isnan(res[0][3:]).all() and np.isfinite(res[0][:3]).all()
