@@ -7,7 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
 
 It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, checks
 in their SASS that the conv, flash and fused CE kernels run on the tensor
-cores, holds each kernel against its plain PyTorch version on the card (the
+cores (the bf16 forms of the flash and CE kernels on bf16 m16n8k16 HMMAs),
+holds each kernel against its plain PyTorch version on the card, f32 and,
+for the flash, LayerNorm and fused CE kernels, bf16 (AMP; the bf16 forms
+also against f64, beside the plain bf16 version's error) (the
 conv kernels also against an f64 conv, beside cuDNN's f32 one, and for
 bitwise equal moments across two runs; the flash kernels at head dims 12 to
 512, with a rich bias, and against an f64 attention, beside the plain
@@ -29,7 +32,10 @@ it and read just after:
   per step; random weights from seed 11): layers -> Program ->
   optimizer.minimize (autodiff + adam ops) -> Executor -> forward ops ->
   torch.autograd backward through the kernels' autograd Functions ->
-  adam, for 3 warm-up and 20 timed steps on one fixed batch;
+  adam, for 3 warm-up and 20 timed steps on one fixed batch, in f32
+  (phase ``train``) and under ``fluid.amp.decorate`` (``amp_train``: bf16
+  products, the bf16 forms of the flash, LayerNorm and fused CE kernels,
+  f32 parameters and Adam state);
 * training ResNet-50 (224 x 224 x 3, 1000 classes, batch 128, Adam 1e-4;
   random weights from seed 11) the same way, with the executor's epilogue
   fusion turning 49 of its 53 conv -> BN (+ add)(+ relu) chains into the
@@ -40,7 +46,9 @@ it and read just after:
   3, 13 dense features, batch 32768, Adam 1e-4; random weights from seed
   11) the same way: its ``embedding(is_sparse=True)`` gives a (rows,
   values) gradient, which Adam densifies through the row scatter-add
-  kernel, once per step, for 3 warm-up and 20 timed steps;
+  kernel, once per step, for 3 warm-up and 20 timed steps, in f32
+  (``deepfm_train``) and under ``fluid.amp.decorate``
+  (``deepfm_amp_train``: bf16 MLP products, the f32 table and scatter);
 * serving generation at GPT-2 small's widths (the repo's ``transformer_lm``:
   vocab 50257, d_model 768, d_ff 3072, 12 heads, 12 layers, 1024
   positions, 163,000,320 parameters; random weights from seed 11): the
@@ -52,10 +60,16 @@ it and read just after:
   the flash forward in the draft's passes; 64 requests in a closed loop
   of 16.
 
-Before each training path, ``train_check``, ``resnet_train_check`` and
-``deepfm_train_check`` run one full-width step (at batch 2, 2 and 64) on
-the card and the same step with the port on the CPU from the same weights
-and feed; before decode, ``decode_check`` holds four step dispatches and
+Before each training path, ``train_check``, ``amp_train_check``,
+``resnet_train_check``, ``deepfm_train_check`` and
+``deepfm_amp_train_check`` run one full-width step (at batch 2, 2, 2, 64
+and 64) on the card and the same step with the port on the CPU from the
+same weights and feed (the AMP checks also f32 steps on the CPU and on
+the card: the loss and each quantity that separates AMP from f32 must lie
+within half the CPU's AMP-vs-f32 distance of its AMP step, where the
+card's f32 step must not, and every kernel with a bf16 form must have
+launched in bf16); before decode, ``decode_check`` holds four step
+dispatches and
 a chunk against the CPU, out-of-range cache positions, and the ids of
 solo, batched, chunked and speculative decode. Each phase prints one JSON
 line; any failure raises and exits non-zero. The line before the last is
@@ -83,6 +97,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+# bf16 tensor-core FLOP/s (dense): the AMP forms of the flash and fused CE
+# kernels run one bf16 product per product
+BF16_FLOPS = 989e12
 
 BERT = dict(vocab=30522, seq=128, d_model=768, d_ff=3072, heads=12,
             layers=12)
@@ -91,11 +108,13 @@ TRANSFORMER = dict(src_vocab=30000, trg_vocab=30000, seq_len=256,
                    d_model=512, d_ff=2048, n_head=8, n_layer=6)
 TRAIN_BATCH = 128
 # ResNet-50 as paddle_tpu's bench.py trains it (BASELINE config 2,
-# :200-207, :229), in f32 (the port has no AMP yet)
+# :200-207, :229), in f32: the reference trains it under AMP, whose bf16
+# forms of the fused-conv kernels are still to port (ROADMAP.md B6)
 RESNET = dict(depth=50, class_num=1000, image_shape=(3, 224, 224))
 RESNET_BATCH = 128
 # DeepFM as paddle_tpu's bench.py trains it (BASELINE config 5, :208-214,
-# :229), in f32 (the port has no AMP yet); the fused table is 32 wide
+# :229), in f32 and under AMP (bench.py:225-231); the fused table is 32
+# wide
 DEEPFM = dict(sparse_feature_dim=100000, num_fields=26, embedding_size=16,
               dense_dim=13, hidden_sizes=(400, 400, 400))
 DEEPFM_WIDTH = 32
@@ -104,6 +123,7 @@ SEED = 11
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm_fwd",
            "layer_norm_bwd", "fused_ce_fwd", "conv_moments", "bn_apply",
            "conv_apply", "scatter_add")
+BF16_FORMS = KERNELS[:5]  # the kernels with a bf16 form
 
 
 def emit(obj):
@@ -137,7 +157,8 @@ def time_ms(fn, iters=50, warmup=5):
 
 
 def kernel_fns():
-    """name -> the wrapper whose ``launches`` counts that kernel."""
+    """name -> the wrapper whose ``launches`` counts that kernel (and,
+    for BF16_FORMS, whose ``bf16_launches`` counts its bf16 form)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as fce
     from paddle_tpu_torch.ops import fused_conv as fc
@@ -154,12 +175,26 @@ def kernel_fns():
 
 
 def reset_counts():
-    for fn in kernel_fns().values():
+    fns = kernel_fns()
+    for fn in fns.values():
         fn.launches = 0
+    for name in BF16_FORMS:
+        fns[name].bf16_launches = 0
 
 
 def read_counts():
     return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def read_bf16_counts():
+    fns = kernel_fns()
+    return {name: fns[name].bf16_launches for name in BF16_FORMS}
+
+
+def bf16_part(counts, amp):
+    """The launches of BF16_FORMS that a run of ``counts`` launches makes
+    in bf16: all of them under AMP, none in f32."""
+    return {name: counts[name] if amp else 0 for name in BF16_FORMS}
 
 
 def per_run(**counts):
@@ -194,6 +229,12 @@ def bound(nbytes, flops, flops_s=F32_FLOPS):
     t_ops = flops / flops_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def bf16_bound(nbytes, flops):
+    """The bound of a bf16 form (rows 1-6, 9 under AMP): its flops at the
+    bf16 tensor-core rate or its bytes."""
+    return bound(nbytes, flops, BF16_FLOPS)
 
 
 def tensor_core_bound(nbytes, flops):
@@ -232,8 +273,14 @@ def phase_build():
 # products must run on the tensor cores
 SASS_KERNELS = (("fused_conv", "conv_kernel", 2),
                 ("flash_attention_fwd", "flash_fwd_kernel", 36),
-                ("flash_attention_bwd", "flash_bwd_kernel", 12),
-                ("fused_ce_fwd", "fused_ce_kernel", 4))
+                ("flash_attention_bwd", "flash_bwd_kernel", 24),
+                ("fused_ce_fwd", "fused_ce_kernel", 8))
+# library, kernel template, bf16 instantiations: each must run its
+# products as bf16 m16n8k16 HMMAs with f32 accumulators
+SASS_BF16 = (("flash_attention_fwd", "flash_fwd_kernel", 18),
+             ("flash_attention_bwd", "flash_bwd_kernel", 12),
+             ("fused_ce_fwd", "fused_ce_kernel", 4))
+BF16_HMMA = "HMMA.16816.F32.BF16"
 
 
 # library, the mangled stem of the instantiations that move 16 bytes a
@@ -275,7 +322,9 @@ def _sass_check(_build):
     shows HMMA instructions in each. Every float4 instantiation of the
     scatter kernel must hold a 128-bit reduction, and every 16-byte
     instantiation of the LayerNorm forward a 128-bit global load
-    (``SASS_WIDE``); the mnemonics found are printed."""
+    (``SASS_WIDE``); the mnemonics found are printed. Every bf16
+    instantiation of the flash kernels and of the fused CE kernel must hold
+    ``HMMA.16816.F32.BF16`` (``SASS_BF16``)."""
     for lib, kernel, n_inst in SASS_KERNELS:
         hmma = {name: sum(op.startswith("HMMA") for op in ops)
                 for name, ops in _sass_functions(_build, lib).items()
@@ -284,6 +333,16 @@ def _sass_check(_build):
               "instantiations": len(hmma), "hmma_per_instantiation": hmma})
         check(len(hmma) >= n_inst and all(hmma.values()),
               "%s instantiations without HMMA: %s" % (kernel, hmma))
+    for lib, kernel, n_inst in SASS_BF16:
+        bf16 = {name: sum(op.startswith(BF16_HMMA) for op in ops)
+                for name, ops in _sass_functions(_build, lib).items()
+                if kernel in name and "__nv_bfloat16" in name}
+        emit({"phase": "sass", "library": lib, "kernel": kernel,
+              "dtype": "bf16", "instantiations": len(bf16),
+              "mnemonic": BF16_HMMA, "count_per_instantiation": bf16})
+        check(len(bf16) == n_inst and all(bf16.values()),
+              "%s bf16 instantiations without %s: %s"
+              % (kernel, BF16_HMMA, bf16))
     for lib, stem, n_inst, kind, wide in SASS_WIDE:
         fns = _sass_functions(_build, lib)
         found = {name: sorted({op for op in ops if op.startswith(kind)})
@@ -311,9 +370,11 @@ def _rich_bias(torch, gen, b, h, tq, tk, dev):
     return torch.randn(b, h, tq, tk, generator=gen).to(dev)
 
 
-def phase_flash_check(torch, dev):
+def phase_flash_check(torch, dev, lse_tol=1e-4):
     """Kernel vs plain version at the served shape and the causal cases.
-    bf16: the plain version runs in f32 on the same bf16 inputs."""
+    bf16: the plain version runs in f32 on the same bf16 inputs. lse is f32
+    in every form (f32 sums of the same products) and is held to
+    ``lse_tol`` absolute in each."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(SEED)
@@ -369,10 +430,31 @@ def phase_flash_check(torch, dev):
         emit({"phase": "flash_attention_fwd", "case": name,
               "shape": [b_, tq, tk, h_, d_], "causal": causal,
               "bias": bias_kind, "dtype": str(dtype), "max_abs_err": err,
-              "lse_err": lse_err, "tol": tol})
-        check(err <= tol and lse_err <= max(tol, 1e-4),
+              "lse_err": lse_err, "tol": tol, "lse_tol": lse_tol})
+        check(err <= tol and lse_err <= lse_tol,
               "flash %s error %g (lse %g) > %g" % (name, err, lse_err, tol))
         errs[name] = err
+    # bf16 (AMP) at the training shape, the encoder's call: key padding
+    # bias and dropout 0.1, against the plain version on the same bf16
+    # inputs and seed, which rounds the same normalised weights: 2^-7 *
+    # max(1, max|plain|) for out (a sum in another order may round the
+    # other way), lse_tol for lse
+    b, t, h = TRAIN_BATCH, TRANSFORMER["seq_len"], TRANSFORMER["n_head"]
+    d = TRANSFORMER["d_model"] // h
+    q, k, v = (torch.randn(b, t, h * d, generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    bias = _padding_bias(torch, gen, b, t, dev)
+    seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, h, bias, False, 0.1, seed)
+    want, want_lse = fa.attention_plain(q, k, v, h, bias, False, 0.1, seed)
+    torch.cuda.synchronize()
+    lse_err = (lse - want_lse).abs().max().item()
+    errs["train_bf16_dropout_0.1"] = check_close(
+        "flash_attention_fwd", "train_bf16_dropout_0.1",
+        [("out", out, want)], 2.0 ** -7, shape=[b, t, t, h, d], bias="key",
+        dropout=0.1, dtype="bf16", lse_err=lse_err, lse_tol=lse_tol)
+    check(lse_err <= lse_tol, "flash train_bf16_dropout_0.1: lse error %g"
+          % lse_err)
     return errs
 
 
@@ -520,7 +602,70 @@ def phase_flash_bwd_check(torch, dev):
             shape=[b_, tq, tk, h_, d_], causal=causal, bias=bias_kind,
             dropout=rate)
         del out, grads, want, want_grads, plain_in, inputs
+    errs.update(_flash_bf16_check(torch, dev, gen))
     _flash_f64_check(torch, dev)
+    return errs
+
+
+# the flash kernels' bf16 (AMP) cases: name, B, Tq, Tk, H, D, causal, bias,
+# dropout: the training path's three calls, then every width family
+FLASH_BF16_CASES = [
+    ("enc_self_bf16_dropout_0.1", TRAIN_BATCH, 256, 256, 8, 64, False,
+     "key+grad", 0.1),
+    ("dec_self_causal_bf16_dropout_0.1", TRAIN_BATCH, 256, 256, 8, 64, True,
+     None, 0.1),
+    ("dec_cross_bf16_dropout_0.1", TRAIN_BATCH, 256, 256, 8, 64, False, "key",
+     0.1),
+    ("d16_causal_tq_gt_tk_bf16", 2, 129, 64, 4, 16, True, None, 0.0),
+    ("d128_bf16_dropout_0.1", 2, 96, 96, 2, 128, True, "key", 0.1),
+    ("d512_bias_grad_bf16", 1, 70, 129, 2, 512, False, "key+grad", 0.0),
+    ("d12_full_bias_grad_bf16", 2, 65, 100, 3, 12, False, "full+grad", 0.1),
+]
+
+
+def _flash_bf16_check(torch, dev, gen):
+    """The bf16 forms (AMP) against the plain versions on the same bf16
+    inputs and seed: the forward kernel against ``attention_plain``, the
+    backward kernel against ``attention_bwd_plain`` from the kernel
+    forward's out and lse. out, dq, dk and dv within 2^-7 * max(1,
+    max|plain|) (one bf16 step either way: the products sum in f32 in
+    other orders and may round the other way), the f32 dbias within 1e-4 * max(1, max|plain|). Returns the
+    cases' largest errors."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    errs = {}
+    for i, (name, b_, tq, tk, h_, d_, causal, bias_kind, rate) in \
+            enumerate(FLASH_BF16_CASES):
+        q, k, v, dout = (torch.randn(b_, n, h_ * d_, generator=gen).to(
+            dev, torch.bfloat16) for n in (tq, tk, tk, tq))
+        kb = None
+        if bias_kind is not None and bias_kind.startswith("full"):
+            kb = _rich_bias(torch, gen, b_, h_, tq, tk, dev)
+        elif bias_kind is not None:
+            kb = _padding_bias(torch, gen, b_, tk, dev)
+        want_db = bias_kind is not None and bias_kind.endswith("+grad")
+        seed = (torch.tensor([2000 + i], dtype=torch.int64, device=dev)
+                if rate > 0 else None)
+        out, lse = fa.flash_attention_fwd(q, k, v, h_, kb, causal, rate, seed)
+        want, _ = fa.attention_plain(q, k, v, h_, kb, causal, rate, seed)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, h_, kb, causal,
+                                     rate, seed, want_dbias=want_db)
+        ref = fa.attention_bwd_plain(q, k, v, out, lse, dout, h_, kb, causal,
+                                     rate, seed, want_dbias=want_db)
+        torch.cuda.synchronize()
+        check(all(x.dtype == torch.bfloat16 for x in (out,) + got[:3]),
+              "flash bf16 %s: dtypes %s" % (name, [x.dtype
+                                                   for x in got[:3]]))
+        pairs = [("out", out, want)] + list(zip(("dq", "dk", "dv"), got[:3],
+                                                ref[:3]))
+        errs[name] = check_close(
+            "flash_attention_bwd", name, pairs, 2.0 ** -7,
+            shape=[b_, tq, tk, h_, d_], causal=causal, bias=bias_kind,
+            dropout=rate, dtype="bf16")
+        if want_db:
+            check_close("flash_attention_bwd", name + "_dbias",
+                        [("dbias", got[3], ref[3])], 1e-4, dtype="f32")
+        del q, k, v, dout, out, lse, want, got, ref
     return errs
 
 
@@ -530,7 +675,9 @@ def _flash_f64_check(torch, dev):
     f32 ones (cuBLAS, TF32 off) against the plain version in f64 on the
     same f32 inputs, by max abs and relative L2 error; fails if the
     kernels' error is more than twice the plain f32 one in either (a
-    single TF32 pass would be about 1000 times off)."""
+    single TF32 pass would be about 1000 times off). Then the bf16 forms
+    on the same inputs rounded to bf16, against f64 on those: the kernels'
+    errors at most 1.5 times the plain bf16 version's."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -573,6 +720,32 @@ def _flash_f64_check(torch, dev):
               for e in kernel[n]),
           "flash errors against f64 %s, plain f32 %s" % (kernel, plain_f32))
 
+    # bf16 (AMP): the same call on the inputs rounded to bf16, the bf16
+    # kernels and the plain bf16 version against f64 on those inputs
+    qb, kbf, vb, db = (x.to(torch.bfloat16) for x in (q, k, v, dout))
+    ins = [x.double().requires_grad_(True) for x in (qb, kbf, vb)]
+    o64 = fa.attention_plain(*ins, h, kb.double())[0]
+    exact = [o64.detach()] + list(torch.autograd.grad(o64, ins,
+                                                      db.double()))
+    runs = []
+    for fwd, bwd in ((fa.attention_plain, fa.attention_bwd_plain),
+                     (fa.flash_attention_fwd, fa.flash_attention_bwd)):
+        o, lse = fwd(qb, kbf, vb, h, kb)
+        runs.append([o] + list(bwd(qb, kbf, vb, o, lse, db, h, kb)[:3]))
+    torch.cuda.synchronize()
+    plain_bf = {n: errs(r, e) for n, r, e in zip(names, runs[0], exact)}
+    kernel = {n: errs(g, e) for n, g, e in zip(names, runs[1], exact)}
+    emit({"phase": "flash_attention_f64", "shape": [b, t, t, h, d],
+          "bias": "key", "dtype": "bf16", "kernel": kernel,
+          "plain_bf16": plain_bf,
+          "ratio": {n: {e: kernel[n][e] / plain_bf[n][e]
+                        for e in kernel[n]} for n in names},
+          "tol": "kernel <= 1.5 x plain bf16, each error"})
+    check(all(kernel[n][e] <= 1.5 * plain_bf[n][e] for n in names
+              for e in kernel[n]),
+          "flash bf16 errors against f64 %s, plain bf16 %s"
+          % (kernel, plain_bf))
+
 
 def phase_ln_bwd_check(torch, dev):
     """The LayerNorm kernels through their autograd Function against
@@ -608,6 +781,30 @@ def phase_ln_bwd_check(torch, dev):
         errs[name] = check_close("layer_norm_bwd", name,
                                  list(zip(names, outs[0], outs[1])), 1e-4,
                                  shape=[n, d])
+    # bf16 (AMP) x and dy with f32 gamma and beta: dx is bf16, rounded once
+    # from f32 by both (2^-8 * max(1, max|plain|)); dgamma, dbeta f32
+    # (1e-4). D = 77 takes the kernel's single-element form.
+    for name, n, d in (("train_%dx512_bf16" % rows, rows, 512),
+                       ("ragged_1000x77_bf16", 1000, 77)):
+        x = (torch.randn(n, d, generator=gen) * 2 + 0.5).to(dev,
+                                                            torch.bfloat16)
+        dy = torch.randn(n, d, generator=gen).to(dev, torch.bfloat16)
+        g = torch.randn(d, generator=gen).to(dev)
+        bb = torch.randn(d, generator=gen).to(dev)
+        outs = []
+        for via_kernel in (True, False):
+            ins = [t.clone().requires_grad_(True) for t in (x, g, bb)]
+            fn = fln._FusedLN.apply if via_kernel else fln.layer_norm_plain
+            y = fn(*ins, 1e-5)[0]
+            outs.append(torch.autograd.grad(y, ins, dy))
+        torch.cuda.synchronize()
+        check(outs[0][0].dtype == torch.bfloat16, "layer_norm_bwd bf16 dx")
+        errs[name] = check_close("layer_norm_bwd", name,
+                                 [("dx", outs[0][0], outs[1][0])], 2.0 ** -8,
+                                 shape=[n, d], dtype="bf16")
+        check_close("layer_norm_bwd", name + "_params",
+                    list(zip(("dgamma", "dbeta"), outs[0][1:], outs[1][1:])),
+                    1e-4, shape=[n, d], dtype="f32")
     return errs
 
 
@@ -685,6 +882,26 @@ def phase_ce_check(torch, dev):
                 list(zip(("dx", "dw"), grads[0], grads[1])), 1e-4,
                 shape=[t, d, v])
     del grads
+    # bf16 (AMP) x, W and b: the bf16 form against the plain version, which
+    # forms f32 logits from the same bf16 operands, at the training shape
+    # and the ragged cases (D % 8 != 0 and V % 8 != 0 take element-wise
+    # copies), loss and lse within 2e-5 * max(1, max|plain|), each twice
+    for name, t, d_, v_, with_bias, eps in cases + CE_CASES:
+        x, w, b, y = _ce_inputs(torch, gen, dev, t, d_, v_, with_bias)
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        b = b.to(torch.bfloat16) if b is not None else None
+        loss, lse = fce.fused_ce_fwd(x, w, b, y, eps)
+        again = fce.fused_ce_fwd(x, w, b, y, eps)
+        want, want_lse = fce.linear_smooth_ce_plain(x, w, b, y, eps)
+        torch.cuda.synchronize()
+        same = torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+        errs[name + "_bf16"] = check_close(
+            "fused_ce_fwd", name + "_bf16",
+            [("loss", loss, want), ("lse", lse, want_lse)], 2e-5,
+            shape=[t, d_, v_], eps=eps, bias=with_bias, dtype="bf16",
+            bitwise_repeat=same)
+        check(same, "fused_ce_fwd %s bf16: two runs differ" % name)
+        del want, want_lse, x, w, b, y, loss, lse, again
     _ce_f64_check(torch, dev)
     return errs
 
@@ -705,7 +922,10 @@ def _ce_f64_check(torch, dev):
     by max abs and relative L2 error, at 4,096 rows of the training width
     (D 512, V 30000) and at 4,097 rows of each ragged case; fails if the
     kernel's error is more than twice the plain f32 one in either (a single
-    TF32 product would be 54-530 times off, as the CPU emulation shows)."""
+    TF32 product would be 54-530 times off, as the CPU emulation shows).
+    Then the bf16 form at the training width, on x and W rounded to bf16,
+    against f64 on those values: at most 1.5 times the plain version's
+    errors (f32 logits from the same bf16 operands)."""
     from paddle_tpu_torch.ops import fused_ce as fce
 
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -713,8 +933,12 @@ def _ce_f64_check(torch, dev):
     cases = [("train_4096x%dx%d" % (d, v), 4096, d, v, False, 0.1)] + [
         (name.split("_")[0] + "_4097x%dx%d" % (d_, v_), 4097, d_, v_, bias,
          eps) for name, _, d_, v_, bias, eps in CE_CASES]
+    cases += [(cases[0][0] + "_bf16",) + cases[0][1:]]
     for name, t, d_, v_, with_bias, eps in cases:
         x, w, b, y = _ce_inputs(torch, gen, dev, t, d_, v_, with_bias)
+        bf16 = name.endswith("_bf16")
+        if bf16:  # the f64 reference takes the same bf16 values
+            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
         exact = _ce_f64(torch, x, w, b, y, eps)
         got = fce.fused_ce_fwd(x, w, b, y, eps)
         ref = fce.linear_smooth_ce_plain(x, w, b, y, eps)
@@ -730,13 +954,14 @@ def _ce_f64_check(torch, dev):
         plain = {n: errs(r, e) for n, r, e in zip(names, ref, exact)}
         ratio = {n: {e: kernel[n][e] / max(plain[n][e], 1e-30)
                      for e in kernel[n]} for n in names}
+        limit = 1.5 if bf16 else 2.0
         emit({"phase": "fused_ce_f64", "case": name, "shape": [t, d_, v_],
               "bias": with_bias, "eps": eps, "kernel": kernel,
-              "plain_f32": plain, "ratio": ratio,
-              "tol": "kernel <= 2 x plain f32, each error"})
-        check(all(kernel[n][e] <= 2 * plain[n][e] for n in names
+              "plain_bf16" if bf16 else "plain_f32": plain, "ratio": ratio,
+              "tol": "kernel <= %g x plain, each error" % limit})
+        check(all(kernel[n][e] <= limit * plain[n][e] for n in names
                   for e in kernel[n]),
-              "fused_ce %s errors against f64 %s, plain f32 %s"
+              "fused_ce %s errors against f64 %s, plain %s"
               % (name, kernel, plain))
         del x, w, b, y, exact, got, ref
 
@@ -751,6 +976,8 @@ def phase_timing(torch, dev):
     rows.update(_conv_kernel_timing(torch, dev))
     rows.update(bandwidth_kernel_timing(torch, dev))
     _add_bandwidth_plans(torch, dev, rows)
+    for name, r in _bf16_kernel_timing(torch, dev, gen).items():
+        rows[name]["bf16"] = r
     for name, r in rows.items():
         emit(dict({"phase": "timing", "kernel": name}, **r))
     return rows
@@ -833,6 +1060,114 @@ def flash_kernel_timing(torch, dev, gen):
         library="F.scaled_dot_product_attention backward (autograd)",
         bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma,
         shape=[b, t, t, h, d], bytes=nbytes, flops=flops)
+    return rows
+
+
+def _bf16_kernel_timing(torch, dev, gen):
+    """The bf16 forms (AMP) of rows 1-9 at Transformer-base's training
+    shapes, each beside its plain version on the same bf16 inputs, one
+    PyTorch call on bf16 as a yardstick (timed here only; the port never
+    calls it) and its bound: the flash kernels (encoder call, key padding
+    bias) against ``F.scaled_dot_product_attention`` forward and backward,
+    the LayerNorm kernels against ``F.layer_norm`` forward and backward,
+    and the fused CE against the bf16 projection alone. The flash and CE
+    bounds take their products at the bf16 tensor-core rate, the
+    LayerNorm's their f32 arithmetic on the FMA pipes, all against their
+    bytes (each input read once, each output written once)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fce
+    from paddle_tpu_torch.ops import fused_layer_norm as fln
+
+    bf = torch.bfloat16
+    rows = {}
+    b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
+    h, hd = TRANSFORMER["n_head"], TRANSFORMER["d_model"]
+    d = hd // h
+    q, k, v, dout = (torch.randn(b, t, hd, generator=gen).to(dev, bf)
+                     for _ in range(4))
+    kb = _padding_bias(torch, gen, b, t, dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, h, kb)
+    mask = kb[:, None, None, :].to(bf)
+
+    def split(x):
+        return x.view(b, t, h, d).transpose(1, 2)
+
+    lib_in = [split(x).detach().requires_grad_(True) for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask)
+    nbytes = 2 * 4 * b * t * hd + 4 * (b * t + b * h * t)
+    bnd, by = bf16_bound(nbytes, 4 * b * h * t * t * d)
+    rows["flash_attention_fwd"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb), iters=20),
+        plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, kb),
+                         iters=20),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            split(q), split(k), split(v), attn_mask=mask), iters=20),
+        library="F.scaled_dot_product_attention (bf16)",
+        bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes)
+    nbytes = 2 * 8 * b * t * hd + 4 * (b * h * t + b * t)
+    bnd, by = bf16_bound(nbytes, 10 * b * h * t * t * d)
+    rows["flash_attention_bwd"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, h,
+                                                  kb), iters=20),
+        plain_ms=time_ms(lambda: fa.attention_bwd_plain(
+            q, k, v, out, lse, dout, h, kb), iters=10),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_in, split(dout), retain_graph=True), iters=20),
+        library="F.scaled_dot_product_attention backward (bf16, autograd)",
+        bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes)
+    del q, k, v, dout, out, lse, lib_in, lib_out
+
+    n = b * t
+    x = torch.randn(n, hd, generator=gen).to(dev, bf)
+    dy = torch.randn(n, hd, generator=gen).to(dev, bf)
+    g = torch.randn(hd, generator=gen).to(dev)
+    bb = torch.randn(hd, generator=gen).to(dev)
+    _, mean, var = fln.layer_norm_fwd(x, g, bb, 1e-5)
+    nbytes = 2 * 2 * n * hd + 4 * (2 * n + 2 * hd)
+    bnd, by = bound(nbytes, 8 * n * hd)
+    rows["layer_norm_fwd"] = dict(
+        ms=time_ms(lambda: fln.layer_norm_fwd(x, g, bb, 1e-5)),
+        plain_ms=time_ms(lambda: fln.layer_norm_plain(x, g, bb, 1e-5)),
+        library_ms=time_ms(lambda: F.layer_norm(x, (hd,), g.to(bf),
+                                                bb.to(bf), 1e-5)),
+        library="F.layer_norm (bf16)", bound_ms=bnd, bound_by=by,
+        shape=[n, hd], bytes=nbytes)
+    p_in = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
+            bb.clone().requires_grad_(True)]
+    p_out = fln.layer_norm_plain(*p_in, 1e-5)[0]
+    l_in = [x.clone().requires_grad_(True),
+            g.to(bf).clone().requires_grad_(True),
+            bb.to(bf).clone().requires_grad_(True)]
+    l_out = F.layer_norm(l_in[0], (hd,), l_in[1], l_in[2], 1e-5)
+    nbytes = 2 * 3 * n * hd + 4 * (2 * n + 3 * hd)
+    bnd, by = bound(nbytes, 12 * n * hd)
+    rows["layer_norm_bwd"] = dict(
+        ms=time_ms(lambda: fln.layer_norm_bwd(x, g, mean, var, dy, 1e-5)),
+        plain_ms=time_ms(lambda: torch.autograd.grad(p_out, p_in, dy,
+                                                      retain_graph=True)),
+        library_ms=time_ms(lambda: torch.autograd.grad(l_out, l_in, dy,
+                                                       retain_graph=True)),
+        library="F.layer_norm backward (bf16, autograd)",
+        bound_ms=bnd, bound_by=by, shape=[n, hd], bytes=nbytes)
+    del x, dy, p_in, p_out, l_in, l_out
+
+    vv = TRANSFORMER["trg_vocab"]
+    x = torch.randn(n, hd, generator=gen).to(dev, bf)
+    w = (torch.randn(hd, vv, generator=gen) / hd ** 0.5).to(dev, bf)
+    y = torch.randint(0, vv, (n,), generator=gen).to(dev)
+    nbytes = 2 * (n * hd + hd * vv) + 4 * 3 * n
+    bnd, by = bf16_bound(nbytes, 2 * n * hd * vv)
+    rows["fused_ce_fwd"] = dict(
+        ms=time_ms(lambda: fce.fused_ce_fwd(x, w, None, y, 0.1), iters=10,
+                   warmup=2),
+        plain_ms=time_ms(lambda: fce.linear_smooth_ce_plain(x, w, None, y,
+                                                            0.1),
+                         iters=10, warmup=2),
+        library_ms=time_ms(lambda: torch.matmul(x, w), iters=10, warmup=2),
+        library="torch.matmul(x, w) on bf16, projection only",
+        bound_ms=bnd, bound_by=by, shape=[n, hd, vv], bytes=nbytes)
     return rows
 
 
@@ -1067,14 +1402,22 @@ def phase_profile(torch, fluid, model_dir, feeds, runs=20):
           "device_busy_share": busy / wall_ms if wall_ms else None})
 
 
-def build_transformer(fluid, dropout_rate):
+def _optimizer(fluid, amp):
+    """Adam(1e-4), under ``fluid.amp.decorate`` when ``amp`` (as
+    paddle_tpu's bench.py:225-231 wraps it)."""
+    opt = fluid.optimizer.Adam(learning_rate=1e-4)
+    return fluid.amp.decorate(opt) if amp else opt
+
+
+def build_transformer(fluid, dropout_rate, amp=False):
     """Transformer-base with Adam(1e-4), as paddle_tpu's bench.py trains
-    it, in fresh programs. Returns (main, startup, spec)."""
+    it, in fresh programs, in f32 or under ``amp.decorate``. Returns
+    (main, startup, spec)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         spec = fluid.models.transformer.transformer_base(
             dropout_rate=dropout_rate, **TRANSFORMER)
-        fluid.optimizer.Adam(learning_rate=1e-4).minimize(spec.loss)
+        _optimizer(fluid, amp).minimize(spec.loss)
     main.random_seed = startup.random_seed = SEED
     return main, startup, spec
 
@@ -1184,6 +1527,192 @@ def phase_train_check(torch, smi_line, batch=2):
     return errs
 
 
+# An AMP check compares, per fetched quantity (a scalar by its relative
+# difference, an array by its relative L2), the card's AMP step with the
+# port's CPU AMP step, beside the CPU's AMP-vs-f32 distance and the CPU AMP
+# step's own rounding sensitivity (its distance from the step on the
+# parameters scaled by 1 + 2^-20, a few f32 ulps). A quantity separates
+# AMP from f32 where AMP_SENSITIVITY_FACTOR x that sensitivity is below
+# AMP_MARGIN x the AMP-vs-f32 distance, and so does the loss, which the
+# card's forward reproduces far closer than the sensitivity (0.0 against
+# it at 1.2e-6 on Transformer-base): the card must lie within AMP_MARGIN x
+# the distance, where an f32 step lands at about the whole of it. Where
+# the sensitivity is as large as the distance (a bf16 step at 12 layers is
+# chaotic) the card is held to the larger of the distance and
+# AMP_SENSITIVITY_FACTOR x the sensitivity. The card's f32 step, put
+# through the same verdict, must fail it.
+AMP_SENSITIVITY_FACTOR = 3.0
+AMP_MARGIN = 0.5
+
+
+def _amp_verdict(names, gpu, amp, f32, pert):
+    """The verdict on a card step's fetches ``gpu`` against the CPU AMP
+    step's ``amp``, as the comment above sets out: {"card", "ref",
+    "sens"}: {name: the card's distance, the CPU's AMP-vs-f32 distance,
+    the CPU AMP step's sensitivity}; "separating": the names held within
+    AMP_MARGIN of the AMP-vs-f32 distance; "not_nearer_than_f32": the
+    names whose card distance is not below it; "outside": the names
+    outside their limit."""
+    def dist(xs):
+        return {n: _rel_l2(np.asarray(x), np.asarray(a))
+                for n, x, a in zip(names, xs, amp)}
+
+    card, ref, sens = dist(gpu), dist(f32), dist(pert)
+    sep = [n for n in names if n == "loss" or
+           AMP_SENSITIVITY_FACTOR * sens[n] < AMP_MARGIN * ref[n]]
+    limit = {n: AMP_MARGIN * ref[n] if n in sep
+             else max(ref[n], AMP_SENSITIVITY_FACTOR * sens[n])
+             for n in names}
+    return {"card": card, "ref": ref, "sens": sens, "separating": sep,
+            "not_nearer_than_f32": sorted(n for n in names
+                                          if not card[n] < ref[n]),
+            "outside": sorted(n for n in names if not card[n] <= limit[n])}
+
+
+def _amp_report(v, control):
+    """The fields a check phase prints of its verdict ``v`` and of the
+    card f32 step's ``control``: the three distances, the separating
+    names with their distances, medians and maxima of the card's over the
+    other two, and what the control's verdict found outside."""
+    card, ref, sens = v["card"], v["ref"], v["sens"]
+    names = list(card)
+    out = {"card_vs_cpu_amp": card, "cpu_amp_vs_f32": ref,
+           "cpu_amp_sensitivity": sens,
+           "separating": {n: {"card": card[n], "amp_vs_f32": ref[n],
+                              "control_f32_card": control["card"][n]}
+                          for n in v["separating"]},
+           "not_nearer_than_f32": v["not_nearer_than_f32"],
+           "outside_tol": v["outside"],
+           "control_f32_card_outside": control["outside"],
+           "tol": "separating (loss; %g x sensitivity < %g x AMP-vs-f32): "
+                  "card <= %g x CPU AMP vs f32; else card <= max(CPU AMP "
+                  "vs f32, %g x sensitivity); the card's f32 step must "
+                  "fail" % (AMP_SENSITIVITY_FACTOR, AMP_MARGIN, AMP_MARGIN,
+                            AMP_SENSITIVITY_FACTOR)}
+    for key, base in (("card_over_amp_vs_f32", ref),
+                      ("card_over_sensitivity", sens)):
+        r = [card[n] / max(base[n], 1e-30) for n in names]
+        out[key] = {"median": float(np.median(r)), "max": max(r),
+                    "max_name": names[int(np.argmax(r))]}
+    for key, d in (("card_vs_cpu_amp", card), ("cpu_amp_vs_f32", ref),
+                   ("cpu_amp_sensitivity", sens)):
+        out[key + "_median"] = float(np.median(list(d.values())))
+    return out
+
+
+def _amp_checks(phase, v, control):
+    check(not v["outside"], "%s: outside tolerance: %s"
+          % (phase, v["outside"]))
+    check(control["outside"], "%s: the card's f32 step passed the AMP "
+          "check" % phase)
+
+
+def _float_state_dtypes(torch, scope):
+    """The dtypes of the floating tensors a scope holds (parameters and
+    optimizer state)."""
+    return sorted({str(scope.get(n).dtype) for n in scope.var_names()
+                   if isinstance(scope.get(n), torch.Tensor)
+                   and scope.get(n).is_floating_point()})
+
+
+def _amp_step_runs(torch, fluid, main, startup, feed, fetch, names,
+                   want_counts):
+    """One step of the AMP-marked ``main`` on the card, then from the same
+    parameters one f32 step on the card (the control), one AMP and one
+    f32 step with the port on the CPU, and one CPU AMP step on the
+    parameters scaled by 1 + 2^-20. The card's AMP step must launch
+    ``want_counts``, its kernels with a bf16 form all in bf16; its f32
+    step the same counts, none in bf16. Returns a dict of the fetches
+    ("gpu", "gpu_f32", "amp", "f32", "pert"), the card scope's floating
+    dtypes after its AMP step ("dtypes"), the AMP step's launches
+    ("counts", "bf16_counts") and the CPU steps' seconds ("cpu_s")."""
+    params, out, cpu_s = None, {}, {}
+    for key, amp in (("gpu", True), ("gpu_f32", False)):
+        (fluid.amp.enable_bf16 if amp else fluid.amp.disable_bf16)(main)
+        scope = fluid.Scope()
+        exe = fluid.Executor()  # CUDAPlace(0)
+        exe.run(startup, scope=scope)
+        if params is None:
+            params = {n: scope.get(n).cpu().numpy() for n in names}
+        else:
+            fluid.bridge.load_program_params(scope, params, main)
+        reset_counts()
+        out[key] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        counts, bf16 = read_counts(), read_bf16_counts()
+        check(counts == want_counts and bf16 == bf16_part(counts, amp),
+              "AMP check %s launches %s (bf16 %s) != %s" % (
+                  key, counts, bf16, want_counts))
+        if amp:
+            out.update(dtypes=_float_state_dtypes(torch, scope),
+                       counts=counts, bf16_counts=bf16)
+    for key, amp, scale in (("amp", True, 1.0), ("f32", False, 1.0),
+                            ("pert", True, 1.0 + 2.0 ** -20)):
+        (fluid.amp.enable_bf16 if amp else fluid.amp.disable_bf16)(main)
+        cpu_scope = fluid.Scope()
+        cexe = fluid.Executor(fluid.CPUPlace())
+        cexe.run(startup, scope=cpu_scope)
+        fluid.bridge.load_program_params(
+            cpu_scope, {n: (v * np.float32(scale)).astype(v.dtype)
+                        for n, v in params.items()}, main, "cpu")
+        t0 = time.perf_counter()
+        out[key] = cexe.run(main, feed=feed, fetch_list=fetch,
+                            scope=cpu_scope)
+        cpu_s[key] = time.perf_counter() - t0
+    fluid.amp.enable_bf16(main)
+    check(read_counts() == counts, "a CPU step launched a kernel")
+    out["cpu_s"] = cpu_s
+    return out
+
+
+def phase_amp_train_check(torch, smi_line, batch=2):
+    """One full-width Transformer-base step under ``fluid.amp.decorate``
+    (dropout 0, batch 2) on the card, and from the same weights and feed
+    the same step in f32 on the card and with the port on the CPU under
+    AMP, in f32, and under AMP on the parameters scaled by 1 + 2^-20. The
+    card runs the bf16 forms of the flash, LayerNorm and fused CE kernels
+    (counted per dtype), the CPU their plain versions, which round where
+    the kernels do. The loss and every parameter's gradient are held as
+    the comment above ``AMP_SENSITIVITY_FACTOR`` sets out, and the card's
+    f32 step must fail that verdict. Every parameter and Adam moment must
+    still be f32 after the step."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, spec = build_transformer(fluid, dropout_rate=0.0,
+                                            amp=True)
+    names = [p.name for p in main.all_parameters()]
+    gb = main.global_block()
+    fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in names]
+    feed = spec.sample_batch(batch, np.random.RandomState(SEED))
+    seq = TRANSFORMER["seq_len"]
+    feed["src_len"] = np.array([seq, seq * 3 // 4][:batch], "int64")
+    feed["trg_len"] = np.array([seq, seq * 2 // 3][:batch], "int64")
+    r = _amp_step_runs(torch, fluid, main, startup, feed, fetch, names,
+                       PER_STEP)
+    runs = [r[k] for k in ("amp", "f32", "pert")]
+    v = _amp_verdict(["loss"] + names, r["gpu"], *runs)
+    control = _amp_verdict(["loss"] + names, r["gpu_f32"], *runs)
+    gpu = r["gpu"]
+    emit(dict({"phase": "amp_train_check", "batch": batch,
+               "config": TRANSFORMER, "dropout": 0.0,
+               "precision": "bf16 (fluid.amp.decorate)",
+               "loss_gpu": float(gpu[0]), "loss_gpu_f32": float(
+                   r["gpu_f32"][0]), "loss_cpu_amp": float(r["amp"][0]),
+               "loss_cpu_f32": float(r["f32"][0]),
+               "loss_cpu_amp_perturbed": float(r["pert"][0]),
+               "state_dtypes": r["dtypes"], "launches": r["counts"],
+               "bf16_launches": r["bf16_counts"],
+               "cpu_amp_step_s": r["cpu_s"]["amp"],
+               "cpu_f32_step_s": r["cpu_s"]["f32"], "device": smi_line},
+              **_amp_report(v, control)))
+    check(np.isfinite([float(gpu[0])]).all() and all(
+        np.isfinite(g).all() for g in gpu[1:]),
+        "non-finite loss or grads on the card")
+    _amp_checks("amp_train_check", v, control)
+    check(r["dtypes"] == ["torch.float32"], "AMP state dtypes %s"
+          % r["dtypes"])
+    return v["card"]
+
+
 _MARKS = (("flash_fwd_kernel", "flash_attention_fwd"),
           ("flash_bwd_kernel", "flash_attention_bwd"),
           ("layer_norm_fwd_kernel", "layer_norm_fwd"),
@@ -1211,7 +1740,8 @@ def _kernel_kind(name):
         return kind
     if any(m in name for m in _CUDNN_MARKS):
         return "cudnn_conv"
-    if "gemm" in name or "cutlass" in name or "xmma" in name:
+    if ("gemm" in name or "cutlass" in name or "xmma" in name
+            or "nvjet" in name):  # nvjet: cuBLAS's Hopper bf16 GEMMs
         return "gemm"
     if "indexselect" in name or "gather" in name or "index_kernel" in name:
         return "gather"
@@ -1251,18 +1781,22 @@ def _profile_steps(torch, run_step, steps):
 
 
 def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
-                prof_steps=3):
+                prof_steps=3, amp=False):
     """The main path: Transformer-base trained with dropout 0.1 and
     Adam(1e-4) at 128 x 256 tokens per step on one fixed batch (an
-    overfit check). Launch counts are zeroed just before the first step
-    and read after the last; every step must launch each kernel exactly
-    PER_STEP times. The flash kernels' profiled ms per step is printed
-    beside ``flash_ms`` (the ``timing`` phase's ms at the training shape)
-    times their launches per step."""
+    overfit check), in f32 (phase ``train``) or under
+    ``fluid.amp.decorate`` (``amp_train``: the bf16 forms of the flash,
+    LayerNorm and fused CE kernels). Launch counts are zeroed just before
+    the first step and read after the last; every step must launch each
+    kernel exactly PER_STEP times, under AMP all of them in bf16 and in
+    f32 none (counted per dtype). The flash kernels' profiled ms per step
+    is printed beside ``flash_ms`` (the ``timing`` phase's ms at the
+    training shape, in the run's dtype) times their launches per step."""
     import paddle_tpu_torch as fluid
 
     t0 = time.perf_counter()
-    main, startup, spec = build_transformer(fluid, dropout_rate=0.1)
+    main, startup, spec = build_transformer(fluid, dropout_rate=0.1,
+                                            amp=amp)
     scope = fluid.Scope()
     exe = fluid.Executor()  # CUDAPlace(0)
     exe.run(startup, scope=scope)
@@ -1274,15 +1808,17 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
     losses, step_s = [], []
 
     def run_step():
-        before = read_counts()
+        before = read_counts(), read_bf16_counts()
         t = time.perf_counter()
         loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
                         scope=scope)  # to numpy: ends synchronised
         dt = time.perf_counter() - t
-        after = read_counts()
-        per = {k: after[k] - before[k] for k in after}
-        check(per == PER_STEP, "step %d launches %s != %s"
-              % (len(losses), per, PER_STEP))
+        after = read_counts(), read_bf16_counts()
+        per, per_bf16 = ({k: a[k] - b[k] for k in a}
+                         for a, b in zip(after, before))
+        check(per == PER_STEP and per_bf16 == bf16_part(PER_STEP, amp),
+              "step %d launches %s (bf16 %s) != %s"
+              % (len(losses), per, per_bf16, PER_STEP))
         losses.append(float(loss))
         return dt
 
@@ -1301,7 +1837,10 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
     med = statistics.median(step_s)
     busy = sum(device_ms.values())
     flops = spec.flops_per_example * TRAIN_BATCH
-    emit({"phase": "train", "model": "transformer_base",
+    q1, _, q3 = statistics.quantiles(step_s, n=4)
+    emit({"phase": "amp_train" if amp else "train",
+          "model": "transformer_base",
+          "precision": "bf16 (fluid.amp.decorate)" if amp else "f32",
           "config": dict(TRANSFORMER, dropout_rate=0.1), "params": n_params,
           "batch": TRAIN_BATCH, "tokens_per_step": tokens,
           "optimizer": "Adam(1e-4)", "warmup_steps": warmup, "steps": steps,
@@ -1309,6 +1848,8 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
           "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
           "step_ms": [x * 1e3 for x in step_s],
           "tokens_per_s": tokens / med,
+          "tokens_per_s_range": [tokens / max(step_s), tokens / min(step_s)],
+          "tokens_per_s_iqr": [tokens / q3, tokens / q1],
           "model_tflops_per_s": flops / med / 1e12,
           "losses": losses, "peak_memory_bytes": peak,
           "device_ms_per_step": device_ms,
@@ -1321,8 +1862,9 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
               name: {"profiled": device_ms[name],
                      "timing_x_launches": flash_ms[name] * PER_STEP[name]}
               for name in ("flash_attention_fwd", "flash_attention_bwd")},
-          "launches": launches, "launches_per_step": PER_STEP,
-          "setup_s": setup_s, "device": smi_line})
+          "launches": launches, "bf16_launches": read_bf16_counts(),
+          "launches_per_step": PER_STEP, "setup_s": setup_s,
+          "device": smi_line})
     check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
     check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
     check(device_ms["flash_attention_fwd"] > 0
@@ -1331,6 +1873,9 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
     n_steps = warmup + steps + prof_steps
     check(launches == {k: n * n_steps for k, n in PER_STEP.items()},
           "train launches %s" % launches)
+    if amp:
+        dtypes = _float_state_dtypes(torch, scope)
+        check(dtypes == ["torch.float32"], "AMP state dtypes %s" % dtypes)
     return launches
 
 
@@ -1826,13 +2371,14 @@ def _add_bandwidth_plans(torch, dev, rows):
     rows["scatter_add"]["plan"] = list(sc.scatter_plan(n, k, True, sms))
 
 
-def build_deepfm(fluid):
+def build_deepfm(fluid, amp=False):
     """DeepFM with Adam(1e-4), as paddle_tpu's bench.py trains it, in fresh
-    programs. Returns (main, startup, spec)."""
+    programs, in f32 or under ``amp.decorate``. Returns (main, startup,
+    spec)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         spec = fluid.models.deepfm.deepfm(**DEEPFM)
-        fluid.optimizer.Adam(learning_rate=1e-4).minimize(spec.loss)
+        _optimizer(fluid, amp).minimize(spec.loss)
     main.random_seed = startup.random_seed = SEED
     return main, startup, spec
 
@@ -1925,6 +2471,57 @@ def phase_deepfm_train_check(torch, smi_line, batch=64, lr=1e-4,
     return errs
 
 
+def phase_deepfm_amp_train_check(torch, smi_line, batch=64):
+    """One full-width DeepFM step under ``fluid.amp.decorate`` (batch 64)
+    on the card, and from the same weights and feed the same step in f32
+    on the card and with the port on the CPU under AMP, in f32 and under
+    AMP on the parameters scaled by 1 + 2^-20: the MLP's products run bf16
+    through ``mul``, the gathered rows go on in bf16, and the table's
+    (rows, values) gradient and the scatter-add kernel stay f32. The
+    loss, ``prob``, the sparse gradient's values and each dense
+    parameter's gradient are held as ``amp_train_check`` holds its
+    quantities, and the card's f32 step must fail that verdict; the
+    sparse rows must be equal; every parameter and Adam moment must still
+    be f32 after the step."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, spec = build_deepfm(fluid, amp=True)
+    gb = main.global_block()
+    names = [p.name for p in main.all_parameters()]
+    dense = [n for n in names if n != "fm_table"]
+    feed = spec.sample_batch(batch, np.random.RandomState(SEED))
+    fetch = [spec.loss, spec.fetches["prob"], gb.var("fm_table@GRAD@ROWS"),
+             gb.var("fm_table@GRAD")] + [gb.var(n + "@GRAD") for n in dense]
+    r = _amp_step_runs(torch, fluid, main, startup, feed, fetch, names,
+                       DEEPFM_PER_STEP)
+    keep = [i for i in range(len(fetch)) if i != 2]  # not the sparse rows
+    quantities = ["loss", "prob", "fm_table@GRAD"] + [
+        n + "@GRAD" for n in dense]
+    runs = [[r[k][i] for i in keep] for k in ("amp", "f32", "pert")]
+    v = _amp_verdict(quantities, [r["gpu"][i] for i in keep], *runs)
+    control = _amp_verdict(quantities, [r["gpu_f32"][i] for i in keep],
+                           *runs)
+    gpu = r["gpu"]
+    rows_equal = bool(np.array_equal(gpu[2], r["amp"][2]))
+    emit(dict({"phase": "deepfm_amp_train_check", "batch": batch,
+               "config": DEEPFM, "precision": "bf16 (fluid.amp.decorate)",
+               "loss_gpu": float(gpu[0]),
+               "loss_gpu_f32": float(r["gpu_f32"][0]),
+               "loss_cpu_amp": float(r["amp"][0]),
+               "loss_cpu_f32": float(r["f32"][0]),
+               "sparse_grad_rows_equal": rows_equal,
+               "state_dtypes": r["dtypes"], "launches": r["counts"],
+               "cpu_amp_step_s": r["cpu_s"]["amp"],
+               "cpu_f32_step_s": r["cpu_s"]["f32"], "device": smi_line},
+              **_amp_report(v, control)))
+    check(np.isfinite(gpu[1]).all(), "non-finite prob on the card")
+    check(rows_equal, "the sparse grad's rows differ")
+    _amp_checks("deepfm_amp_train_check", v, control)
+    check(r["dtypes"] == ["torch.float32"], "AMP state dtypes %s"
+          % r["dtypes"])
+    return v["card"]
+
+
 def _op_kind(op):
     if op.attr("is_optimizer_op"):
         return "optimizer_ops"
@@ -1971,10 +2568,13 @@ def _profile_by_op_kind(torch, run_step, steps, device_ms):
     return by_op, [list(r) for r in host]
 
 
-def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2):
+def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2,
+                       amp=False):
     """The main path: DeepFM (BASELINE config 5) trained with Adam(1e-4) at
     batch 32768 on one fixed batch from ``spec.sample_batch(32768,
-    RandomState(0))``, staged on the card once. Launch counts are zeroed
+    RandomState(0))``, staged on the card once, in f32 (phase
+    ``deepfm_train``) or under ``fluid.amp.decorate`` (``deepfm_amp_train``:
+    bf16 MLP products, the f32 table and scatter). Launch counts are zeroed
     just before the first step and read after the last; every step must
     launch the scatter kernel exactly once and nothing else of the
     port's."""
@@ -1982,7 +2582,7 @@ def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2):
     from paddle_tpu_torch.core.framework import torch_dtype
 
     t0 = time.perf_counter()
-    main, startup, spec = build_deepfm(fluid)
+    main, startup, spec = build_deepfm(fluid, amp=amp)
     scope = fluid.Scope()
     exe = fluid.Executor()  # CUDAPlace(0)
     exe.run(startup, scope=scope)
@@ -2033,9 +2633,11 @@ def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2):
     med = statistics.median(step_s)
     busy = sum(device_ms.values())
     flops = spec.flops_per_example * DEEPFM_BATCH
-    emit({"phase": "deepfm_train", "model": "deepfm", "config": DEEPFM,
+    emit({"phase": "deepfm_amp_train" if amp else "deepfm_train",
+          "model": "deepfm", "config": DEEPFM,
           "table": [DEEPFM["sparse_feature_dim"], DEEPFM_WIDTH],
-          "params": n_params, "batch": DEEPFM_BATCH, "dtype": "float32",
+          "params": n_params, "batch": DEEPFM_BATCH,
+          "dtype": "bf16 (fluid.amp.decorate)" if amp else "float32",
           "optimizer": "Adam(1e-4)", "warmup_steps": warmup, "steps": steps,
           "step_ms_median": med * 1e3,
           "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
@@ -2879,15 +3481,27 @@ def main():
 
     smi_line = phase_device(torch)
     phase_build()
-    errs = {"flash_attention_fwd": phase_flash_check(torch, dev)["bert_f32"],
-            "layer_norm_fwd": phase_ln_check(torch, dev)["1024x768_float32"]}
-    errs["flash_attention_bwd"] = phase_flash_bwd_check(
-        torch, dev)["enc_self_bias_grad"]
-    errs["layer_norm_bwd"] = phase_ln_bwd_check(
-        torch, dev)["train_%dx512" % (TRAIN_BATCH * TRANSFORMER["seq_len"])]
-    errs["fused_ce_fwd"] = phase_ce_check(torch, dev)["train_%dx%dx%d" % (
-        TRAIN_BATCH * TRANSFORMER["seq_len"], TRANSFORMER["d_model"],
-        TRANSFORMER["trg_vocab"])]
+    # each kernel's error against its plain version at the path's shape,
+    # f32 and (rows 1-9) bf16
+    rows = TRAIN_BATCH * TRANSFORMER["seq_len"]
+    ce_case = "train_%dx%dx%d" % (rows, TRANSFORMER["d_model"],
+                                  TRANSFORMER["trg_vocab"])
+    checked = {"flash_attention_fwd": phase_flash_check(torch, dev),
+               "layer_norm_fwd": phase_ln_check(torch, dev),
+               "flash_attention_bwd": phase_flash_bwd_check(torch, dev),
+               "layer_norm_bwd": phase_ln_bwd_check(torch, dev),
+               "fused_ce_fwd": phase_ce_check(torch, dev)}
+    errs, bf16_errs = {}, {}
+    for name, f32_case, bf16_case in (
+            ("flash_attention_fwd", "bert_f32", "train_bf16_dropout_0.1"),
+            ("layer_norm_fwd", "1024x768_float32", "%dx512_bfloat16" % rows),
+            ("flash_attention_bwd", "enc_self_bias_grad",
+             "enc_self_bf16_dropout_0.1"),
+            ("layer_norm_bwd", "train_%dx512" % rows,
+             "train_%dx512_bf16" % rows),
+            ("fused_ce_fwd", ce_case, ce_case + "_bf16")):
+        errs[name] = checked[name][f32_case]
+        bf16_errs[name] = checked[name][bf16_case]
     errs.update(phase_fused_conv_check(torch, dev))
     errs["scatter_add"] = phase_scatter_check(
         torch, dev)["deepfm_densify_uniform"]
@@ -2898,6 +3512,11 @@ def main():
         "flash_attention_fwd": times["flash_attention_fwd"][
             "trained_shape"]["ms"],
         "flash_attention_bwd": times["flash_attention_bwd"]["ms"]})
+    phase_amp_train_check(torch, smi_line)
+    paths["amp_train"] = phase_train(torch, smi_line, {
+        name: times[name]["bf16"]["ms"]
+        for name in ("flash_attention_fwd", "flash_attention_bwd")},
+        amp=True)
     phase_resnet_train_check(torch, smi_line)
     paths["resnet_train"], trained = phase_resnet_train(
         torch, smi_line, times["conv_moments"]["site_weighted_ms"])
@@ -2905,6 +3524,8 @@ def main():
     del trained
     phase_deepfm_train_check(torch, smi_line)
     paths["deepfm_train"] = phase_deepfm_train(torch, smi_line)
+    phase_deepfm_amp_train_check(torch, smi_line)
+    paths["deepfm_amp_train"] = phase_deepfm_train(torch, smi_line, amp=True)
     fam = phase_decode_check(torch, smi_line)
     paths["decode"] = phase_decode(torch, smi_line, fam)
     del fam
@@ -2945,6 +3566,9 @@ def main():
                     "zipf_bound_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
+        if "bf16" in r:  # rows 1-9: the bf16 form (AMP), training shape
+            kernels[-1]["bf16"] = dict(r["bf16"],
+                                       max_abs_err=bf16_errs[name])
     print(smi_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

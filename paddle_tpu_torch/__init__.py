@@ -37,6 +37,7 @@ from . import backward  # noqa: F401
 from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from . import regularizer  # noqa: F401
 from . import clip  # noqa: F401
+from . import amp  # noqa: F401
 from .clip import set_gradient_clip  # noqa: F401
 from . import io  # noqa: F401
 from . import inference  # noqa: F401

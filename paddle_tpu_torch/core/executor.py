@@ -39,6 +39,11 @@ Places are real: ``CUDAPlace(i)`` is ``cuda:i`` and ``CPUPlace()`` is the
 host. The default is ``CUDAPlace(0)``; on a machine without CUDA, an entry
 point that was not asked for the CPU raises instead of falling back.
 
+Mixed precision: a program marked by ``amp.py`` (``_amp_bf16``) runs with
+``op_registry.AMP`` on, restored afterwards (``paddle_tpu``'s
+``executor.py:567-590``). The casts are ops on the tape, so the backward
+follows the forward's dtypes.
+
 Randomness: the scope holds one ``torch.Generator`` on the executor's
 device under ``@RNG@``, seeded from ``program.random_seed`` on first use
 (0 means a random seed, as in the reference).
@@ -52,7 +57,8 @@ import torch
 
 from . import framework
 from .framework import Variable, torch_dtype
-from .op_registry import DEVICE_KEY, RNG_KEY, SPARSE_SITES_KEY, run_op
+from .op_registry import (DEVICE_KEY, RNG_KEY, SPARSE_SITES_KEY, amp_scope,
+                          run_op)
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "CPUPlace",
            "CUDAPlace", "resolve_device", "place_for"]
@@ -225,27 +231,28 @@ class Executor:
         wrt = {n for op in ops if op.type in _AUTODIFF_OPS
                for n in op.attr("wrt_names")} - sparse
         written = set()
-        if not wrt and not sparse:
-            with torch.inference_mode():
+        with amp_scope(getattr(program, "_amp_bf16", False)):
+            if not wrt and not sparse:
+                with torch.inference_mode():
+                    for op in ops:
+                        run_op(env, op)
+                        written.update(op.output_arg_names)
+            else:
+                for n in wrt:
+                    t = env.get(n)
+                    if t is not None and t.is_floating_point():
+                        # a tensor made under inference_mode (a grad-free
+                        # startup run) cannot join a tape: copy it once,
+                        # and the copy is what the step writes back
+                        t = t.clone() if t.is_inference() else t.detach()
+                        env[n] = t.requires_grad_(True)
+                if sparse:
+                    env[SPARSE_SITES_KEY] = {n: [] for n in sparse}
                 for op in ops:
-                    run_op(env, op)
+                    with (torch.no_grad() if op.attr("is_optimizer_op")
+                          else contextlib.nullcontext()):
+                        run_op(env, op)
                     written.update(op.output_arg_names)
-        else:
-            for n in wrt:
-                t = env.get(n)
-                if t is not None and t.is_floating_point():
-                    # a tensor made under inference_mode (a grad-free
-                    # startup run) cannot join a tape: copy it once, and
-                    # the copy is what the step writes back
-                    t = t.clone() if t.is_inference() else t.detach()
-                    env[n] = t.requires_grad_(True)
-            if sparse:
-                env[SPARSE_SITES_KEY] = {n: [] for n in sparse}
-            for op in ops:
-                with (torch.no_grad() if op.attr("is_optimizer_op")
-                      else contextlib.nullcontext()):
-                    run_op(env, op)
-                written.update(op.output_arg_names)
         for n in persist & written:
             scope.set(n, env[n].detach())
         fetches = [env[n] for n in fetch_names]

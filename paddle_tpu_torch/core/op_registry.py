@@ -8,7 +8,9 @@ ops that ``paddle_tpu`` sent to Pallas kernels call the port's hand-written
 CUDA kernels (``paddle_tpu_torch/ops``).
 """
 
+import contextlib
 import os
+import threading
 
 import torch
 
@@ -41,6 +43,91 @@ def env_flag(name):
     """gflags-style boolean env: '1'/'true'/'yes'/'on' (any case) = on."""
     return os.environ.get(name, "").strip().lower() in (
         "1", "true", "yes", "on")
+
+
+# ---------------------------------------------------------------------------
+# Mixed precision (``paddle_tpu``'s op_registry.py:300-374). The Executor
+# sets the flag for the whole run of a program marked by ``amp.py``; the
+# forward records the casts on the tape, so the backward follows the
+# forward's dtypes with no flag of its own. Parameters stay f32 leaves:
+# the cast of an operand is an op on the tape, whose backward widens the
+# gradient to f32 again.
+# ---------------------------------------------------------------------------
+
+class _AmpState(threading.local):
+    """Per thread: the serving engine runs programs in threads."""
+    enabled = False
+
+
+AMP = _AmpState()
+
+
+def amp_enabled():
+    return AMP.enabled
+
+
+@contextlib.contextmanager
+def amp_scope(enabled):
+    """Set the flag for a block and restore it afterwards."""
+    prev, AMP.enabled = AMP.enabled, bool(enabled)
+    try:
+        yield
+    finally:
+        AMP.enabled = prev
+
+
+def mxu_cast(*xs):
+    """Cast the f32 operands of a matrix product, convolution or attention
+    to bf16 when AMP is on; other tensors and None pass through."""
+    if not AMP.enabled:
+        return xs if len(xs) > 1 else xs[0]
+    out = tuple(x.to(torch.bfloat16)
+                if isinstance(x, torch.Tensor) and x.dtype == torch.float32
+                else x for x in xs)
+    return out if len(out) > 1 else out[0]
+
+
+def amp_harmonize(x, y):
+    """Binop promotion under AMP: bf16 wins. Torch, like jnp, promotes a
+    ``bf16 (op) f32`` pair to f32, which would take the activation stream
+    back to f32 at every bias add and residual; demoting the f32 side
+    keeps it bf16 (``PADDLE_TPU_AMP_F32_ACTS=1`` turns this off)."""
+    if (AMP.enabled and not env_flag("PADDLE_TPU_AMP_F32_ACTS")
+            and isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)):
+        if x.dtype == torch.bfloat16 and y.dtype == torch.float32:
+            return x, y.to(torch.bfloat16)
+        if x.dtype == torch.float32 and y.dtype == torch.bfloat16:
+            return x.to(torch.bfloat16), y
+    return x, y
+
+
+def amp_out_cast(x):
+    """Cast an f32 activation source (an embedding's gathered rows) to
+    bf16 under AMP, as matrix products store their outputs."""
+    if (AMP.enabled and not env_flag("PADDLE_TPU_AMP_F32_ACTS")
+            and isinstance(x, torch.Tensor) and x.dtype == torch.float32):
+        return x.to(torch.bfloat16)
+    return x
+
+
+def mxu_acc_dtype():
+    """The stored dtype of a bf16 matrix product under AMP: None keeps
+    bf16 (the product accumulates in f32 and rounds once);
+    ``PADDLE_TPU_AMP_F32_ACTS=1`` stores f32."""
+    if AMP.enabled and env_flag("PADDLE_TPU_AMP_F32_ACTS"):
+        return torch.float32
+    return None
+
+
+def weak_scalar(x, s):
+    """A Python number as JAX's weak typing applies it to ``x``: rounded
+    to x's dtype when that is bf16 or f16 (``bf16 * 0.9`` multiplies by
+    bf16(0.9)), as is. Torch would keep the number in f32 and round only
+    the result."""
+    if isinstance(x, torch.Tensor) and x.dtype in (torch.bfloat16,
+                                                   torch.float16):
+        return float(torch.tensor(s, dtype=x.dtype))
+    return s
 
 
 def run_op(env, op):

@@ -14,21 +14,25 @@ import math
 
 import torch
 
-from ..op_registry import register, get, put, next_rng
+from ..op_registry import register, get, put, next_rng, mxu_cast
 
 
 @register("flash_attention")
 def _flash_attention_op(env, op):
     from ...ops.flash_attention import flash_attention
 
+    q = get(env, op.input("Q"))
+    out_dtype = q.dtype
+    # under AMP q/k/v go in as bf16 and the output comes back in q's own
+    # dtype (paddle_tpu's attention_ops.py:17-33)
+    q, k, v = mxu_cast(q, get(env, op.input("K")), get(env, op.input("V")))
     dropout = op.attr("dropout_rate", 0.0)
     out = flash_attention(
-        get(env, op.input("Q")), get(env, op.input("K")),
-        get(env, op.input("V")), op.attr("num_heads", 1),
+        q, k, v, op.attr("num_heads", 1),
         bias=get(env, op.input("Bias")), causal=op.attr("causal", False),
         dropout_rate=dropout,
         generator=next_rng(env) if dropout > 0.0 else None, op=op)
-    put(env, op.output("Out"), out)
+    put(env, op.output("Out"), out.to(out_dtype))
 
 
 def cache_write(cache, x, pos):

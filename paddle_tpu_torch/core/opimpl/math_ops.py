@@ -6,7 +6,9 @@ left them to XLA as well."""
 import torch
 import torch.nn.functional as F
 
-from ..op_registry import register, get, get_list, put, bcast_y
+from ..op_registry import (register, get, get_list, put, bcast_y,
+                           amp_enabled, amp_harmonize, env_flag, mxu_acc_dtype,
+                           mxu_cast, weak_scalar)
 
 _BINOPS = {
     "elementwise_add": torch.add,
@@ -14,19 +16,28 @@ _BINOPS = {
     "elementwise_mul": torch.mul,
     "elementwise_div": torch.div,
     "elementwise_max": torch.maximum,
+    "elementwise_min": torch.minimum,
+    "elementwise_pow": torch.pow,
+    "elementwise_mod": torch.remainder,
+    "elementwise_floordiv": torch.floor_divide,
 }
 
 
-def _make_binop(name, fn):
+def _make_binop(name, fn, harmonize=True):
+    # harmonize=False: mod and floordiv give discrete results, which a
+    # demoted (bf16) operand could flip at a rounding boundary
     @register(name)
     def _impl(env, op, fn=fn):
         x = get(env, op.input("X"))
         y = bcast_y(x, get(env, op.input("Y")), op.attr("axis", -1))
+        if harmonize:
+            x, y = amp_harmonize(x, y)
         put(env, op.output("Out"), fn(x, y))
 
 
 for _n, _f in _BINOPS.items():
-    _make_binop(_n, _f)
+    _make_binop(_n, _f, harmonize=_n not in ("elementwise_mod",
+                                            "elementwise_floordiv"))
 
 
 _UNARY = {
@@ -50,11 +61,14 @@ for _n, _f in _UNARY.items():
 
 @register("gelu")
 def _gelu(env, op):
-    # exact erf form, as paddle_tpu computes it in f32 (math_ops.py:160-164);
-    # its tanh form is an AMP-only choice and AMP is not ported yet
-    approx = "tanh" if op.attr("approximate", False) else "none"
+    # the exact erf form, except under AMP, where paddle_tpu takes the tanh
+    # approximation (math_ops.py:153-164) unless PADDLE_TPU_AMP_F32_ACTS
+    # is set; an explicit ``approximate`` attribute wins
+    approx = op.attr("approximate", amp_enabled()
+                     and not env_flag("PADDLE_TPU_AMP_F32_ACTS"))
     put(env, op.output("Out"), F.gelu(get(env, op.input("X")),
-                                      approximate=approx))
+                                      approximate="tanh" if approx
+                                      else "none"))
 
 
 @register("pow")
@@ -66,8 +80,8 @@ def _pow(env, op):
 @register("scale")
 def _scale(env, op):
     x = get(env, op.input("X"))
-    s = op.attr("scale", 1.0)
-    b = op.attr("bias", 0.0)
+    s = weak_scalar(x, op.attr("scale", 1.0))
+    b = weak_scalar(x, op.attr("bias", 0.0))
     if op.attr("bias_after_scale", True):
         out = x * s + b
     else:
@@ -93,7 +107,16 @@ def _mm(x, y):
     """Product whose rows do not depend on how many rows share the call:
     a served request must get the same bits alone as batched with others.
     BLAS sums a single row in another order (its matrix-vector path), so
-    one row goes through the matrix path as two."""
+    one row goes through the matrix path as two.
+
+    Under AMP the f32 operands are cast to bf16 and the product is stored
+    in bf16, summed in f32 and rounded once (``paddle_tpu``'s
+    math_ops.py:300-317); ``mxu_acc_dtype`` f32 stores it in f32, from the
+    same bf16 operands, which f32 holds exactly."""
+    x, y = mxu_cast(x, y)
+    acc = mxu_acc_dtype()
+    if acc is not None:
+        x, y = x.to(acc), y.to(acc)
     if x.dim() == 2 and x.shape[0] == 1:
         return torch.matmul(x.expand(2, -1), y)[:1]
     return torch.matmul(x, y)
@@ -117,7 +140,7 @@ def _matmul(env, op):
     out = _mm(x, y)
     alpha = op.attr("alpha", 1.0)
     if alpha != 1.0:
-        out = out * alpha
+        out = out * weak_scalar(out, alpha)
     put(env, op.output("Out"), out)
 
 

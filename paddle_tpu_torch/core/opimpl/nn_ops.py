@@ -8,7 +8,8 @@ card), as ``paddle_tpu`` leaves it to ``lax.conv_general_dilated``."""
 import torch
 import torch.nn.functional as F
 
-from ..op_registry import register, get, put, next_rng, run_op
+from ..op_registry import (register, get, put, next_rng, run_op, mxu_cast,
+                           weak_scalar)
 
 
 def _pair(v):
@@ -21,6 +22,8 @@ def _pair(v):
 def _conv2d(env, op):
     x = get(env, op.input("Input"))  # NCHW
     w = get(env, op.input("Filter"))  # OIHW
+    # under AMP bf16 in, bf16 out (paddle_tpu's nn_ops.py:35-41)
+    x, w = mxu_cast(x, w)
     put(env, op.output("Output"), F.conv2d(
         x, w, stride=_pair(op.attr("strides", [1, 1])),
         padding=_pair(op.attr("paddings", [0, 0])),
@@ -185,7 +188,8 @@ def _layer_norm(env, op):
         put(env, op.output("Mean"), mean)
         put(env, op.output("Variance"), var)
         return
-    # other axes: the composed form, stats in f32 (nn_ops.py:410-425)
+    # other axes: the composed form, stats in f32 and Y in the input dtype
+    # (nn_ops.py:410-425)
     axes = tuple(range(begin, x.dim()))
     in_dtype = x.dtype
     x = x.float() if x.dtype == torch.bfloat16 else x
@@ -208,14 +212,15 @@ def _dropout(env, op):
     p = op.attr("dropout_prob", 0.5)
     impl = op.attr("dropout_implementation", "downgrade_in_infer")
     if op.attr("is_test", False):
-        put(env, op.output("Out"),
-            x * (1.0 - p) if impl == "downgrade_in_infer" else x)
+        put(env, op.output("Out"), x * weak_scalar(x, 1.0 - p)
+            if impl == "downgrade_in_infer" else x)
         return
     keep = torch.rand(x.shape, generator=next_rng(env),
                       device=x.device) < (1.0 - p)
     mask = keep.to(x.dtype)
     if impl == "upscale_in_train":
-        out = torch.zeros_like(x) if p >= 1.0 else x * mask / (1.0 - p)
+        out = torch.zeros_like(x) if p >= 1.0 \
+            else x * mask / weak_scalar(x, 1.0 - p)
     else:
         out = x * mask
     put(env, op.output("Out"), out)
@@ -232,17 +237,18 @@ def _softmax(env, op):
 @register("fused_linear_smooth_ce")
 def _fused_linear_smooth_ce(env, op):
     """Vocab projection + label-smoothed softmax CE in one kernel: the
-    [.., V] logits never reach device memory (``ops/fused_ce.py``).
-    ``paddle_tpu``'s AMP cast (``mxu_cast``) waits for the AMP slice."""
+    [.., V] logits never reach device memory (``ops/fused_ce.py``). Under
+    AMP x, W and the bias go in as bf16 (``paddle_tpu``'s
+    nn_ops.py:580-590); the loss is f32 either way."""
     from ...ops.fused_ce import linear_smooth_ce
 
     x = get(env, op.input("X"))
     ids = get(env, op.input("Label"))
     if ids.dim() == x.dim():
         ids = ids.squeeze(-1)
+    x, w, b = mxu_cast(x, get(env, op.input("W")), get(env, op.input("Bias")))
     put(env, op.output("Loss"), linear_smooth_ce(
-        x, get(env, op.input("W")), get(env, op.input("Bias")), ids,
-        op.attr("epsilon", 0.0)))
+        x, w, b, ids, op.attr("epsilon", 0.0)))
 
 
 @register("softmax_with_cross_entropy")

@@ -6,8 +6,8 @@ ported models run). Random ops draw from the executor's
 import torch
 
 from ..framework import convert_np_dtype, torch_dtype
-from ..op_registry import (DEVICE_KEY, SPARSE_SITES_KEY, get, get_list,
-                           next_rng, put, register)
+from ..op_registry import (DEVICE_KEY, SPARSE_SITES_KEY, amp_out_cast,
+                           get, get_list, next_rng, put, register)
 
 
 def _out_dtype(op):
@@ -156,4 +156,6 @@ def _lookup_table(env, op):
     if sites is not None and w_name in sites and torch.is_grad_enabled():
         out = out.detach().requires_grad_(True)
         sites[w_name].append((ids, out, padding_idx))
-    put(env, op.output("Out"), out)
+    # under AMP the rows go on in bf16 (paddle_tpu's tensor_ops.py:314-315);
+    # a sparse site's leaf stays the f32 gather, so its gradient is f32
+    put(env, op.output("Out"), amp_out_cast(out))

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), on the tensor cores.
+// Flash-attention backward for Hopper (sm_90a), on the tensor cores, for
+// f32 and bf16 q/k/v/dO.
 //
 // Replaces the Pallas TPU backward kernels of paddle_tpu/ops/flash_attention.py:
 //   _bwd_dkv_kernel (:211, driven by _flash_bwd_impl :449),
@@ -80,8 +81,27 @@
 // fragment loads are free of bank conflicts. Query tiles a causal key tile
 // cannot see are skipped, with the forward's rule: only when every row of
 // the tile keeps at least one key.
+//
+// bf16 (AMP; the reference's _packed_bwd_kernel under bf16 operands,
+// :724-736, :898-899). Every product is ONE bf16 mma.sync m16n8k16 with
+// f32 accumulators instead of three TF32 ones: the operands are bf16
+// already, and their products are exact in f32. The rounding points are
+// the reference's: S^T and dP^T accumulate in f32 from the bf16 K, Q, V
+// and dO; P and dS are computed in f32, and P after dropout and dS are
+// rounded to bf16 as the A fragments of dV += Pd^T dO and dK += dS^T Q
+// (the accumulator layout of m16n8 is the A layout of m16n8k16, so two
+// query n-tiles pack into one k-step with no shuffle); dS^T goes to shared
+// memory as bf16 for dQ += dS K, whose A fragment pairs keys 2t, 2t + 1
+// (two 16-bit loads). dQ sums in f32 with the same atomics (the wrapper
+// rounds it to bf16 once); dK and dV are summed in f32 per query tile and
+// stored as bf16. Shared memory holds K, V, Q, dO and dS^T in bf16, rows
+// padded to DP + 8 and BQ + 8 elements; lse, delta and the bias stay f32.
+// The dropout hash (flash_dropout.cuh) is the f32 form's, so both draw the
+// same mask. Bounded by operations: 10 * 4.3 GFLOP at the training shape
+// at 989 TFLOP/s.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
@@ -95,59 +115,71 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int STAGES = 2;
 
 struct Args {
-  const float* q; const float* k; const float* v; const float* dout;
+  const void* q; const void* k; const void* v; const void* dout;
   const float* lse; const float* delta; const float* bias;
   const long long* seed;
-  float* dq; float* dk; float* dv; float* dbias;
+  float* dq; void* dk; void* dv; float* dbias;
   int H, Tq, Tk, d;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st;
   long long bias_sb, bias_sh, bias_st;  // bias_st == 0: one row per head
   float scale; int causal; unsigned keep_thresh; float inv_keep;
 };
 
-// DP: instantiated head-dim width; RW warps of 16 keys; DW warps over the
-// head dim; BQ queries per tile. Shared memory, in floats: K, V [BK][LD];
-// STAGES x (Q, dO [BQ][LD], lse, delta [BQ]); dS^T [BK][LDS]; bias [BK];
-// for DW > 1 the partial S^T and dP^T, [NW][NQ][4][32] each.
-template <int DP, int RW, int DW, int BQ>
+// T: f32 or bf16; DP: instantiated head-dim width; RW warps of 16 keys;
+// DW warps over the head dim; BQ queries per tile. Shared memory, in
+// bytes: K, V [BK][LD] of T; STAGES x (Q, dO [BQ][LD] of T, lse, delta
+// [BQ] f32); dS^T [BK][LDS] of T; bias [BK] f32; for DW > 1 the partial
+// S^T and dP^T, f32 [NW][NQ][4][32] each.
+template <typename T, int DP, int RW, int DW, int BQ>
 struct Cfg {
+  static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int NW = RW * DW, NTH = 32 * NW;
   static constexpr int BK = 16 * RW;   // keys per block
-  static constexpr int LD = DP + 4;
+  static constexpr int LD = DP + (F32 ? 4 : 8);
   static constexpr int DSL = DP / DW;  // columns per warp
-  static constexpr int KD = DSL / 8;   // k-steps of S^T and dP^T
+  static constexpr int KSTEP = F32 ? 8 : 16;  // k of one mma
+  static constexpr int KD = DSL / KSTEP;  // k-steps of S^T and dP^T
   static constexpr int NQ = BQ / 8;    // query n-tiles
   static constexpr int NO = DSL / 8;   // column n-tiles of dK, dV
   static constexpr int NC = NO < 8 ? NO : 8;  // n-tiles per pass
-  static constexpr int LDS = BQ + 4;
+  static constexpr int LDS = BQ + (F32 ? 4 : 8);
   // dQ: m-tiles, column groups (warps past MQ * CG sit it out), columns
   // per warp, n-tiles per pass
   static constexpr int MQ = BQ / 16;
   static constexpr int CG = NW / MQ < DP / 8 ? NW / MQ : DP / 8;
   static constexpr int DQC = DP / CG;
   static constexpr int DQN = (DQC < 64 ? DQC : 64) / 8;
-  static constexpr int kv_f = BK * LD;
-  static constexpr int stage_off = 2 * kv_f;
-  static constexpr int stage_f = 2 * BQ * LD + 2 * BQ;
-  static constexpr int ds_off = stage_off + STAGES * stage_f;
-  static constexpr int bias_off = ds_off + BK * LDS;
-  static constexpr int sp_off = bias_off + BK;
+  static constexpr size_t kv_bytes = sizeof(T) * BK * LD;
+  static constexpr size_t stage_off = 2 * kv_bytes;
+  static constexpr size_t stage_bytes =
+      sizeof(T) * 2 * BQ * LD + sizeof(float) * 2 * BQ;
+  static constexpr size_t ds_off = stage_off + STAGES * stage_bytes;
+  static constexpr size_t bias_off = ds_off + sizeof(T) * BK * LDS;
+  static constexpr size_t sp_off = bias_off + sizeof(float) * BK;
   static constexpr int sp_f = NW * NQ * 4 * 32;
   static constexpr size_t smem =
-      sizeof(float) * (size_t(sp_off) + (DW > 1 ? 2 * sp_f : 0));
+      sp_off + (DW > 1 ? 2 * sizeof(float) * sp_f : 0);
   static_assert(NW % MQ == 0 && DQC % (8 * DQN) == 0 && DQN > 0,
                 "dQ work split");
+  static_assert(F32 || (KD > 0 && NQ % 2 == 0 && BK % 16 == 0),
+                "bf16 k-steps of 16");
+  static_assert(stage_off % 16 == 0 && stage_bytes % 16 == 0 &&
+                    ds_off % 16 == 0 && bias_off % 16 == 0,
+                "16-byte aligned regions");
 };
 
 // acc[n] += A . X[rows, c + 8n ...] over the tile's queries, where the
 // accumulator fragments frag[j] (rows: the warp's 16 keys, columns:
-// queries 8j + 2t, 2t + 1) are the A fragments with the queries in the
-// order 2t, 2t + 1, and X is Q or dO in shared memory; each tile's sum is
-// added into acc on the FMA pipe
-template <int NQ, int NO, int NC, int LD>
+// queries 8j + 2t, 2t + 1) are the A fragments, and X is Q or dO in
+// shared memory; each tile's sum is added into acc on the FMA pipe.
+// f32 (3xTF32 m16n8k8): the product runs its 8 queries in the order 2t,
+// 2t + 1, so the accumulator is the A fragment as it stands. bf16
+// (m16n8k16): n-tiles 2kk and 2kk + 1 are the A fragment of k-step kk,
+// rounded to bf16, and X's B fragment pairs rows 2t, 2t + 1 (+ 8).
+template <typename T, int NQ, int NO, int NC, int LD>
 __device__ __forceinline__ void accumulate_t(float (&acc)[NO][4],
                                              const float (&frag)[NQ][4],
-                                             const float* X, int c, int g,
+                                             const T* X, int c, int g,
                                              int tq) {
 #pragma unroll
   for (int n0 = 0; n0 < NO; n0 += NC) {
@@ -156,20 +188,38 @@ __device__ __forceinline__ void accumulate_t(float (&acc)[NO][4],
     for (int n = 0; n < NC; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+    if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-      unsigned ab[4], as[4];
-      split_tf32(frag[j][0], ab[0], as[0]);
-      split_tf32(frag[j][2], ab[1], as[1]);
-      split_tf32(frag[j][1], ab[2], as[2]);
-      split_tf32(frag[j][3], ab[3], as[3]);
+      for (int j = 0; j < NQ; ++j) {
+        unsigned ab[4], as[4];
+        split_tf32(frag[j][0], ab[0], as[0]);
+        split_tf32(frag[j][2], ab[1], as[1]);
+        split_tf32(frag[j][1], ab[2], as[2]);
+        split_tf32(frag[j][3], ab[3], as[3]);
 #pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const float* xp = X + (j * 8 + 2 * tq) * LD + c + (n0 + n) * 8 + g;
-        unsigned bb[2], bs[2];
-        split_tf32(xp[0], bb[0], bs[0]);
-        split_tf32(xp[LD], bb[1], bs[1]);
-        mma_3xtf32(part[n], ab, as, bb, bs);
+        for (int n = 0; n < NC; ++n) {
+          const float* xp = X + (j * 8 + 2 * tq) * LD + c + (n0 + n) * 8 + g;
+          unsigned bb[2], bs[2];
+          split_tf32(xp[0], bb[0], bs[0]);
+          split_tf32(xp[LD], bb[1], bs[1]);
+          mma_3xtf32(part[n], ab, as, bb, bs);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) {
+        const unsigned pa[4] = {
+            pack_bf16(frag[2 * kk][0], frag[2 * kk][1]),
+            pack_bf16(frag[2 * kk][2], frag[2 * kk][3]),
+            pack_bf16(frag[2 * kk + 1][0], frag[2 * kk + 1][1]),
+            pack_bf16(frag[2 * kk + 1][2], frag[2 * kk + 1][3])};
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          const T* xp = X + (kk * 16 + 2 * tq) * LD + c + (n0 + n) * 8 + g;
+          const unsigned bw[2] = {pack_bf16(xp[0], xp[LD]),
+                                  pack_bf16(xp[8 * LD], xp[9 * LD])};
+          mma_bf16(part[n], pa, bw);
+        }
       }
     }
 #pragma unroll
@@ -179,22 +229,30 @@ __device__ __forceinline__ void accumulate_t(float (&acc)[NO][4],
   }
 }
 
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
 // MINB: blocks an SM must hold (caps the registers); ROWS: the bias has
 // a row per query (read, and its gradient written, per pair), else at
 // most one row of keys per head
-template <int DP, int RW, int DW, int BQ, int MINB, bool ROWS>
+template <typename T, int DP, int RW, int DW, int BQ, int MINB, bool ROWS>
 __global__ void __launch_bounds__(32 * RW * DW, MINB)
 flash_bwd_kernel(Args a) {
-  using C = Cfg<DP, RW, DW, BQ>;
+  using C = Cfg<T, DP, RW, DW, BQ>;
   constexpr int NTH = C::NTH, BK = C::BK, LD = C::LD, KD = C::KD;
   constexpr int NQ = C::NQ, NO = C::NO, NC = C::NC, LDS = C::LDS;
-  constexpr int CPR = DP / 4;  // 16-byte chunks per row
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + C::kv_f;
-  float* dSs = smem + C::ds_off;
-  float* Bk = smem + C::bias_off;
-  float* Sp = smem + C::sp_off;
+  constexpr int CH = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int CPR = DP / CH;        // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + BK * LD;
+  T* dSs = reinterpret_cast<T*>(smem + C::ds_off);
+  float* Bk = reinterpret_cast<float*>(smem + C::bias_off);
+  float* Sp = reinterpret_cast<float*>(smem + C::sp_off);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rw = warp / DW, dw = warp % DW;
@@ -208,10 +266,11 @@ flash_bwd_kernel(Args a) {
   const float inv_tk = 1.f / a.Tk;
   const uint32_t dkey = a.seed ? dropout_key(*a.seed, bh) : 0u;
 
-  const float* qb = a.q + b * a.q_sb + (long long)h * a.d;
-  const float* kb = a.k + b * a.k_sb + (long long)h * a.d;
-  const float* vb = a.v + b * a.v_sb + (long long)h * a.d;
-  const float* dob = a.dout + b * a.do_sb + (long long)h * a.d;
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + (long long)h * a.d;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + (long long)h * a.d;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + (long long)h * a.d;
+  const T* dob =
+      static_cast<const T*>(a.dout) + b * a.do_sb + (long long)h * a.d;
   const float* lseb = a.lse + (long long)bh * a.Tq;
   const float* deltab = a.delta + (long long)bh * a.Tq;
   const float* biasb =
@@ -219,7 +278,7 @@ flash_bwd_kernel(Args a) {
 
   // K, V and the bias travel in the ring's first group
   for (int i = tid; i < BK * CPR; i += NTH) {
-    const int j = i / CPR, c = (i % CPR) * 4, key = k0 + j;
+    const int j = i / CPR, c = (i % CPR) * CH, key = k0 + j;
     const bool ok = key < a.Tk && c < a.d;
     cp16(Ks + j * LD + c, ok ? kb + key * a.k_st + c : kb, ok);
     cp16(Vs + j * LD + c, ok ? vb + key * a.v_st + c : vb, ok);
@@ -231,14 +290,16 @@ flash_bwd_kernel(Args a) {
     }
   }
 
-  auto stage = [&](int st) { return smem + C::stage_off + st * C::stage_f; };
+  auto stage = [&](int st) {
+    return reinterpret_cast<T*>(smem + C::stage_off + st * C::stage_bytes);
+  };
   auto load_q = [&](int st, int q0) {
-    float* Qs = stage(st);
-    float* dOs = Qs + BQ * LD;
-    float* Ls = dOs + BQ * LD;
+    T* Qs = stage(st);
+    T* dOs = Qs + BQ * LD;
+    float* Ls = reinterpret_cast<float*>(dOs + BQ * LD);
     float* Dl = Ls + BQ;
     for (int i = tid; i < BQ * CPR; i += NTH) {
-      const int r = i / CPR, c = (i % CPR) * 4, t = q0 + r;
+      const int r = i / CPR, c = (i % CPR) * CH, t = q0 + r;
       const bool ok = t < a.Tq && c < a.d;
       cp16(Qs + r * LD + c, ok ? qb + t * a.q_st + c : qb, ok);
       cp16(dOs + r * LD + c, ok ? dob + t * a.do_st + c : dob, ok);
@@ -288,9 +349,9 @@ flash_bwd_kernel(Args a) {
       cp_commit();
     }
     const int q0 = tile_q0(it);
-    const float* Qs = stage(it % STAGES);
-    const float* dOs = Qs + BQ * LD;
-    const float* Ls = dOs + BQ * LD;
+    const T* Qs = stage(it % STAGES);
+    const T* dOs = Qs + BQ * LD;
+    const float* Ls = reinterpret_cast<const float*>(dOs + BQ * LD);
     const float* Dl = Ls + BQ;
 
     // S^T = K . Q^T and dP^T = V . dO^T over this warp's columns
@@ -301,26 +362,44 @@ flash_bwd_kernel(Args a) {
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      unsigned kbg[4], ksm[4], vbg[4], vsm[4];
-      const int off = (kr0 + g) * LD + c0 + kk * 8 + tq;
-      split_tf32(Ks[off], kbg[0], ksm[0]);
-      split_tf32(Ks[off + 8 * LD], kbg[1], ksm[1]);
-      split_tf32(Ks[off + 4], kbg[2], ksm[2]);
-      split_tf32(Ks[off + 8 * LD + 4], kbg[3], ksm[3]);
-      split_tf32(Vs[off], vbg[0], vsm[0]);
-      split_tf32(Vs[off + 8 * LD], vbg[1], vsm[1]);
-      split_tf32(Vs[off + 4], vbg[2], vsm[2]);
-      split_tf32(Vs[off + 8 * LD + 4], vbg[3], vsm[3]);
+      if constexpr (C::F32) {
+        unsigned kbg[4], ksm[4], vbg[4], vsm[4];
+        const int off = (kr0 + g) * LD + c0 + kk * 8 + tq;
+        split_tf32(Ks[off], kbg[0], ksm[0]);
+        split_tf32(Ks[off + 8 * LD], kbg[1], ksm[1]);
+        split_tf32(Ks[off + 4], kbg[2], ksm[2]);
+        split_tf32(Ks[off + 8 * LD + 4], kbg[3], ksm[3]);
+        split_tf32(Vs[off], vbg[0], vsm[0]);
+        split_tf32(Vs[off + 8 * LD], vbg[1], vsm[1]);
+        split_tf32(Vs[off + 4], vbg[2], vsm[2]);
+        split_tf32(Vs[off + 8 * LD + 4], vbg[3], vsm[3]);
 #pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        const int qo = (j * 8 + g) * LD + c0 + kk * 8 + tq;
-        unsigned bb[2], bs[2];
-        split_tf32(Qs[qo], bb[0], bs[0]);
-        split_tf32(Qs[qo + 4], bb[1], bs[1]);
-        mma_3xtf32_add(st[j], kbg, ksm, bb, bs);
-        split_tf32(dOs[qo], bb[0], bs[0]);
-        split_tf32(dOs[qo + 4], bb[1], bs[1]);
-        mma_3xtf32_add(dpt[j], vbg, vsm, bb, bs);
+        for (int j = 0; j < NQ; ++j) {
+          const int qo = (j * 8 + g) * LD + c0 + kk * 8 + tq;
+          unsigned bb[2], bs[2];
+          split_tf32(Qs[qo], bb[0], bs[0]);
+          split_tf32(Qs[qo + 4], bb[1], bs[1]);
+          mma_3xtf32_add(st[j], kbg, ksm, bb, bs);
+          split_tf32(dOs[qo], bb[0], bs[0]);
+          split_tf32(dOs[qo + 4], bb[1], bs[1]);
+          mma_3xtf32_add(dpt[j], vbg, vsm, bb, bs);
+        }
+      } else {
+        const int off = (kr0 + g) * LD + c0 + kk * 16 + 2 * tq;
+        const unsigned ka[4] = {ld32(Ks + off), ld32(Ks + off + 8 * LD),
+                                ld32(Ks + off + 8),
+                                ld32(Ks + off + 8 * LD + 8)};
+        const unsigned va[4] = {ld32(Vs + off), ld32(Vs + off + 8 * LD),
+                                ld32(Vs + off + 8),
+                                ld32(Vs + off + 8 * LD + 8)};
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const int qo = (j * 8 + g) * LD + c0 + kk * 16 + 2 * tq;
+          const unsigned qw[2] = {ld32(Qs + qo), ld32(Qs + qo + 8)};
+          mma_bf16(st[j], ka, qw);
+          const unsigned dw2[2] = {ld32(dOs + qo), ld32(dOs + qo + 8)};
+          mma_bf16(dpt[j], va, dw2);
+        }
       }
     }
     if constexpr (DW > 1) {  // sum the column groups' partials in order
@@ -385,23 +464,23 @@ flash_bwd_kernel(Args a) {
       }
 
     // dV += Pd^T . dO and dK += dS^T . Q
-    accumulate_t<NQ, NO, NC, LD>(dv, st, dOs, c0, g, tq);
-    accumulate_t<NQ, NO, NC, LD>(dk, dpt, Qs, c0, g, tq);
+    accumulate_t<T, NQ, NO, NC, LD>(dv, st, dOs, c0, g, tq);
+    accumulate_t<T, NQ, NO, NC, LD>(dk, dpt, Qs, c0, g, tq);
 
-    // dS^T to shared memory (one warp per key group) for dQ
+    // dS^T to shared memory (one warp per key group) for dQ; bf16 rounds
+    // it here, as the reference rounds dS for its dQ product
     if (dw == 0) {
 #pragma unroll
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
-          *reinterpret_cast<float2*>(dSs + (kr0 + g + 8 * hh) * LDS + j * 8 +
-                                     2 * tq) =
-              make_float2(dpt[j][2 * hh], dpt[j][2 * hh + 1]);
+          store2(dSs + (kr0 + g + 8 * hh) * LDS + j * 8 + 2 * tq,
+                 dpt[j][2 * hh], dpt[j][2 * hh + 1]);
     }
     __syncthreads();
 
-    // dQ[q0 + 16 mi ..] += scale * dS . K over the block's keys, in the
-    // order 2t, 2t + 1 within each 8: warp -> (m-tile mi, column group cg)
+    // dQ[q0 + 16 mi ..] += scale * dS . K over the block's keys: warp ->
+    // (m-tile mi, column group cg)
     if (warp < C::MQ * C::CG) {
       const int mi = warp % C::MQ, cg = warp / C::MQ;
 #pragma unroll
@@ -412,21 +491,42 @@ flash_bwd_kernel(Args a) {
         for (int n = 0; n < C::DQN; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[n][e] = asm_[n][e] = 0.f;
+        if constexpr (C::F32) {
+          // keys in the order 2t, 2t + 1 within each 8
 #pragma unroll
-        for (int kk = 0; kk < BK / 8; ++kk) {
-          const float* sp = dSs + (kk * 8 + 2 * tq) * LDS + mi * 16 + g;
-          unsigned ab[4], as[4];
-          split_tf32(sp[0], ab[0], as[0]);
-          split_tf32(sp[8], ab[1], as[1]);
-          split_tf32(sp[LDS], ab[2], as[2]);
-          split_tf32(sp[LDS + 8], ab[3], as[3]);
+          for (int kk = 0; kk < BK / 8; ++kk) {
+            const float* sp = dSs + (kk * 8 + 2 * tq) * LDS + mi * 16 + g;
+            unsigned ab[4], as[4];
+            split_tf32(sp[0], ab[0], as[0]);
+            split_tf32(sp[8], ab[1], as[1]);
+            split_tf32(sp[LDS], ab[2], as[2]);
+            split_tf32(sp[LDS + 8], ab[3], as[3]);
 #pragma unroll
-          for (int n = 0; n < C::DQN; ++n) {
-            const float* kp = Ks + (kk * 8 + 2 * tq) * LD + cb + n * 8 + g;
-            unsigned bb[2], bs[2];
-            split_tf32(kp[0], bb[0], bs[0]);
-            split_tf32(kp[LD], bb[1], bs[1]);
-            mma_3xtf32_sep(acc[n], asm_[n], ab, as, bb, bs);
+            for (int n = 0; n < C::DQN; ++n) {
+              const float* kp = Ks + (kk * 8 + 2 * tq) * LD + cb + n * 8 + g;
+              unsigned bb[2], bs[2];
+              split_tf32(kp[0], bb[0], bs[0]);
+              split_tf32(kp[LD], bb[1], bs[1]);
+              mma_3xtf32_sep(acc[n], asm_[n], ab, as, bb, bs);
+            }
+          }
+        } else {
+          // A: dS rows (queries) g, g + 8 by keys 2t, 2t + 1 (+ 8) of dS^T
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const T* sp = dSs + (kk * 16 + 2 * tq) * LDS + mi * 16 + g;
+            const unsigned af[4] = {pack_bf16(sp[0], sp[LDS]),
+                                    pack_bf16(sp[8], sp[LDS + 8]),
+                                    pack_bf16(sp[8 * LDS], sp[9 * LDS]),
+                                    pack_bf16(sp[8 * LDS + 8],
+                                              sp[9 * LDS + 8])};
+#pragma unroll
+            for (int n = 0; n < C::DQN; ++n) {
+              const T* kp = Ks + (kk * 16 + 2 * tq) * LD + cb + n * 8 + g;
+              const unsigned bw[2] = {pack_bf16(kp[0], kp[LD]),
+                                      pack_bf16(kp[8 * LD], kp[9 * LD])};
+              mma_bf16(acc[n], af, bw);
+            }
           }
         }
 #pragma unroll
@@ -451,6 +551,8 @@ flash_bwd_kernel(Args a) {
   }
   cp_wait<0>();  // a block that skipped every tile still waits for K, V
 
+  T* dkb = static_cast<T*>(a.dk);
+  T* dvb = static_cast<T*>(a.dv);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int key = k0 + kr0 + g + 8 * hh;
@@ -463,10 +565,9 @@ flash_bwd_kernel(Args a) {
     for (int n = 0; n < NO; ++n) {
       const int col = c0 + n * 8 + 2 * tq;
       if (col < a.d) {
-        *reinterpret_cast<float2*>(a.dk + row + col) = make_float2(
-            dk[n][2 * hh] * a.scale, dk[n][2 * hh + 1] * a.scale);
-        *reinterpret_cast<float2*>(a.dv + row + col) =
-            make_float2(dv[n][2 * hh], dv[n][2 * hh + 1]);
+        store2(dkb + row + col, dk[n][2 * hh] * a.scale,
+               dk[n][2 * hh + 1] * a.scale);
+        store2(dvb + row + col, dv[n][2 * hh], dv[n][2 * hh + 1]);
       }
     }
     if (!ROWS && a.dbias && dw == 0 && tq == 0)
@@ -474,29 +575,29 @@ flash_bwd_kernel(Args a) {
   }
 }
 
-template <int DP, int RW, int DW, int BQ, int MINB, bool ROWS>
+template <typename T, int DP, int RW, int DW, int BQ, int MINB, bool ROWS>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  using C = Cfg<DP, RW, DW, BQ>;
+  using C = Cfg<T, DP, RW, DW, BQ>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<DP, RW, DW, BQ, MINB, ROWS>,
+      flash_bwd_kernel<T, DP, RW, DW, BQ, MINB, ROWS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::smem));
   if (err != cudaSuccess) return err;
   dim3 grid((a.Tk + C::BK - 1) / C::BK, B * a.H);
-  flash_bwd_kernel<DP, RW, DW, BQ, MINB, ROWS>
+  flash_bwd_kernel<T, DP, RW, DW, BQ, MINB, ROWS>
       <<<grid, C::NTH, C::smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // the instantiated width for head dim d (a multiple of 8, at most 512):
 // ops/flash_attention.py _WIDTHS lists the same widths
-template <bool ROWS>
+template <typename T, bool ROWS>
 cudaError_t dispatch_width(const Args& a, int B, cudaStream_t s) {
-  if (a.d <= 16) return launch<16, 4, 1, 16, 3, ROWS>(a, B, s);
-  if (a.d <= 32) return launch<32, 4, 1, 16, 3, ROWS>(a, B, s);
-  if (a.d <= 64) return launch<64, 4, 1, 16, 3, ROWS>(a, B, s);
-  if (a.d <= 128) return launch<128, 2, 2, 32, 1, ROWS>(a, B, s);
-  if (a.d <= 256) return launch<256, 1, 4, 32, 1, ROWS>(a, B, s);
-  if (a.d <= 512) return launch<512, 1, 4, 16, 1, ROWS>(a, B, s);
+  if (a.d <= 16) return launch<T, 16, 4, 1, 16, 3, ROWS>(a, B, s);
+  if (a.d <= 32) return launch<T, 32, 4, 1, 16, 3, ROWS>(a, B, s);
+  if (a.d <= 64) return launch<T, 64, 4, 1, 16, 3, ROWS>(a, B, s);
+  if (a.d <= 128) return launch<T, 128, 2, 2, 32, 1, ROWS>(a, B, s);
+  if (a.d <= 256) return launch<T, 256, 1, 4, 32, 1, ROWS>(a, B, s);
+  if (a.d <= 512) return launch<T, 512, 1, 4, 16, 1, ROWS>(a, B, s);
   return cudaErrorInvalidValue;
 }
 
@@ -504,22 +605,23 @@ cudaError_t dispatch_width(const Args& a, int B, cudaStream_t s) {
 
 extern "C" {
 
-// f32 only. D: the head dim, a multiple of 8 up to 512. q/k/v/dout:
-// [B, T, H*D] with element strides (batch, row), a contiguous feature dim,
-// and pointers and strides that are multiples of 16 bytes; lse/delta:
-// [B, H, Tq] contiguous; bias: null or f32, read as [B, H, Tq, Tk] through
-// the element strides bias_sb, bias_sh, bias_st and 1 (0 broadcasts), as
-// the forward reads it; seed: one int64 on the device, or null for no
-// dropout. dq: [B, Tq, H*D] f32, contiguous and ZEROED by the caller
-// (blocks add into it); dk/dv: [B, Tk, H*D] contiguous; dbias: null, or
-// for bias_st == 0 the [B, H, Tk] sums over the queries, else dS itself,
-// [B, H, Tq, Tk] contiguous and ZEROED by the caller (pairs of query and
-// key tiles a causal block skips are not written).
+// dtype: 0 = float32, 1 = bfloat16 (q/k/v/dout/dk/dv). D: the head dim, a
+// multiple of 8 up to 512. q/k/v/dout: [B, T, H*D] with element strides
+// (batch, row), a contiguous feature dim, and pointers and strides that
+// are multiples of 16 bytes; lse/delta: f32 [B, H, Tq] contiguous; bias:
+// null or f32, read as [B, H, Tq, Tk] through the element strides
+// bias_sb, bias_sh, bias_st and 1 (0 broadcasts), as the forward reads it;
+// seed: one int64 on the device, or null for no dropout. dq: f32
+// [B, Tq, H*D], contiguous and ZEROED by the caller (blocks add into it);
+// dk/dv: [B, Tk, H*D] contiguous; dbias: null, or f32, for bias_st == 0
+// the [B, H, Tk] sums over the queries, else dS itself, [B, H, Tq, Tk]
+// contiguous and ZEROED by the caller (pairs of query and key tiles a
+// causal block skips are not written).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         const void* bias, const void* seed, void* dq,
-                        void* dk, void* dv, void* dbias, int B, int H,
-                        int Tq, int Tk, int D, long long q_sb,
+                        void* dk, void* dv, void* dbias, int dtype, int B,
+                        int H, int Tq, int Tk, int D, long long q_sb,
                         long long q_st, long long k_sb, long long k_st,
                         long long v_sb, long long v_st, long long do_sb,
                         long long do_st, long long bias_sb,
@@ -527,18 +629,21 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         int causal, unsigned keep_thresh, float inv_keep,
                         void* stream) {
   if (D % 8 != 0 || D < 8 || D > 512) return cudaErrorInvalidValue;
-  Args a{static_cast<const float*>(q), static_cast<const float*>(k),
-         static_cast<const float*>(v), static_cast<const float*>(dout),
-         static_cast<const float*>(lse), static_cast<const float*>(delta),
-         static_cast<const float*>(bias),
-         static_cast<const long long*>(seed), static_cast<float*>(dq),
-         static_cast<float*>(dk), static_cast<float*>(dv),
-         static_cast<float*>(dbias), H, Tq, Tk, D, q_sb, q_st, k_sb, k_st,
-         v_sb, v_st, do_sb, do_st, bias_sb, bias_sh, bias_st, scale, causal,
-         keep_thresh, inv_keep};
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), static_cast<const float*>(bias),
+         static_cast<const long long*>(seed), static_cast<float*>(dq), dk,
+         dv, static_cast<float*>(dbias), H, Tq, Tk, D, q_sb, q_st, k_sb,
+         k_st, v_sb, v_st, do_sb, do_st, bias_sb, bias_sh, bias_st, scale,
+         causal, keep_thresh, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bias && bias_st != 0 ? dispatch_width<true>(a, B, s)
-                              : dispatch_width<false>(a, B, s);
+  const bool rows = bias && bias_st != 0;
+  if (dtype == 0)
+    return rows ? dispatch_width<float, true>(a, B, s)
+                : dispatch_width<float, false>(a, B, s);
+  if (dtype == 1)
+    return rows ? dispatch_width<__nv_bfloat16, true>(a, B, s)
+                : dispatch_width<__nv_bfloat16, false>(a, B, s);
+  return cudaErrorInvalidValue;
 }
 
 const char* ptt_error_string(int err) {

@@ -36,7 +36,14 @@
 //   * f32 runs every product as 3xTF32 mma.sync m16n8k8 (a single TF32
 //     pass would keep 11 bits of each operand; the port is f32 with TF32
 //     off); bf16 runs mma.sync m16n8k16 with f32 accumulators and P rounded
-//     to bf16 for P.V.
+//     to bf16 for P.V. bf16 rounds P where paddle_tpu's whole-sequence
+//     kernel does (_dense_fwd_kernel, :1043-1053): normalised, after
+//     dropout. The online softmax knows the normaliser only at the end, so
+//     bf16 walks the keys twice: pass 0 computes S and each row's max and
+//     sum, pass 1 computes S again, p = exp(s - max) / sum, drops, rounds
+//     and multiplies by V (1.5x the products of one pass). The plain
+//     version, the CPU path and the backward (delta = rowsum(dO * O)) then
+//     see the same out.
 //   * A block owns BQ = 16 * RW query rows of one (b, h): RW warps of 16
 //     rows, times DW warps that split the head dim. It streams K/V tiles of
 //     BK keys through a 2-stage cp.async ring in dynamic shared memory
@@ -142,19 +149,6 @@ struct Cfg {
   static constexpr size_t smem =
       sp_off + (DW > 1 ? size_t(RW) * DW * NT * 4 * 32 * sizeof(float) : 0);
 };
-
-__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-__device__ __forceinline__ unsigned pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return unsigned(__bfloat16_as_ushort(lo)) |
-         (unsigned(__bfloat16_as_ushort(hi)) << 16);
-}
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -265,6 +259,21 @@ flash_fwd_kernel(Args a) {
     }
   };
 
+  // bf16: pass 0 takes each row's max and sum over every key, pass 1
+  // rounds the normalised weights to bf16 for P.V (f32: one pass)
+  constexpr int PASSES = C::F32 ? 1 : 2;
+  float inv_l[2] = {1.f, 1.f};
+  for (int pass = 0; pass < PASSES; ++pass) {
+  const bool stats = PASSES == 2 && pass == 0;
+  if (pass > 0) {  // restart the ring over the same key tiles
+    cp_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < n_tiles) load_kv(s, s * BK);
+      cp_commit();
+    }
+  }
   for (int it = 0; it < n_tiles; ++it) {
     cp_wait<STAGES - 2>();  // tile it (and Q) landed
     __syncthreads();        // ... for all threads; tile it - 1 consumed
@@ -380,7 +389,12 @@ flash_fwd_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += p;  // the normaliser keeps every weight; P.V drops
+        if (PASSES == 1 || stats) {
+          l[e >> 1] += p;  // the normaliser keeps every weight; P.V drops
+          if (stats) continue;
+        } else {
+          p *= inv_l[e >> 1];  // m is the row's max: alpha is 1
+        }
         if (a.seed) {
           const long long ctr =
               (long long)(ta + 8 * (e >> 1)) * a.Tk + k0 + j * 8 + 2 * tq +
@@ -389,6 +403,7 @@ flash_fwd_kernel(Args a) {
         }
         s[j][e] = p;
       }
+    if (stats) continue;
 
     // O = alpha * O + P . V, the tile's sum taken apart on the tensor cores
 #pragma unroll
@@ -445,14 +460,26 @@ flash_fwd_kernel(Args a) {
     }
   }
 
+  if (stats) {  // the rows' sums over the quad, for pass 1
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(FULL, l[hh], 1);
+      l[hh] += __shfl_xor_sync(FULL, l[hh], 2);
+      inv_l[hh] = 1.f / l[hh];
+    }
+  }
+  }  // pass
+
   T* ob = static_cast<T*>(a.out) + b * a.o_sb + (long long)h * a.d;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    l[hh] += __shfl_xor_sync(FULL, l[hh], 1);
-    l[hh] += __shfl_xor_sync(FULL, l[hh], 2);
+    if constexpr (PASSES == 1) {
+      l[hh] += __shfl_xor_sync(FULL, l[hh], 1);
+      l[hh] += __shfl_xor_sync(FULL, l[hh], 2);
+    }
     const int t = q0 + r0 + g + 8 * hh;
     if (t >= a.Tq) continue;
-    const float inv = 1.f / l[hh];
+    const float inv = PASSES == 1 ? 1.f / l[hh] : 1.f;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int col = c0 + n * 8 + 2 * tq;

@@ -1,5 +1,6 @@
 // Fused vocabulary projection + label-smoothed softmax cross-entropy,
-// forward, for Hopper (sm_90a), f32 in and out.
+// forward, for Hopper (sm_90a): x and W in f32 (3xTF32) or bf16 (AMP),
+// loss and lse in f32.
 //
 // Replaces the Pallas TPU kernel _fwd_kernel of paddle_tpu/ops/fused_ce.py
 // (:57, driven by _fwd_impl :106). For each row t of x [T, D]:
@@ -66,6 +67,20 @@
 //     whole tiles writes its partial (max, sum exp, sum z, z[y]) per row
 //     and a second launch combines the splits per row in a fixed order. No
 //     atomics: two runs give bitwise-equal loss and lse.
+//   * bf16 (AMP; the reference feeds its kernel bf16 x, W and b, its
+//     nn_ops.py:588). One bf16 mma.sync m16n8k16 per product: a product of
+//     two bf16 values is exact in f32, so there is nothing to split. The
+//     tiles, the ring, the chunk sums added on the FMA pipe (BK = 32 is
+//     two k-steps) and the epilogue are the f32 form's; the bias arrives in
+//     f32. Bounded by operations: 2 * T * D * V at 989 TFLOP/s (1.018 ms
+//     at the training shape). The smem rows are padded to BK + 8 and
+//     BN + 8 bf16, so the A fragments (32-bit words of rows g, columns
+//     2t, 2t + 8) and the B fragments (two 16-bit loads from rows 2t,
+//     2t + 1) are free of bank conflicts. x and W rows go in 16-byte
+//     copies (8 bf16) where D % 8 == 0 (V % 8 == 0) and the pointer is
+//     16-byte aligned, element by element otherwise. The grid, the split
+//     and one block an SM are the f32 form's, so ops/fused_ce.py
+//     split_plan plans both.
 
 #include <cuda_runtime.h>
 
@@ -78,12 +93,19 @@
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256, STAGES = 4;
-constexpr int AS = BK + 4;  // row of the x chunk [BM][AS], in floats
-constexpr int BS = BN + 8;  // row of the W chunk [BK][BS]
 constexpr int WM = 64, WN = 32;           // warp tile: 2 x 4 warps
 constexpr int MT = WM / 16, NT = WN / 8;  // m16n8 tiles per warp
-constexpr int STAGE_FLOATS = BM * AS + BK * BS;
-constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+
+// shared-memory rows in elements: the x chunk [BM][AS], the W chunk
+// [BK][BS]; one stage holds both
+template <typename T>
+struct Smem {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int AS = BK + (F32 ? 4 : 8);
+  static constexpr int BS = BN + 8;
+  static constexpr int STAGE = BM * AS + BK * BS;
+  static constexpr int BYTES = STAGES * STAGE * int(sizeof(T));
+};
 constexpr unsigned FULL = 0xffffffffu;
 
 // (m, s) <- the statistics of the union of (m, s) and (mo, so); -inf - -inf
@@ -97,13 +119,16 @@ __device__ __forceinline__ void merge(float& m, float& s, float mo,
 
 // partial: [nsplit, T] of (max, sum exp(z - max), sum z, z[y]) over the
 // split's columns. Grid (row tiles, splits).
-template <bool XV, bool WV>
+template <typename E, bool XV, bool WV>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
+fused_ce_kernel(const E* __restrict__ x, const E* __restrict__ w,
                 const float* __restrict__ bias, const int* __restrict__ y,
                 float4* __restrict__ partial, int T, int D, int V,
                 int cols_per_split) {
-  extern __shared__ __align__(16) float smem[];
+  using S = Smem<E>;
+  constexpr int AS = S::AS, BS = S::BS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
   __shared__ int lbl_s[BM];
   __shared__ float zy_s[BM];
   __shared__ float red[3][4][BM];  // (m, s, sum z) per (warp column, row)
@@ -122,17 +147,22 @@ fused_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   const int nk = (D + BK - 1) / BK;
   const int total = ((v_end - v_begin + BN - 1) / BN) * nk;
+  constexpr int CH = 16 / sizeof(E);  // elements per 16-byte copy
 
-  // chunk it: vocab tile it / nk of the split, k chunk it % nk
+  // chunk it: vocab tile it / nk of the split, k chunk it % nk. 16-byte
+  // copies (XV, WV) by cp.async; otherwise f32 copies 4 bytes by cp.async
+  // and bf16 one element by plain loads and stores (seen by all threads
+  // after the barrier that precedes the chunk's use)
   auto load_chunk = [&](int stage, int it) {
-    float* As = smem + stage * STAGE_FLOATS;
-    float* Bs = As + BM * AS;
+    E* As = smem + stage * S::STAGE;
+    E* Bs = As + BM * AS;
     const int tile = it / nk;
     const int k0 = (it - tile * nk) * BK, v0 = v_begin + tile * BN;
     if (XV) {
 #pragma unroll
-      for (int i = 0; i < BM * BK / 4 / THREADS; ++i) {
-        const int row = (tid >> 3) + 32 * i, col = (tid & 7) * 4;
+      for (int i = 0; i < BM * BK / CH / THREADS; ++i) {
+        const int idx = tid + THREADS * i;
+        const int row = idx / (BK / CH), col = (idx % (BK / CH)) * CH;
         const bool ok = t0 + row < T && k0 + col < D;
         cp16(As + row * AS + col,
              ok ? x + (long long)(t0 + row) * D + k0 + col : x, ok);
@@ -142,14 +172,16 @@ fused_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int i = 0; i < BM * BK / THREADS; ++i) {
         const int row = (tid >> 5) + 8 * i, col = tid & 31;
         const bool ok = t0 + row < T && k0 + col < D;
-        cp4(As + row * AS + col,
-            ok ? x + (long long)(t0 + row) * D + k0 + col : x, ok);
+        const E* src = ok ? x + (long long)(t0 + row) * D + k0 + col : x;
+        if constexpr (S::F32) cp4(As + row * AS + col, src, ok);
+        else As[row * AS + col] = ok ? *src : E(0.f);
       }
     }
     if (WV) {
 #pragma unroll
-      for (int i = 0; i < BK * BN / 4 / THREADS; ++i) {
-        const int k = (tid >> 5) + 8 * i, col = (tid & 31) * 4;
+      for (int i = 0; i < BK * BN / CH / THREADS; ++i) {
+        const int idx = tid + THREADS * i;
+        const int k = idx / (BN / CH), col = (idx % (BN / CH)) * CH;
         const bool ok = k0 + k < D && v0 + col < v_end;
         cp16(Bs + k * BS + col,
              ok ? w + (long long)(k0 + k) * V + v0 + col : w, ok);
@@ -159,8 +191,9 @@ fused_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int i = 0; i < BK * BN / THREADS; ++i) {
         const int k = (tid >> 7) + 2 * i, col = tid & (BN - 1);
         const bool ok = k0 + k < D && v0 + col < v_end;
-        cp4(Bs + k * BS + col,
-            ok ? w + (long long)(k0 + k) * V + v0 + col : w, ok);
+        const E* src = ok ? w + (long long)(k0 + k) * V + v0 + col : w;
+        if constexpr (S::F32) cp4(Bs + k * BS + col, src, ok);
+        else Bs[k * BS + col] = ok ? *src : E(0.f);
       }
     }
   };
@@ -195,34 +228,55 @@ fused_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (pf < total) load_chunk(pf % STAGES, pf);
     cp_commit();
 
-    const float* As = smem + (it % STAGES) * STAGE_FLOATS;
-    const float* Bs = As + BM * AS;
+    const E* As = smem + (it % STAGES) * S::STAGE;
+    const E* Bs = As + BM * AS;
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+    if constexpr (S::F32) {
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += 8) {
-      unsigned bb[NT][2], bs[NT][2];
+      for (int ks = 0; ks < BK; ks += 8) {
+        unsigned bb[NT][2], bs[NT][2];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float* b = Bs + (ks + tq) * BS + wn * WN + j * 8 + gq;
-        split_tf32(b[0], bb[j][0], bs[j][0]);
-        split_tf32(b[4 * BS], bb[j][1], bs[j][1]);
+        for (int j = 0; j < NT; ++j) {
+          const float* b = Bs + (ks + tq) * BS + wn * WN + j * 8 + gq;
+          split_tf32(b[0], bb[j][0], bs[j][0]);
+          split_tf32(b[4 * BS], bb[j][1], bs[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          unsigned ab[4], as[4];
+          const float* a = As + (wm * WM + i * 16 + gq) * AS + ks + tq;
+          split_tf32(a[0], ab[0], as[0]);
+          split_tf32(a[8 * AS], ab[1], as[1]);
+          split_tf32(a[4], ab[2], as[2]);
+          split_tf32(a[8 * AS + 4], ab[3], as[3]);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            mma_3xtf32(part[i][j], ab, as, bb[j], bs[j]);
+        }
       }
+    } else {
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        unsigned ab[4], as[4];
-        const float* a = As + (wm * WM + i * 16 + gq) * AS + ks + tq;
-        split_tf32(a[0], ab[0], as[0]);
-        split_tf32(a[8 * AS], ab[1], as[1]);
-        split_tf32(a[4], ab[2], as[2]);
-        split_tf32(a[8 * AS + 4], ab[3], as[3]);
+      for (int ks = 0; ks < BK; ks += 16) {
+        unsigned bw[NT][2];
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_3xtf32(part[i][j], ab, as, bb[j], bs[j]);
+        for (int j = 0; j < NT; ++j) {
+          const E* b = Bs + (ks + 2 * tq) * BS + wn * WN + j * 8 + gq;
+          bw[j][0] = pack_bf16(b[0], b[BS]);
+          bw[j][1] = pack_bf16(b[8 * BS], b[9 * BS]);
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const E* a = As + (wm * WM + i * 16 + gq) * AS + ks + 2 * tq;
+          const unsigned af[4] = {ld32(a), ld32(a + 8 * AS), ld32(a + 8),
+                                  ld32(a + 8 * AS + 8)};
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(part[i][j], af, bw[j]);
+        }
       }
     }
 #pragma unroll
@@ -345,68 +399,84 @@ bool aligned16(const void* p) {
 
 // One instantiation: its dynamic shared memory limit is raised once per
 // device, then the grid of (row tiles, splits) launches.
-template <bool XV, bool WV>
-cudaError_t launch_one(dim3 grid, cudaStream_t s, const float* x,
-                       const float* w, const float* bias, const int* y,
-                       float4* partial, int T, int D, int V,
+template <typename E, bool XV, bool WV>
+cudaError_t launch_one(dim3 grid, cudaStream_t s, const void* x,
+                       const void* w, const float* bias, const int* y,
+                       float4* partial, int T_, int D, int V,
                        int cols_per_split) {
   static std::atomic<unsigned> ready{0};
-  auto* kern = fused_ce_kernel<XV, WV>;
+  auto* kern = fused_ce_kernel<E, XV, WV>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned bit = 1u << (dev & 31);
   if (!(ready.load() & bit)) {
     err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<E>::BYTES);
     if (err != cudaSuccess) return err;
     ready.fetch_or(bit);
   }
-  kern<<<grid, THREADS, SMEM_BYTES, s>>>(x, w, bias, y, partial, T, D, V,
-                                         cols_per_split);
+  kern<<<grid, THREADS, Smem<E>::BYTES, s>>>(
+      static_cast<const E*>(x), static_cast<const E*>(w), bias, y, partial,
+      T_, D, V, cols_per_split);
   return cudaGetLastError();
+}
+
+// the instantiation for the copies x and W allow: 16 bytes where the row
+// holds whole 16-byte pieces (D, V multiples of `per16`) from an aligned
+// pointer
+template <typename E>
+cudaError_t dispatch(dim3 grid, cudaStream_t s, const void* x,
+                     const void* w, const float* bias, const int* y,
+                     float4* partial, int T_, int D, int V,
+                     int cols_per_split) {
+  constexpr int per16 = 16 / sizeof(E);
+  const bool xv = D % per16 == 0 && aligned16(x);
+  const bool wv = V % per16 == 0 && aligned16(w);
+  if (xv && wv)
+    return launch_one<E, true, true>(grid, s, x, w, bias, y, partial, T_, D,
+                                     V, cols_per_split);
+  if (xv)
+    return launch_one<E, true, false>(grid, s, x, w, bias, y, partial, T_,
+                                      D, V, cols_per_split);
+  if (wv)
+    return launch_one<E, false, true>(grid, s, x, w, bias, y, partial, T_,
+                                      D, V, cols_per_split);
+  return launch_one<E, false, false>(grid, s, x, w, bias, y, partial, T_, D,
+                                     V, cols_per_split);
 }
 
 }  // namespace
 
 extern "C" {
 
-// f32 only. x: contiguous [T, D]; w: contiguous [D, V]; bias: [V] or null;
-// y: int32 [T]; loss, lse: f32 [T]; partial: scratch of nsplit * T * 4
-// floats (16-byte aligned). The plan (ops/fused_ce.py split_plan):
-// rows_per_block must be 128, cols_per_split a positive multiple of 128,
-// and nsplit = ceil(V / cols_per_split), so no split is empty. Two
-// launches on `stream`.
+// dtype: 0 = float32, 1 = bfloat16 (x and w). x: contiguous [T, D]; w:
+// contiguous [D, V]; bias: f32 [V] or null; y: int32 [T]; loss, lse: f32
+// [T]; partial: scratch of nsplit * T * 4 floats (16-byte aligned). The
+// plan (ops/fused_ce.py split_plan): rows_per_block must be 128,
+// cols_per_split a positive multiple of 128, and nsplit = ceil(V /
+// cols_per_split), so no split is empty. Two launches on `stream`.
 int fused_ce_fwd(const void* x, const void* w, const void* bias,
-                 const void* y, void* loss, void* lse, void* partial, int T,
-                 int D, int V, int rows_per_block, int nsplit,
-                 int cols_per_split, float eps, void* stream) {
+                 const void* y, void* loss, void* lse, void* partial,
+                 int dtype, int T, int D, int V, int rows_per_block,
+                 int nsplit, int cols_per_split, float eps, void* stream) {
   if (T <= 0 || D <= 0 || V <= 0 || rows_per_block != BM ||
       cols_per_split <= 0 || cols_per_split % BN != 0 ||
       nsplit != (V + cols_per_split - 1) / cols_per_split)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((T + BM - 1) / BM, nsplit);
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
   const float* bf = static_cast<const float*>(bias);
   const int* yi = static_cast<const int*>(y);
   float4* p = static_cast<float4*>(partial);
-  const bool xv = D % 4 == 0 && aligned16(x);
-  const bool wv = V % 4 == 0 && aligned16(w);
   cudaError_t err;
-  if (xv && wv)
-    err = launch_one<true, true>(grid, s, xf, wf, bf, yi, p, T, D, V,
-                                 cols_per_split);
-  else if (xv)
-    err = launch_one<true, false>(grid, s, xf, wf, bf, yi, p, T, D, V,
-                                  cols_per_split);
-  else if (wv)
-    err = launch_one<false, true>(grid, s, xf, wf, bf, yi, p, T, D, V,
+  if (dtype == 0)
+    err = dispatch<float>(grid, s, x, w, bf, yi, p, T, D, V, cols_per_split);
+  else if (dtype == 1)
+    err = dispatch<__nv_bfloat16>(grid, s, x, w, bf, yi, p, T, D, V,
                                   cols_per_split);
   else
-    err = launch_one<false, false>(grid, s, xf, wf, bf, yi, p, T, D, V,
-                                   cols_per_split);
+    return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
   fused_ce_combine<<<(T + 255) / 256, 256, 0, s>>>(
       p, static_cast<float*>(loss), static_cast<float*>(lse), T, V, nsplit,

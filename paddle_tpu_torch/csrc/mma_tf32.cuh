@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy helpers shared by fused_conv.cu,
-// flash_attention_fwd.cu and flash_attention_bwd.cu (sm_90a).
+// flash_attention_fwd.cu, flash_attention_bwd.cu and fused_ce_fwd.cu
+// (sm_90a).
 //
 // 3xTF32: an f32 product a * b runs on the TF32 tensor cores as
 // a_small * b_big + a_big * b_small + a_big * b_big (small terms first),
@@ -13,6 +14,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -110,4 +112,19 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// bf16 fragment registers: two consecutive bf16 read as one 32-bit word,
+// or two values packed (lo in the low half), rounded to nearest from f32
+__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ unsigned pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return unsigned(__bfloat16_as_ushort(lo)) |
+         (unsigned(__bfloat16_as_ushort(hi)) << 16);
 }

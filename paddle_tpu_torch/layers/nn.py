@@ -16,7 +16,9 @@ from ..core.param_attr import ParamAttr
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "dropout", "softmax", "scale", "mean", "pow", "elementwise_add",
-    "elementwise_sub", "elementwise_mul", "elementwise_div", "reduce_sum",
+    "elementwise_sub", "elementwise_mul", "elementwise_div",
+    "elementwise_max", "elementwise_min", "elementwise_pow",
+    "elementwise_mod", "reduce_sum",
     "topk", "softmax_with_cross_entropy",
     "sigmoid_cross_entropy_with_logits", "fused_linear_smooth_ce",
     "multi_head_attention", "kv_cache_write", "cached_multi_head_attention",
@@ -302,6 +304,22 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mod", x, y, axis, act, name)
 
 
 def _reduce_layer(op_type, input, dim, keep_dim, name):

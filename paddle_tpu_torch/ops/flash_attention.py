@@ -36,9 +36,19 @@ forward and backward are the kernels (saving ``out`` and the row ``lse``);
 with grad disabled (serving, under ``inference_mode``) it launches the
 forward kernel alone, since the Function's own host cost is tens of
 microseconds a call and a served dispatch makes one call per layer
-(``PERF.md``). For a CPU tensor it takes the plain version,
-differentiated by autograd. A CUDA tensor always launches the kernels; a
-failed build or launch raises.
+(``PERF.md``). For a CPU tensor the same Function runs the plain
+versions of both (:func:`attention_plain`, :func:`attention_bwd_plain`),
+which round where the kernels round. A CUDA tensor always launches the
+kernels; a failed build or launch raises.
+
+bf16 (AMP): both kernels take bf16 q/k/v. The forward walks the keys
+twice (the rows' max and sum first), rounds the normalised weights to bf16
+for P.V and stores out in bf16, as ``paddle_tpu``'s whole-sequence kernel
+does (:1043-1053); the backward
+rounds P (after dropout) and dS to bf16 for its products, sums dq in f32
+and rounds it once, and stores dk and dv in bf16, as ``paddle_tpu``'s
+``_packed_bwd_kernel`` (:724-736, :898-899). lse, delta and the bias and
+its gradient stay f32.
 
 Attention dropout (``paddle_tpu``'s ``_dropout_keep``, :80) is a
 counter-based hash keyed by (seed, b, h, query, key), shared by both
@@ -57,7 +67,8 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "mha_plain", "attention_plain", "dropout_keep",
+           "mha_plain", "mha_bwd_plain", "attention_plain",
+           "attention_bwd_plain", "dropout_keep",
            "draw_seed", "kernel_choice", "MAX_HEAD_DIM"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -115,26 +126,90 @@ def mha_plain(q, k, v, bias=None, causal=False, scale=None,
     arithmetic of ``paddle_tpu``'s ``mha_reference``; returns (out, lse)
     with lse = logsumexp of the masked logits in f32, [B, H, Tq]. With
     ``dropout_rate > 0`` and a ``seed`` tensor, the weights are dropped by
-    :func:`dropout_keep`, the kernels' mask."""
+    :func:`dropout_keep`, the kernels' mask.
+
+    bf16 rounds where the CUDA forward and ``paddle_tpu``'s
+    whole-sequence kernel (``_dense_fwd_kernel``, :1034-1053) do: the
+    logits are f32 from the bf16 operands, the softmax is f32, the
+    normalised weights (after dropout) are rounded to bf16 for P.V, which
+    sums in f32 and rounds once."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    low = q.dtype in (torch.bfloat16, torch.float16)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale \
+        if low else torch.matmul(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias
     if causal:
-        t_q, t_k = logits.shape[-2], logits.shape[-1]
-        mask = torch.ones(t_q, t_k, dtype=torch.bool,
-                          device=q.device).tril(t_k - t_q)
-        logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+        logits = logits.masked_fill(~_causal_keep(logits),
+                                    torch.finfo(logits.dtype).min)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    probs = torch.softmax(lf, dim=-1).to(q.dtype)
+    probs = torch.softmax(lf, dim=-1)
+    if not low:
+        probs = probs.to(q.dtype)
     if dropout_rate > 0.0 and seed is not None:
-        b, h, t_q, t_k = probs.shape
-        keep = dropout_keep(seed.to(probs.device), b, h, t_q, t_k,
-                            dropout_rate)
-        probs = probs * keep / (1.0 - dropout_rate)
+        probs = probs * _keep(seed, probs, dropout_rate) / (1.0 - dropout_rate)
+    if low:
+        out = torch.matmul(probs.to(q.dtype).float(), v.float())
+        return out.to(q.dtype), lse
     return torch.matmul(probs, v), lse
+
+
+def _causal_keep(logits):
+    """The end-anchored causal mask of a [.., Tq, Tk] tensor, bool."""
+    t_q, t_k = logits.shape[-2], logits.shape[-1]
+    return torch.ones(t_q, t_k, dtype=torch.bool,
+                      device=logits.device).tril(t_k - t_q)
+
+
+def _keep(seed, probs, rate):
+    b, h, t_q, t_k = probs.shape
+    return dropout_keep(seed.to(probs.device), b, h, t_q, t_k, rate)
+
+
+def mha_bwd_plain(q, k, v, out, lse, dout, bias=None, causal=False,
+                  scale=None, dropout_rate=0.0, seed=None):
+    """The kernels' backward on [B, H, T, D]: (dq, dk, dv in q's dtype,
+    dS [B, H, Tq, Tk] f32 for the bias). From the forward's f32 lse and
+    delta = rowsum(dO * O) in f32: P = exp(logit - lse) (1/Tk in a row
+    with no allowed key), dP = dO . V^T, dS = P * (dP - delta), 0 at a
+    masked logit; P after dropout and dS are rounded to q's dtype before
+    the dV, dK and dQ products, which sum in f32 and round once (the
+    rounding points of ``paddle_tpu``'s ``_packed_bwd_kernel``,
+    :724-736)."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    lo = q.dtype
+    acc = torch.float64 if lo == torch.float64 else torch.float32
+    qf, kf, vf, dof = (x.to(acc) for x in (q, k, v, dout))
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.to(acc)
+    keep = None
+    if causal:
+        keep = _causal_keep(logits)
+        logits = logits.masked_fill(~keep, torch.finfo(acc).min)
+    p = torch.exp(logits - lse[..., None])
+    if keep is not None:  # a row with no allowed key averaged V uniformly
+        p = torch.where(keep.any(-1, keepdim=True), p, 1.0 / p.shape[-1])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    if dropout_rate > 0.0 and seed is not None:
+        kd = _keep(seed, p, dropout_rate)
+        inv = 1.0 / (1.0 - dropout_rate)
+        pd = torch.where(kd, p * inv, 0.0)
+        dp = torch.where(kd, dp * inv, 0.0)
+    else:
+        pd = p
+    delta = (dof * out.to(acc)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if keep is not None:
+        ds = ds.masked_fill(~keep, 0.0)
+    dsl = ds.to(lo).to(acc)
+    dv = torch.matmul(pd.to(lo).to(acc).transpose(-1, -2), dof)
+    dk = torch.matmul(dsl.transpose(-1, -2), qf) * scale
+    dq = torch.matmul(dsl, kf) * scale
+    return dq.to(lo), dk.to(k.dtype), dv.to(v.dtype), ds
 
 
 def _split(x, num_heads):
@@ -147,12 +222,34 @@ def attention_plain(q, k, v, num_heads, bias=None, causal=False,
     """The plain version on the packed layout: q,k,v [B, T, H*D] ->
     (out [B, T, H*D], lse [B, H, Tq])."""
     b, t, hd = q.shape
-    if bias is not None and bias.dim() == 2:
-        bias = bias[:, None, None, :]  # lift [B, Tk] onto [B, H, Tq, Tk]
     out, lse = mha_plain(_split(q, num_heads), _split(k, num_heads),
-                         _split(v, num_heads), bias, causal,
+                         _split(v, num_heads), _plain_bias(bias), causal,
                          dropout_rate=dropout_rate, seed=seed)
     return out.transpose(1, 2).reshape(b, t, hd), lse
+
+
+def _plain_bias(bias):
+    if bias is not None and bias.dim() == 2:
+        return bias[:, None, None, :]  # lift [B, Tk] onto [B, H, Tq, Tk]
+    return bias
+
+
+def attention_bwd_plain(q, k, v, out, lse, dout, num_heads, bias=None,
+                        causal=False, dropout_rate=0.0, seed=None,
+                        want_dbias=False):
+    """The plain version of :func:`flash_attention_bwd` on the packed
+    layout (:func:`mha_bwd_plain`): (dq, dk, dv, dbias or None)."""
+    b, t_q, hd = q.shape
+    t_k = k.shape[1]
+    dq, dk, dv, ds = mha_bwd_plain(
+        *(_split(x, num_heads) for x in (q, k, v, out)), lse,
+        _split(dout, num_heads), _plain_bias(bias), causal,
+        dropout_rate=dropout_rate, seed=seed)
+    dbias = _sum_to_bias(ds, bias) if want_dbias and bias is not None \
+        else None
+    return (dq.transpose(1, 2).reshape(b, t_q, hd),
+            dk.transpose(1, 2).reshape(b, t_k, hd),
+            dv.transpose(1, 2).reshape(b, t_k, hd), dbias)
 
 
 def _c_fn(name):
@@ -164,7 +261,7 @@ def _c_fn(name):
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
         else:
-            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                            + [ctypes.c_longlong] * 11
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
                               ctypes.c_float, ctypes.c_void_p])
@@ -327,22 +424,28 @@ def flash_attention_fwd(q, k, v, num_heads, bias=None, causal=False,
                   seed.data_ptr() if seed is not None else None, thresh,
                   inv_keep)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.bf16_launches += q.dtype == torch.bfloat16
     if dp != d:
         out = _cut_heads(out, num_heads, d, dp)
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+flash_attention_fwd.launches = flash_attention_fwd.bf16_launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
                         causal=False, dropout_rate=0.0, seed=None,
                         want_dbias=False):
-    """Launch the CUDA backward (f32). q/k/v and bias as for the forward;
-    out and lse are the forward's; dout: [B, Tq, H*D]. Returns (dq, dk, dv,
-    dbias) in the packed layout, dbias in the bias's shape or None."""
+    """Launch the CUDA backward. q/k/v and bias as for the forward (f32 or
+    bf16); out and lse are the forward's; dout: [B, Tq, H*D] in q's dtype.
+    Returns (dq, dk, dv, dbias) in the packed layout: dq summed in f32 and
+    rounded to q's dtype, dk and dv in k's and v's, dbias f32 in the bias's
+    shape or None."""
     b, t_q, t_k, hd, d = _check_qkv(q, k, v, num_heads,
-                                    "flash_attention_bwd", (torch.float32,))
+                                    "flash_attention_bwd", _DTYPE_CODES)
+    if dout.dtype != q.dtype or out.dtype != q.dtype:
+        raise TypeError("flash_attention_bwd: dout %s / out %s against q %s"
+                        % (dout.dtype, out.dtype, q.dtype))
     if dout.shape != q.shape or out.shape != q.shape:
         raise ValueError("flash_attention_bwd: dout %s / out %s against q %s"
                          % (tuple(dout.shape), tuple(out.shape),
@@ -364,8 +467,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
     lse = lse.contiguous()
     hdp = num_heads * dp
     dq = torch.zeros(b, t_q, hdp, device=q.device, dtype=torch.float32)
-    dk = torch.empty(b, t_k, hdp, device=q.device, dtype=torch.float32)
-    dv = torch.empty(b, t_k, hdp, device=q.device, dtype=torch.float32)
+    dk = torch.empty(b, t_k, hdp, device=q.device, dtype=q.dtype)
+    dv = torch.empty(b, t_k, hdp, device=q.device, dtype=q.dtype)
     dbias = None
     if want_dbias and bias is not None:
         # a padding mask: per-head sums over the queries; else dS itself
@@ -380,12 +483,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
                   seed.data_ptr() if seed is not None else None,
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   dbias.data_ptr() if dbias is not None else None,
-                  b, num_heads, t_q, t_k, dp,
+                  _DTYPE_CODES[q.dtype], b, num_heads, t_q, t_k, dp,
                   q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                   v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
                   bias_sb, bias_sh, bias_st, 1.0 / math.sqrt(d),
                   int(bool(causal)), thresh, inv_keep)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.bf16_launches += q.dtype == torch.bfloat16
+    dq = dq.to(q.dtype)
     if dp != d:
         dq, dk, dv = (_cut_heads(x, num_heads, d, dp) for x in (dq, dk, dv))
     if dbias is not None:
@@ -393,7 +498,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
     return dq, dk, dv, dbias
 
 
-flash_attention_bwd.launches = 0
+flash_attention_bwd.launches = flash_attention_bwd.bf16_launches = 0
 
 
 def _sum_to_bias(g, bias):
@@ -403,10 +508,14 @@ def _sum_to_bias(g, bias):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """The kernels on a CUDA tensor, their plain versions on a CPU one;
+    the gradients come back in the inputs' dtypes (the bias's f32)."""
+
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, num_heads, causal, dropout_rate):
-        out, lse = flash_attention_fwd(q, k, v, num_heads, bias, causal,
-                                       dropout_rate, seed)
+        fwd = attention_plain if q.device.type == "cpu" \
+            else flash_attention_fwd
+        out, lse = fwd(q, k, v, num_heads, bias, causal, dropout_rate, seed)
         ctx.save_for_backward(q, k, v, bias, seed, out, lse)
         ctx.cfg = (num_heads, causal, dropout_rate)
         return out
@@ -415,9 +524,13 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, bias, seed, out, lse = ctx.saved_tensors
         num_heads, causal, dropout_rate = ctx.cfg
-        dq, dk, dv, dbias = flash_attention_bwd(
-            q, k, v, out, lse, dout, num_heads, bias, causal, dropout_rate,
-            seed, want_dbias=ctx.needs_input_grad[3])
+        bwd = attention_bwd_plain if q.device.type == "cpu" \
+            else flash_attention_bwd
+        dq, dk, dv, dbias = bwd(
+            q, k, v, out, lse, dout.to(q.dtype), num_heads, bias, causal,
+            dropout_rate, seed, want_dbias=ctx.needs_input_grad[3])
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
         return dq, dk, dv, dbias, None, None, None, None
 
 
@@ -435,11 +548,9 @@ def flash_attention(q, k, v, num_heads, bias=None, causal=False,
     seed = None
     if dropout_rate > 0.0 and generator is not None:
         seed = draw_seed(generator, q.device)
-    if choice["kernel"] == "plain":  # CPU tensors
-        return attention_plain(q, k, v, num_heads, bias, causal,
-                               dropout_rate, seed)[0]
     if not torch.is_grad_enabled():  # no tape: skip the Function's cost
-        return flash_attention_fwd(q, k, v, num_heads, bias, causal,
-                                   dropout_rate, seed)[0]
+        fwd = attention_plain if choice["kernel"] == "plain" \
+            else flash_attention_fwd
+        return fwd(q, k, v, num_heads, bias, causal, dropout_rate, seed)[0]
     return _FlashAttention.apply(q, k, v, bias, seed, num_heads, causal,
                                  float(dropout_rate))

@@ -22,9 +22,14 @@ The backward is the chunked recompute of ``_bwd_impl`` (:180-217), which
 
 ``linear_smooth_ce`` takes the kernel for every CUDA tensor (the TPU
 package's size gate ``_FUSED_MIN_LOGITS`` and its ``PADDLE_TPU_*`` switches
-were TPU measurements; its bf16 path waits for AMP) and the plain version,
-differentiated by autograd, for a CPU tensor. Neither falls back to the
-other.
+were TPU measurements) and the plain version for a CPU tensor, with the
+chunked backward on both. Neither falls back to the other.
+
+bf16 (AMP): x, W and the bias arrive in bf16. The kernel's bf16 form
+takes one bf16 tensor-core product per f32 one (each product of two bf16
+values is exact in f32) and keeps the f32 statistics of the 3xTF32 form;
+loss and lse are f32. The plain version computes f32 logits from the same
+bf16 operands, and the backward rounds where ``_bwd_impl`` does.
 """
 
 import ctypes
@@ -33,6 +38,8 @@ import functools
 import torch
 
 from . import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 __all__ = ["linear_smooth_ce", "fused_ce_fwd", "linear_smooth_ce_bwd",
            "linear_smooth_ce_plain", "split_plan",
@@ -206,9 +213,24 @@ def _chunk_rows(t, v):
     return min(t, 1 << (rows.bit_length() - 1))  # a power of two
 
 
+def _mm_f32(a, b):
+    """a @ b summed and stored in f32 (the bf16 operands' products are
+    exact in f32): ``paddle_tpu``'s ``preferred_element_type=f32``."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float())
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
 def linear_smooth_ce_bwd(x, w, b, y, lse, g, eps):
-    """The chunked recompute backward (``paddle_tpu``'s ``_bwd_impl``) on
-    any device: returns (dx, dw, db or None) for the loss cotangent g [T]."""
+    """The chunked recompute backward (``paddle_tpu``'s ``_bwd_impl``,
+    :180-217) on any device: returns (dx, dw, db or None) for the loss
+    cotangent g [T], each in its input's dtype. For bf16 x and w it
+    rounds where the reference does: the logits are f32 from the bf16
+    operands, dz is rounded to bf16 for dx = dz W^T (stored bf16) and
+    dW = x^T dz (summed in f32 over the chunks, stored bf16); db sums the
+    f32 dz."""
     t, _ = x.shape
     v = w.shape[1]
     ct = _chunk_rows(t, v)
@@ -220,7 +242,7 @@ def linear_smooth_ce_bwd(x, w, b, y, lse, g, eps):
     for r0 in range(0, t, ct):
         xc = x[r0:r0 + ct]
         gc = g[r0:r0 + ct].float()[:, None]
-        z = torch.matmul(xc, w)
+        z = _mm_f32(xc, w)
         if bf is not None:
             z = z + bf
         dz = torch.exp(z - lse[r0:r0 + ct, None])
@@ -228,8 +250,9 @@ def linear_smooth_ce_bwd(x, w, b, y, lse, g, eps):
             dz = dz - eps / v
         dz = dz * gc
         dz.scatter_add_(1, y[r0:r0 + ct].long()[:, None], -(1.0 - eps) * gc)
-        dx[r0:r0 + ct] = torch.matmul(dz, w.t())
-        dw.addmm_(xc.t(), dz)
+        dzc = dz.to(x.dtype)
+        dx[r0:r0 + ct] = torch.matmul(dzc, w.t())
+        dw += _mm_f32(xc.t(), dzc)
         if db is not None:
             db += dz.sum(dim=0)
     return dx, dw.to(w.dtype), db.to(b.dtype) if b is not None else None
@@ -238,22 +261,25 @@ def linear_smooth_ce_bwd(x, w, b, y, lse, g, eps):
 def _c_fn():
     fn = _build.load("fused_ce_fwd").fused_ce_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def fused_ce_fwd(x, w, b, y, eps):
-    """Launch the CUDA kernel. x: CUDA f32 [T, D]; w: f32 [D, V]; b: f32
-    [V] or None; y: int [T]. Returns (loss [T], lse [T]) in f32."""
+    """Launch the CUDA kernel. x: CUDA [T, D]; w: [D, V], both f32 (the
+    3xTF32 form) or both bf16 (the bf16 form); b: [V] in x's dtype, or
+    None; y: int [T]. Returns (loss [T], lse [T]) in f32."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError("fused_ce_fwd wants x [T, D] and w [D, V], got %s "
                          "and %s" % (tuple(x.shape), tuple(w.shape)))
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError("fused_ce_fwd takes f32 or bf16 x, got %s" % x.dtype)
     for a in (x, w) + ((b,) if b is not None else ()):
-        if a.dtype != torch.float32:
-            raise TypeError("fused_ce_fwd takes f32 x/w/b (bf16 comes with "
-                            "AMP), got %s" % a.dtype)
+        if a.dtype != x.dtype:
+            raise TypeError("fused_ce_fwd: x, w and b of one dtype, got %s "
+                            "and %s" % (x.dtype, a.dtype))
         if a.device != x.device:
             raise ValueError("fused_ce_fwd: tensors on %s and %s"
                              % (x.device, a.device))
@@ -266,7 +292,8 @@ def fused_ce_fwd(x, w, b, y, eps):
         raise ValueError("fused_ce_fwd: labels of shape %s, want [%d]"
                          % (tuple(y.shape), t))
     x, w = x.contiguous(), w.contiguous()
-    b = b.contiguous() if b is not None else None
+    b = b.float().contiguous() if b is not None else None  # the kernels
+    # add the bias to the f32 logits
     y = y.to(device=x.device, dtype=torch.int32).contiguous()
     loss = torch.empty(t, device=x.device, dtype=torch.float32)
     lse = torch.empty(t, device=x.device, dtype=torch.float32)
@@ -279,18 +306,25 @@ def fused_ce_fwd(x, w, b, y, eps):
     _build.launch(_c_fn(), "fused_ce_fwd", x.device, x.data_ptr(),
                   w.data_ptr(), b.data_ptr() if b is not None else None,
                   y.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-                  partial.data_ptr(), t, d, v, rows, nsplit, per, float(eps))
+                  partial.data_ptr(), _DTYPE_CODES[x.dtype], t, d, v, rows,
+                  nsplit, per, float(eps))
     fused_ce_fwd.launches += 1
+    fused_ce_fwd.bf16_launches += x.dtype == torch.bfloat16
     return loss, lse
 
 
-fused_ce_fwd.launches = 0
+fused_ce_fwd.launches = fused_ce_fwd.bf16_launches = 0
 
 
 class _FusedCE(torch.autograd.Function):
+    """The kernel on a CUDA tensor, the plain version on a CPU one; the
+    chunked backward on either."""
+
     @staticmethod
     def forward(ctx, x, w, b, y, eps):
-        loss, lse = fused_ce_fwd(x, w, b, y, eps)
+        fwd = linear_smooth_ce_plain if x.device.type == "cpu" \
+            else fused_ce_fwd
+        loss, lse = fwd(x, w, b, y, eps)
         ctx.save_for_backward(x, w, b, y, lse)
         ctx.eps = eps
         return loss
@@ -308,8 +342,5 @@ def linear_smooth_ce(x, w, b, y, eps):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     y2 = y.reshape(-1)
-    if x.device.type == "cpu":
-        loss, _ = linear_smooth_ce_plain(x2, w, b, y2, float(eps))
-    else:
-        loss = _FusedCE.apply(x2, w, b, y2, float(eps))
+    loss = _FusedCE.apply(x2, w, b, y2, float(eps))
     return loss.reshape(lead)

@@ -50,8 +50,8 @@ a declined geometry replays the original ops on either device. Its
 ``_VMEM_BUDGET``/``_fits_vmem`` check and the ``PADDLE_TPU_NO_FUSED_CONV``
 switch were TPU measurements and do not carry over. An admitted site on a
 tensor that the kernels cannot take (another device, a dtype other than
-f32) raises in the wrapper; bf16 and f16 raise in the gate until AMP is
-ported.
+f32) raises in the wrapper; bf16 and f16 raise in the gate: the kernels'
+bf16 forms (ResNet-50 under ``fluid.amp``) are ``ROADMAP.md`` B6.
 """
 
 import ctypes
@@ -96,8 +96,9 @@ def gate(x_shape, w_shape, strides, paddings, dilations, groups, x=None):
     reference's ``supported_geometry``; it then replays its original ops).
     An admitted site runs the plain versions when ``x`` lies on the CPU and
     the CUDA kernels otherwise (3xTF32 tensor-core products with f32
-    accumulation), whose wrappers raise for a tensor they cannot take. bf16 and f16 ``x`` raise ``NotImplementedError`` until AMP
-    is ported."""
+    accumulation), whose wrappers raise for a tensor they cannot take.
+    bf16 and f16 ``x`` (AMP) raise ``NotImplementedError``: the kernels
+    have no bf16 forms yet (``ROADMAP.md`` B6)."""
     if not supported_geometry(x_shape, w_shape, strides, paddings,
                               dilations, groups):
         return {"admitted": False, "kernel": "unfused_replay",
@@ -108,8 +109,9 @@ def gate(x_shape, w_shape, strides, paddings, dilations, groups, x=None):
                    list(dilations), groups)}
     if x is not None and x.dtype in (torch.bfloat16, torch.float16):
         raise NotImplementedError(
-            "fused_conv2d: %s activations come with the AMP slice of "
-            "paddle_tpu_torch" % x.dtype)
+            "fused_conv2d: %s activations (AMP) need bf16 forms of "
+            "conv_moments, bn_apply and conv_apply, still to port "
+            "(ROADMAP.md B6)" % x.dtype)
     on_cpu = x is not None and x.device.type == "cpu"
     return {"admitted": True,
             "kernel": "plain_fused_conv" if on_cpu else "cuda_fused_conv",
@@ -252,8 +254,8 @@ def _check(name, *tensors):
             raise ValueError("%s: tensors must share one CUDA device, got %s "
                              "and %s" % (name, dev, t.device))
         if t.dtype != torch.float32:
-            raise TypeError("%s takes f32 tensors (bf16 comes with AMP), "
-                            "got %s" % (name, t.dtype))
+            raise TypeError("%s takes f32 tensors (bf16 forms: ROADMAP.md "
+                            "B6), got %s" % (name, t.dtype))
         if not t.is_contiguous():
             raise ValueError("%s: tensors must be contiguous" % name)
 

@@ -13,7 +13,9 @@ autograd may record: its forward is ``layer_norm_fwd``, its backward
 kernel alone: the Function's own host cost, tens of microseconds a call,
 is a tenth of a served dispatch's host time (``PERF.md``). For a tensor on
 the CPU it takes the plain version, differentiated by autograd.
-There is no fallback from one device to the other. As in ``paddle_tpu``
+There is no fallback from one device to the other. bf16 x (AMP): y and dx
+are bf16, each computed in f32 and rounded once; the statistics, dscale
+and dbias stay f32. As in ``paddle_tpu``
 (``fused_layer_norm.py:213-219``), cotangents arriving through the Mean and
 Variance outputs are ignored: those are saved statistics.
 
@@ -122,32 +124,37 @@ def layer_norm_fwd(x, scale, bias, eps):
                   var.data_ptr(), _DTYPE_CODES[x.dtype], rows, d, float(eps),
                   *plan)
     layer_norm_fwd.launches += 1
+    layer_norm_fwd.bf16_launches += x.dtype == torch.bfloat16
     return y, mean, var
 
 
-layer_norm_fwd.launches = 0
+layer_norm_fwd.launches = layer_norm_fwd.bf16_launches = 0
 
 
 def _bwd_c_fn():
     fn = _build.load("layer_norm_bwd").layer_norm_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def layer_norm_bwd(x, scale, mean, var, dy, eps):
-    """Launch the CUDA backward. x, dy: CUDA f32 contiguous [rows, D];
-    scale: [D] or None; mean/var: the forward's f32 [rows]. Returns
-    (dx, dscale or None when scale is None, dbias), all f32."""
+    """Launch the CUDA backward. x, dy: CUDA contiguous [rows, D], both f32
+    or both bf16; scale: f32 [D] or None; mean/var: the forward's f32
+    [rows]. Returns (dx in x's dtype, dscale or None when scale is None,
+    dbias), the last two f32 (summed from f32 partials)."""
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("layer_norm_bwd wants a contiguous [rows, D] x, "
                          "got shape %s" % (tuple(x.shape),))
+    if x.dtype not in _DTYPE_CODES or dy.dtype != x.dtype:
+        raise TypeError("layer_norm_bwd takes f32 or bf16 x and dy of one "
+                        "dtype, got %s and %s" % (x.dtype, dy.dtype))
     for t in (x, dy, mean, var) + ((scale,) if scale is not None else ()):
-        if t.dtype != torch.float32:
-            raise TypeError("layer_norm_bwd takes f32 tensors (bf16 comes "
-                            "with AMP), got %s" % t.dtype)
+        if t is not x and t is not dy and t.dtype != torch.float32:
+            raise TypeError("layer_norm_bwd takes f32 mean, var and scale, "
+                            "got %s" % t.dtype)
         if t.device != x.device:
             raise ValueError("layer_norm_bwd: tensors on %s and %s"
                              % (x.device, t.device))
@@ -174,12 +181,14 @@ def layer_norm_bwd(x, scale, mean, var, dy, eps):
                   g.data_ptr() if g is not None else None, dy.data_ptr(),
                   mean.data_ptr(), var.data_ptr(), dx.data_ptr(),
                   dg.data_ptr() if dg is not None else None, db.data_ptr(),
-                  partial.data_ptr(), rows, d, nblocks, float(eps))
+                  partial.data_ptr(), _DTYPE_CODES[x.dtype], rows, d,
+                  nblocks, float(eps))
     layer_norm_bwd.launches += 1
+    layer_norm_bwd.bf16_launches += x.dtype == torch.bfloat16
     return dx, dg, db
 
 
-layer_norm_bwd.launches = 0
+layer_norm_bwd.launches = layer_norm_bwd.bf16_launches = 0
 
 
 class _FusedLN(torch.autograd.Function):
@@ -189,16 +198,18 @@ class _FusedLN(torch.autograd.Function):
         ctx.save_for_backward(x2, scale, mean, var)
         ctx.eps = eps
         ctx.has_bias = bias is not None
+        ctx.bias_dtype = bias.dtype if bias is not None else None
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x2, scale, mean, var = ctx.saved_tensors
-        dx, dg, db = layer_norm_bwd(x2, scale, mean, var, dy, ctx.eps)
+        dx, dg, db = layer_norm_bwd(x2, scale, mean, var, dy.to(x2.dtype),
+                                    ctx.eps)
         if dg is not None:
-            dg = dg.reshape(scale.shape)
-        return dx, dg, db if ctx.has_bias else None, None
+            dg = dg.reshape(scale.shape).to(scale.dtype)
+        return dx, dg, db.to(ctx.bias_dtype) if ctx.has_bias else None, None
 
 
 def fused_layer_norm(x, scale, bias, eps):

@@ -181,8 +181,8 @@ def scatter_add_rows(base, rows, vals, sort=False, inplace=False, op=None):
     on_cpu = base.device.type == "cpu"
     if not on_cpu and base.dtype != torch.float32:
         raise NotImplementedError(
-            "scatter_add_rows: %s tables on CUDA come with the AMP slice of "
-            "paddle_tpu_torch" % base.dtype)
+            "scatter_add_rows: the CUDA kernel takes f32 tables, got %s (a "
+            "sparse table stays f32 under AMP)" % base.dtype)
     v, k = base.shape
     rows = rows.reshape(-1)
     vals = vals.reshape(-1, k)

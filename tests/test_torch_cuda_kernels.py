@@ -107,10 +107,13 @@ def test_flash_kernel_matches_plain(dev, dtype, tol, b, t, tk, h, d, causal,
     bias = _bias(gen, bias_form, b, h, t, tk, dev)
     if bias_form == "key1":
         bias = bias[:, None, None, :]
-    before = tfa.flash_attention_fwd.launches
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_fwd.bf16_launches)
     out = tfa.flash_attention(q, k, v, h, bias=bias, causal=causal)
     torch.cuda.synchronize()
-    assert tfa.flash_attention_fwd.launches == before + 1
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_fwd.bf16_launches) == (
+        before[0] + 1, before[1] + (dtype == torch.bfloat16))
     want, _ = tfa.attention_plain(q.float(), k.float(), v.float(), h,
                                   bias=bias, causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
@@ -344,6 +347,89 @@ def test_flash_kernels_match_plain_gradients(dev, b, t, tk, h, d, causal,
         assert _rel_err(got, want) <= 2e-4
 
 
+BF16_GRAD_CASES = [
+    # (B, Tq, Tk, H, D, causal, bias form, dropout rate): the training
+    # shape and one case of every width family
+    (8, 256, 256, 8, 64, False, "key+grad", 0.1),
+    (2, 128, 128, 4, 64, True, None, 0.1),
+    (2, 129, 64, 2, 16, True, None, 0.0),
+    (2, 100, 100, 3, 40, False, "key+grad", 0.1),
+    (1, 100, 77, 2, 128, False, "key1+grad", 0.2),
+    (1, 70, 70, 2, 256, True, "key", 0.1),
+    (1, 129, 65, 2, 512, False, "key1+grad", 0.0),
+    (2, 65, 100, 3, 12, False, "full+grad", 0.1),
+    (2, 129, 129, 2, 64, True, "rows+grad", 0.0),
+]
+
+
+@pytest.mark.parametrize("b,t,tk,h,d,causal,bias_form,rate",
+                         BF16_GRAD_CASES)
+def test_flash_kernels_bf16_match_plain(dev, b, t, tk, h, d, causal,
+                                        bias_form, rate):
+    """bf16 (AMP): the forward kernel against the plain version, and the
+    backward kernel against the plain backward from the same out and lse,
+    same seed. Both round P (after dropout) and dS to bf16 for their
+    products, which sum in f32: out, dq, dk and dv within 2^-7 of max(1,
+    max|plain|) (one bf16 step either side: a sum in another order may
+    round the other way), dbias (f32) within 1e-4."""
+    gen = torch.Generator().manual_seed(12)
+    q, k, v = _qkv(gen, b, t, tk, h, d, dev, torch.bfloat16)
+    dout = torch.randn(b, t, h * d, generator=gen).to(dev, torch.bfloat16)
+    kb = _bias(gen, bias_form, b, h, t, tk, dev)
+    grad_b = bias_form is not None and bias_form.endswith("+grad")
+    seed = torch.tensor([6], dtype=torch.int64, device=dev) if rate else None
+    out, lse = tfa.flash_attention_fwd(q, k, v, h, kb, causal, rate, seed)
+    want, want_lse = tfa.attention_plain(q, k, v, h, kb, causal, rate, seed)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, h, kb, causal,
+                                  rate, seed, want_dbias=grad_b)
+    ref = tfa.attention_bwd_plain(q, k, v, out, lse, dout, h, kb, causal,
+                                  rate, seed, want_dbias=grad_b)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and _rel_err(out, want) <= 2 ** -7
+    live = want_lse > -1e30
+    assert (lse - want_lse)[live].abs().max().item() <= 1e-3
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if r is None:
+            assert g is None
+            continue
+        assert g.dtype == r.dtype == (torch.float32 if name == "dbias"
+                                      else torch.bfloat16), name
+        assert _rel_err(g, r) <= (1e-4 if name == "dbias" else 2 ** -7), name
+
+
+def test_flash_kernels_bf16_track_f64_like_plain_bf16(dev):
+    """At the training shape (B=128, T=256, H=8, D=64, key padding bias) on
+    bf16 inputs: the kernels' out, dq, dk and dv against the plain version
+    in f64 on the same (bf16) inputs, by max abs and relative L2 error, at
+    most 1.5 times the plain bf16 version's own error."""
+    gen = torch.Generator().manual_seed(13)
+    b, t, h, d = 128, 256, 8, 64
+    q, k, v = _qkv(gen, b, t, t, h, d, dev, torch.bfloat16)
+    dout = torch.randn(b, t, h * d, generator=gen).to(dev, torch.bfloat16)
+    lengths = torch.randint(1, t + 1, (b,), generator=gen)
+    kb = torch.where(torch.arange(t)[None] < lengths[:, None], 0.0,
+                     -1e9).to(dev)
+
+    ins64 = [x.double().requires_grad_(True) for x in (q, k, v)]
+    out64 = tfa.attention_plain(*ins64, h, kb.double())[0]
+    exact = [out64.detach()] + list(torch.autograd.grad(out64, ins64,
+                                                        dout.double()))
+    outs = []
+    for fwd, bwd in ((tfa.attention_plain, tfa.attention_bwd_plain),
+                     (tfa.flash_attention_fwd, tfa.flash_attention_bwd)):
+        out, lse = fwd(q, k, v, h, kb)
+        outs.append([out] + list(bwd(q, k, v, out, lse, dout, h, kb)[:3]))
+    torch.cuda.synchronize()
+
+    def errs(x, want):
+        dd = x.double() - want
+        return dd.abs().max().item(), (dd.norm() / want.norm()).item()
+
+    for name, want, r, g in zip(("out", "dq", "dk", "dv"), exact, *outs):
+        ke, pe = errs(g, want), errs(r, want)
+        assert ke[0] <= 1.5 * pe[0] and ke[1] <= 1.5 * pe[1], (name, ke, pe)
+
+
 def test_flash_kernels_track_f64_like_plain_f32(dev):
     """At Transformer-base's training shape (B=128, T=256, H=8, D=64, key
     padding bias) the kernels' out, dq, dk and dv against the plain version
@@ -429,6 +515,37 @@ def test_layer_norm_backward_matches_plain(dev, rows, d, affine):
         assert _rel_err(got, want) <= 1e-4
 
 
+@pytest.mark.parametrize("rows,d,affine", [(32768, 512, (True, True)),
+                                           (1000, 768, (True, False)),
+                                           (1000, 77, (True, True)),
+                                           (3, 64, (False, False))])
+def test_layer_norm_backward_bf16_matches_plain(dev, rows, d, affine):
+    """bf16 x and dy (AMP; D = 77 takes the single-element form): dx (bf16,
+    rounded once from f32 on both sides) within 2^-8 of max(1,
+    max|plain|); dgamma and dbeta (f32 sums of all rows, in another order)
+    within 1e-4."""
+    gen = torch.Generator().manual_seed(6)
+    x = (torch.randn(rows, d, generator=gen) * 2 + 0.5).to(dev,
+                                                           torch.bfloat16)
+    dy = torch.randn(rows, d, generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn(d, generator=gen).to(dev) if affine[0] else None
+    bb = torch.randn(d, generator=gen).to(dev) if affine[1] else None
+    runs = []
+    for kernel in (True, False):
+        ins = [t.clone().requires_grad_(True) for t in (x, g, bb)
+               if t is not None]
+        gs = ins[1] if g is not None else None
+        bs = ins[-1] if bb is not None else None
+        fn = tfln.fused_layer_norm if kernel else tfln.layer_norm_plain
+        y = fn(ins[0], gs, bs, 1e-5)[0]
+        assert y.dtype == torch.bfloat16
+        runs.append(torch.autograd.grad(y, ins, dy))
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(*runs)):
+        assert got.dtype == want.dtype
+        assert _rel_err(got, want) <= (2 ** -8 if i == 0 else 1e-4)
+
+
 # T never a multiple of the 128-row tile past the first case; V % 4 != 0
 # (4-byte W copies), D % 4 != 0 (4-byte x copies), D % 32 != 0 (a ragged
 # k chunk)
@@ -502,10 +619,56 @@ def test_fused_ce_kernel_tracks_f64_like_plain_f32(dev, t, d, v, with_bias,
         assert dg.norm() <= 2 * dr.norm()
 
 
+@pytest.mark.parametrize("t,d,v,with_bias,eps", CE_CASES)
+def test_fused_ce_kernel_bf16_matches_plain(dev, t, d, v, with_bias, eps):
+    """bf16 x, W and b (AMP; D % 8 != 0 and V % 8 != 0 take the
+    element-wise copies): loss and lse (f32) within 2e-5 of max(1,
+    max|plain|) of the plain version's, which forms f32 logits from the
+    same bf16 operands, bitwise equal over two runs; the Function's
+    gradients come back in bf16."""
+    gen = torch.Generator().manual_seed(9)
+    x, w, b, y = (a.to(torch.bfloat16) if a is not None and
+                  a.is_floating_point() else a
+                  for a in _ce_inputs(gen, t, d, v, with_bias, dev))
+    loss, lse = tfce.fused_ce_fwd(x, w, b, y, eps)
+    again = tfce.fused_ce_fwd(x, w, b, y, eps)
+    want, want_lse = tfce.linear_smooth_ce_plain(x, w, b, y, eps)
+    torch.cuda.synchronize()
+    assert loss.dtype == lse.dtype == torch.float32
+    assert _rel_err(loss, want) <= 2e-5 and _rel_err(lse, want_lse) <= 2e-5
+    assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+    ins = [a.clone().requires_grad_(True) for a in (x, w, b) if a is not None]
+    out = tfce.linear_smooth_ce(ins[0], ins[1], ins[2] if b is not None
+                                else None, y, eps)
+    grads = torch.autograd.grad(out.sum(), ins)
+    assert all(g_.dtype == torch.bfloat16 for g_ in grads)
+
+
+def test_fused_ce_kernel_bf16_tracks_f64_like_plain(dev):
+    """At the training shape's rows (4096 of 32768, D = 512, V = 30000) on
+    bf16 inputs: the kernel's loss and lse against the f64 projection and
+    CE of the same inputs, within 1.5 times the plain version's max abs and
+    relative L2 errors."""
+    gen = torch.Generator().manual_seed(10)
+    x, w, _, y = _ce_inputs(gen, 4096, 512, 30000, False, dev)
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    z = torch.matmul(x.double(), w.double())
+    lse = torch.logsumexp(z, dim=-1)
+    exact = (lse - 0.9 * z.gather(1, y.long()[:, None])[:, 0]
+             - 0.1 * z.mean(dim=-1), lse)
+    got = tfce.fused_ce_fwd(x, w, None, y, 0.1)
+    ref = tfce.linear_smooth_ce_plain(x, w, None, y, 0.1)
+    for g, r, e in zip(got, ref, exact):
+        dg, dr = g.double() - e, r.double() - e
+        assert dg.abs().max() <= 1.5 * dr.abs().max()
+        assert dg.norm() <= 1.5 * dr.norm()
+
+
 def test_tiny_transformer_step_on_gpu_matches_cpu(dev, fresh_port_programs):
     """One Adam step of a tiny Transformer (dropout 0) on the card and on
     the CPU from the same weights: loss and grads within 1e-4, and the
-    step launches every training kernel the expected number of times."""
+    step launches every training kernel the expected number of times, in
+    its f32 form."""
     spec = tfluid.models.transformer.transformer_base(
         src_vocab=300, trg_vocab=300, seq_len=32, d_model=64, d_ff=128,
         n_head=2, n_layer=2, dropout_rate=0.0)
@@ -523,9 +686,11 @@ def test_tiny_transformer_step_on_gpu_matches_cpu(dev, fresh_port_programs):
     params = {n: gpu_scope.get(n).cpu().numpy() for n in names}
     fns = (tfa.flash_attention_fwd, tfa.flash_attention_bwd,
            tfln.layer_norm_fwd, tfln.layer_norm_bwd, tfce.fused_ce_fwd)
-    before = [f.launches for f in fns]
+    before = [(f.launches, f.bf16_launches) for f in fns]
     got = exe.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
-    assert [f.launches - n for f, n in zip(fns, before)] == [6, 6, 12, 12, 1]
+    assert [f.launches - n for f, (n, _) in zip(fns, before)] == [
+        6, 6, 12, 12, 1]
+    assert [f.bf16_launches for f in fns] == [n for _, n in before]
     cexe = tfluid.Executor(tfluid.CPUPlace())
     cexe.run(tfluid.default_startup_program(), scope=cpu_scope)
     tfluid.bridge.load_program_params(cpu_scope, params, main, "cpu")

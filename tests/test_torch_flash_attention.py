@@ -395,3 +395,60 @@ def test_flash_op_records_kernel_choice(rng):
             "kernel": "plain", "reasons": [
                 {"check": "device",
                  "detail": "CPU tensors take the plain version"}]}
+
+
+BF16_CASES = [
+    # (t_q, t_k, causal, bias kind, head dim): the cases the reference
+    # gives its Pallas kernels (a rich bias goes to its mha_reference,
+    # whose bf16 logits no kernel rounds)
+    (16, 16, False, "key4", D),
+    (16, 16, True, None, D),
+    (8, 16, True, "key2", 16),
+    (8, 16, False, "key4", 40),
+]
+
+
+@pytest.mark.parametrize("t,tk,causal,bias_kind,d", BF16_CASES,
+                         ids=[_case_id(c, 4) for c in BF16_CASES])
+def test_bf16_plain_matches_pallas(rng, t, tk, causal, bias_kind, d):
+    """bf16 q/k/v (AMP): the port's plain forward and backward (the
+    ``_FlashAttention`` Function on CPU tensors) against ``jax.grad`` of
+    ``paddle_tpu``'s ``flash_attention`` on the same bf16 inputs, its
+    Pallas kernels in interpret mode. Both take f32 logits from the bf16
+    operands, round the normalised weights and dS to bf16 for their
+    products and store out, dq, dk, dv in bf16: out, dq, dk and dv within
+    2^-7 * max(1, max|reference|) (two bf16 steps; the products sum in
+    other orders in f32 and may round the other way), the f32 dbias within
+    1e-4."""
+    q, k, v, bias = _inputs(rng, t, tk, bias_kind, d)
+    w = rng.normal(0, 1, (B, t, H * d)).astype("f4")
+    bf = jnp.bfloat16
+
+    def jloss(q, k, v, bias):
+        out = fa.flash_attention(q, k, v, H, bias=bias, causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(w)), out
+
+    argnums = (0, 1, 2, 3) if bias is not None else (0, 1, 2)
+    jb = None if bias is None else jnp.asarray(bias)
+    jin = [jnp.asarray(x).astype(bf) for x in (q, k, v)]
+    want_grads, want_out = jax.grad(jloss, argnums=argnums, has_aux=True)(
+        *jin, jb)
+    assert want_out.dtype == bf
+
+    tin = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+           for x in (q, k, v)]
+    tb = None if bias is None else torch.from_numpy(bias).requires_grad_(True)
+    out = tfa.flash_attention(*tin, H, bias=tb, causal=causal)
+    assert out.dtype == torch.bfloat16
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    got = [x.grad for x in tin] + ([tb.grad] if tb is not None else [])
+    pairs = [("out", out, want_out)] + list(zip(
+        ("dq", "dk", "dv", "dbias"), got, want_grads))
+    for name, g, wg in pairs:
+        wg = np.asarray(jnp.asarray(wg).astype(jnp.float32))
+        assert g.dtype == (torch.float32 if name == "dbias"
+                           else torch.bfloat16), name
+        tol = 1e-4 if name == "dbias" else 2.0 ** -7
+        np.testing.assert_allclose(g.detach().float().numpy(), wg, rtol=0,
+                                   atol=tol * max(1.0, np.abs(wg).max()),
+                                   err_msg=name)

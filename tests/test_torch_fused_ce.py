@@ -109,7 +109,7 @@ def test_kernel_wrapper_validates_before_building():
     w = torch.empty(8, 30, device="meta")
     y = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(TypeError, match="f32"):
-        tfce.fused_ce_fwd(x.bfloat16(), w.bfloat16(), None, y, 0.1)
+        tfce.fused_ce_fwd(x.half(), w.half(), None, y, 0.1)
     with pytest.raises(ValueError, match="labels"):
         tfce.fused_ce_fwd(x, w, None, y[:2], 0.1)
     with pytest.raises(ValueError, match="w"):
@@ -223,3 +223,42 @@ def test_emulation_rejects_a_plan_the_kernel_refuses():
     for plan in [(2, 100, 128), (1, 256, 128), (3, 128, 64)]:
         with pytest.raises(ValueError, match="plan"):
             tfce.linear_smooth_ce_3xtf32_emulated(x, w, None, y, 0.1, plan)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_bf16_plain_matches_pallas_kernel_and_vjp(rng, eps, with_bias):
+    """bf16 x, W and b (AMP): the port's plain forward (f32 logits from the
+    bf16 operands) and its chunked backward on the CPU against
+    ``paddle_tpu``'s Pallas forward (interpret mode) and ``_bwd_impl`` on
+    the same bf16 inputs. The loss is f32 on both sides, from exact bf16
+    products summed in other orders: atol 1e-5. dx, dW and db come back
+    in bf16, each rounded once from an f32 sum of products of dz rounded
+    to bf16: within one bf16 step (2^-8 relative to max(1, |reference|))."""
+    t, d, v = 24, 16, 200
+    x, w, b, y, g = _data(rng, t, d, v, with_bias)
+    bf = jnp.bfloat16
+    jin = [jnp.asarray(a).astype(bf) for a in (x, w)]
+    jb = None if b is None else jnp.asarray(b).astype(bf)
+    loss, vjp = jax.vjp(lambda x, w, b: jfce._fused(x, w, b, jnp.asarray(y),
+                                                    eps), *jin, jb)
+    want_grads = vjp(jnp.asarray(g))
+
+    tx, tw, tb = (None if a is None else
+                  a.to(torch.bfloat16).requires_grad_(True)
+                  for a in _torch(x, w, b))
+    got = tfce.linear_smooth_ce(tx, tw, tb, torch.from_numpy(y), eps)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(loss),
+                               atol=1e-5, rtol=0)
+    (got * torch.from_numpy(g)).sum().backward()
+    for name, tt, wg in zip(("dx", "dw", "db"), (tx, tw, tb), want_grads):
+        if tt is None:
+            assert wg is None
+            continue
+        assert tt.grad.dtype == torch.bfloat16, name
+        wg = np.asarray(jnp.asarray(wg).astype(jnp.float32))
+        np.testing.assert_allclose(tt.grad.float().numpy(), wg, rtol=0,
+                                   atol=2.0 ** -8 * max(1.0,
+                                                        np.abs(wg).max()),
+                                   err_msg=name)

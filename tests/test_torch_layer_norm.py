@@ -102,8 +102,7 @@ def test_backward_wrapper_validates_before_building():
     x = torch.empty(4, 8, device="meta")
     stats = torch.empty(4, device="meta")
     with pytest.raises(TypeError, match="f32"):
-        tfln.layer_norm_bwd(x.bfloat16(), None, stats, stats, x.bfloat16(),
-                            EPS)
+        tfln.layer_norm_bwd(x.half(), None, stats, stats, x.half(), EPS)
     with pytest.raises(ValueError, match="dy"):
         tfln.layer_norm_bwd(x, None, stats, stats, x[:2], EPS)
 
@@ -215,3 +214,47 @@ def test_plain_matches_pallas_kernel_at_plan_widths(monkeypatch, rng, d):
     got = tfln.layer_norm_plain(_t(x), _t(g), _t(b), EPS)
     for w, o in zip(want, got):
         np.testing.assert_allclose(o.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("affine", [(True, True), (False, False)])
+def test_bf16_plain_matches_pallas(monkeypatch, rng, affine):
+    """bf16 x and dy (AMP) with f32 gamma and beta: the port's forward and
+    backward on the CPU (the plain version and its autograd, both in f32
+    from the bf16 inputs) against ``paddle_tpu``'s Pallas forward and
+    backward (interpret mode) on the same inputs. y and dx are bf16,
+    rounded once from f32 on both sides: within one bf16 step (2^-8
+    relative to max(1, |reference|)); mean, var (1e-5) and dgamma, dbeta
+    (1e-4, sums over 40 rows in another order) are f32."""
+    monkeypatch.setattr(fln, "_INTERPRET", True)
+    x, g, b = _data(rng, affine)
+    dy = rng.normal(0, 1, (ROWS, D)).astype("f4")
+    bf = jnp.bfloat16
+    jx, jdy = jnp.asarray(x).astype(bf), jnp.asarray(dy).astype(bf)
+    want, vjp = jax.vjp(lambda x, g, b: fln._fused_ln(x, g, b, EPS),
+                        jx, _j(g), _j(b))
+    zeros = jnp.zeros((ROWS,), jnp.float32)
+    want_grads = vjp((jdy, zeros, zeros))
+
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    tg = None if g is None else torch.from_numpy(g).requires_grad_(True)
+    tb = None if b is None else torch.from_numpy(b).requires_grad_(True)
+    got = tfln.fused_layer_norm(tx, tg, tb, EPS)
+    got[0].backward(torch.from_numpy(dy).to(torch.bfloat16))
+    assert [o.dtype for o in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    for name, o, w, tol in zip(("y", "mean", "var"), got, want,
+                               (2.0 ** -8, 1e-5, 1e-5)):
+        w = np.asarray(jnp.asarray(w).astype(jnp.float32))
+        np.testing.assert_allclose(o.detach().float().numpy(), w, rtol=0,
+                                   atol=tol * max(1.0, np.abs(w).max()),
+                                   err_msg=name)
+    for name, t, w, tol in zip(("dx", "dgamma", "dbeta"), (tx, tg, tb),
+                               want_grads, (2.0 ** -8, 1e-4, 1e-4)):
+        if t is None:
+            assert w is None
+            continue
+        assert t.grad.dtype == t.dtype, name
+        w = np.asarray(jnp.asarray(w).astype(jnp.float32))
+        np.testing.assert_allclose(t.grad.float().numpy(), w, rtol=0,
+                                   atol=tol * max(1.0, np.abs(w).max()),
+                                   err_msg=name)
