@@ -7,10 +7,11 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
 
 It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, checks
 in their SASS that the conv, flash and fused CE kernels run on the tensor
-cores (the bf16 forms of the flash and CE kernels on bf16 m16n8k16 HMMAs),
-holds each kernel against its plain PyTorch version on the card, f32 and,
-for the flash, LayerNorm and fused CE kernels, bf16 (AMP; the bf16 forms
-also against f64, beside the plain bf16 version's error) (the
+cores (the bf16 forms of the flash, CE and conv kernels on bf16 m16n8k16
+HMMAs, the conv's fed by ldmatrix), holds each kernel against its plain
+PyTorch version on the card, f32 and, for every kernel but the scatter,
+bf16 (AMP; the bf16 forms also against f64, beside the plain bf16
+version's error) (the
 conv kernels also against an f64 conv, beside cuDNN's f32 one, and for
 bitwise equal moments across two runs; the flash kernels at head dims 12 to
 512, with a rich bias, and against an f64 attention, beside the plain
@@ -42,6 +43,10 @@ it and read just after:
   fused-conv kernels, for 3 warm-up and 10 timed steps;
 * evaluating ResNet-50 through ``main.clone(for_test=True)`` at batch 128
   (the inference kernel at the same 49 sites);
+* both again under ``fluid.amp.decorate`` (``resnet_amp_train``,
+  ``resnet_amp_eval``: the clone marked with ``fluid.amp.enable_bf16``;
+  bf16 convs and activations through the bf16 forms of the three
+  fused-conv kernels, f32 parameters, statistics and Adam state);
 * training DeepFM (100,000 x 32 fused table, 26 fields, K = 16, MLP 400 x
   3, 13 dense features, batch 32768, Adam 1e-4; random weights from seed
   11) the same way: its ``embedding(is_sparse=True)`` gives a (rows,
@@ -61,14 +66,16 @@ it and read just after:
   of 16.
 
 Before each training path, ``train_check``, ``amp_train_check``,
-``resnet_train_check``, ``deepfm_train_check`` and
-``deepfm_amp_train_check`` run one full-width step (at batch 2, 2, 2, 64
-and 64) on the card and the same step with the port on the CPU from the
-same weights and feed (the AMP checks also f32 steps on the CPU and on
+``resnet_train_check``, ``resnet_amp_train_check``, ``deepfm_train_check``
+and ``deepfm_amp_train_check`` run one full-width step (at batch 2, 2, 2,
+2, 64 and 64) on the card and the same step with the port on the CPU from
+the same weights and feed (the AMP checks also f32 steps on the CPU and on
 the card: the loss and each quantity that separates AMP from f32 must lie
 within half the CPU's AMP-vs-f32 distance of its AMP step, where the
 card's f32 step must not, and every kernel with a bf16 form must have
-launched in bf16); before decode, ``decode_check`` holds four step
+launched in bf16; ResNet-50's AMP step, chaotic at random init, is held
+so op by op, each op run on the CPU AMP chain's own inputs); before
+decode, ``decode_check`` holds four step
 dispatches and
 a chunk against the CPU, out-of-range cache positions, and the ids of
 solo, batched, chunked and speculative decode. Each phase prints one JSON
@@ -108,8 +115,7 @@ TRANSFORMER = dict(src_vocab=30000, trg_vocab=30000, seq_len=256,
                    d_model=512, d_ff=2048, n_head=8, n_layer=6)
 TRAIN_BATCH = 128
 # ResNet-50 as paddle_tpu's bench.py trains it (BASELINE config 2,
-# :200-207, :229), in f32: the reference trains it under AMP, whose bf16
-# forms of the fused-conv kernels are still to port (ROADMAP.md B6)
+# :200-207, :229), in f32 and under AMP (bench.py:225-231)
 RESNET = dict(depth=50, class_num=1000, image_shape=(3, 224, 224))
 RESNET_BATCH = 128
 # DeepFM as paddle_tpu's bench.py trains it (BASELINE config 5, :208-214,
@@ -123,7 +129,13 @@ SEED = 11
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm_fwd",
            "layer_norm_bwd", "fused_ce_fwd", "conv_moments", "bn_apply",
            "conv_apply", "scatter_add")
-BF16_FORMS = KERNELS[:5]  # the kernels with a bf16 form
+BF16_FORMS = KERNELS[:8]  # the kernels with a bf16 form (not the scatter)
+
+
+# the main paths that run under fluid.amp: every launch of a kernel with a
+# bf16 form is a bf16 launch there (their phases check it)
+AMP_PATHS = ("amp_train", "resnet_amp_train", "resnet_amp_eval",
+             "deepfm_amp_train")
 
 
 def emit(obj):
@@ -275,11 +287,13 @@ SASS_KERNELS = (("fused_conv", "conv_kernel", 2),
                 ("flash_attention_fwd", "flash_fwd_kernel", 36),
                 ("flash_attention_bwd", "flash_bwd_kernel", 24),
                 ("fused_ce_fwd", "fused_ce_kernel", 8))
-# library, kernel template, bf16 instantiations: each must run its
-# products as bf16 m16n8k16 HMMAs with f32 accumulators
-SASS_BF16 = (("flash_attention_fwd", "flash_fwd_kernel", 18),
-             ("flash_attention_bwd", "flash_bwd_kernel", 12),
-             ("fused_ce_fwd", "fused_ce_kernel", 4))
+# library, kernel template, bf16 instantiations, and whether each must load
+# its fragments by ldmatrix (LDSM): each must run its products as bf16
+# m16n8k16 HMMAs with f32 accumulators
+SASS_BF16 = (("flash_attention_fwd", "flash_fwd_kernel", 18, False),
+             ("flash_attention_bwd", "flash_bwd_kernel", 12, False),
+             ("fused_ce_fwd", "fused_ce_kernel", 4, False),
+             ("fused_conv", "conv_kernel", 8, True))
 BF16_HMMA = "HMMA.16816.F32.BF16"
 
 
@@ -323,8 +337,9 @@ def _sass_check(_build):
     scatter kernel must hold a 128-bit reduction, and every 16-byte
     instantiation of the LayerNorm forward a 128-bit global load
     (``SASS_WIDE``); the mnemonics found are printed. Every bf16
-    instantiation of the flash kernels and of the fused CE kernel must hold
-    ``HMMA.16816.F32.BF16`` (``SASS_BF16``)."""
+    instantiation of the flash kernels, of the fused CE kernel and of the
+    conv kernel must hold ``HMMA.16816.F32.BF16``, the conv kernel's also
+    ``LDSM`` (ldmatrix) (``SASS_BF16``)."""
     for lib, kernel, n_inst in SASS_KERNELS:
         hmma = {name: sum(op.startswith("HMMA") for op in ops)
                 for name, ops in _sass_functions(_build, lib).items()
@@ -333,16 +348,22 @@ def _sass_check(_build):
               "instantiations": len(hmma), "hmma_per_instantiation": hmma})
         check(len(hmma) >= n_inst and all(hmma.values()),
               "%s instantiations without HMMA: %s" % (kernel, hmma))
-    for lib, kernel, n_inst in SASS_BF16:
+    for lib, kernel, n_inst, ldsm in SASS_BF16:
+        fns = {name: ops for name, ops in _sass_functions(_build, lib).items()
+               if kernel in name and "__nv_bfloat16" in name}
         bf16 = {name: sum(op.startswith(BF16_HMMA) for op in ops)
-                for name, ops in _sass_functions(_build, lib).items()
-                if kernel in name and "__nv_bfloat16" in name}
+                for name, ops in fns.items()}
+        ldsms = {name: sum(op.startswith("LDSM") for op in ops)
+                 for name, ops in fns.items()}
         emit({"phase": "sass", "library": lib, "kernel": kernel,
               "dtype": "bf16", "instantiations": len(bf16),
-              "mnemonic": BF16_HMMA, "count_per_instantiation": bf16})
+              "mnemonic": BF16_HMMA, "count_per_instantiation": bf16,
+              "ldsm_per_instantiation": ldsms})
         check(len(bf16) == n_inst and all(bf16.values()),
               "%s bf16 instantiations without %s: %s"
               % (kernel, BF16_HMMA, bf16))
+        check(not ldsm or all(ldsms.values()),
+              "%s bf16 instantiations without LDSM: %s" % (kernel, ldsms))
     for lib, stem, n_inst, kind, wide in SASS_WIDE:
         fns = _sass_functions(_build, lib)
         found = {name: sorted({op for op in ops if op.startswith(kind)})
@@ -477,10 +498,27 @@ LN_CASES = [LN_SERVED + (True, True), LN_TRAINED + (True, True),
             (1000, 768, True, False)]
 
 
+def _ln_f64(x, g, b, eps):
+    """LayerNorm over the last axis in float64 (the yardstick of the f32
+    check)."""
+    x = x.double()
+    xc = x - x.mean(dim=-1, keepdim=True)
+    y = xc / (((xc * xc).mean(dim=-1, keepdim=True) + eps) ** 0.5)
+    if g is not None:
+        y = y * g.double()
+    if b is not None:
+        y = y + b.double()
+    return y
+
+
 def phase_ln_check(torch, dev):
     """Kernel vs plain version (in f32 on the same inputs), f32 and bf16,
-    at each of ``LN_CASES``. f32: y within 1e-5 absolute. bf16: y within
-    one bf16 ulp (2^-8 relative to |y|, at least 2^-8 absolute), since the
+    at each of ``LN_CASES``. f32: y against an f64 LayerNorm of the same
+    inputs, within 1e-5 absolute or, where the plain version's own
+    rounding is larger (a row whose mean is large against its spread),
+    within the plain version's error against f64; the distance to the
+    plain version is printed beside. bf16: y within one bf16 ulp of the
+    plain version (2^-8 relative to |y|, at least 2^-8 absolute), since the
     kernel rounds y once to bf16. Mean and var are f32 in both: 1e-4
     absolute. Fails unless the plans ``_ln_fwd_timing`` times (f32, at
     ``LN_SERVED`` and ``LN_TRAINED``) are among those checked."""
@@ -500,8 +538,13 @@ def phase_ln_check(torch, dev):
             wy, wm, wv = fln.layer_norm_plain(x.float(), g, bb, 1e-5)
             torch.cuda.synchronize()
             dy = (y.float() - wy).abs()
+            f64 = {}
             if dtype == torch.float32:
-                y_ok = dy.max().item() <= 1e-5
+                exact = _ln_f64(x, g, bb, 1e-5)
+                f64 = {"kernel": (y.double() - exact).abs().max().item(),
+                       "plain": (wy.double() - exact).abs().max().item()}
+                y_ok = f64["kernel"] <= max(1e-5, f64["plain"])
+                del exact
             else:
                 y_ok = bool((dy <= 2.0 ** -8 * wy.abs().clamp_min(1.0)).all())
             e = (dy.max().item(), (mean - wm).abs().max().item(),
@@ -515,8 +558,10 @@ def phase_ln_check(torch, dev):
                   "plan": list(plan),
                   "max_abs_err_y": e[0], "max_abs_err_mean": e[1],
                   "max_abs_err_var": e[2], "y_within_tol": y_ok,
-                  "tol_y": "1e-5 abs" if dtype == torch.float32
-                  else "2^-8 rel", "tol_stats": 1e-4})
+                  "max_abs_err_y_vs_f64": f64 or None,
+                  "tol_y": "against f64: kernel <= max(1e-5, plain)"
+                  if dtype == torch.float32 else "2^-8 rel",
+                  "tol_stats": 1e-4})
             check(y_ok and e[1] <= 1e-4 and e[2] <= 1e-4,
                   "layer_norm %s errors %s" % (name, e))
             errs[name] = max(e)
@@ -1929,13 +1974,16 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
     per channel, in other orders than cuDNN and torch.sum. Then the moments
     must be bitwise equal across two runs, and at the 3x3 geometries the
     conv's error against an f64 conv at most twice cuDNN's f32 one
-    (:func:`_conv_f64_check`)."""
+    (:func:`_conv_f64_check`). Each geometry also checks the bf16 forms
+    (:func:`_fused_conv_bf16_check`). Returns the f32 and the bf16 forms'
+    max abs errors, each {kernel: error}."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import fused_conv as fc
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = dict.fromkeys(("conv_moments", "bn_apply", "conv_apply"), 0.0)
+    bf16 = dict(errs)
     for name, c, o, k, stride, hw, residual, relu in CONV_GEOMS:
         x, w, g, b, mean, var, res = _conv_case(torch, gen, dev, c, o, k,
                                                 stride, hw, residual)
@@ -1957,7 +2005,7 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
               "%s: conv_moments differs between two runs" % name)
         del co, again
         if k == 3:
-            _conv_f64_check(torch, name, x[:8], w)
+            _conv_f64_check(torch, name, x[:8], w, stride)
         bm, bv = fc.bn_stats(wco)
         scale, shift = fc._scale_shift(g, b, bm, bv, eps)
         y = fc.bn_apply(wco, scale, shift, res, relu)
@@ -2026,36 +2074,104 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
         errs["conv_apply"] = max(errs["conv_apply"], check_close(
             "fused_conv_check", name, [("y", y, want)], tol,
             check="conv_apply", **shape))
-        del x, y, want, res
-    return errs
+        del y, want
+        _fused_conv_bf16_check(torch, name, shape, x, w, g, b, mean, var,
+                               res, stride, relu, eps, bf16)
+        del x, res
+    return errs, bf16
 
 
-def _conv_f64_check(torch, name, x, w):
-    """The conv kernel's co and cuDNN's f32 conv (TF32 off) against
-    F.conv2d in float64 on the same f32 inputs, by max abs error and
-    relative L2 error; fails if the kernel's error is more than twice
-    cuDNN's in either (3xTF32 with f32 accumulation should match f32; a
-    single TF32 product would be about 1000 times off)."""
+def _fused_conv_bf16_check(torch, name, shape, x, w, g, b, mean, var, res,
+                           stride, relu, eps, errs):
+    """The bf16 forms (ResNet-50 under fluid.amp) of the three kernels on
+    the bf16 roundings of one geometry's inputs, against their plain
+    versions (the f32 conv rounded once; the affine, then the residual add,
+    each rounded to bf16): co and y within one bf16 ulp, 2^-7 of
+    max(1, max|plain|); the moments within 1e-5 of an f64 sum over the
+    kernel's own stored co (relative to sum |co| and to sum co^2), bitwise
+    equal across two runs; co against an f64 conv of the same bf16 inputs
+    at most 1.5x the plain bf16 version's error (:func:`_conv_f64_check`).
+    Updates ``errs`` (kernel -> max abs error)."""
+    from paddle_tpu_torch.ops import fused_conv as fc
+
+    tol = 2.0 ** -7
+    xb, wb = x.bfloat16(), w.bfloat16()
+    rb = res.bfloat16() if res is not None else None
+    co, s1, s2 = fc.conv_moments(xb, wb, stride)
+    wco = fc.conv_moments_plain(xb, wb, stride)[0]
+    again = fc.conv_moments(xb, wb, stride)
+    torch.cuda.synchronize()
+    c = co.double()
+    sums = (c.sum((0, 2, 3)), (c * c).sum((0, 2, 3)))
+    rel = [((got.double() - want).abs() / scale_).max().item()
+           for got, want, scale_ in ((s1, sums[0], c.abs().sum((0, 2, 3))),
+                                     (s2, sums[1], sums[1]))]
+    emit(dict({"phase": "fused_conv_check", "case": name + "_bf16",
+               "check": "conv_moments_bf16_sums", "sum_rel_err": rel[0],
+               "sum_sq_rel_err": rel[1],
+               "tol": "1e-5 of sum|co| and of sum co^2, f64 over the "
+                      "kernel's own co"}, **shape))
+    check(max(rel) <= 1e-5, "%s bf16 moments %s" % (name, rel))
+    check(all(torch.equal(p, q) for p, q in zip((co, s1, s2), again)),
+          "%s: bf16 conv_moments differs between two runs" % name)
+    del c, sums, again
+    errs["conv_moments"] = max(errs["conv_moments"], check_close(
+        "fused_conv_check", name + "_bf16", [("co", co, wco)], tol,
+        check="conv_moments_bf16", **shape))
+    _conv_f64_check(torch, name + "_bf16", xb[:8], wb, stride)
+    del co
+    bm, bv = fc.bn_stats(wco)
+    scale, shift = fc._scale_shift(g, b, bm, bv, eps)
+    y = fc.bn_apply(wco, scale, shift, rb, relu)
+    want = fc.bn_apply_plain(wco, scale, shift, rb, relu)
+    torch.cuda.synchronize()
+    errs["bn_apply"] = max(errs["bn_apply"], check_close(
+        "fused_conv_check", name + "_bf16", [("y", y, want)], tol,
+        check="bn_apply_bf16", **shape))
+    del y, want, wco
+    scale, shift = fc._scale_shift(g, b, mean, var, eps)
+    y = fc.conv_apply(xb, wb, scale, shift, rb, relu, stride)
+    want = fc.conv_apply_plain(xb, wb, scale, shift, rb, relu, stride)
+    torch.cuda.synchronize()
+    errs["conv_apply"] = max(errs["conv_apply"], check_close(
+        "fused_conv_check", name + "_bf16", [("y", y, want)], tol,
+        check="conv_apply_bf16", **shape))
+
+
+def _conv_f64_check(torch, name, x, w, stride):
+    """The conv kernel's co against F.conv2d in float64 on the same inputs,
+    by max abs error and relative L2 error, beside a yardstick on the same
+    inputs. f32: cuDNN's f32 conv (TF32 off), and the kernel's error at
+    most twice its in either (3xTF32 with f32 accumulation should match
+    f32; a single TF32 product would be about 1000 times off). bf16: the
+    plain bf16 version (the f32 conv rounded once), and the kernel's error
+    at most 1.5x its (both are the bf16 rounding of co)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import fused_conv as fc
 
     pad = (w.shape[2] - 1) // 2
-    exact = F.conv2d(x.double(), w.double(), padding=pad)
+    exact = F.conv2d(x.double(), w.double(), stride=stride, padding=pad)
 
     def errs(t):
         d = t.double() - exact
         return {"max_abs_err": d.abs().max().item(),
                 "rel_l2": (d.norm() / exact.norm()).item()}
 
-    got = errs(fc.conv_moments(x, w, 1)[0])
-    lib = errs(F.conv2d(x, w, padding=pad))
+    got = errs(fc.conv_moments(x, w, stride)[0])
+    if x.dtype == torch.bfloat16:
+        lib, what, factor = errs(fc.conv_moments_plain(x, w, stride)[0]), \
+            "plain_bf16", 1.5
+    else:
+        lib, what, factor = errs(F.conv2d(x, w, stride=stride,
+                                          padding=pad)), "cudnn_f32", 2.0
     emit({"phase": "fused_conv_check", "case": name, "check": "f64",
           "x": list(x.shape), "w": list(w.shape),
           "K": w.shape[1] * w.shape[2] * w.shape[3], "kernel": got,
-          "cudnn_f32": lib, "tol": "kernel <= 2 x cuDNN f32, each error"})
-    check(all(got[e] <= 2 * lib[e] for e in got),
-          "%s: conv error %s against f64, cuDNN f32 %s" % (name, got, lib))
+          what: lib, "ratio": {e: got[e] / max(lib[e], 1e-300) for e in got},
+          "tol": "kernel <= %g x %s, each error" % (factor, what)})
+    check(all(got[e] <= factor * lib[e] for e in got),
+          "%s: conv error %s against f64, %s %s" % (name, got, what, lib))
 
 
 def resnet_conv_geometries():
@@ -2090,7 +2206,9 @@ def resnet_conv_geometries():
 def _conv_geometry_timing(torch, dev, gen):
     """Rows 10 and 12 at every distinct fused geometry of ResNet-50 at batch
     128 beside their plain versions, F.conv2d (cuDNN, TF32 off) and the
-    bound; one line per geometry and one with the sums weighted by sites.
+    bound, in f32 and in bf16 (the AMP forms, beside cuDNN's bf16 conv and
+    the bf16 bound: products at 989 TFLOP/s against bf16 x, w and out);
+    one line per geometry and one with the sums weighted by sites.
     conv_apply takes a residual and relu where any site of the geometry
     does. Returns (the body's timings, the site-weighted sums)."""
     import torch.nn.functional as F
@@ -2100,7 +2218,9 @@ def _conv_geometry_timing(torch, dev, gen):
     geoms = resnet_conv_geometries()
     n = RESNET_BATCH
     names = ("conv_moments", "conv_apply", "conv_moments_plain",
-             "conv_apply_plain", "f_conv2d", "bound")
+             "conv_apply_plain", "f_conv2d", "bound", "conv_moments_bf16",
+             "conv_apply_bf16", "conv_moments_plain_bf16",
+             "conv_apply_plain_bf16", "f_conv2d_bf16", "bound_bf16")
     total = dict.fromkeys(names, 0.0)
     body = None
     for (c, o, k, stride, hw), g in geoms.items():
@@ -2126,6 +2246,21 @@ def _conv_geometry_timing(torch, dev, gen):
             f_conv2d=time_ms(lambda: F.conv2d(x, w, stride=stride,
                                               padding=pad), iters=20),
             bound=bnd)
+        xb, wb = x.bfloat16(), w.bfloat16()
+        rb = res.bfloat16() if res is not None else None
+        nbytes_bf16 = 2 * (x.numel() + w.numel() + out) + 4 * 2 * o
+        t.update(
+            conv_moments_bf16=time_ms(lambda: fc.conv_moments(xb, wb, stride),
+                                      iters=20),
+            conv_apply_bf16=time_ms(lambda: fc.conv_apply(
+                xb, wb, scale, shift, rb, relu, stride), iters=20),
+            conv_moments_plain_bf16=time_ms(
+                lambda: fc.conv_moments_plain(xb, wb, stride), iters=20),
+            conv_apply_plain_bf16=time_ms(lambda: fc.conv_apply_plain(
+                xb, wb, scale, shift, rb, relu, stride), iters=20),
+            f_conv2d_bf16=time_ms(lambda: F.conv2d(xb, wb, stride=stride,
+                                                   padding=pad), iters=20),
+            bound_bf16=bf16_bound(nbytes_bf16, conv_flops)[0])
         for key in names:
             total[key] += g["sites"] * t[key]
         emit(dict({"phase": "conv_geometry",
@@ -2141,13 +2276,21 @@ def _conv_geometry_timing(torch, dev, gen):
                    / 1e9,
                    "moments_over_f_conv2d": t["conv_moments"]
                    / t["f_conv2d"],
-                   "apply_over_f_conv2d": t["conv_apply"] / t["f_conv2d"]},
+                   "apply_over_f_conv2d": t["conv_apply"] / t["f_conv2d"],
+                   "bytes_bf16": nbytes_bf16,
+                   "bound_by_bf16": bf16_bound(nbytes_bf16, conv_flops)[1],
+                   "moments_bf16_over_f_conv2d_bf16":
+                       t["conv_moments_bf16"] / t["f_conv2d_bf16"],
+                   "apply_bf16_over_f_conv2d_bf16":
+                       t["conv_apply_bf16"] / t["f_conv2d_bf16"]},
                   **t))
         if (c, o, k, stride, hw) == (64, 64, 3, 1, 56):
             body = dict(t, bound_by=by, bound_ms_f32_fma=bnd_fma,
                         shape=[n, c, hw, hw, o, k], bytes=nbytes,
-                        flops=conv_flops)
-        del x, w, res
+                        flops=conv_flops, bytes_bf16=nbytes_bf16,
+                        bound_by_bf16=bf16_bound(nbytes_bf16,
+                                                 conv_flops)[1])
+        del x, w, res, xb, wb, rb
     sites = sum(g["sites"] for g in geoms.values())
     emit({"phase": "conv_geometry_sum", "geometries": len(geoms),
           "sites": sites, "site_weighted_ms": total})
@@ -2179,7 +2322,17 @@ def _conv_kernel_timing(torch, dev):
             bound_ms=body["bound"], bound_by=body["bound_by"],
             bound_ms_f32_fma=body["bound_ms_f32_fma"], shape=body["shape"],
             bytes=body["bytes"], flops=body["flops"],
-            site_weighted_ms=total[name])
+            site_weighted_ms=total[name],
+            bf16=dict(ms=body[name + "_bf16"],
+                      plain_ms=body[name + "_plain_bf16"],
+                      library_ms=body["f_conv2d_bf16"],
+                      library="F.conv2d alone on bf16 (cuDNN): conv only, "
+                              "no " + lib,
+                      bound_ms=body["bound_bf16"],
+                      bound_by=body["bound_by_bf16"], shape=body["shape"],
+                      bytes=body["bytes_bf16"], flops=body["flops"],
+                      site_weighted_ms=total[name + "_bf16"],
+                      site_weighted_library_ms=total["f_conv2d_bf16"]))
     n, hw = RESNET_BATCH, 56
     o = 256
     co = torch.randn(n, o, hw, hw, generator=gen, device=dev)
@@ -2191,6 +2344,17 @@ def _conv_kernel_timing(torch, dev):
     rows["bn_apply"] = dict(
         ms=time_ms(lambda: fc.bn_apply(co, scale, shift, res, True)),
         plain_ms=time_ms(lambda: fc.bn_apply_plain(co, scale, shift, res,
+                                                   True)),
+        library_ms=None, library="none: no single PyTorch call applies a "
+        "per-channel affine, a residual add and relu",
+        bound_ms=bnd, bound_by=by, shape=[n, o, hw, hw], bytes=nbytes,
+        flops=3 * co.numel())
+    cob, resb = co.bfloat16(), res.bfloat16()
+    nbytes = 2 * 3 * co.numel() + 4 * 2 * o
+    bnd, by = bound(nbytes, 3 * co.numel())
+    rows["bn_apply"]["bf16"] = dict(
+        ms=time_ms(lambda: fc.bn_apply(cob, scale, shift, resb, True)),
+        plain_ms=time_ms(lambda: fc.bn_apply_plain(cob, scale, shift, resb,
                                                    True)),
         library_ms=None, library="none: no single PyTorch call applies a "
         "per-channel affine, a residual add and relu",
@@ -2668,14 +2832,16 @@ def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2,
     return launches
 
 
-def build_resnet(fluid):
+def build_resnet(fluid, amp=False):
     """ResNet-50 with Adam(1e-4), as paddle_tpu's bench.py trains it, in
-    fresh programs, and its for_test clone. Returns (main, startup, test,
-    spec)."""
+    fresh programs (under ``fluid.amp.decorate`` when ``amp``), and its
+    for_test clone (which drops the AMP mark, as in the reference).
+    Returns (main, startup, test, spec)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         spec = fluid.models.resnet.resnet_imagenet(**RESNET)
-        fluid.optimizer.Adam(learning_rate=1e-4).minimize(spec.loss)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        (fluid.amp.decorate(opt) if amp else opt).minimize(spec.loss)
     main.random_seed = startup.random_seed = SEED
     return main, startup, main.clone(for_test=True), spec
 
@@ -2781,21 +2947,216 @@ def phase_resnet_train_check(torch, smi_line, batch=2):
     return loss[0]
 
 
+# A whole AMP step of randomly initialised ResNet-50 is chaotic: scaling
+# the parameters by 1 + 2^-20 moves the CPU AMP step's gradients by 1.1
+# relative L2 (median over the 161 gradients, 224 x 224 at batch 2 and
+# 16) and its loss by 0.1-0.6%, as far as AMP moves them from f32 (1.25,
+# 0.3-0.8%): every bf16 rounding flip is amplified through 53 batch-
+# statistic BNs, and no quantity separates AMP from f32. So the card is
+# held to the CPU op by op ("forced"): every forward op of the step runs
+# once on the inputs the CPU's AMP chain gave it, with the VJP of one
+# seeded cotangent, on the card and on the CPU, under AMP and (the control
+# and the yardstick) in f32 on the widened inputs. Over all outputs, and
+# over all input gradients, the card lies within AMP_MARGIN of the CPU's
+# AMP-vs-f32 distance of the CPU's AMP values, and no single quantity
+# further than max(its AMP-vs-f32 distance, FORCED_FLOOR); the card's f32
+# control must fail.
+FORCED_FLOOR = 1e-5  # relative L2: two f32 computations of one op
+
+
+def _forced_chain(torch, main, fetch_names, params, feed):
+    """The forward ops of ``main``'s step (fused as the executor runs them)
+    and, for each, its inputs as the port's AMP chain on the CPU computes
+    them from ``params`` and ``feed``."""
+    from paddle_tpu_torch.core import op_registry as reg
+    from paddle_tpu_torch.core.executor import fused_ops, to_tensor
+
+    ops, _ = fused_ops(main, fetch_names)
+    ops = ops[:[o.type for o in ops].index("autodiff")]
+    gb = main.global_block()
+    cpu = torch.device("cpu")
+    env = {n: torch.from_numpy(v.copy()) for n, v in params.items()}
+    env.update({n: to_tensor(v, cpu, gb.var(n)) for n, v in feed.items()})
+    env[reg.DEVICE_KEY] = cpu
+    env[reg.RNG_KEY] = torch.Generator().manual_seed(SEED)
+    inputs = []
+    with torch.no_grad(), reg.amp_scope(True):
+        for op in ops:
+            inputs.append({n: env[n] for n in op.input_arg_names
+                           if n in env})
+            reg.run_op(env, op)
+    return ops, inputs
+
+
+def _forced_run(torch, ops, inputs, device, amp, cts):
+    """Each op once on its recorded inputs (on ``device``; floating inputs
+    widened to f32 unless ``amp``), with the VJP of the cotangents ``cts``
+    ({(op index, output name): CPU tensor}; filled with seeded normals in
+    the outputs' dtypes on first use). Returns {(op index, type, "out" or
+    "grad", name): f32 CPU tensor}."""
+    from paddle_tpu_torch.core import op_registry as reg
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    out = {}
+    for i, (op, ins) in enumerate(zip(ops, inputs)):
+        env = {reg.DEVICE_KEY: device,
+               reg.RNG_KEY: torch.Generator(device=device).manual_seed(SEED)}
+        leaves = {}
+        for n, t in ins.items():
+            if isinstance(t, torch.Tensor):
+                t = t.to(device)
+                if t.is_floating_point():
+                    t = (t if amp else t.float()).detach().requires_grad_(True)
+                    leaves[n] = t
+            env[n] = t
+        with reg.amp_scope(amp):
+            reg.run_op(env, op)
+        outs = {n: env[n] for n in op.output_arg_names
+                if isinstance(env.get(n), torch.Tensor)
+                and env[n].is_floating_point()}
+        pairs = []
+        for n, t in outs.items():
+            out[(i, op.type, "out", n)] = t.detach().float().cpu()
+            if t.requires_grad:
+                if (i, n) not in cts:
+                    cts[(i, n)] = torch.randn(t.shape, generator=gen).to(
+                        t.dtype)
+                pairs.append((t, cts[(i, n)].to(device, t.dtype)))
+        grads = torch.autograd.grad(
+            [p[0] for p in pairs], list(leaves.values()),
+            [p[1] for p in pairs], allow_unused=True) if pairs and leaves \
+            else [None] * len(leaves)
+        for (n, t), g in zip(leaves.items(), grads):
+            out[(i, op.type, "grad", n)] = torch.zeros(t.shape) if g is None \
+                else g.detach().float().cpu()
+        del env, leaves, outs, pairs, grads
+    return out
+
+
+def _forced_verdict(card, amp, f32):
+    """Distances (relative L2) of ``card`` and ``f32`` from ``amp`` per
+    quantity and aggregated per kind ("out", "grad"), and the quantities
+    and kinds outside their limits (see the comment above FORCED_FLOOR)."""
+    per, agg = {}, {}
+    for key, want in amp.items():
+        wn = float(want.double().norm())
+        dc = float((card[key].double() - want.double()).norm())
+        df = float((f32[key].double() - want.double()).norm())
+        per[key] = (dc / max(wn, 1e-30), df / max(wn, 1e-30))
+        a = agg.setdefault(key[2], [0.0, 0.0, 0.0])
+        a[0] += dc * dc
+        a[1] += df * df
+        a[2] += wn * wn
+    agg = {k: {"card": (c / w) ** 0.5, "amp_vs_f32": (f / w) ** 0.5}
+           for k, (c, f, w) in agg.items()}
+    outside = ["%d:%s:%s:%s" % k for k, (c, f) in per.items()
+               if not c <= max(f, FORCED_FLOOR)]
+    outside += [k for k, a in agg.items()
+                if not a["card"] <= AMP_MARGIN * a["amp_vs_f32"]]
+    worst = max(per, key=lambda k: per[k][0] / max(per[k][1], FORCED_FLOOR))
+    return {"aggregate": agg, "outside": outside, "quantities": len(per),
+            "worst": {"name": "%d:%s:%s:%s" % worst, "card": per[worst][0],
+                      "amp_vs_f32": per[worst][1]}}
+
+
+def phase_resnet_amp_train_check(torch, smi_line, batch=2):
+    """One full-width ResNet-50 step (224 x 224, 1000 classes, batch 2)
+    under ``fluid.amp.decorate`` on the card against the port's CPU AMP
+    step from the same weights and feed. The card's AMP step must launch
+    conv_moments and bn_apply 49 times each, all in bf16, and its f32 step
+    (the control) the same in f32; every parameter and Adam moment stays
+    f32; the loss and gradients are finite. The whole step's distances
+    (``_amp_verdict``: card vs CPU AMP, CPU AMP vs f32, CPU AMP vs
+    CPU AMP on parameters scaled by 1 + 2^-20) are printed: the step is
+    chaotic (see the comment above FORCED_FLOOR). The card is held op by
+    op: ``_forced_verdict`` on the card's AMP ops, which must pass, and on
+    its f32 ops, which must fail."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, _, spec = build_resnet(fluid, amp=True)
+    names = [p.name for p in main.all_parameters()]
+    trainable = [p.name for p in main.all_parameters() if p.trainable]
+    gb = main.global_block()
+    fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in trainable]
+    feed = spec.sample_batch(batch, np.random.RandomState(SEED))
+    t0 = time.perf_counter()
+    r = _amp_step_runs(torch, fluid, main, startup, feed, fetch, names,
+                       RESNET_PER_STEP)
+    step_s = time.perf_counter() - t0
+    runs = [r[k] for k in ("amp", "f32", "pert")]
+    v = _amp_verdict(["loss"] + trainable, r["gpu"], *runs)
+    control = _amp_verdict(["loss"] + trainable, r["gpu_f32"], *runs)
+    gpu = r["gpu"]
+    check(np.isfinite([float(gpu[0])]).all() and all(
+        np.isfinite(g).all() for g in gpu[1:]),
+        "non-finite loss or grads on the card")
+    check(r["dtypes"] == ["torch.float32"], "AMP state dtypes %s"
+          % r["dtypes"])
+
+    t0 = time.perf_counter()
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    params = {n: scope.get(n).numpy() for n in names}
+    ops, inputs = _forced_chain(torch, main, [spec.loss.name], params,
+                                feed)
+    dev = fluid.CUDAPlace(0).torch_device()
+    cts = {}
+    cpu = torch.device("cpu")
+    forced = {"amp": _forced_run(torch, ops, inputs, cpu, True, cts),
+              "f32": _forced_run(torch, ops, inputs, cpu, False, cts),
+              "card": _forced_run(torch, ops, inputs, dev, True, cts),
+              "card_f32": _forced_run(torch, ops, inputs, dev, False, cts)}
+    fv = _forced_verdict(forced["card"], forced["amp"], forced["f32"])
+    fc_ = _forced_verdict(forced["card_f32"], forced["amp"], forced["f32"])
+    forced_s = time.perf_counter() - t0
+    del forced, inputs
+    emit({"phase": "resnet_amp_train_check", "batch": batch,
+          "config": RESNET, "precision": "bf16 (fluid.amp.decorate)",
+          "loss_gpu": float(gpu[0]), "loss_gpu_f32": float(r["gpu_f32"][0]),
+          "loss_cpu_amp": float(r["amp"][0]),
+          "loss_cpu_f32": float(r["f32"][0]),
+          "loss_cpu_amp_perturbed": float(r["pert"][0]),
+          "state_dtypes": r["dtypes"], "launches": r["counts"],
+          "bf16_launches": r["bf16_counts"],
+          "cpu_amp_step_s": r["cpu_s"]["amp"],
+          "cpu_f32_step_s": r["cpu_s"]["f32"], "whole_step_s": step_s,
+          "whole_step": {k: w for k, w in _amp_report(v, control).items()
+                         if k not in ("card_vs_cpu_amp", "cpu_amp_vs_f32",
+                                      "cpu_amp_sensitivity")},
+          "forced_ops": len(ops), "forced_s": forced_s,
+          "forced_card": fv, "forced_card_f32_control": fc_,
+          "tol": "forced: per kind card <= %g x CPU AMP vs f32, per "
+                 "quantity card <= max(CPU AMP vs f32, %g); the card's f32 "
+                 "ops must fail" % (AMP_MARGIN, FORCED_FLOOR),
+          "device": smi_line})
+    check(not fv["outside"], "resnet_amp_train_check: forced ops outside "
+          "tolerance: %s" % fv["outside"][:20])
+    check(fc_["outside"], "resnet_amp_train_check: the card's f32 ops "
+          "passed the AMP check")
+    return fv
+
+
 def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
-                       prof_steps=2):
+                       prof_steps=2, amp=False, f32_step=None):
     """The main path: ResNet-50 trained with Adam(1e-4) at batch 128 (224
-    x 224 x 3, 1000 classes, f32) on one fixed batch. Launch counts are
-    zeroed just before the first step and read after the last; every step
-    must launch conv_moments and bn_apply 49 times each and nothing else of
-    the port's. The fusion report must hold 53 sites, the four declined
-    ones those of RESNET_DECLINED, each for its geometry. The profiled
-    conv_moments ms per step is printed beside ``conv_site_ms``, the sum of
-    its per-geometry times weighted by sites (phase ``conv_geometry``)."""
+    x 224 x 3, 1000 classes) on one fixed batch, in f32 (phase
+    ``resnet_train``) or under ``fluid.amp.decorate`` (``resnet_amp_train``:
+    bf16 convs and activations, the bf16 forms of the fused-conv kernels,
+    f32 parameters and Adam state). Launch counts are zeroed just before
+    the first step and read after the last; every step must launch
+    conv_moments and bn_apply 49 times each and nothing else of the port's,
+    under AMP all in bf16 and in f32 none. The fusion report must hold 53
+    sites, the four declined ones those of RESNET_DECLINED, each for its
+    geometry. The profiled conv_moments ms per step is printed beside
+    ``conv_site_ms``, the sum of its per-geometry times weighted by sites
+    (phase ``conv_geometry``), and under AMP the f32 step's summary
+    ``f32_step`` beside the AMP one. Returns (launches, the trained model,
+    the step's summary)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core.executor import fused_ops
 
     t0 = time.perf_counter()
-    main, startup, test, spec = build_resnet(fluid)
+    main, startup, test, spec = build_resnet(fluid, amp)
     scope = fluid.Scope()
     exe = fluid.Executor()  # CUDAPlace(0)
     exe.run(startup, scope=scope)
@@ -2808,15 +3169,18 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
     losses, step_s = [], []
 
     def run_step():
-        before = read_counts()
+        before = read_counts(), read_bf16_counts()
         t = time.perf_counter()
         loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
                         scope=scope)  # to numpy: ends synchronised
         dt = time.perf_counter() - t
-        after = read_counts()
-        per = {k: after[k] - before[k] for k in after}
-        check(per == RESNET_PER_STEP, "resnet step %d launches %s != %s"
-              % (len(losses), per, RESNET_PER_STEP))
+        after = read_counts(), read_bf16_counts()
+        per, per_bf16 = ({k: a[k] - b[k] for k in a}
+                         for a, b in zip(after, before))
+        check(per == RESNET_PER_STEP
+              and per_bf16 == bf16_part(RESNET_PER_STEP, amp),
+              "resnet step %d launches %s (bf16 %s) != %s"
+              % (len(losses), per, per_bf16, RESNET_PER_STEP))
         losses.append(float(loss))
         return dt
 
@@ -2843,14 +3207,26 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
     med = statistics.median(step_s)
     busy = sum(device_ms.values())
     flops = spec.flops_per_example * RESNET_BATCH
-    emit({"phase": "resnet_train", "model": "resnet50",
+    q1, _, q3 = statistics.quantiles(step_s, n=4)
+    summary = {"step_ms_median": med * 1e3,
+               "images_per_s": RESNET_BATCH / med,
+               "device_ms": busy, "device_ms_per_step": device_ms,
+               "kernels_per_step": kernels_per_step,
+               "device_busy_share": busy / (med * 1e3),
+               "peak_memory_bytes": peak}
+    emit({"phase": "resnet_amp_train" if amp else "resnet_train",
+          "model": "resnet50",
           "config": RESNET, "params": n_params, "batch": RESNET_BATCH,
-          "dtype": "float32", "optimizer": "Adam(1e-4)",
+          "dtype": "bf16 (fluid.amp.decorate)" if amp else "float32",
+          "optimizer": "Adam(1e-4)",
           "warmup_steps": warmup, "steps": steps,
           "step_ms_median": med * 1e3,
           "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
           "step_ms": [x * 1e3 for x in step_s],
           "images_per_s": RESNET_BATCH / med,
+          "images_per_s_range": [RESNET_BATCH / max(step_s),
+                                 RESNET_BATCH / min(step_s)],
+          "images_per_s_iqr": [RESNET_BATCH / q3, RESNET_BATCH / q1],
           "model_tflops_per_s": flops / med / 1e12,
           "losses": losses, "peak_memory_bytes": peak,
           "device_ms_per_step": device_ms,
@@ -2866,7 +3242,8 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
                      "kernel_sites": len(sites) - len(declined),
                      "declined": declined, "declined_reasons": reasons,
                      "kernels": kernels_used},
-          "launches": launches, "launches_per_step": RESNET_PER_STEP,
+          "launches": launches, "bf16_launches": read_bf16_counts(),
+          "launches_per_step": RESNET_PER_STEP, "f32_step": f32_step,
           "setup_s": setup_s, "device": smi_line})
     check(len(report.fused) == len(sites) == 53 and not report.refused,
           "fusion report: %s" % report.summary())
@@ -2880,34 +3257,50 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
     n_steps = warmup + steps + prof_steps
     check(launches == {k: n * n_steps for k, n in RESNET_PER_STEP.items()},
           "resnet_train launches %s" % launches)
-    return launches, (exe, scope, main, test, spec, feed)
+    if amp:
+        dtypes = _float_state_dtypes(torch, scope)
+        check(dtypes == ["torch.float32"], "AMP state dtypes %s" % dtypes)
+    return launches, (exe, scope, main, test, spec, feed), summary
 
 
-def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2):
+def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
+                      amp=False):
     """The main path: the trained model's ``main.clone(for_test=True)`` at
     batch 128 (moving statistics, the inference kernel at the 49 admitted
     sites), each pass launching conv_apply 49 times and nothing else of
     the port's; then the same clone at batch 2 on the card and with the
-    port on the CPU from the card's trained weights: logits within 1e-4 of
-    max(1, max|CPU|), loss within 1e-4 relative, accuracy equal."""
+    port on the CPU from the card's trained weights. f32 (``resnet_eval``):
+    logits within 1e-4 of max(1, max|CPU|), loss within 1e-4 relative,
+    accuracy equal. Under AMP (``resnet_amp_eval``) the clone, which drops
+    the mark as in the reference, is marked with ``fluid.amp.enable_bf16``:
+    conv_apply launches in bf16, and the logits and loss lie within
+    AMP_MARGIN of the CPU's bf16-vs-f32 eval distance of the CPU's bf16
+    eval (relative L2)."""
     import paddle_tpu_torch as fluid
 
     exe, scope, main, test, spec, feed = trained
+    if amp:
+        check(not getattr(test, "_amp_bf16", False),
+              "the for_test clone kept the AMP mark")
+        fluid.amp.enable_bf16(test)
     logits = [op.input("X").name for op in test.global_block().ops
               if op.type == "softmax"][0]
     fetch = [spec.loss.name, spec.fetches["acc"].name, logits]
     pass_s = []
     reset_counts()
     for _ in range(passes + 1):
-        before = read_counts()
+        before = read_counts(), read_bf16_counts()
         t = time.perf_counter()
         exe.run(test, feed=feed, fetch_list=fetch[:2], scope=scope)
         pass_s.append(time.perf_counter() - t)
-        after = read_counts()
-        per = {k: after[k] - before[k] for k in after}
-        check(per == RESNET_PER_EVAL, "eval pass launches %s != %s"
-              % (per, RESNET_PER_EVAL))
-    launches = read_counts()
+        after = read_counts(), read_bf16_counts()
+        per, per_bf16 = ({k: a[k] - b[k] for k in a}
+                         for a, b in zip(after, before))
+        check(per == RESNET_PER_EVAL
+              and per_bf16 == bf16_part(RESNET_PER_EVAL, amp),
+              "eval pass launches %s (bf16 %s) != %s"
+              % (per, per_bf16, RESNET_PER_EVAL))
+    launches, bf16_launches = read_counts(), read_bf16_counts()
 
     small_feed = {k: v[:small] for k, v in feed.items()}
     gpu = exe.run(test, feed=small_feed, fetch_list=fetch, scope=scope)
@@ -2915,22 +3308,43 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2):
               for p in main.all_parameters()}
     cpu_scope = fluid.Scope()
     fluid.bridge.load_program_params(cpu_scope, params, main, "cpu")
+    cexe = fluid.Executor(fluid.CPUPlace())
     before = read_counts()
-    cpu = fluid.Executor(fluid.CPUPlace()).run(
-        test, feed=small_feed, fetch_list=fetch, scope=cpu_scope)
+    cpu = cexe.run(test, feed=small_feed, fetch_list=fetch, scope=cpu_scope)
+    cpu_f32 = None
+    if amp:
+        fluid.amp.disable_bf16(test)
+        cpu_f32 = cexe.run(test, feed=small_feed, fetch_list=fetch,
+                           scope=cpu_scope)
+        fluid.amp.enable_bf16(test)
     check(read_counts() == before, "the CPU eval launched a kernel")
+    med = statistics.median(pass_s[1:])
+    line = {"phase": "resnet_amp_eval" if amp else "resnet_eval",
+            "model": "resnet50", "config": RESNET,
+            "precision": "bf16 (clone + fluid.amp.enable_bf16)" if amp
+            else "f32", "batch": RESNET_BATCH, "passes": passes,
+            "pass_ms_median": med * 1e3,
+            "pass_ms": [x * 1e3 for x in pass_s],
+            "images_per_s": RESNET_BATCH / med,
+            "small_batch": small, "loss_gpu": float(gpu[0]),
+            "loss_cpu": float(cpu[0]), "acc_gpu": float(gpu[1]),
+            "acc_cpu": float(cpu[1]), "launches": launches,
+            "bf16_launches": bf16_launches,
+            "launches_per_pass": RESNET_PER_EVAL, "device": smi_line}
+    if amp:
+        card = {"loss": _rel_l2(gpu[0], cpu[0]),
+                "logits": _rel_l2(gpu[2], cpu[2])}
+        ref = {"loss": _rel_l2(cpu_f32[0], cpu[0]),
+               "logits": _rel_l2(cpu_f32[2], cpu[2])}
+        emit(dict(line, card_vs_cpu_bf16=card, cpu_bf16_vs_f32=ref,
+                  loss_cpu_f32=float(cpu_f32[0]),
+                  tol="card <= %g x CPU bf16 vs f32 (rel L2)" % AMP_MARGIN))
+        check(all(card[n] <= AMP_MARGIN * ref[n] for n in card),
+              "resnet_amp_eval: card %s, CPU bf16 vs f32 %s" % (card, ref))
+        return launches
     errs = {"loss": abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0])),
             "logits": _elem_err(gpu[2], cpu[2])}
-    med = statistics.median(pass_s[1:])
-    emit({"phase": "resnet_eval", "model": "resnet50", "config": RESNET,
-          "batch": RESNET_BATCH, "passes": passes,
-          "pass_ms_median": med * 1e3, "pass_ms": [x * 1e3 for x in pass_s],
-          "images_per_s": RESNET_BATCH / med,
-          "small_batch": small, "loss_gpu": float(gpu[0]),
-          "loss_cpu": float(cpu[0]), "acc_gpu": float(gpu[1]),
-          "acc_cpu": float(cpu[1]), "errors": errs, "tol": 1e-4,
-          "launches": launches, "launches_per_pass": RESNET_PER_EVAL,
-          "device": smi_line})
+    emit(dict(line, errors=errs, tol=1e-4))
     check(max(errs.values()) <= 1e-4, "resnet_eval errors %s" % errs)
     check(float(gpu[1]) == float(cpu[1]), "accuracy differs")
     return launches
@@ -3502,7 +3916,9 @@ def main():
             ("fused_ce_fwd", ce_case, ce_case + "_bf16")):
         errs[name] = checked[name][f32_case]
         bf16_errs[name] = checked[name][bf16_case]
-    errs.update(phase_fused_conv_check(torch, dev))
+    conv_errs, conv_bf16_errs = phase_fused_conv_check(torch, dev)
+    errs.update(conv_errs)
+    bf16_errs.update(conv_bf16_errs)
     errs["scatter_add"] = phase_scatter_check(
         torch, dev)["deepfm_densify_uniform"]
     times = phase_timing(torch, dev)
@@ -3518,9 +3934,16 @@ def main():
         for name in ("flash_attention_fwd", "flash_attention_bwd")},
         amp=True)
     phase_resnet_train_check(torch, smi_line)
-    paths["resnet_train"], trained = phase_resnet_train(
+    paths["resnet_train"], trained, f32_step = phase_resnet_train(
         torch, smi_line, times["conv_moments"]["site_weighted_ms"])
     paths["resnet_eval"] = phase_resnet_eval(torch, smi_line, trained)
+    del trained
+    phase_resnet_amp_train_check(torch, smi_line)
+    paths["resnet_amp_train"], trained, _ = phase_resnet_train(
+        torch, smi_line, times["conv_moments"]["bf16"]["site_weighted_ms"],
+        amp=True, f32_step=f32_step)
+    paths["resnet_amp_eval"] = phase_resnet_eval(torch, smi_line, trained,
+                                                 amp=True)
     del trained
     phase_deepfm_train_check(torch, smi_line)
     paths["deepfm_train"] = phase_deepfm_train(torch, smi_line)
@@ -3566,9 +3989,12 @@ def main():
                     "zipf_bound_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
-        if "bf16" in r:  # rows 1-9: the bf16 form (AMP), training shape
+        if "bf16" in r:  # rows 1-12: the bf16 form (AMP), training shape
+            bf16_by_path = {path: paths[path][name] for path in AMP_PATHS}
             kernels[-1]["bf16"] = dict(r["bf16"],
-                                       max_abs_err=bf16_errs[name])
+                                       max_abs_err=bf16_errs[name],
+                                       launches=sum(bf16_by_path.values()),
+                                       launches_by_path=bf16_by_path)
     print(smi_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,11 @@ port interprets it instead, in the manner of the reference's C++ executor
 (``executor.cc:186``): each op's impl runs eagerly on the executor's
 device, and the ops that ``paddle_tpu`` gave to Pallas launch the port's
 CUDA kernels. A program without backward ops runs under
-``torch.inference_mode()``.
+``torch.inference_mode()``; a training run first copies every inference
+tensor it reads (state a startup, load or eval run left in the scope) out
+of inference mode, once, and puts the copy in the scope, so serving, eval
+and decode keep their inference tensors and no training op saves one for
+backward.
 
 Training mode: a program holding an ``autodiff`` (or ``autodiff_vjp``) op
 runs with autograd recording. At step start the op's ``wrt_names`` that the
@@ -187,7 +191,10 @@ def to_tensor(value, device, var=None):
     if isinstance(value, torch.Tensor):
         t = value
     else:
-        t = torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
+        a = np.asarray(value)
+        if not a.flags.c_contiguous:  # a 0-d array always is: it keeps ()
+            a = np.ascontiguousarray(a)
+        t = torch.from_numpy(a)
     want = torch_dtype(var.dtype if var is not None else t.dtype)
     return t.to(device=device, dtype=want)
 
@@ -238,14 +245,18 @@ class Executor:
                         run_op(env, op)
                         written.update(op.output_arg_names)
             else:
+                for n, t in list(env.items()):
+                    if isinstance(t, torch.Tensor) and t.is_inference():
+                        # made by a grad-free run (startup, load, eval):
+                        # it cannot be saved for backward, so it is copied,
+                        # once: the copy replaces it in the scope
+                        env[n] = t.clone()
+                        if n in persist:
+                            scope.set(n, env[n])
                 for n in wrt:
                     t = env.get(n)
                     if t is not None and t.is_floating_point():
-                        # a tensor made under inference_mode (a grad-free
-                        # startup run) cannot join a tape: copy it once,
-                        # and the copy is what the step writes back
-                        t = t.clone() if t.is_inference() else t.detach()
-                        env[n] = t.requires_grad_(True)
+                        env[n] = t.detach().requires_grad_(True)
                 if sparse:
                     env[SPARSE_SITES_KEY] = {n: [] for n in sparse}
                 for op in ops:

@@ -90,6 +90,8 @@ def _fused_conv2d(env, op):
     is_test = op.attr("is_test", False)
     x = get(env, op.input("Input"))  # NCHW
     w = get(env, op.input("Filter"))  # OIHW
+    # under AMP the kernels take bf16 x and w (paddle_tpu's nn_ops.py:282)
+    x, w = mxu_cast(x, w)
     strides = _pair(op.attr("strides", [1, 1]))
     pads = _pair(op.attr("paddings", [0, 0]))
     res_var = op.input("Residual")
@@ -111,6 +113,10 @@ def _fused_conv2d(env, op):
             run_op(env, sub)
         return
 
+    if residual is not None and residual.dtype != x.dtype:
+        # a bf16 site demotes an f32 residual (paddle_tpu's :311-313,
+        # amp_harmonize); the kernels take one dtype for both
+        residual = residual.to(x.dtype)
     y, mean_out, var_out, saved_mean, saved_var = \
         fused_conv.fused_conv_bn_act(
             x, w, get(env, op.input("Scale")), get(env, op.input("Bias")),

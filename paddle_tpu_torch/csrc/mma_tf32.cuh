@@ -1,6 +1,6 @@
-// Tensor-core and asynchronous-copy helpers shared by fused_conv.cu,
-// flash_attention_fwd.cu, flash_attention_bwd.cu and fused_ce_fwd.cu
-// (sm_90a).
+// Tensor-core, ldmatrix and asynchronous-copy helpers shared by
+// fused_conv.cu, flash_attention_fwd.cu, flash_attention_bwd.cu and
+// fused_ce_fwd.cu (sm_90a).
 //
 // 3xTF32: an f32 product a * b runs on the TF32 tensor cores as
 // a_small * b_big + a_big * b_small + a_big * b_big (small terms first),
@@ -112,6 +112,27 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix: four 8x8 b16 matrices from shared memory, lane l giving the
+// address of row l % 8 of matrix l / 8 (16 bytes each). Plain: lane t gets
+// row t / 4, columns 2 (t % 4) and + 1 of each matrix, the A fragment of
+// mma m16n8k16 when the matrices are (rows 0-7, k 0-7), (rows 8-15, k 0-7),
+// (rows 0-7, k 8-15), (rows 8-15, k 8-15) of a row-major tile. .trans: lane
+// t gets rows 2 (t % 4) and + 1 of column t / 4, the B fragment of two n8
+// tiles when B is stored k-major (each row 8 consecutive n).
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
 // bf16 fragment registers: two consecutive bf16 read as one 32-bit word,

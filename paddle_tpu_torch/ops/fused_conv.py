@@ -16,11 +16,21 @@ Replaces the Pallas TPU kernels of ``paddle_tpu/ops/fused_conv.py``:
   conv's epilogue, ``co`` never stored.
 
 Arithmetic. The two conv kernels are one implicit GEMM on Hopper's tensor
-cores: each f32 operand splits into two TF32 parts, ``big`` and
+cores. In f32 each operand splits into two TF32 parts, ``big`` and
 ``small``, and three TF32 products (``small*big + big*small + big*big``)
 accumulate in f32 ("3xTF32"), which keeps the conv at f32-level accuracy
 with TF32 off. :func:`conv_3xtf32_emulated` repeats that split on the CPU
-for the tests; it is not on any path.
+for the tests; it is not on any path. In bf16 (ResNet-50 under
+``fluid.amp``: the reference casts a fused site's x and w to bf16, its
+``nn_ops.py:282``) one bf16 product per product accumulates in f32 (a
+product of two bf16 values is exact in f32), and the kernels round where
+the reference's do: ``co`` is stored in bf16 and the moments are taken from
+the rounded ``co`` (:167-176); the apply rounds ``y`` to bf16 before the
+residual add (:190-191); ``conv_apply`` rounds the conv through bf16 before
+the affine (:205). ``scale`` and ``shift`` stay f32. The plain versions
+round at the same points (:func:`conv_rounded`: the conv in f32, rounded
+once), and apply the affine as a product then a sum, each rounded to f32,
+as the bf16 kernels do.
 
 The geometries are the reference's (``supported_geometry``): groups 1,
 dilation 1, 1x1 stride 1 or 2 (the kernel reads ``x[n, c, 2i, 2j]`` by
@@ -50,8 +60,8 @@ a declined geometry replays the original ops on either device. Its
 ``_VMEM_BUDGET``/``_fits_vmem`` check and the ``PADDLE_TPU_NO_FUSED_CONV``
 switch were TPU measurements and do not carry over. An admitted site on a
 tensor that the kernels cannot take (another device, a dtype other than
-f32) raises in the wrapper; bf16 and f16 raise in the gate: the kernels'
-bf16 forms (ResNet-50 under ``fluid.amp``) are ``ROADMAP.md`` B6.
+f32 or bf16) raises in the wrapper; f16 raises in the gate, as the
+reference's AMP is bf16 only.
 """
 
 import ctypes
@@ -63,7 +73,7 @@ from . import _build
 
 __all__ = ["supported_geometry", "gate", "fused_conv_bn_act",
            "conv_moments", "bn_apply", "conv_apply", "conv_moments_plain",
-           "bn_apply_plain", "conv_apply_plain", "bn_stats",
+           "bn_apply_plain", "conv_apply_plain", "conv_rounded", "bn_stats",
            "epilogue_reference", "tf32_round", "conv_3xtf32_emulated"]
 
 _BN = 128  # output pixels per block of the conv kernels (csrc/fused_conv.cu)
@@ -95,10 +105,10 @@ def gate(x_shape, w_shape, strides, paddings, dilations, groups, x=None):
     (None when admitted). Only the geometry declines a site (the
     reference's ``supported_geometry``; it then replays its original ops).
     An admitted site runs the plain versions when ``x`` lies on the CPU and
-    the CUDA kernels otherwise (3xTF32 tensor-core products with f32
-    accumulation), whose wrappers raise for a tensor they cannot take.
-    bf16 and f16 ``x`` (AMP) raise ``NotImplementedError``: the kernels
-    have no bf16 forms yet (``ROADMAP.md`` B6)."""
+    the CUDA kernels otherwise (3xTF32 tensor-core products for f32 ``x``,
+    bf16 ones for bf16 ``x``, both with f32 accumulation), whose wrappers
+    raise for a tensor they cannot take. f16 ``x`` raises
+    ``NotImplementedError``: the reference's AMP is bf16 only."""
     if not supported_geometry(x_shape, w_shape, strides, paddings,
                               dilations, groups):
         return {"admitted": False, "kernel": "unfused_replay",
@@ -107,11 +117,10 @@ def gate(x_shape, w_shape, strides, paddings, dilations, groups, x=None):
                 "1x1 s1/s2 and 3x3 s1 p1 bottleneck shapes)"
                 % (list(w_shape), list(strides), list(paddings),
                    list(dilations), groups)}
-    if x is not None and x.dtype in (torch.bfloat16, torch.float16):
+    if x is not None and x.dtype == torch.float16:
         raise NotImplementedError(
-            "fused_conv2d: %s activations (AMP) need bf16 forms of "
-            "conv_moments, bn_apply and conv_apply, still to port "
-            "(ROADMAP.md B6)" % x.dtype)
+            "fused_conv2d: float16 activations; mixed precision is bf16 "
+            "(fluid.amp), as in the reference")
     on_cpu = x is not None and x.device.type == "cpu"
     return {"admitted": True,
             "kernel": "plain_fused_conv" if on_cpu else "cuda_fused_conv",
@@ -139,11 +148,20 @@ def _conv_plain(x, w, stride):
     return F.conv2d(x, w, stride=stride, padding=(w.shape[2] - 1) // 2)
 
 
+def conv_rounded(x, w, stride):
+    """The conv computed in f32 and rounded once to ``x``'s dtype (the
+    bf16 kernels' accumulator, rounded where they store it; for f32 the
+    plain conv)."""
+    if x.dtype == torch.float32:
+        return _conv_plain(x, w, stride)
+    return _conv_plain(x.float(), w.float(), stride).to(x.dtype)
+
+
 def conv_moments_plain(x, w, stride):
     """x [N, C, H, W], w [O, C, K, K] -> (co [N, O, Ho, Wo] in x.dtype,
     sum co [O] f32, sum co^2 [O] f32), the moments over N, Ho, Wo of the
-    stored values (the reference's :169-176)."""
-    co = _conv_plain(x, w, stride)
+    stored (rounded) values (the reference's :167-176)."""
+    co = conv_rounded(x, w, stride)
     cof = co.float()
     return co, cof.sum(dim=(0, 2, 3)), (cof * cof).sum(dim=(0, 2, 3))
 
@@ -176,6 +194,8 @@ def conv_3xtf32_emulated(x, w, stride, passes=3):
 
 
 def _affine(y, scale, shift):
+    """y * scale[o] + shift[o] in f32: a product, then a sum (the bf16
+    kernels round each in turn, as here)."""
     return y.float() * scale.reshape(1, -1, 1, 1) + shift.reshape(1, -1, 1, 1)
 
 
@@ -193,8 +213,9 @@ def bn_apply_plain(co, scale, shift, residual, relu):
 
 
 def conv_apply_plain(x, w, scale, shift, residual, relu, stride):
-    """The inference form: conv, BN affine (+ residual)(+ relu)."""
-    return bn_apply_plain(_conv_plain(x, w, stride), scale, shift, residual,
+    """The inference form: conv rounded to x's dtype (the reference's
+    :205), BN affine (+ residual)(+ relu)."""
+    return bn_apply_plain(conv_rounded(x, w, stride), scale, shift, residual,
                           relu)
 
 
@@ -245,52 +266,84 @@ def _fn(entry, n_ptr, n_int):
     return fn
 
 
-def _check(name, *tensors):
-    dev = tensors[0].device
-    for t in tensors:
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(name, acts, f32=()):
+    """Raise unless every tensor lies on one CUDA device and is contiguous,
+    ``acts`` (x, w, co, residual; None skipped) are all f32 or all bf16
+    and ``f32`` (scale, shift) are f32. Returns the dtype of ``acts``."""
+    dtype = acts[0].dtype
+    dev = acts[0].device
+    for t in list(acts) + list(f32):
         if t is None:
             continue
         if t.device != dev or t.device.type != "cuda":
             raise ValueError("%s: tensors must share one CUDA device, got %s "
                              "and %s" % (name, dev, t.device))
-        if t.dtype != torch.float32:
-            raise TypeError("%s takes f32 tensors (bf16 forms: ROADMAP.md "
-                            "B6), got %s" % (name, t.dtype))
         if not t.is_contiguous():
             raise ValueError("%s: tensors must be contiguous" % name)
+    if dtype not in _DTYPES or any(t is not None and t.dtype != dtype
+                                   for t in acts):
+        raise TypeError("%s takes f32 or bf16 activations and weights of "
+                        "one dtype, got %s" % (name, [
+                            t.dtype for t in acts if t is not None]))
+    if any(t is not None and t.dtype != torch.float32 for t in f32):
+        raise TypeError("%s takes f32 scale and shift" % name)
+    return dtype
 
 
-def _conv_args(name, x, w, stride, *more):
-    _check(name, x, w, *more)
+def _suffix(dtype):
+    return "_bf16" if dtype == torch.bfloat16 else ""
+
+
+def _w_taps(w):
+    """[O, C, K, K] -> [O, K*K*C], k tap-major (k = (dy*K + dx)*C + c), the
+    layout the bf16 kernels read W in (the reference's ``_w_taps`` :224
+    does the same outside its kernel); a view for 1x1."""
+    o, c, kh, kw = w.shape
+    if kh == kw == 1:
+        return w.reshape(o, c)
+    return w.permute(0, 2, 3, 1).reshape(o, kh * kw * c).contiguous()
+
+
+def _conv_args(name, x, w, stride, f32=(), residual=None):
+    dtype = _check(name, (x, w, residual), f32)
     n, c, h, wd, o, k, _, ho, wo = _geometry(x, w, stride)
     if n * c * h * wd >= 2 ** 31 or n * o * ho * wo >= 2 ** 31:
         raise ValueError("%s: tensors of 2^31 elements or more" % name)
-    return n, c, h, wd, o, k, ho, wo
+    if dtype == torch.bfloat16:
+        w = _w_taps(w)
+    return dtype, w, (n, c, h, wd, o, k, ho, wo)
 
 
 def conv_moments(x, w, stride):
-    """Launch the training kernel (row 10). x: CUDA f32 [N, C, H, W]; w:
-    [O, C, K, K]. Returns (co [N, O, Ho, Wo], sum co [O], sum co^2 [O])."""
-    n, c, h, wd, o, k, ho, wo = _conv_args("conv_moments", x, w, stride)
-    co = torch.empty(n, o, ho, wo, device=x.device, dtype=torch.float32)
+    """Launch the training kernel (row 10). x: CUDA [N, C, H, W]; w:
+    [O, C, K, K], both f32 (3xTF32) or both bf16 (AMP). Returns (co
+    [N, O, Ho, Wo] in x's dtype, sum co [O], sum co^2 [O], both f32)."""
+    dtype, w, (n, c, h, wd, o, k, ho, wo) = _conv_args("conv_moments", x, w,
+                                                      stride)
+    co = torch.empty(n, o, ho, wo, device=x.device, dtype=dtype)
     tiles = -(-(n * ho * wo) // _BN)
     partial = torch.empty(tiles, 2, o, device=x.device, dtype=torch.float32)
     sums = torch.empty(2, o, device=x.device, dtype=torch.float32)
-    _build.launch(_fn("conv_moments", 5, 8), "fused_conv", x.device,
-                  x.data_ptr(), w.data_ptr(), co.data_ptr(),
+    _build.launch(_fn("conv_moments" + _suffix(dtype), 5, 8), "fused_conv",
+                  x.device, x.data_ptr(), w.data_ptr(), co.data_ptr(),
                   partial.data_ptr(), sums.data_ptr(), n, c, h, wd, o, k,
                   stride, tiles)
     conv_moments.launches += 1
+    conv_moments.bf16_launches += dtype == torch.bfloat16
     return co, sums[0], sums[1]
 
 
-conv_moments.launches = 0
+conv_moments.launches = conv_moments.bf16_launches = 0
 
 
 def bn_apply(co, scale, shift, residual, relu):
-    """Launch the apply kernel (row 11). co: CUDA f32 [N, O, H, W];
-    scale/shift: f32 [O]; residual: like co, or None."""
-    _check("bn_apply", co, scale, shift, residual)
+    """Launch the apply kernel (row 11). co: CUDA [N, O, H, W], f32 or
+    bf16; scale/shift: f32 [O]; residual: like co, or None. y in co's
+    dtype."""
+    dtype = _check("bn_apply", (co, residual), (scale, shift))
     n, o, h, wd = co.shape
     if scale.numel() != o or shift.numel() != o or (
             residual is not None and residual.shape != co.shape):
@@ -303,37 +356,41 @@ def bn_apply(co, scale, shift, residual, relu):
         raise ValueError("bn_apply: tensors of 2^31 elements or more")
     y = torch.empty_like(co)
     if co.numel():
-        _build.launch(_fn("bn_apply", 5, 4), "fused_conv", co.device,
-                      co.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        _build.launch(_fn("bn_apply" + _suffix(dtype), 5, 4), "fused_conv",
+                      co.device, co.data_ptr(), scale.data_ptr(),
+                      shift.data_ptr(),
                       residual.data_ptr() if residual is not None else None,
                       y.data_ptr(), co.numel(), h * wd, o, int(bool(relu)))
         bn_apply.launches += 1
+        bn_apply.bf16_launches += dtype == torch.bfloat16
     return y
 
 
-bn_apply.launches = 0
+bn_apply.launches = bn_apply.bf16_launches = 0
 
 
 def conv_apply(x, w, scale, shift, residual, relu, stride):
     """Launch the inference kernel (row 12): conv with the BN affine
-    (+ residual)(+ relu) in its epilogue."""
-    n, c, h, wd, o, k, ho, wo = _conv_args("conv_apply", x, w, stride, scale,
-                                          shift, residual)
+    (+ residual)(+ relu) in its epilogue. x, w, residual: f32 or bf16; y
+    in x's dtype."""
+    dtype, w, (n, c, h, wd, o, k, ho, wo) = _conv_args(
+        "conv_apply", x, w, stride, (scale, shift), residual)
     if scale.numel() != o or shift.numel() != o or (
             residual is not None and tuple(residual.shape) != (n, o, ho, wo)):
         raise ValueError("conv_apply: scale/shift must be [%d] and the "
                          "residual [%d, %d, %d, %d]" % (o, n, o, ho, wo))
-    y = torch.empty(n, o, ho, wo, device=x.device, dtype=torch.float32)
-    _build.launch(_fn("conv_apply", 6, 8), "fused_conv", x.device,
-                  x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+    y = torch.empty(n, o, ho, wo, device=x.device, dtype=dtype)
+    _build.launch(_fn("conv_apply" + _suffix(dtype), 6, 8), "fused_conv",
+                  x.device, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                   shift.data_ptr(),
                   residual.data_ptr() if residual is not None else None,
                   y.data_ptr(), n, c, h, wd, o, k, stride, int(bool(relu)))
     conv_apply.launches += 1
+    conv_apply.bf16_launches += dtype == torch.bfloat16
     return y
 
 
-conv_apply.launches = 0
+conv_apply.launches = conv_apply.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +479,7 @@ class _FusedInfer(torch.autograd.Function):
         stride, eps, relu = ctx.cfg
         with torch.enable_grad():
             x_, w_, g_, b_, r_ = _leaves(x, w, gamma, beta, residual)
-            y = epilogue_reference(_conv_plain(x_, w_, stride), g_, b_, r_,
+            y = epilogue_reference(conv_rounded(x_, w_, stride), g_, b_, r_,
                                    mean.float(), var.float(), eps, relu)
             wrt = [x_, w_, g_, b_] + ([r_] if r_ is not None else [])
             grads = torch.autograd.grad(y, wrt, dy)

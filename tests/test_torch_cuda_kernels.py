@@ -812,6 +812,125 @@ def test_fused_conv_train_function_matches_plain_autograd(dev):
         assert _rel_err(got, want) <= 1e-4
 
 
+def _bf16_ulp_ok(got, want):
+    """Within one bf16 ulp: |got - want| <= 2^-7 max(1, |want|) for every
+    element."""
+    got, want = got.double(), want.double()
+    return bool(((got - want).abs() <= 2.0 ** -7 * want.abs().clamp_min(1.0))
+                .all())
+
+
+def _moments_ok(co, s1, s2):
+    """The kernel's sums against an f64 sum over its own stored co, within
+    1e-5 of sum |co| (s1) and of sum co^2 (s2)."""
+    c = co.double()
+    e1 = (s1.double() - c.sum((0, 2, 3))).abs() / c.abs().sum((0, 2, 3))
+    e2 = (s2.double() - (c * c).sum((0, 2, 3))).abs() / (c * c).sum(
+        (0, 2, 3))
+    return bool((e1.nan_to_num(0.0) <= 1e-5).all()
+                and (e2.nan_to_num(0.0) <= 1e-5).all())
+
+
+@pytest.mark.parametrize("n,cin,cout,k,stride,hw,residual,relu", CONV_CASES)
+def test_fused_conv_kernels_bf16_match_plain(dev, n, cin, cout, k, stride, hw,
+                                             residual, relu):
+    """The bf16 forms (AMP) against the plain versions (the f32 conv rounded
+    once; the affine, then the residual add, each rounded to bf16): co and
+    y within one bf16 ulp, 2^-7 of max(1, |plain|), the moments within 1e-5
+    of an f64 sum over the kernel's own co, and each wrapper counting its
+    bf16 launch."""
+    gen = torch.Generator().manual_seed(5)
+    x, w, scale, shift, res = _conv_inputs(gen, n, cin, cout, k, stride, hw,
+                                           residual, dev)
+    bf = torch.bfloat16
+    x, w = x.to(bf), w.to(bf)
+    res = res.to(bf) if res is not None else None
+    before = [f.bf16_launches for f in (tfc.conv_moments, tfc.bn_apply,
+                                         tfc.conv_apply)]
+    co, s1, s2 = tfc.conv_moments(x, w, stride)
+    wco, _, _ = tfc.conv_moments_plain(x, w, stride)
+    y = tfc.bn_apply(wco, scale, shift, res, relu)
+    wy = tfc.bn_apply_plain(wco, scale, shift, res, relu)
+    ya = tfc.conv_apply(x, w, scale, shift, res, relu, stride)
+    wya = tfc.conv_apply_plain(x, w, scale, shift, res, relu, stride)
+    torch.cuda.synchronize()
+    assert [f.bf16_launches - b for f, b in zip(
+        (tfc.conv_moments, tfc.bn_apply, tfc.conv_apply), before)] == [1] * 3
+    for got, want in ((co, wco), (y, wy), (ya, wya)):
+        assert got.dtype == bf and got.shape == want.shape
+    # co, and bn_apply's y on the same co, element by element; conv_apply's
+    # y against the largest plain value: a co that rounds the other way
+    # moves y by scale x one ulp of co, more than an ulp of a small y
+    assert _bf16_ulp_ok(co, wco) and _bf16_ulp_ok(y, wy)
+    err = (ya.double() - wya.double()).abs().max().item()
+    assert err <= 2.0 ** -7 * max(1.0, wya.double().abs().max().item())
+    assert s1.dtype == s2.dtype == torch.float32
+    assert _moments_ok(co, s1, s2)
+
+
+def test_fused_conv_bf16_moments_are_deterministic(dev):
+    gen = torch.Generator().manual_seed(8)
+    x, w, _, _, _ = _conv_inputs(gen, 8, 64, 64, 3, 1, 28, False, dev)
+    x, w = x.bfloat16(), w.bfloat16()
+    first = tfc.conv_moments(x, w, 1)
+    second = tfc.conv_moments(x, w, 1)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cin,cout,k,hw", [(64, 64, 3, 56),
+                                           (512, 512, 3, 7),
+                                           (512, 2048, 1, 7)])
+def test_fused_conv_bf16_tracks_f64_like_plain_bf16(dev, cin, cout, k, hw):
+    """co of the bf16 kernel against an f64 conv of the same bf16 inputs:
+    max abs and relative L2 error at most 1.5x the plain bf16 version's
+    (the f32 conv rounded once)."""
+    gen = torch.Generator().manual_seed(9)
+    x, w, _, _, _ = _conv_inputs(gen, 4, cin, cout, k, 1, hw, False, dev)
+    x, w = x.bfloat16(), w.bfloat16()
+    pad = (k - 1) // 2
+    exact = torch.nn.functional.conv2d(x.double(), w.double(), padding=pad)
+
+    def errs(t):
+        d = t.double() - exact
+        return d.abs().max().item(), (d.norm() / exact.norm()).item()
+
+    got = errs(tfc.conv_moments(x, w, 1)[0])
+    plain = errs(tfc.conv_moments_plain(x, w, 1)[0])
+    assert got[0] <= 1.5 * plain[0] and got[1] <= 1.5 * plain[1], (got,
+                                                                    plain)
+
+
+def test_fused_conv_bf16_train_function_matches_plain_autograd(dev):
+    """_FusedTrain in bf16 (rows 10 + 11 bf16 forward; the epilogue
+    recomputed from the bf16 co and cuDNN's bf16 conv gradients backward)
+    against autograd through the plain bf16 composition: y within one bf16
+    ulp, the gradients within 1e-2 relative L2 (bf16 gradients)."""
+    gen = torch.Generator().manual_seed(6)
+    x, w, _, _, res = _conv_inputs(gen, 4, 16, 32, 3, 1, 7, True, dev)
+    x, w, res = x.bfloat16(), w.bfloat16(), res.bfloat16()
+    g = (torch.rand(32, generator=gen) + 0.5).to(dev)
+    b = (torch.randn(32, generator=gen) * 0.1).to(dev)
+    dy = torch.randn(4, 32, 7, 7, generator=gen).to(dev).bfloat16()
+    runs = []
+    for kernel in (True, False):
+        ins = [a.clone().requires_grad_(True) for a in (x, w, g, b, res)]
+        if kernel:
+            out = tfc._FusedTrain.apply(*ins, 1, 1e-5, True)[0]
+        else:
+            co = tfc.conv_rounded(ins[0], ins[1], 1)
+            out = tfc.epilogue_reference(co, ins[2], ins[3], ins[4], None,
+                                         None, 1e-5, True)
+        runs.append([out] + list(torch.autograd.grad(out, ins, dy)))
+    torch.cuda.synchronize()
+    assert _bf16_ulp_ok(runs[0][0], runs[1][0])
+    for got, want in zip(runs[0][1:], runs[1][1:]):
+        assert got.dtype == want.dtype
+        assert (got.double() - want.double()).norm() <= 1e-2 * \
+            want.double().norm()
+
+
 SCATTER_CASES = [
     # (V, K, N, row kind): the shape grid of tests/test_scatter.py, then
     # drop/wrap, one hot row, and a DeepFM-like [B * F] id stream

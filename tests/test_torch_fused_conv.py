@@ -172,20 +172,21 @@ def test_gate_admits_and_declines_as_the_reference(case, admitted):
 def test_gate_hopper_checks():
     """Only the geometry declines: an admitted site on the CPU takes the
     plain versions whatever its layout, and one on the card launches the
-    kernels, whose wrappers raise for what they cannot take."""
+    kernels, whose wrappers raise for what they cannot take. f16 raises
+    in the gate (the reference's AMP is bf16 only)."""
     geo = ((2, 8, 4, 4), (8, 8, 3, 3), (1, 1), (1, 1), (1, 1), 1)
     x = torch.zeros(2, 8, 4, 4)
-    for t in (x, x.transpose(2, 3), x.double()):
+    for t in (x, x.transpose(2, 3), x.double(), x.to(torch.bfloat16)):
         assert tfc.gate(*geo, x=t) == {"admitted": True,
                                        "kernel": "plain_fused_conv",
                                        "reason": None}
     assert tfc.gate(*geo, x=torch.zeros(2, 8, 4, 4, device="meta"))[
         "kernel"] == "cuda_fused_conv"
-    with pytest.raises(NotImplementedError, match="AMP"):
-        tfc.gate(*geo, x=x.to(torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        tfc.gate(*geo, x=x.to(torch.float16))
     # a declined geometry never reaches the dtype check
     assert not tfc.gate((2, 8, 4, 4), (8, 8, 3, 3), (2, 2), (1, 1), (1, 1),
-                        1, x=x.to(torch.bfloat16))["admitted"]
+                        1, x=x.to(torch.float16))["admitted"]
     # the wrappers never run the plain versions in the kernels' place
     w = torch.zeros(8, 8, 3, 3)
     with pytest.raises(ValueError, match="CUDA"):
@@ -269,3 +270,160 @@ def test_3xtf32_tracks_f64_and_single_tf32_does_not(rng):
     f32 = rel_l2(torch.nn.functional.conv2d(x, w, padding=1))
     assert three <= 2.0 ** -21 and three <= 2 * f32, (three, f32)
     assert one >= 2.0 ** -14 and one >= 100 * three, (one, three)
+
+
+# ---------------------------------------------------------------------------
+# bf16 (ResNet-50 under fluid.amp): x, w and the residual in bf16, gamma,
+# beta and the moving statistics f32, as the reference's AMP feeds its
+# kernels (its nn_ops.py:282, :311-313). Both sides round co to bf16 once
+# from an f32 accumulation, take the moments of the rounded co, and round y
+# before the residual add; they sum the f32 accumulator in different
+# orders, which can flip a rounding of co now and then.
+# ---------------------------------------------------------------------------
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, "f8"), np.asarray(want, "f8")
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+def _bf16_close(got, want, name):
+    """Within one bf16 ulp: 2^-7 of max(1, |want|), element-wise."""
+    got, want = np.asarray(got, "f8"), np.asarray(want, "f8")
+    lim = 2.0 ** -7 * np.maximum(1.0, np.abs(want))
+    bad = np.abs(got - want) > lim
+    assert not bad.any(), (name, int(bad.sum()),
+                           float(np.abs(got - want).max()))
+
+
+def _jax_bf16(arrays, res):
+    import jax.numpy as jnp
+
+    bf = jnp.bfloat16
+    ja = [jnp.asarray(a).astype(bf) if i < 2 else jnp.asarray(a)
+          for i, a in enumerate(arrays)]
+    return ja, None if res is None else jnp.asarray(res).astype(bf)
+
+
+def _port_bf16(arrays, res, grad=False):
+    ts = [torch.from_numpy(a.copy()) for a in arrays]
+    ts = [(t.to(torch.bfloat16) if i < 2 else t).requires_grad_(
+        grad and i < 4) for i, t in enumerate(ts)]
+    r = None if res is None else torch.from_numpy(res.copy()).to(
+        torch.bfloat16).requires_grad_(grad)
+    return ts, r
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(t, "f4")
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,act,with_res,hw", GEOMS)
+def test_bf16_forward_matches_jax(rng, cin, cout, k, stride, act, with_res,
+                                  hw):
+    arrays, res = _mk(rng, cin, cout, k, stride, with_res, hw)
+    kw = _kw(k, stride, act)
+    ja, jr = _jax_bf16(arrays, res)
+    want = jfc.fused_conv_bn_act(*ja, residual=jr, **kw)
+    ts, r = _port_bf16(arrays, res)
+    got = tfc.fused_conv_bn_act(*ts, residual=r, **kw)
+    assert got[0].dtype == torch.bfloat16 and str(want[0].dtype) == "bfloat16"
+    _bf16_close(_np(got[0]), _np(want[0]), "y")
+    for name, g, w in zip(OUTS[1:], got[1:], want[1:]):
+        assert g.dtype == torch.float32, name
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,act,with_res,hw", GEOMS)
+def test_bf16_backward_through_fused_train_matches_jax(rng, cin, cout, k,
+                                                       stride, act, with_res,
+                                                       hw):
+    import jax
+    import jax.numpy as jnp
+
+    arrays, res = _mk(rng, cin, cout, k, stride, with_res, hw)
+    kw = _kw(k, stride, act)
+    ja, jr = _jax_bf16(arrays, res)
+
+    def loss(x, w, g, b, *r):
+        y = jfc.fused_conv_bn_act(x, w, g, b, ja[4], ja[5],
+                                  residual=r[0] if r else None, **kw)[0]
+        y = y.astype(jnp.float32)
+        return jnp.sum(y * jnp.cos(y))
+
+    args = ja[:4] + ([jr] if with_res else [])
+    want = jax.grad(loss, argnums=tuple(range(len(args))))(*args)
+
+    ts, r = _port_bf16(arrays, res, grad=True)
+    y = tfc.fused_conv_bn_act(*ts, residual=r, **kw)[0]
+    assert type(y.grad_fn).__name__ == "_FusedTrainBackward"
+    yf = y.float()
+    wrt = ts[:4] + ([r] if with_res else [])
+    got = torch.autograd.grad((yf * torch.cos(yf)).sum(), wrt)
+    for name, g, w, tol in zip(("dx", "dw", "dgamma", "dbeta", "dres"), got,
+                               want, (1e-2, 1e-2, 1e-3, 1e-3, 1e-2)):
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype), name
+        assert _rel_l2(_np(g), _np(w)) < tol, (name, _rel_l2(_np(g), _np(w)))
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,act,with_res,hw", GEOMS)
+def test_bf16_inference_path_matches_jax(rng, cin, cout, k, stride, act,
+                                         with_res, hw):
+    arrays, res = _mk(rng, cin, cout, k, stride, with_res, hw)
+    kw = _kw(k, stride, act, is_test=True)
+    ja, jr = _jax_bf16(arrays, res)
+    want = jfc.fused_conv_bn_act(*ja, residual=jr, **kw)
+    ts, r = _port_bf16(arrays, res)
+    got = tfc.fused_conv_bn_act(*ts, residual=r, **kw)
+    assert got[0].dtype == torch.bfloat16
+    _bf16_close(_np(got[0]), _np(want[0]), "y")
+    assert got[3] is None and got[1] is ts[4]
+
+
+def test_bf16_global_stats_backward_through_fused_infer_matches_jax(rng):
+    import jax
+    import jax.numpy as jnp
+
+    arrays, res = _mk(rng, 8, 16, 1, 1, True, 8)
+    kw = _kw(1, 1, "relu", use_global_stats=True)
+    ja, jr = _jax_bf16(arrays, res)
+
+    def loss(x, w, g, b, r):
+        y = jfc.fused_conv_bn_act(x, w, g, b, ja[4], ja[5], residual=r,
+                                  **kw)[0].astype(jnp.float32)
+        return jnp.sum(y * jnp.cos(y))
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*ja[:4], jr)
+    ts, r = _port_bf16(arrays, res, grad=True)
+    y = tfc.fused_conv_bn_act(*ts, residual=r, **kw)[0]
+    assert type(y.grad_fn).__name__ == "_FusedInferBackward"
+    yf = y.float()
+    got = torch.autograd.grad((yf * torch.cos(yf)).sum(), ts[:4] + [r])
+    for name, g, w, tol in zip(("dx", "dw", "dgamma", "dbeta", "dres"), got,
+                               want, (1e-2, 1e-2, 1e-3, 1e-3, 1e-2)):
+        assert _rel_l2(_np(g), _np(w)) < tol, (name, _rel_l2(_np(g), _np(w)))
+
+
+def test_bf16_plain_versions_round_where_the_reference_rounds(rng):
+    """co is the f32 conv rounded once, its moments those of the rounded
+    values; bn_apply rounds the affine before the residual add; conv_apply
+    rounds the conv before the affine."""
+    arrays, res = _mk(rng, 8, 16, 3, 1, True, 7)
+    x, w = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays[:2])
+    r = torch.from_numpy(res).to(torch.bfloat16)
+    f32 = torch.nn.functional.conv2d(x.float(), w.float(), padding=1)
+    co, s1, s2 = tfc.conv_moments_plain(x, w, 1)
+    assert co.dtype == torch.bfloat16 and torch.equal(co, f32.bfloat16())
+    assert torch.equal(s1, co.float().sum((0, 2, 3)))
+    assert torch.equal(s2, (co.float() ** 2).sum((0, 2, 3)))
+    scale = torch.from_numpy(arrays[2])
+    shift = torch.from_numpy(arrays[3])
+    c = (1, -1, 1, 1)
+    want = torch.relu((co.float() * scale.reshape(c) + shift.reshape(c))
+                      .bfloat16() + r)
+    assert torch.equal(tfc.bn_apply_plain(co, scale, shift, r, True), want)
+    assert torch.equal(tfc.conv_apply_plain(x, w, scale, shift, r, True, 1),
+                       want)
