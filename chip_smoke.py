@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100 (Hopper):
 It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, checks
 in their SASS that the conv, flash and fused CE kernels run on the tensor
 cores (the bf16 forms of the flash, CE and conv kernels on bf16 m16n8k16
-HMMAs, the conv's fed by ldmatrix), holds each kernel against its plain
+HMMAs, the conv's fed by ldmatrix; the warpgroup-product forms of the bf16
+flash forward and CE on bf16 HGMMAs and no HMMA), holds each kernel
+against its plain
 PyTorch version on the card, f32 and, for every kernel but the scatter,
 bf16 (AMP; the bf16 forms also against f64, beside the plain bf16
 version's error) (the
@@ -73,7 +75,8 @@ the same weights and feed (the AMP checks also f32 steps on the CPU and on
 the card: the loss and each quantity that separates AMP from f32 must lie
 within half the CPU's AMP-vs-f32 distance of its AMP step, where the
 card's f32 step must not, and every kernel with a bf16 form must have
-launched in bf16; ResNet-50's AMP step, chaotic at random init, is held
+launched in bf16, the flash forward and CE on their wgmma forms;
+ResNet-50's AMP step, chaotic at random init, is held
 so op by op, each op run on the CPU AMP chain's own inputs); before
 decode, ``decode_check`` holds four step
 dispatches and
@@ -130,6 +133,9 @@ KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm_fwd",
            "layer_norm_bwd", "fused_ce_fwd", "conv_moments", "bn_apply",
            "conv_apply", "scatter_add")
 BF16_FORMS = KERNELS[:8]  # the kernels with a bf16 form (not the scatter)
+# the kernels whose bf16 form has a second, warpgroup-product (wgmma) form,
+# routed by shape; ``wgmma_launches`` on each wrapper counts it
+WGMMA_FORMS = ("flash_attention_fwd", "fused_ce_fwd")
 
 
 # the main paths that run under fluid.amp: every launch of a kernel with a
@@ -192,6 +198,8 @@ def reset_counts():
         fn.launches = 0
     for name in BF16_FORMS:
         fns[name].bf16_launches = 0
+    for name in WGMMA_FORMS:
+        fns[name].wgmma_launches = 0
 
 
 def read_counts():
@@ -201,6 +209,19 @@ def read_counts():
 def read_bf16_counts():
     fns = kernel_fns()
     return {name: fns[name].bf16_launches for name in BF16_FORMS}
+
+
+def read_wgmma_counts():
+    fns = kernel_fns()
+    return {name: fns[name].wgmma_launches for name in WGMMA_FORMS}
+
+
+def wgmma_part(counts, amp):
+    """The launches of WGMMA_FORMS that a run of ``counts`` launches makes
+    in their wgmma form: all of them on the AMP Transformer path (every
+    flash forward there has 256 keys and heads of 64, every CE D 512 and
+    V 30000), none in f32."""
+    return {name: counts[name] if amp else 0 for name in WGMMA_FORMS}
 
 
 def bf16_part(counts, amp):
@@ -295,6 +316,12 @@ SASS_BF16 = (("flash_attention_fwd", "flash_fwd_kernel", 18, False),
              ("fused_ce_fwd", "fused_ce_kernel", 4, False),
              ("fused_conv", "conv_kernel", 8, True))
 BF16_HMMA = "HMMA.16816.F32.BF16"
+# library, kernel stem, instantiations: the warpgroup-product forms of the
+# bf16 flash forward (head-dim widths 64 and 128) and fused CE. Each must
+# run its products as bf16 HGMMAs (wgmma) and hold no HMMA.16816 of its
+# own: an mma.sync left in the hot loop would hide behind a passing count
+SASS_WGMMA = (("flash_attention_fwd", "flash_fwd_wgmma_kernel", 2),
+              ("fused_ce_fwd", "fused_ce_wgmma_kernel", 1))
 
 
 # library, the mangled stem of the instantiations that move 16 bytes a
@@ -339,7 +366,9 @@ def _sass_check(_build):
     (``SASS_WIDE``); the mnemonics found are printed. Every bf16
     instantiation of the flash kernels, of the fused CE kernel and of the
     conv kernel must hold ``HMMA.16816.F32.BF16``, the conv kernel's also
-    ``LDSM`` (ldmatrix) (``SASS_BF16``)."""
+    ``LDSM`` (ldmatrix) (``SASS_BF16``); the warpgroup-product forms of the
+    flash forward and the fused CE must hold bf16 ``HGMMA`` and no
+    ``HMMA.16816`` (``SASS_WGMMA``)."""
     for lib, kernel, n_inst in SASS_KERNELS:
         hmma = {name: sum(op.startswith("HMMA") for op in ops)
                 for name, ops in _sass_functions(_build, lib).items()
@@ -364,6 +393,21 @@ def _sass_check(_build):
               % (kernel, BF16_HMMA, bf16))
         check(not ldsm or all(ldsms.values()),
               "%s bf16 instantiations without LDSM: %s" % (kernel, ldsms))
+    for lib, kernel, n_inst in SASS_WGMMA:
+        fns = {name: ops for name, ops in _sass_functions(_build, lib).items()
+               if kernel in name}
+        hgmma = {name: sum(op.startswith("HGMMA") and ".BF16" in op
+                           for op in ops) for name, ops in fns.items()}
+        hmma = {name: sum(op.startswith("HMMA.16816") for op in ops)
+                for name, ops in fns.items()}
+        emit({"phase": "sass", "library": lib, "kernel": kernel,
+              "dtype": "bf16", "instantiations": len(fns),
+              "hgmma_bf16_per_instantiation": hgmma,
+              "hmma_16816_per_instantiation": hmma})
+        check(len(fns) == n_inst and all(hgmma.values())
+              and not any(hmma.values()),
+              "%s instantiations without bf16 HGMMA or with HMMA.16816: "
+              "%s, %s" % (kernel, hgmma, hmma))
     for lib, stem, n_inst, kind, wide in SASS_WIDE:
         fns = _sass_functions(_build, lib)
         found = {name: sorted({op for op in ops if op.startswith(kind)})
@@ -653,18 +697,35 @@ def phase_flash_bwd_check(torch, dev):
 
 
 # the flash kernels' bf16 (AMP) cases: name, B, Tq, Tk, H, D, causal, bias,
-# dropout: the training path's three calls, then every width family
+# dropout, the forward's form: the training path's three calls, then every
+# width family, then the wgmma form's route boundaries (Tk 16, 255, 256,
+# 257; causal Tq < Tk; D 16, 64, 128; dropout on and off)
 FLASH_BF16_CASES = [
     ("enc_self_bf16_dropout_0.1", TRAIN_BATCH, 256, 256, 8, 64, False,
-     "key+grad", 0.1),
+     "key+grad", 0.1, "wgmma"),
     ("dec_self_causal_bf16_dropout_0.1", TRAIN_BATCH, 256, 256, 8, 64, True,
-     None, 0.1),
+     None, 0.1, "wgmma"),
     ("dec_cross_bf16_dropout_0.1", TRAIN_BATCH, 256, 256, 8, 64, False, "key",
-     0.1),
-    ("d16_causal_tq_gt_tk_bf16", 2, 129, 64, 4, 16, True, None, 0.0),
-    ("d128_bf16_dropout_0.1", 2, 96, 96, 2, 128, True, "key", 0.1),
-    ("d512_bias_grad_bf16", 1, 70, 129, 2, 512, False, "key+grad", 0.0),
-    ("d12_full_bias_grad_bf16", 2, 65, 100, 3, 12, False, "full+grad", 0.1),
+     0.1, "wgmma"),
+    ("d16_causal_tq_gt_tk_bf16", 2, 129, 64, 4, 16, True, None, 0.0,
+     "wgmma"),
+    ("d128_bf16_dropout_0.1", 2, 96, 96, 2, 128, True, "key", 0.1, "wgmma"),
+    ("d512_bias_grad_bf16", 1, 70, 129, 2, 512, False, "key+grad", 0.0,
+     "mma_sync"),
+    ("d12_full_bias_grad_bf16", 2, 65, 100, 3, 12, False, "full+grad", 0.1,
+     "mma_sync"),
+    ("tk16_bf16", 2, 100, 16, 4, 64, False, "key", 0.0, "wgmma"),
+    ("tk255_bf16_dropout_0.1", 2, 100, 255, 4, 64, False, "key", 0.1,
+     "wgmma"),
+    ("tk257_bf16_dropout_0.1", 2, 100, 257, 4, 64, False, "key", 0.1,
+     "mma_sync"),
+    ("causal_tq_lt_tk256_bf16", 2, 64, 256, 4, 64, True, None, 0.0,
+     "wgmma"),
+    ("d16_tk256_bias_grad_bf16", 2, 100, 256, 4, 16, False, "key+grad", 0.0,
+     "wgmma"),
+    ("d128_tk256_causal_bf16_dropout_0.1", 2, 256, 256, 2, 128, True, None,
+     0.1, "wgmma"),
+    ("d136_tk256_bf16", 2, 100, 256, 2, 136, False, "key", 0.0, "mma_sync"),
 ]
 
 
@@ -674,12 +735,14 @@ def _flash_bf16_check(torch, dev, gen):
     backward kernel against ``attention_bwd_plain`` from the kernel
     forward's out and lse. out, dq, dk and dv within 2^-7 * max(1,
     max|plain|) (one bf16 step either way: the products sum in f32 in
-    other orders and may round the other way), the f32 dbias within 1e-4 * max(1, max|plain|). Returns the
-    cases' largest errors."""
+    other orders and may round the other way), the f32 dbias within 1e-4
+    * max(1, max|plain|), the forward's lse within 1e-4 where a row sees
+    a key. Each case's forward must run the form it names
+    (``wgmma_launches``). Returns the cases' largest errors."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     errs = {}
-    for i, (name, b_, tq, tk, h_, d_, causal, bias_kind, rate) in \
+    for i, (name, b_, tq, tk, h_, d_, causal, bias_kind, rate, form) in \
             enumerate(FLASH_BF16_CASES):
         q, k, v, dout = (torch.randn(b_, n, h_ * d_, generator=gen).to(
             dev, torch.bfloat16) for n in (tq, tk, tk, tq))
@@ -691,8 +754,14 @@ def _flash_bf16_check(torch, dev, gen):
         want_db = bias_kind is not None and bias_kind.endswith("+grad")
         seed = (torch.tensor([2000 + i], dtype=torch.int64, device=dev)
                 if rate > 0 else None)
+        n_wgmma = fa.flash_attention_fwd.wgmma_launches
         out, lse = fa.flash_attention_fwd(q, k, v, h_, kb, causal, rate, seed)
-        want, _ = fa.attention_plain(q, k, v, h_, kb, causal, rate, seed)
+        ran = ("wgmma" if fa.flash_attention_fwd.wgmma_launches > n_wgmma
+               else "mma_sync")
+        check(ran == form, "flash bf16 %s ran the %s form, not %s"
+              % (name, ran, form))
+        want, want_lse = fa.attention_plain(q, k, v, h_, kb, causal, rate,
+                                            seed)
         got = fa.flash_attention_bwd(q, k, v, out, lse, dout, h_, kb, causal,
                                      rate, seed, want_dbias=want_db)
         ref = fa.attention_bwd_plain(q, k, v, out, lse, dout, h_, kb, causal,
@@ -703,14 +772,18 @@ def _flash_bf16_check(torch, dev, gen):
                                                    for x in got[:3]]))
         pairs = [("out", out, want)] + list(zip(("dq", "dk", "dv"), got[:3],
                                                 ref[:3]))
+        live = want_lse > -1e30
+        lse_err = (lse - want_lse)[live].abs().max().item()
         errs[name] = check_close(
             "flash_attention_bwd", name, pairs, 2.0 ** -7,
             shape=[b_, tq, tk, h_, d_], causal=causal, bias=bias_kind,
-            dropout=rate, dtype="bf16")
+            dropout=rate, dtype="bf16", forward_form=ran, lse_err=lse_err)
+        check(lse_err <= 1e-4 and torch.equal(lse <= -1e30, ~live),
+              "flash bf16 %s: lse error %g" % (name, lse_err))
         if want_db:
             check_close("flash_attention_bwd", name + "_dbias",
                         [("dbias", got[3], ref[3])], 1e-4, dtype="f32")
-        del q, k, v, dout, out, lse, want, got, ref
+        del q, k, v, dout, out, lse, want, want_lse, got, ref
     return errs
 
 
@@ -864,6 +937,28 @@ CE_CASES = [("bias_1000x512x1000", 1000, 512, 1000, True, 0.1),
             ("d37_129x37x257", 129, 37, 257, True, 0.1)]
 
 
+# the bf16 cases beside CE_CASES at the wgmma form's route boundaries (D
+# not a multiple of 64, one 8-column slab, D above the resident x's 512)
+CE_BF16_CASES = [("v304_777x72x304", 777, 72, 304, True, 0.0),
+                 ("d40_129x40x256", 129, 40, 256, False, 0.1),
+                 ("v8_300x512x8", 300, 512, 8, True, 0.1),
+                 ("d520_257x520x1000", 257, 520, 1000, True, 0.1)]
+
+
+def _ce_form_ran(fce, n_wgmma, calls):
+    """The bf16 form the last ``calls`` launches ran, from the wgmma
+    count before them."""
+    got = fce.fused_ce_fwd.wgmma_launches - n_wgmma
+    check(got in (0, calls), "fused_ce_fwd: %d of %d launches on wgmma"
+          % (got, calls))
+    return "wgmma" if got else "mma_sync"
+
+
+def _ce_wants_wgmma(d, v):
+    """The shapes the wgmma form takes (contiguous, aligned tensors)."""
+    return d % 8 == 0 and v % 8 == 0 and d <= 512
+
+
 def _ce_inputs(torch, gen, dev, t, d, v, with_bias):
     """x, w, b (or None) and y on the card, with the labels of rows 0 and 1
     at 0 and V - 1 and row 2 of x zero (all its logits equal without a
@@ -927,16 +1022,21 @@ def phase_ce_check(torch, dev):
                 list(zip(("dx", "dw"), grads[0], grads[1])), 1e-4,
                 shape=[t, d, v])
     del grads
-    # bf16 (AMP) x, W and b: the bf16 form against the plain version, which
-    # forms f32 logits from the same bf16 operands, at the training shape
-    # and the ragged cases (D % 8 != 0 and V % 8 != 0 take element-wise
-    # copies), loss and lse within 2e-5 * max(1, max|plain|), each twice
-    for name, t, d_, v_, with_bias, eps in cases + CE_CASES:
+    # bf16 (AMP) x, W and b: the bf16 forms against the plain version,
+    # which forms f32 logits from the same bf16 operands, at the training
+    # shape and the ragged cases (the wgmma form where D and V are
+    # multiples of 8 and D is at most 512; else the mma.sync form, whose
+    # D % 8 != 0 and V % 8 != 0 take element-wise copies), loss and lse
+    # within 2e-5 * max(1, max|plain|), each twice, each on the form the
+    # route names
+    for name, t, d_, v_, with_bias, eps in cases + CE_CASES + CE_BF16_CASES:
         x, w, b, y = _ce_inputs(torch, gen, dev, t, d_, v_, with_bias)
         x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
         b = b.to(torch.bfloat16) if b is not None else None
+        n_wgmma = fce.fused_ce_fwd.wgmma_launches
         loss, lse = fce.fused_ce_fwd(x, w, b, y, eps)
         again = fce.fused_ce_fwd(x, w, b, y, eps)
+        ran = _ce_form_ran(fce, n_wgmma, 2)
         want, want_lse = fce.linear_smooth_ce_plain(x, w, b, y, eps)
         torch.cuda.synchronize()
         same = torch.equal(loss, again[0]) and torch.equal(lse, again[1])
@@ -944,8 +1044,10 @@ def phase_ce_check(torch, dev):
             "fused_ce_fwd", name + "_bf16",
             [("loss", loss, want), ("lse", lse, want_lse)], 2e-5,
             shape=[t, d_, v_], eps=eps, bias=with_bias, dtype="bf16",
-            bitwise_repeat=same)
+            bitwise_repeat=same, form=ran)
         check(same, "fused_ce_fwd %s bf16: two runs differ" % name)
+        check(ran == ("wgmma" if _ce_wants_wgmma(d_, v_) else "mma_sync"),
+              "fused_ce_fwd %s bf16 ran the %s form" % (name, ran))
         del want, want_lse, x, w, b, y, loss, lse, again
     _ce_f64_check(torch, dev)
     return errs
@@ -968,9 +1070,11 @@ def _ce_f64_check(torch, dev):
     (D 512, V 30000) and at 4,097 rows of each ragged case; fails if the
     kernel's error is more than twice the plain f32 one in either (a single
     TF32 product would be 54-530 times off, as the CPU emulation shows).
-    Then the bf16 form at the training width, on x and W rounded to bf16,
-    against f64 on those values: at most 1.5 times the plain version's
-    errors (f32 logits from the same bf16 operands)."""
+    Then the bf16 forms on x and W rounded to bf16, against f64 on those
+    values: at most 1.5 times the plain version's errors (f32 logits from
+    the same bf16 operands): the wgmma form at the training width (the
+    case that chose its chunk depth, ``fused_ce.WGMMA_CHUNK_K``) and with a
+    bias at 4,097 rows, and the mma.sync form at V 30001 (V % 8 != 0)."""
     from paddle_tpu_torch.ops import fused_ce as fce
 
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -978,14 +1082,22 @@ def _ce_f64_check(torch, dev):
     cases = [("train_4096x%dx%d" % (d, v), 4096, d, v, False, 0.1)] + [
         (name.split("_")[0] + "_4097x%dx%d" % (d_, v_), 4097, d_, v_, bias,
          eps) for name, _, d_, v_, bias, eps in CE_CASES]
-    cases += [(cases[0][0] + "_bf16",) + cases[0][1:]]
+    cases += [(cases[0][0] + "_bf16",) + cases[0][1:],
+              ("bias_4097x%dx1000_bf16" % d, 4097, d, 1000, True, 0.1),
+              ("v30001_4097x%dx30001_bf16" % d, 4097, d, 30001, True, 0.1)]
     for name, t, d_, v_, with_bias, eps in cases:
         x, w, b, y = _ce_inputs(torch, gen, dev, t, d_, v_, with_bias)
         bf16 = name.endswith("_bf16")
         if bf16:  # the f64 reference takes the same bf16 values
             x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            b = b.to(torch.bfloat16) if b is not None else None
         exact = _ce_f64(torch, x, w, b, y, eps)
+        n_wgmma = fce.fused_ce_fwd.wgmma_launches
         got = fce.fused_ce_fwd(x, w, b, y, eps)
+        ran = _ce_form_ran(fce, n_wgmma, 1)
+        check(ran == ("wgmma" if bf16 and _ce_wants_wgmma(d_, v_)
+                      else "mma_sync"),
+              "fused_ce_f64 %s ran the %s form" % (name, ran))
         ref = fce.linear_smooth_ce_plain(x, w, b, y, eps)
         torch.cuda.synchronize()
 
@@ -1001,7 +1113,9 @@ def _ce_f64_check(torch, dev):
                      for e in kernel[n]} for n in names}
         limit = 1.5 if bf16 else 2.0
         emit({"phase": "fused_ce_f64", "case": name, "shape": [t, d_, v_],
-              "bias": with_bias, "eps": eps, "kernel": kernel,
+              "bias": with_bias, "eps": eps, "form": ran,
+              "chunk_k": fce.WGMMA_CHUNK_K if ran == "wgmma" else None,
+              "kernel": kernel,
               "plain_bf16" if bf16 else "plain_f32": plain, "ratio": ratio,
               "tol": "kernel <= %g x plain, each error" % limit})
         check(all(kernel[n][e] <= limit * plain[n][e] for n in names
@@ -1108,7 +1222,7 @@ def flash_kernel_timing(torch, dev, gen):
     return rows
 
 
-def _bf16_kernel_timing(torch, dev, gen):
+def _bf16_kernel_timing(torch, dev, gen, only=None):
     """The bf16 forms (AMP) of rows 1-9 at Transformer-base's training
     shapes, each beside its plain version on the same bf16 inputs, one
     PyTorch call on bf16 as a yardstick (timed here only; the port never
@@ -1118,12 +1232,33 @@ def _bf16_kernel_timing(torch, dev, gen):
     and the fused CE against the bf16 projection alone. The flash and CE
     bounds take their products at the bf16 tensor-core rate, the
     LayerNorm's their f32 arithmetic on the FMA pipes, all against their
-    bytes (each input read once, each output written once)."""
+    bytes (each input read once, each output written once). The flash
+    forward and CE rows also time the mma.sync form on the same inputs
+    (``mma_sync_ms``). ``only``: the rows to time (all by default; the
+    inputs are drawn alike either way). ``tools/flash_ab.py`` times
+    another checkout's flash forward and CE through this function."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as fce
     from paddle_tpu_torch.ops import fused_layer_norm as fln
+
+    def want(name):
+        return only is None or name in only
+
+    def on_mma_sync(mod, route, fn, **kw):
+        """fn's time with ``mod``'s bf16 route (``route``: fwd_form or
+        ce_form) sending it to the mma.sync form, for the two forms in
+        one call; None where the package has no such route."""
+        saved = getattr(mod, route, None)
+        if saved is None:
+            return None
+        setattr(mod, route, lambda *a, **k: (
+            ("mma_sync", "timed") if route == "fwd_form" else "mma_sync"))
+        try:
+            return time_ms(fn, **kw)
+        finally:
+            setattr(mod, route, saved)
 
     bf = torch.bfloat16
     rows = {}
@@ -1143,25 +1278,32 @@ def _bf16_kernel_timing(torch, dev, gen):
     lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask)
     nbytes = 2 * 4 * b * t * hd + 4 * (b * t + b * h * t)
     bnd, by = bf16_bound(nbytes, 4 * b * h * t * t * d)
-    rows["flash_attention_fwd"] = dict(
-        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb), iters=20),
-        plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, kb),
-                         iters=20),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            split(q), split(k), split(v), attn_mask=mask), iters=20),
-        library="F.scaled_dot_product_attention (bf16)",
-        bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes)
+    if want("flash_attention_fwd"):
+        rows["flash_attention_fwd"] = dict(
+            ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb),
+                       iters=20),
+            plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, kb),
+                             iters=20),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                split(q), split(k), split(v), attn_mask=mask), iters=20),
+            library="F.scaled_dot_product_attention (bf16)",
+            mma_sync_ms=on_mma_sync(
+                fa, "fwd_form",
+                lambda: fa.flash_attention_fwd(q, k, v, h, kb), iters=20),
+            bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes)
     nbytes = 2 * 8 * b * t * hd + 4 * (b * h * t + b * t)
     bnd, by = bf16_bound(nbytes, 10 * b * h * t * t * d)
-    rows["flash_attention_bwd"] = dict(
-        ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, h,
-                                                  kb), iters=20),
-        plain_ms=time_ms(lambda: fa.attention_bwd_plain(
-            q, k, v, out, lse, dout, h, kb), iters=10),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, lib_in, split(dout), retain_graph=True), iters=20),
-        library="F.scaled_dot_product_attention backward (bf16, autograd)",
-        bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes)
+    if want("flash_attention_bwd"):
+        rows["flash_attention_bwd"] = dict(
+            ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                                      dout, h, kb),
+                       iters=20),
+            plain_ms=time_ms(lambda: fa.attention_bwd_plain(
+                q, k, v, out, lse, dout, h, kb), iters=10),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                lib_out, lib_in, split(dout), retain_graph=True), iters=20),
+            library="F.scaled_dot_product_attention backward (bf16, autograd)",
+            bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes)
     del q, k, v, dout, out, lse, lib_in, lib_out
 
     n = b * t
@@ -1172,13 +1314,14 @@ def _bf16_kernel_timing(torch, dev, gen):
     _, mean, var = fln.layer_norm_fwd(x, g, bb, 1e-5)
     nbytes = 2 * 2 * n * hd + 4 * (2 * n + 2 * hd)
     bnd, by = bound(nbytes, 8 * n * hd)
-    rows["layer_norm_fwd"] = dict(
-        ms=time_ms(lambda: fln.layer_norm_fwd(x, g, bb, 1e-5)),
-        plain_ms=time_ms(lambda: fln.layer_norm_plain(x, g, bb, 1e-5)),
-        library_ms=time_ms(lambda: F.layer_norm(x, (hd,), g.to(bf),
-                                                bb.to(bf), 1e-5)),
-        library="F.layer_norm (bf16)", bound_ms=bnd, bound_by=by,
-        shape=[n, hd], bytes=nbytes)
+    if want("layer_norm_fwd"):
+        rows["layer_norm_fwd"] = dict(
+            ms=time_ms(lambda: fln.layer_norm_fwd(x, g, bb, 1e-5)),
+            plain_ms=time_ms(lambda: fln.layer_norm_plain(x, g, bb, 1e-5)),
+            library_ms=time_ms(lambda: F.layer_norm(x, (hd,), g.to(bf),
+                                                    bb.to(bf), 1e-5)),
+            library="F.layer_norm (bf16)", bound_ms=bnd, bound_by=by,
+            shape=[n, hd], bytes=nbytes)
     p_in = [x.clone().requires_grad_(True), g.clone().requires_grad_(True),
             bb.clone().requires_grad_(True)]
     p_out = fln.layer_norm_plain(*p_in, 1e-5)[0]
@@ -1188,14 +1331,15 @@ def _bf16_kernel_timing(torch, dev, gen):
     l_out = F.layer_norm(l_in[0], (hd,), l_in[1], l_in[2], 1e-5)
     nbytes = 2 * 3 * n * hd + 4 * (2 * n + 3 * hd)
     bnd, by = bound(nbytes, 12 * n * hd)
-    rows["layer_norm_bwd"] = dict(
-        ms=time_ms(lambda: fln.layer_norm_bwd(x, g, mean, var, dy, 1e-5)),
-        plain_ms=time_ms(lambda: torch.autograd.grad(p_out, p_in, dy,
-                                                      retain_graph=True)),
-        library_ms=time_ms(lambda: torch.autograd.grad(l_out, l_in, dy,
-                                                       retain_graph=True)),
-        library="F.layer_norm backward (bf16, autograd)",
-        bound_ms=bnd, bound_by=by, shape=[n, hd], bytes=nbytes)
+    if want("layer_norm_bwd"):
+        rows["layer_norm_bwd"] = dict(
+            ms=time_ms(lambda: fln.layer_norm_bwd(x, g, mean, var, dy, 1e-5)),
+            plain_ms=time_ms(lambda: torch.autograd.grad(p_out, p_in, dy,
+                                                          retain_graph=True)),
+            library_ms=time_ms(lambda: torch.autograd.grad(l_out, l_in, dy,
+                                                           retain_graph=True)),
+            library="F.layer_norm backward (bf16, autograd)",
+            bound_ms=bnd, bound_by=by, shape=[n, hd], bytes=nbytes)
     del x, dy, p_in, p_out, l_in, l_out
 
     vv = TRANSFORMER["trg_vocab"]
@@ -1204,15 +1348,20 @@ def _bf16_kernel_timing(torch, dev, gen):
     y = torch.randint(0, vv, (n,), generator=gen).to(dev)
     nbytes = 2 * (n * hd + hd * vv) + 4 * 3 * n
     bnd, by = bf16_bound(nbytes, 2 * n * hd * vv)
-    rows["fused_ce_fwd"] = dict(
-        ms=time_ms(lambda: fce.fused_ce_fwd(x, w, None, y, 0.1), iters=10,
-                   warmup=2),
-        plain_ms=time_ms(lambda: fce.linear_smooth_ce_plain(x, w, None, y,
-                                                            0.1),
-                         iters=10, warmup=2),
-        library_ms=time_ms(lambda: torch.matmul(x, w), iters=10, warmup=2),
-        library="torch.matmul(x, w) on bf16, projection only",
-        bound_ms=bnd, bound_by=by, shape=[n, hd, vv], bytes=nbytes)
+    if want("fused_ce_fwd"):
+        rows["fused_ce_fwd"] = dict(
+            ms=time_ms(lambda: fce.fused_ce_fwd(x, w, None, y, 0.1), iters=10,
+                       warmup=2),
+            plain_ms=time_ms(lambda: fce.linear_smooth_ce_plain(x, w, None, y,
+                                                                0.1),
+                             iters=10, warmup=2),
+            library_ms=time_ms(lambda: torch.matmul(x, w), iters=10, warmup=2),
+            library="torch.matmul(x, w) on bf16, projection only",
+            mma_sync_ms=on_mma_sync(
+                fce, "ce_form",
+                lambda: fce.fused_ce_fwd(x, w, None, y, 0.1), iters=10,
+                warmup=2),
+            bound_ms=bnd, bound_by=by, shape=[n, hd, vv], bytes=nbytes)
     return rows
 
 
@@ -1431,7 +1580,7 @@ def phase_profile(torch, fluid, model_dir, feeds, runs=20):
                      getattr(e, "self_cuda_time_total", 0.0))
         n_kernels += e.count
         name = e.key.lower()
-        kind = ("flash_attention_fwd" if "flash_fwd_kernel" in name
+        kind = ("flash_attention_fwd" if "flash_fwd_" in name
                 else "layer_norm_fwd" if "layer_norm_fwd_kernel" in name
                 else "gemm" if ("gemm" in name or "cutlass" in name
                                 or "xmma" in name) else "other")
@@ -1684,12 +1833,14 @@ def _amp_step_runs(torch, fluid, main, startup, feed, fetch, names,
         reset_counts()
         out[key] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         counts, bf16 = read_counts(), read_bf16_counts()
-        check(counts == want_counts and bf16 == bf16_part(counts, amp),
-              "AMP check %s launches %s (bf16 %s) != %s" % (
-                  key, counts, bf16, want_counts))
+        wgmma = read_wgmma_counts()
+        check(counts == want_counts and bf16 == bf16_part(counts, amp)
+              and wgmma == wgmma_part(counts, amp),
+              "AMP check %s launches %s (bf16 %s, wgmma %s) != %s" % (
+                  key, counts, bf16, wgmma, want_counts))
         if amp:
             out.update(dtypes=_float_state_dtypes(torch, scope),
-                       counts=counts, bf16_counts=bf16)
+                       counts=counts, bf16_counts=bf16, wgmma_counts=wgmma)
     for key, amp, scale in (("amp", True, 1.0), ("f32", False, 1.0),
                             ("pert", True, 1.0 + 2.0 ** -20)):
         (fluid.amp.enable_bf16 if amp else fluid.amp.disable_bf16)(main)
@@ -1746,6 +1897,7 @@ def phase_amp_train_check(torch, smi_line, batch=2):
                "loss_cpu_amp_perturbed": float(r["pert"][0]),
                "state_dtypes": r["dtypes"], "launches": r["counts"],
                "bf16_launches": r["bf16_counts"],
+               "wgmma_launches": r["wgmma_counts"],
                "cpu_amp_step_s": r["cpu_s"]["amp"],
                "cpu_f32_step_s": r["cpu_s"]["f32"], "device": smi_line},
               **_amp_report(v, control)))
@@ -1758,7 +1910,7 @@ def phase_amp_train_check(torch, smi_line, batch=2):
     return v["card"]
 
 
-_MARKS = (("flash_fwd_kernel", "flash_attention_fwd"),
+_MARKS = (("flash_fwd_", "flash_attention_fwd"),  # both forms' kernels
           ("flash_bwd_kernel", "flash_attention_bwd"),
           ("layer_norm_fwd_kernel", "layer_norm_fwd"),
           ("layer_norm_bwd_", "layer_norm_bwd"),
@@ -1853,17 +2005,18 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
     losses, step_s = [], []
 
     def run_step():
-        before = read_counts(), read_bf16_counts()
+        before = read_counts(), read_bf16_counts(), read_wgmma_counts()
         t = time.perf_counter()
         loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
                         scope=scope)  # to numpy: ends synchronised
         dt = time.perf_counter() - t
-        after = read_counts(), read_bf16_counts()
-        per, per_bf16 = ({k: a[k] - b[k] for k in a}
-                         for a, b in zip(after, before))
-        check(per == PER_STEP and per_bf16 == bf16_part(PER_STEP, amp),
-              "step %d launches %s (bf16 %s) != %s"
-              % (len(losses), per, per_bf16, PER_STEP))
+        after = read_counts(), read_bf16_counts(), read_wgmma_counts()
+        per, per_bf16, per_wgmma = ({k: a[k] - b[k] for k in a}
+                                    for a, b in zip(after, before))
+        check(per == PER_STEP and per_bf16 == bf16_part(PER_STEP, amp)
+              and per_wgmma == wgmma_part(PER_STEP, amp),
+              "step %d launches %s (bf16 %s, wgmma %s) != %s"
+              % (len(losses), per, per_bf16, per_wgmma, PER_STEP))
         losses.append(float(loss))
         return dt
 
@@ -1908,6 +2061,7 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
                      "timing_x_launches": flash_ms[name] * PER_STEP[name]}
               for name in ("flash_attention_fwd", "flash_attention_bwd")},
           "launches": launches, "bf16_launches": read_bf16_counts(),
+          "wgmma_launches": read_wgmma_counts(),
           "launches_per_step": PER_STEP, "setup_s": setup_s,
           "device": smi_line})
     check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
@@ -3933,6 +4087,8 @@ def main():
         name: times[name]["bf16"]["ms"]
         for name in ("flash_attention_fwd", "flash_attention_bwd")},
         amp=True)
+    # read at once: the path's wgmma launches (no launch comes between)
+    amp_wgmma = read_wgmma_counts()
     phase_resnet_train_check(torch, smi_line)
     paths["resnet_train"], trained, f32_step = phase_resnet_train(
         torch, smi_line, times["conv_moments"]["site_weighted_ms"])
@@ -3995,6 +4151,10 @@ def main():
                                        max_abs_err=bf16_errs[name],
                                        launches=sum(bf16_by_path.values()),
                                        launches_by_path=bf16_by_path)
+            if name in WGMMA_FORMS:  # the warpgroup-product form
+                kernels[-1]["bf16"].update(
+                    form="wgmma", wgmma_launches=amp_wgmma[name],
+                    header="paddle_tpu_torch/csrc/wgmma_bf16.cuh")
     print(smi_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -99,6 +99,47 @@
 // fragment loads (rows g, columns t and t+4; rows 2t and 2t+1, column g)
 // are free of bank conflicts. Key tiles a causal block cannot see are
 // skipped, only when every row of the block keeps at least one key.
+//
+// bf16 on warpgroup products, one pass (flash_fwd_wgmma_kernel). The route
+// (ops/flash_attention.py fwd_form) sends it every bf16 call with Tk <=
+// 256 keys, a padded head dim dp that is a multiple of 16 up to 128, and
+// no bias or one row of keys per (b, h) (a padding mask): the training
+// path's 18 launches a step. Every other call keeps the kernel above.
+// Bounded by bytes at the training shape (q, k, v and out once each:
+// 0.040 ms), where the two-pass form took 0.344 ms. The two passes
+// existed because P is rounded normalised, after dropout (paddle_tpu's
+// _dense_fwd_kernel, :1034-1053, keeps the whole [T, Tk] score tile): at
+// Tk <= 256 a 64-row warpgroup tile of every score fits the registers, so
+// one pass gives the same rounding point:
+//   * A block of one warpgroup (DP 64: two blocks an SM, so one block's
+//     loads overlap the other's products) or two (DP 128: sharing one copy
+//     of K and V) owns 64 or 128 query rows of one (b, h). One thread
+//     loads Q's rows and every key's K (one mbarrier), then V (a second),
+//     by TMA from the packed [B, T, H*D] layout through 3-d
+//     tensor maps (box {64 columns, rows, 1}; the 128-byte swizzle; keys
+//     past Tk and rows past Tq arrive as zeros), so K and V are read once
+//     a block and V lands while the scores are computed. The padding mask
+//     rides along as one float per key in shared memory.
+//   * S = Q . K^T over all 256 key slots: wgmma m64n256k16, A and B from
+//     shared memory, both K-major: 128 f32 a thread. Per row: max, sum,
+//     then p * (1/l), the dropout, and rounding to bf16, as the plain
+//     version and the reference do. lse = max + log(sum). The
+//     exponentials are expf, as the plain version's: ex2.approx (__expf)
+//     is 7% faster here and as close to f64, but moves a whole AMP step's
+//     loss further from the CPU's (PERF.md).
+//   * O = P . V: wgmma m64n{64,128}k16 with A from registers (the score
+//     accumulator's layout is the bf16 A fragment's, 16 keys a step) and
+//     B = V from shared memory, D-contiguous (the transpose bit). Each 64
+//     keys sum into a fresh accumulator, added into O on the FMA pipe;
+//     chunks past Tk are skipped. O is stored once, rounded to bf16.
+//   * Registers: at most 256 threads a block and 65,536 registers an SM
+//     leave 255 a thread, so no producer warp and no setmaxnreg are
+//     needed; the scores (128) and then P (64), O and its chunk sum (2 x
+//     32 or 2 x 64) fit.
+//   * Head dims: instantiated widths DP 64 and 128 (one or two 64-column
+//     slabs). A narrower head reads the next head's columns (or zeros
+//     past H*D) into the slab; the products over k stop at dp, and the
+//     output columns past dp are not stored.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -108,6 +149,7 @@
 
 #include "flash_dropout.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -539,6 +581,245 @@ cudaError_t dispatch_width(const Args& a, int B, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on warpgroup products, one pass (see the header)
+// ---------------------------------------------------------------------------
+namespace wgfa {
+
+constexpr int TKP = 256;   // key slots a block holds: the route's Tk limit
+constexpr int KC = 4;      // key steps (64 keys) per fresh P.V accumulator
+
+struct WArgs {
+  const float* bias; void* out; float* lse;
+  int H, Tq, Tk, d;
+  long long o_sb, o_st, bias_sb, bias_sh;
+  float scale; int causal;
+  const long long* seed;  // null: no dropout
+  unsigned keep_thresh; float inv_keep;
+};
+
+// DP 64: one warpgroup (64 query rows) a block, two blocks an SM; DP 128:
+// two warpgroups sharing one copy of K and V (the smem of two blocks)
+template <int DP>
+struct WCfg {
+  static constexpr int NA = DP / 64;        // 64-column slabs of a head
+  static constexpr int NWG = DP == 64 ? 1 : 2;
+  static constexpr int BQ = 64 * NWG;       // query rows a block
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int Q_SLAB = BQ * 128;   // bytes of one slab of Q
+  static constexpr int KV_SLAB = TKP * 128; // ... of K or V
+  static constexpr size_t SMEM = 1024 + size_t(NA) * (Q_SLAB + 2 * KV_SLAB) +
+                                 TKP * sizeof(float) + 2 * sizeof(uint64_t);
+};
+
+}  // namespace wgfa
+
+template <int DP>
+__global__ void __launch_bounds__(wgfa::WCfg<DP>::THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                       const __grid_constant__ CUtensorMap tmk,
+                       const __grid_constant__ CUtensorMap tmv,
+                       wgfa::WArgs a) {
+  using C = wgfa::WCfg<DP>;
+  constexpr int TKP = wgfa::TKP, BQ = C::BQ, NTH = C::THREADS;
+  constexpr int KC = wgfa::KC;
+  extern __shared__ __align__(1024) unsigned char fa_smem[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(fa_smem) + 1023) & ~uintptr_t(1023));
+  unsigned char* ks = qs + C::NA * C::Q_SLAB;
+  unsigned char* vs = ks + C::NA * C::KV_SLAB;
+  float* bias_s = reinterpret_cast<float*>(vs + C::NA * C::KV_SLAB);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bias_s + TKP);
+
+  const int tid = threadIdx.x, cw = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * BQ;
+  const int col0 = h * a.d;  // the head's first column in [B, T, H*D]
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bar[0], C::NA * (C::Q_SLAB + C::KV_SLAB));
+    for (int at = 0; at < C::NA; ++at) {
+      tma_load_3d(qs + at * C::Q_SLAB, &tmq, &bar[0], col0 + 64 * at, q0, b);
+      tma_load_3d(ks + at * C::KV_SLAB, &tmk, &bar[0], col0 + 64 * at, 0, b);
+    }
+    mbar_expect_tx(&bar[1], C::NA * C::KV_SLAB);
+    for (int at = 0; at < C::NA; ++at)
+      tma_load_3d(vs + at * C::KV_SLAB, &tmv, &bar[1], col0 + 64 * at, 0, b);
+  }
+  const float* biasb =
+      a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  for (int j = tid; j < TKP; j += NTH)
+    bias_s[j] = (biasb != nullptr && j < a.Tk) ? biasb[j] : 0.f;
+  __syncthreads();  // the barriers' init and the bias, for every thread
+  const uint32_t dkey = a.seed ? dropout_key(*a.seed, bh) : 0u;
+
+  // S = Q . K^T: this warpgroup's 64 rows against every key slot
+  float s[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) s[i] = 0.f;
+  mbar_wait(&bar[0], 0);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    if (kk * 16 < a.d) {
+      const int at = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss_n256<0>(
+          s, wg_desc(qs + at * C::Q_SLAB + cw * 64 * 128 + off, 16, 1024),
+          wg_desc(ks + at * C::KV_SLAB + off, 16, 1024), kk > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_hold(s);
+
+  // the softmax of each row: s[4 j + e] is row ta + 8 (e / 2), key
+  // 8 j + 2 tq + e % 2
+  const int shift = a.Tk - a.Tq;  // causal: key j allowed iff j <= t + shift
+  const int ta = q0 + cw * 64 + warp * 16 + g;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * tq + (e & 1);
+      const int t = ta + 8 * (e >> 1);
+      float x;
+      if (key >= a.Tk) {
+        x = -INFINITY;  // not a key at all
+      } else {
+        x = s[4 * j + e] * a.scale + bias_s[key];
+        if (a.causal && key > t + shift) x = -FLT_MAX;
+      }
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(FULL, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(FULL, mx[hh], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(s[4 * j + e] - mx[e >> 1]);
+      l[e >> 1] += p;
+      s[4 * j + e] = p;
+    }
+  float inv_l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(FULL, l[hh], 1);
+    l[hh] += __shfl_xor_sync(FULL, l[hh], 2);
+    inv_l[hh] = 1.f / l[hh];
+    const int t = ta + 8 * hh;
+    if (tq == 0 && t < a.Tq)
+      a.lse[(long long)bh * a.Tq + t] = mx[hh] + logf(l[hh]);
+  }
+
+  // P, normalised, dropped and rounded to bf16, as the A operand of P . V:
+  // register r of key step kk is row ta + 8 (r & 1), keys 16 kk +
+  // 8 (r >> 1) + 2 tq and + 1
+  unsigned pa[16][4];
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 2 * kk + (r >> 1), hh = r & 1;
+      float p0 = s[4 * j + 2 * hh] * inv_l[hh];
+      float p1 = s[4 * j + 2 * hh + 1] * inv_l[hh];
+      if (a.seed) {
+        const long long ctr =
+            (long long)(ta + 8 * hh) * a.Tk + 8 * j + 2 * tq;
+        p0 = dropout_keep(dkey, ctr, a.keep_thresh) ? p0 * a.inv_keep : 0.f;
+        p1 = dropout_keep(dkey, ctr + 1, a.keep_thresh) ? p1 * a.inv_keep
+                                                        : 0.f;
+      }
+      pa[kk][r] = pack_bf16(p0, p1);
+    }
+
+  // O = P . V over the chunks of KC key steps that hold keys: each chunk
+  // sums on the tensor cores into a fresh accumulator, added into O on the
+  // FMA pipe, as the other forms add their tiles (the tensor cores round
+  // their additions toward zero). Against f64 a chain over all 256 keys
+  // reads the same once O is rounded to bf16; a whole AMP training step's
+  // loss lands nearer the CPU's with these chunks (PERF.md).
+  float o[DP / 2], part[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = part[i] = 0.f;
+  mbar_wait(&bar[1], 0);
+#pragma unroll
+  for (int c = 0; c < 16 / KC; ++c) {
+    if (c * KC * 16 < a.Tk) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = c * KC; kk < (c + 1) * KC; ++kk) {
+        const uint64_t db = wg_desc(vs + kk * 2048, C::KV_SLAB, 1024);
+        if constexpr (DP == 64)
+          wgmma_rs_n64<1>(part, pa[kk], db, kk > c * KC);
+        else
+          wgmma_rs_n128<1>(part, pa[kk], db, kk > c * KC);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_hold(part);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] += part[i];
+    }
+  }
+
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + col0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = ta + 8 * hh;
+    if (t >= a.Tq) continue;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col < a.d)
+        store2(ob + t * a.o_st + col, o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
+// q/k/v [B, T, H*D] bf16 through 3-d tensor maps {H*D, T, B}: box {64, rows,
+// 1} at column h*D + 64*slab, row q0 (Q) or 0 (K, V), batch b
+template <int DP>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const wgfa::WArgs& a, int B, long long q_sb,
+                         long long q_st, long long k_sb, long long k_st,
+                         long long v_sb, long long v_st, cudaStream_t stream) {
+  using C = wgfa::WCfg<DP>;
+  const uint64_t hd = uint64_t(a.H) * a.d;
+  CUtensorMap mq, mk, mv;
+  const uint64_t qdims[3] = {hd, uint64_t(a.Tq), uint64_t(B)};
+  const uint64_t qstr[2] = {uint64_t(q_st) * 2, uint64_t(q_sb) * 2};
+  const uint32_t qbox[3] = {64, C::BQ, 1};
+  const uint64_t kdims[3] = {hd, uint64_t(a.Tk), uint64_t(B)};
+  const uint64_t kstr[2] = {uint64_t(k_st) * 2, uint64_t(k_sb) * 2};
+  const uint64_t vstr[2] = {uint64_t(v_st) * 2, uint64_t(v_sb) * 2};
+  const uint32_t kbox[3] = {64, wgfa::TKP, 1};
+  cudaError_t err = encode_bf16_map(&mq, q, 3, qdims, qstr, qbox);
+  if (err == cudaSuccess) err = encode_bf16_map(&mk, k, 3, kdims, kstr, kbox);
+  if (err == cudaSuccess) err = encode_bf16_map(&mv, v, 3, kdims, vstr, kbox);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(C::SMEM));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Tq + C::BQ - 1) / C::BQ, B * a.H);
+  flash_fwd_wgmma_kernel<DP><<<grid, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -576,6 +857,41 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     return rows ? dispatch_width<__nv_bfloat16, true>(a, B, s)
                 : dispatch_width<__nv_bfloat16, false>(a, B, s);
   return cudaErrorInvalidValue;
+}
+
+// The bf16 single-pass form (flash_fwd_wgmma_kernel): q/k/v bf16 with
+// 16-byte aligned pointers and batch and row strides, D (the padded head
+// dim) a multiple of 16 up to 128, 1 <= Tk <= 256, and no bias or one row
+// of keys per (b, h) (bias_st == 0). The other arguments as
+// flash_attention_fwd's.
+int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
+                              const void* bias, void* out, void* lse, int B,
+                              int H, int Tq, int Tk, int D, long long q_sb,
+                              long long q_st, long long k_sb, long long k_st,
+                              long long v_sb, long long v_st, long long o_sb,
+                              long long o_st, long long bias_sb,
+                              long long bias_sh, float scale, int causal,
+                              const void* seed, unsigned keep_thresh,
+                              float inv_keep, void* stream) {
+  const long long strides[6] = {q_sb, q_st, k_sb, k_st, v_sb, v_st};
+  for (long long st : strides)
+    if (st <= 0 || (st * 2) % 16 != 0) return cudaErrorInvalidValue;
+  if (D % 16 != 0 || D < 16 || D > 128 || Tk < 1 || Tk > wgfa::TKP ||
+      Tq < 1 || B < 1 || H < 1 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const wgfa::WArgs a{static_cast<const float*>(bias), out,
+                      static_cast<float*>(lse), H, Tq, Tk, D, o_sb, o_st,
+                      bias_sb, bias_sh, scale, causal,
+                      static_cast<const long long*>(seed), keep_thresh,
+                      inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_wgmma<64>(q, k, v, a, B, q_sb, q_st, k_sb, k_st, v_sb,
+                            v_st, s);
+  return launch_wgmma<128>(q, k, v, a, B, q_sb, q_st, k_sb, k_st, v_sb, v_st,
+                           s);
 }
 
 const char* ptt_error_string(int err) {

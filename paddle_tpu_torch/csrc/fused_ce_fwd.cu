@@ -81,6 +81,46 @@
 //     16-byte aligned, element by element otherwise. The grid, the split
 //     and one block an SM are the f32 form's, so ops/fused_ce.py
 //     split_plan plans both.
+//   * bf16 on warpgroup products (fused_ce_wgmma_kernel; the route,
+//     ops/fused_ce.py ce_form, sends it every bf16 call whose D and V are
+//     multiples of 8, D at most 512, from 16-byte aligned x and W: the
+//     tensor maps need 16-byte row strides; the training shape's
+//     30000 x 2 bytes is one. Other bf16 calls keep the mma.sync form
+//     above.) That form runs mma.sync m16n8k16 from B fragments packed
+//     element by element, at 0.14 of the bound. This one:
+//       - A block of three warpgroups owns BM = 128 rows. x's 128 rows
+//         (128 x D bf16, 128 KB at D = 512) are loaded once by TMA and
+//         stay resident, so only W streams: the L2 serves W once per row
+//         tile (7.9 GB at the training shape) and x once, against 15.7
+//         GB when both streamed through 128 x 128 tiles.
+//       - Warpgroup 0 is the producer: one thread issues the TMA loads of
+//         W's [64 k x 128 v] chunks into a ring of 5 stages (two 64-wide
+//         slabs, 128-byte swizzle; full/empty mbarriers) and the
+//         warpgroup gives its registers to the consumers (setmaxnreg 40 /
+//         232).
+//       - Warpgroups 1 and 2 own 64 rows each and run wgmma m64n128k16
+//         with A = x from shared memory (K-major) and B = W's chunk
+//         (V-contiguous: the transpose bit). Both read each W chunk; a
+//         stage is refilled after both have retired it.
+//       - Chunk sums: each `ksum` chunks of 64 k (the wrapper's depth)
+//         sum into a fresh accumulator, added into the tile's f32 sum on
+//         the FMA pipe, as the mma.sync forms do per 32 k: the tensor
+//         cores round their additions toward zero, and the loss and lse
+//         stay f32. ops/fused_ce.py WGMMA_CHUNK_K holds the depth chosen
+//         by chip_smoke.py's fused_ce_f64 bf16 case (PERF.md).
+//       - Overlap: warpgroup 2 starts LEAD chunks behind warpgroup 1, so
+//         while one runs its softmax epilogue on its accumulator the
+//         other's products keep the tensor cores busy; the ring (both
+//         must release a stage) bounds how far apart they drift.
+//       - The epilogue is the mma.sync forms': the bias, the column mask,
+//         the online (max, sum exp, sum z, z[y]) per row, the quad's
+//         lanes merged by shuffles in a fixed order; the label's test and
+//         the mask run only in the tiles that need them (branches uniform
+//         over the warp). The exponentials are expf, as the plain
+//         version's (ex2.approx saved 3%, PERF.md). A warp owns whole
+//         rows (16 of them), so no cross-warp combine is needed, and two
+//         runs give bitwise-equal loss and lse. The splits and the
+//         combine launch are shared with the other forms.
 
 #include <cuda_runtime.h>
 
@@ -89,6 +129,7 @@
 #include <cstdint>
 
 #include "mma_tf32.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -446,6 +487,255 @@ cudaError_t dispatch(dim3 grid, cudaStream_t s, const void* x,
                                      V, cols_per_split);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on warpgroup products (see the header): fused_ce_wgmma_kernel
+// ---------------------------------------------------------------------------
+namespace wgce {
+
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 5, DMAX = 512;
+constexpr int THREADS = 384;          // producer warpgroup + 2 consumers
+constexpr int X_SLAB = BM * 128;      // x's 128 rows of one 64-wide k slab
+constexpr int W_SLAB = BK * 128;      // 64 k rows of one 64-wide v slab
+constexpr int W_STAGE = 2 * W_SLAB;   // one k chunk of a 128-column tile
+constexpr int LEAD = 2;               // chunks warpgroup 1 starts ahead
+constexpr size_t SMEM = 1024 + size_t(DMAX / BK) * X_SLAB +
+                        size_t(STAGES) * W_STAGE +
+                        (2 * STAGES + 1) * sizeof(uint64_t) +
+                        BM * (sizeof(int) + sizeof(float));
+
+}  // namespace wgce
+
+// partial as fused_ce_kernel's. tx: x [T, D] (box 64 x 128 rows), tw: W
+// [D, V] (box 64 v x 64 k); ksum: 64-deep chunks per fresh accumulator.
+__global__ void __launch_bounds__(wgce::THREADS, 1)
+fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tw,
+                      const float* __restrict__ bias,
+                      const int* __restrict__ y, float4* __restrict__ partial,
+                      int T, int D, int V, int cols_per_split, int ksum) {
+  // shadow the mma.sync forms' tile constants of the enclosing namespace
+  constexpr int BM = wgce::BM, BN = wgce::BN, BK = wgce::BK;
+  constexpr int STAGES = wgce::STAGES, DMAX = wgce::DMAX, LEAD = wgce::LEAD;
+  constexpr int X_SLAB = wgce::X_SLAB, W_SLAB = wgce::W_SLAB;
+  constexpr int W_STAGE = wgce::W_STAGE;
+  extern __shared__ __align__(1024) unsigned char ce_smem[];
+  unsigned char* xs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(ce_smem) + 1023) & ~uintptr_t(1023));
+  unsigned char* ws = xs + (DMAX / BK) * X_SLAB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + STAGES * W_STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* xbar = empty + STAGES;
+  int* lbl_s = reinterpret_cast<int*>(xbar + 1);
+  float* zy_s = reinterpret_cast<float*>(lbl_s + BM);
+
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * BM;
+  const int v_begin = blockIdx.y * cols_per_split;
+  const int v_end = min(V, v_begin + cols_per_split);
+  const int nk = (D + BK - 1) / BK;
+  const int ntile = (v_end - v_begin + BN - 1) / BN;
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(xbar, 1);
+    mbar_init_fence();
+  }
+  if (tid < BM) {
+    lbl_s[tid] = t0 + tid < T ? y[t0 + tid] : -1;
+    zy_s[tid] = 0.f;
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // producer: x once, then W's chunks tile by tile through the ring
+    regs_dealloc<40>();
+    if (tid == 0) {
+      mbar_expect_tx(xbar, nk * X_SLAB);
+      for (int a = 0; a < nk; ++a)
+        tma_load_2d(xs + a * X_SLAB, &tx, xbar, a * BK, t0);
+      int stage = 0;
+      unsigned phase = 0;
+      for (int tile = 0; tile < ntile; ++tile) {
+        const int v0 = v_begin + tile * BN;
+        const bool two = v0 + 64 < V;  // else the second slab is all past V
+        for (int c = 0; c < nk; ++c) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = ws + stage * W_STAGE;
+          mbar_expect_tx(&full[stage], two ? W_STAGE : W_SLAB);
+          tma_load_2d(st, &tw, &full[stage], v0, c * BK);
+          if (two)
+            tma_load_2d(st + W_SLAB, &tw, &full[stage], v0 + 64, c * BK);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    regs_alloc<232>();
+    const int cw = tid / 128 - 1;  // consumer warpgroup: rows 64 cw ..
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int r0 = cw * 64 + warp * 16 + gq;  // block rows r0, r0 + 8
+    const int lbl[2] = {lbl_s[r0], lbl_s[r0 + 8]};
+    float acc[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.f, 0.f},
+          sz[2] = {0.f, 0.f};
+    const int lead = min(LEAD, ntile * nk);
+    if (cw == 1) named_sync(1, 256);  // start LEAD chunks behind
+    mbar_wait(xbar, 0);
+    const unsigned char* xw = xs + cw * 64 * 128;
+    int stage = 0, done = 0;
+    unsigned phase = 0;
+    for (int tile = 0; tile < ntile; ++tile) {
+      const int v0 = v_begin + tile * BN;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int c = 0; c < nk; ++c) {
+        mbar_wait(&full[stage], phase);
+        const bool fresh = c % ksum == 0;
+        const unsigned char* xa = xw + c * X_SLAB;
+        const unsigned char* wb = ws + stage * W_STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n128<1>(part, wg_desc(xa + 32 * kk, 16, 1024),
+                           wg_desc(wb + 2048 * kk, W_SLAB, 1024),
+                           (fresh && kk == 0) ? 0 : 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_hold(part);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (cw == 0 && ++done == lead) named_arrive(1, 256);
+        if ((c + 1) % ksum == 0 || c + 1 == nk) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[i] += part[i];
+        }
+      }
+      // the tile is complete: acc[4 j + 2 h + e] is row r0 + 8 h, column
+      // v0 + 8 j + 2 tq + e. Bias, z[y] and the mask in place (each a
+      // branch uniform over the warp, or rare), then the statistics.
+      const bool whole = v0 + BN <= v_end;  // no column past the split
+      if (bias != nullptr) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = v0 + 8 * j + 2 * tq + e;
+            const float bv = (whole || col < v_end) ? __ldg(bias + col) : 0.f;
+            acc[4 * j + e] += bv;
+            acc[4 * j + 2 + e] += bv;
+          }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (lbl[h] >= v0 && lbl[h] < min(v0 + BN, v_end)) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (v0 + 8 * j + 2 * tq + e == lbl[h])
+                zy_s[r0 + 8 * h] = acc[4 * j + 2 * h + e];
+        }
+      float tmax[2] = {-INFINITY, -INFINITY}, zsum[2] = {0.f, 0.f};
+      if (whole) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          zsum[(i >> 1) & 1] += acc[i];
+          tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], acc[i]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool valid = v0 + 8 * j + 2 * tq + e < v_end;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float& z = acc[4 * j + 2 * h + e];
+              zsum[h] += valid ? z : 0.f;
+              z = valid ? z : -INFINITY;
+              tmax[h] = fmaxf(tmax[h], z);
+            }
+          }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mn = fmaxf(m[h], tmax[h]);
+        const float mref = mn == -INFINITY ? 0.f : mn;  // exp(-inf) = 0
+        float ex = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            ex += expf(acc[4 * j + 2 * h + e] - mref);
+        s[h] = s[h] * expf(m[h] - mref) + ex;
+        m[h] = mn;
+        sz[h] += zsum[h];
+      }
+    }
+    // the 4 lanes of a quad (xor 1, then xor 2) hold a row between them
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mq = m[h], sq = s[h], zq = sz[h];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float mo = __shfl_xor_sync(FULL, mq, o);
+        const float so = __shfl_xor_sync(FULL, sq, o);
+        zq += __shfl_xor_sync(FULL, zq, o);
+        merge(mq, sq, mo, so);
+      }
+      const int r = r0 + 8 * h;
+      if (tq == 0 && t0 + r < T)
+        partial[(long long)blockIdx.y * T + t0 + r] =
+            make_float4(mq, sq, zq, zy_s[r]);
+    }
+  }
+}
+
+cudaError_t launch_wgmma(dim3 grid, cudaStream_t s, const void* x,
+                         const void* w, const float* bias, const int* y,
+                         float4* partial, int T_, int D, int V,
+                         int cols_per_split, int ksum) {
+  CUtensorMap mx, mw;
+  const uint64_t xdims[2] = {uint64_t(D), uint64_t(T_)};
+  const uint64_t xstr[1] = {uint64_t(D) * 2};
+  const uint32_t xbox[2] = {64, wgce::BM};
+  const uint64_t wdims[2] = {uint64_t(V), uint64_t(D)};
+  const uint64_t wstr[1] = {uint64_t(V) * 2};
+  const uint32_t wbox[2] = {64, wgce::BK};
+  cudaError_t err = encode_bf16_map(&mx, x, 2, xdims, xstr, xbox);
+  if (err != cudaSuccess) return err;
+  err = encode_bf16_map(&mw, w, 2, wdims, wstr, wbox);
+  if (err != cudaSuccess) return err;
+  static std::atomic<unsigned> ready{0};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (!(ready.load() & bit)) {
+    err = cudaFuncSetAttribute(fused_ce_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(wgce::SMEM));
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit);
+  }
+  fused_ce_wgmma_kernel<<<grid, wgce::THREADS, wgce::SMEM, s>>>(
+      mx, mw, bias, y, partial, T_, D, V, cols_per_split, ksum);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -477,6 +767,34 @@ int fused_ce_fwd(const void* x, const void* w, const void* bias,
                                   cols_per_split);
   else
     return cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  fused_ce_combine<<<(T + 255) / 256, 256, 0, s>>>(
+      p, static_cast<float*>(loss), static_cast<float*>(lse), T, V, nsplit,
+      eps);
+  return cudaGetLastError();
+}
+
+// The bf16 form on warpgroup products (fused_ce_wgmma_kernel): x, w
+// bf16, 16-byte aligned, D a multiple of 8 up to 512, V a multiple of 8;
+// ksum: 64-deep k chunks per fresh accumulator (>= 1). The plan and the
+// other arguments as fused_ce_fwd's. Two launches on `stream`.
+int fused_ce_fwd_wgmma(const void* x, const void* w, const void* bias,
+                       const void* y, void* loss, void* lse, void* partial,
+                       int T, int D, int V, int rows_per_block, int nsplit,
+                       int cols_per_split, int ksum, float eps,
+                       void* stream) {
+  if (T <= 0 || D <= 0 || D > wgce::DMAX || D % 8 != 0 || V <= 0 ||
+      V % 8 != 0 || !aligned16(x) || !aligned16(w) || ksum < 1 ||
+      rows_per_block != wgce::BM || cols_per_split <= 0 ||
+      cols_per_split % wgce::BN != 0 ||
+      nsplit != (V + cols_per_split - 1) / cols_per_split)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((T + wgce::BM - 1) / wgce::BM, nsplit);
+  float4* p = static_cast<float4*>(partial);
+  cudaError_t err = launch_wgmma(
+      grid, s, x, w, static_cast<const float*>(bias),
+      static_cast<const int*>(y), p, T, D, V, cols_per_split, ksum);
   if (err != cudaSuccess) return err;
   fused_ce_combine<<<(T + 255) / 256, 256, 0, s>>>(
       p, static_cast<float*>(loss), static_cast<float*>(lse), T, V, nsplit,

@@ -41,10 +41,17 @@ versions of both (:func:`attention_plain`, :func:`attention_bwd_plain`),
 which round where the kernels round. A CUDA tensor always launches the
 kernels; a failed build or launch raises.
 
-bf16 (AMP): both kernels take bf16 q/k/v. The forward walks the keys
-twice (the rows' max and sum first), rounds the normalised weights to bf16
-for P.V and stores out in bf16, as ``paddle_tpu``'s whole-sequence kernel
-does (:1043-1053); the backward
+bf16 (AMP): both kernels take bf16 q/k/v. The forward rounds the
+normalised weights (after dropout) to bf16 for P.V and stores out in bf16,
+as ``paddle_tpu``'s whole-sequence kernel does (:1043-1053). It has two
+forms, chosen by shape (:func:`fwd_form`, recorded by :func:`kernel_choice`
+and counted by ``flash_attention_fwd.wgmma_launches``): up to
+:data:`WGMMA_MAX_KEYS` keys, a padded head dim that is a multiple of 16 up
+to :data:`WGMMA_MAX_HEAD_DIM` and no bias or a per-key one, a single pass
+on warpgroup products (``flash_fwd_wgmma_kernel``: every score of a 64-row
+tile in registers); otherwise the ``mma.sync`` form, which walks the
+keys twice (the rows' max and sum first). Both are checked kernels: a
+route by shape, not a fallback. The backward
 rounds P (after dropout) and dS to bf16 for its products, sums dq in f32
 and rounds it once, and stores dk and dv in bf16, as ``paddle_tpu``'s
 ``_packed_bwd_kernel`` (:724-736, :898-899). lse, delta and the bias and
@@ -69,12 +76,17 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "mha_plain", "mha_bwd_plain", "attention_plain",
            "attention_bwd_plain", "dropout_keep",
-           "draw_seed", "kernel_choice", "MAX_HEAD_DIM"]
+           "draw_seed", "kernel_choice", "fwd_form", "MAX_HEAD_DIM",
+           "WGMMA_MAX_KEYS", "WGMMA_MAX_HEAD_DIM"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' instantiated head-dim widths (the sources' dispatch_width)
 _WIDTHS = (16, 32, 64, 128, 256, 512)
 MAX_HEAD_DIM = _WIDTHS[-1]
+# the bf16 single-pass form (csrc/flash_attention_fwd.cu
+# flash_fwd_wgmma_kernel): the key slots a block holds and its widest head
+WGMMA_MAX_KEYS = 256
+WGMMA_MAX_HEAD_DIM = 128
 _M32 = 0xFFFFFFFF
 
 
@@ -252,10 +264,15 @@ def attention_bwd_plain(q, k, v, out, lse, dout, num_heads, bias=None,
             dv.transpose(1, 2).reshape(b, t_k, hd), dbias)
 
 
-def _c_fn(name):
-    fn = getattr(_build.load(name), name)
+def _c_fn(name, entry=None):
+    fn = getattr(_build.load(name), entry or name)
     if fn.argtypes is None:
-        if name == "flash_attention_fwd":
+        if entry == "flash_attention_fwd_wgmma":
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 10
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+        elif name == "flash_attention_fwd":
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                            + [ctypes.c_longlong] * 11
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
@@ -295,13 +312,17 @@ def _check_qkv(q, k, v, num_heads, what, dtypes):
     return b, t_q, t_k, hd, d
 
 
-def kernel_choice(q, num_heads):
+def kernel_choice(q, num_heads, k=None, bias=None):
     """The gate: ``{"kernel": "cuda_flash" | "plain", "reasons": [...]}``
     for q ``[B, T, H*D]``, decided by shape alone, before any launch
     (``paddle_tpu``'s ``kernel_plan``, ``ops/flash_attention.py:1359``,
     reduced to this card). CPU tensors take the plain version (reason
     ``device``); on a device every bias and head dim runs the CUDA kernels,
-    and a head dim above :data:`MAX_HEAD_DIM` raises."""
+    and a head dim above :data:`MAX_HEAD_DIM` raises. Given the keys ``k``
+    (and the bias), a device choice also names the forward's form
+    (:func:`fwd_form`): ``"form": "wgmma" | "mma_sync"``, and for
+    ``mma_sync`` in bf16 the check that kept it off the wgmma form
+    (``"form_reason"``)."""
     if q.device.type == "cpu":
         return {"kernel": "plain", "reasons": [{
             "check": "device",
@@ -311,7 +332,39 @@ def kernel_choice(q, num_heads):
         raise NotImplementedError(
             "flash_attention on %s: head dim %d is above the kernels' "
             "limit of %d" % (q.device, d, MAX_HEAD_DIM))
-    return {"kernel": "cuda_flash", "reasons": []}
+    choice = {"kernel": "cuda_flash", "reasons": []}
+    if k is not None:
+        form, why = fwd_form(q, k, num_heads, bias)
+        choice["form"] = form
+        if why is not None:
+            choice["form_reason"] = why
+    return choice
+
+
+def _per_key(bias):
+    """Whether ``bias`` is absent or one row of keys per (b, h): what the
+    wgmma form reads (a padding mask)."""
+    return bias is None or _lift_bias(bias).shape[2] == 1
+
+
+def fwd_form(q, k, num_heads, bias=None):
+    """The forward's form for a device call, by shape: ``("wgmma", None)``
+    for bf16 with at most :data:`WGMMA_MAX_KEYS` keys, a padded head dim
+    (the next multiple of 8) that is a multiple of 16 up to
+    :data:`WGMMA_MAX_HEAD_DIM`, and no bias or a per-key one; else
+    ``("mma_sync", reason)``, reason None for f32 (its only form) or the
+    check that failed."""
+    if q.dtype != torch.bfloat16:
+        return "mma_sync", None
+    dp = -(-(q.shape[-1] // num_heads) // 8) * 8
+    if k.shape[1] > WGMMA_MAX_KEYS:
+        return "mma_sync", "keys %d > %d" % (k.shape[1], WGMMA_MAX_KEYS)
+    if dp % 16 or dp > WGMMA_MAX_HEAD_DIM:
+        return "mma_sync", "head dim %d (padded) not a multiple of 16 up " \
+            "to %d" % (dp, WGMMA_MAX_HEAD_DIM)
+    if not _per_key(bias):
+        return "mma_sync", "a bias per query"
+    return "wgmma", None
 
 
 def _rows16(x):
@@ -397,14 +450,16 @@ def flash_attention_fwd(q, k, v, num_heads, bias=None, causal=False,
     first, and a D that is not a multiple of 8 is padded); bias: None, the
     per-key ``[B|1, Tk]`` form, or any bias broadcastable to
     ``[B, H, Tq, Tk]``; seed: one int64 on the device (dropout is on iff
-    ``dropout_rate > 0`` and a seed is given). Returns (out [B, Tq, H*D] in
-    q.dtype, lse [B, H, Tq] f32)."""
+    ``dropout_rate > 0`` and a seed is given). bf16 runs the form
+    :func:`fwd_form` names (``wgmma_launches`` counts the single-pass one).
+    Returns (out [B, Tq, H*D] in q.dtype, lse [B, H, Tq] f32)."""
     b, t_q, t_k, hd, d = _check_qkv(q, k, v, num_heads,
                                     "flash_attention_fwd", _DTYPE_CODES)
     dp = -(-d // 8) * 8
     if dp != d:
         q, k, v = (_pad_heads(x, num_heads, d, dp) for x in (q, k, v))
     q, k, v = (_rows16(x) for x in (q, k, v))
+    form = fwd_form(q, k, num_heads, bias)[0]
     bias, (bias_sb, bias_sh, bias_st) = _bias_args(
         bias, b, num_heads, t_q, t_k, "flash_attention_fwd")
     seed, thresh, inv_keep = _dropout_args(dropout_rate, seed)
@@ -412,17 +467,31 @@ def flash_attention_fwd(q, k, v, num_heads, bias=None, causal=False,
     out = torch.empty(b, t_q, num_heads * dp, device=q.device, dtype=q.dtype)
     lse = torch.empty(b, num_heads, t_q, device=q.device,
                       dtype=torch.float32)
-    _build.launch(_c_fn("flash_attention_fwd"), "flash_attention_fwd",
-                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  bias.data_ptr() if bias is not None else None,
-                  out.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
-                  b, num_heads, t_q, t_k, dp,
-                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                  v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-                  bias_sb, bias_sh, bias_st, 1.0 / math.sqrt(d),
-                  int(bool(causal)),
-                  seed.data_ptr() if seed is not None else None, thresh,
-                  inv_keep)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            out.data_ptr(), lse.data_ptr())
+    tail = (1.0 / math.sqrt(d), int(bool(causal)),
+            seed.data_ptr() if seed is not None else None, thresh, inv_keep)
+    if form == "wgmma":
+        if min(x.stride(i) for x in (q, k, v) for i in (0, 1)) <= 0:
+            # a broadcast batch or row: the tensor maps want real strides
+            q, k, v = (x.contiguous() for x in (q, k, v))
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr()) + ptrs[3:]
+        _build.launch(_c_fn("flash_attention_fwd",
+                            "flash_attention_fwd_wgmma"),
+                      "flash_attention_fwd", q.device, *ptrs,
+                      b, num_heads, t_q, t_k, dp,
+                      q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                      v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+                      bias_sb, bias_sh, *tail)
+        flash_attention_fwd.wgmma_launches += 1
+    else:
+        _build.launch(_c_fn("flash_attention_fwd"), "flash_attention_fwd",
+                      q.device, *ptrs, _DTYPE_CODES[q.dtype],
+                      b, num_heads, t_q, t_k, dp,
+                      q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                      v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+                      bias_sb, bias_sh, bias_st, *tail)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.bf16_launches += q.dtype == torch.bfloat16
     if dp != d:
@@ -431,6 +500,7 @@ def flash_attention_fwd(q, k, v, num_heads, bias=None, causal=False,
 
 
 flash_attention_fwd.launches = flash_attention_fwd.bf16_launches = 0
+flash_attention_fwd.wgmma_launches = 0  # of them, the bf16 single pass
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
@@ -542,7 +612,7 @@ def flash_attention(q, k, v, num_heads, bias=None, causal=False,
     given, the attention weights are dropped with a seed drawn from it.
     ``op``: the op to record :func:`kernel_choice`'s decision in
     (``_kernel_choice``). Returns [B, T, H*D]."""
-    choice = kernel_choice(q, num_heads)
+    choice = kernel_choice(q, num_heads, k, bias)
     if op is not None:
         op.attrs["_kernel_choice"] = choice
     seed = None

@@ -25,11 +25,17 @@ package's size gate ``_FUSED_MIN_LOGITS`` and its ``PADDLE_TPU_*`` switches
 were TPU measurements) and the plain version for a CPU tensor, with the
 chunked backward on both. Neither falls back to the other.
 
-bf16 (AMP): x, W and the bias arrive in bf16. The kernel's bf16 form
-takes one bf16 tensor-core product per f32 one (each product of two bf16
-values is exact in f32) and keeps the f32 statistics of the 3xTF32 form;
-loss and lse are f32. The plain version computes f32 logits from the same
-bf16 operands, and the backward rounds where ``_bwd_impl`` does.
+bf16 (AMP): x, W and the bias arrive in bf16. The kernel's bf16 forms
+take one bf16 tensor-core product per f32 one (each product of two bf16
+values is exact in f32) and keep the f32 statistics of the 3xTF32 form;
+loss and lse are f32. Two forms, chosen by shape (:func:`ce_form`, counted
+by ``fused_ce_fwd.wgmma_launches``): warpgroup products fed by TMA
+(``fused_ce_wgmma_kernel``) where D and V are multiples of 8, D at most
+:data:`WGMMA_MAX_D`, and x and W 16-byte aligned; the ``mma.sync`` form
+otherwise. Both are checked kernels: a route by shape, not a
+fallback. Each plans its own grid (:func:`split_plan` with the form's
+tile). The plain version computes f32 logits from the same bf16 operands,
+and the backward rounds where ``_bwd_impl`` does.
 """
 
 import ctypes
@@ -42,20 +48,33 @@ from . import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 __all__ = ["linear_smooth_ce", "fused_ce_fwd", "linear_smooth_ce_bwd",
-           "linear_smooth_ce_plain", "split_plan",
-           "linear_smooth_ce_3xtf32_emulated"]
+           "linear_smooth_ce_plain", "split_plan", "ce_form",
+           "linear_smooth_ce_3xtf32_emulated", "MMA_SYNC_TILE",
+           "WGMMA_TILE", "WGMMA_MAX_D", "WGMMA_CHUNK_K"]
 
 _CHUNK_BYTES = 512 * 1024 * 1024  # one [chunk, V] f32 tile at most
-# the kernel's tile (csrc/fused_ce_fwd.cu BM, BN): rows per block, and
-# vocabulary columns per step of a block's walk
+# the mma.sync forms' tile (csrc/fused_ce_fwd.cu BM, BN): rows per block,
+# and vocabulary columns per step of a block's walk
 _BM = 128
 _BN = 128
-# what starting a block costs (filling its ring, writing its partials), in
-# vocabulary tiles of work. With 0.25 the plan picks the fastest of the
-# split counts tools/kernel_plans.py times on an H100 at 4,096 rows (4
-# splits) and within 0.1% of it at 32,768 rows (17 splits; one split is
-# 2.9% slower)
-_BLOCK_COST = 0.25
+# Each form's tile for split_plan: (rows per block, columns per tile, what
+# starting a block costs in tiles of work). mma.sync (f32 3xTF32 and PR
+# 10's bf16): filling its ring and writing its partials; with 0.25 the plan
+# picks the fastest of the split counts tools/kernel_plans.py times on an
+# H100 at 4,096 rows (4 splits) and within 0.1% of it at 32,768 rows (17
+# splits; one split is 2.9% slower).
+MMA_SYNC_TILE = (_BM, _BN, 0.25)
+# wgmma (csrc/fused_ce_fwd.cu wgce::BM, BN): the same block cost. On an
+# H100 tools/kernel_plans.py times its 1, 2, 3, 4 and 8 splits at 32,768
+# rows 2.594, 2.569, 2.539, 2.518 and 2.487 ms (the blocks' x loads cost
+# less than the tail of two waves of whole-vocabulary blocks), and at
+# 4,096 rows 4 splits fastest (PERF.md)
+WGMMA_TILE = (128, 128, 0.25)
+# the wgmma form's limits and the depth of its chunk sums (k per fresh
+# tensor-core accumulator, a multiple of 64), chosen by chip_smoke.py's
+# fused_ce_f64 bf16 case (PERF.md)
+WGMMA_MAX_D = 512
+WGMMA_CHUNK_K = 64
 
 
 def linear_smooth_ce_plain(x, w, b, y, eps):
@@ -74,28 +93,45 @@ def linear_smooth_ce_plain(x, w, b, y, eps):
 
 
 @functools.lru_cache(maxsize=64)
-def split_plan(t, v, sms):
-    """The kernel's grid for T rows and V columns on ``sms`` SMs (one block
-    an SM): ``(nsplit, cols_per_split, rows_per_block)``. The vocabulary's
-    ``ceil(V / 128)`` tiles are cut into ``nsplit`` splits of whole tiles
-    (the last may be shorter, none is empty); each of the ``ceil(T / 128)``
-    row tiles runs one block per split. Of every split count, the plan takes
-    the one whose waves of blocks end first, each block costing its tiles
-    plus ``_BLOCK_COST``; ties go to fewer splits."""
+def split_plan(t, v, sms, tile=MMA_SYNC_TILE):
+    """A form's grid for T rows and V columns on ``sms`` SMs (one block an
+    SM), for its ``tile`` (:data:`MMA_SYNC_TILE` or :data:`WGMMA_TILE`:
+    rows per block, columns per tile, block cost): ``(nsplit,
+    cols_per_split, rows_per_block)``. The vocabulary's ``ceil(V / cols)``
+    tiles are cut into ``nsplit`` splits of whole tiles (the last may be
+    shorter, none is empty); each of the ``ceil(T / rows)`` row tiles runs
+    one block per split. Of every split count, the plan takes the one
+    whose waves of blocks end first, each block costing its tiles plus the
+    tile's block cost; ties go to fewer splits."""
     if t <= 0 or v <= 0 or sms <= 0:
         raise ValueError("split_plan: T, V and SMs must be positive, got "
                          "%d, %d, %d" % (t, v, sms))
-    row_tiles = -(-t // _BM)
-    tiles = -(-v // _BN)
+    rows, cols, block_cost = tile
+    row_tiles = -(-t // rows)
+    tiles = -(-v // cols)
     best = None
     for want in range(1, tiles + 1):
         per = -(-tiles // want)      # tiles per split
         nsplit = -(-tiles // per)    # no empty split
         waves = -(-row_tiles * nsplit // sms)
-        cost = waves * (per + _BLOCK_COST)
+        cost = waves * (per + block_cost)
         if best is None or cost < best[0]:
-            best = (cost, nsplit, per * _BN)
-    return best[1], best[2], _BM
+            best = (cost, nsplit, per * cols)
+    return best[1], best[2], rows
+
+
+def ce_form(x, w):
+    """The bf16 form for x [T, D] and w [D, V] as the kernel gets them
+    (contiguous): ``"wgmma"`` where D and V are multiples of 8 (the tensor
+    maps' 16-byte row strides), D is at most :data:`WGMMA_MAX_D` (x's 128
+    rows stay resident) and both pointers are 16-byte aligned; else
+    ``"mma_sync"`` (the mma.sync form, and the f32 one)."""
+    d, v = w.shape
+    if x.dtype != torch.bfloat16 or d % 8 or v % 8 or d > WGMMA_MAX_D:
+        return "mma_sync"
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        return "mma_sync"
+    return "wgmma"
 
 
 def _merge(m, s, mo, so):
@@ -258,8 +294,8 @@ def linear_smooth_ce_bwd(x, w, b, y, lse, g, eps):
     return dx, dw.to(w.dtype), db.to(b.dtype) if b is not None else None
 
 
-def _c_fn():
-    fn = _build.load("fused_ce_fwd").fused_ce_fwd
+def _c_fn(entry="fused_ce_fwd"):
+    fn = getattr(_build.load("fused_ce_fwd"), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
@@ -269,8 +305,9 @@ def _c_fn():
 
 def fused_ce_fwd(x, w, b, y, eps):
     """Launch the CUDA kernel. x: CUDA [T, D]; w: [D, V], both f32 (the
-    3xTF32 form) or both bf16 (the bf16 form); b: [V] in x's dtype, or
-    None; y: int [T]. Returns (loss [T], lse [T]) in f32."""
+    3xTF32 form) or both bf16 (the bf16 form :func:`ce_form` names); b:
+    [V] in x's dtype, or None; y: int [T]. Returns (loss [T], lse [T]) in
+    f32."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError("fused_ce_fwd wants x [T, D] and w [D, V], got %s "
                          "and %s" % (tuple(x.shape), tuple(w.shape)))
@@ -300,20 +337,30 @@ def fused_ce_fwd(x, w, b, y, eps):
     if t == 0:
         return loss, lse
     sms = _build.sm_count(x.device.index)
-    nsplit, per, rows = split_plan(t, v, sms)
+    form = ce_form(x, w)
+    nsplit, per, rows = split_plan(
+        t, v, sms, WGMMA_TILE if form == "wgmma" else MMA_SYNC_TILE)
     partial = torch.empty(nsplit, t, 4, device=x.device,
                           dtype=torch.float32)
-    _build.launch(_c_fn(), "fused_ce_fwd", x.device, x.data_ptr(),
-                  w.data_ptr(), b.data_ptr() if b is not None else None,
-                  y.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-                  partial.data_ptr(), _DTYPE_CODES[x.dtype], t, d, v, rows,
-                  nsplit, per, float(eps))
+    ptrs = (x.data_ptr(), w.data_ptr(),
+            b.data_ptr() if b is not None else None, y.data_ptr(),
+            loss.data_ptr(), lse.data_ptr(), partial.data_ptr())
+    if form == "wgmma":
+        _build.launch(_c_fn("fused_ce_fwd_wgmma"), "fused_ce_fwd", x.device,
+                      *ptrs, t, d, v, rows, nsplit, per,
+                      WGMMA_CHUNK_K // 64, float(eps))
+        fused_ce_fwd.wgmma_launches += 1
+    else:
+        _build.launch(_c_fn(), "fused_ce_fwd", x.device, *ptrs,
+                      _DTYPE_CODES[x.dtype], t, d, v, rows, nsplit, per,
+                      float(eps))
     fused_ce_fwd.launches += 1
     fused_ce_fwd.bf16_launches += x.dtype == torch.bfloat16
     return loss, lse
 
 
 fused_ce_fwd.launches = fused_ce_fwd.bf16_launches = 0
+fused_ce_fwd.wgmma_launches = 0  # of them, the warpgroup-product form
 
 
 class _FusedCE(torch.autograd.Function):

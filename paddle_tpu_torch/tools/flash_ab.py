@@ -10,7 +10,10 @@ checkout's ``chip_smoke.flash_kernel_timing`` (the shapes and inputs of
 ``chip_smoke.py``'s timing rows 1-6, from ``chip_smoke.SEED``; CUDA events,
 f32 with TF32 off): the forward at BERT-base's served shape, the forward
 and the backward at Transformer-base's training shape, each beside
-``F.scaled_dot_product_attention`` on the same inputs.
+``F.scaled_dot_product_attention`` on the same inputs; then the bf16 (AMP)
+forms of the flash forward and the fused CE at the training shapes through
+``chip_smoke._bf16_kernel_timing`` (rows 1 and 9 of its bf16 column),
+beside SDPA and the bf16 ``torch.matmul`` projection.
 
 With ``--base`` the runs alternate base, change, change, base for
 ``--rounds`` rounds, so a drift of the card over the call falls on both
@@ -45,13 +48,20 @@ def _worker(root):
                                   torch.Generator().manual_seed(cs.SEED))
     fwd, bwd = rows["flash_attention_fwd"], rows["flash_attention_bwd"]
     trained = fwd["trained_shape"]
+    bf16 = cs._bf16_kernel_timing(
+        torch, torch.device("cuda", 0), torch.Generator().manual_seed(cs.SEED),
+        only=("flash_attention_fwd", "fused_ce_fwd"))
+    bf_fwd, bf_ce = bf16["flash_attention_fwd"], bf16["fused_ce_fwd"]
     print(json.dumps({
         "root": root, "device": torch.cuda.get_device_name(0),
         "fwd_served": fwd["ms"], "sdpa_fwd_served": fwd["library_ms"],
         "fwd_trained": trained["ms"],
         "sdpa_fwd_trained": trained["library_ms"],
-        "bwd_trained": bwd["ms"], "sdpa_bwd_trained": bwd["library_ms"]}),
-        flush=True)
+        "bwd_trained": bwd["ms"], "sdpa_bwd_trained": bwd["library_ms"],
+        "bf16_fwd_trained": bf_fwd["ms"],
+        "bf16_sdpa_fwd_trained": bf_fwd["library_ms"],
+        "bf16_ce_trained": bf_ce["ms"],
+        "bf16_matmul_trained": bf_ce["library_ms"]}), flush=True)
 
 
 def main():

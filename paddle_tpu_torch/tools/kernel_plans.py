@@ -3,14 +3,15 @@
 beside the one their plan function picks, on one CUDA card.
 
     python3 paddle_tpu_torch/tools/kernel_plans.py
-        [--kernels ce,scatter,layer_norm]
+        [--kernels ce,scatter,layer_norm] [--ce-dtypes f32,bf16]
         [--ce-rows 32768,4096] [--splits 1,2,4,8,17,30]
         [--chunks 128,269,538,1024] [--warps 1,2,4,8]
 
 - ``ce``: the fused CE forward (row 9) at Transformer-base's loss-head
-  width (D 512, V 30000, f32, no bias, eps 0.1) for each of ``--ce-rows``,
-  under each split count of ``--splits`` (whole 128-column tiles, none
-  empty) and under ``ops/fused_ce.py`` ``split_plan``'s.
+  width (D 512, V 30000, no bias, eps 0.1) for each of ``--ce-rows`` and
+  ``--ce-dtypes`` (f32: the 3xTF32 form; bf16: the wgmma form), under each
+  split count of ``--splits`` (whole tiles of the form, none empty) and
+  under ``ops/fused_ce.py`` ``split_plan``'s with the form's tile.
 - ``scatter``: the row scatter-add (row 13) at the DeepFM shape (851,968
   slots into 100000 x 32 f32) on uniform and on Zipf(1.2) ids, under each
   chunk of ``--chunks`` and under ``ops/scatter.py`` ``scatter_plan``'s.
@@ -40,29 +41,38 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 
 
-def _ce_cases(torch, cs, dev, sms, rows_list, splits):
+def _ce_cases(torch, cs, dev, sms, rows_list, splits, dtypes):
     from paddle_tpu_torch.ops import fused_ce as fce
 
     d, v = cs.TRANSFORMER["d_model"], cs.TRANSFORMER["trg_vocab"]
-    tiles = -(-v // 128)
     gen = torch.Generator().manual_seed(cs.SEED)
-    w = (torch.randn(d, v, generator=gen) / d ** 0.5).to(dev)
+    w32 = (torch.randn(d, v, generator=gen) / d ** 0.5).to(dev)
     cases = []
-    for t in rows_list:
-        x = torch.randn(t, d, generator=gen).to(dev)
-        y = torch.randint(0, v, (t,), generator=gen).to(dev)
-        picked = fce.split_plan(t, v, sms)
-        plans = []
-        for n in splits:
-            per = -(-tiles // n)
-            plans.append((-(-tiles // per), per * 128, 128))
-        for plan in dict.fromkeys(plans + [picked]):
-            cases.append(dict(
-                label={"kernel": "fused_ce_fwd", "rows": t, "d": d, "v": v,
-                       "plan": list(plan), "blocks": -(-t // 128) * plan[0]},
-                module=fce, attr="split_plan", plan=plan,
-                fn=lambda x=x, y=y: fce.fused_ce_fwd(x, w, None, y, 0.1),
-                picked=plan == picked, iters=10, warmup=2))
+    for name in dtypes:
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+        w = w32.to(dtype)
+        for t in rows_list:
+            x = torch.randn(t, d, generator=gen).to(dev, dtype)
+            y = torch.randint(0, v, (t,), generator=gen).to(dev)
+            form = fce.ce_form(x, w)
+            tile = fce.WGMMA_TILE if form == "wgmma" else fce.MMA_SYNC_TILE
+            rows, cols = tile[:2]
+            tiles = -(-v // cols)
+            picked = fce.split_plan(t, v, sms, tile)
+            plans = []
+            for n in splits:
+                per = -(-tiles // n)
+                plans.append((-(-tiles // per), per * cols, rows))
+            for plan in dict.fromkeys(plans + [picked]):
+                cases.append(dict(
+                    label={"kernel": "fused_ce_fwd", "dtype": name,
+                           "form": form, "rows": t, "d": d, "v": v,
+                           "plan": list(plan),
+                           "blocks": -(-t // rows) * plan[0]},
+                    module=fce, attr="split_plan", plan=plan,
+                    fn=lambda x=x, y=y, w=w: fce.fused_ce_fwd(x, w, None, y,
+                                                              0.1),
+                    picked=plan == picked, iters=10, warmup=2))
     return cases
 
 
@@ -129,6 +139,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="ce,scatter,layer_norm")
     ap.add_argument("--ce-rows", default="32768,4096")
+    ap.add_argument("--ce-dtypes", default="f32,bf16")
     ap.add_argument("--splits", default="1,2,4,8,17,30")
     ap.add_argument("--chunks", default="128,269,538,1024")
     ap.add_argument("--warps", default="1,2,4,8")
@@ -146,7 +157,8 @@ def main():
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     makers = {
         "ce": lambda: _ce_cases(torch, cs, dev, sms, _ints(args.ce_rows),
-                                _ints(args.splits)),
+                                _ints(args.splits),
+                                args.ce_dtypes.split(",")),
         "scatter": lambda: _scatter_cases(torch, cs, dev, sms,
                                           _ints(args.chunks)),
         "layer_norm": lambda: _ln_cases(torch, cs, dev, sms,

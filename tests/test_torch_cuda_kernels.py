@@ -664,6 +664,102 @@ def test_fused_ce_kernel_bf16_tracks_f64_like_plain(dev):
         assert dg.norm() <= 1.5 * dr.norm()
 
 
+# the bf16 forms' route boundaries: (T, D, V, bias, eps, form). T is never a
+# multiple of the 128-row tile except at the training width's 4096
+CE_FORM_CASES = [
+    (4096, 512, 30000, False, 0.1, "wgmma"),
+    (1000, 512, 1000, True, 0.1, "wgmma"),
+    (777, 72, 304, True, 0.0, "wgmma"),     # D not a multiple of 64
+    (129, 40, 256, False, 0.1, "wgmma"),
+    (300, 512, 8, True, 0.1, "wgmma"),      # one slab of one tile
+    (1000, 512, 30001, True, 0.1, "mma_sync"),  # V % 8 != 0
+    (200, 75, 1000, False, 0.1, "mma_sync"),    # D % 8 != 0
+    (257, 520, 1000, True, 0.1, "mma_sync"),    # D above 512
+]
+
+
+@pytest.mark.parametrize("t,d,v,with_bias,eps,form", CE_FORM_CASES)
+def test_fused_ce_bf16_forms_match_plain(dev, t, d, v, with_bias, eps, form):
+    """Each bf16 form where the route sends it (counted by
+    ``wgmma_launches``): loss and lse within 2e-5 of max(1, max|plain|),
+    bitwise equal over two runs."""
+    gen = torch.Generator().manual_seed(21)
+    x, w, b, y = (a.to(torch.bfloat16) if a is not None and
+                  a.is_floating_point() else a
+                  for a in _ce_inputs(gen, t, d, v, with_bias, dev))
+    n0 = tfce.fused_ce_fwd.wgmma_launches
+    loss, lse = tfce.fused_ce_fwd(x, w, b, y, eps)
+    again = tfce.fused_ce_fwd(x, w, b, y, eps)
+    want, want_lse = tfce.linear_smooth_ce_plain(x, w, b, y, eps)
+    torch.cuda.synchronize()
+    assert tfce.fused_ce_fwd.wgmma_launches - n0 == 2 * (form == "wgmma")
+    assert _rel_err(loss, want) <= 2e-5 and _rel_err(lse, want_lse) <= 2e-5
+    assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+
+
+# (B, Tq, Tk, H, D, causal, bias form, dropout, form): Tk on both sides of
+# 256, causal Tq < Tk and Tq > Tk, head dims 16 to 128 and past them
+FLASH_FORM_CASES = [
+    (2, 100, 16, 2, 64, False, "key", 0.0, "wgmma"),
+    (2, 100, 255, 2, 64, False, "key", 0.1, "wgmma"),
+    (4, 256, 256, 8, 64, False, "key", 0.1, "wgmma"),
+    (2, 100, 257, 2, 64, False, "key", 0.1, "mma_sync"),
+    (2, 64, 256, 4, 64, True, None, 0.0, "wgmma"),    # causal, Tq < Tk
+    (2, 129, 64, 2, 16, True, None, 0.1, "wgmma"),    # causal, Tq > Tk
+    (2, 100, 200, 2, 16, False, "key4", 0.0, "wgmma"),
+    (2, 96, 96, 2, 128, True, "key", 0.1, "wgmma"),
+    (2, 70, 256, 3, 48, False, None, 0.0, "wgmma"),
+    (2, 70, 100, 2, 12, False, "key", 0.0, "wgmma"),  # padded to 16
+    (2, 70, 100, 2, 40, False, "key", 0.0, "mma_sync"),
+    (1, 70, 129, 2, 256, False, "key", 0.0, "mma_sync"),
+    (2, 65, 100, 3, 64, False, "full", 0.1, "mma_sync"),  # per-query bias
+]
+
+
+@pytest.mark.parametrize("b,t,tk,h,d,causal,bias_form,rate,form",
+                         FLASH_FORM_CASES)
+def test_flash_bf16_forward_forms_match_plain(dev, b, t, tk, h, d, causal,
+                                              bias_form, rate, form):
+    """Each bf16 forward form where the route sends it (counted by
+    ``wgmma_launches``): out within 2^-7 of max(1, max|plain|), lse within
+    1e-4, the same rows fully masked, the same dropout mask as the plain
+    version from one seed."""
+    gen = torch.Generator().manual_seed(22)
+    q, k, v = _qkv(gen, b, t, tk, h, d, dev, torch.bfloat16)
+    kb = _bias(gen, bias_form, b, h, t, tk, dev)
+    seed = torch.tensor([31], dtype=torch.int64, device=dev) if rate else None
+    n0 = tfa.flash_attention_fwd.wgmma_launches
+    out, lse = tfa.flash_attention_fwd(q, k, v, h, kb, causal, rate, seed)
+    want, want_lse = tfa.attention_plain(q, k, v, h, kb, causal, rate, seed)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.wgmma_launches - n0 == (form == "wgmma")
+    assert out.dtype == torch.bfloat16 and _rel_err(out, want) <= 2 ** -7
+    live = want_lse > -1e30
+    assert torch.equal(lse <= -1e30, ~live)
+    assert (lse - want_lse)[live].abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("t,tk,d", [(256, 256, 64), (100, 255, 128)])
+def test_flash_bf16_wgmma_forward_tracks_f64(dev, t, tk, d):
+    """The single-pass form's out against an f64 attention on the same bf16
+    inputs (padding mask): max abs and relative L2 error at most 1.5x the
+    plain bf16 version's."""
+    gen = torch.Generator().manual_seed(23)
+    b, h = 8, 4
+    q, k, v = _qkv(gen, b, t, tk, h, d, dev, torch.bfloat16)
+    kb = _bias(gen, "key", b, h, t, tk, dev)
+    exact = tfa.attention_plain(q.double(), k.double(), v.double(), h,
+                                kb.double())[0]
+    n0 = tfa.flash_attention_fwd.wgmma_launches
+    got = tfa.flash_attention_fwd(q, k, v, h, kb)[0]
+    ref = tfa.attention_plain(q, k, v, h, kb)[0]
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.wgmma_launches == n0 + 1
+    dg, dr = got.double() - exact, ref.double() - exact
+    assert dg.abs().max() <= 1.5 * dr.abs().max()
+    assert dg.norm() <= 1.5 * dr.norm()
+
+
 def test_tiny_transformer_step_on_gpu_matches_cpu(dev, fresh_port_programs):
     """One Adam step of a tiny Transformer (dropout 0) on the card and on
     the CPU from the same weights: loss and grads within 1e-4, and the

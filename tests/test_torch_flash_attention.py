@@ -312,6 +312,75 @@ def test_gate_admits_rich_bias_and_odd_head_dims():
     assert [r["check"] for r in cpu["reasons"]] == ["device"]
 
 
+# the forward's form by shape: Tk, head dim, bias ("key": [B, Tk] padding
+# mask, "key4": [B, 1, 1, Tk], "head": [1, H, 1, Tk], "full": one offset
+# per logit), dtype -> form. The padded head dim is the next multiple of 8.
+FORM_TABLE = [
+    (256, 64, "key", torch.bfloat16, "wgmma"),     # the training shape
+    (255, 64, None, torch.bfloat16, "wgmma"),
+    (257, 64, "key", torch.bfloat16, "mma_sync"),  # past the key slots
+    (16, 64, "key4", torch.bfloat16, "wgmma"),
+    (1, 64, None, torch.bfloat16, "wgmma"),
+    (256, 128, None, torch.bfloat16, "wgmma"),
+    (256, 112, "head", torch.bfloat16, "wgmma"),
+    (256, 136, None, torch.bfloat16, "mma_sync"),  # head dim above 128
+    (256, 120, None, torch.bfloat16, "mma_sync"),  # 7.5 k16 steps
+    (100, 12, None, torch.bfloat16, "wgmma"),      # padded to 16
+    (100, 8, None, torch.bfloat16, "mma_sync"),    # half a k16 step
+    (100, 40, None, torch.bfloat16, "mma_sync"),
+    (100, 48, None, torch.bfloat16, "wgmma"),
+    (100, 512, None, torch.bfloat16, "mma_sync"),
+    (256, 64, "full", torch.bfloat16, "mma_sync"),  # a bias per query
+    (256, 64, "key", torch.float32, "mma_sync"),    # f32: 3xTF32 only
+    (300, 64, None, torch.float32, "mma_sync"),
+]
+
+
+@pytest.mark.parametrize("tk,d,bias_kind,dtype,form", FORM_TABLE)
+def test_forward_form_routes_by_shape(tk, d, bias_kind, dtype, form):
+    """On a device the gate names the forward's form by shape alone,
+    before any launch (meta tensors, no GPU here): the bf16 single pass on
+    warpgroup products up to 256 keys and a padded head dim that is a
+    multiple of 16 up to 128, with no bias or one row of keys per (b, h);
+    the mma.sync form for every other bf16 call and for f32. A bf16
+    call off the wgmma form says why."""
+    q = torch.empty(B, 16, H * d, device="meta", dtype=dtype)
+    k = torch.empty(B, tk, H * d, device="meta", dtype=dtype)
+    bias = {None: None,
+            "key": torch.empty(B, tk, device="meta"),
+            "key4": torch.empty(B, 1, 1, tk, device="meta"),
+            "head": torch.empty(1, H, 1, tk, device="meta"),
+            "full": torch.empty(B, H, 16, tk, device="meta")}[bias_kind]
+    choice = tfa.kernel_choice(q, H, k, bias)
+    assert choice["kernel"] == "cuda_flash" and choice["reasons"] == []
+    assert choice["form"] == form
+    assert tfa.fwd_form(q, k, H, bias)[0] == form
+    assert ("form_reason" in choice) == (form == "mma_sync"
+                                         and dtype == torch.bfloat16)
+    # on the CPU the plain version runs, with no form
+    cpu = tfa.kernel_choice(torch.zeros(B, 16, H * d, dtype=dtype), H,
+                            torch.zeros(B, tk, H * d, dtype=dtype))
+    assert cpu["kernel"] == "plain" and "form" not in cpu
+
+
+def test_bf16_wrapper_refuses_before_building():
+    """What neither form takes raises before any build or launch, in bf16
+    too: a head dim above 512, mixed dtypes, disagreeing shapes, a dropout
+    rate outside [0, 1)."""
+    bf = torch.bfloat16
+    wide = torch.empty(B, 16, 2 * 520, device="meta", dtype=bf)
+    with pytest.raises(NotImplementedError, match="head dim 520"):
+        tfa.flash_attention_fwd(wide, wide, wide, 2)
+    q = torch.empty(B, 16, H * 64, device="meta", dtype=bf)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_attention_fwd(q, q.float(), q, H)
+    with pytest.raises(ValueError, match="disagree"):
+        tfa.flash_attention_fwd(q, q[:, :, :-8], q, H)
+    seed = torch.zeros(1, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="dropout_rate"):
+        tfa.flash_attention_fwd(q, q, q, H, None, False, 1.0, seed)
+
+
 @pytest.mark.parametrize("d", [3, 8, 12, 16, 40, 512])
 def test_kernel_wrapper_takes_head_dims_up_to_512(d):
     """d = 3 to 512 pass the wrappers' shape checks (meta tensors, nothing

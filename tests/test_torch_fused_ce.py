@@ -146,6 +146,93 @@ def test_split_plan_splits_only_to_fill_the_card():
     assert tfce.split_plan(4096, 30000, 132)[:2] == (4, 59 * 128)
 
 
+FORM_TILES = {"mma_sync": tfce.MMA_SYNC_TILE, "wgmma": tfce.WGMMA_TILE}
+
+
+@pytest.mark.parametrize("form", sorted(FORM_TILES))
+@pytest.mark.parametrize("t,v,sms", [(32768, 30000, 132), (4096, 30000, 132),
+                                     (777, 304, 132), (1000, 30001, 132),
+                                     (1, 1, 132), (129, 999, 7),
+                                     (5000, 136, 1), (300, 256, 132)])
+def test_split_plan_per_form_covers_every_column_once(form, t, v, sms):
+    """With each form's tile: every vocabulary column lies in exactly one
+    split, every split is non-empty and made of whole tiles of the form's
+    width (the last may be ragged), and rows go the form's rows a block,
+    as its C entry requires."""
+    rows, cols, _ = FORM_TILES[form]
+    nsplit, per, got_rows = tfce.split_plan(t, v, sms, FORM_TILES[form])
+    assert got_rows == rows and per > 0 and per % cols == 0
+    owner = np.zeros(v, dtype=int)
+    for k in range(nsplit):
+        lo, hi = k * per, min(v, (k + 1) * per)
+        assert lo < hi, "split %d is empty" % k
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+
+
+@pytest.mark.parametrize("form", sorted(FORM_TILES))
+def test_split_plan_per_form_splits_only_to_fill_the_card(form):
+    """For each form: row tiles that fill whole waves on their own keep one
+    split; a single row tile splits the vocabulary (as far as the block
+    cost lets it); the default tile is the mma.sync form's."""
+    tile = FORM_TILES[form]
+    rows = tile[0]
+    assert tfce.split_plan(132 * rows, 30000, 132, tile)[0] == 1
+    one = tfce.split_plan(rows, 30000, 132, tile)
+    assert one[0] > 1 and one[2] == rows
+    # a larger block cost never asks for more splits
+    for t in (rows, 4096, 20000):
+        assert tfce.split_plan(t, 30000, 132, tile)[0] <= tfce.split_plan(
+            t, 30000, 132, (tile[0], tile[1], 0.0))[0]
+    assert tfce.split_plan(4096, 30000, 132) == tfce.split_plan(
+        4096, 30000, 132, tfce.MMA_SYNC_TILE)
+
+
+@pytest.mark.parametrize("dtype,d,v,offset,form", [
+    (torch.bfloat16, 512, 30000, 0, "wgmma"),     # the training shape
+    (torch.bfloat16, 8, 8, 0, "wgmma"),
+    (torch.bfloat16, 512, 30001, 0, "mma_sync"),  # V % 8 != 0
+    (torch.bfloat16, 72, 304, 0, "wgmma"),
+    (torch.bfloat16, 75, 1000, 0, "mma_sync"),    # D % 8 != 0
+    (torch.bfloat16, 520, 1000, 0, "mma_sync"),   # D above the resident x
+    (torch.bfloat16, 512, 1000, 1, "mma_sync"),   # x not 16-byte aligned
+    (torch.float32, 512, 30000, 0, "mma_sync"),   # f32: 3xTF32 only
+])
+def test_ce_form_routes_by_shape(dtype, d, v, offset, form):
+    """The bf16 forms are routed by shape and alignment: the wgmma form
+    takes D and V multiples of 8, D up to WGMMA_MAX_D, from 16-byte
+    aligned x and W; every other call keeps the mma.sync form."""
+    x = torch.zeros(4 * d + offset, dtype=dtype)[offset:].view(4, d)
+    w = torch.zeros(d, v, dtype=dtype)
+    assert tfce.ce_form(x, w) == form
+
+
+def test_wgmma_chunk_depth_is_whole_ring_chunks():
+    """The wgmma form sums k in chunks of its 64-deep ring stages: the
+    depth the wrapper passes is a positive multiple of 64."""
+    assert tfce.WGMMA_CHUNK_K >= 64 and tfce.WGMMA_CHUNK_K % 64 == 0
+    assert tfce.WGMMA_MAX_D == 512 and tfce.WGMMA_TILE[:2] == (128, 128)
+
+
+def test_kernel_wrapper_refuses_bf16_before_building():
+    """What neither form takes raises before any build or launch, bf16
+    included (meta tensors, no GPU here): mixed dtypes, a bias of another
+    length, labels of another length, a W of the wrong depth."""
+    bf = torch.bfloat16
+    x = torch.empty(4, 8, device="meta", dtype=bf)
+    w = torch.empty(8, 32, device="meta", dtype=bf)
+    y = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(TypeError, match="one dtype"):
+        tfce.fused_ce_fwd(x, w.float(), None, y, 0.1)
+    with pytest.raises(ValueError, match="bias"):
+        tfce.fused_ce_fwd(x, w, torch.empty(31, device="meta", dtype=bf), y,
+                          0.1)
+    with pytest.raises(ValueError, match="labels"):
+        tfce.fused_ce_fwd(x, w, None, y[:3], 0.1)
+    with pytest.raises(ValueError, match="w"):
+        tfce.fused_ce_fwd(x, w[:4], None, y, 0.1)
+
+
 def _f64_ce(x, w, b, y, eps):
     z = torch.matmul(x.double(), w.double())
     if b is not None:
