@@ -87,6 +87,7 @@ line; any failure raises and exits non-zero. The line before the last is
 outside the repository, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -135,7 +136,8 @@ KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm_fwd",
 BF16_FORMS = KERNELS[:8]  # the kernels with a bf16 form (not the scatter)
 # the kernels whose bf16 form has a second, warpgroup-product (wgmma) form,
 # routed by shape; ``wgmma_launches`` on each wrapper counts it
-WGMMA_FORMS = ("flash_attention_fwd", "fused_ce_fwd")
+WGMMA_FORMS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd",
+               "conv_apply")
 
 
 # the main paths that run under fluid.amp: every launch of a kernel with a
@@ -218,9 +220,11 @@ def read_wgmma_counts():
 
 def wgmma_part(counts, amp):
     """The launches of WGMMA_FORMS that a run of ``counts`` launches makes
-    in their wgmma form: all of them on the AMP Transformer path (every
-    flash forward there has 256 keys and heads of 64, every CE D 512 and
-    V 30000), none in f32."""
+    in their wgmma form: all of them on the AMP paths (every flash forward
+    of the AMP Transformer has 256 keys and heads of 64, every flash
+    backward heads of 64 and a padding mask or none, every CE D 512 and V
+    30000; every conv_apply of ResNet-50's AMP eval C and O multiples of
+    64 and Wo <= 56), none in f32."""
     return {name: counts[name] if amp else 0 for name in WGMMA_FORMS}
 
 
@@ -233,6 +237,21 @@ def bf16_part(counts, amp):
 def per_run(**counts):
     """Launches of every kernel in one run of a path (0 unless named)."""
     return dict(dict.fromkeys(KERNELS, 0), **counts)
+
+
+@contextlib.contextmanager
+def mma_sync_route(mod, route):
+    """``mod``'s bf16 route function ``route`` (fwd_form, bwd_form,
+    apply_form, ce_form) sending every call to the mma.sync form while the
+    block runs: both forms of a kernel in one call, for checks and
+    timings."""
+    saved = getattr(mod, route)
+    setattr(mod, route, lambda *a, **k: (
+        "mma_sync" if route == "ce_form" else ("mma_sync", "forced")))
+    try:
+        yield
+    finally:
+        setattr(mod, route, saved)
 
 
 def max_err(got, want):
@@ -317,11 +336,15 @@ SASS_BF16 = (("flash_attention_fwd", "flash_fwd_kernel", 18, False),
              ("fused_conv", "conv_kernel", 8, True))
 BF16_HMMA = "HMMA.16816.F32.BF16"
 # library, kernel stem, instantiations: the warpgroup-product forms of the
-# bf16 flash forward (head-dim widths 64 and 128) and fused CE. Each must
+# bf16 flash forward and backward (head-dim widths 64 and 128), fused CE
+# and conv_apply (one or two consumer warpgroups, x read in NCHW or from
+# its channels-last copy). Each must
 # run its products as bf16 HGMMAs (wgmma) and hold no HMMA.16816 of its
 # own: an mma.sync left in the hot loop would hide behind a passing count
 SASS_WGMMA = (("flash_attention_fwd", "flash_fwd_wgmma_kernel", 2),
-              ("fused_ce_fwd", "fused_ce_wgmma_kernel", 1))
+              ("flash_attention_bwd", "flash_bwd_wgmma_kernel", 2),
+              ("fused_ce_fwd", "fused_ce_wgmma_kernel", 1),
+              ("fused_conv_wgmma", "conv_apply_wgmma_kernel", 4))
 
 
 # library, the mangled stem of the instantiations that move 16 bytes a
@@ -367,8 +390,8 @@ def _sass_check(_build):
     instantiation of the flash kernels, of the fused CE kernel and of the
     conv kernel must hold ``HMMA.16816.F32.BF16``, the conv kernel's also
     ``LDSM`` (ldmatrix) (``SASS_BF16``); the warpgroup-product forms of the
-    flash forward and the fused CE must hold bf16 ``HGMMA`` and no
-    ``HMMA.16816`` (``SASS_WGMMA``)."""
+    flash forward and backward, the fused CE and conv_apply must hold bf16
+    ``HGMMA`` and no ``HMMA.16816`` (``SASS_WGMMA``)."""
     for lib, kernel, n_inst in SASS_KERNELS:
         hmma = {name: sum(op.startswith("HMMA") for op in ops)
                 for name, ops in _sass_functions(_build, lib).items()
@@ -697,35 +720,47 @@ def phase_flash_bwd_check(torch, dev):
 
 
 # the flash kernels' bf16 (AMP) cases: name, B, Tq, Tk, H, D, causal, bias,
-# dropout, the forward's form: the training path's three calls, then every
-# width family, then the wgmma form's route boundaries (Tk 16, 255, 256,
-# 257; causal Tq < Tk; D 16, 64, 128; dropout on and off)
+# dropout, the forward's form, the backward's form: the training path's
+# three calls, then every width family, then the wgmma forms' route
+# boundaries (Tk 16, 255, 256, 257, 512; causal Tq < Tk, and Tq > Tk with
+# rows that see no key; D 16, 64, 128, 136; padding and rich bias; dropout
+# on and off)
 FLASH_BF16_CASES = [
     ("enc_self_bf16_dropout_0.1", TRAIN_BATCH, 256, 256, 8, 64, False,
-     "key+grad", 0.1, "wgmma"),
+     "key+grad", 0.1, "wgmma", "wgmma"),
     ("dec_self_causal_bf16_dropout_0.1", TRAIN_BATCH, 256, 256, 8, 64, True,
-     None, 0.1, "wgmma"),
+     None, 0.1, "wgmma", "wgmma"),
     ("dec_cross_bf16_dropout_0.1", TRAIN_BATCH, 256, 256, 8, 64, False, "key",
-     0.1, "wgmma"),
+     0.1, "wgmma", "wgmma"),
     ("d16_causal_tq_gt_tk_bf16", 2, 129, 64, 4, 16, True, None, 0.0,
+     "wgmma", "wgmma"),
+    ("d128_bf16_dropout_0.1", 2, 96, 96, 2, 128, True, "key", 0.1, "wgmma",
      "wgmma"),
-    ("d128_bf16_dropout_0.1", 2, 96, 96, 2, 128, True, "key", 0.1, "wgmma"),
     ("d512_bias_grad_bf16", 1, 70, 129, 2, 512, False, "key+grad", 0.0,
-     "mma_sync"),
+     "mma_sync", "mma_sync"),
     ("d12_full_bias_grad_bf16", 2, 65, 100, 3, 12, False, "full+grad", 0.1,
-     "mma_sync"),
-    ("tk16_bf16", 2, 100, 16, 4, 64, False, "key", 0.0, "wgmma"),
+     "mma_sync", "mma_sync"),
+    ("tk16_bf16", 2, 100, 16, 4, 64, False, "key", 0.0, "wgmma", "wgmma"),
     ("tk255_bf16_dropout_0.1", 2, 100, 255, 4, 64, False, "key", 0.1,
-     "wgmma"),
+     "wgmma", "wgmma"),
     ("tk257_bf16_dropout_0.1", 2, 100, 257, 4, 64, False, "key", 0.1,
-     "mma_sync"),
+     "mma_sync", "wgmma"),
     ("causal_tq_lt_tk256_bf16", 2, 64, 256, 4, 64, True, None, 0.0,
-     "wgmma"),
+     "wgmma", "wgmma"),
     ("d16_tk256_bias_grad_bf16", 2, 100, 256, 4, 16, False, "key+grad", 0.0,
-     "wgmma"),
+     "wgmma", "wgmma"),
     ("d128_tk256_causal_bf16_dropout_0.1", 2, 256, 256, 2, 128, True, None,
-     0.1, "wgmma"),
-    ("d136_tk256_bf16", 2, 100, 256, 2, 136, False, "key", 0.0, "mma_sync"),
+     0.1, "wgmma", "wgmma"),
+    ("d136_tk256_bf16", 2, 100, 256, 2, 136, False, "key", 0.0, "mma_sync",
+     "mma_sync"),
+    ("tk512_bias_grad_bf16_dropout_0.1", 2, 100, 512, 4, 64, False,
+     "key+grad", 0.1, "mma_sync", "wgmma"),
+    ("d64_causal_tq_gt_tk_bf16_dropout_0.1", 2, 300, 100, 2, 64, True, None,
+     0.1, "wgmma", "wgmma"),
+    ("d128_tk512_causal_tq_lt_tk_bf16", 2, 200, 512, 2, 128, True, "key",
+     0.0, "mma_sync", "wgmma"),
+    ("d64_full_bias_grad_bf16", 2, 100, 256, 2, 64, False, "full+grad", 0.0,
+     "mma_sync", "mma_sync"),
 ]
 
 
@@ -737,13 +772,13 @@ def _flash_bf16_check(torch, dev, gen):
     max|plain|) (one bf16 step either way: the products sum in f32 in
     other orders and may round the other way), the f32 dbias within 1e-4
     * max(1, max|plain|), the forward's lse within 1e-4 where a row sees
-    a key. Each case's forward must run the form it names
+    a key. Each case's forward and backward must run the forms it names
     (``wgmma_launches``). Returns the cases' largest errors."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     errs = {}
-    for i, (name, b_, tq, tk, h_, d_, causal, bias_kind, rate, form) in \
-            enumerate(FLASH_BF16_CASES):
+    for i, (name, b_, tq, tk, h_, d_, causal, bias_kind, rate, form,
+            bwd) in enumerate(FLASH_BF16_CASES):
         q, k, v, dout = (torch.randn(b_, n, h_ * d_, generator=gen).to(
             dev, torch.bfloat16) for n in (tq, tk, tk, tq))
         kb = None
@@ -762,8 +797,13 @@ def _flash_bf16_check(torch, dev, gen):
               % (name, ran, form))
         want, want_lse = fa.attention_plain(q, k, v, h_, kb, causal, rate,
                                             seed)
+        n_wgmma = fa.flash_attention_bwd.wgmma_launches
         got = fa.flash_attention_bwd(q, k, v, out, lse, dout, h_, kb, causal,
                                      rate, seed, want_dbias=want_db)
+        ran_bwd = ("wgmma" if fa.flash_attention_bwd.wgmma_launches > n_wgmma
+                   else "mma_sync")
+        check(ran_bwd == bwd, "flash bf16 %s: the backward ran the %s form, "
+              "not %s" % (name, ran_bwd, bwd))
         ref = fa.attention_bwd_plain(q, k, v, out, lse, dout, h_, kb, causal,
                                      rate, seed, want_dbias=want_db)
         torch.cuda.synchronize()
@@ -777,7 +817,8 @@ def _flash_bf16_check(torch, dev, gen):
         errs[name] = check_close(
             "flash_attention_bwd", name, pairs, 2.0 ** -7,
             shape=[b_, tq, tk, h_, d_], causal=causal, bias=bias_kind,
-            dropout=rate, dtype="bf16", forward_form=ran, lse_err=lse_err)
+            dropout=rate, dtype="bf16", forward_form=ran,
+            backward_form=ran_bwd, lse_err=lse_err)
         check(lse_err <= 1e-4 and torch.equal(lse <= -1e30, ~live),
               "flash bf16 %s: lse error %g" % (name, lse_err))
         if want_db:
@@ -794,8 +835,9 @@ def _flash_f64_check(torch, dev):
     same f32 inputs, by max abs and relative L2 error; fails if the
     kernels' error is more than twice the plain f32 one in either (a
     single TF32 pass would be about 1000 times off). Then the bf16 forms
-    on the same inputs rounded to bf16, against f64 on those: the kernels'
-    errors at most 1.5 times the plain bf16 version's."""
+    (the backward's wgmma form) on the same inputs rounded to bf16,
+    against f64 on those: the kernels' errors at most 1.5 times the plain
+    bf16 version's."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -846,11 +888,14 @@ def _flash_f64_check(torch, dev):
     exact = [o64.detach()] + list(torch.autograd.grad(o64, ins,
                                                       db.double()))
     runs = []
+    n_wgmma = fa.flash_attention_bwd.wgmma_launches
     for fwd, bwd in ((fa.attention_plain, fa.attention_bwd_plain),
                      (fa.flash_attention_fwd, fa.flash_attention_bwd)):
         o, lse = fwd(qb, kbf, vb, h, kb)
         runs.append([o] + list(bwd(qb, kbf, vb, o, lse, db, h, kb)[:3]))
     torch.cuda.synchronize()
+    check(fa.flash_attention_bwd.wgmma_launches == n_wgmma + 1,
+          "flash bf16 f64: the backward did not run its wgmma form")
     plain_bf = {n: errs(r, e) for n, r, e in zip(names, runs[0], exact)}
     kernel = {n: errs(g, e) for n, g, e in zip(names, runs[1], exact)}
     emit({"phase": "flash_attention_f64", "shape": [b, t, t, h, d],
@@ -1233,8 +1278,8 @@ def _bf16_kernel_timing(torch, dev, gen, only=None):
     bounds take their products at the bf16 tensor-core rate, the
     LayerNorm's their f32 arithmetic on the FMA pipes, all against their
     bytes (each input read once, each output written once). The flash
-    forward and CE rows also time the mma.sync form on the same inputs
-    (``mma_sync_ms``). ``only``: the rows to time (all by default; the
+    forward, flash backward and CE rows also time the mma.sync form on the
+    same inputs (``mma_sync_ms``). ``only``: the rows to time (all by default; the
     inputs are drawn alike either way). ``tools/flash_ab.py`` times
     another checkout's flash forward and CE through this function."""
     import torch.nn.functional as F
@@ -1247,18 +1292,13 @@ def _bf16_kernel_timing(torch, dev, gen, only=None):
         return only is None or name in only
 
     def on_mma_sync(mod, route, fn, **kw):
-        """fn's time with ``mod``'s bf16 route (``route``: fwd_form or
-        ce_form) sending it to the mma.sync form, for the two forms in
-        one call; None where the package has no such route."""
-        saved = getattr(mod, route, None)
-        if saved is None:
+        """fn's time with ``mod``'s bf16 route (``route``: fwd_form,
+        bwd_form or ce_form) sending it to the mma.sync form, for the two
+        forms in one call; None where the package has no such route."""
+        if getattr(mod, route, None) is None:
             return None
-        setattr(mod, route, lambda *a, **k: (
-            ("mma_sync", "timed") if route == "fwd_form" else "mma_sync"))
-        try:
+        with mma_sync_route(mod, route):
             return time_ms(fn, **kw)
-        finally:
-            setattr(mod, route, saved)
 
     bf = torch.bfloat16
     rows = {}
@@ -1298,6 +1338,9 @@ def _bf16_kernel_timing(torch, dev, gen, only=None):
             ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse,
                                                       dout, h, kb),
                        iters=20),
+            mma_sync_ms=on_mma_sync(
+                fa, "bwd_form", lambda: fa.flash_attention_bwd(
+                    q, k, v, out, lse, dout, h, kb), iters=20),
             plain_ms=time_ms(lambda: fa.attention_bwd_plain(
                 q, k, v, out, lse, dout, h, kb), iters=10),
             library_ms=time_ms(lambda: torch.autograd.grad(
@@ -1911,7 +1954,9 @@ def phase_amp_train_check(torch, smi_line, batch=2):
 
 
 _MARKS = (("flash_fwd_", "flash_attention_fwd"),  # both forms' kernels
-          ("flash_bwd_kernel", "flash_attention_bwd"),
+          ("flash_bwd_", "flash_attention_bwd"),  # both forms, the prep
+          ("conv_apply_wgmma_kernel", "conv_apply"),
+          ("nchw_to_nhwc_kernel", "conv_apply"),  # its channels-last copy
           ("layer_norm_fwd_kernel", "layer_norm_fwd"),
           ("layer_norm_bwd_", "layer_norm_bwd"),
           ("fused_ce_", "fused_ce_fwd"),
@@ -1925,7 +1970,8 @@ _CUDNN_MARKS = ("convolve", "conv2d", "_conv", "dgrad", "wgrad", "fprop",
 def _kernel_kind(name):
     """The kind of a device kernel by its (lower-case) name: one of the
     port's kernels (``conv_kernel<BM, KS, STRIDE, VEC, APPLY>``: APPLY false
-    is conv_moments' main launch, true conv_apply's), a cuDNN convolution, a
+    is conv_moments' main launch, true conv_apply's; the wgmma forms' own
+    kernels count with their wrapper's), a cuDNN convolution, a
     GEMM, a row gather (``index_select``, indexing), or other."""
     if "conv_kernel<" in name:
         args = name.split("conv_kernel<", 1)[1].split(">", 1)[0]
@@ -2129,8 +2175,10 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
     must be bitwise equal across two runs, and at the 3x3 geometries the
     conv's error against an f64 conv at most twice cuDNN's f32 one
     (:func:`_conv_f64_check`). Each geometry also checks the bf16 forms
-    (:func:`_fused_conv_bf16_check`). Returns the f32 and the bf16 forms'
-    max abs errors, each {kernel: error}."""
+    (:func:`_fused_conv_bf16_check`), and the bf16 conv_apply's wgmma form
+    runs at every fused geometry of ResNet-50
+    (:func:`_conv_apply_geometry_check`). Returns the f32 and the bf16
+    forms' max abs errors, each {kernel: error}."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import fused_conv as fc
@@ -2232,6 +2280,7 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
         _fused_conv_bf16_check(torch, name, shape, x, w, g, b, mean, var,
                                res, stride, relu, eps, bf16)
         del x, res
+    _conv_apply_geometry_check(torch, dev, bf16)
     return errs, bf16
 
 
@@ -2244,8 +2293,9 @@ def _fused_conv_bf16_check(torch, name, shape, x, w, g, b, mean, var, res,
     max(1, max|plain|); the moments within 1e-5 of an f64 sum over the
     kernel's own stored co (relative to sum |co| and to sum co^2), bitwise
     equal across two runs; co against an f64 conv of the same bf16 inputs
-    at most 1.5x the plain bf16 version's error (:func:`_conv_f64_check`).
-    Updates ``errs`` (kernel -> max abs error)."""
+    at most 1.5x the plain bf16 version's error (:func:`_conv_f64_check`);
+    conv_apply in both its forms (the wgmma form its route names here, and
+    the mma.sync form). Updates ``errs`` (kernel -> max abs error)."""
     from paddle_tpu_torch.ops import fused_conv as fc
 
     tol = 2.0 ** -7
@@ -2284,22 +2334,32 @@ def _fused_conv_bf16_check(torch, name, shape, x, w, g, b, mean, var, res,
         check="bn_apply_bf16", **shape))
     del y, want, wco
     scale, shift = fc._scale_shift(g, b, mean, var, eps)
-    y = fc.conv_apply(xb, wb, scale, shift, rb, relu, stride)
     want = fc.conv_apply_plain(xb, wb, scale, shift, rb, relu, stride)
-    torch.cuda.synchronize()
-    errs["conv_apply"] = max(errs["conv_apply"], check_close(
-        "fused_conv_check", name + "_bf16", [("y", y, want)], tol,
-        check="conv_apply_bf16", **shape))
+    for form in ("wgmma", "mma_sync"):
+        n_wgmma = fc.conv_apply.wgmma_launches
+        if form == "wgmma":
+            y = fc.conv_apply(xb, wb, scale, shift, rb, relu, stride)
+        else:
+            with mma_sync_route(fc, "apply_form"):
+                y = fc.conv_apply(xb, wb, scale, shift, rb, relu, stride)
+        torch.cuda.synchronize()
+        check((fc.conv_apply.wgmma_launches > n_wgmma) == (form == "wgmma"),
+              "%s bf16 conv_apply did not run its %s form" % (name, form))
+        errs["conv_apply"] = max(errs["conv_apply"], check_close(
+            "fused_conv_check", name + "_bf16", [("y", y, want)], tol,
+            check="conv_apply_bf16_" + form, **shape))
 
 
-def _conv_f64_check(torch, name, x, w, stride):
+def _conv_f64_check(torch, name, x, w, stride, apply=False):
     """The conv kernel's co against F.conv2d in float64 on the same inputs,
     by max abs error and relative L2 error, beside a yardstick on the same
     inputs. f32: cuDNN's f32 conv (TF32 off), and the kernel's error at
     most twice its in either (3xTF32 with f32 accumulation should match
     f32; a single TF32 product would be about 1000 times off). bf16: the
     plain bf16 version (the f32 conv rounded once), and the kernel's error
-    at most 1.5x its (both are the bf16 rounding of co)."""
+    at most 1.5x its (both are the bf16 rounding of co). ``apply``: the
+    kernel is conv_apply with scale 1 and shift 0 (no residual, no relu),
+    whose y is then its rounded conv, in the form its route names."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import fused_conv as fc
@@ -2312,7 +2372,12 @@ def _conv_f64_check(torch, name, x, w, stride):
         return {"max_abs_err": d.abs().max().item(),
                 "rel_l2": (d.norm() / exact.norm()).item()}
 
-    got = errs(fc.conv_moments(x, w, stride)[0])
+    if apply:
+        o = w.shape[0]
+        ones = torch.ones(o, device=x.device)
+        got = errs(fc.conv_apply(x, w, ones, ones * 0, None, False, stride))
+    else:
+        got = errs(fc.conv_moments(x, w, stride)[0])
     if x.dtype == torch.bfloat16:
         lib, what, factor = errs(fc.conv_moments_plain(x, w, stride)[0]), \
             "plain_bf16", 1.5
@@ -2320,12 +2385,55 @@ def _conv_f64_check(torch, name, x, w, stride):
         lib, what, factor = errs(F.conv2d(x, w, stride=stride,
                                           padding=pad)), "cudnn_f32", 2.0
     emit({"phase": "fused_conv_check", "case": name, "check": "f64",
+          "kernel_name": "conv_apply" if apply else "conv_moments",
           "x": list(x.shape), "w": list(w.shape),
           "K": w.shape[1] * w.shape[2] * w.shape[3], "kernel": got,
           what: lib, "ratio": {e: got[e] / max(lib[e], 1e-300) for e in got},
           "tol": "kernel <= %g x %s, each error" % (factor, what)})
     check(all(got[e] <= factor * lib[e] for e in got),
           "%s: conv error %s against f64, %s %s" % (name, got, what, lib))
+
+
+def _conv_apply_geometry_check(torch, dev, errs):
+    """The bf16 conv_apply at every distinct fused geometry of ResNet-50
+    (read from the fusion's record, batch 128, a residual and relu where a
+    site of the geometry has them), in the form its route names, which
+    must be the wgmma form at every one: y against the plain bf16 version
+    within one bf16 ulp, 2^-7 of max(1, max|plain|), and its rounded conv
+    against an f64 conv of the same bf16 inputs (8 images) at most 1.5x
+    the plain bf16 version's error (:func:`_conv_f64_check`). Updates
+    ``errs`` (kernel -> max abs error)."""
+    from paddle_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    geoms = resnet_conv_geometries()
+    for (c, o, k, stride, hw), g in geoms.items():
+        residual, relu = g["residual"] > 0, g["relu"] > 0
+        x, w, gm, b, mean, var, res = _conv_case(torch, gen, dev, c, o, k,
+                                                 stride, hw, residual)
+        xb, wb = x.bfloat16(), w.bfloat16()
+        rb = res.bfloat16() if res is not None else None
+        del x, w, res
+        scale, shift = fc._scale_shift(gm, b, mean, var, 1e-5)
+        name = "%dx%d%s_%dto%d_%d" % (k, k, "s2" if stride == 2 else "", c,
+                                      o, hw)
+        form = fc.apply_form(xb, wb, stride, rb)
+        check(form[0] == "wgmma", "conv_apply %s: form %s" % (name, form))
+        n_wgmma = fc.conv_apply.wgmma_launches
+        y = fc.conv_apply(xb, wb, scale, shift, rb, relu, stride)
+        want = fc.conv_apply_plain(xb, wb, scale, shift, rb, relu, stride)
+        torch.cuda.synchronize()
+        check(fc.conv_apply.wgmma_launches == n_wgmma + 1,
+              "conv_apply %s did not launch its wgmma form" % name)
+        errs["conv_apply"] = max(errs["conv_apply"], check_close(
+            "fused_conv_check", name + "_bf16", [("y", y, want)], 2.0 ** -7,
+            check="conv_apply_bf16_wgmma", x=list(xb.shape),
+            w=list(wb.shape), stride=stride, residual=residual, relu=relu,
+            sites=g["sites"]))
+        del y, want
+        _conv_f64_check(torch, name + "_bf16_wgmma", xb[:8], wb, stride,
+                        apply=True)
+        del xb, wb, rb
 
 
 def resnet_conv_geometries():
@@ -2357,12 +2465,22 @@ def resnet_conv_geometries():
     return geoms
 
 
+def _on_mma_sync_apply(fn):
+    """fn's time with the bf16 conv_apply routed to its mma.sync form."""
+    from paddle_tpu_torch.ops import fused_conv as fc
+
+    with mma_sync_route(fc, "apply_form"):
+        return time_ms(fn, iters=20)
+
+
 def _conv_geometry_timing(torch, dev, gen):
     """Rows 10 and 12 at every distinct fused geometry of ResNet-50 at batch
     128 beside their plain versions, F.conv2d (cuDNN, TF32 off) and the
     bound, in f32 and in bf16 (the AMP forms, beside cuDNN's bf16 conv and
-    the bf16 bound: products at 989 TFLOP/s against bf16 x, w and out);
-    one line per geometry and one with the sums weighted by sites.
+    the bf16 bound: products at 989 TFLOP/s against bf16 x, w and out;
+    the bf16 conv_apply in both its forms, the wgmma form its route names
+    and the mma.sync form); one line per geometry and one with the sums
+    weighted by sites.
     conv_apply takes a residual and relu where any site of the geometry
     does. Returns (the body's timings, the site-weighted sums)."""
     import torch.nn.functional as F
@@ -2373,8 +2491,9 @@ def _conv_geometry_timing(torch, dev, gen):
     n = RESNET_BATCH
     names = ("conv_moments", "conv_apply", "conv_moments_plain",
              "conv_apply_plain", "f_conv2d", "bound", "conv_moments_bf16",
-             "conv_apply_bf16", "conv_moments_plain_bf16",
-             "conv_apply_plain_bf16", "f_conv2d_bf16", "bound_bf16")
+             "conv_apply_bf16", "conv_apply_mma_sync_bf16",
+             "conv_moments_plain_bf16", "conv_apply_plain_bf16",
+             "f_conv2d_bf16", "bound_bf16")
     total = dict.fromkeys(names, 0.0)
     body = None
     for (c, o, k, stride, hw), g in geoms.items():
@@ -2408,6 +2527,8 @@ def _conv_geometry_timing(torch, dev, gen):
                                       iters=20),
             conv_apply_bf16=time_ms(lambda: fc.conv_apply(
                 xb, wb, scale, shift, rb, relu, stride), iters=20),
+            conv_apply_mma_sync_bf16=_on_mma_sync_apply(lambda: fc.conv_apply(
+                xb, wb, scale, shift, rb, relu, stride)),
             conv_moments_plain_bf16=time_ms(
                 lambda: fc.conv_moments_plain(xb, wb, stride), iters=20),
             conv_apply_plain_bf16=time_ms(lambda: fc.conv_apply_plain(
@@ -2436,7 +2557,8 @@ def _conv_geometry_timing(torch, dev, gen):
                    "moments_bf16_over_f_conv2d_bf16":
                        t["conv_moments_bf16"] / t["f_conv2d_bf16"],
                    "apply_bf16_over_f_conv2d_bf16":
-                       t["conv_apply_bf16"] / t["f_conv2d_bf16"]},
+                       t["conv_apply_bf16"] / t["f_conv2d_bf16"],
+                   "apply_form_bf16": fc.apply_form(xb, wb, stride, rb)[0]},
                   **t))
         if (c, o, k, stride, hw) == (64, 64, 3, 1, 56):
             body = dict(t, bound_by=by, bound_ms_f32_fma=bnd_fma,
@@ -2486,7 +2608,11 @@ def _conv_kernel_timing(torch, dev):
                       bound_by=body["bound_by_bf16"], shape=body["shape"],
                       bytes=body["bytes_bf16"], flops=body["flops"],
                       site_weighted_ms=total[name + "_bf16"],
-                      site_weighted_library_ms=total["f_conv2d_bf16"]))
+                      site_weighted_library_ms=total["f_conv2d_bf16"],
+                      site_weighted_bound_ms=total["bound_bf16"]))
+    rows["conv_apply"]["bf16"].update(
+        mma_sync_ms=body["conv_apply_mma_sync_bf16"],
+        site_weighted_mma_sync_ms=total["conv_apply_mma_sync_bf16"])
     n, hw = RESNET_BATCH, 56
     o = 256
     co = torch.randn(n, o, hw, hw, generator=gen, device=dev)
@@ -3427,9 +3553,11 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
     logits within 1e-4 of max(1, max|CPU|), loss within 1e-4 relative,
     accuracy equal. Under AMP (``resnet_amp_eval``) the clone, which drops
     the mark as in the reference, is marked with ``fluid.amp.enable_bf16``:
-    conv_apply launches in bf16, and the logits and loss lie within
+    conv_apply launches in bf16, every launch in its wgmma form
+    (``wgmma_launches``), and the logits and loss lie within
     AMP_MARGIN of the CPU's bf16-vs-f32 eval distance of the CPU's bf16
-    eval (relative L2)."""
+    eval (relative L2). Returns (launches, wgmma launches) of the
+    passes."""
     import paddle_tpu_torch as fluid
 
     exe, scope, main, test, spec, feed = trained
@@ -3443,18 +3571,20 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
     pass_s = []
     reset_counts()
     for _ in range(passes + 1):
-        before = read_counts(), read_bf16_counts()
+        before = read_counts(), read_bf16_counts(), read_wgmma_counts()
         t = time.perf_counter()
         exe.run(test, feed=feed, fetch_list=fetch[:2], scope=scope)
         pass_s.append(time.perf_counter() - t)
-        after = read_counts(), read_bf16_counts()
-        per, per_bf16 = ({k: a[k] - b[k] for k in a}
-                         for a, b in zip(after, before))
+        after = read_counts(), read_bf16_counts(), read_wgmma_counts()
+        per, per_bf16, per_wgmma = ({k: a[k] - b[k] for k in a}
+                                    for a, b in zip(after, before))
         check(per == RESNET_PER_EVAL
-              and per_bf16 == bf16_part(RESNET_PER_EVAL, amp),
-              "eval pass launches %s (bf16 %s) != %s"
-              % (per, per_bf16, RESNET_PER_EVAL))
+              and per_bf16 == bf16_part(RESNET_PER_EVAL, amp)
+              and per_wgmma == wgmma_part(RESNET_PER_EVAL, amp),
+              "eval pass launches %s (bf16 %s, wgmma %s) != %s"
+              % (per, per_bf16, per_wgmma, RESNET_PER_EVAL))
     launches, bf16_launches = read_counts(), read_bf16_counts()
+    wgmma_launches = read_wgmma_counts()
 
     small_feed = {k: v[:small] for k, v in feed.items()}
     gpu = exe.run(test, feed=small_feed, fetch_list=fetch, scope=scope)
@@ -3483,7 +3613,7 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
             "small_batch": small, "loss_gpu": float(gpu[0]),
             "loss_cpu": float(cpu[0]), "acc_gpu": float(gpu[1]),
             "acc_cpu": float(cpu[1]), "launches": launches,
-            "bf16_launches": bf16_launches,
+            "bf16_launches": bf16_launches, "wgmma_launches": wgmma_launches,
             "launches_per_pass": RESNET_PER_EVAL, "device": smi_line}
     if amp:
         card = {"loss": _rel_l2(gpu[0], cpu[0]),
@@ -3495,13 +3625,13 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
                   tol="card <= %g x CPU bf16 vs f32 (rel L2)" % AMP_MARGIN))
         check(all(card[n] <= AMP_MARGIN * ref[n] for n in card),
               "resnet_amp_eval: card %s, CPU bf16 vs f32 %s" % (card, ref))
-        return launches
+        return launches, wgmma_launches
     errs = {"loss": abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0])),
             "logits": _elem_err(gpu[2], cpu[2])}
     emit(dict(line, errors=errs, tol=1e-4))
     check(max(errs.values()) <= 1e-4, "resnet_eval errors %s" % errs)
     check(float(gpu[1]) == float(cpu[1]), "accuracy differs")
-    return launches
+    return launches, wgmma_launches
 
 
 # GPT-2 small's published widths (Radford et al. 2019, the ``gpt2`` config:
@@ -4087,19 +4217,21 @@ def main():
         name: times[name]["bf16"]["ms"]
         for name in ("flash_attention_fwd", "flash_attention_bwd")},
         amp=True)
-    # read at once: the path's wgmma launches (no launch comes between)
+    # read at once: the path's wgmma launches (no launch comes between);
+    # conv_apply's come from resnet_amp_eval
     amp_wgmma = read_wgmma_counts()
     phase_resnet_train_check(torch, smi_line)
     paths["resnet_train"], trained, f32_step = phase_resnet_train(
         torch, smi_line, times["conv_moments"]["site_weighted_ms"])
-    paths["resnet_eval"] = phase_resnet_eval(torch, smi_line, trained)
+    paths["resnet_eval"] = phase_resnet_eval(torch, smi_line, trained)[0]
     del trained
     phase_resnet_amp_train_check(torch, smi_line)
     paths["resnet_amp_train"], trained, _ = phase_resnet_train(
         torch, smi_line, times["conv_moments"]["bf16"]["site_weighted_ms"],
         amp=True, f32_step=f32_step)
-    paths["resnet_amp_eval"] = phase_resnet_eval(torch, smi_line, trained,
-                                                 amp=True)
+    paths["resnet_amp_eval"], eval_wgmma = phase_resnet_eval(
+        torch, smi_line, trained, amp=True)
+    amp_wgmma["conv_apply"] = eval_wgmma["conv_apply"]
     del trained
     phase_deepfm_train_check(torch, smi_line)
     paths["deepfm_train"] = phase_deepfm_train(torch, smi_line)
@@ -4155,6 +4287,9 @@ def main():
                 kernels[-1]["bf16"].update(
                     form="wgmma", wgmma_launches=amp_wgmma[name],
                     header="paddle_tpu_torch/csrc/wgmma_bf16.cuh")
+                if name == "conv_apply":
+                    kernels[-1]["bf16"]["wgmma_source"] = \
+                        "paddle_tpu_torch/csrc/fused_conv_wgmma.cu"
     print(smi_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -99,6 +99,61 @@
 // The dropout hash (flash_dropout.cuh) is the f32 form's, so both draw the
 // same mask. Bounded by operations: 10 * 4.3 GFLOP at the training shape
 // at 989 TFLOP/s.
+//
+// bf16 on wgmma (flash_bwd_wgmma_kernel). The route (ops/flash_attention.py
+// bwd_form) sends it every bf16 call with a padded head dim dp that is a
+// multiple of 16 up to 128 and no bias or one row of keys per (b, h), at
+// any Tq and Tk: the AMP training step's 18 launches. Every other call
+// keeps the mma.sync form above. It computes what that form computes, with
+// the same rounding points; what differs is how the products are fed:
+//   * A block is one warpgroup owning 64 keys of one (b, h) as the M rows
+//     of its products; dK and dV stay in registers (238 a thread at DP
+//     64); two blocks an SM. At the training shape two warpgroups a
+//     block (128 keys, one block an SM, their dQ partials summed in
+//     shared memory before the reductions) ran slower over the training
+//     path's mix of calls, most on the causal ones.
+//     One thread loads K and V once by TMA (3-d maps of the packed
+//     [B, T, H*D] layout, box {64 columns, keys}, the 128-byte swizzle,
+//     as flash_fwd_wgmma_kernel loads them), and Q and dO of each 64-query
+//     tile through a 2-stage mbarrier ring, the next tile in flight while
+//     this one is computed; lse and delta ride beside them in shared
+//     memory, the per-key bias once a block.
+//   * A prep kernel first computes delta = rowsum(dO * O) from the bf16
+//     rows (16-byte loads, f32 sums) and zeroes dq: in torch delta took
+//     0.248 ms at the training shape (PERF.md), half this backward.
+//   * S^T = K . Q^T and dP^T = V . dO^T: m64n64k16 with both operands
+//     K-major in shared memory. P and dS are computed on the accumulators
+//     (element 4 j + e: key row 16 w + g + 8 (e / 2), query column 8 j +
+//     2 tq + e % 2; the dropout bit of each (t, j) from flash_dropout.cuh),
+//     P as exp2 of the logit in log2 units (bias and lse scaled by log2(e)
+//     once, as they are loaded); a tile whose every pair is in range and
+//     allowed takes a loop without tests.
+//   * dV += Pd^T . dO and dK += dS^T . Q: Pd and dS rounded to bf16 are the
+//     register A operands as they stand (the accumulator layout is the A
+//     fragment's, 16 queries a k-step), dO and Q the N-contiguous B. dK and
+//     dV sum on the tensor cores over every query: their bf16 rounding at
+//     the end lies far above what the truncated additions lose.
+//   * dQ = dS . K needs dS with queries as rows: dS^T goes to shared memory
+//     as bf16 in the 128-byte swizzle ([keys][queries], written by each
+//     thread's 4-byte pairs, conflict-free), and dQ's product reads it as
+//     an M-contiguous A (the transpose bit of A) against K read
+//     N-contiguous.
+//   * dQ's reduction traffic. dQ is f32 [B, Tq, H*D]: 67 MB at the
+//     training shape. Blocks of 64 keys add into each element 4 times at
+//     Tk = 256 (268 MB of reductions, as many bytes as the kernel's whole
+//     bound), blocks of 128 keys twice. The f32 partial of a block goes
+//     through shared memory and out as one 16-byte reduction
+//     (red.global.add.v4.f32) per 4 columns. They are the largest single
+//     phase of the time (PERF.md), yet blocks of 128 keys, which halve
+//     them, ran slower: the overlap of two blocks an SM sets the tile.
+//     dQ stays non-deterministic (blocks run in no order); dK, dV and
+//     dBias are deterministic.
+//   * Head dims: instantiated widths DP 64 and 128 (one or two 64-column
+//     slabs). A narrower head reads the next head's columns (or zeros
+//     past H*D) into the slab; the products over the head dim stop at dp,
+//     and the columns past dp are not stored.
+// Bounded by bytes at the training shape (0.080 ms: q, k, v, dO, dq, dk,
+// dv once each), operations at 0.043 ms.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -108,6 +163,7 @@
 
 #include "flash_dropout.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -601,6 +657,478 @@ cudaError_t dispatch_width(const Args& a, int B, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on warpgroup products (see "bf16 on wgmma" in the header)
+// ---------------------------------------------------------------------------
+namespace wgfb {
+
+constexpr int BK = 64;       // keys a block: one warpgroup's rows
+constexpr int BQ = 64;       // queries a tile
+constexpr int THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct WArgs {
+  const float* lse; const float* delta; const float* bias;
+  const long long* seed;
+  float* dq; __nv_bfloat16* dk; __nv_bfloat16* dv; float* dbias;
+  int H, Tq, Tk, d;
+  long long bias_sb, bias_sh;
+  float scale; int causal; unsigned keep_thresh; float inv_keep;
+};
+
+// Shared memory, in bytes from a 1024-aligned base: K and V [BK keys] x NA
+// 64-column slabs each; two stages of Q and dO [BQ] x NA slabs each; dS^T
+// [BK keys][BQ queries] bf16; the f32 dQ partial [BQ][DP + 8]; the
+// per-key bias; lse and delta [2 stages][BQ]; the barriers.
+template <int DP>
+struct WCfg {
+  static constexpr int NA = DP / 64;
+  static constexpr int KV_SLAB = BK * 128;
+  static constexpr int Q_SLAB = BQ * 128;
+  static constexpr int STAGE = 2 * NA * Q_SLAB;  // Q slabs, then dO slabs
+  static constexpr int STG_LD = DP + 8;  // floats: conflict-free float2s
+  static constexpr size_t K_OFF = 0;
+  static constexpr size_t V_OFF = K_OFF + size_t(NA) * KV_SLAB;
+  static constexpr size_t ST_OFF = V_OFF + size_t(NA) * KV_SLAB;
+  static constexpr size_t DS_OFF = ST_OFF + 2 * size_t(STAGE);
+  static constexpr size_t STG_OFF = DS_OFF + size_t(BK) * 128;
+  static constexpr size_t BIAS_OFF =
+      STG_OFF + sizeof(float) * BQ * STG_LD;
+  static constexpr size_t LD_OFF = BIAS_OFF + sizeof(float) * BK;
+  static constexpr size_t BAR_OFF = LD_OFF + sizeof(float) * 2 * 2 * BQ;
+  static constexpr size_t SMEM = 1024 + BAR_OFF + 3 * sizeof(uint64_t);
+  static_assert(SMEM <= 232448, "shared memory of one block");
+  static_assert(DS_OFF % 1024 == 0 && ST_OFF % 1024 == 0,
+                "swizzle atoms 1024-aligned");
+};
+
+}  // namespace wgfb
+
+// One block: one warpgroup, 64 keys of one (b, h), walking the query
+// tiles its keys can see; thread 0 issues every TMA load.
+template <int DP>
+__global__ void __launch_bounds__(wgfb::THREADS, 2)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                       const __grid_constant__ CUtensorMap tmk,
+                       const __grid_constant__ CUtensorMap tmv,
+                       const __grid_constant__ CUtensorMap tmdo,
+                       wgfb::WArgs a) {
+  using C = wgfb::WCfg<DP>;
+  constexpr int NA = C::NA, BK = wgfb::BK, BQ = wgfb::BQ;
+  constexpr int NTH = wgfb::THREADS, LD = C::STG_LD;
+  constexpr float LOG2E = wgfb::LOG2E;
+  extern __shared__ __align__(1024) unsigned char fb_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(fb_smem) + 1023) & ~uintptr_t(1023));
+  unsigned char* ks = base + C::K_OFF;
+  unsigned char* vs = base + C::V_OFF;
+  unsigned char* dst = base + C::DS_OFF;
+  float* stg = reinterpret_cast<float*>(base + C::STG_OFF);
+  float* bias_s = reinterpret_cast<float*>(base + C::BIAS_OFF);
+  float* ld_s = reinterpret_cast<float*>(base + C::LD_OFF);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+
+  const int tid = threadIdx.x;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * BK;
+  const int col0 = h * a.d;  // the head's first column in [B, T, H*D]
+  const int shift = a.Tk - a.Tq;  // causal: key j allowed iff j <= t + shift
+  const long long HD = (long long)a.H * a.d;
+  const float inv_tk = 1.f / a.Tk;
+
+  // the query tiles outside the run a causal block skips (every pair
+  // masked and every row keeping a key: they add exactly zero)
+  const int n_qt = (a.Tq + BQ - 1) / BQ;
+  auto skippable = [&](int qt) {
+    const int q0 = qt * BQ, q_last = min(q0 + BQ, a.Tq) - 1;
+    return a.causal && q0 + shift >= 0 && q_last + shift < k0;
+  };
+  int lo = 0;
+  while (lo < n_qt && !skippable(lo)) ++lo;
+  int hi = lo;
+  while (hi < n_qt && skippable(hi)) ++hi;
+  const int n_visit = n_qt - (hi - lo);
+  auto tile_q0 = [&](int it) { return (it < lo ? it : it + hi - lo) * BQ; };
+  auto stage = [&](int st) { return base + C::ST_OFF + st * C::STAGE; };
+  auto load_tile = [&](int it) {  // thread 0: Q and dO of tile it
+    const int st = it & 1, q0 = tile_q0(it);
+    unsigned char* qs = stage(st);
+    mbar_expect_tx(&bar[1 + st], C::STAGE);
+    for (int at = 0; at < NA; ++at) {
+      tma_load_3d(qs + at * C::Q_SLAB, &tmq, &bar[1 + st], col0 + 64 * at,
+                  q0, b);
+      tma_load_3d(qs + (NA + at) * C::Q_SLAB, &tmdo, &bar[1 + st],
+                  col0 + 64 * at, q0, b);
+    }
+  };
+  auto load_rows = [&](int it) {  // threads < 2 BQ: lse and delta
+    if (tid < 2 * BQ) {
+      const int r = tid % BQ, t = tile_q0(it) + r;
+      const float* src = tid < BQ ? a.lse : a.delta;
+      // lse in log2 units (for exp2), delta as it is
+      ld_s[((it & 1) * 2 + tid / BQ) * BQ + r] =
+          t < a.Tq ? src[(long long)bh * a.Tq + t] * (tid < BQ ? LOG2E : 1.f)
+                   : 0.f;
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bar[0], 2 * NA * C::KV_SLAB);
+    for (int at = 0; at < NA; ++at) {
+      tma_load_3d(ks + at * C::KV_SLAB, &tmk, &bar[0], col0 + 64 * at, k0, b);
+      tma_load_3d(vs + at * C::KV_SLAB, &tmv, &bar[0], col0 + 64 * at, k0, b);
+    }
+    if (n_visit > 0) load_tile(0);
+  }
+  const float* biasb =
+      a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh : nullptr;
+  for (int j = tid; j < BK; j += NTH)
+    bias_s[j] =  // in log2 units
+        (biasb != nullptr && k0 + j < a.Tk) ? biasb[k0 + j] * LOG2E : 0.f;
+  if (n_visit > 0) load_rows(0);
+  const uint32_t dkey = a.seed ? dropout_key(*a.seed, bh) : 0u;
+
+  // this thread's key rows (local to the block): kr and kr + 8
+  const int kr = 16 * warp + g;
+  float dk[NA][32], dv[NA][32];
+#pragma unroll
+  for (int at = 0; at < NA; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[at][i] = dv[at][i] = 0.f;
+  float db[2] = {0.f, 0.f};  // dBias of keys kr, kr + 8 (partial)
+
+  __syncthreads();  // the barriers' init, the bias, tile 0's rows
+  mbar_wait(&bar[0], 0);
+  for (int it = 0; it < n_visit; ++it) {
+    const int st = it & 1;
+    if (it > 0) __syncthreads();  // tile it - 1 done: its stage, dS^T and
+                                  // partials are free, tile it's rows seen
+    if (it + 1 < n_visit) {
+      if (tid == 0) load_tile(it + 1);
+      load_rows(it + 1);
+    }
+    const int q0 = tile_q0(it);
+    unsigned char* qs = stage(st);
+    unsigned char* dos = qs + NA * C::Q_SLAB;
+    const float* Ls = ld_s + st * 2 * BQ;
+    const float* Dl = Ls + BQ;
+    mbar_wait(&bar[1 + st], (it >> 1) & 1);
+
+    // S^T = K . Q^T and dP^T = V . dO^T: this warpgroup's 64 keys by the
+    // tile's 64 queries, both operands K-major
+    float s[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dpt[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      if (kk * 16 < a.d) {
+        const int at = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss_n64<0, 0>(
+            s, wg_desc(ks + at * C::KV_SLAB + off, 16, 1024),
+            wg_desc(qs + at * C::Q_SLAB + off, 16, 1024), kk > 0);
+      }
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      if (kk * 16 < a.d) {
+        const int at = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss_n64<0, 0>(
+            dpt, wg_desc(vs + at * C::KV_SLAB + off, 16, 1024),
+            wg_desc(dos + at * C::Q_SLAB + off, 16, 1024), kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(s);
+    wgmma_hold(dpt);
+
+    // Pd into s, dS into dpt: element 4 j + e is key k0 + kr + 8 (e / 2),
+    // query q0 + 8 j + 2 tq + e % 2. P = exp2(S scale log2(e) + bias
+    // log2(e) - lse log2(e)). A tile whose every pair lies in range and is
+    // allowed (this warpgroup's keys, the tile's queries) takes the loop
+    // without tests; the others test each pair.
+    const float scale2 = a.scale * LOG2E;
+    auto pd_ds = [&](int j, int e, bool tests) {
+      const int kl = kr + 8 * (e >> 1), key = k0 + kl;
+      const int ql = j * 8 + 2 * tq + (e & 1), t = q0 + ql;
+      float p = 0.f, ds = 0.f;
+      if (!tests || (t < a.Tq && key < a.Tk)) {
+        const bool masked = tests && a.causal && key > t + shift;
+        if (masked) {
+          p = t + shift < 0 ? inv_tk : 0.f;  // a row with no allowed key
+        } else {
+          p = exp2f(fmaf(s[4 * j + e], scale2, bias_s[kl]) - Ls[ql]);
+        }
+        float pd = p, dpv = dpt[4 * j + e];
+        if (a.seed) {
+          const bool keep = dropout_keep(dkey, (long long)t * a.Tk + key,
+                                         a.keep_thresh);
+          pd = keep ? p * a.inv_keep : 0.f;
+          dpv = keep ? dpv * a.inv_keep : 0.f;
+        }
+        ds = masked ? 0.f : p * (dpv - Dl[ql]);
+        p = pd;
+      }
+      s[4 * j + e] = p;
+      dpt[4 * j + e] = ds;
+      db[e >> 1] += ds;
+    };
+    const int kmax = k0 + BK - 1;  // the block's last key
+    if (q0 + BQ <= a.Tq && kmax < a.Tk && !(a.causal && kmax > q0 + shift)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pd_ds(j, e, false);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pd_ds(j, e, true);
+    }
+
+    // Pd and dS rounded to bf16: register r of query step kk is key row
+    // kr + 8 (r & 1), queries 16 kk + 8 (r >> 1) + 2 tq and + 1
+    unsigned pa[4][4], sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+        pa[kk][r] = pack_bf16(s[i], s[i + 1]);
+        sa[kk][r] = pack_bf16(dpt[i], dpt[i + 1]);
+      }
+    // dS^T to shared memory, [keys][queries] in the 128-byte swizzle, as
+    // the MN-major A operand of dQ = dS . K
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<unsigned*>(dst + (kr + 8 * hh) * 128 +
+                                     ((j ^ g) << 4) + 4 * tq) =
+            sa[j >> 1][2 * (j & 1) + hh];
+    fence_proxy_async();
+
+    // dV += Pd^T . dO and dK += dS^T . Q: A from registers, B (dO, Q)
+    // N-contiguous; dK and dV sum on the tensor cores over every query
+    wgmma_fence();
+#pragma unroll
+    for (int at = 0; at < NA; ++at)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n64<1>(dv[at], pa[kk],
+                        wg_desc(dos + at * C::Q_SLAB + kk * 2048, C::Q_SLAB,
+                                1024), 1);
+#pragma unroll
+    for (int at = 0; at < NA; ++at)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n64<1>(dk[at], sa[kk],
+                        wg_desc(qs + at * C::Q_SLAB + kk * 2048, C::Q_SLAB,
+                                1024), 1);
+    wgmma_commit();
+    __syncthreads();  // the dS^T rows are written
+
+    // dQ over this warpgroup's 64 keys: A = dS^T (M-contiguous), B = K
+    // (N-contiguous); the f32 partial goes to shared memory
+#pragma unroll
+    for (int at = 0; at < NA; ++at) {
+      // not zeroed: the first product overwrites it, and an ordinary
+      // write here, inside the dK / dV products' stage, would make ptxas
+      // serialize every product (C7515)
+      float dq[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64<1, 1>(
+            dq, wg_desc(dst + kk * 2048, 8192, 1024),
+            wg_desc(ks + at * C::KV_SLAB + kk * 2048, C::KV_SLAB,
+                    1024),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_hold(dq);
+      float* sp = stg + (16 * warp + g) * LD + at * 64 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(sp + 8 * hh * LD + 8 * j) =
+              make_float2(dq[4 * j + 2 * hh], dq[4 * j + 2 * hh + 1]);
+    }
+    wgmma_hold(dk[0]);
+    wgmma_hold(dv[0]);
+    if constexpr (NA > 1) {
+      wgmma_hold(dk[NA - 1]);
+      wgmma_hold(dv[NA - 1]);
+    }
+    __syncthreads();  // the partial is staged
+
+    // dQ[q0 + row] += scale * partial: one 16-byte reduction per 4 columns
+    // per block
+    for (int i = tid; i < BQ * DP / 4; i += NTH) {
+      const int row = i / (DP / 4), c = 4 * (i % (DP / 4));
+      const int t = q0 + row;
+      if (t < a.Tq && c < a.d) {
+        const float4 x = *reinterpret_cast<const float4*>(stg + row * LD + c);
+        atomicAdd(reinterpret_cast<float4*>(
+                      a.dq + ((long long)b * a.Tq + t) * HD + col0 + c),
+                  make_float4(x.x * a.scale, x.y * a.scale, x.z * a.scale,
+                              x.w * a.scale));
+      }
+    }
+  }
+
+  // dK (scaled) and dV, rounded to bf16 once; the per-key dBias sums
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + kr + 8 * hh;
+    db[hh] += __shfl_xor_sync(FULL, db[hh], 1);
+    db[hh] += __shfl_xor_sync(FULL, db[hh], 2);
+    if (key >= a.Tk) continue;
+    const long long row = ((long long)b * a.Tk + key) * HD + col0;
+#pragma unroll
+    for (int at = 0; at < NA; ++at)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = at * 64 + 8 * j + 2 * tq;
+        if (col < a.d) {
+          store2(a.dk + row + col, dk[at][4 * j + 2 * hh] * a.scale,
+                 dk[at][4 * j + 2 * hh + 1] * a.scale);
+          store2(a.dv + row + col, dv[at][4 * j + 2 * hh],
+                 dv[at][4 * j + 2 * hh + 1]);
+        }
+      }
+    if (a.dbias && tq == 0) a.dbias[(long long)bh * a.Tk + key] = db[hh];
+  }
+}
+
+// delta[b, h, t] = sum_c dO[b, t, h*D + c] O[b, t, h*D + c] in f32 from the
+// bf16 rows (as paddle_tpu's _packed_stream_bwd_impl computes it outside
+// its kernel, :840-843), and dq[b, t, h*D ..] = 0: one thread per (b, t,
+// h), 16-byte loads (D a multiple of 8, rows 16-byte aligned)
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ dout,
+                      const __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ delta, float* __restrict__ dq,
+                      int B, int H, int T, int D, long long do_sb,
+                      long long do_st, long long o_sb, long long o_st) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)B * T * H) return;
+  const int h = int(i % H), t = int((i / H) % T), b = int(i / H / T);
+  const uint4* x = reinterpret_cast<const uint4*>(dout + b * do_sb +
+                                                  t * do_st + (long long)h * D);
+  const uint4* y = reinterpret_cast<const uint4*>(out + b * o_sb + t * o_st +
+                                                  (long long)h * D);
+  float acc = 0.f;
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 u = __ldg(x + c), v = __ldg(y + c);
+    const unsigned uw[4] = {u.x, u.y, u.z, u.w}, vw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 uf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&uw[k]));
+      const float2 vf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&vw[k]));
+      acc = fmaf(uf.x, vf.x, acc);
+      acc = fmaf(uf.y, vf.y, acc);
+    }
+  }
+  delta[((long long)b * H + h) * T + t] = acc;
+  float4* z = reinterpret_cast<float4*>(dq + (((long long)b * T + t) * H + h) *
+                                                 D);
+  for (int c = 0; c < D / 4; ++c) z[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The prep kernel (delta, dq zeroed), then the products. q/k/v/dO
+// [B, T, H*D] bf16 through 3-d tensor maps {H*D, T, B}: box {64, rows, 1}
+// at column h*D + 64*slab, key row k0 (K, V, BK rows) or query row q0 (Q,
+// dO, BQ rows), batch b
+template <int DP>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* out, const void* dout,
+                         const wgfb::WArgs& a, int B,
+                         const long long (&st)[8], long long o_sb,
+                         long long o_st, cudaStream_t stream) {
+  using C = wgfb::WCfg<DP>;
+  const uint64_t hd = uint64_t(a.H) * a.d;
+  const uint64_t qdims[3] = {hd, uint64_t(a.Tq), uint64_t(B)};
+  const uint64_t kdims[3] = {hd, uint64_t(a.Tk), uint64_t(B)};
+  const uint32_t qbox[3] = {64, wgfb::BQ, 1};
+  const uint32_t kbox[3] = {64, wgfb::BK, 1};
+  uint64_t str[4][2];
+  for (int i = 0; i < 4; ++i) {
+    str[i][0] = uint64_t(st[2 * i + 1]) * 2;  // row stride, bytes
+    str[i][1] = uint64_t(st[2 * i]) * 2;      // batch stride
+  }
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = encode_bf16_map(&mq, q, 3, qdims, str[0], qbox);
+  if (err == cudaSuccess) err = encode_bf16_map(&mk, k, 3, kdims, str[1], kbox);
+  if (err == cudaSuccess) err = encode_bf16_map(&mv, v, 3, kdims, str[2], kbox);
+  if (err == cudaSuccess)
+    err = encode_bf16_map(&mdo, dout, 3, qdims, str[3], qbox);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(C::SMEM));
+  if (err != cudaSuccess) return err;
+  const long long rows = (long long)B * a.Tq * a.H;
+  flash_bwd_prep_kernel<<<unsigned((rows + 255) / 256), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const __nv_bfloat16*>(out), const_cast<float*>(a.delta),
+      a.dq, B, a.H, a.Tq, a.d, st[6], st[7], o_sb, o_st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Tk + wgfb::BK - 1) / wgfb::BK, B * a.H);
+  flash_bwd_wgmma_kernel<DP><<<grid, wgfb::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, mdo, a);
+  return cudaGetLastError();
+}
+
+// The product form of dQ on its own, for the card tests: d [64][64] f32 =
+// a^T . b for a [64 k][64 m] and b [64 k][64 n] bf16 row-major, both
+// written by ordinary stores into the 128-byte swizzle and read
+// MN-major (transpose bits A and B set), as the kernel reads dS^T and K.
+__global__ void __launch_bounds__(128)
+wgmma_mn_major_probe_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                            float* d) {
+  __shared__ __align__(1024) unsigned char sm[2 * 8192];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < 2 * 64 * 8; i += 128) {  // 16-byte pieces
+    const int m = i / 512, r = (i / 8) % 64, c = i % 8;
+    const uint4 x = reinterpret_cast<const uint4*>(m ? b : a)[r * 8 + c];
+    *reinterpret_cast<uint4*>(sm + m * 8192 + r * 128 + ((c ^ (r & 7)) << 4)) =
+        x;
+  }
+  fence_proxy_async();
+  __syncthreads();
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n64<1, 1>(acc, wg_desc(sm + kk * 2048, 8192, 1024),
+                       wg_desc(sm + 8192 + kk * 2048, 8192, 1024), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_hold(acc);
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      d[(16 * warp + g + 8 * (e >> 1)) * 64 + 8 * j + 2 * tq + (e & 1)] =
+          acc[4 * j + e];
+}
+
 }  // namespace
 
 extern "C" {
@@ -644,6 +1172,65 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return rows ? dispatch_width<__nv_bfloat16, true>(a, B, s)
                 : dispatch_width<__nv_bfloat16, false>(a, B, s);
   return cudaErrorInvalidValue;
+}
+
+// The bf16 form on warpgroup products (flash_bwd_wgmma_kernel): q/k/v/out/
+// dout bf16 with 16-byte aligned pointers and positive batch and row
+// strides that are multiples of 16 bytes, D (the padded head dim) a
+// multiple of 16 up to 128, any Tq and Tk, and no bias or one row of keys
+// per (b, h) (bias_st == 0; dbias, if given, gets its per-head sums over
+// the queries). delta: f32 [B, H, Tq] scratch, written here with
+// rowsum(dO * O); dq: f32 [B, Tq, H*D] contiguous, zeroed here, then
+// summed into; dk/dv bf16 [B, Tk, H*D] contiguous. The other arguments as
+// flash_attention_bwd's. Two launches on `stream`.
+int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
+                              const void* out, const void* dout,
+                              const void* lse, void* delta, const void* bias,
+                              const void* seed, void* dq, void* dk, void* dv,
+                              void* dbias, int B, int H, int Tq, int Tk,
+                              int D, long long q_sb, long long q_st,
+                              long long k_sb, long long k_st, long long v_sb,
+                              long long v_st, long long o_sb, long long o_st,
+                              long long do_sb, long long do_st,
+                              long long bias_sb, long long bias_sh,
+                              float scale, int causal, unsigned keep_thresh,
+                              float inv_keep, void* stream) {
+  const long long st[8] = {q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st};
+  for (long long x : st)
+    if (x <= 0 || (x * 2) % 16 != 0) return cudaErrorInvalidValue;
+  if (o_sb <= 0 || o_st <= 0 || (o_sb * 2) % 16 != 0 || (o_st * 2) % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (D % 16 != 0 || D < 16 || D > 128 || Tq < 1 || Tk < 1 || B < 1 ||
+      H < 1 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq)) %
+              16 != 0)
+    return cudaErrorInvalidValue;
+  const wgfb::WArgs a{static_cast<const float*>(lse),
+                      static_cast<const float*>(delta),
+                      static_cast<const float*>(bias),
+                      static_cast<const long long*>(seed),
+                      static_cast<float*>(dq),
+                      static_cast<__nv_bfloat16*>(dk),
+                      static_cast<__nv_bfloat16*>(dv),
+                      static_cast<float*>(dbias), H, Tq, Tk, D, bias_sb,
+                      bias_sh, scale, causal, keep_thresh, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_wgmma<64>(q, k, v, out, dout, a, B, st, o_sb, o_st, s);
+  return launch_wgmma<128>(q, k, v, out, dout, a, B, st, o_sb, o_st, s);
+}
+
+// d = a^T . b through the MN-major product form (see the probe kernel):
+// a, b bf16 [64][64], d f32 [64][64], all contiguous on the device.
+int wgmma_mn_major_probe(const void* a, const void* b, void* d,
+                         void* stream) {
+  wgmma_mn_major_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(
+                                               stream)>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<float*>(d));
+  return cudaGetLastError();
 }
 
 const char* ptt_error_string(int err) {

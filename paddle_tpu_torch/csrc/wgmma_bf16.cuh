@@ -1,28 +1,34 @@
 // Hopper (sm_90a) building blocks of the bf16 wgmma forms of
-// fused_ce_fwd.cu and flash_attention_fwd.cu: warpgroup products
-// (wgmma.mma_async), their shared-memory matrix descriptors, mbarriers,
-// the Tensor Memory Accelerator's tile loads (TMA) and register
-// reallocation (setmaxnreg), and, on the host, the encoding of a TMA
-// tensor map.
+// fused_ce_fwd.cu, flash_attention_fwd.cu, flash_attention_bwd.cu and
+// fused_conv_wgmma.cu: warpgroup products (wgmma.mma_async), their
+// shared-memory matrix descriptors, mbarriers, the Tensor Memory
+// Accelerator's tile loads (TMA) and register reallocation (setmaxnreg),
+// and, on the host, the encoding of a TMA tensor map.
 //
 // The shared-memory layout every operand here uses is the 128-byte
 // swizzle (CU_TENSOR_MAP_SWIZZLE_128B, the descriptors' layout type 1):
 // a tile is stored as rows of 64 bf16 (128 bytes), and the 16-byte piece
 // c of row r lies at piece c ^ (r % 8) of its row. Eight rows (1024
 // bytes, 1024-aligned) are one swizzle atom. A TMA load with that
-// swizzle writes a box {64 elements, rows} in exactly this layout, so
-// nothing is rearranged by hand. How a descriptor reads such tiles
-// (CUTLASS's canonical GMMA layouts, in bytes):
-//   * K-major (the 64 elements of a row run along k; A always, and B when
-//     it is stored [N][K]): rows are the M (or N) index, 128 bytes apart;
-//     the stride byte offset (SBO) is the step between 8-row groups, 1024
-//     when rows are packed; the leading byte offset is unused. A k16 step
-//     kk of an atom starts 32 * kk bytes into it.
-//   * MN-major (B stored [K][N], N contiguous: the transpose bit): each
-//     64-wide N slab is [K rows][128 bytes]; SBO is the step between
-//     8-row (k) groups, 1024, and the leading byte offset (LBO) the step
-//     between 64-wide N slabs. A k16 step starts 16 rows (2048 bytes)
-//     further.
+// swizzle writes a box {64 elements, rows, ...} in exactly this layout
+// (the box's outer dimensions flattened into rows, innermost first), so
+// nothing is rearranged by hand; a tile written by ordinary stores puts
+// element (r, c) at byte r * 128 + ((c / 8) ^ (r % 8)) * 16 + (c % 8) * 2
+// and is followed by fence_proxy_async() before a product reads it. How
+// a descriptor reads such tiles (CUTLASS's canonical GMMA layouts, in
+// bytes):
+//   * K-major (the 64 elements of a row run along k; A by default, and B
+//     when it is stored [N][K]): rows are the M (or N) index, 128 bytes
+//     apart; the stride byte offset (SBO) is the step between 8-row
+//     groups, 1024 when rows are packed; the leading byte offset is
+//     unused. A k16 step kk of an atom starts 32 * kk bytes into it.
+//   * MN-major (stored [K][M] or [K][N], M or N contiguous: the operand's
+//     transpose bit, TA for A, TB for B): each 64-wide M or N slab is
+//     [K rows][128 bytes]; SBO is the step between 8-row (k) groups,
+//     1024, and the leading byte offset (LBO) the step between 64-wide
+//     slabs. A k16 step starts 16 rows (2048 bytes) further. The flash
+//     backward's dQ = dS . K takes both operands this way: dS^T lies in
+//     shared memory as [keys][queries], K as [keys][head dims].
 //
 // The accumulator of a wgmma m64nNk16 with f32 output: thread t of the
 // warpgroup (warp w = t / 32 % 4, lane l) holds d[4 j + e] for row
@@ -32,11 +38,21 @@
 // warp's 16 rows, so an accumulator over 16 keys packs into the A operand
 // of the next product without moving between lanes.
 //
+// Tensor maps (host): encode_bf16_map takes any rank up to 5, tiled, with
+// the 128-byte swizzle. The conv's taps are 4-d boxes {64 channels, Wo,
+// rows, images} of a channels-last [N, H, W, C] tensor (encode_nhwc_map):
+// the box's pixels land as consecutive 128-byte rows, image by image and
+// row by row, and a tap's shift by (dy, dx) is the box's start; a start
+// or an end outside a dimension reads zeros in that dimension alone, so
+// the 3x3 zero padding needs no test.
+//
 // Ordering rules kept by the callers: wgmma_fence() before the first
 // product that reads or writes registers last touched by ordinary code;
 // a stage of shared memory is refilled only after wgmma_wait has retired
 // every product that reads it; an mbarrier's expected byte count is the
-// whole box, including what the TMA fills with zeros outside the tensor.
+// whole box, including what the TMA fills with zeros outside the tensor;
+// shared memory written by ordinary stores is made visible to the
+// products by fence_proxy_async() before the barrier that orders them.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is
@@ -71,6 +87,11 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// orders this thread's ordinary shared-memory stores before the async
+// proxy's reads (a wgmma operand written by st.shared)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous products that own it
 template <int N>
@@ -80,6 +101,31 @@ __device__ __forceinline__ void wgmma_hold(float (&d)[N]) {
 }
 
 // ------------------------------------------------------- wgmma products
+
+// d (+)= A . B, m64n64k16: A and B from shared memory (descriptors);
+// TA = 1: A stored M-contiguous, TB = 1: B stored N-contiguous (their
+// transpose bits). 32 f32 a thread.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 // d (+)= A . B, m64n128k16: A and B from shared memory (descriptors),
 // TB = 1: B stored N-contiguous (its transpose bit). 64 f32 a thread.
@@ -274,6 +320,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
+// whether the phase of that parity has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(wg_smem(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // TMA tile loads into shared memory, completing on `bar`: coordinates in
 // elements, innermost first; out-of-range elements arrive as zeros
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -293,6 +352,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(wg_smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(wg_smem(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(wg_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(wg_smem(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -362,4 +432,18 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The box {64 channels, bw, bh, bn} of a channels-last bf16 tensor
+// [n, h, w, c] (c a multiple of 8, base 16-byte aligned). Coordinates:
+// {channel, x, y, image}, innermost first; anything outside reads zeros.
+inline cudaError_t encode_nhwc_map(CUtensorMap* map, const void* base, int n,
+                                   int h, int w, int c, int bw, int bh,
+                                   int bn) {
+  const uint64_t dims[4] = {uint64_t(c), uint64_t(w), uint64_t(h),
+                            uint64_t(n)};
+  const uint64_t row = uint64_t(c) * 2;  // bytes of one pixel
+  const uint64_t strides[3] = {row, row * w, row * w * h};
+  const uint32_t box[4] = {64, uint32_t(bw), uint32_t(bh), uint32_t(bn)};
+  return encode_bf16_map(map, base, 4, dims, strides, box);
 }

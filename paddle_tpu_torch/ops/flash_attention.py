@@ -55,7 +55,14 @@ route by shape, not a fallback. The backward
 rounds P (after dropout) and dS to bf16 for its products, sums dq in f32
 and rounds it once, and stores dk and dv in bf16, as ``paddle_tpu``'s
 ``_packed_bwd_kernel`` (:724-736, :898-899). lse, delta and the bias and
-its gradient stay f32.
+its gradient stay f32. It has two forms too (:func:`bwd_form`, recorded by
+:func:`kernel_choice` as ``bwd_form`` and counted by
+``flash_attention_bwd.wgmma_launches``): a padded head dim that is a
+multiple of 16 up to :data:`WGMMA_MAX_HEAD_DIM` and no bias or a per-key
+one, at any Tq and Tk, runs on warpgroup products
+(``flash_bwd_wgmma_kernel``: 64 keys a block, Q and dO through a TMA
+ring, delta and the zeroed dq from a prep kernel); every other bf16 call
+runs the ``mma.sync`` form.
 
 Attention dropout (``paddle_tpu``'s ``_dropout_keep``, :80) is a
 counter-based hash keyed by (seed, b, h, query, key), shared by both
@@ -76,7 +83,8 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "mha_plain", "mha_bwd_plain", "attention_plain",
            "attention_bwd_plain", "dropout_keep",
-           "draw_seed", "kernel_choice", "fwd_form", "MAX_HEAD_DIM",
+           "draw_seed", "kernel_choice", "fwd_form", "bwd_form",
+           "MAX_HEAD_DIM",
            "WGMMA_MAX_KEYS", "WGMMA_MAX_HEAD_DIM"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -267,7 +275,12 @@ def attention_bwd_plain(q, k, v, out, lse, dout, num_heads, bias=None,
 def _c_fn(name, entry=None):
     fn = getattr(_build.load(name), entry or name)
     if fn.argtypes is None:
-        if entry == "flash_attention_fwd_wgmma":
+        if entry == "flash_attention_bwd_wgmma":
+            fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 12
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
+                              ctypes.c_float, ctypes.c_void_p])
+        elif entry == "flash_attention_fwd_wgmma":
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                            + [ctypes.c_longlong] * 10
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
@@ -322,7 +335,8 @@ def kernel_choice(q, num_heads, k=None, bias=None):
     (and the bias), a device choice also names the forward's form
     (:func:`fwd_form`): ``"form": "wgmma" | "mma_sync"``, and for
     ``mma_sync`` in bf16 the check that kept it off the wgmma form
-    (``"form_reason"``)."""
+    (``"form_reason"``); and the backward's (:func:`bwd_form`) as
+    ``"bwd_form"`` and ``"bwd_form_reason"``."""
     if q.device.type == "cpu":
         return {"kernel": "plain", "reasons": [{
             "check": "device",
@@ -334,10 +348,11 @@ def kernel_choice(q, num_heads, k=None, bias=None):
             "limit of %d" % (q.device, d, MAX_HEAD_DIM))
     choice = {"kernel": "cuda_flash", "reasons": []}
     if k is not None:
-        form, why = fwd_form(q, k, num_heads, bias)
-        choice["form"] = form
-        if why is not None:
-            choice["form_reason"] = why
+        for key, route in (("form", fwd_form), ("bwd_form", bwd_form)):
+            form, why = route(q, k, num_heads, bias)
+            choice[key] = form
+            if why is not None:
+                choice[key + "_reason"] = why
     return choice
 
 
@@ -356,9 +371,27 @@ def fwd_form(q, k, num_heads, bias=None):
     check that failed."""
     if q.dtype != torch.bfloat16:
         return "mma_sync", None
-    dp = -(-(q.shape[-1] // num_heads) // 8) * 8
     if k.shape[1] > WGMMA_MAX_KEYS:
         return "mma_sync", "keys %d > %d" % (k.shape[1], WGMMA_MAX_KEYS)
+    return _wgmma_width_and_bias(q, num_heads, bias)
+
+
+def bwd_form(q, k, num_heads, bias=None):
+    """The backward's form for a device call, by shape: ``("wgmma",
+    None)`` for bf16 with a padded head dim (the next multiple of 8) that
+    is a multiple of 16 up to :data:`WGMMA_MAX_HEAD_DIM` and no bias or a
+    per-key one, at any Tq and Tk (``flash_bwd_wgmma_kernel`` walks the
+    query tiles of 64 keys a block); else ``("mma_sync", reason)``,
+    reason None for f32 (its only form) or the check that failed."""
+    if q.dtype != torch.bfloat16:
+        return "mma_sync", None
+    return _wgmma_width_and_bias(q, num_heads, bias)
+
+
+def _wgmma_width_and_bias(q, num_heads, bias):
+    """The checks both wgmma forms share: the padded head dim and the
+    bias."""
+    dp = -(-(q.shape[-1] // num_heads) // 8) * 8
     if dp % 16 or dp > WGMMA_MAX_HEAD_DIM:
         return "mma_sync", "head dim %d (padded) not a multiple of 16 up " \
             "to %d" % (dp, WGMMA_MAX_HEAD_DIM)
@@ -508,9 +541,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
                         want_dbias=False):
     """Launch the CUDA backward. q/k/v and bias as for the forward (f32 or
     bf16); out and lse are the forward's; dout: [B, Tq, H*D] in q's dtype.
-    Returns (dq, dk, dv, dbias) in the packed layout: dq summed in f32 and
-    rounded to q's dtype, dk and dv in k's and v's, dbias f32 in the bias's
-    shape or None."""
+    bf16 runs the form :func:`bwd_form` names (``wgmma_launches`` counts
+    the warpgroup-product one). Returns (dq, dk, dv, dbias) in the packed
+    layout: dq summed in f32 and rounded to q's dtype, dk and dv in k's
+    and v's, dbias f32 in the bias's shape or None."""
     b, t_q, t_k, hd, d = _check_qkv(q, k, v, num_heads,
                                     "flash_attention_bwd", _DTYPE_CODES)
     if dout.dtype != q.dtype or out.dtype != q.dtype:
@@ -521,22 +555,30 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
                          % (tuple(dout.shape), tuple(out.shape),
                             tuple(q.shape)))
     bias_in = bias
+    form = bwd_form(q, k, num_heads, bias)[0]
     bias, (bias_sb, bias_sh, bias_st) = _bias_args(
         bias, b, num_heads, t_q, t_k, "flash_attention_bwd")
     seed, thresh, inv_keep = _dropout_args(dropout_rate, seed)
     _same_device(q, k, v, dout, out, lse, bias, seed)
-    # delta = rowsum(dO * O) per (b, h, t), as paddle_tpu's
-    # _packed_stream_bwd_impl computes it outside the kernel (:840-843)
-    delta = (dout.float() * out.float()).reshape(b, t_q, num_heads, d).sum(
-        -1).transpose(1, 2).contiguous()
     dp = -(-d // 8) * 8
-    if dp != d:
-        q, k, v, dout = (_pad_heads(x, num_heads, d, dp)
-                         for x in (q, k, v, dout))
-    q, k, v, dout = (_rows16(x) for x in (q, k, v, dout))
-    lse = lse.contiguous()
     hdp = num_heads * dp
-    dq = torch.zeros(b, t_q, hdp, device=q.device, dtype=torch.float32)
+    if form == "wgmma":
+        # the C entry computes delta = rowsum(dO * O) (a kernel of its own,
+        # into this scratch) and zeroes dq before the products
+        delta = torch.empty(b, num_heads, t_q, device=q.device,
+                            dtype=torch.float32)
+        dq = torch.empty(b, t_q, hdp, device=q.device, dtype=torch.float32)
+    else:
+        # delta per (b, h, t), as paddle_tpu's _packed_stream_bwd_impl
+        # computes it outside the kernel (:840-843)
+        delta = (dout.float() * out.float()).reshape(
+            b, t_q, num_heads, d).sum(-1).transpose(1, 2).contiguous()
+        dq = torch.zeros(b, t_q, hdp, device=q.device, dtype=torch.float32)
+    if dp != d:
+        q, k, v, dout, out = (_pad_heads(x, num_heads, d, dp)
+                              for x in (q, k, v, dout, out))
+    q, k, v, dout, out = (_rows16(x) for x in (q, k, v, dout, out))
+    lse = lse.contiguous()
     dk = torch.empty(b, t_k, hdp, device=q.device, dtype=q.dtype)
     dv = torch.empty(b, t_k, hdp, device=q.device, dtype=q.dtype)
     dbias = None
@@ -546,18 +588,33 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
                              dtype=torch.float32) if bias_st == 0 else
                  torch.zeros(b, num_heads, t_q, t_k, device=q.device,
                              dtype=torch.float32))
-    _build.launch(_c_fn("flash_attention_bwd"), "flash_attention_bwd",
-                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  bias.data_ptr() if bias is not None else None,
-                  seed.data_ptr() if seed is not None else None,
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  dbias.data_ptr() if dbias is not None else None,
-                  _DTYPE_CODES[q.dtype], b, num_heads, t_q, t_k, dp,
-                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                  v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
-                  bias_sb, bias_sh, bias_st, 1.0 / math.sqrt(d),
-                  int(bool(causal)), thresh, inv_keep)
+    ptrs = (lse.data_ptr(), delta.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            seed.data_ptr() if seed is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dbias.data_ptr() if dbias is not None else None)
+    tail = (1.0 / math.sqrt(d), int(bool(causal)), thresh, inv_keep)
+    if form == "wgmma":
+        if min(x.stride(i) for x in (q, k, v, out, dout)
+               for i in (0, 1)) <= 0:
+            # a broadcast batch or row: the tensor maps want real strides
+            q, k, v, out, dout = (x.contiguous()
+                                  for x in (q, k, v, out, dout))
+        _build.launch(_c_fn("flash_attention_bwd",
+                            "flash_attention_bwd_wgmma"),
+                      "flash_attention_bwd", q.device, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      dout.data_ptr(), *ptrs, b, num_heads, t_q, t_k, dp,
+                      *(x.stride(i) for x in (q, k, v, out, dout)
+                        for i in (0, 1)), bias_sb, bias_sh, *tail)
+        flash_attention_bwd.wgmma_launches += 1
+    else:
+        _build.launch(_c_fn("flash_attention_bwd"), "flash_attention_bwd",
+                      q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      dout.data_ptr(), *ptrs, _DTYPE_CODES[q.dtype], b,
+                      num_heads, t_q, t_k, dp,
+                      *(x.stride(i) for x in (q, k, v, dout) for i in (0, 1)),
+                      bias_sb, bias_sh, bias_st, *tail)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.bf16_launches += q.dtype == torch.bfloat16
     dq = dq.to(q.dtype)
@@ -569,6 +626,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, num_heads, bias=None,
 
 
 flash_attention_bwd.launches = flash_attention_bwd.bf16_launches = 0
+flash_attention_bwd.wgmma_launches = 0  # of them, on warpgroup products
 
 
 def _sum_to_bias(g, bias):

@@ -51,6 +51,17 @@ gradients through ``aten.convolution_backward`` (cuDNN on the card).
 (:458-471). Without a tape (the eval pass under ``inference_mode``) the
 kernels launch directly, without the Functions' host cost.
 
+bf16 ``conv_apply`` has two forms, chosen by shape (:func:`apply_form`,
+counted by ``conv_apply.wgmma_launches``): at the fused geometries with C
+and O multiples of 64, Wo up to 256 and 16-byte aligned pointers
+(every site of ResNet-50), an implicit GEMM on warpgroup products
+(``csrc/fused_conv_wgmma.cu``) that copies x channels last (for a 1x1
+stride-2 conv only the pixels it reads) and reads the copy through TMA
+boxes; every other bf16 call the
+``mma.sync`` form of ``csrc/fused_conv.cu``. Both are checked kernels: a
+route by shape, not a fallback. ``conv_moments`` has the ``mma.sync``
+form only.
+
 Devices. A CUDA tensor launches the kernels or raises; a CPU tensor takes
 the plain versions. Neither falls back to the other, and a kernel that
 fails to build or launch never gives way to the unfused replay.
@@ -72,7 +83,8 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["supported_geometry", "gate", "fused_conv_bn_act",
-           "conv_moments", "bn_apply", "conv_apply", "conv_moments_plain",
+           "conv_moments", "bn_apply", "conv_apply", "apply_form",
+           "conv_moments_plain",
            "bn_apply_plain", "conv_apply_plain", "conv_rounded", "bn_stats",
            "epilogue_reference", "tf32_round", "conv_3xtf32_emulated"]
 
@@ -257,8 +269,8 @@ def _moments_to_stats(s1, s2, count):
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _fn(entry, n_ptr, n_int):
-    fn = getattr(_build.load("fused_conv"), entry)
+def _fn(entry, n_ptr, n_int, lib="fused_conv"):
+    fn = getattr(_build.load(lib), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
@@ -369,28 +381,65 @@ def bn_apply(co, scale, shift, residual, relu):
 bn_apply.launches = bn_apply.bf16_launches = 0
 
 
+# the widest output row the wgmma form's tile holds (its 256 pixel slots)
+WGMMA_MAX_WO = 256
+
+
+def apply_form(x, w, stride, residual=None):
+    """The bf16 ``conv_apply``'s form for a device call, by shape:
+    ``("wgmma", None)`` at the fused geometries with C and O multiples of
+    64 (a 64-channel chunk is one 128-byte row of the channels-last copy,
+    a TMA box's swizzle row), Wo up to :data:`WGMMA_MAX_WO` and x, w and
+    the residual 16-byte aligned; else ``("mma_sync", reason)``, reason
+    None for f32 (its only form) or the check that failed."""
+    if x.dtype != torch.bfloat16:
+        return "mma_sync", None
+    n, c, h, wd = x.shape
+    o, _, k, _ = w.shape
+    if c % 64 or o % 64:
+        return "mma_sync", "C %d or O %d not a multiple of 64" % (c, o)
+    wo = (wd + 2 * ((k - 1) // 2) - k) // stride + 1
+    if wo > WGMMA_MAX_WO:
+        return "mma_sync", "Wo %d > %d" % (wo, WGMMA_MAX_WO)
+    if any(t is not None and t.data_ptr() % 16 for t in (x, w, residual)):
+        return "mma_sync", "a pointer not 16-byte aligned"
+    return "wgmma", None
+
+
 def conv_apply(x, w, scale, shift, residual, relu, stride):
     """Launch the inference kernel (row 12): conv with the BN affine
     (+ residual)(+ relu) in its epilogue. x, w, residual: f32 or bf16; y
-    in x's dtype."""
-    dtype, w, (n, c, h, wd, o, k, ho, wo) = _conv_args(
+    in x's dtype. bf16 runs the form :func:`apply_form` names
+    (``wgmma_launches`` counts the warpgroup-product one, which first
+    copies the pixels it reads channels last into scratch allocated
+    here)."""
+    dtype, wk, (n, c, h, wd, o, k, ho, wo) = _conv_args(
         "conv_apply", x, w, stride, (scale, shift), residual)
+    form = apply_form(x, w, stride, residual)[0]
     if scale.numel() != o or shift.numel() != o or (
             residual is not None and tuple(residual.shape) != (n, o, ho, wo)):
         raise ValueError("conv_apply: scale/shift must be [%d] and the "
                          "residual [%d, %d, %d, %d]" % (o, n, o, ho, wo))
     y = torch.empty(n, o, ho, wo, device=x.device, dtype=dtype)
-    _build.launch(_fn("conv_apply" + _suffix(dtype), 6, 8), "fused_conv",
-                  x.device, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                  shift.data_ptr(),
-                  residual.data_ptr() if residual is not None else None,
-                  y.data_ptr(), n, c, h, wd, o, k, stride, int(bool(relu)))
+    tail = (scale.data_ptr(), shift.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            y.data_ptr(), n, c, h, wd, o, k, stride, int(bool(relu)))
+    if form == "wgmma":  # the kernel's channels-last copy of x goes here
+        xt = torch.empty(n, ho, wo, c, device=x.device, dtype=dtype)
+        _build.launch(_fn("conv_apply_bf16_wgmma", 7, 8, "fused_conv_wgmma"),
+                      "fused_conv_wgmma", x.device, x.data_ptr(),
+                      xt.data_ptr(), wk.data_ptr(), *tail)
+        conv_apply.wgmma_launches += 1
+    else:
+        _build.launch(_fn("conv_apply" + _suffix(dtype), 6, 8), "fused_conv",
+                      x.device, x.data_ptr(), wk.data_ptr(), *tail)
     conv_apply.launches += 1
     conv_apply.bf16_launches += dtype == torch.bfloat16
     return y
 
 
 conv_apply.launches = conv_apply.bf16_launches = 0
+conv_apply.wgmma_launches = 0  # of them, on warpgroup products
 
 
 # ---------------------------------------------------------------------------

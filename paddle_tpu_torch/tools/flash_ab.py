@@ -11,9 +11,10 @@ checkout's ``chip_smoke.flash_kernel_timing`` (the shapes and inputs of
 f32 with TF32 off): the forward at BERT-base's served shape, the forward
 and the backward at Transformer-base's training shape, each beside
 ``F.scaled_dot_product_attention`` on the same inputs; then the bf16 (AMP)
-forms of the flash forward and the fused CE at the training shapes through
-``chip_smoke._bf16_kernel_timing`` (rows 1 and 9 of its bf16 column),
-beside SDPA and the bf16 ``torch.matmul`` projection.
+forms of the flash forward and backward and the fused CE at the training
+shapes through ``chip_smoke._bf16_kernel_timing`` (rows 1, 2 and 9 of its
+bf16 column), beside SDPA forward and backward and the bf16
+``torch.matmul`` projection.
 
 With ``--base`` the runs alternate base, change, change, base for
 ``--rounds`` rounds, so a drift of the card over the call falls on both
@@ -50,8 +51,9 @@ def _worker(root):
     trained = fwd["trained_shape"]
     bf16 = cs._bf16_kernel_timing(
         torch, torch.device("cuda", 0), torch.Generator().manual_seed(cs.SEED),
-        only=("flash_attention_fwd", "fused_ce_fwd"))
+        only=("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd"))
     bf_fwd, bf_ce = bf16["flash_attention_fwd"], bf16["fused_ce_fwd"]
+    bf_bwd = bf16["flash_attention_bwd"]
     print(json.dumps({
         "root": root, "device": torch.cuda.get_device_name(0),
         "fwd_served": fwd["ms"], "sdpa_fwd_served": fwd["library_ms"],
@@ -60,6 +62,8 @@ def _worker(root):
         "bwd_trained": bwd["ms"], "sdpa_bwd_trained": bwd["library_ms"],
         "bf16_fwd_trained": bf_fwd["ms"],
         "bf16_sdpa_fwd_trained": bf_fwd["library_ms"],
+        "bf16_bwd_trained": bf_bwd["ms"],
+        "bf16_sdpa_bwd_trained": bf_bwd["library_ms"],
         "bf16_ce_trained": bf_ce["ms"],
         "bf16_matmul_trained": bf_ce["library_ms"]}), flush=True)
 

@@ -1290,3 +1290,244 @@ def test_decode_cache_positions_out_of_range_on_gpu(dev):
                            scope=scope)[0])
     np.testing.assert_array_equal(res[0], res[1])
     assert np.isnan(res[0][3:]).all() and np.isfinite(res[0][:3]).all()
+
+
+def test_wgmma_mn_major_product_matches_matmul(dev):
+    """The product form the wgmma flash backward's dQ takes (both operands
+    M/N-contiguous in the 128-byte swizzle, written by ordinary stores):
+    a^T . b on 64 x 64 bf16 matrices against torch.matmul in f32."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _build
+
+    fn = _build.load("flash_attention_bwd").wgmma_mn_major_probe
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    gen = torch.Generator().manual_seed(40)
+    a, b = (torch.randn(64, 64, generator=gen).to(dev, torch.bfloat16)
+            for _ in range(2))
+    d = torch.empty(64, 64, device=dev)
+    assert fn(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    want = a.float().t() @ b.float()
+    assert (d - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# (B, Tq, Tk, H, D, causal, bias form, dropout, the backward's form): Tk on
+# both sides of 256 and past it, causal Tq < Tk and Tq > Tk (rows that see
+# no key), head dims 16 to 128 and past them, padding and rich biases
+FLASH_BWD_FORM_CASES = [
+    (2, 100, 16, 2, 64, False, "key+grad", 0.0, "wgmma"),
+    (2, 100, 255, 2, 64, False, "key", 0.1, "wgmma"),
+    (4, 256, 256, 8, 64, False, "key+grad", 0.1, "wgmma"),
+    (2, 100, 257, 2, 64, False, "key4+grad", 0.1, "wgmma"),
+    (2, 70, 512, 2, 64, True, "key", 0.0, "wgmma"),     # causal, Tq < Tk
+    (2, 300, 100, 2, 64, True, None, 0.1, "wgmma"),     # causal, Tq > Tk
+    (2, 129, 64, 2, 16, True, None, 0.0, "wgmma"),
+    (2, 96, 96, 2, 128, True, "key+grad", 0.1, "wgmma"),
+    (1, 70, 300, 3, 48, False, None, 0.0, "wgmma"),
+    (2, 70, 100, 2, 12, False, "key", 0.0, "wgmma"),    # padded to 16
+    (2, 100, 130, 2, 112, False, "head+grad", 0.1, "wgmma"),
+    (2, 70, 100, 2, 40, False, "key+grad", 0.0, "mma_sync"),
+    (1, 70, 129, 2, 136, False, "key", 0.0, "mma_sync"),
+    (2, 65, 100, 3, 64, False, "full+grad", 0.1, "mma_sync"),  # per query
+]
+
+
+@pytest.mark.parametrize("b,t,tk,h,d,causal,bias_form,rate,form",
+                         FLASH_BWD_FORM_CASES)
+def test_flash_bf16_backward_forms_match_plain(dev, monkeypatch, b, t, tk, h,
+                                               d, causal, bias_form, rate,
+                                               form):
+    """The bf16 backward in the form its route names (counted by
+    ``wgmma_launches``) and, where that is the wgmma form, in the mma.sync
+    form too, against the plain backward from the same out and lse, same
+    seed: dq, dk, dv within 2^-7 of max(1, max|plain|), dbias within
+    1e-4."""
+    gen = torch.Generator().manual_seed(41)
+    q, k, v = _qkv(gen, b, t, tk, h, d, dev, torch.bfloat16)
+    dout = torch.randn(b, t, h * d, generator=gen).to(dev, torch.bfloat16)
+    kb = _bias(gen, bias_form, b, h, t, tk, dev)
+    grad_b = bias_form is not None and bias_form.endswith("+grad")
+    seed = torch.tensor([42], dtype=torch.int64, device=dev) if rate else None
+    out, lse = tfa.flash_attention_fwd(q, k, v, h, kb, causal, rate, seed)
+    ref = tfa.attention_bwd_plain(q, k, v, out, lse, dout, h, kb, causal,
+                                  rate, seed, want_dbias=grad_b)
+    forms = (form, "mma_sync") if form == "wgmma" else (form,)
+    for run in forms:
+        if run != form:
+            monkeypatch.setattr(tfa, "bwd_form",
+                                lambda *a, **k: ("mma_sync", "forced"))
+        n0 = tfa.flash_attention_bwd.wgmma_launches
+        got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, h, kb, causal,
+                                      rate, seed, want_dbias=grad_b)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention_bwd.wgmma_launches - n0 == (
+            run == "wgmma")
+        for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+            if r is None:
+                assert g is None
+                continue
+            tol = 1e-4 if name == "dbias" else 2 ** -7
+            assert _rel_err(g, r) <= tol, (run, name, _rel_err(g, r))
+
+
+def test_flash_bf16_wgmma_backward_is_reproducible(dev):
+    """At the training shape with dropout and the padding mask's dbias, two
+    runs of the wgmma backward: dk, dv and dbias bitwise equal (each is
+    summed by one block in a fixed order); dq within one bf16 ulp (its f32
+    sum over key blocks is taken by atomics in no fixed order, then
+    rounded once)."""
+    gen = torch.Generator().manual_seed(43)
+    b, t, h, d = 8, 256, 8, 64
+    q, k, v = _qkv(gen, b, t, t, h, d, dev, torch.bfloat16)
+    dout = torch.randn(b, t, h * d, generator=gen).to(dev, torch.bfloat16)
+    kb = _bias(gen, "key", b, h, t, t, dev)
+    seed = torch.tensor([44], dtype=torch.int64, device=dev)
+    out, lse = tfa.flash_attention_fwd(q, k, v, h, kb, False, 0.1, seed)
+    n0 = tfa.flash_attention_bwd.wgmma_launches
+    runs = [tfa.flash_attention_bwd(q, k, v, out, lse, dout, h, kb, False,
+                                    0.1, seed, want_dbias=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.wgmma_launches == n0 + 2
+    for i in (1, 2, 3):
+        assert torch.equal(runs[0][i], runs[1][i])
+    dq0, dq1 = runs[0][0].float(), runs[1][0].float()
+    assert bool(((dq0 - dq1).abs()
+                 <= 2 ** -7 * torch.maximum(dq0.abs(), dq1.abs())).all())
+
+
+@pytest.mark.parametrize("t,tk,d,causal", [(100, 300, 128, True),
+                                           (64, 129, 16, True),
+                                           (200, 200, 48, False)])
+def test_flash_bf16_wgmma_backward_tracks_f64(dev, t, tk, d, causal):
+    """The wgmma backward's dq, dk and dv against an f64 attention's
+    gradients on the same bf16 inputs and the same forward out and lse
+    (padding mask): max abs and relative L2 error at most 1.5x the plain
+    bf16 backward's."""
+    gen = torch.Generator().manual_seed(45)
+    b, h = 4, 4
+    q, k, v = _qkv(gen, b, t, tk, h, d, dev, torch.bfloat16)
+    dout = torch.randn(b, t, h * d, generator=gen).to(dev, torch.bfloat16)
+    kb = _bias(gen, "key", b, h, t, tk, dev)
+    ins = [x.double().requires_grad_(True) for x in (q, k, v)]
+    o64 = tfa.attention_plain(*ins, h, kb.double(), causal)[0]
+    exact = torch.autograd.grad(o64, ins, dout.double())
+    out, lse = tfa.flash_attention_fwd(q, k, v, h, kb, causal)
+    n0 = tfa.flash_attention_bwd.wgmma_launches
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, h, kb, causal)
+    ref = tfa.attention_bwd_plain(q, k, v, out, lse, dout, h, kb, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.wgmma_launches == n0 + 1
+    for name, want, g, r in zip(("dq", "dk", "dv"), exact, got, ref):
+        dg, dr = g.double() - want, r.double() - want
+        assert dg.abs().max() <= 1.5 * dr.abs().max(), name
+        assert dg.norm() <= 1.5 * dr.norm(), name
+
+
+# ResNet-50's 19 fused geometries (C, O, k, stride, H): every one takes the
+# bf16 conv_apply's wgmma form
+RESNET_GEOMS = [
+    (64, 256, 1, 1, 56), (64, 64, 1, 1, 56), (64, 64, 3, 1, 56),
+    (256, 64, 1, 1, 56), (256, 512, 1, 2, 56), (256, 128, 1, 1, 56),
+    (128, 512, 1, 1, 28), (512, 128, 1, 1, 28), (128, 128, 3, 1, 28),
+    (512, 1024, 1, 2, 28), (512, 256, 1, 1, 28), (256, 1024, 1, 1, 14),
+    (1024, 256, 1, 1, 14), (256, 256, 3, 1, 14), (1024, 2048, 1, 2, 14),
+    (1024, 512, 1, 1, 14), (512, 2048, 1, 1, 7), (2048, 512, 1, 1, 7),
+    (512, 512, 3, 1, 7),
+]
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,hw", RESNET_GEOMS)
+def test_conv_apply_bf16_wgmma_at_resnet_geometries(dev, cin, cout, k, stride,
+                                                    hw):
+    """The bf16 conv_apply at each fused geometry of ResNet-50 (three
+    images, a residual and relu), routed to its wgmma form: y within 2^-7
+    of max(1, max|plain|) of the plain version (the f32 conv rounded once,
+    the affine, then the residual add, each rounded to bf16)."""
+    gen = torch.Generator().manual_seed(46)
+    x, w, scale, shift, res = _conv_inputs(gen, 3, cin, cout, k, stride, hw,
+                                           True, dev)
+    bf = torch.bfloat16
+    x, w, res = x.to(bf), w.to(bf), res.to(bf)
+    assert tfc.apply_form(x, w, stride, res) == ("wgmma", None)
+    n0 = tfc.conv_apply.wgmma_launches
+    y = tfc.conv_apply(x, w, scale, shift, res, True, stride)
+    want = tfc.conv_apply_plain(x, w, scale, shift, res, True, stride)
+    torch.cuda.synchronize()
+    assert tfc.conv_apply.wgmma_launches == n0 + 1
+    assert y.dtype == bf and y.shape == want.shape
+    assert _rel_err(y, want) <= 2 ** -7
+
+
+# (N, C, O, k, stride, H, residual, relu, form): the wgmma form's route
+# boundaries: C and O multiples of 64 or not, one or two warpgroups (O =
+# 64 or a multiple of 128), a tile of whole images (H*W <= 256) or of rows
+# (odd and even Wo), stride 2 with an odd H, x read in NCHW (1x1 stride 1,
+# H*W a multiple of 8) or from its channels-last copy
+CONV_FORM_CASES = [
+    (3, 64, 64, 3, 1, 9, True, True, "wgmma"),
+    (2, 64, 192, 1, 1, 17, False, True, "wgmma"),    # 3 x 64 channels
+    (2, 128, 128, 1, 2, 33, True, False, "wgmma"),   # odd H, Ho = 17
+    (7, 64, 128, 3, 1, 5, False, True, "wgmma"),     # 7 images a tile
+    (2, 192, 64, 3, 1, 20, True, True, "wgmma"),     # rows of 20
+    (2, 128, 128, 1, 1, 16, False, True, "wgmma"),   # NCHW: one 256-pixel
+                                                     # tile an image
+    (3, 64, 128, 1, 1, 12, True, False, "wgmma"),    # NCHW: H*W = 144
+    (2, 64, 96, 1, 1, 8, False, True, "mma_sync"),   # O % 64 != 0
+    (2, 96, 64, 3, 1, 8, False, True, "mma_sync"),   # C % 64 != 0
+]
+
+
+@pytest.mark.parametrize("n,cin,cout,k,stride,hw,residual,relu,form",
+                         CONV_FORM_CASES)
+def test_conv_apply_bf16_forms_match_plain(dev, monkeypatch, n, cin, cout, k,
+                                           stride, hw, residual, relu, form):
+    """The bf16 conv_apply in the form its route names (counted by
+    ``wgmma_launches``) and, where that is the wgmma form, in the mma.sync
+    form too, against the plain version: y within 2^-7 of max(1,
+    max|plain|)."""
+    gen = torch.Generator().manual_seed(47)
+    x, w, scale, shift, res = _conv_inputs(gen, n, cin, cout, k, stride, hw,
+                                           residual, dev)
+    bf = torch.bfloat16
+    x, w = x.to(bf), w.to(bf)
+    res = res.to(bf) if res is not None else None
+    want = tfc.conv_apply_plain(x, w, scale, shift, res, relu, stride)
+    assert tfc.apply_form(x, w, stride, res)[0] == form
+    for run in ((form, "mma_sync") if form == "wgmma" else (form,)):
+        if run != form:
+            monkeypatch.setattr(tfc, "apply_form",
+                                lambda *a, **k: ("mma_sync", "forced"))
+        n0 = tfc.conv_apply.wgmma_launches
+        y = tfc.conv_apply(x, w, scale, shift, res, relu, stride)
+        torch.cuda.synchronize()
+        assert tfc.conv_apply.wgmma_launches - n0 == (run == "wgmma")
+        assert _rel_err(y, want) <= 2 ** -7, run
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,hw", [(64, 64, 3, 1, 56),
+                                                  (256, 512, 1, 2, 56),
+                                                  (512, 512, 3, 1, 7)])
+def test_conv_apply_bf16_wgmma_tracks_f64(dev, cin, cout, k, stride, hw):
+    """The wgmma conv_apply with scale 1 and shift 0 (y is its rounded
+    conv) against an f64 conv of the same bf16 inputs: max abs and
+    relative L2 error at most 1.5x the plain bf16 version's."""
+    gen = torch.Generator().manual_seed(48)
+    x, w, _, _, _ = _conv_inputs(gen, 4, cin, cout, k, stride, hw, False,
+                                 dev)
+    x, w = x.bfloat16(), w.bfloat16()
+    pad = (k - 1) // 2
+    exact = torch.nn.functional.conv2d(x.double(), w.double(), stride=stride,
+                                       padding=pad)
+    ones = torch.ones(cout, device=dev)
+    n0 = tfc.conv_apply.wgmma_launches
+    got = tfc.conv_apply(x, w, ones, ones * 0, None, False, stride)
+    plain = tfc.conv_rounded(x, w, stride)
+    torch.cuda.synchronize()
+    assert tfc.conv_apply.wgmma_launches == n0 + 1
+    dg, dr = got.double() - exact, plain.double() - exact
+    assert dg.abs().max() <= 1.5 * dr.abs().max()
+    assert dg.norm() <= 1.5 * dr.norm()

@@ -363,6 +363,55 @@ def test_forward_form_routes_by_shape(tk, d, bias_kind, dtype, form):
     assert cpu["kernel"] == "plain" and "form" not in cpu
 
 
+# the backward's form by shape: Tq, Tk, head dim, bias (as FORM_TABLE),
+# dtype -> form. No key limit: the wgmma backward walks the query tiles of
+# 64 keys a block at any Tq and Tk.
+BWD_FORM_TABLE = [
+    (256, 256, 64, "key", torch.bfloat16, "wgmma"),    # the training shape
+    (256, 256, 64, None, torch.bfloat16, "wgmma"),     # causal self
+    (100, 257, 64, "key", torch.bfloat16, "wgmma"),    # past the fwd's 256
+    (64, 4096, 64, "key4", torch.bfloat16, "wgmma"),
+    (1, 1, 16, None, torch.bfloat16, "wgmma"),
+    (300, 16, 128, "head", torch.bfloat16, "wgmma"),
+    (100, 255, 12, None, torch.bfloat16, "wgmma"),     # padded to 16
+    (100, 100, 48, "key", torch.bfloat16, "wgmma"),
+    (100, 100, 8, None, torch.bfloat16, "mma_sync"),   # half a k16 step
+    (100, 100, 40, None, torch.bfloat16, "mma_sync"),
+    (256, 256, 120, None, torch.bfloat16, "mma_sync"),
+    (256, 256, 136, None, torch.bfloat16, "mma_sync"),  # head dim above 128
+    (256, 256, 512, "key", torch.bfloat16, "mma_sync"),
+    (256, 256, 64, "full", torch.bfloat16, "mma_sync"),  # a bias per query
+    (256, 256, 64, "key", torch.float32, "mma_sync"),    # f32: 3xTF32 only
+]
+
+
+@pytest.mark.parametrize("tq,tk,d,bias_kind,dtype,form", BWD_FORM_TABLE)
+def test_backward_form_routes_by_shape(tq, tk, d, bias_kind, dtype, form):
+    """On a device the gate names the backward's form by shape alone,
+    before any launch (meta tensors, no GPU here): warpgroup products for
+    bf16 with a padded head dim that is a multiple of 16 up to 128 and no
+    bias or one row of keys per (b, h), at any Tq and Tk; the mma.sync
+    form for every other bf16 call and for f32. A bf16 call off the wgmma
+    form says why; the forward's form is decided on its own."""
+    q = torch.empty(B, tq, H * d, device="meta", dtype=dtype)
+    k = torch.empty(B, tk, H * d, device="meta", dtype=dtype)
+    bias = {None: None,
+            "key": torch.empty(B, tk, device="meta"),
+            "key4": torch.empty(B, 1, 1, tk, device="meta"),
+            "head": torch.empty(1, H, 1, tk, device="meta"),
+            "full": torch.empty(B, H, tq, tk, device="meta")}[bias_kind]
+    choice = tfa.kernel_choice(q, H, k, bias)
+    assert choice["kernel"] == "cuda_flash" and choice["reasons"] == []
+    assert choice["bwd_form"] == form
+    assert tfa.bwd_form(q, k, H, bias)[0] == form
+    assert choice["form"] == tfa.fwd_form(q, k, H, bias)[0]
+    assert ("bwd_form_reason" in choice) == (form == "mma_sync"
+                                             and dtype == torch.bfloat16)
+    cpu = tfa.kernel_choice(torch.zeros(B, tq, H * d, dtype=dtype), H,
+                            torch.zeros(B, tk, H * d, dtype=dtype))
+    assert cpu["kernel"] == "plain" and "bwd_form" not in cpu
+
+
 def test_bf16_wrapper_refuses_before_building():
     """What neither form takes raises before any build or launch, in bf16
     too: a head dim above 512, mixed dtypes, disagreeing shapes, a dropout
@@ -379,6 +428,29 @@ def test_bf16_wrapper_refuses_before_building():
     seed = torch.zeros(1, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="dropout_rate"):
         tfa.flash_attention_fwd(q, q, q, H, None, False, 1.0, seed)
+
+
+@pytest.mark.parametrize("d", [64, 40])  # the wgmma and the mma.sync form
+def test_bf16_backward_refuses_before_building(d):
+    """What neither backward form takes raises before any build or launch
+    (meta tensors): mixed dtypes, dout or out in another dtype or shape,
+    a head dim above 512, a dropout rate outside [0, 1)."""
+    bf = torch.bfloat16
+    q = torch.empty(B, 16, H * d, device="meta", dtype=bf)
+    lse = torch.empty(B, H, 16, device="meta")
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_attention_bwd(q, q.float(), q, q, lse, q, H)
+    with pytest.raises(TypeError, match="dout"):
+        tfa.flash_attention_bwd(q, q, q, q, lse, q.float(), H)
+    with pytest.raises(ValueError, match="dout"):
+        tfa.flash_attention_bwd(q, q, q, q, lse, q[:, :8], H)
+    wide = torch.empty(B, 16, 2 * 520, device="meta", dtype=bf)
+    with pytest.raises(NotImplementedError, match="head dim 520"):
+        tfa.flash_attention_bwd(wide, wide, wide, wide, lse, wide, 2)
+    seed = torch.zeros(1, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="dropout_rate"):
+        tfa.flash_attention_bwd(q, q, q, q, lse, q, H, None, False, 1.5,
+                                seed)
 
 
 @pytest.mark.parametrize("d", [3, 8, 12, 16, 40, 512])

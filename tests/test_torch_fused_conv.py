@@ -427,3 +427,111 @@ def test_bf16_plain_versions_round_where_the_reference_rounds(rng):
     assert torch.equal(tfc.bn_apply_plain(co, scale, shift, r, True), want)
     assert torch.equal(tfc.conv_apply_plain(x, w, scale, shift, r, True, 1),
                        want)
+
+
+# the bf16 conv_apply's form by shape: (x [N, C, H, W], O, k, stride,
+# residual, dtype, aligned) -> form. Every fused site of ResNet-50 has C
+# and O multiples of 64 (64-2048) and Wo <= 56.
+APPLY_FORM_TABLE = [
+    ((2, 64, 56, 56), 64, 3, 1, False, torch.bfloat16, True, "wgmma"),
+    ((2, 64, 56, 56), 256, 1, 1, True, torch.bfloat16, True, "wgmma"),
+    ((2, 256, 56, 56), 512, 1, 2, False, torch.bfloat16, True, "wgmma"),
+    ((2, 512, 7, 7), 512, 3, 1, False, torch.bfloat16, True, "wgmma"),
+    ((2, 1024, 14, 14), 2048, 1, 2, False, torch.bfloat16, True, "wgmma"),
+    ((2, 2048, 7, 7), 512, 1, 1, True, torch.bfloat16, True, "wgmma"),
+    ((1, 64, 3, 512), 64, 1, 2, False, torch.bfloat16, True, "wgmma"),
+    ((1, 64, 3, 257), 64, 1, 1, False, torch.bfloat16, True, "mma_sync"),
+    ((2, 32, 8, 8), 64, 3, 1, False, torch.bfloat16, True, "mma_sync"),
+    ((2, 64, 8, 8), 96, 1, 1, False, torch.bfloat16, True, "mma_sync"),
+    ((2, 64, 8, 8), 64, 1, 1, True, torch.bfloat16, False, "mma_sync"),
+    ((2, 64, 56, 56), 64, 3, 1, False, torch.float32, True, "mma_sync"),
+]
+
+
+@pytest.mark.parametrize("xs,o,k,stride,with_res,dtype,aligned,form",
+                         APPLY_FORM_TABLE)
+def test_apply_form_routes_by_shape(xs, o, k, stride, with_res, dtype,
+                                    aligned, form):
+    """The bf16 conv_apply's form is decided by shape and alignment alone,
+    before any launch (meta tensors, and a CPU view one element off 16
+    bytes for the misaligned case): warpgroup products where C and O are
+    multiples of 64, Wo is at most 256 and x, w and the residual are
+    16-byte aligned; the mma.sync form for every other bf16 call (with
+    the check that failed) and for f32 (its only form)."""
+    n, c, h, w_ = xs
+    ho, wo = (h + 2 * ((k - 1) // 2) - k) // stride + 1, \
+        (w_ + 2 * ((k - 1) // 2) - k) // stride + 1
+    x = torch.empty(xs, device="meta", dtype=dtype)
+    w = torch.empty(o, c, k, k, device="meta", dtype=dtype)
+    res = torch.empty(n, o, ho, wo, device="meta", dtype=dtype) \
+        if with_res else None
+    if not aligned:
+        res = torch.empty(n * o * ho * wo + 1, dtype=dtype)[1:].view(
+            n, o, ho, wo)
+    got, why = tfc.apply_form(x, w, stride, res)
+    assert got == form
+    assert (why is None) == (form == "wgmma" or dtype == torch.float32)
+
+
+def test_bf16_conv_apply_refuses_before_building():
+    """What the bf16 conv_apply cannot take raises before any build or
+    launch, whichever form the route names: a tensor off CUDA, mixed
+    dtypes, a scale of the wrong length."""
+    bf = torch.bfloat16
+    x = torch.empty(2, 64, 8, 8, device="meta", dtype=bf)
+    w = torch.empty(64, 64, 3, 3, device="meta", dtype=bf)
+    s = torch.empty(64, device="meta")
+    assert tfc.apply_form(x, w, 1)[0] == "wgmma"
+    with pytest.raises(ValueError, match="CUDA"):
+        tfc.conv_apply(x, w, s, s, None, True, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfc.conv_apply(torch.zeros(2, 64, 8, 8, dtype=bf),
+                       torch.zeros(64, 64, 3, 3, dtype=bf), torch.ones(64),
+                       torch.zeros(64), None, True, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfc.conv_apply(x, w.float(), s, s, None, True, 1)
+
+
+def _conv_by_taps(x, w, stride):
+    """The conv as the wgmma conv_apply reads it, in f32: the channels-last
+    copy of x (its stride-2 view for a 1x1 stride-2 conv), each tap
+    (dy, dx) a shifted window of it with zeros outside the image, times
+    the tap's C columns of ``_w_taps``, summed over the taps."""
+    o, c, k, _ = w.shape
+    pad = (k - 1) // 2
+    xl = x.contiguous(memory_format=torch.channels_last)
+    nhwc = xl.permute(0, 2, 3, 1)  # the copy's memory order, as a view
+    assert nhwc.is_contiguous()
+    if stride == 2:
+        nhwc = nhwc[:, ::2, ::2, :]
+    n, h, w_, _ = nhwc.shape
+    ho, wo = h + 2 * pad - k + 1, w_ + 2 * pad - k + 1
+    padded = torch.nn.functional.pad(nhwc.float(), (0, 0, pad, pad, pad, pad))
+    taps = tfc._w_taps(w).float()
+    out = torch.zeros(n, ho, wo, o)
+    for t in range(k * k):
+        dy, dx = divmod(t, k)
+        window = padded[:, dy:dy + ho, dx:dx + wo, :]
+        out += window @ taps[:, t * c:(t + 1) * c].t()
+    return out.permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,hw", [
+    (64, 64, 3, 1, 7), (64, 128, 1, 1, 6), (128, 64, 1, 2, 8),
+    (64, 64, 3, 1, 5), (64, 128, 1, 2, 7)])
+def test_channels_last_taps_give_the_nchw_conv(rng, cin, cout, k, stride,
+                                               hw):
+    """The channels-last copy and the tap-major weights give the plain
+    version the same conv as the NCHW input: summed tap by tap from the
+    copy, the f32 conv of the bf16 inputs agrees with ``conv_rounded``'s
+    f32 conv to f32 rounding, and rounds to the same bf16 values but for
+    ties of that rounding."""
+    x = torch.from_numpy(rng.randn(2, cin, hw, hw).astype("f4")).bfloat16()
+    w = torch.from_numpy((rng.randn(cout, cin, k, k) * 0.1).astype(
+        "f4")).bfloat16()
+    got = _conv_by_taps(x, w, stride)
+    want = tfc._conv_plain(x.float(), w.float(), stride)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    flips = (got.bfloat16() != tfc.conv_rounded(x, w, stride)).float()
+    assert flips.mean().item() < 1e-3
