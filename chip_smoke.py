@@ -9,7 +9,8 @@ It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/``, checks
 in their SASS that the conv, flash and fused CE kernels run on the tensor
 cores (the bf16 forms of the flash, CE and conv kernels on bf16 m16n8k16
 HMMAs, the conv's fed by ldmatrix; the warpgroup-product forms of the bf16
-flash forward and CE on bf16 HGMMAs and no HMMA), holds each kernel
+flash forward and backward, CE, conv_moments and conv_apply on bf16 HGMMAs
+and no HMMA), holds each kernel
 against its plain
 PyTorch version on the card, f32 and, for every kernel but the scatter,
 bf16 (AMP; the bf16 forms also against f64, beside the plain bf16
@@ -137,7 +138,7 @@ BF16_FORMS = KERNELS[:8]  # the kernels with a bf16 form (not the scatter)
 # the kernels whose bf16 form has a second, warpgroup-product (wgmma) form,
 # routed by shape; ``wgmma_launches`` on each wrapper counts it
 WGMMA_FORMS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd",
-               "conv_apply")
+               "conv_moments", "conv_apply")
 
 
 # the main paths that run under fluid.amp: every launch of a kernel with a
@@ -223,8 +224,9 @@ def wgmma_part(counts, amp):
     in their wgmma form: all of them on the AMP paths (every flash forward
     of the AMP Transformer has 256 keys and heads of 64, every flash
     backward heads of 64 and a padding mask or none, every CE D 512 and V
-    30000; every conv_apply of ResNet-50's AMP eval C and O multiples of
-    64 and Wo <= 56), none in f32."""
+    30000; every conv_moments of ResNet-50's AMP training step and every
+    conv_apply of its AMP eval C and O multiples of 64 and Wo <= 56), none
+    in f32."""
     return {name: counts[name] if amp else 0 for name in WGMMA_FORMS}
 
 
@@ -242,9 +244,9 @@ def per_run(**counts):
 @contextlib.contextmanager
 def mma_sync_route(mod, route):
     """``mod``'s bf16 route function ``route`` (fwd_form, bwd_form,
-    apply_form, ce_form) sending every call to the mma.sync form while the
-    block runs: both forms of a kernel in one call, for checks and
-    timings."""
+    apply_form, moments_form, ce_form) sending every call to the mma.sync
+    form while the block runs: both forms of a kernel in one call, for
+    checks and timings."""
     saved = getattr(mod, route)
     setattr(mod, route, lambda *a, **k: (
         "mma_sync" if route == "ce_form" else ("mma_sync", "forced")))
@@ -336,27 +338,32 @@ SASS_BF16 = (("flash_attention_fwd", "flash_fwd_kernel", 18, False),
              ("fused_conv", "conv_kernel", 8, True))
 BF16_HMMA = "HMMA.16816.F32.BF16"
 # library, kernel stem, instantiations: the warpgroup-product forms of the
-# bf16 flash forward and backward (head-dim widths 64 and 128), fused CE
-# and conv_apply (one or two consumer warpgroups, x read in NCHW or from
-# its channels-last copy). Each must
+# bf16 flash forward and backward (head-dim widths 64 and 128), fused CE,
+# conv_apply and conv_moments (one or two consumer warpgroups, x read in
+# NCHW or from its channels-last copy). Each must
 # run its products as bf16 HGMMAs (wgmma) and hold no HMMA.16816 of its
 # own: an mma.sync left in the hot loop would hide behind a passing count
 SASS_WGMMA = (("flash_attention_fwd", "flash_fwd_wgmma_kernel", 2),
               ("flash_attention_bwd", "flash_bwd_wgmma_kernel", 2),
               ("fused_ce_fwd", "fused_ce_wgmma_kernel", 1),
-              ("fused_conv_wgmma", "conv_apply_wgmma_kernel", 4))
+              ("fused_conv_wgmma", "conv_apply_wgmma_kernel", 4),
+              ("fused_conv_wgmma", "conv_moments_wgmma_kernel", 4))
 
 
 # library, the mangled stem of the instantiations that move 16 bytes a
 # lane, how many there are, the kind of instruction and the mark of its
 # 128-bit form each must hold: the scatter's float4 reduction (VEC 4;
-# REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU on sm_90a) and the LayerNorm
-# forward's 16-byte loads (f32 and bf16, every VPL; LDG.E.128.CONSTANT)
+# REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU on sm_90a), the LayerNorm forward's
+# 16-byte loads (f32 and bf16, every VPL; LDG.E.128.CONSTANT) and the bf16
+# LayerNorm backward's register-resident form's 16-byte loads of x and dy
+# and stores of dx (every VPL)
 SASS_WIDE = (("scatter_add", "scatter_add_kernelILi4E", 1, "RED", "F32x4"),
              ("layer_norm_fwd", "layer_norm_fwd_kernelIfLb1E", 7, "LDG",
               ".128"),
              ("layer_norm_fwd", "layer_norm_fwd_kernelI13__nv_bfloat16Lb1E",
-              7, "LDG", ".128"))
+              7, "LDG", ".128"),
+             ("layer_norm_bwd", "layer_norm_bwd_regs", 4, "LDG", ".128"),
+             ("layer_norm_bwd", "layer_norm_bwd_regs", 4, "STG", ".128"))
 
 
 def _sass_functions(_build, lib):
@@ -385,13 +392,15 @@ def _sass_check(_build):
     products on the tensor cores: cuobjdump's SASS of each built library
     shows HMMA instructions in each. Every float4 instantiation of the
     scatter kernel must hold a 128-bit reduction, and every 16-byte
-    instantiation of the LayerNorm forward a 128-bit global load
-    (``SASS_WIDE``); the mnemonics found are printed. Every bf16
+    instantiation of the LayerNorm forward a 128-bit global load, and
+    every register-resident instantiation of the bf16 LayerNorm backward
+    128-bit global loads and stores (``SASS_WIDE``); the mnemonics found
+    are printed. Every bf16
     instantiation of the flash kernels, of the fused CE kernel and of the
     conv kernel must hold ``HMMA.16816.F32.BF16``, the conv kernel's also
     ``LDSM`` (ldmatrix) (``SASS_BF16``); the warpgroup-product forms of the
-    flash forward and backward, the fused CE and conv_apply must hold bf16
-    ``HGMMA`` and no ``HMMA.16816`` (``SASS_WGMMA``)."""
+    flash forward and backward, the fused CE, conv_apply and conv_moments
+    must hold bf16 ``HGMMA`` and no ``HMMA.16816`` (``SASS_WGMMA``)."""
     for lib, kernel, n_inst in SASS_KERNELS:
         hmma = {name: sum(op.startswith("HMMA") for op in ops)
                 for name, ops in _sass_functions(_build, lib).items()
@@ -913,7 +922,8 @@ def _flash_f64_check(torch, dev):
 def phase_ln_bwd_check(torch, dev):
     """The LayerNorm kernels through their autograd Function against
     autograd of the plain version, f32: dx, dgamma, dbeta within 1e-4 *
-    max(1, max|plain|) (dgamma/dbeta sum all rows, in another order)."""
+    max(1, max|plain|) (dgamma/dbeta sum all rows, in another order); then
+    bf16, one case per form of the backward's plan."""
     from paddle_tpu_torch.ops import fused_layer_norm as fln
 
     gen = torch.Generator().manual_seed(SEED)
@@ -946,9 +956,19 @@ def phase_ln_bwd_check(torch, dev):
                                  shape=[n, d])
     # bf16 (AMP) x and dy with f32 gamma and beta: dx is bf16, rounded once
     # from f32 by both (2^-8 * max(1, max|plain|)); dgamma, dbeta f32
-    # (1e-4). D = 77 takes the kernel's single-element form.
-    for name, n, d in (("train_%dx512_bf16" % rows, rows, 512),
-                       ("ragged_1000x77_bf16", 1000, 77)):
+    # (1e-4); two kernel runs bitwise equal. One case per form of
+    # ln_bwd_plan: the row in registers at 2, 3 and 4 vectors a lane (D =
+    # 1000: 125 of 128 vectors), the looped form on 16-byte vectors (D =
+    # 2048, wider than 4 a lane) and on single elements (D = 77).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, n, d, vec, vpl in (
+            ("train_%dx512_bf16" % rows, rows, 512, 8, 2),
+            ("ragged_1000x768_bf16", 1000, 768, 8, 3),
+            ("ragged_1000x1000_bf16", 1000, 1000, 8, 4),
+            ("looped_1000x2048_bf16", 1000, 2048, 8, 0),
+            ("ragged_1000x77_bf16", 1000, 77, 1, 0)):
+        plan = fln.ln_bwd_plan(n, d, torch.bfloat16, sms)
+        check(plan[:2] == (vec, vpl), "ln_bwd_plan %s: %s" % (name, plan))
         x = (torch.randn(n, d, generator=gen) * 2 + 0.5).to(dev,
                                                             torch.bfloat16)
         dy = torch.randn(n, d, generator=gen).to(dev, torch.bfloat16)
@@ -960,14 +980,20 @@ def phase_ln_bwd_check(torch, dev):
             fn = fln._FusedLN.apply if via_kernel else fln.layer_norm_plain
             y = fn(*ins, 1e-5)[0]
             outs.append(torch.autograd.grad(y, ins, dy))
+        _, mean, var = fln.layer_norm_fwd(x, g, bb, 1e-5)
+        runs = [fln.layer_norm_bwd(x, g, mean, var, dy, 1e-5)
+                for _ in range(2)]
         torch.cuda.synchronize()
         check(outs[0][0].dtype == torch.bfloat16, "layer_norm_bwd bf16 dx")
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              "layer_norm_bwd %s differs between two runs" % name)
         errs[name] = check_close("layer_norm_bwd", name,
                                  [("dx", outs[0][0], outs[1][0])], 2.0 ** -8,
-                                 shape=[n, d], dtype="bf16")
+                                 shape=[n, d], dtype="bf16",
+                                 plan=list(plan))
         check_close("layer_norm_bwd", name + "_params",
                     list(zip(("dgamma", "dbeta"), outs[0][1:], outs[1][1:])),
-                    1e-4, shape=[n, d], dtype="f32")
+                    1e-4, shape=[n, d], dtype="f32", plan=list(plan))
     return errs
 
 
@@ -1956,7 +1982,10 @@ def phase_amp_train_check(torch, smi_line, batch=2):
 _MARKS = (("flash_fwd_", "flash_attention_fwd"),  # both forms' kernels
           ("flash_bwd_", "flash_attention_bwd"),  # both forms, the prep
           ("conv_apply_wgmma_kernel", "conv_apply"),
-          ("nchw_to_nhwc_kernel", "conv_apply"),  # its channels-last copy
+          ("conv_moments_wgmma_kernel", "conv_moments"),
+          # the wgmma forms' channels-last copy, named for its reader
+          ("nchw_to_nhwc_kernel<false>", "conv_apply"),
+          ("nchw_to_nhwc_kernel<true>", "conv_moments"),
           ("layer_norm_fwd_kernel", "layer_norm_fwd"),
           ("layer_norm_bwd_", "layer_norm_bwd"),
           ("fused_ce_", "fused_ce_fwd"),
@@ -2284,6 +2313,54 @@ def phase_fused_conv_check(torch, dev, eps=1e-5, momentum=0.9, tol=1e-4):
     return errs, bf16
 
 
+def _moments_bf16_check(torch, name, xb, wb, stride, errs, shape):
+    """The bf16 conv_moments on bf16 inputs in the form its route names
+    and, where that is the wgmma form, in the mma.sync form too, against
+    its plain version (the f32 conv rounded once, the moments of the
+    rounded co): co within one bf16 ulp, 2^-7 of max(1, max|plain|); the
+    moments within 1e-5 of an f64 sum over the kernel's own stored co
+    (relative to sum |co| and to sum co^2); co and the moments bitwise
+    equal across two runs. ``shape``: the geometry's keys for each line.
+    Updates ``errs`` (kernel -> max abs error); returns the plain co and
+    the route's form."""
+    from paddle_tpu_torch.ops import fused_conv as fc
+
+    wco = fc.conv_moments_plain(xb, wb, stride)[0]
+    form = fc.moments_form(xb, wb, stride)[0]
+    for run in ((form, "mma_sync") if form == "wgmma" else (form,)):
+        n_wgmma = fc.conv_moments.wgmma_launches
+        with (mma_sync_route(fc, "moments_form") if run != form
+              else contextlib.nullcontext()):
+            co, s1, s2 = fc.conv_moments(xb, wb, stride)
+            again = fc.conv_moments(xb, wb, stride)
+        torch.cuda.synchronize()
+        check(fc.conv_moments.wgmma_launches - n_wgmma
+              == (2 if run == "wgmma" else 0),
+              "%s bf16 conv_moments did not run its %s form" % (name, run))
+        c = co.double()
+        sums = (c.sum((0, 2, 3)), (c * c).sum((0, 2, 3)))
+        rel = [((got.double() - want).abs() / scale_).max().item()
+               for got, want, scale_ in (
+                   (s1, sums[0], c.abs().sum((0, 2, 3))),
+                   (s2, sums[1], sums[1]))]
+        emit(dict({"phase": "fused_conv_check", "case": name + "_bf16",
+                   "check": "conv_moments_bf16_sums_" + run,
+                   "sum_rel_err": rel[0], "sum_sq_rel_err": rel[1],
+                   "tol": "1e-5 of sum|co| and of sum co^2, f64 over the "
+                          "kernel's own co"}, **shape))
+        check(max(rel) <= 1e-5, "%s bf16 moments (%s) %s" % (name, run,
+                                                              rel))
+        check(all(torch.equal(p, q) for p, q in zip((co, s1, s2), again)),
+              "%s: bf16 conv_moments (%s) differs between two runs"
+              % (name, run))
+        del c, sums, again
+        errs["conv_moments"] = max(errs["conv_moments"], check_close(
+            "fused_conv_check", name + "_bf16", [("co", co, wco)], 2.0 ** -7,
+            check="conv_moments_bf16_" + run, **shape))
+        del co
+    return wco, form
+
+
 def _fused_conv_bf16_check(torch, name, shape, x, w, g, b, mean, var, res,
                            stride, relu, eps, errs):
     """The bf16 forms (ResNet-50 under fluid.amp) of the three kernels on
@@ -2294,36 +2371,16 @@ def _fused_conv_bf16_check(torch, name, shape, x, w, g, b, mean, var, res,
     kernel's own stored co (relative to sum |co| and to sum co^2), bitwise
     equal across two runs; co against an f64 conv of the same bf16 inputs
     at most 1.5x the plain bf16 version's error (:func:`_conv_f64_check`);
-    conv_apply in both its forms (the wgmma form its route names here, and
-    the mma.sync form). Updates ``errs`` (kernel -> max abs error)."""
+    conv_moments and conv_apply in both their forms (the wgmma form their
+    routes name here, and the mma.sync form). Updates ``errs`` (kernel ->
+    max abs error)."""
     from paddle_tpu_torch.ops import fused_conv as fc
 
     tol = 2.0 ** -7
     xb, wb = x.bfloat16(), w.bfloat16()
     rb = res.bfloat16() if res is not None else None
-    co, s1, s2 = fc.conv_moments(xb, wb, stride)
-    wco = fc.conv_moments_plain(xb, wb, stride)[0]
-    again = fc.conv_moments(xb, wb, stride)
-    torch.cuda.synchronize()
-    c = co.double()
-    sums = (c.sum((0, 2, 3)), (c * c).sum((0, 2, 3)))
-    rel = [((got.double() - want).abs() / scale_).max().item()
-           for got, want, scale_ in ((s1, sums[0], c.abs().sum((0, 2, 3))),
-                                     (s2, sums[1], sums[1]))]
-    emit(dict({"phase": "fused_conv_check", "case": name + "_bf16",
-               "check": "conv_moments_bf16_sums", "sum_rel_err": rel[0],
-               "sum_sq_rel_err": rel[1],
-               "tol": "1e-5 of sum|co| and of sum co^2, f64 over the "
-                      "kernel's own co"}, **shape))
-    check(max(rel) <= 1e-5, "%s bf16 moments %s" % (name, rel))
-    check(all(torch.equal(p, q) for p, q in zip((co, s1, s2), again)),
-          "%s: bf16 conv_moments differs between two runs" % name)
-    del c, sums, again
-    errs["conv_moments"] = max(errs["conv_moments"], check_close(
-        "fused_conv_check", name + "_bf16", [("co", co, wco)], tol,
-        check="conv_moments_bf16", **shape))
+    wco = _moments_bf16_check(torch, name, xb, wb, stride, errs, shape)[0]
     _conv_f64_check(torch, name + "_bf16", xb[:8], wb, stride)
-    del co
     bm, bv = fc.bn_stats(wco)
     scale, shift = fc._scale_shift(g, b, bm, bv, eps)
     y = fc.bn_apply(wco, scale, shift, rb, relu)
@@ -2394,18 +2451,47 @@ def _conv_f64_check(torch, name, x, w, stride, apply=False):
           "%s: conv error %s against f64, %s %s" % (name, got, what, lib))
 
 
+# the wgmma conv_moments' masking cases beside ResNet-50's geometries:
+# name, N, C, O, k, stride, H = W. Slots of a tile that no output pixel
+# fills hold values that are not zero, and the moments must skip them:
+# rows past Ho in the last row tile (30x30: rows of 8, rows 30-31 read
+# input row 29 through the dy = 0 tap), images past N in the last image
+# tile (7x7: tiles of 5 images), a stage's slots past the box (14x14:
+# 196 of 256, read through the channels-last copy, 196 % 8 != 0), pixels
+# past H*W in the last 256-pixel tile of the NCHW path (28x28: 784 = 3 x
+# 256 + 16), and a 1x1 stride-2 conv's copy of every other pixel
+WGMMA_MOMENTS_CASES = [
+    ("rows_past_ho_3x3_64to64_30", 4, 64, 64, 3, 1, 30),
+    ("images_past_n_3x3_512to512_7_n7", 7, 512, 512, 3, 1, 7),
+    ("copy_path_1x1_1024to256_14", 3, 1024, 256, 1, 1, 14),
+    ("nchw_ragged_1x1_512to128_28", 3, 512, 128, 1, 1, 28),
+    ("stride2_1x1s2_256to512_56", 3, 256, 512, 1, 2, 56),
+]
+
+
 def _conv_apply_geometry_check(torch, dev, errs):
-    """The bf16 conv_apply at every distinct fused geometry of ResNet-50
-    (read from the fusion's record, batch 128, a residual and relu where a
-    site of the geometry has them), in the form its route names, which
-    must be the wgmma form at every one: y against the plain bf16 version
-    within one bf16 ulp, 2^-7 of max(1, max|plain|), and its rounded conv
-    against an f64 conv of the same bf16 inputs (8 images) at most 1.5x
-    the plain bf16 version's error (:func:`_conv_f64_check`). Updates
-    ``errs`` (kernel -> max abs error)."""
+    """The bf16 conv_apply and conv_moments at every distinct fused
+    geometry of ResNet-50 (read from the fusion's record, batch 128, a
+    residual and relu where a site of the geometry has them), in the form
+    their routes name, which must be the wgmma form at every one:
+    conv_apply's y against the plain bf16 version within one bf16 ulp,
+    2^-7 of max(1, max|plain|), and its rounded conv against an f64 conv
+    of the same bf16 inputs (8 images) at most 1.5x the plain bf16
+    version's error (:func:`_conv_f64_check`); conv_moments in both its
+    forms (:func:`_moments_bf16_check`), there and at
+    ``WGMMA_MOMENTS_CASES``. Updates ``errs`` (kernel -> max abs error)."""
     from paddle_tpu_torch.ops import fused_conv as fc
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for name, n, c, o, k, stride, hw in WGMMA_MOMENTS_CASES:
+        x, w = _conv_case(torch, gen, dev, c, o, k, stride, hw, False,
+                          n=n)[:2]
+        xb, wb = x.bfloat16(), w.bfloat16()
+        del x, w
+        form = _moments_bf16_check(torch, name, xb, wb, stride, errs, dict(
+            x=list(xb.shape), w=list(wb.shape), stride=stride))[1]
+        check(form == "wgmma", "conv_moments %s: form %s" % (name, form))
+        del xb, wb
     geoms = resnet_conv_geometries()
     for (c, o, k, stride, hw), g in geoms.items():
         residual, relu = g["residual"] > 0, g["relu"] > 0
@@ -2433,6 +2519,10 @@ def _conv_apply_geometry_check(torch, dev, errs):
         del y, want
         _conv_f64_check(torch, name + "_bf16_wgmma", xb[:8], wb, stride,
                         apply=True)
+        form = _moments_bf16_check(torch, name, xb, wb, stride, errs, dict(
+            x=list(xb.shape), w=list(wb.shape), stride=stride,
+            sites=g["sites"]))[1]
+        check(form == "wgmma", "conv_moments %s: form %s" % (name, form))
         del xb, wb, rb
 
 
@@ -2465,11 +2555,12 @@ def resnet_conv_geometries():
     return geoms
 
 
-def _on_mma_sync_apply(fn):
-    """fn's time with the bf16 conv_apply routed to its mma.sync form."""
+def _on_mma_sync(route, fn):
+    """fn's time with the bf16 fused conv's ``route`` (apply_form,
+    moments_form) sending it to its mma.sync form."""
     from paddle_tpu_torch.ops import fused_conv as fc
 
-    with mma_sync_route(fc, "apply_form"):
+    with mma_sync_route(fc, route):
         return time_ms(fn, iters=20)
 
 
@@ -2478,9 +2569,9 @@ def _conv_geometry_timing(torch, dev, gen):
     128 beside their plain versions, F.conv2d (cuDNN, TF32 off) and the
     bound, in f32 and in bf16 (the AMP forms, beside cuDNN's bf16 conv and
     the bf16 bound: products at 989 TFLOP/s against bf16 x, w and out;
-    the bf16 conv_apply in both its forms, the wgmma form its route names
-    and the mma.sync form); one line per geometry and one with the sums
-    weighted by sites.
+    the bf16 conv_moments and conv_apply in both their forms, the wgmma
+    form their routes name and the mma.sync form); one line per geometry
+    and one with the sums weighted by sites.
     conv_apply takes a residual and relu where any site of the geometry
     does. Returns (the body's timings, the site-weighted sums)."""
     import torch.nn.functional as F
@@ -2491,7 +2582,8 @@ def _conv_geometry_timing(torch, dev, gen):
     n = RESNET_BATCH
     names = ("conv_moments", "conv_apply", "conv_moments_plain",
              "conv_apply_plain", "f_conv2d", "bound", "conv_moments_bf16",
-             "conv_apply_bf16", "conv_apply_mma_sync_bf16",
+             "conv_moments_mma_sync_bf16", "conv_apply_bf16",
+             "conv_apply_mma_sync_bf16",
              "conv_moments_plain_bf16", "conv_apply_plain_bf16",
              "f_conv2d_bf16", "bound_bf16")
     total = dict.fromkeys(names, 0.0)
@@ -2525,10 +2617,13 @@ def _conv_geometry_timing(torch, dev, gen):
         t.update(
             conv_moments_bf16=time_ms(lambda: fc.conv_moments(xb, wb, stride),
                                       iters=20),
+            conv_moments_mma_sync_bf16=_on_mma_sync(
+                "moments_form", lambda: fc.conv_moments(xb, wb, stride)),
             conv_apply_bf16=time_ms(lambda: fc.conv_apply(
                 xb, wb, scale, shift, rb, relu, stride), iters=20),
-            conv_apply_mma_sync_bf16=_on_mma_sync_apply(lambda: fc.conv_apply(
-                xb, wb, scale, shift, rb, relu, stride)),
+            conv_apply_mma_sync_bf16=_on_mma_sync(
+                "apply_form", lambda: fc.conv_apply(
+                    xb, wb, scale, shift, rb, relu, stride)),
             conv_moments_plain_bf16=time_ms(
                 lambda: fc.conv_moments_plain(xb, wb, stride), iters=20),
             conv_apply_plain_bf16=time_ms(lambda: fc.conv_apply_plain(
@@ -2558,6 +2653,7 @@ def _conv_geometry_timing(torch, dev, gen):
                        t["conv_moments_bf16"] / t["f_conv2d_bf16"],
                    "apply_bf16_over_f_conv2d_bf16":
                        t["conv_apply_bf16"] / t["f_conv2d_bf16"],
+                   "moments_form_bf16": fc.moments_form(xb, wb, stride)[0],
                    "apply_form_bf16": fc.apply_form(xb, wb, stride, rb)[0]},
                   **t))
         if (c, o, k, stride, hw) == (64, 64, 3, 1, 56):
@@ -2610,9 +2706,10 @@ def _conv_kernel_timing(torch, dev):
                       site_weighted_ms=total[name + "_bf16"],
                       site_weighted_library_ms=total["f_conv2d_bf16"],
                       site_weighted_bound_ms=total["bound_bf16"]))
-    rows["conv_apply"]["bf16"].update(
-        mma_sync_ms=body["conv_apply_mma_sync_bf16"],
-        site_weighted_mma_sync_ms=total["conv_apply_mma_sync_bf16"])
+    for name in ("conv_moments", "conv_apply"):
+        rows[name]["bf16"].update(
+            mma_sync_ms=body[name + "_mma_sync_bf16"],
+            site_weighted_mma_sync_ms=total[name + "_mma_sync_bf16"])
     n, hw = RESNET_BATCH, 56
     o = 256
     co = torch.randn(n, o, hw, hw, generator=gen, device=dev)
@@ -2799,6 +2896,35 @@ def bandwidth_kernel_timing(torch, dev):
     rows = _ln_fwd_timing(torch, dev)
     rows.update(_scatter_kernel_timing(torch, dev))
     return rows
+
+
+def ln_bwd_bf16_timing(torch, dev):
+    """Row 8's bf16 form at Transformer-base's training shape
+    ``LN_TRAINED`` (bf16 x and dy, f32 gamma), through the wrappers' own
+    API only, beside ``F.layer_norm``'s backward on the same bf16 inputs:
+    ``tools/bandwidth_ab.py`` times another checkout's kernel through this
+    function."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_layer_norm as fln
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    n, hd = LN_TRAINED
+    bf = torch.bfloat16
+    x = torch.randn(n, hd, generator=gen).to(dev, bf)
+    dy = torch.randn(n, hd, generator=gen).to(dev, bf)
+    g = torch.randn(hd, generator=gen).to(dev)
+    bb = torch.randn(hd, generator=gen).to(dev)
+    _, mean, var = fln.layer_norm_fwd(x, g, bb, 1e-5)
+    l_in = [x.clone().requires_grad_(True),
+            g.to(bf).clone().requires_grad_(True),
+            bb.to(bf).clone().requires_grad_(True)]
+    l_out = F.layer_norm(l_in[0], (hd,), l_in[1], l_in[2], 1e-5)
+    return {"ms": time_ms(lambda: fln.layer_norm_bwd(x, g, mean, var, dy,
+                                                     1e-5)),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                l_out, l_in, dy, retain_graph=True)),
+            "shape": [n, hd]}
 
 
 def _add_bandwidth_plans(torch, dev, rows):
@@ -3425,7 +3551,8 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
     f32 parameters and Adam state). Launch counts are zeroed just before
     the first step and read after the last; every step must launch
     conv_moments and bn_apply 49 times each and nothing else of the port's,
-    under AMP all in bf16 and in f32 none. The fusion report must hold 53
+    under AMP all in bf16, conv_moments all on its wgmma form, and in f32
+    none. The fusion report must hold 53
     sites, the four declined ones those of RESNET_DECLINED, each for its
     geometry. The profiled conv_moments ms per step is printed beside
     ``conv_site_ms``, the sum of its per-geometry times weighted by sites
@@ -3449,18 +3576,19 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
     losses, step_s = [], []
 
     def run_step():
-        before = read_counts(), read_bf16_counts()
+        before = read_counts(), read_bf16_counts(), read_wgmma_counts()
         t = time.perf_counter()
         loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
                         scope=scope)  # to numpy: ends synchronised
         dt = time.perf_counter() - t
-        after = read_counts(), read_bf16_counts()
-        per, per_bf16 = ({k: a[k] - b[k] for k in a}
-                         for a, b in zip(after, before))
+        after = read_counts(), read_bf16_counts(), read_wgmma_counts()
+        per, per_bf16, per_wgmma = ({k: a[k] - b[k] for k in a}
+                                    for a, b in zip(after, before))
         check(per == RESNET_PER_STEP
-              and per_bf16 == bf16_part(RESNET_PER_STEP, amp),
-              "resnet step %d launches %s (bf16 %s) != %s"
-              % (len(losses), per, per_bf16, RESNET_PER_STEP))
+              and per_bf16 == bf16_part(RESNET_PER_STEP, amp)
+              and per_wgmma == wgmma_part(RESNET_PER_STEP, amp),
+              "resnet step %d launches %s (bf16 %s, wgmma %s) != %s"
+              % (len(losses), per, per_bf16, per_wgmma, RESNET_PER_STEP))
         losses.append(float(loss))
         return dt
 
@@ -3523,6 +3651,7 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
                      "declined": declined, "declined_reasons": reasons,
                      "kernels": kernels_used},
           "launches": launches, "bf16_launches": read_bf16_counts(),
+          "wgmma_launches": read_wgmma_counts(),
           "launches_per_step": RESNET_PER_STEP, "f32_step": f32_step,
           "setup_s": setup_s, "device": smi_line})
     check(len(report.fused) == len(sites) == 53 and not report.refused,
@@ -4218,7 +4347,8 @@ def main():
         for name in ("flash_attention_fwd", "flash_attention_bwd")},
         amp=True)
     # read at once: the path's wgmma launches (no launch comes between);
-    # conv_apply's come from resnet_amp_eval
+    # conv_moments' come from resnet_amp_train, conv_apply's from
+    # resnet_amp_eval
     amp_wgmma = read_wgmma_counts()
     phase_resnet_train_check(torch, smi_line)
     paths["resnet_train"], trained, f32_step = phase_resnet_train(
@@ -4229,6 +4359,7 @@ def main():
     paths["resnet_amp_train"], trained, _ = phase_resnet_train(
         torch, smi_line, times["conv_moments"]["bf16"]["site_weighted_ms"],
         amp=True, f32_step=f32_step)
+    amp_wgmma["conv_moments"] = read_wgmma_counts()["conv_moments"]
     paths["resnet_amp_eval"], eval_wgmma = phase_resnet_eval(
         torch, smi_line, trained, amp=True)
     amp_wgmma["conv_apply"] = eval_wgmma["conv_apply"]
@@ -4287,7 +4418,7 @@ def main():
                 kernels[-1]["bf16"].update(
                     form="wgmma", wgmma_launches=amp_wgmma[name],
                     header="paddle_tpu_torch/csrc/wgmma_bf16.cuh")
-                if name == "conv_apply":
+                if name in ("conv_moments", "conv_apply"):
                     kernels[-1]["bf16"]["wgmma_source"] = \
                         "paddle_tpu_torch/csrc/fused_conv_wgmma.cu"
     print(smi_line, flush=True)

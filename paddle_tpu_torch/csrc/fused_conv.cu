@@ -117,6 +117,7 @@
 #include <type_traits>
 
 #include "conv_epilogue_bf16.cuh"
+#include "conv_moments_reduce.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -468,27 +469,6 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
       out[rb + (long long)o * hwo] = v;
     }
   }
-}
-
-// sums[c] = sum over tiles of partial[t, c], c < cols = 2 * O. A block of 32
-// warps covers 32 columns: warp w sums tiles w, w + 32, ... (lanes read
-// neighbouring columns), then warp 0 adds the warps in order.
-__global__ void __launch_bounds__(1024)
-moments_reduce(const float* __restrict__ partial, float* __restrict__ sums,
-               int tiles, int cols) {
-  __shared__ float red[32][33];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (c < cols)
-    for (int t = warp; t < tiles; t += 32)
-      s += partial[(long long)t * cols + c];
-  red[warp][lane] = s;
-  __syncthreads();
-  if (warp != 0 || c >= cols) return;
-  float tot = 0.f;
-  for (int i = 0; i < 32; ++i) tot += red[i][lane];
-  sums[c] = tot;
 }
 
 __device__ __forceinline__ float apply1(float v, float sc, float sh,
@@ -988,11 +968,8 @@ int conv_moments_t(const void* x, const void* w, void* co, void* partial,
       static_cast<T*>(co), static_cast<float*>(partial), nullptr, nullptr,
       nullptr, 0);
   if (err != cudaSuccess) return err;
-  const int cols = 2 * O;
-  moments_reduce<<<(cols + 31) / 32, 1024, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(sums), tiles,
-      cols);
-  return cudaGetLastError();
+  return launch_moments_reduce(static_cast<const float*>(partial),
+                               static_cast<float*>(sums), tiles, O, s);
 }
 
 template <typename T>

@@ -1,17 +1,24 @@
-// The bf16 conv_apply on warpgroup products for Hopper (sm_90a): conv +
-// folded batch-norm affine (+ residual)(+ relu) for ResNet-50's fused
-// sites under fluid.amp.
+// The bf16 conv_apply and conv_moments on warpgroup products for Hopper
+// (sm_90a): conv + folded batch-norm affine (+ residual)(+ relu), and conv
+// + the per-channel sums of the stored output, for ResNet-50's fused sites
+// under fluid.amp. One mainloop, two epilogues (a template parameter).
 //
-// Replaces paddle_tpu/ops/fused_conv.py _conv_apply_kernel (:198, driver
-// _conv_apply :292), as fused_conv.cu's bf16 conv_kernel<..., APPLY> does;
-// the route (ops/fused_conv.py apply_form) sends here every bf16 call at
-// the fused geometries (1x1 stride 1 or 2, 3x3 pad 1 stride 1) with C and
-// O multiples of 64, Wo <= 256 and 16-byte aligned pointers: all 49 sites
-// of ResNet-50's eval pass. It computes what that form computes, with its
-// rounding points (conv_epilogue_bf16.cuh affine_bf16): the conv
-// accumulated in f32 from bf16 products and rounded to bf16 once, the
-// affine a product then a sum in f32 rounded to bf16, the residual add
-// correctly rounded, relu last.
+// conv_apply_wgmma_kernel replaces paddle_tpu/ops/fused_conv.py
+// _conv_apply_kernel (:198, called by _conv_apply :292), as fused_conv.cu's
+// bf16 conv_kernel<..., APPLY> does; conv_moments_wgmma_kernel replaces
+// _conv_moments_kernel (:159, called by _conv_moments :231), as
+// conv_kernel<..., !APPLY> does. The routes (ops/fused_conv.py
+// apply_form, moments_form) send here every bf16 call at the fused
+// geometries (1x1 stride 1 or 2, 3x3 pad 1 stride 1) with C and O
+// multiples of 64, Wo <= 256 and 16-byte aligned pointers: all 49 sites
+// of ResNet-50's eval pass and of its training step. Each computes what
+// the mma.sync form computes, with its rounding points: the conv
+// accumulated in f32 from bf16 products and rounded to bf16 once; for
+// conv_apply (conv_epilogue_bf16.cuh affine_bf16) the affine a product
+// then a sum in f32 rounded to bf16, the residual add correctly rounded,
+// relu last; for conv_moments the rounded conv stored as co and its sum
+// and sum of squares per channel taken from the rounded values in f32
+// (the reference's :165-176).
 //
 // What bounds it on the card: the 3x3 body at 56x56, batch 128 is 29.6
 // GFLOP (0.030 ms at 989 TFLOP/s) against 102.8 MB of x and y (0.031 ms
@@ -68,13 +75,31 @@
 //     one run a channel: 8 elements at 56x56, 4 at 28x28), the residual
 //     read the same way, 8 or 16 pieces a thread at once. On the
 //     fragments, with 4-byte pieces and a division per pixel, the
-//     epilogue had cost more than the mainloop.
+//     epilogue had cost more than the mainloop. conv_moments writes co
+//     the same way, with no affine.
+//   * The moments (conv_moments): each thread sums its accumulators,
+//     rounded to bf16 and back, per channel row in f32 in a fixed order,
+//     over the quad by shuffles, and the quad's first lane writes the sum
+//     and the sum of squares of its channel into the tile's row of the
+//     [pixel tiles, 2, O] partials; moments_reduce then adds the rows in
+//     order, so the moments are the same from run to run. Only the slots
+//     that the epilogue stores are summed (tile_slots): the rest of the
+//     256 hold values that are not zero. In the 4-d box path a stage's
+//     last 256 - 64 Wo bh bn slots keep an earlier chunk's X (14x14: 196
+//     slots are loaded, 60 are stale), rows past Ho of the last row tile
+//     read real input rows through the dy = 0 tap (30x30: rows 30-31),
+//     images past N of the last image tile and pixels past H*W of the
+//     last tile of the NCHW path read zeros.
+//   * The plan (NCHW or not, bh, bn, pixel tiles) comes from
+//     ops/fused_conv.py wgmma_tile_plan; the C entries refuse a plan that
+//     does not tile the output (plan_ok).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 
 #include "conv_epilogue_bf16.cuh"
+#include "conv_moments_reduce.cuh"
 #include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -89,6 +114,7 @@ constexpr int CLD = NPIX + 8;         // row of the C tile, in bf16
 
 struct CArgs {
   const float* scale; const float* shift; const bf16* res; bf16* y;
+  float* partial;                 // conv_moments: [pixel tiles, 2, O]
   int N, O, Ho, Wo, hw, KS, pad, CC;  // the tiles' rows of Wo slots (the
                                       // output's, or rows of 256 pixels
                                       // for NCHW); hw: pixels an image;
@@ -144,22 +170,37 @@ __device__ __forceinline__ unsigned short apply_vec(unsigned short c,
                           0xffffu);
 }
 
+// The slots of the tile at (n0, h0) that hold output pixels: `runs` runs
+// of `len` slots (one run per image of a tile of whole images, else one
+// run), the prefix of its 256 slots that write_tile and write_images store
+// and that the moments sum. The other slots are not zero (the header says
+// why).
+struct Runs {
+  int runs, len;
+};
+__device__ __forceinline__ Runs tile_runs(const CArgs& a, int n0, int h0) {
+  return {a.bn == 1 ? 1 : min(a.bn, a.N - n0),
+          min(min(a.bh, a.Ho - h0) * a.Wo, a.hw - h0 * a.Wo)};
+}
+
 // The second half of a warpgroup's epilogue: its 64 channels of the C
 // tile written out as runs of contiguous pixels of y (one run per channel
 // and image: a tile holds whole rows), V elements a thread, consecutive
 // threads on consecutive pieces of a run; U pieces a thread at once, their
 // residual loads issued together (a load a piece in turn left the
-// expand convs, whose y and residual are 4x their x, waiting on memory)
-template <int V>
+// expand convs, whose y and residual are 4x their x, waiting on memory).
+// AFFINE: conv_apply's affine (+ residual)(+ relu); else the rounded conv
+// itself (conv_moments' co).
+template <int V, bool AFFINE>
 __device__ __forceinline__ void write_tile(const bf16* ct, const CArgs& a,
                                            int o0, int n0, int h0, int t) {
   typedef typename Vec<V>::T T;
   constexpr int U = V >= 4 ? 8 : 16;
-  const int runs = a.bn == 1 ? 1 : min(a.bn, a.N - n0);
-  const int len = min(min(a.bh, a.Ho - h0) * a.Wo, a.hw - h0 * a.Wo);
-  const int per_run = len / V, per_ch = runs * per_run;
+  const Runs rs = tile_runs(a, n0, h0);
+  const int len = rs.len;
+  const int per_run = len / V, per_ch = rs.runs * per_run;
   const int total = 64 * per_ch;
-  const bool has_res = a.res != nullptr;
+  const bool has_res = AFFINE && a.res != nullptr;
   for (int i0 = t; i0 < total; i0 += 128 * U) {
     long long off[U];
     int cs[U];
@@ -173,17 +214,22 @@ __device__ __forceinline__ void write_tile(const bf16* ct, const CArgs& a,
       off[u] = ((long long)(n0 + rr) * a.O + o0 + c) * a.hw +
                (long long)h0 * a.Wo + v;
       cs[u] = c * CLD + rr * len + v;
-      sc[u] = __ldg(a.scale + o0 + c);
-      sh[u] = __ldg(a.shift + o0 + c);
-      r[u] = has_res ? __ldg(reinterpret_cast<const T*>(a.res + off[u]))
-                     : T();
+      if constexpr (AFFINE) {
+        sc[u] = __ldg(a.scale + o0 + c);
+        sh[u] = __ldg(a.shift + o0 + c);
+        r[u] = has_res ? __ldg(reinterpret_cast<const T*>(a.res + off[u]))
+                       : T();
+      }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (i0 + 128 * u >= total) break;
       const T c = *reinterpret_cast<const T*>(ct + cs[u]);
-      *reinterpret_cast<T*>(a.y + off[u]) =
-          apply_vec(c, r[u], sc[u], sh[u], has_res, a.relu);
+      if constexpr (AFFINE)
+        *reinterpret_cast<T*>(a.y + off[u]) =
+            apply_vec(c, r[u], sc[u], sh[u], has_res, a.relu);
+      else
+        *reinterpret_cast<T*>(a.y + off[u]) = c;
     }
   }
 }
@@ -191,13 +237,14 @@ __device__ __forceinline__ void write_tile(const bf16* ct, const CArgs& a,
 // The same where a tile holds whole images: then the tile's 64 channels of
 // one image are one contiguous run of 64 * hw elements of y, written 16
 // bytes a thread whatever hw is (a piece may span two channels)
+template <bool AFFINE>
 __device__ __forceinline__ void write_images(const bf16* ct, const CArgs& a,
                                              int o0, int n0, int t) {
   constexpr int U = 8;
   const int hw = a.hw, per = 8 * hw;  // 16-byte pieces of an image
-  const int total = min(a.bn, a.N - n0) * per;
+  const int total = tile_runs(a, n0, 0).runs * per;
   const float inv_hw = 1.f / hw;
-  const bool has_res = a.res != nullptr;
+  const bool has_res = AFFINE && a.res != nullptr;
   const unsigned short* cs = reinterpret_cast<const unsigned short*>(ct);
   for (int i0 = t; i0 < total; i0 += 128 * U) {
     long long off[U];
@@ -219,17 +266,23 @@ __device__ __forceinline__ void write_images(const bf16* ct, const CArgs& a,
 #pragma unroll
       for (int e = 0; e < 8; e += 2) {
         float yv[2];
+        unsigned short cv[2];
 #pragma unroll
         for (int k = 0; k < 2; ++k) {  // element f: channel c, pixel f - c hw
           const int f = f0 + e + k, c = int((f + 0.5f) * inv_hw);
-          const float cv = __bfloat162float(__ushort_as_bfloat16(
-              cs[c * CLD + im * hw + f - c * hw]));
-          const unsigned rr = rw[e / 2];
-          yv[k] = affine_bf16(cv, __ldg(a.scale + o0 + c),
-                              __ldg(a.shift + o0 + c), has_res,
-                              k ? bf_hi(rr) : bf_lo(rr), a.relu);
+          cv[k] = cs[c * CLD + im * hw + f - c * hw];
+          if constexpr (AFFINE) {
+            const unsigned rr = rw[e / 2];
+            yv[k] = affine_bf16(__bfloat162float(__ushort_as_bfloat16(cv[k])),
+                                __ldg(a.scale + o0 + c),
+                                __ldg(a.shift + o0 + c), has_res,
+                                k ? bf_hi(rr) : bf_lo(rr), a.relu);
+          }
         }
-        yw[e / 2] = pack_bf16(yv[0], yv[1]);
+        if constexpr (AFFINE)
+          yw[e / 2] = pack_bf16(yv[0], yv[1]);
+        else
+          yw[e / 2] = unsigned(cv[0]) | (unsigned(cv[1]) << 16);
       }
       *reinterpret_cast<uint4*>(a.y + off[u]) =
           make_uint4(yw[0], yw[1], yw[2], yw[3]);
@@ -237,13 +290,15 @@ __device__ __forceinline__ void write_images(const bf16* ct, const CArgs& a,
   }
 }
 
-// NCHW: X boxes {64 pixels, 64 channels} of the [N, C, H*W] input itself
-// (a 1x1 stride-1 conv with H*W a multiple of 8), read N-contiguous; else
-// the 4-d box of the channels-last copy, read K-major
-template <int NWG, bool NCHW>
-__global__ void __launch_bounds__(CCfg<NWG>::THREADS, 1)
-conv_apply_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
-                        const __grid_constant__ CUtensorMap tmx, CArgs a) {
+// The conv on warpgroup products (both kernels below). NCHW: X boxes {64
+// pixels, 64 channels} of the [N, C, H*W] input itself (a 1x1 stride-1
+// conv with H*W a multiple of 8), read N-contiguous; else the 4-d box of
+// the channels-last copy, read K-major. MOMENTS: conv_moments' epilogue
+// (co and the tile's partial sums), else conv_apply's.
+template <int NWG, bool NCHW, bool MOMENTS>
+__device__ __forceinline__ void conv_wgmma(const CUtensorMap& tmw,
+                                           const CUtensorMap& tmx,
+                                           const CArgs& a) {
   using Cf = CCfg<NWG>;
   constexpr int STAGES = Cf::STAGES;
   extern __shared__ __align__(1024) unsigned char cw_smem[];
@@ -346,30 +401,81 @@ conv_apply_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
     // (accumulator 4 j + e is channel row 16 warp + g + 8 (e / 2), slot
     // 8 j + 2 tq + e % 2; conflict-free 4-byte stores), then written out
     named_sync(1 + wg, 128);  // the previous tile's C tile is read
+    // conv_moments: the rounded values of this thread's two channel rows,
+    // summed in f32 over the slots the writes store, in a fixed order
+    int slots = 0;
+    if constexpr (MOMENTS) {
+      const Runs rs = tile_runs(a, n0, h0);
+      slots = rs.runs * rs.len;
+    }
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 32; ++j)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
+      for (int hh = 0; hh < 2; ++hh) {
+        const unsigned p = pack_bf16(acc[4 * j + 2 * hh],
+                                     acc[4 * j + 2 * hh + 1]);
         *reinterpret_cast<unsigned*>(ct + (16 * warp + g + 8 * hh) * CLD +
-                                     8 * j + 2 * tq) =
-            pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+                                     8 * j + 2 * tq) = p;
+        if constexpr (MOMENTS) {
+          const int slot = 8 * j + 2 * tq;
+          const float v0 = slot < slots ? bf_lo(p) : 0.f;
+          const float v1 = slot + 1 < slots ? bf_hi(p) : 0.f;
+          s1[hh] += v0;
+          s2[hh] = fmaf(v0, v0, s2[hh]);
+          s1[hh] += v1;
+          s2[hh] = fmaf(v1, v1, s2[hh]);
+        }
+      }
+    if constexpr (MOMENTS) {  // over the quad, then into the partial row
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int m = 1; m <= 2; m <<= 1) {
+          s1[hh] += __shfl_xor_sync(0xffffffffu, s1[hh], m);
+          s2[hh] += __shfl_xor_sync(0xffffffffu, s2[hh], m);
+        }
+      if (tq == 0) {
+        float* row = a.partial + (long long)pt * 2 * a.O + o0 + 16 * warp + g;
+        row[0] = s1[0];
+        row[8] = s1[1];
+        row[a.O] = s2[0];
+        row[a.O + 8] = s2[1];
+      }
+    }
     named_sync(1 + wg, 128);
     if (a.bh == a.Ho) {  // whole images (h0 == 0)
-      write_images(ct, a, o0, n0, wt);
+      write_images<!MOMENTS>(ct, a, o0, n0, wt);
     } else switch (a.vec) {
-      case 8: write_tile<8>(ct, a, o0, n0, h0, wt); break;
-      case 4: write_tile<4>(ct, a, o0, n0, h0, wt); break;
-      case 2: write_tile<2>(ct, a, o0, n0, h0, wt); break;
-      default: write_tile<1>(ct, a, o0, n0, h0, wt); break;
+      case 8: write_tile<8, !MOMENTS>(ct, a, o0, n0, h0, wt); break;
+      case 4: write_tile<4, !MOMENTS>(ct, a, o0, n0, h0, wt); break;
+      case 2: write_tile<2, !MOMENTS>(ct, a, o0, n0, h0, wt); break;
+      default: write_tile<1, !MOMENTS>(ct, a, o0, n0, h0, wt); break;
     }
   }
+}
+
+template <int NWG, bool NCHW>
+__global__ void __launch_bounds__(CCfg<NWG>::THREADS, 1)
+conv_apply_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
+                        const __grid_constant__ CUtensorMap tmx, CArgs a) {
+  conv_wgmma<NWG, NCHW, false>(tmw, tmx, a);
+}
+
+template <int NWG, bool NCHW>
+__global__ void __launch_bounds__(CCfg<NWG>::THREADS, 1)
+conv_moments_wgmma_kernel(const __grid_constant__ CUtensorMap tmw,
+                          const __grid_constant__ CUtensorMap tmx, CArgs a) {
+  conv_wgmma<NWG, NCHW, true>(tmw, tmx, a);
 }
 
 // x [N, C, H, W] -> xt [N, Hs, Ws, C] with Hs = ceil(H / s), Ws =
 // ceil(W / s): the channels-last copy (s = 1), or that of the pixels a 1x1
 // stride-2 conv reads (s = 2). A block moves 64 channels by 64 pixels of
 // one image through shared memory: coalesced reads along the pixels,
-// 16-byte writes of 8 channels.
+// 16-byte writes of 8 channels. MOMENTS names the kernel that reads the
+// copy (the code is the same), so that a profile counts the copy with it.
+template <bool MOMENTS>
 __global__ void __launch_bounds__(256)
 nchw_to_nhwc_kernel(const bf16* __restrict__ x, bf16* __restrict__ xt,
                     int C, int H, int W, int s) {
@@ -415,58 +521,57 @@ int sm_count() {
   return n;
 }
 
-template <int NWG, bool NCHW>
-cudaError_t launch(const CUtensorMap& mw, const CUtensorMap& mx,
-                   const CArgs& a, cudaStream_t s) {
-  using Cf = CCfg<NWG>;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_apply_wgmma_kernel<NWG, NCHW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(Cf::SMEM));
-  if (err != cudaSuccess) return err;
-  const int sms = sm_count();
-  if (sms <= 0) return cudaErrorInvalidDevice;
-  const int grid = a.tiles < sms ? a.tiles : sms;
-  conv_apply_wgmma_kernel<NWG, NCHW><<<grid, Cf::THREADS, Cf::SMEM, s>>>(
-      mw, mx, a);
-  return cudaGetLastError();
-}
-
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Whether conv_apply_bf16_wgmma reads x in NCHW itself (a 1x1 stride-1
-// conv with H * W a multiple of 8: a tensor map's strides are multiples
-// of 16 bytes) and needs no channels-last copy.
-int conv_apply_bf16_wgmma_reads_nchw(int H, int W, int ks, int stride) {
+// Whether a conv reads x in NCHW itself (a 1x1 stride-1 conv with H * W a
+// multiple of 8: a tensor map's strides are multiples of 16 bytes) and
+// needs no channels-last copy (ops/fused_conv.py wgmma_tile_plan's nchw,
+// which the C entries check).
+bool reads_nchw(int H, int W, int ks, int stride) {
   return ks == 1 && stride == 1 && (H * W) % 8 == 0;
 }
 
-// x: bf16 [N, C, H, W]; xt: bf16 scratch of N * Ho * Wo * C elements for
-// x's channels-last copy (the pixels the conv reads; Ho = H and Wo = W at
-// stride 1), or null where conv_apply_bf16_wgmma_reads_nchw; w: bf16
-// tap-major [O, ks * ks * C]; scale, shift: f32 [O]; res: bf16
-// [N, O, Ho, Wo] or null; y: bf16 [N, O, Ho, Wo]; all contiguous and
-// 16-byte aligned. ks 1 with stride 1 or 2, or ks 3 (pad 1) with stride 1;
-// C and O multiples of 64, Wo <= 256. On `stream`: the copy (unless x is
-// read in NCHW), then the conv.
-int conv_apply_bf16_wgmma(const void* x, void* xt, const void* w,
-                          const void* scale, const void* shift,
-                          const void* res, void* y, int N, int C, int H,
-                          int W, int O, int ks, int stride, int relu,
-                          void* stream) {
+// Whether the plan (bh, bn, ptiles) tiles the output of a: a tile is bh
+// rows of Wo slots of bn images, at most 256 slots; whole images (bh =
+// Ho), as many as fit, or rows of one image (bn = 1); NCHW one row of 256
+// pixels (bh = bn = 1); ptiles = ceil(N / bn) ceil(Ho / bh)
+bool plan_ok(const CArgs& a, bool nchw, int bh, int bn, int ptiles) {
+  if (bh <= 0 || bn <= 0 || bh > a.Ho) return false;
+  if (nchw) {
+    if (bh != 1 || bn != 1) return false;
+  } else if (bh == a.Ho) {
+    if (bn > a.N || (long long)bn * a.Ho * a.Wo > NPIX) return false;
+  } else if (bn != 1 || bh * a.Wo > NPIX) {
+    return false;
+  }
+  return (long long)((a.N + bn - 1) / bn) * ((a.Ho + bh - 1) / bh) ==
+         ptiles;
+}
+
+// One call's arguments, tensor maps and channels-last copy (on `s`, unless
+// x is read in NCHW), shared by the two C entries
+struct Call {
+  CArgs a;
+  CUtensorMap mw, mx;
+  bool nchw;
+  int nwg;
+};
+
+template <bool MOMENTS>
+cudaError_t prepare(Call* cl, const void* x, void* xt, const void* w, void* y,
+                    int N, int C, int H, int W, int O, int ks, int stride,
+                    int plan_nchw, int bh, int bn, int ptiles,
+                    cudaStream_t s) {
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0 || C % 64 != 0 ||
       O % 64 != 0 ||
       !((ks == 1 && (stride == 1 || stride == 2)) || (ks == 3 && stride == 1)))
     return cudaErrorInvalidValue;
-  const bool nchw = conv_apply_bf16_wgmma_reads_nchw(H, W, ks, stride);
+  const bool nchw = reads_nchw(H, W, ks, stride);
+  if (plan_nchw != int(nchw)) return cudaErrorInvalidValue;
   if (!aligned16(x) || (!nchw && !aligned16(xt)) || !aligned16(w) ||
-      !aligned16(y) || (res != nullptr && !aligned16(res)) ||
-      (!nchw && xt == nullptr))
+      !aligned16(y) || (!nchw && xt == nullptr))
     return cudaErrorInvalidValue;
   const int pad = (ks - 1) / 2;
   const int Ho = (H + 2 * pad - ks) / stride + 1;
@@ -477,39 +582,27 @@ int conv_apply_bf16_wgmma(const void* x, void* xt, const void* w,
       (long long)N * O * Ho * Wo >= (1LL << 31) || k * O >= (1LL << 31) ||
       N > 65535)
     return cudaErrorInvalidValue;
-  CArgs a{};
-  a.scale = static_cast<const float*>(scale);
-  a.shift = static_cast<const float*>(shift);
-  a.res = static_cast<const bf16*>(res);
+  CArgs& a = cl->a;
+  a = CArgs{};
   a.y = static_cast<bf16*>(y);
   a.N = N; a.O = O; a.hw = Ho * Wo; a.KS = ks; a.pad = pad;
   a.CC = C / 64;
   if (nchw) {  // rows of 256 pixels of one image
     a.Wo = NPIX;
     a.Ho = (a.hw + NPIX - 1) / NPIX;
-    a.bh = 1;
-    a.bn = 1;
-    a.x_bytes = X_BYTES;
   } else {
     a.Ho = Ho;
     a.Wo = Wo;
-    if (Ho * Wo <= NPIX) {  // whole images, as many as fit
-      a.bh = Ho;
-      a.bn = NPIX / (Ho * Wo) < N ? NPIX / (Ho * Wo) : N;
-    } else {  // rows of one image, the row tiles of an image made even
-      const int per = (Ho + NPIX / Wo - 1) / (NPIX / Wo);
-      a.bh = (Ho + per - 1) / per;
-      a.bn = 1;
-    }
-    a.x_bytes = 64 * Wo * a.bh * a.bn * 2;
   }
+  if (!plan_ok(a, nchw, bh, bn, ptiles)) return cudaErrorInvalidValue;
+  a.bh = bh;
+  a.bn = bn;
+  a.x_bytes = nchw ? X_BYTES : 64 * Wo * bh * bn * 2;
   a.tpi = (a.Ho + a.bh - 1) / a.bh;
   const int nwg = O % 128 == 0 ? 2 : 1;
   a.ctiles = O / (64 * nwg);
-  const long long tiles =
-      (long long)((N + a.bn - 1) / a.bn) * a.tpi * a.ctiles;
-  if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
-  a.tiles = int(tiles);
+  if ((long long)ptiles * a.ctiles >= (1LL << 31)) return cudaErrorInvalidValue;
+  a.tiles = ptiles * a.ctiles;
   a.nk = int(k / 64);
   // the widest vector that divides every run of the tiles (whole images
   // or whole rows) and its start
@@ -517,38 +610,119 @@ int conv_apply_bf16_wgmma(const void* x, void* xt, const void* w,
   while (a.vec > 1 && (a.hw % a.vec != 0 ||
                        (a.bn == 1 && (a.bh * a.Wo) % a.vec != 0)))
     a.vec /= 2;
-  a.relu = relu;
+  cl->nchw = nchw;
+  cl->nwg = nwg;
 
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CUtensorMap mw, mx;
   const uint64_t wdims[2] = {uint64_t(k), uint64_t(O)};
   const uint64_t wstr[1] = {uint64_t(k) * 2};
   const uint32_t wbox[2] = {64, uint32_t(64 * nwg)};
-  cudaError_t err = encode_bf16_map(&mw, w, 2, wdims, wstr, wbox);
+  cudaError_t err = encode_bf16_map(&cl->mw, w, 2, wdims, wstr, wbox);
   if (err != cudaSuccess) return err;
   if (nchw) {  // [N, C, H*W]: boxes {64 pixels, 64 channels, 1}
     const uint64_t dims[3] = {uint64_t(a.hw), uint64_t(C), uint64_t(N)};
     const uint64_t str[2] = {uint64_t(a.hw) * 2, uint64_t(a.hw) * C * 2};
     const uint32_t box[3] = {64, 64, 1};
-    err = encode_bf16_map(&mx, x, 3, dims, str, box);
-    if (err != cudaSuccess) return err;
-    return nwg == 2 ? launch<2, true>(mw, mx, a, s)
-                    : launch<1, true>(mw, mx, a, s);
+    return encode_bf16_map(&cl->mx, x, 3, dims, str, box);
   }
   // the copy: x channels last, of the pixels the conv reads (a 1x1
   // stride-2 conv reads every other row and column; the conv then reads
   // the copy at stride 1)
   const int Hs = stride == 2 ? Ho : H, Ws = stride == 2 ? Wo : W;
   const dim3 cgrid((Hs * Ws + 63) / 64, C / 64, N);
-  nchw_to_nhwc_kernel<<<cgrid, 256, 0, s>>>(static_cast<const bf16*>(x),
-                                            static_cast<bf16*>(xt), C, H, W,
-                                            stride);
+  nchw_to_nhwc_kernel<MOMENTS><<<cgrid, 256, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(xt), C, H, W, stride);
   err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = encode_nhwc_map(&mx, xt, N, Hs, Ws, C, Wo, a.bh, a.bn);
   if (err != cudaSuccess) return err;
-  return nwg == 2 ? launch<2, false>(mw, mx, a, s)
-                  : launch<1, false>(mw, mx, a, s);
+  return encode_nhwc_map(&cl->mx, xt, N, Hs, Ws, C, Wo, a.bh, a.bn);
+}
+
+template <int NWG, bool NCHW, bool MOMENTS>
+cudaError_t launch(const Call& cl, cudaStream_t s) {
+  using Cf = CCfg<NWG>;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int grid = cl.a.tiles < sms ? cl.a.tiles : sms;
+  cudaError_t err;
+  if constexpr (MOMENTS) {
+    err = cudaFuncSetAttribute(conv_moments_wgmma_kernel<NWG, NCHW>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(Cf::SMEM));
+    if (err != cudaSuccess) return err;
+    conv_moments_wgmma_kernel<NWG, NCHW><<<grid, Cf::THREADS, Cf::SMEM, s>>>(
+        cl.mw, cl.mx, cl.a);
+  } else {
+    err = cudaFuncSetAttribute(conv_apply_wgmma_kernel<NWG, NCHW>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(Cf::SMEM));
+    if (err != cudaSuccess) return err;
+    conv_apply_wgmma_kernel<NWG, NCHW><<<grid, Cf::THREADS, Cf::SMEM, s>>>(
+        cl.mw, cl.mx, cl.a);
+  }
+  return cudaGetLastError();
+}
+
+template <bool MOMENTS>
+cudaError_t launch_conv(const Call& cl, cudaStream_t s) {
+  if (cl.nchw)
+    return cl.nwg == 2 ? launch<2, true, MOMENTS>(cl, s)
+                       : launch<1, true, MOMENTS>(cl, s);
+  return cl.nwg == 2 ? launch<2, false, MOMENTS>(cl, s)
+                     : launch<1, false, MOMENTS>(cl, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: bf16 [N, C, H, W]; xt: bf16 scratch of N * Ho * Wo * C elements for
+// x's channels-last copy (the pixels the conv reads; Ho = H and Wo = W at
+// stride 1), or null where the conv reads x in NCHW (reads_nchw); w: bf16
+// tap-major [O, ks * ks * C]; scale, shift: f32 [O]; res: bf16
+// [N, O, Ho, Wo] or null; y: bf16 [N, O, Ho, Wo]; all contiguous and
+// 16-byte aligned. ks 1 with stride 1 or 2, or ks 3 (pad 1) with stride 1;
+// C and O multiples of 64, Wo <= 256. The plan nchw, bh, bn, ptiles
+// (ops/fused_conv.py wgmma_tile_plan; refused unless nchw is reads_nchw's
+// and the tiles cover the output). On `stream`: the copy (unless x is
+// read in NCHW), then the conv.
+int conv_apply_bf16_wgmma(const void* x, void* xt, const void* w,
+                          const void* scale, const void* shift,
+                          const void* res, void* y, int N, int C, int H,
+                          int W, int O, int ks, int stride, int relu,
+                          int nchw, int bh, int bn, int ptiles,
+                          void* stream) {
+  if (res != nullptr && !aligned16(res)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Call cl;
+  cudaError_t err = prepare<false>(&cl, x, xt, w, y, N, C, H, W, O, ks,
+                                   stride, nchw, bh, bn, ptiles, s);
+  if (err != cudaSuccess) return err;
+  cl.a.scale = static_cast<const float*>(scale);
+  cl.a.shift = static_cast<const float*>(shift);
+  cl.a.res = static_cast<const bf16*>(res);
+  cl.a.relu = relu;
+  return launch_conv<false>(cl, s);
+}
+
+// x, xt, w and the plan as conv_apply_bf16_wgmma; co: bf16 [N, O, Ho, Wo],
+// contiguous, 16-byte aligned; partial: f32 scratch of ptiles * 2 * O;
+// sums: f32 [2, O] (sum co, then sum co^2, of the stored co). On
+// `stream`: the copy (unless x is read in NCHW), the conv, then
+// moments_reduce over the partial rows.
+int conv_moments_bf16_wgmma(const void* x, void* xt, const void* w, void* co,
+                            void* partial, void* sums, int N, int C, int H,
+                            int W, int O, int ks, int stride, int nchw,
+                            int bh, int bn, int ptiles, void* stream) {
+  if (partial == nullptr || sums == nullptr) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Call cl;
+  cudaError_t err = prepare<true>(&cl, x, xt, w, co, N, C, H, W, O, ks,
+                                  stride, nchw, bh, bn, ptiles, s);
+  if (err != cudaSuccess) return err;
+  cl.a.partial = static_cast<float*>(partial);
+  err = launch_conv<true>(cl, s);
+  if (err != cudaSuccess) return err;
+  return launch_moments_reduce(static_cast<const float*>(partial),
+                               static_cast<float*>(sums), ptiles, O, s);
 }
 
 const char* ptt_error_string(int err) {

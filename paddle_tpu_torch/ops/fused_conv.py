@@ -51,16 +51,17 @@ gradients through ``aten.convolution_backward`` (cuDNN on the card).
 (:458-471). Without a tape (the eval pass under ``inference_mode``) the
 kernels launch directly, without the Functions' host cost.
 
-bf16 ``conv_apply`` has two forms, chosen by shape (:func:`apply_form`,
-counted by ``conv_apply.wgmma_launches``): at the fused geometries with C
-and O multiples of 64, Wo up to 256 and 16-byte aligned pointers
-(every site of ResNet-50), an implicit GEMM on warpgroup products
-(``csrc/fused_conv_wgmma.cu``) that copies x channels last (for a 1x1
-stride-2 conv only the pixels it reads) and reads the copy through TMA
-boxes; every other bf16 call the
+bf16 ``conv_apply`` and ``conv_moments`` have two forms each, chosen by
+shape (:func:`apply_form`, :func:`moments_form`, one rule; counted by
+``wgmma_launches`` on each wrapper): at the fused geometries with C and O
+multiples of 64, Wo up to 256 and 16-byte aligned pointers (every site of
+ResNet-50), an implicit GEMM on warpgroup products
+(``csrc/fused_conv_wgmma.cu``, one mainloop with the affine or the
+moments as its epilogue) that copies x channels last (for a 1x1 stride-2
+conv only the pixels it reads) and reads the copy through TMA boxes,
+under the tile plan :func:`wgmma_tile_plan`; every other bf16 call the
 ``mma.sync`` form of ``csrc/fused_conv.cu``. Both are checked kernels: a
-route by shape, not a fallback. ``conv_moments`` has the ``mma.sync``
-form only.
+route by shape, not a fallback.
 
 Devices. A CUDA tensor launches the kernels or raises; a CPU tensor takes
 the plain versions. Neither falls back to the other, and a kernel that
@@ -75,6 +76,7 @@ f32 or bf16) raises in the wrapper; f16 raises in the gate, as the
 reference's AMP is bf16 only.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -84,6 +86,7 @@ from . import _build
 
 __all__ = ["supported_geometry", "gate", "fused_conv_bn_act",
            "conv_moments", "bn_apply", "conv_apply", "apply_form",
+           "moments_form", "wgmma_tile_plan", "ConvTilePlan",
            "conv_moments_plain",
            "bn_apply_plain", "conv_apply_plain", "conv_rounded", "bn_stats",
            "epilogue_reference", "tf32_round", "conv_3xtf32_emulated"]
@@ -332,23 +335,40 @@ def _conv_args(name, x, w, stride, f32=(), residual=None):
 def conv_moments(x, w, stride):
     """Launch the training kernel (row 10). x: CUDA [N, C, H, W]; w:
     [O, C, K, K], both f32 (3xTF32) or both bf16 (AMP). Returns (co
-    [N, O, Ho, Wo] in x's dtype, sum co [O], sum co^2 [O], both f32)."""
-    dtype, w, (n, c, h, wd, o, k, ho, wo) = _conv_args("conv_moments", x, w,
-                                                      stride)
+    [N, O, Ho, Wo] in x's dtype, sum co [O], sum co^2 [O], both f32).
+    bf16 runs the form :func:`moments_form` names (``wgmma_launches``
+    counts the warpgroup-product one, whose partial sums are one row a
+    pixel tile of :func:`wgmma_tile_plan`)."""
+    dtype, wk, (n, c, h, wd, o, k, ho, wo) = _conv_args("conv_moments", x,
+                                                       w, stride)
     co = torch.empty(n, o, ho, wo, device=x.device, dtype=dtype)
-    tiles = -(-(n * ho * wo) // _BN)
-    partial = torch.empty(tiles, 2, o, device=x.device, dtype=torch.float32)
     sums = torch.empty(2, o, device=x.device, dtype=torch.float32)
-    _build.launch(_fn("conv_moments" + _suffix(dtype), 5, 8), "fused_conv",
-                  x.device, x.data_ptr(), w.data_ptr(), co.data_ptr(),
-                  partial.data_ptr(), sums.data_ptr(), n, c, h, wd, o, k,
-                  stride, tiles)
+    if moments_form(x, w, stride)[0] == "wgmma":
+        plan = wgmma_tile_plan(n, h, wd, k, stride)
+        xt = _channels_last_scratch(x, plan, ho, wo)
+        partial = torch.empty(plan.tiles, 2, o, device=x.device,
+                              dtype=torch.float32)
+        _build.launch(_fn("conv_moments_bf16_wgmma", 6, 11,
+                          "fused_conv_wgmma"), "fused_conv_wgmma", x.device,
+                      x.data_ptr(), _ptr(xt), wk.data_ptr(), co.data_ptr(),
+                      partial.data_ptr(), sums.data_ptr(), n, c, h, wd, o, k,
+                      stride, *_plan_args(plan))
+        conv_moments.wgmma_launches += 1
+    else:
+        tiles = -(-(n * ho * wo) // _BN)
+        partial = torch.empty(tiles, 2, o, device=x.device,
+                              dtype=torch.float32)
+        _build.launch(_fn("conv_moments" + _suffix(dtype), 5, 8),
+                      "fused_conv", x.device, x.data_ptr(), wk.data_ptr(),
+                      co.data_ptr(), partial.data_ptr(), sums.data_ptr(), n,
+                      c, h, wd, o, k, stride, tiles)
     conv_moments.launches += 1
     conv_moments.bf16_launches += dtype == torch.bfloat16
     return co, sums[0], sums[1]
 
 
 conv_moments.launches = conv_moments.bf16_launches = 0
+conv_moments.wgmma_launches = 0  # of them, on warpgroup products
 
 
 def bn_apply(co, scale, shift, residual, relu):
@@ -381,17 +401,15 @@ def bn_apply(co, scale, shift, residual, relu):
 bn_apply.launches = bn_apply.bf16_launches = 0
 
 
-# the widest output row the wgmma form's tile holds (its 256 pixel slots)
-WGMMA_MAX_WO = 256
+# the wgmma form's tile: 256 pixel slots (the N of its m64n256k16
+# products), so its widest output row is 256
+WGMMA_NPIX = 256
+
+ConvTilePlan = collections.namedtuple("ConvTilePlan",
+                                      "nchw width rows bh bn tiles")
 
 
-def apply_form(x, w, stride, residual=None):
-    """The bf16 ``conv_apply``'s form for a device call, by shape:
-    ``("wgmma", None)`` at the fused geometries with C and O multiples of
-    64 (a 64-channel chunk is one 128-byte row of the channels-last copy,
-    a TMA box's swizzle row), Wo up to :data:`WGMMA_MAX_WO` and x, w and
-    the residual 16-byte aligned; else ``("mma_sync", reason)``, reason
-    None for f32 (its only form) or the check that failed."""
+def _wgmma_form(x, w, stride, others):
     if x.dtype != torch.bfloat16:
         return "mma_sync", None
     n, c, h, wd = x.shape
@@ -399,11 +417,75 @@ def apply_form(x, w, stride, residual=None):
     if c % 64 or o % 64:
         return "mma_sync", "C %d or O %d not a multiple of 64" % (c, o)
     wo = (wd + 2 * ((k - 1) // 2) - k) // stride + 1
-    if wo > WGMMA_MAX_WO:
-        return "mma_sync", "Wo %d > %d" % (wo, WGMMA_MAX_WO)
-    if any(t is not None and t.data_ptr() % 16 for t in (x, w, residual)):
+    if wo > WGMMA_NPIX:
+        return "mma_sync", "Wo %d > %d" % (wo, WGMMA_NPIX)
+    if any(t is not None and t.data_ptr() % 16 for t in (x, w) + others):
         return "mma_sync", "a pointer not 16-byte aligned"
     return "wgmma", None
+
+
+def apply_form(x, w, stride, residual=None):
+    """The bf16 ``conv_apply``'s form for a device call, by shape:
+    ``("wgmma", None)`` at the fused geometries with C and O multiples of
+    64 (a 64-channel chunk is one 128-byte row of the channels-last copy,
+    a TMA box's swizzle row), Wo up to :data:`WGMMA_NPIX` and x, w and
+    the residual 16-byte aligned; else ``("mma_sync", reason)``, reason
+    None for f32 (its only form) or the check that failed."""
+    return _wgmma_form(x, w, stride, (residual,))
+
+
+def moments_form(x, w, stride):
+    """The bf16 ``conv_moments``' form for a device call, by the rule of
+    :func:`apply_form` (the two share one mainloop): ``("wgmma", None)``
+    or ``("mma_sync", reason)``."""
+    return _wgmma_form(x, w, stride, ())
+
+
+def wgmma_tile_plan(n, h, w, k, stride):
+    """The wgmma form's tiles of the output of an [n, C, h, w] input under
+    a k x k conv at ``stride``: a :class:`ConvTilePlan` ``(nchw, width,
+    rows, bh, bn, tiles)``. A tile is ``bh`` rows of ``width`` slots of
+    ``bn`` images, at most :data:`WGMMA_NPIX` slots, one TMA box of
+    64 x width x bh x bn bf16 a 64-channel chunk. ``nchw``: a 1x1
+    stride-1 conv with h*w a multiple of 8 reads x in NCHW itself (a TMA
+    stride is a multiple of 16 bytes), its rows 256 pixels wide (the last
+    one ragged); else the rows are the output's (``width`` = Wo, ``rows``
+    = Ho) in a channels-last copy: whole images, as many as fit, or the
+    rows of one image in the fewest even row tiles. ``tiles``: the pixel
+    tiles, ceil(n / bn) * ceil(rows / bh), one partial row each for
+    ``conv_moments``. The C entries refuse a plan that does not tile the
+    output."""
+    pad = (k - 1) // 2
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    if k == 1 and stride == 1 and (h * w) % 8 == 0:
+        rows = -(-(ho * wo) // WGMMA_NPIX)
+        return ConvTilePlan(True, WGMMA_NPIX, rows, 1, 1, n * rows)
+    if ho * wo <= WGMMA_NPIX:  # whole images
+        bh, bn = ho, min(WGMMA_NPIX // (ho * wo), n)
+    else:  # rows of one image, the row tiles of an image made even
+        per = -(-ho // (WGMMA_NPIX // wo))
+        bh, bn = -(-ho // per), 1
+    return ConvTilePlan(False, wo, ho, bh, bn, -(-n // bn) * -(-ho // bh))
+
+
+def _channels_last_scratch(x, plan, ho, wo):
+    """The wgmma form's scratch for x's channels-last copy (the pixels the
+    conv reads), or None where it reads x in NCHW. The caller holds it
+    until the launch."""
+    if plan.nchw:
+        return None
+    n, c = x.shape[:2]
+    return torch.empty(n, ho, wo, c, device=x.device, dtype=x.dtype)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _plan_args(plan):
+    """The plan as the wgmma C entries take it (nchw, bh, bn, tiles)."""
+    return int(plan.nchw), plan.bh, plan.bn, plan.tiles
 
 
 def conv_apply(x, w, scale, shift, residual, relu, stride):
@@ -412,7 +494,7 @@ def conv_apply(x, w, scale, shift, residual, relu, stride):
     in x's dtype. bf16 runs the form :func:`apply_form` names
     (``wgmma_launches`` counts the warpgroup-product one, which first
     copies the pixels it reads channels last into scratch allocated
-    here)."""
+    here, under :func:`wgmma_tile_plan`)."""
     dtype, wk, (n, c, h, wd, o, k, ho, wo) = _conv_args(
         "conv_apply", x, w, stride, (scale, shift), residual)
     form = apply_form(x, w, stride, residual)[0]
@@ -422,13 +504,14 @@ def conv_apply(x, w, scale, shift, residual, relu, stride):
                          "residual [%d, %d, %d, %d]" % (o, n, o, ho, wo))
     y = torch.empty(n, o, ho, wo, device=x.device, dtype=dtype)
     tail = (scale.data_ptr(), shift.data_ptr(),
-            residual.data_ptr() if residual is not None else None,
-            y.data_ptr(), n, c, h, wd, o, k, stride, int(bool(relu)))
-    if form == "wgmma":  # the kernel's channels-last copy of x goes here
-        xt = torch.empty(n, ho, wo, c, device=x.device, dtype=dtype)
-        _build.launch(_fn("conv_apply_bf16_wgmma", 7, 8, "fused_conv_wgmma"),
-                      "fused_conv_wgmma", x.device, x.data_ptr(),
-                      xt.data_ptr(), wk.data_ptr(), *tail)
+            _ptr(residual), y.data_ptr(), n, c, h, wd, o, k, stride,
+            int(bool(relu)))
+    if form == "wgmma":
+        plan = wgmma_tile_plan(n, h, wd, k, stride)
+        xt = _channels_last_scratch(x, plan, ho, wo)
+        _build.launch(_fn("conv_apply_bf16_wgmma", 7, 12, "fused_conv_wgmma"),
+                      "fused_conv_wgmma", x.device, x.data_ptr(), _ptr(xt),
+                      wk.data_ptr(), *tail, *_plan_args(plan))
         conv_apply.wgmma_launches += 1
     else:
         _build.launch(_fn("conv_apply" + _suffix(dtype), 6, 8), "fused_conv",

@@ -19,9 +19,10 @@ and dbias stay f32. As in ``paddle_tpu``
 (``fused_layer_norm.py:213-219``), cotangents arriving through the Mean and
 Variance outputs are ignored: those are saved statistics.
 
-The forward kernel's launch is planned here (:func:`ln_fwd_plan`: 16-byte
-or single-element vectors, how many a lane holds in registers, warps a
-block), where the CPU tests reach it.
+Both kernels' launches are planned here (:func:`ln_fwd_plan`,
+:func:`ln_bwd_plan`: 16-byte or single-element vectors, how many a lane
+holds in registers, warps a block, blocks), where the CPU tests reach
+them.
 """
 
 import collections
@@ -33,7 +34,8 @@ import torch
 from . import _build
 
 __all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_bwd",
-           "layer_norm_plain", "ln_fwd_plan", "LnFwdPlan"]
+           "layer_norm_plain", "ln_fwd_plan", "LnFwdPlan", "ln_bwd_plan",
+           "LnBwdPlan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the vectors a lane may hold in registers: the register-resident
@@ -41,6 +43,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LN_FWD_VPL = (1, 2, 3, 4, 6, 8)
 
 LnFwdPlan = collections.namedtuple("LnFwdPlan", "vec vpl warps blocks")
+# the vectors a bf16 lane may hold in registers in the backward: the
+# register-resident instantiations of csrc/layer_norm_bwd.cu (0 is its
+# looped form); a block is LN_BWD_WARPS warps
+LN_BWD_VPL = (1, 2, 3, 4)
+LN_BWD_WARPS = 8
+
+LnBwdPlan = collections.namedtuple("LnBwdPlan", "vec vpl warps blocks")
 
 
 @functools.lru_cache(maxsize=256)
@@ -64,6 +73,33 @@ def ln_fwd_plan(rows, d, dtype, sms, aligned=True):
     vpl = next((p for p in LN_FWD_VPL if p >= need), 0)
     warps = next(w for w in (4, 2, 1) if w == 1 or -(-rows // w) >= 2 * sms)
     return LnFwdPlan(vec, vpl, warps, -(-rows // warps))
+
+
+@functools.lru_cache(maxsize=256)
+def ln_bwd_plan(rows, d, dtype, sms, aligned=True):
+    """The backward kernel's launch for ``rows`` rows of width ``d`` in
+    ``dtype`` (f32 or bf16) on ``sms`` SMs: a :class:`LnBwdPlan` ``(vec,
+    vpl, warps, blocks)``, each block summing a contiguous range of rows
+    into one partial row.
+
+    bf16 with ``d`` a multiple of 8 and x, dy, dx and gamma 16-byte
+    ``aligned``: ``vec`` 8, and ``vpl`` the fewest vectors of
+    ``LN_BWD_VPL`` a lane holds so that a warp holds the row (the
+    register-resident form, 1-2 blocks an SM: two where the row takes at
+    most 2 vectors a lane), or 0 where 4 do not. Every other call takes the
+    looped form (``vpl`` 0; ``vec`` 8 or 1 for bf16, 1 for f32) on up to 4
+    blocks an SM. ``warps``: ``LN_BWD_WARPS``; ``blocks`` at most
+    ceil(rows / warps)."""
+    if rows <= 0 or d <= 0 or sms <= 0 or dtype not in _DTYPE_CODES:
+        raise ValueError("ln_bwd_plan: rows %d, D %d, SMs %d, dtype %s"
+                         % (rows, d, sms, dtype))
+    warps = LN_BWD_WARPS
+    vec = 8 if dtype == torch.bfloat16 and d % 8 == 0 and aligned else 1
+    vpl = next((p for p in LN_BWD_VPL if 32 * p * vec >= d), 0) \
+        if vec == 8 else 0
+    per_sm = 4 if vpl == 0 else (2 if vpl <= 2 else 1)
+    return LnBwdPlan(vec, vpl, warps, max(1, min(-(-rows // warps),
+                                                 per_sm * sms)))
 
 
 def layer_norm_plain(x, scale, bias, eps):
@@ -134,17 +170,19 @@ layer_norm_fwd.launches = layer_norm_fwd.bf16_launches = 0
 def _bwd_c_fn():
     fn = _build.load("layer_norm_bwd").layer_norm_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def layer_norm_bwd(x, scale, mean, var, dy, eps):
-    """Launch the CUDA backward. x, dy: CUDA contiguous [rows, D], both f32
-    or both bf16; scale: f32 [D] or None; mean/var: the forward's f32
-    [rows]. Returns (dx in x's dtype, dscale or None when scale is None,
-    dbias), the last two f32 (summed from f32 partials)."""
+    """Launch the CUDA backward under :func:`ln_bwd_plan`'s plan (the C
+    entry refuses one that does not fit the call). x, dy: CUDA contiguous
+    [rows, D], both f32 or both bf16; scale: f32 [D] or None; mean/var:
+    the forward's f32 [rows]. Returns (dx in x's dtype, dscale or None
+    when scale is None, dbias), the last two f32 (summed from f32
+    partials)."""
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("layer_norm_bwd wants a contiguous [rows, D] x, "
                          "got shape %s" % (tuple(x.shape),))
@@ -166,23 +204,26 @@ def layer_norm_bwd(x, scale, mean, var, dy, eps):
     dy = dy.contiguous()
     g = scale.reshape(d).contiguous() if scale is not None else None
     dx = torch.empty_like(x)
-    dg = torch.zeros(d, device=x.device, dtype=torch.float32) \
+    if rows == 0 or d == 0:
+        db = torch.zeros(d, device=x.device, dtype=torch.float32)
+        return dx, (torch.zeros_like(db) if g is not None else None), db
+    # the kernel's second launch writes every column of both
+    dg = torch.empty(d, device=x.device, dtype=torch.float32) \
         if g is not None else None
-    db = torch.zeros(d, device=x.device, dtype=torch.float32)
-    if rows == 0:
-        return dx, dg, db
-    # a few blocks per SM, each summing a contiguous range of rows into one
-    # partial [2, D] row; a second launch sums the partials in order
-    sms = _build.sm_count(x.device.index)
-    nblocks = max(1, min(-(-rows // 8), 4 * sms))
-    partial = torch.empty(nblocks, 2, d, device=x.device, dtype=torch.float32)
+    db = torch.empty(d, device=x.device, dtype=torch.float32)
+    ptrs = (x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            g.data_ptr() if g is not None else 0)
+    plan = ln_bwd_plan(rows, d, x.dtype, _build.sm_count(x.device.index),
+                       all(p % 16 == 0 for p in ptrs))
+    partial = torch.empty(plan.blocks, 2, d, device=x.device,
+                          dtype=torch.float32)
     mean, var = mean.contiguous(), var.contiguous()
     _build.launch(_bwd_c_fn(), "layer_norm_bwd", x.device, x.data_ptr(),
                   g.data_ptr() if g is not None else None, dy.data_ptr(),
                   mean.data_ptr(), var.data_ptr(), dx.data_ptr(),
                   dg.data_ptr() if dg is not None else None, db.data_ptr(),
                   partial.data_ptr(), _DTYPE_CODES[x.dtype], rows, d,
-                  nblocks, float(eps))
+                  float(eps), *plan)
     layer_norm_bwd.launches += 1
     layer_norm_bwd.bf16_launches += x.dtype == torch.bfloat16
     return dx, dg, db

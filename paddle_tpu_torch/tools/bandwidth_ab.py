@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of another checkout's LayerNorm forward and row scatter-add kernels
-(rows 7 and 13, the kernels bound by bytes) against this one's, on one
-CUDA card.
+"""A/B of another checkout's LayerNorm forward and backward and row
+scatter-add kernels (rows 7, 8 and 13, the kernels bound by bytes) against
+this one's, on one CUDA card.
 
     python3 paddle_tpu_torch/tools/bandwidth_ab.py [--base DIR] [--rounds 2]
 
@@ -12,7 +12,9 @@ checkout's ``chip_smoke.bandwidth_kernel_timing`` (the shapes and inputs of
 forward at BERT-base's served shape [1024, 768] and Transformer-base's
 training shape [32768, 512], each beside ``F.layer_norm``; the scatter at
 the DeepFM shape (851,968 slots into 100000 x 32) on uniform and on
-Zipf(1.2) ids, beside ``index_add_``.
+Zipf(1.2) ids, beside ``index_add_``; and ``chip_smoke.ln_bwd_bf16_timing``:
+the bf16 LayerNorm backward (the AMP form of row 8) at [32768, 512],
+beside ``F.layer_norm``'s backward on bf16.
 
 With ``--base`` the runs alternate base, change, change, base for
 ``--rounds`` rounds, so a drift of the card over the call falls on both
@@ -42,16 +44,20 @@ def _worker(root):
         "chip_smoke_timing", os.path.join(CHANGE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    rows = cs.bandwidth_kernel_timing(torch, torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    rows = cs.bandwidth_kernel_timing(torch, dev)
     ln, sc = rows["layer_norm_fwd"], rows["scatter_add"]
     trained = ln["trained_shape"]
+    ln_bwd = cs.ln_bwd_bf16_timing(torch, dev)
     print(json.dumps({
         "root": root, "device": torch.cuda.get_device_name(0),
         "ln_served": ln["ms"], "f_layer_norm_served": ln["library_ms"],
         "ln_trained": trained["ms"],
         "f_layer_norm_trained": trained["library_ms"],
         "scatter_uniform": sc["ms"], "scatter_zipf": sc["zipf_ms"],
-        "index_add": sc["library_ms"]}), flush=True)
+        "index_add": sc["library_ms"], "ln_bwd_bf16_trained": ln_bwd["ms"],
+        "f_layer_norm_bwd_bf16_trained": ln_bwd["library_ms"]}),
+        flush=True)
 
 
 def main():

@@ -3,9 +3,10 @@
 beside the one their plan function picks, on one CUDA card.
 
     python3 paddle_tpu_torch/tools/kernel_plans.py
-        [--kernels ce,scatter,layer_norm] [--ce-dtypes f32,bf16]
-        [--ce-rows 32768,4096] [--splits 1,2,4,8,17,30]
-        [--chunks 128,269,538,1024] [--warps 1,2,4,8]
+        [--kernels ce,scatter,layer_norm,layer_norm_bwd]
+        [--ce-dtypes f32,bf16] [--ce-rows 32768,4096]
+        [--splits 1,2,4,8,17,30] [--chunks 128,269,538,1024]
+        [--warps 1,2,4,8] [--per-sm 1,2,3,4,8]
 
 - ``ce``: the fused CE forward (row 9) at Transformer-base's loss-head
   width (D 512, V 30000, no bias, eps 0.1) for each of ``--ce-rows`` and
@@ -21,6 +22,10 @@ beside the one their plan function picks, on one CUDA card.
   register-resident form and in the looped form, beside
   ``ops/fused_layer_norm.py`` ``ln_fwd_plan``'s; and one row alone (what a
   launch costs whatever its size).
+- ``layer_norm_bwd``: the bf16 LayerNorm backward (row 8 under AMP) at
+  Transformer-base's training shape [32768, 512] and at [1000, 768], in
+  the register-resident form under each count of ``--per-sm`` blocks an
+  SM and in the looped form, beside ``ln_bwd_plan``'s.
 
 Inputs come from ``chip_smoke.SEED`` and the shapes from ``chip_smoke.py``.
 A plan runs by standing in for its module's plan function. Each time is
@@ -131,18 +136,45 @@ def _ln_cases(torch, cs, dev, sms, warps_list):
     return cases
 
 
+def _ln_bwd_cases(torch, cs, dev, sms, per_sm):
+    from paddle_tpu_torch.ops import fused_layer_norm as fln
+
+    gen = torch.Generator().manual_seed(cs.SEED + 4)
+    cases = []
+    for rows_n, d in (cs.LN_TRAINED, (1000, 768)):
+        x = torch.randn(rows_n, d, generator=gen).to(dev, torch.bfloat16)
+        dy = torch.randn(rows_n, d, generator=gen).to(dev, torch.bfloat16)
+        g = torch.randn(d, generator=gen).to(dev)
+        _, mean, var = fln.layer_norm_fwd(x, g, None, 1e-5)
+        picked = fln.ln_bwd_plan(rows_n, d, torch.bfloat16, sms)
+        cap = -(-rows_n // picked.warps)
+        plans = [picked._replace(blocks=min(cap, k * sms)) for k in per_sm]
+        plans.append(picked._replace(vpl=0, blocks=min(cap, 4 * sms)))
+        for plan in dict.fromkeys(plans + [picked]):
+            cases.append(dict(
+                label={"kernel": "layer_norm_bwd", "dtype": "bf16",
+                       "shape": [rows_n, d], "plan": list(plan)},
+                module=fln, attr="ln_bwd_plan", plan=plan,
+                fn=lambda x=x, g=g, m=mean, v=var, dy=dy:
+                    fln.layer_norm_bwd(x, g, m, v, dy, 1e-5),
+                picked=plan == picked))
+    return cases
+
+
 def _ints(text):
     return [int(t) for t in text.split(",")]
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="ce,scatter,layer_norm")
+    ap.add_argument("--kernels", default="ce,scatter,layer_norm,"
+                                         "layer_norm_bwd")
     ap.add_argument("--ce-rows", default="32768,4096")
     ap.add_argument("--ce-dtypes", default="f32,bf16")
     ap.add_argument("--splits", default="1,2,4,8,17,30")
     ap.add_argument("--chunks", default="128,269,538,1024")
     ap.add_argument("--warps", default="1,2,4,8")
+    ap.add_argument("--per-sm", default="1,2,3,4,8")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -162,7 +194,9 @@ def main():
         "scatter": lambda: _scatter_cases(torch, cs, dev, sms,
                                           _ints(args.chunks)),
         "layer_norm": lambda: _ln_cases(torch, cs, dev, sms,
-                                        _ints(args.warps))}
+                                        _ints(args.warps)),
+        "layer_norm_bwd": lambda: _ln_bwd_cases(torch, cs, dev, sms,
+                                                _ints(args.per_sm))}
     cases = []
     for name in args.kernels.split(","):
         if name not in makers:

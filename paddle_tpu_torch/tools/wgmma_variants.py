@@ -3,6 +3,7 @@
 CUDA card.
 
     python3 paddle_tpu_torch/tools/wgmma_variants.py [--flash] [--conv]
+        [--moments]
 
 Each variant is a copy of ``paddle_tpu_torch/csrc/<library>.cu`` with a few
 text replacements, built with the package's nvcc flags into the
@@ -25,6 +26,14 @@ site has them): the time of the form, of a build without its epilogue, of
 a build without the channels-last copy, of PyTorch's own channels-last
 copy of x, and the shares of thread 0's ``clock()`` time waiting for a
 stage, loading (its producer role), and in the epilogue.
+
+``--moments``: the bf16 ``conv_moments`` (``conv_moments_wgmma_kernel``)
+at the same 19 geometries: the time of the form (sums from the
+accumulators in registers), of its ``mma.sync`` form and of cuDNN's conv,
+of a build that takes the sums from the C tile in shared memory instead
+(two threads a channel, after the tile is written), and of a build
+without the sums; with the C-tile build's largest difference from the
+form's sums, relative to the largest sum.
 
 Prints one JSON line per measurement. The variants' results are not
 checked: they time pieces, and some skip work the result needs."""
@@ -81,6 +90,8 @@ def _build_variants(_build, lib, variants):
         if proc.returncode != 0:
             raise SystemExit("wgmma_variants: nvcc failed for %s/%s:\n%s"
                              % (lib, name, out[-4000:]))
+        with open(so + ".log", "w") as f:  # ptxas -v: registers, spills
+            f.write(out)
         libs[name] = ctypes.CDLL(so)
     return libs
 
@@ -266,9 +277,9 @@ def _conv_variants():
                    "// the next tile's\n")
     return {
         "phases": [
-            ("template <int NWG, bool NCHW>\n__global__",
+            ("template <int NWG, bool NCHW, bool MOMENTS>\n__device__",
              "__device__ unsigned long long g_prof[8];\n"
-             "template <int NWG, bool NCHW>\n__global__"),
+             "template <int NWG, bool NCHW, bool MOMENTS>\n__device__"),
             ("  unsigned c_i = 0;  // chunks consumed\n",
              "  unsigned c_i = 0;  // chunks consumed\n" + _PROF_INIT),
             ("      mbar_wait(&full[s], (c_i / STAGES) & 1);\n",
@@ -279,16 +290,106 @@ def _conv_variants():
              "      " + _stamp(1, st) + "    }"),
             (produce_out, "    " + _stamp(3, st) + produce_out + "    "
              + _stamp(1, st)),
-            ("      default: write_tile<1>(ct, a, o0, n0, h0, wt); break;\n"
-             "    }\n  }\n}",
-             "      default: write_tile<1>(ct, a, o0, n0, h0, wt); break;\n"
-             "    }\n    " + _stamp(2, st) + "  }\n" + _PROF_FLUSH + "}"),
+            ("      default: write_tile<1, !MOMENTS>(ct, a, o0, n0, h0, wt); "
+             "break;\n    }\n  }\n}",
+             "      default: write_tile<1, !MOMENTS>(ct, a, o0, n0, h0, wt); "
+             "break;\n    }\n    " + _stamp(2, st) + "  }\n" + _PROF_FLUSH
+             + "}"),
             _PROF_ENTRIES],
         # the products run (asm volatile), the epilogue does not
         "no epilogue": [(produce_out, produce_out + "    continue;\n")],
-        "no copy": [("  nchw_to_nhwc_kernel<<<cgrid, 256, 0, s>>>(",
-                     "  if (0) nchw_to_nhwc_kernel<<<cgrid, 256, 0, s>>>(")],
+        "no copy": [("  nchw_to_nhwc_kernel<MOMENTS><<<cgrid, 256, 0, s>>>(",
+                     "  if (0) nchw_to_nhwc_kernel<MOMENTS><<<cgrid, 256, 0, "
+                     "s>>>(")],
     }
+
+
+def _moments_variants(src):
+    """{name: replacements} for the moments epilogue of
+    csrc/fused_conv_wgmma.cu: the sums from the C tile, or none."""
+    in_loop = src[src.index("        if constexpr (MOMENTS) {\n"
+                            "          const int slot"):
+                  src.index("      }\n    if constexpr (MOMENTS) {  // over "
+                            "the quad")]
+    quad = src[src.index("    if constexpr (MOMENTS) {  // over the quad"):
+               src.index("    if (a.bh == a.Ho) {  // whole images")]
+    from_tile = (
+        "    named_sync(1 + wg, 128);\n"
+        "    if constexpr (MOMENTS) {  // two threads a channel row\n"
+        "      const int row = wt >> 1, half = wt & 1;\n"
+        "      const unsigned* cr = reinterpret_cast<const unsigned*>(\n"
+        "          ct + row * CLD) + 64 * half;\n"
+        "      float t1 = 0.f, t2 = 0.f;\n"
+        "#pragma unroll 8\n"
+        "      for (int q = 0; q < 64; ++q) {\n"
+        "        const int qq = (q + 2 * (row >> 3) + half) & 63;\n"
+        "        const int slot = 128 * half + 2 * qq;\n"
+        "        const unsigned p = cr[qq];\n"
+        "        const float v0 = slot < slots ? bf_lo(p) : 0.f;\n"
+        "        const float v1 = slot + 1 < slots ? bf_hi(p) : 0.f;\n"
+        "        t1 += v0;\n        t2 = fmaf(v0, v0, t2);\n"
+        "        t1 += v1;\n        t2 = fmaf(v1, v1, t2);\n      }\n"
+        "      t1 += __shfl_xor_sync(0xffffffffu, t1, 1);\n"
+        "      t2 += __shfl_xor_sync(0xffffffffu, t2, 1);\n"
+        "      if (half == 0) {\n"
+        "        float* pr = a.partial + (long long)pt * 2 * a.O + o0 + "
+        "row;\n"
+        "        pr[0] = t1;\n        pr[a.O] = t2;\n      }\n    }\n")
+    return {"sums from the C tile": [(in_loop, ""), (quad, from_tile)],
+            "no sums": [(in_loop, ""),
+                        (quad, "    named_sync(1 + wg, 128);\n")]}
+
+
+def moments(cs, torch, dev):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused_conv as fc
+
+    with open(os.path.join(_build.CSRC_DIR, "fused_conv_wgmma.cu")) as f:
+        variants = _moments_variants(f.read())
+    libs = _build_variants(_build, "fused_conv_wgmma", variants)
+    base = _build.load("fused_conv_wgmma")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    totals = {}
+    try:
+        for (c, o, k, stride, hw), g in cs.resnet_conv_geometries().items():
+            x, w = cs._conv_case(torch, gen, dev, c, o, k, stride, hw,
+                                 False)[:2]
+            xb, wb = x.bfloat16(), w.bfloat16()
+            del x, w
+
+            def run():
+                return fc.conv_moments(xb, wb, stride)
+            line = {"kernel": "conv_moments",
+                    "geometry": "%dx%d%s %d->%d @%d" % (
+                        k, k, " s2" if stride == 2 else "", c, o, hw),
+                    "sites": g["sites"], "ms": cs.time_ms(run, iters=20)}
+            want = run()
+            with cs.mma_sync_route(fc, "moments_form"):
+                line["mma_sync_ms"] = cs.time_ms(run, iters=20)
+            line["cudnn_ms"] = cs.time_ms(lambda: F.conv2d(
+                xb, wb, stride=stride, padding=(k - 1) // 2), iters=20)
+            for name in variants:
+                _build._libs["fused_conv_wgmma"] = libs[name]
+                key = name.replace(" ", "_") + "_ms"
+                line[key] = cs.time_ms(run, iters=20)
+                if name == "sums from the C tile":
+                    got = run()
+                    line["c_tile_sums_rel_diff"] = max(
+                        (a - b).abs().max().item()
+                        / max(b.abs().max().item(), 1e-30)
+                        for a, b in zip(got[1:], want[1:]))
+            _build._libs["fused_conv_wgmma"] = base
+            for key in ("ms", "mma_sync_ms", "cudnn_ms",
+                        "sums_from_the_C_tile_ms", "no_sums_ms"):
+                totals[key] = totals.get(key, 0.0) + g["sites"] * line[key]
+            print(json.dumps(line), flush=True)
+            del xb, wb, want
+    finally:
+        _build._libs["fused_conv_wgmma"] = base
+    print(json.dumps({"kernel": "conv_moments", "site_weighted": totals}),
+          flush=True)
 
 
 def conv(cs, torch, dev):
@@ -352,6 +453,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--flash", action="store_true")
     ap.add_argument("--conv", action="store_true")
+    ap.add_argument("--moments", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -370,11 +472,13 @@ def main():
                          text=True, timeout=60)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi.stdout.strip()}), flush=True)
-    both = not (args.flash or args.conv)
-    if args.flash or both:
+    every = not (args.flash or args.conv or args.moments)
+    if args.flash or every:
         flash(cs, torch, dev)
-    if args.conv or both:
+    if args.conv or every:
         conv(cs, torch, dev)
+    if args.moments or every:
+        moments(cs, torch, dev)
     return 0
 
 

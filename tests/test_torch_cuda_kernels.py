@@ -1531,3 +1531,178 @@ def test_conv_apply_bf16_wgmma_tracks_f64(dev, cin, cout, k, stride, hw):
     dg, dr = got.double() - exact, plain.double() - exact
     assert dg.abs().max() <= 1.5 * dr.abs().max()
     assert dg.norm() <= 1.5 * dr.norm()
+
+
+# (N, C, O, k, stride, H, form): the bf16 conv_moments' route, and the
+# tiles whose slots the wgmma form's moments must skip (they hold values
+# that are not zero): rows past Ho in the last row tile (30x30), images
+# past N in the last image tile (7x7, N = 7), slots past the box (14x14,
+# the copy path), pixels past H*W in the last 256-pixel tile of the NCHW
+# path (28x28), a 1x1 stride-2 conv with an odd H
+MOMENTS_FORM_CASES = [
+    (4, 64, 64, 3, 1, 30, "wgmma"),
+    (7, 512, 512, 3, 1, 7, "wgmma"),
+    (3, 1024, 256, 1, 1, 14, "wgmma"),
+    (3, 512, 128, 1, 1, 28, "wgmma"),
+    (3, 256, 512, 1, 2, 56, "wgmma"),
+    (2, 128, 128, 1, 2, 33, "wgmma"),
+    (2, 64, 64, 3, 1, 56, "wgmma"),
+    (7, 64, 128, 3, 1, 5, "wgmma"),     # 7 images a tile, one tile
+    (2, 192, 64, 3, 1, 20, "wgmma"),    # rows of 20, one warpgroup
+    (2, 64, 96, 1, 1, 8, "mma_sync"),   # O % 64 != 0
+    (2, 96, 64, 3, 1, 8, "mma_sync"),   # C % 64 != 0
+]
+
+
+@pytest.mark.parametrize("n,cin,cout,k,stride,hw,form", MOMENTS_FORM_CASES)
+def test_conv_moments_bf16_forms_match_plain(dev, monkeypatch, n, cin, cout,
+                                             k, stride, hw, form):
+    """The bf16 conv_moments in the form its route names (counted by
+    ``wgmma_launches``) and, where that is the wgmma form, in the mma.sync
+    form too, against the plain version: co within one bf16 ulp, the
+    moments within 1e-5 of an f64 sum over the kernel's own co, and co
+    and the moments bitwise equal across two runs."""
+    gen = torch.Generator().manual_seed(49)
+    x, w, _, _, _ = _conv_inputs(gen, n, cin, cout, k, stride, hw, False,
+                                 dev)
+    x, w = x.bfloat16(), w.bfloat16()
+    want = tfc.conv_moments_plain(x, w, stride)[0]
+    assert tfc.moments_form(x, w, stride)[0] == form
+    for run in ((form, "mma_sync") if form == "wgmma" else (form,)):
+        if run != form:
+            monkeypatch.setattr(tfc, "moments_form",
+                                lambda *a, **k: ("mma_sync", "forced"))
+        n0 = tfc.conv_moments.wgmma_launches
+        first = tfc.conv_moments(x, w, stride)
+        second = tfc.conv_moments(x, w, stride)
+        torch.cuda.synchronize()
+        assert tfc.conv_moments.wgmma_launches - n0 == 2 * (run == "wgmma")
+        co, s1, s2 = first
+        assert co.dtype == torch.bfloat16 and co.shape == want.shape
+        assert _bf16_ulp_ok(co, want), run
+        assert _moments_ok(co, s1, s2), run
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), run
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,hw", RESNET_GEOMS)
+def test_conv_moments_bf16_wgmma_at_resnet_geometries(dev, cin, cout, k,
+                                                      stride, hw):
+    """The bf16 conv_moments at each fused geometry of ResNet-50 (three
+    images), routed to its wgmma form: co within one bf16 ulp of the plain
+    version, the moments within 1e-5 of an f64 sum over its own co."""
+    gen = torch.Generator().manual_seed(50)
+    x, w, _, _, _ = _conv_inputs(gen, 3, cin, cout, k, stride, hw, False,
+                                 dev)
+    x, w = x.bfloat16(), w.bfloat16()
+    assert tfc.moments_form(x, w, stride) == ("wgmma", None)
+    n0 = tfc.conv_moments.wgmma_launches
+    co, s1, s2 = tfc.conv_moments(x, w, stride)
+    want = tfc.conv_moments_plain(x, w, stride)[0]
+    torch.cuda.synchronize()
+    assert tfc.conv_moments.wgmma_launches == n0 + 1
+    assert _bf16_ulp_ok(co, want)
+    assert _moments_ok(co, s1, s2)
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,hw", [(64, 64, 3, 1, 56),
+                                                  (256, 512, 1, 2, 56),
+                                                  (512, 512, 3, 1, 7)])
+def test_conv_moments_bf16_wgmma_tracks_f64(dev, cin, cout, k, stride, hw):
+    """The wgmma conv_moments' co against an f64 conv of the same bf16
+    inputs: max abs and relative L2 error at most 1.5x the plain bf16
+    version's (the f32 conv rounded once)."""
+    gen = torch.Generator().manual_seed(51)
+    x, w, _, _, _ = _conv_inputs(gen, 4, cin, cout, k, stride, hw, False,
+                                 dev)
+    x, w = x.bfloat16(), w.bfloat16()
+    exact = torch.nn.functional.conv2d(x.double(), w.double(), stride=stride,
+                                       padding=(k - 1) // 2)
+    n0 = tfc.conv_moments.wgmma_launches
+    got = tfc.conv_moments(x, w, stride)[0]
+    plain = tfc.conv_rounded(x, w, stride)
+    torch.cuda.synchronize()
+    assert tfc.conv_moments.wgmma_launches == n0 + 1
+    dg, dr = got.double() - exact, plain.double() - exact
+    assert dg.abs().max() <= 1.5 * dr.abs().max()
+    assert dg.norm() <= 1.5 * dr.norm()
+
+
+# (rows, D, affine, (vec, vpl)): one case per form of ln_bwd_plan in bf16:
+# the row in registers at 1-4 vectors a lane (D = 1000: 125 of 128
+# vectors), the looped form on 16-byte vectors (D = 2048) and on single
+# elements (D = 77)
+LN_BWD_FORM_CASES = [
+    (32768, 512, (True, True), (8, 2)),
+    (1000, 768, (True, False), (8, 3)),
+    (1000, 1000, (True, True), (8, 4)),
+    (77, 256, (False, False), (8, 1)),
+    (1000, 2048, (True, True), (8, 0)),
+    (1000, 77, (True, True), (1, 0)),
+]
+
+
+def _ln_bwd_bf16_inputs(dev, rows, d, affine, seed):
+    """bf16 x and dy, f32 gamma and beta (or None)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(rows, d, generator=gen) * 2 + 0.5).to(dev,
+                                                           torch.bfloat16)
+    dy = torch.randn(rows, d, generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn(d, generator=gen).to(dev) if affine[0] else None
+    bb = torch.randn(d, generator=gen).to(dev) if affine[1] else None
+    return x, dy, g, bb
+
+
+@pytest.mark.parametrize("rows,d,affine,form", LN_BWD_FORM_CASES)
+def test_layer_norm_backward_bf16_plan_forms(dev, rows, d, affine, form):
+    """The bf16 LayerNorm backward in each form of its plan against the
+    plain version: dx (bf16, rounded once from f32 on both sides) within
+    2^-8 of max(1, max|plain|), dgamma and dbeta within 1e-4; two kernel
+    runs bitwise equal."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tuple(tfln.ln_bwd_plan(rows, d, torch.bfloat16, sms)[:2]) == form
+    x, dy, g, bb = _ln_bwd_bf16_inputs(dev, rows, d, affine, 7)
+    runs = []
+    for kernel in (True, False):
+        ins = [t.clone().requires_grad_(True) for t in (x, g, bb)
+               if t is not None]
+        gs = ins[1] if g is not None else None
+        bs = ins[-1] if bb is not None else None
+        fn = tfln.fused_layer_norm if kernel else tfln.layer_norm_plain
+        y = fn(ins[0], gs, bs, 1e-5)[0]
+        runs.append(torch.autograd.grad(y, ins, dy))
+    _, mean, var = tfln.layer_norm_fwd(x, g, bb, 1e-5)
+    again = [tfln.layer_norm_bwd(x, g, mean, var, dy, 1e-5)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(*runs)):
+        assert got.dtype == want.dtype
+        assert _rel_err(got, want) <= (2 ** -8 if i == 0 else 1e-4)
+    for a, b in zip(*again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows,d", [(32768, 512), (1000, 2048), (1000, 77)])
+def test_layer_norm_backward_writes_every_output(dev, monkeypatch, rows, d):
+    """dx, dgamma and dbeta are allocated uninitialised: with every new
+    buffer filled with NaN first, the outputs are the same as with the
+    allocator's own memory (the kernels write every element)."""
+    x, dy, g, bb = _ln_bwd_bf16_inputs(dev, rows, d, (True, True), 8)
+    _, mean, var = tfln.layer_norm_fwd(x, g, bb, 1e-5)
+    want = tfln.layer_norm_bwd(x, g, mean, var, dy, 1e-5)
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def nan_empty(*a, **k):
+        t = empty(*a, **k)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    def nan_empty_like(*a, **k):
+        t = empty_like(*a, **k)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    monkeypatch.setattr(torch, "empty_like", nan_empty_like)
+    got = tfln.layer_norm_bwd(x, g, mean, var, dy, 1e-5)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and torch.equal(a, b)

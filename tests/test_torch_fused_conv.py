@@ -535,3 +535,182 @@ def test_channels_last_taps_give_the_nchw_conv(rng, cin, cout, k, stride,
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     flips = (got.bfloat16() != tfc.conv_rounded(x, w, stride)).float()
     assert flips.mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("xs,o,k,stride,with_res,dtype,aligned,form",
+                         APPLY_FORM_TABLE)
+def test_moments_form_routes_by_shape(xs, o, k, stride, with_res, dtype,
+                                      aligned, form):
+    """The bf16 conv_moments' form follows conv_apply's rule (the two share
+    one mainloop): at every case of ``APPLY_FORM_TABLE`` it names the form
+    ``apply_form`` names without a residual, with the misaligned pointer
+    moved to x (conv_moments reads no residual)."""
+    x = torch.empty(xs, device="meta", dtype=dtype)
+    w = torch.empty(o, xs[1], k, k, device="meta", dtype=dtype)
+    if not aligned:
+        x = torch.empty(int(np.prod(xs)) + 1, dtype=dtype)[1:].view(xs)
+    got, why = tfc.moments_form(x, w, stride)
+    assert got == form
+    assert (why is None) == (form == "wgmma" or dtype == torch.float32)
+    if aligned:
+        assert tfc.apply_form(x, w, stride) == (got, why)
+
+
+def test_bf16_conv_moments_refuses_before_building(monkeypatch):
+    """A tensor off CUDA raises before any build or launch, in the form
+    the route names: a CPU tensor takes the plain version only through
+    ``_train_forward``, never through the kernel's wrapper."""
+    from paddle_tpu_torch.ops import _build
+
+    def no_build(name):
+        raise AssertionError("built %s" % name)
+
+    monkeypatch.setattr(_build, "load", no_build)
+    bf = torch.bfloat16
+    for dev in ("cpu", "meta"):
+        x = torch.zeros(2, 64, 8, 8, dtype=bf, device=dev)
+        w = torch.zeros(64, 64, 3, 3, dtype=bf, device=dev)
+        assert tfc.moments_form(x, w, 1)[0] == "wgmma"
+        with pytest.raises(ValueError, match="CUDA"):
+            tfc.conv_moments(x, w, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfc.conv_moments(torch.zeros(2, 96, 8, 8, dtype=bf),
+                         torch.zeros(64, 96, 1, 1, dtype=bf), 1)
+
+
+# geometries of the wgmma form's tile plan, (N, H = W, k, stride): every
+# fused geometry of ResNet-50 at batch 128 and 3, and the cases where a
+# tile holds slots that no output pixel fills: rows past Ho in the last
+# row tile (30x30), images past N in the last image tile (7x7 at N = 7),
+# slots past the box (14x14, 196 of 256, the copy path), pixels past H*W
+# in the last 256-pixel tile of the NCHW path (28x28), a 1x1 stride-2
+# conv, an odd stride-2 input (Ho = 17)
+PLAN_GEOMS = sorted({(n, hw, k, s) for n in (128, 3)
+                     for hw, k, s in ((56, 1, 1), (56, 3, 1), (56, 1, 2),
+                                      (28, 1, 1), (28, 3, 1), (28, 1, 2),
+                                      (14, 1, 1), (14, 3, 1), (14, 1, 2),
+                                      (7, 1, 1), (7, 3, 1))}
+                    | {(4, 30, 3, 1), (7, 7, 3, 1), (3, 14, 1, 1),
+                       (3, 28, 1, 1), (3, 56, 1, 2), (2, 33, 1, 2),
+                       (7, 5, 3, 1), (2, 20, 3, 1), (3, 12, 1, 1)})
+NPIX, X_BOX_BYTES = 256, 256 * 128  # a tile's slots; one stage's X bytes
+
+
+def _plan_tiles(plan, n, ho, wo):
+    """The wgmma kernel's tiles under ``plan``, as its tile_runs and its
+    loads read them: per pixel tile, the count of leading slots the
+    epilogue stores (and the moments sum), and for each of the 256 slots
+    the image and pixel it holds if it holds one (else -1, -1)."""
+    hw = ho * wo
+    tpi = -(-plan.rows // plan.bh)
+    per = plan.bh * plan.width  # slots an image of a tile
+    s = np.arange(NPIX)
+    for pt in range(plan.tiles):
+        n0, h0 = (pt // tpi) * plan.bn, (pt % tpi) * plan.bh
+        runs = 1 if plan.bn == 1 else min(plan.bn, n - n0)
+        length = min(min(plan.bh, plan.rows - h0) * plan.width,
+                      hw - h0 * plan.width)
+        img, pix = n0 + s // per, h0 * plan.width + s % per
+        row = pix // plan.width
+        # a slot holds a pixel when the box loads it (not a stale slot
+        # past the box) and the pixel exists (not a row past Ho, an image
+        # past N or a pixel past H*W)
+        real = (s < per * plan.bn) & (img < n) & (pix < hw) \
+            & (row < h0 + plan.bh)
+        yield pt, runs * length, np.where(real, img, -1), \
+            np.where(real, pix, -1)
+
+
+@pytest.mark.parametrize("n,hw,k,stride", PLAN_GEOMS)
+def test_wgmma_tile_plan_covers_every_pixel_once(n, hw, k, stride):
+    """The tiles of :func:`wgmma_tile_plan` hold every output pixel of
+    every image exactly once; the slots that hold one are a prefix of each
+    tile, of the length the kernel's epilogue stores and sums; no tile has
+    more than 256 slots; one 64-channel chunk of X is one TMA box of at
+    most the stage's 32 KB (four 64-pixel boxes on the NCHW path); the
+    pixel tiles are ceil(N / bn) * ceil(rows / bh) with bh, bn as the C
+    entries accept them."""
+    plan = tfc.wgmma_tile_plan(n, hw, hw, k, stride)
+    ho = wo = (hw + 2 * ((k - 1) // 2) - k) // stride + 1
+    assert plan.nchw == (k == 1 and stride == 1 and (hw * hw) % 8 == 0)
+    if plan.nchw:
+        assert (plan.width, plan.bh, plan.bn) == (NPIX, 1, 1)
+        assert plan.rows == -(-(ho * wo) // NPIX)
+        box = 4 * 64 * 64 * 2
+    else:
+        assert (plan.width, plan.rows) == (wo, ho)
+        if plan.bh == ho:
+            assert 1 <= plan.bn <= n and plan.bn * ho * wo <= NPIX
+            assert plan.bn == min(NPIX // (ho * wo), n)  # as many as fit
+        else:
+            assert plan.bn == 1 and plan.bh * wo <= NPIX
+        box = 64 * plan.width * plan.bh * plan.bn * 2
+    assert box <= X_BOX_BYTES
+    assert plan.tiles == -(-n // plan.bn) * -(-plan.rows // plan.bh)
+    seen = np.zeros((n, ho * wo), int)
+    for _, slots, img, pix in _plan_tiles(plan, n, ho, wo):
+        held = img >= 0
+        assert 0 < slots <= NPIX
+        assert held[:slots].all() and not held[slots:].any()
+        np.add.at(seen, (img[:slots], pix[:slots]), 1)
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n,c,o,k,stride,hw", [
+    (2, 8, 16, 3, 1, 30),   # rows past Ho
+    (7, 8, 16, 3, 1, 7),    # images past N
+    (3, 8, 16, 1, 1, 14),   # slots past the box (the copy path)
+    (2, 8, 16, 1, 1, 28),   # pixels past H*W (the NCHW path)
+    (3, 8, 16, 1, 2, 56),   # 1x1 stride 2
+    (2, 8, 8, 3, 1, 56),    # ResNet-50's body: 224 of 256 slots a tile
+])
+def test_masked_tile_moments_match_plain_and_jax(rng, n, c, o, k, stride,
+                                                 hw):
+    """The wgmma conv_moments' sums, emulated on the CPU: per pixel tile
+    of the plan, the slots holding conv_rounded's bf16 co and every other
+    slot NaN; each tile's sums over its stored slots alone (the kernel's
+    mask) in f32, then the partial rows added in order (moments_reduce).
+    They match the plain version's sums and the JAX reference's
+    ``_conv_moments`` (its Pallas kernel in interpret mode, on the same
+    bf16 x and w) within f32 rounding: 1e-5 of sum |co| and of sum co^2
+    against the plain version (the same co, summed in another order),
+    1e-4 against the reference (its own co, which may round the other
+    way now and then)."""
+    import jax.numpy as jnp
+
+    x = rng.randn(n, c, hw, hw).astype("f4")
+    w = (rng.randn(o, c, k, k) * 0.3).astype("f4")
+    xb = torch.from_numpy(x).bfloat16()
+    wb = torch.from_numpy(w).bfloat16()
+    co, p1, p2 = tfc.conv_moments_plain(xb, wb, stride)
+    ho, wo = co.shape[2:]
+    flat = co.float().numpy().reshape(n, o, ho * wo)
+    plan = tfc.wgmma_tile_plan(n, hw, hw, k, stride)
+    partial = np.empty((plan.tiles, 2, o), np.float32)
+    for pt, slots, img, pix in _plan_tiles(plan, n, ho, wo):
+        assert (img[:slots] >= 0).all()
+        tile = np.full((o, NPIX), np.nan, np.float32)
+        tile[:, :slots] = flat[img[:slots], :, pix[:slots]].T
+        v = np.where(np.arange(NPIX) < slots, tile, np.float32(0))
+        partial[pt, 0] = v.sum(1, dtype=np.float32)
+        partial[pt, 1] = (v * v).sum(1, dtype=np.float32)
+    sums = np.zeros((2, o), np.float32)
+    for t in range(plan.tiles):
+        sums += partial[t]
+    assert np.isfinite(sums).all()
+    cof = co.double()
+    scale = (cof.abs().sum((0, 2, 3)).numpy(),
+             (cof * cof).sum((0, 2, 3)).numpy())
+    for got, want, sc in zip(sums, (p1.numpy(), p2.numpy()), scale):
+        assert (np.abs(got - want) <= 1e-5 * sc).all()
+
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    if stride == 2:  # the reference's pre-slice (:491-493)
+        xj = xj[:, :, ::2, ::2]
+    taps, shift_pad = jfc._tap_geometry(k, k, (k - 1) // 2, (k - 1) // 2,
+                                        xj.shape[3])
+    _, j1, j2 = jfc._conv_moments(
+        xj.reshape(n, c, -1), jfc._w_taps(jnp.asarray(w).astype(
+            jnp.bfloat16)), taps, shift_pad, xj.shape[3])
+    for got, want, sc in zip(sums, (np.asarray(j1), np.asarray(j2)), scale):
+        assert (np.abs(got - want) <= 1e-4 * sc).all()

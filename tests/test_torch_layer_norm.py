@@ -203,6 +203,74 @@ def test_ln_fwd_vpl_matches_the_kernel_source():
 
 
 @pytest.mark.parametrize("d", PLAN_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_bwd_plan_maps_to_a_declared_instantiation(d, dtype):
+    """Every (rows, D, dtype) gets a backward plan the C entry takes: f32
+    the looped form on single elements; bf16 16-byte vectors only where D
+    is a multiple of 8 and the pointers aligned, then the fewest vectors
+    of ``LN_BWD_VPL`` a lane holds so that a warp holds the row (at 512
+    and 768 always), or the looped form where none does; 8 warps a block;
+    1-2 blocks an SM for the register form (2 up to 2 vectors a lane), up
+    to 4 for the looped one, never more than the rows need."""
+    for rows in (1, 7, 1000, 32768):
+        for aligned in (True, False):
+            p = tfln.ln_bwd_plan(rows, d, dtype, 132, aligned)
+            wide = dtype == torch.bfloat16 and aligned and d % 8 == 0
+            assert p.vec == (8 if wide else 1)
+            assert p.vpl == 0 or p.vpl in tfln.LN_BWD_VPL
+            if p.vpl:
+                assert p.vec == 8 and 32 * 8 * p.vpl >= d
+                assert p.vpl == tfln.LN_BWD_VPL[0] or \
+                    32 * 8 * (p.vpl - 1) < d  # the fewest that hold it
+            elif wide:
+                assert 32 * 8 * max(tfln.LN_BWD_VPL) < d
+            assert p.warps == tfln.LN_BWD_WARPS == 8
+            per_sm = 4 if p.vpl == 0 else (2 if p.vpl <= 2 else 1)
+            assert p.blocks == min(-(-rows // 8), per_sm * 132)
+            if d in (512, 768) and dtype == torch.bfloat16 and aligned:
+                assert p.vpl > 0
+    if dtype == torch.bfloat16:  # Transformer-base's training shape
+        assert tfln.ln_bwd_plan(32768, 512, dtype, 132) == (8, 2, 8, 264)
+
+
+def test_ln_bwd_plan_refuses_nonsense():
+    for args in ((0, 8, torch.float32, 1), (4, 0, torch.float32, 1),
+                 (4, 8, torch.float16, 1), (4, 8, torch.bfloat16, 0)):
+        with pytest.raises(ValueError, match="ln_bwd_plan"):
+            tfln.ln_bwd_plan(*args)
+
+
+def test_ln_bwd_vpl_matches_the_kernel_source():
+    """The vectors a bf16 lane may hold in the backward (``LN_BWD_VPL``)
+    are the register-resident instantiations csrc/layer_norm_bwd.cu's
+    launch switch declares, beside its looped form (case 0), so every
+    plan lands on a compiled kernel."""
+    src = os.path.join(os.path.dirname(tfln.__file__), os.pardir, "csrc",
+                       "layer_norm_bwd.cu")
+    with open(src) as f:
+        text = f.read()
+    cases = re.findall(r"^\s*PTT_LN_BWD_CASE\((\d+)\)\s*$", text, re.M)
+    assert [int(c) for c in cases] == list(tfln.LN_BWD_VPL)
+    assert re.search(r"^\s*case 0:\s*$", text, re.M)
+    warps = re.search(r"^constexpr int WARPS = (\d+);", text, re.M)
+    assert int(warps.group(1)) == tfln.LN_BWD_WARPS
+
+
+def test_backward_wrapper_empty_rows_give_zero_parameter_gradients():
+    """With no rows there is no launch: dgamma and dbeta are zeros (the
+    kernel, which writes every column, allocates them uninitialised)."""
+    x = torch.empty(0, 8, device="meta")
+    stats = torch.empty(0, device="meta")
+    dx, dg, db = tfln.layer_norm_bwd(x, torch.empty(8, device="meta"), stats,
+                                     stats, x, EPS)
+    assert dx.shape == (0, 8) and dg.shape == db.shape == (8,)
+    x = torch.empty(0, 8)
+    dx, dg, db = tfln.layer_norm_bwd(x, torch.ones(8), torch.empty(0),
+                                     torch.empty(0), x, EPS)
+    assert torch.equal(dg, torch.zeros(8)) and torch.equal(db, torch.zeros(8))
+
+
+@pytest.mark.parametrize("d", PLAN_WIDTHS)
 def test_plain_matches_pallas_kernel_at_plan_widths(monkeypatch, rng, d):
     """y, mean and var of the plain version against the Pallas forward
     (interpret mode) at every width the plan tests cover, atol 1e-5."""
