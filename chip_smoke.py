@@ -82,7 +82,25 @@ so op by op, each op run on the CPU AMP chain's own inputs); before
 decode, ``decode_check`` holds four step
 dispatches and
 a chunk against the CPU, out-of-range cache positions, and the ids of
-solo, batched, chunked and speculative decode. Each phase prints one JSON
+solo, batched, chunked and speculative decode.
+
+The executor runs each main path as the reference does, one compiled step
+per (program, feed signature, fetch set): the first run of a key is
+interpreted, the second captured as one CUDA graph, every later run a
+replay. Phase ``capture_check`` (before the timed phases) holds four
+captured steps of each main-path program (Transformer-base f32 and AMP,
+ResNet-50 AMP train and eval, DeepFM, BERT-base serving) against four
+interpreted ones from the same state and generator state, within twice
+the distance of two interpreted runs, runs each one's first call under
+``torch.cuda.set_sync_debug_mode("error")``, and holds a decode step and a
+merged-sparse step to ``captured: false`` with their reasons. Each timed
+phase prints ``captured`` and ``reason``; ``amp_train``,
+``resnet_amp_train`` and ``deepfm_train`` also time interpreted steps in
+the same call, and ``amp_train`` captured steps with
+``PADDLE_TPU_FUSED_OPT=1``. A replay launches no kernel from Python, so
+the exact launch counts hold for the interpreted and captured steps, and
+each profiled replay must launch the device kernels of the table, kind by
+kind, of the key's profiled first step. Each phase prints one JSON
 line; any failure raises and exits non-zero. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``. Without CUDA, or
 outside the repository, it exits non-zero and prints no result.
@@ -239,6 +257,56 @@ def bf16_part(counts, amp):
 def per_run(**counts):
     """Launches of every kernel in one run of a path (0 unless named)."""
     return dict(dict.fromkeys(KERNELS, 0), **counts)
+
+
+def exe_runs(exe):
+    """An executor's runs over its cache entries: ``interpreted`` and
+    ``captures`` launch the kernels from Python (into the graph, for a
+    capture), a replay launches none from Python."""
+    tot = dict.fromkeys(("interpreted", "captures", "replays"), 0)
+    for entry in exe._cache.values():
+        for k in tot:
+            tot[k] += entry.runs[k]
+    return tot
+
+
+def launching_runs(exe):
+    runs = exe_runs(exe)
+    return runs["interpreted"] + runs["captures"]
+
+
+def counted_step(exe, program, per_step, amp, label, **kw):
+    """``exe.run(program, **kw)`` with the port's launch counts held: a run
+    that interprets or captures the step launches ``per_step`` (under AMP
+    all of it in bf16, the WGMMA_FORMS on their wgmma form), a replay none
+    from Python (its kernels are held by name in the profiler, see
+    ``check_replay_kernels``). Returns (outputs, seconds, replayed)."""
+    replays = exe_runs(exe)["replays"]
+    before = read_counts(), read_bf16_counts(), read_wgmma_counts()
+    t = time.perf_counter()
+    out = exe.run(program, **kw)
+    dt = time.perf_counter() - t
+    after = read_counts(), read_bf16_counts(), read_wgmma_counts()
+    replayed = exe_runs(exe)["replays"] > replays
+    want = per_run() if replayed else per_step
+    per, per_bf16, per_wgmma = ({k: a[k] - b[k] for k in a}
+                                for a, b in zip(after, before))
+    check(per == want and per_bf16 == bf16_part(want, amp)
+          and per_wgmma == wgmma_part(want, amp),
+          "%s launches %s (bf16 %s, wgmma %s) != %s"
+          % (label, per, per_bf16, per_wgmma, want))
+    return out, dt, replayed
+
+
+def check_replay_kernels(phase, interpreted, replayed):
+    """Each replayed step launches, kind by kind, the device kernels of the
+    port's table that an interpreted step of the same key launched (whose
+    wrapper launches are counted exactly): both per step, from the
+    profiler."""
+    bad = {k: (interpreted.get(k, 0), replayed.get(k, 0)) for k in KERNELS
+           if interpreted.get(k, 0) != replayed.get(k, 0)}
+    check(not bad, "%s: replayed kernels by kind differ from an "
+          "interpreted step's: %s" % (phase, bad))
 
 
 @contextlib.contextmanager
@@ -1536,6 +1604,7 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
             "input_len": rng.randint(1, s + 1, (n,))})
 
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -1572,7 +1641,19 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
     finally:
         engine.shutdown()
     launches = read_counts()
-    dispatches = warmed + snap["batches"]
+    peak = torch.cuda.max_memory_allocated()
+    # each (replica, rung) key interprets its first run and captures its
+    # second (both in warmup); every later dispatch is a replay
+    runs = dict.fromkeys(("interpreted", "captures", "replays"), 0)
+    for pred in engine._replicas:
+        for k, n in exe_runs(pred._exe).items():
+            runs[k] += n
+    launching = runs["interpreted"] + runs["captures"]
+    step_report = engine._replicas[0]._exe.step_report(
+        engine._replicas[0]._program)
+    for pred in engine._replicas:
+        pred.close()
+    dispatches = 2 * warmed + snap["batches"]
 
     for f, r in zip(feeds, results):
         check(r.shape == (f["input_ids"].shape[0], 2),
@@ -1602,19 +1683,28 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
           "batches": snap["batches"], "avg_batch_size": snap["avg_batch_size"],
           "batch_occupancy": snap["batch_occupancy"], "warmup_runs": warmed,
           "warmup_s": t_warm, "setup_s": t_setup, "dispatches": dispatches,
+          "captured": step_report["captured"],
+          "reason": step_report["reason"], "runs": runs,
+          "peak_memory_bytes": peak,
           "launches": launches, "cpu_max_abs_err": cpu_err,
           "device": smi_line})
     check(snap["requests_completed"] == n_requests
           and snap["requests_failed"] == 0, "requests failed: %s" % snap)
     check(cpu_err <= 1e-4, "served vs CPU error %g > 1e-4" % cpu_err)
-    check(launches["flash_attention_fwd"] == BERT["layers"] * dispatches,
-          "flash launches %d != %d layers x %d dispatches"
-          % (launches["flash_attention_fwd"], BERT["layers"], dispatches))
-    check(launches["layer_norm_fwd"] == (2 * BERT["layers"] + 1) * dispatches,
-          "layer_norm launches %d != %d x %d dispatches"
+    check(step_report["captured"] and launching == 2 * warmed
+          and runs["replays"] == snap["batches"],
+          "serve: runs %s, %d warmed rungs, %d batches (%s)"
+          % (runs, warmed, snap["batches"], step_report))
+    check(launches["flash_attention_fwd"] == BERT["layers"] * launching,
+          "flash launches %d != %d layers x %d launching dispatches"
+          % (launches["flash_attention_fwd"], BERT["layers"], launching))
+    check(launches["layer_norm_fwd"] == (2 * BERT["layers"] + 1) * launching,
+          "layer_norm launches %d != %d x %d launching dispatches"
           % (launches["layer_norm_fwd"], 2 * BERT["layers"] + 1,
-             dispatches))
-    return launches
+             launching))
+    return launches, {"flash_attention_fwd": BERT["layers"] * runs["replays"],
+                      "layer_norm_fwd": (2 * BERT["layers"] + 1)
+                      * runs["replays"]}
 
 
 def phase_profile(torch, fluid, model_dir, feeds, runs=20):
@@ -1627,7 +1717,8 @@ def phase_profile(torch, fluid, model_dir, feeds, runs=20):
 
     pred = fluid.inference.Predictor(model_dir)
     batch = {k: np.concatenate([f[k] for f in feeds])[:8] for k in feeds[0]}
-    pred.run(batch)
+    pred.run(batch)  # call 1: interpreted
+    pred.run(batch)  # captured
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(runs):
@@ -1657,7 +1748,14 @@ def phase_profile(torch, fluid, model_dir, feeds, runs=20):
     per_run = {k: v / runs / 1e3 for k, v in kinds.items()}
     busy = sum(per_run.values())
     wall_ms = wall / runs * 1e3
+    step_report = pred._exe.step_report(pred._program)
+    pred.close()
+    check(step_report["captured"] and step_report["replays"] == 2 * runs,
+          "profile: %s" % step_report)
     emit({"phase": "profile", "rows": 8, "runs": runs,
+          "captured": step_report["captured"],
+          "reason": step_report["reason"], "step_report": step_report,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "wall_ms_per_dispatch": wall_ms,
           "profiled_wall_ms_per_dispatch": prof_wall / runs * 1e3,
           "device_ms_per_dispatch": per_run,
@@ -1690,6 +1788,232 @@ PER_STEP = per_run(flash_attention_fwd=3 * TRANSFORMER["n_layer"],
                    layer_norm_fwd=5 * TRANSFORMER["n_layer"] + 2,
                    layer_norm_bwd=5 * TRANSFORMER["n_layer"] + 2,
                    fused_ce_fwd=1)
+
+
+CAPTURE_STEPS = 4
+# relative L2 a captured step may add beyond twice the distance between
+# two interpreted runs: a few f32 ulps
+F32_ROUNDING = 1e-6
+CAPTURE_DECODE = dict(vocab=512, d_model=64, d_ff=128, n_head=2, n_layer=2,
+                      ctx_cap=32, pos_cap=32)
+
+
+def _capture_runs(torch, fluid, main, feed, fetch, scope, start, gen_state,
+                  cache, donate=True, sync_check=False):
+    """CAPTURE_STEPS runs of ``main`` with a fresh executor from the state
+    ``start`` and the generator state ``gen_state``. ``sync_check``: call
+    1 runs under ``torch.cuda.set_sync_debug_mode("error")`` on feeds
+    staged on the card, fetching tensors, so that any wait on the host in
+    the step raises (the fetches' host copy comes after). Returns (fetches
+    per step, the state after, the step report, the launches of each
+    run)."""
+    from paddle_tpu_torch.core.executor import RNG_KEY, to_numpy
+
+    for n, t in start.items():
+        scope.set(n, t.clone())
+    scope.get(RNG_KEY).set_state(gen_state)
+    exe = fluid.Executor()
+    outs, launches = [], []
+    for i in range(CAPTURE_STEPS):
+        before = read_counts()
+        if i == 0 and sync_check:
+            staged = {n: torch.as_tensor(np.asarray(v)).to(exe.device)
+                      for n, v in feed.items()}
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = exe.run(main, feed=staged, fetch_list=fetch,
+                              scope=scope, return_numpy=False,
+                              donate_state=donate)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got = [to_numpy(t) for t in got]
+        else:
+            got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                          use_program_cache=cache, donate_state=donate)
+        outs.append([np.asarray(g, np.float64) for g in got])
+        after = read_counts()
+        launches.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+    # compared on the card: a host copy of the whole state would cost more
+    # than the steps
+    state = {n: scope.get(n).detach().clone() for n in start}
+    report = exe.step_report(main)
+    exe.close()
+    return outs, state, report, launches
+
+
+def _capture_case(torch, fluid, name, main, startup, feed, fetch,
+                  donate=True, scope=None):
+    """One program of ``capture_check``: four captured steps (call 1 under
+    the sync check) against two runs of four interpreted ones
+    (``use_program_cache=False``), all from one copied state and one
+    generator state. The fetches of every step and every state tensor,
+    taken together (relative L2), must lie within twice the
+    interpreted-vs-interpreted distance plus F32_ROUNDING of the first
+    interpreted run; the capture call launches what call 1 launched, and
+    the replays nothing from Python."""
+    from paddle_tpu_torch.core.executor import RNG_KEY
+
+    if scope is None:
+        scope = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope)
+    start = {v.name: scope.get(v.name).clone() for v in main.list_vars()
+             if v.persistable and v.name in scope}
+    gen_state = scope.get(RNG_KEY).get_state()
+    torch.cuda.reset_peak_memory_stats()
+    i1, i2 = (_capture_runs(torch, fluid, main, feed, fetch, scope, start,
+                            gen_state, False, donate) for _ in range(2))
+    cap = _capture_runs(torch, fluid, main, feed, fetch, scope, start,
+                        gen_state, True, donate, sync_check=True)
+    peak = torch.cuda.max_memory_allocated()
+
+    def sums(a, b):
+        """(sum (x - y)^2, sum y^2) of each fetch of each step and each
+        state tensor, in f64."""
+        out = [(torch.from_numpy(x), torch.from_numpy(y))
+               for sa, sb in zip(a[0], b[0]) for x, y in zip(sa, sb)]
+        out += [(a[1][n].double(), b[1][n].double()) for n in sorted(start)]
+        return [(float(torch.square(x - y).sum()), float(torch.square(y).sum()))
+                for x, y in out]
+
+    def dist(a, b):
+        """Relative L2 over every fetch of every step and every state
+        tensor at once: one statistic, steady where the per-tensor ones
+        are set by a few elements (Adam moves an element whose gradient
+        is within rounding of zero by up to twice the learning rate).
+        Also the largest per-tensor one."""
+        parts = sums(a, b)
+        num, den = sum(p[0] for p in parts), sum(p[1] for p in parts)
+        return (float(np.sqrt(num / max(den, 1e-300))),
+                max(float(np.sqrt(n / max(d, 1e-300))) for n, d in parts))
+
+    (d_ii, w_ii), (d_ci, w_ci) = dist(i2, i1), dist(cap, i1)
+    report = cap[2]
+    emit({"phase": "capture_check", "case": name,
+          "captured": report["captured"], "reason": report["reason"],
+          "step_report": report, "kernels_captured": cap[3][1],
+          "kernels_call1": cap[3][0], "replay_launches": cap[3][2:],
+          "graph_pool_bytes": report["pool_bytes"],
+          "peak_memory_bytes": peak, "steps": CAPTURE_STEPS,
+          "state_tensors": len(start),
+          "interpreted_vs_interpreted": d_ii,
+          "captured_vs_interpreted": d_ci,
+          "per_tensor_max": {"interpreted_vs_interpreted": w_ii,
+                             "captured_vs_interpreted": w_ci},
+          "tol": "captured <= 2 x interpreted + %g (rel L2)" % F32_ROUNDING,
+          "sync_debug_call1": "error"})
+    check(report["captured"] and (report["interpreted"], report["captures"],
+                                  report["replays"]) == (1, 1, 2),
+          "capture_check %s: %s" % (name, report))
+    check(cap[3][1] == cap[3][0] and not any(cap[3][2:]),
+          "capture_check %s launches %s" % (name, cap[3]))
+    check(d_ci <= 2 * d_ii + F32_ROUNDING,
+          "capture_check %s: captured vs interpreted %g, interpreted vs "
+          "interpreted %g" % (name, d_ci, d_ii))
+    return d_ci
+
+
+def _declined_case(torch, fluid, name, run, program, want):
+    """A program the capture rule keeps interpreted: two runs, then its
+    step report must name the reason ``want``."""
+    exe = fluid.Executor()
+    for _ in range(2):
+        run(exe)
+    report = exe.step_report(program)
+    exe.close()
+    emit({"phase": "capture_check", "case": name,
+          "captured": report["captured"], "reason": report["reason"],
+          "step_report": report})
+    check(not report["captured"] and report["reason"].startswith(want)
+          and report["interpreted"] == 2,
+          "capture_check %s: %s" % (name, report))
+
+
+def phase_capture_check(torch):
+    """Before the timed phases: each main-path program captured against
+    the same steps interpreted (``_capture_case``), at full width and
+    small batches: Transformer-base f32 and AMP (batch 2, dropout 0.1),
+    ResNet-50 AMP train (batch 2) and its AMP eval clone, DeepFM f32
+    (batch 64) and BERT-base serving (one rung of 8 rows, as the
+    Predictor runs it: ``donate_state=False``); then a decode step program
+    and a DeepFM step with merged sparse rows, which the rule keeps
+    interpreted with their reasons."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.backward import require_merged_sparse
+    from paddle_tpu_torch.inference import ProgramPredictor
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    dist = {}
+    for amp in (False, True):
+        main, startup, spec = build_transformer(fluid, 0.1, amp=amp)
+        dist["transformer_amp" if amp else "transformer"] = _capture_case(
+            torch, fluid, "transformer_amp" if amp else "transformer",
+            main, startup, spec.sample_batch(2, rng), [spec.loss])
+    main, startup, test, spec = build_resnet(fluid, amp=True)
+    feed = spec.sample_batch(2, rng)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    dist["resnet_amp_train"] = _capture_case(
+        torch, fluid, "resnet_amp_train", main, startup, feed,
+        [spec.loss, spec.fetches["acc"]], scope=scope)
+    fluid.amp.enable_bf16(test)
+    logits = [op.input("X").name for op in test.global_block().ops
+              if op.type == "softmax"][0]
+    dist["resnet_amp_eval"] = _capture_case(
+        torch, fluid, "resnet_amp_eval", test, startup, feed,
+        [spec.loss.name, spec.fetches["acc"].name, logits], scope=scope)
+    del scope
+    main, startup, spec = build_deepfm(fluid)
+    dist["deepfm"] = _capture_case(torch, fluid, "deepfm", main, startup,
+                                   spec.sample_batch(64, rng), [spec.loss])
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        prob = build_bert_classifier(fluid)
+    startup.random_seed = SEED
+    s = BERT["seq"]
+    feed = {"input_ids": rng.randint(0, BERT["vocab"], (8, s)),
+            "segment_ids": rng.randint(0, 2, (8, s)),
+            "input_len": rng.randint(1, s + 1, (8,))}
+    dist["bert_serving"] = _capture_case(
+        torch, fluid, "bert_serving", main, startup, feed, [prob],
+        donate=False)
+
+    # declined: a decode step (its caches are fed, out of place) and a
+    # sparse step whose rows are merged
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        fetch_vars, dspec = fluid.models.transformer.transformer_lm_step(
+            **CAPTURE_DECODE)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    feeds = [dspec["token_feed"], dspec["pos_feed"]] \
+        + [c["feed"] for c in dspec["cache_feeds"]]
+    b, c = 4, CAPTURE_DECODE["ctx_cap"]
+    caches = {cf["feed"]: torch.zeros(b, c, CAPTURE_DECODE["d_model"],
+                                      device="cuda")
+              for cf in dspec["cache_feeds"]}
+
+    def decode_step(exe):
+        pred = ProgramPredictor(main, feeds, fetch_vars, scope=scope)
+        pred._exe = exe
+        _dispatch(pred, dspec, caches, np.zeros((b,), "int64"),
+                  np.zeros((b,), "int32"))
+
+    _declined_case(torch, fluid, "decode_step", decode_step, main,
+                   "op 'kv_cache_write': fed cache copied per dispatch")
+    main, startup, spec = build_deepfm(fluid)
+    require_merged_sparse(main)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    feed = spec.sample_batch(64, rng)
+    _declined_case(torch, fluid, "deepfm_merge_sparse",
+                   lambda exe: exe.run(main, feed=feed,
+                                       fetch_list=[spec.loss], scope=scope),
+                   main, "op 'autodiff' merges sparse rows")
+    emit({"phase": "capture_check", "captured_vs_interpreted": dist,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_train_check(torch, smi_line, batch=2):
@@ -2020,11 +2344,12 @@ def _kernel_kind(name):
     return "other"
 
 
-def _profile_steps(torch, run_step, steps):
+def _profile_steps(torch, run_step, steps, counts=None):
     """Device ms per step by kind over ``steps`` training steps under
     torch.profiler, kernels per step, the profiled wall per step, and the
     eight costliest kernels of kind "other" as [name, ms, launches] per
-    step."""
+    step; ``counts`` (a dict) gets the device kernels per step by kind (the
+    profiler sees the kernels a CUDA graph replays)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2045,6 +2370,8 @@ def _profile_steps(torch, run_step, steps):
         n_kernels += e.count
         kind = _kernel_kind(e.key.lower())
         kinds[kind] += us
+        if counts is not None:
+            counts[kind] = counts.get(kind, 0) + e.count / steps
         if kind == "other":
             other.append([e.key[:120], us / steps / 1e3, e.count / steps])
     return ({k: v / steps / 1e3 for k, v in kinds.items()},
@@ -2052,18 +2379,73 @@ def _profile_steps(torch, run_step, steps):
             sorted(other, key=lambda r: -r[1])[:8])
 
 
+def _interpreted_beside(torch, fluid, startup, run_step, steps,
+                        by_op_steps=0):
+    """``steps`` timed interpreted steps (``use_program_cache=False``)
+    after one untimed, then one profiled, on a scope of their own from the
+    same startup (the captured steps then train the model the later
+    checks read, as many steps as before): the step ms, device ms, busy
+    share and kernels a step beside the captured ones of the same call.
+    ``by_op_steps``: also the device time by op kind over that many
+    (``_profile_by_op_kind``; a replay runs no ops)."""
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    losses = []
+
+    def step():
+        return run_step(exe, False, scope, losses)
+
+    step()
+    times = [step() for _ in range(steps)]
+    device_ms, kernels, _, _ = _profile_steps(torch, step, 1)
+    med = statistics.median(times)
+    busy = sum(device_ms.values())
+    out = {"steps": steps, "step_ms_median": med * 1e3,
+           "step_ms": [x * 1e3 for x in times], "device_ms": busy,
+           "device_busy_share": busy / (med * 1e3),
+           "kernels_per_step": kernels, "losses": losses}
+    if by_op_steps:
+        dev, _, _, _ = _profile_steps(torch, step, by_op_steps)
+        out["by_op"], out["top_host"] = _profile_by_op_kind(
+            torch, step, by_op_steps, dev)
+    exe.close()
+    return out
+
+
+def _captured_steps(torch, run_step, steps):
+    """The same for ``steps`` captured steps (replays) after the key's
+    call 1 and capture have run."""
+    times = [run_step() for _ in range(steps)]
+    device_ms, kernels, _, _ = _profile_steps(torch, run_step, 1)
+    med = statistics.median(times)
+    busy = sum(device_ms.values())
+    return {"steps": steps, "step_ms_median": med * 1e3,
+            "step_ms": [x * 1e3 for x in times], "device_ms": busy,
+            "device_busy_share": busy / (med * 1e3),
+            "kernels_per_step": kernels}
+
+
 def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
-                prof_steps=3, amp=False):
+                prof_steps=3, amp=False, interp_steps=0):
     """The main path: Transformer-base trained with dropout 0.1 and
     Adam(1e-4) at 128 x 256 tokens per step on one fixed batch (an
     overfit check), in f32 (phase ``train``) or under
     ``fluid.amp.decorate`` (``amp_train``: the bf16 forms of the flash,
-    LayerNorm and fused CE kernels). Launch counts are zeroed just before
-    the first step and read after the last; every step must launch each
+    LayerNorm and fused CE kernels). The executor interprets the key's
+    first step, captures the second as one CUDA graph and replays it from
+    then on. Launch counts are zeroed just before the first step and read
+    after the last; every interpreted or captured step must launch each
     kernel exactly PER_STEP times, under AMP all of them in bf16 and in
-    f32 none (counted per dtype). The flash kernels' profiled ms per step
-    is printed beside ``flash_ms`` (the ``timing`` phase's ms at the
-    training shape, in the run's dtype) times their launches per step."""
+    f32 none (counted per dtype), every replay none from Python, and each
+    profiled replay the device kernels of the table, kind by kind, that
+    the profiled first step launched. The flash kernels' profiled ms per
+    step is printed beside ``flash_ms`` (the ``timing`` phase's ms at the
+    training shape, in the run's dtype) times their launches per step.
+    ``interp_steps``: that many interpreted steps
+    (``use_program_cache=False``, on a scope of their own), timed and
+    profiled beside the captured ones; then (AMP) captured steps with
+    ``PADDLE_TPU_FUSED_OPT=1``."""
     import paddle_tpu_torch as fluid
 
     t0 = time.perf_counter()
@@ -2077,46 +2459,62 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    losses, step_s = [], []
+    losses, step_s, runs = [], [], {"launched": 0, "replayed": 0}
 
-    def run_step():
-        before = read_counts(), read_bf16_counts(), read_wgmma_counts()
-        t = time.perf_counter()
-        loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
-                        scope=scope)  # to numpy: ends synchronised
-        dt = time.perf_counter() - t
-        after = read_counts(), read_bf16_counts(), read_wgmma_counts()
-        per, per_bf16, per_wgmma = ({k: a[k] - b[k] for k in a}
-                                    for a, b in zip(after, before))
-        check(per == PER_STEP and per_bf16 == bf16_part(PER_STEP, amp)
-              and per_wgmma == wgmma_part(PER_STEP, amp),
-              "step %d launches %s (bf16 %s, wgmma %s) != %s"
-              % (len(losses), per, per_bf16, per_wgmma, PER_STEP))
-        losses.append(float(loss))
+    def run_step(ex=exe, cache=True, sc=scope, out=losses):
+        (loss,), dt, replayed = counted_step(
+            ex, main, PER_STEP, amp, "step %d" % len(out), feed=feed,
+            fetch_list=[spec.loss], scope=sc, use_program_cache=cache)
+        runs["replayed" if replayed else "launched"] += 1
+        out.append(float(loss))  # to numpy: ends synchronised
         return dt
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(warmup + steps):
+    interp = None
+    if interp_steps:
+        interp = _interpreted_beside(torch, fluid, startup, run_step,
+                                     interp_steps)
+    # call 1 (interpreted) profiled: the kernels a counted step launches
+    call1 = {}
+    _profile_steps(torch, run_step, 1, counts=call1)
+    for i in range(warmup - 1 + steps):
         dt = run_step()
-        if i >= warmup:
+        if i >= warmup - 1:
             step_s.append(dt)
     peak = torch.cuda.max_memory_allocated()
+    replay = {}
     device_ms, kernels_per_step, prof_wall_ms, top_other = _profile_steps(
-        torch, run_step, prof_steps)
+        torch, run_step, prof_steps, counts=replay)
+    report = exe.step_report(main)
+    fused = None
+    if interp_steps and amp:
+        os.environ["PADDLE_TPU_FUSED_OPT"] = "1"
+        try:
+            run_step()  # the fused key's call 1
+            run_step()  # its capture
+            fused = _captured_steps(torch, run_step, 5)
+            fused["step_report"] = exe.step_report(main)
+            fused["groups"] = len(exe._last[id(main)].plan)
+        finally:
+            del os.environ["PADDLE_TPU_FUSED_OPT"]
     launches = read_counts()
+    exe.close()
+    peak_all = torch.cuda.max_memory_allocated()
 
     tokens = TRAIN_BATCH * TRANSFORMER["seq_len"]
     med = statistics.median(step_s)
     busy = sum(device_ms.values())
     flops = spec.flops_per_example * TRAIN_BATCH
     q1, _, q3 = statistics.quantiles(step_s, n=4)
-    emit({"phase": "amp_train" if amp else "train",
-          "model": "transformer_base",
+    phase = "amp_train" if amp else "train"
+    emit({"phase": phase, "model": "transformer_base",
           "precision": "bf16 (fluid.amp.decorate)" if amp else "f32",
           "config": dict(TRANSFORMER, dropout_rate=0.1), "params": n_params,
           "batch": TRAIN_BATCH, "tokens_per_step": tokens,
-          "optimizer": "Adam(1e-4)", "warmup_steps": warmup, "steps": steps,
+          "optimizer": "Adam(1e-4)", "captured": report["captured"],
+          "reason": report["reason"], "step_report": report,
+          "warmup_steps": warmup, "steps": steps,
           "step_ms_median": med * 1e3,
           "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
           "step_ms": [x * 1e3 for x in step_s],
@@ -2125,11 +2523,14 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
           "tokens_per_s_iqr": [tokens / q3, tokens / q1],
           "model_tflops_per_s": flops / med / 1e12,
           "losses": losses, "peak_memory_bytes": peak,
+          "peak_memory_bytes_with_fused_opt": peak_all,
           "device_ms_per_step": device_ms,
           "kernels_per_step": kernels_per_step,
           "top_other_kernels": top_other,
           "profiled_wall_ms_per_step": prof_wall_ms,
           "device_busy_share": busy / (med * 1e3),
+          "interpreted": interp, "fused_opt": fused,
+          "kernels_by_kind": {"call1": call1, "replay": replay},
           "fused_ce_share_of_device": device_ms["fused_ce_fwd"] / busy,
           "flash_ms_per_step": {
               name: {"profiled": device_ms[name],
@@ -2137,20 +2538,22 @@ def phase_train(torch, smi_line, flash_ms, warmup=3, steps=20,
               for name in ("flash_attention_fwd", "flash_attention_bwd")},
           "launches": launches, "bf16_launches": read_bf16_counts(),
           "wgmma_launches": read_wgmma_counts(),
-          "launches_per_step": PER_STEP, "setup_s": setup_s,
-          "device": smi_line})
+          "launches_per_step": PER_STEP, "steps_by_kind": runs,
+          "setup_s": setup_s, "device": smi_line})
+    check(report["captured"] and report["replays"] >= steps,
+          "%s not captured: %s" % (phase, report))
+    check_replay_kernels(phase, call1, replay)
     check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
     check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
     check(device_ms["flash_attention_fwd"] > 0
           and device_ms["flash_attention_bwd"] > 0,
           "profiled flash kernels not recognised: %s" % device_ms)
-    n_steps = warmup + steps + prof_steps
-    check(launches == {k: n * n_steps for k, n in PER_STEP.items()},
+    check(launches == {k: n * runs["launched"] for k, n in PER_STEP.items()},
           "train launches %s" % launches)
     if amp:
         dtypes = _float_state_dtypes(torch, scope)
         check(dtypes == ["torch.float32"], "AMP state dtypes %s" % dtypes)
-    return launches
+    return launches, {k: n * runs["replayed"] for k, n in PER_STEP.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3139,15 +3542,20 @@ def _profile_by_op_kind(torch, run_step, steps, device_ms):
 
 
 def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2,
-                       amp=False):
+                       amp=False, interp_steps=0):
     """The main path: DeepFM (BASELINE config 5) trained with Adam(1e-4) at
     batch 32768 on one fixed batch from ``spec.sample_batch(32768,
     RandomState(0))``, staged on the card once, in f32 (phase
     ``deepfm_train``) or under ``fluid.amp.decorate`` (``deepfm_amp_train``:
-    bf16 MLP products, the f32 table and scatter). Launch counts are zeroed
-    just before the first step and read after the last; every step must
-    launch the scatter kernel exactly once and nothing else of the
-    port's."""
+    bf16 MLP products, the f32 table and scatter), captured from the
+    key's second step on as in ``phase_train``. Launch counts are zeroed
+    just before the first step and read after the last; every interpreted
+    or captured step must launch the scatter kernel exactly once and
+    nothing else of the port's, every replay none from Python and,
+    profiled, the first step's device kernels kind by kind.
+    ``interp_steps``: that many interpreted steps first, timed beside the
+    captured ones, and the device time by op kind from them (a replay
+    runs no ops)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core.framework import torch_dtype
 
@@ -3167,33 +3575,37 @@ def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    losses, step_s = [], []
+    losses, step_s, runs = [], [], {"launched": 0, "replayed": 0}
 
-    def run_step():
-        before = read_counts()
-        t = time.perf_counter()
-        loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
-                        scope=scope)  # to numpy: ends synchronised
-        dt = time.perf_counter() - t
-        after = read_counts()
-        per = {k: after[k] - before[k] for k in after}
-        check(per == DEEPFM_PER_STEP, "deepfm step %d launches %s != %s"
-              % (len(losses), per, DEEPFM_PER_STEP))
-        losses.append(float(loss))
+    def run_step(ex=exe, cache=True, sc=scope, out=losses):
+        (loss,), dt, replayed = counted_step(
+            ex, main, DEEPFM_PER_STEP, False, "deepfm step %d" % len(out),
+            feed=feed, fetch_list=[spec.loss], scope=sc,
+            use_program_cache=cache)
+        runs["replayed" if replayed else "launched"] += 1
+        out.append(float(loss))  # to numpy: ends synchronised
         return dt
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(warmup + steps):
+    interp, by_op, top_host = None, None, None
+    if interp_steps:
+        interp = _interpreted_beside(torch, fluid, startup, run_step,
+                                     interp_steps, prof_steps)
+        by_op, top_host = interp.pop("by_op"), interp.pop("top_host")
+    call1 = {}
+    _profile_steps(torch, run_step, 1, counts=call1)
+    for i in range(warmup - 1 + steps):
         dt = run_step()
-        if i >= warmup:
+        if i >= warmup - 1:
             step_s.append(dt)
     peak = torch.cuda.max_memory_allocated()
+    replay = {}
     device_ms, kernels_per_step, prof_wall_ms, top_other = _profile_steps(
-        torch, run_step, prof_steps)
-    by_op, top_host = _profile_by_op_kind(torch, run_step, prof_steps,
-                                          device_ms)
+        torch, run_step, prof_steps, counts=replay)
+    step_report = exe.step_report(main)
     launches = read_counts()
+    exe.close()
 
     adam = [o for o in gb.ops if o.type == "adam"
             and o.input("Param").name == "fm_table"][0]
@@ -3208,7 +3620,11 @@ def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2,
           "table": [DEEPFM["sparse_feature_dim"], DEEPFM_WIDTH],
           "params": n_params, "batch": DEEPFM_BATCH,
           "dtype": "bf16 (fluid.amp.decorate)" if amp else "float32",
-          "optimizer": "Adam(1e-4)", "warmup_steps": warmup, "steps": steps,
+          "optimizer": "Adam(1e-4)", "captured": step_report["captured"],
+          "reason": step_report["reason"], "step_report": step_report,
+          "interpreted": interp,
+          "kernels_by_kind": {"call1": call1, "replay": replay},
+          "warmup_steps": warmup, "steps": steps,
           "step_ms_median": med * 1e3,
           "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
           "step_ms": [x * 1e3 for x in step_s],
@@ -3216,8 +3632,8 @@ def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2,
           "model_tflops_per_s": flops / med / 1e12,
           "losses": losses, "peak_memory_bytes": peak,
           "device_ms_per_step": device_ms,
-          "device_ms_per_step_by_op_kind": by_op,
-          "top_host_ops_ms_per_step": top_host,
+          "interpreted_device_ms_per_step_by_op_kind": by_op,
+          "interpreted_top_host_ops_ms_per_step": top_host,
           "kernels_per_step": kernels_per_step,
           "top_other_kernels": top_other,
           "profiled_wall_ms_per_step": prof_wall_ms,
@@ -3225,17 +3641,22 @@ def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2,
           "kernel_choice": adam.attrs.get("_kernel_choice"),
           "padding_zero": pad_zero,
           "launches": launches, "launches_per_step": DEEPFM_PER_STEP,
-          "setup_s": setup_s, "device": smi_line})
+          "steps_by_kind": runs, "setup_s": setup_s, "device": smi_line})
+    phase = "deepfm_amp_train" if amp else "deepfm_train"
+    check(step_report["captured"] and step_report["replays"] >= steps,
+          "%s not captured: %s" % (phase, step_report))
+    check_replay_kernels(phase, call1, replay)
     check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
     check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
     check(adam.attrs.get("_kernel_choice", {}).get("kernel")
           == "cuda_scatter_add", "adam's kernel choice %s"
           % adam.attrs.get("_kernel_choice"))
     check(pad_zero, "the table's padding columns moved")
-    n_steps = warmup + steps + 2 * prof_steps
-    check(launches == {k: n * n_steps for k, n in DEEPFM_PER_STEP.items()},
+    check(launches == {k: n * runs["launched"]
+                       for k, n in DEEPFM_PER_STEP.items()},
           "deepfm_train launches %s" % launches)
-    return launches
+    return launches, {k: n * runs["replayed"]
+                      for k, n in DEEPFM_PER_STEP.items()}
 
 
 def build_resnet(fluid, amp=False):
@@ -3543,16 +3964,21 @@ def phase_resnet_amp_train_check(torch, smi_line, batch=2):
 
 
 def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
-                       prof_steps=2, amp=False, f32_step=None):
+                       prof_steps=2, amp=False, f32_step=None,
+                       interp_steps=0):
     """The main path: ResNet-50 trained with Adam(1e-4) at batch 128 (224
     x 224 x 3, 1000 classes) on one fixed batch, in f32 (phase
     ``resnet_train``) or under ``fluid.amp.decorate`` (``resnet_amp_train``:
     bf16 convs and activations, the bf16 forms of the fused-conv kernels,
-    f32 parameters and Adam state). Launch counts are zeroed just before
-    the first step and read after the last; every step must launch
-    conv_moments and bn_apply 49 times each and nothing else of the port's,
-    under AMP all in bf16, conv_moments all on its wgmma form, and in f32
-    none. The fusion report must hold 53
+    f32 parameters and Adam state), captured from the key's second step
+    on as in ``phase_train``. Launch counts are zeroed just before the
+    first step and read after the last; every interpreted or captured step
+    must launch conv_moments and bn_apply 49 times each and nothing else of
+    the port's, under AMP all in bf16, conv_moments all on its wgmma form,
+    and in f32 none, every replay none from Python and, profiled, the
+    first step's device kernels kind by kind. ``interp_steps``: that many
+    interpreted steps first, timed beside the captured ones. The fusion
+    report must hold 53
     sites, the four declined ones those of RESNET_DECLINED, each for its
     geometry. The profiled conv_moments ms per step is printed beside
     ``conv_site_ms``, the sum of its per-geometry times weighted by sites
@@ -3573,35 +3999,36 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    losses, step_s = [], []
+    losses, step_s, runs = [], [], {"launched": 0, "replayed": 0}
 
-    def run_step():
-        before = read_counts(), read_bf16_counts(), read_wgmma_counts()
-        t = time.perf_counter()
-        loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
-                        scope=scope)  # to numpy: ends synchronised
-        dt = time.perf_counter() - t
-        after = read_counts(), read_bf16_counts(), read_wgmma_counts()
-        per, per_bf16, per_wgmma = ({k: a[k] - b[k] for k in a}
-                                    for a, b in zip(after, before))
-        check(per == RESNET_PER_STEP
-              and per_bf16 == bf16_part(RESNET_PER_STEP, amp)
-              and per_wgmma == wgmma_part(RESNET_PER_STEP, amp),
-              "resnet step %d launches %s (bf16 %s, wgmma %s) != %s"
-              % (len(losses), per, per_bf16, per_wgmma, RESNET_PER_STEP))
-        losses.append(float(loss))
+    def run_step(ex=exe, cache=True, sc=scope, out=losses):
+        (loss,), dt, replayed = counted_step(
+            ex, main, RESNET_PER_STEP, amp, "resnet step %d" % len(out),
+            feed=feed, fetch_list=[spec.loss], scope=sc,
+            use_program_cache=cache)
+        runs["replayed" if replayed else "launched"] += 1
+        out.append(float(loss))  # to numpy: ends synchronised
         return dt
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(warmup + steps):
+    interp = None
+    if interp_steps:
+        interp = _interpreted_beside(torch, fluid, startup, run_step,
+                                     interp_steps)
+    call1 = {}
+    _profile_steps(torch, run_step, 1, counts=call1)
+    for i in range(warmup - 1 + steps):
         dt = run_step()
-        if i >= warmup:
+        if i >= warmup - 1:
             step_s.append(dt)
     peak = torch.cuda.max_memory_allocated()
+    replay = {}
     device_ms, kernels_per_step, prof_wall_ms, top_other = _profile_steps(
-        torch, run_step, prof_steps)
+        torch, run_step, prof_steps, counts=replay)
+    step_report = exe.step_report(main)
     launches = read_counts()
+    exe.close()
 
     ops, report = fused_ops(main, [spec.loss.name])
     sites = [o for o in ops if o.type == "fused_conv2d"]
@@ -3616,17 +4043,20 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
     busy = sum(device_ms.values())
     flops = spec.flops_per_example * RESNET_BATCH
     q1, _, q3 = statistics.quantiles(step_s, n=4)
+    phase = "resnet_amp_train" if amp else "resnet_train"
     summary = {"step_ms_median": med * 1e3,
                "images_per_s": RESNET_BATCH / med,
                "device_ms": busy, "device_ms_per_step": device_ms,
                "kernels_per_step": kernels_per_step,
                "device_busy_share": busy / (med * 1e3),
                "peak_memory_bytes": peak}
-    emit({"phase": "resnet_amp_train" if amp else "resnet_train",
-          "model": "resnet50",
+    emit({"phase": phase, "model": "resnet50",
           "config": RESNET, "params": n_params, "batch": RESNET_BATCH,
           "dtype": "bf16 (fluid.amp.decorate)" if amp else "float32",
-          "optimizer": "Adam(1e-4)",
+          "optimizer": "Adam(1e-4)", "captured": step_report["captured"],
+          "reason": step_report["reason"], "step_report": step_report,
+          "interpreted": interp,
+          "kernels_by_kind": {"call1": call1, "replay": replay},
           "warmup_steps": warmup, "steps": steps,
           "step_ms_median": med * 1e3,
           "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
@@ -3652,8 +4082,11 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
                      "kernels": kernels_used},
           "launches": launches, "bf16_launches": read_bf16_counts(),
           "wgmma_launches": read_wgmma_counts(),
-          "launches_per_step": RESNET_PER_STEP, "f32_step": f32_step,
-          "setup_s": setup_s, "device": smi_line})
+          "launches_per_step": RESNET_PER_STEP, "steps_by_kind": runs,
+          "f32_step": f32_step, "setup_s": setup_s, "device": smi_line})
+    check(step_report["captured"] and step_report["replays"] >= steps,
+          "%s not captured: %s" % (phase, step_report))
+    check_replay_kernels(phase, call1, replay)
     check(len(report.fused) == len(sites) == 53 and not report.refused,
           "fusion report: %s" % report.summary())
     check(declined == RESNET_DECLINED
@@ -3663,13 +4096,15 @@ def phase_resnet_train(torch, smi_line, conv_site_ms, warmup=3, steps=10,
     check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
     check(device_ms["conv_moments"] > 0 and device_ms["conv_apply"] == 0,
           "profiled conv kernels not recognised: %s" % device_ms)
-    n_steps = warmup + steps + prof_steps
-    check(launches == {k: n * n_steps for k, n in RESNET_PER_STEP.items()},
+    check(launches == {k: n * runs["launched"]
+                       for k, n in RESNET_PER_STEP.items()},
           "resnet_train launches %s" % launches)
     if amp:
         dtypes = _float_state_dtypes(torch, scope)
         check(dtypes == ["torch.float32"], "AMP state dtypes %s" % dtypes)
-    return launches, (exe, scope, main, test, spec, feed), summary
+    replayed = {k: n * runs["replayed"] for k, n in RESNET_PER_STEP.items()}
+    return (launches, replayed), (exe, scope, main, test, spec, feed), \
+        summary
 
 
 def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
@@ -3685,8 +4120,9 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
     conv_apply launches in bf16, every launch in its wgmma form
     (``wgmma_launches``), and the logits and loss lie within
     AMP_MARGIN of the CPU's bf16-vs-f32 eval distance of the CPU's bf16
-    eval (relative L2). Returns (launches, wgmma launches) of the
-    passes."""
+    eval (relative L2). The clone is captured from its second pass on, as
+    in ``phase_train``. Returns (launches, wgmma launches, replayed
+    passes) of the passes."""
     import paddle_tpu_torch as fluid
 
     exe, scope, main, test, spec, feed = trained
@@ -3697,23 +4133,32 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
     logits = [op.input("X").name for op in test.global_block().ops
               if op.type == "softmax"][0]
     fetch = [spec.loss.name, spec.fetches["acc"].name, logits]
-    pass_s = []
+    pass_s, runs = [], {"launched": 0, "replayed": 0}
     reset_counts()
+    call1, replay = {}, {}
+
+    def run_pass():
+        _, dt, replayed = counted_step(
+            exe, test, RESNET_PER_EVAL, amp, "eval pass", feed=feed,
+            fetch_list=fetch[:2], scope=scope)
+        runs["replayed" if replayed else "launched"] += 1
+        pass_s.append(dt)
+
+    _profile_steps(torch, run_pass, 1, counts=call1)
     for _ in range(passes + 1):
-        before = read_counts(), read_bf16_counts(), read_wgmma_counts()
-        t = time.perf_counter()
-        exe.run(test, feed=feed, fetch_list=fetch[:2], scope=scope)
-        pass_s.append(time.perf_counter() - t)
-        after = read_counts(), read_bf16_counts(), read_wgmma_counts()
-        per, per_bf16, per_wgmma = ({k: a[k] - b[k] for k in a}
-                                    for a, b in zip(after, before))
-        check(per == RESNET_PER_EVAL
-              and per_bf16 == bf16_part(RESNET_PER_EVAL, amp)
-              and per_wgmma == wgmma_part(RESNET_PER_EVAL, amp),
-              "eval pass launches %s (bf16 %s, wgmma %s) != %s"
-              % (per, per_bf16, per_wgmma, RESNET_PER_EVAL))
+        run_pass()
+    _profile_steps(torch, run_pass, 1, counts=replay)
+    del pass_s[-1]  # the profiled pass
+    step_report = exe.step_report(test)
     launches, bf16_launches = read_counts(), read_bf16_counts()
     wgmma_launches = read_wgmma_counts()
+    phase = "resnet_amp_eval" if amp else "resnet_eval"
+    check(step_report["captured"] and step_report["replays"] >= passes,
+          "%s not captured: %s" % (phase, step_report))
+    check_replay_kernels(phase, call1, replay)
+    check(launches == {k: n * runs["launched"]
+                       for k, n in RESNET_PER_EVAL.items()},
+          "%s launches %s" % (phase, launches))
 
     small_feed = {k: v[:small] for k, v in feed.items()}
     gpu = exe.run(test, feed=small_feed, fetch_list=fetch, scope=scope)
@@ -3731,9 +4176,14 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
                            scope=cpu_scope)
         fluid.amp.enable_bf16(test)
     check(read_counts() == before, "the CPU eval launched a kernel")
-    med = statistics.median(pass_s[1:])
-    line = {"phase": "resnet_amp_eval" if amp else "resnet_eval",
-            "model": "resnet50", "config": RESNET,
+    exe.close()
+    med = statistics.median(pass_s[2:])
+    line = {"phase": phase, "model": "resnet50", "config": RESNET,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "captured": step_report["captured"],
+            "reason": step_report["reason"], "step_report": step_report,
+            "passes_by_kind": runs,
+            "kernels_by_kind": {"call1": call1, "replay": replay},
             "precision": "bf16 (clone + fluid.amp.enable_bf16)" if amp
             else "f32", "batch": RESNET_BATCH, "passes": passes,
             "pass_ms_median": med * 1e3,
@@ -3754,13 +4204,13 @@ def phase_resnet_eval(torch, smi_line, trained, passes=5, small=2,
                   tol="card <= %g x CPU bf16 vs f32 (rel L2)" % AMP_MARGIN))
         check(all(card[n] <= AMP_MARGIN * ref[n] for n in card),
               "resnet_amp_eval: card %s, CPU bf16 vs f32 %s" % (card, ref))
-        return launches, wgmma_launches
+        return launches, wgmma_launches, runs["replayed"]
     errs = {"loss": abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0])),
             "logits": _elem_err(gpu[2], cpu[2])}
     emit(dict(line, errors=errs, tol=1e-4))
     check(max(errs.values()) <= 1e-4, "resnet_eval errors %s" % errs)
     check(float(gpu[1]) == float(cpu[1]), "accuracy differs")
-    return launches, wgmma_launches
+    return launches, wgmma_launches, runs["replayed"]
 
 
 # GPT-2 small's published widths (Radford et al. 2019, the ``gpt2`` config:
@@ -4031,10 +4481,15 @@ def phase_decode_check(torch, smi_line, tol=1e-4):
     target = step_lg[r, at]
     draft_vs_target = _rel_l2_t(last, target)
     reset_counts()
+    replays = exe_runs(fam["draft"]._exe)["replays"]
     proposed = [t for t, in draft.propose(hists, 1)]
     draft_counts = read_counts()
-    check(draft_counts == PER_DRAFT_PASS,
-          "a draft pass launched %s" % draft_counts)
+    # the draft program is captured: a replayed pass launches nothing from
+    # Python (its kernels were counted when it was interpreted or captured)
+    replayed = exe_runs(fam["draft"]._exe)["replays"] > replays
+    check(draft_counts == (per_run() if replayed else PER_DRAFT_PASS),
+          "a draft pass (replayed: %s) launched %s"
+          % (replayed, draft_counts))
     draft_misses = []
     for j, h in enumerate(hists):
         if proposed[j] == chain[len(h)]:
@@ -4244,16 +4699,22 @@ def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
             "prefix_cache": {"max_bytes": 1 << 30}}
 
     reset_counts()
+    draft_runs = launching_runs(fam["draft"]._exe)
     plain_ids, plain = _decode_arm(torch, fluid, model_dir, reqs, in_flight)
     fast_ids, fast_arm = _decode_arm(torch, fluid, model_dir, reqs,
                                      in_flight, **fast)
     launches = read_counts()
     passes = draft.passes
+    # the step and chunk programs stay interpreted (their fed caches); the
+    # draft program is captured per batch rung, and only its interpreted
+    # and captured passes launch from Python
+    draft_runs = launching_runs(fam["draft"]._exe) - draft_runs
+    draft_report = fam["draft"]._exe.step_report(fam["programs"]["draft"][0])
     shutil.rmtree(model_dir)
 
     dispatches = (plain["warmup_dispatches"] + plain["dispatches"]
                   + fast_arm["warmup_dispatches"] + fast_arm["dispatches"])
-    want = {k: dispatches * PER_DISPATCH[k] + passes * PER_DRAFT_PASS[k]
+    want = {k: dispatches * PER_DISPATCH[k] + draft_runs * PER_DRAFT_PASS[k]
             for k in KERNELS}
     same = sum(a == b for a, b in zip(plain_ids, fast_ids))
 
@@ -4276,6 +4737,9 @@ def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
                   **arm))
     emit({"phase": "decode", "launches": launches, "want": want,
           "dispatches": dispatches, "draft_passes": passes,
+          "draft_launching_passes": draft_runs,
+          "draft_captured": draft_report["captured"],
+          "draft_reason": draft_report["reason"],
           "requests_with_equal_ids": same, "save_s": save_s})
     check(launches == want, "decode launches %s != %s" % (launches, want))
     check(passes > 0 and fast_arm["spec_accepted"] > 0
@@ -4335,39 +4799,52 @@ def main():
     errs["scatter_add"] = phase_scatter_check(
         torch, dev)["deepfm_densify_uniform"]
     times = phase_timing(torch, dev)
-    paths = {"serve": phase_serve(torch, smi_line)}
+    # each path's launches from Python (interpreted and captured steps),
+    # and the launches its graph replays repeated, by kernel
+    paths, replayed = {}, {}
+    phase_capture_check(torch)
+    paths["serve"], replayed["serve"] = phase_serve(torch, smi_line)
     phase_train_check(torch, smi_line)
-    paths["train"] = phase_train(torch, smi_line, {
+    paths["train"], replayed["train"] = phase_train(torch, smi_line, {
         "flash_attention_fwd": times["flash_attention_fwd"][
             "trained_shape"]["ms"],
         "flash_attention_bwd": times["flash_attention_bwd"]["ms"]})
     phase_amp_train_check(torch, smi_line)
-    paths["amp_train"] = phase_train(torch, smi_line, {
-        name: times[name]["bf16"]["ms"]
-        for name in ("flash_attention_fwd", "flash_attention_bwd")},
-        amp=True)
+    paths["amp_train"], replayed["amp_train"] = phase_train(
+        torch, smi_line, {name: times[name]["bf16"]["ms"]
+                          for name in ("flash_attention_fwd",
+                                       "flash_attention_bwd")},
+        amp=True, interp_steps=5)
     # read at once: the path's wgmma launches (no launch comes between);
     # conv_moments' come from resnet_amp_train, conv_apply's from
     # resnet_amp_eval
     amp_wgmma = read_wgmma_counts()
     phase_resnet_train_check(torch, smi_line)
-    paths["resnet_train"], trained, f32_step = phase_resnet_train(
-        torch, smi_line, times["conv_moments"]["site_weighted_ms"])
-    paths["resnet_eval"] = phase_resnet_eval(torch, smi_line, trained)[0]
+    (paths["resnet_train"], replayed["resnet_train"]), trained, f32_step = \
+        phase_resnet_train(torch, smi_line,
+                           times["conv_moments"]["site_weighted_ms"])
+    paths["resnet_eval"], _, n = phase_resnet_eval(torch, smi_line, trained)
+    replayed["resnet_eval"] = {k: v * n for k, v in RESNET_PER_EVAL.items()}
     del trained
     phase_resnet_amp_train_check(torch, smi_line)
-    paths["resnet_amp_train"], trained, _ = phase_resnet_train(
-        torch, smi_line, times["conv_moments"]["bf16"]["site_weighted_ms"],
-        amp=True, f32_step=f32_step)
+    (paths["resnet_amp_train"], replayed["resnet_amp_train"]), trained, _ = \
+        phase_resnet_train(
+            torch, smi_line,
+            times["conv_moments"]["bf16"]["site_weighted_ms"], amp=True,
+            f32_step=f32_step, interp_steps=5)
     amp_wgmma["conv_moments"] = read_wgmma_counts()["conv_moments"]
-    paths["resnet_amp_eval"], eval_wgmma = phase_resnet_eval(
+    paths["resnet_amp_eval"], eval_wgmma, n = phase_resnet_eval(
         torch, smi_line, trained, amp=True)
+    replayed["resnet_amp_eval"] = {k: v * n
+                                   for k, v in RESNET_PER_EVAL.items()}
     amp_wgmma["conv_apply"] = eval_wgmma["conv_apply"]
     del trained
     phase_deepfm_train_check(torch, smi_line)
-    paths["deepfm_train"] = phase_deepfm_train(torch, smi_line)
+    paths["deepfm_train"], replayed["deepfm_train"] = phase_deepfm_train(
+        torch, smi_line, interp_steps=5)
     phase_deepfm_amp_train_check(torch, smi_line)
-    paths["deepfm_amp_train"] = phase_deepfm_train(torch, smi_line, amp=True)
+    paths["deepfm_amp_train"], replayed["deepfm_amp_train"] = \
+        phase_deepfm_train(torch, smi_line, amp=True)
     fam = phase_decode_check(torch, smi_line)
     paths["decode"] = phase_decode(torch, smi_line, fam)
     del fam
@@ -4394,11 +4871,16 @@ def main():
         source, replaces = src[name]
         r = times[name]
         by_path = {path: counts[name] for path, counts in paths.items()}
+        replay_by_path = {path: counts.get(name, 0)
+                          for path, counts in replayed.items()}
         kernels.append({"name": name, "route": "cuda",
                         "source": "paddle_tpu_torch/csrc/" + source,
                         "replaces": replaces,
                         "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
+                        "graph_replayed_launches": sum(
+                            replay_by_path.values()),
+                        "graph_replayed_launches_by_path": replay_by_path,
                         "max_abs_err": errs[name], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -1,12 +1,25 @@
-"""Executor: runs a Program's global block op by op over torch tensors.
+"""Executor: runs a Program's global block over torch tensors.
 
 Reference contract: ``fluid.Executor(place).run(program, feed, fetch_list)``
 (``python/paddle/fluid/executor.py:262,554``). ``paddle_tpu`` traces the
-whole program into one jitted XLA computation (its ``build_step_fn``); the
-port interprets it instead, in the manner of the reference's C++ executor
-(``executor.cc:186``): each op's impl runs eagerly on the executor's
-device, and the ops that ``paddle_tpu`` gave to Pallas launch the port's
-CUDA kernels. A program without backward ops runs under
+whole program into one jitted XLA computation (its ``build_step_fn``) per
+cache key and runs that one executable on every later call. The port keeps
+the same cache and key, and the same compiled-step model on the card: the
+first run of a key interprets the op list, as the reference's C++ executor
+does (``executor.cc:186``: each op's impl runs eagerly, the ops that
+``paddle_tpu`` gave to Pallas launch the port's CUDA kernels); the second
+captures the whole step, state updates included, as one
+``torch.cuda.CUDAGraph`` (:class:`CapturedStep`), and every later run
+copies the feed in, replays the graph and reads the fetches out. The state
+is read from and written back into the scope's own tensors, the
+counterpart of the reference's donated state. :func:`capture_rule` keeps a
+program interpreted, with its reason, where a step waits on the host or
+feeds what fixed buffers cannot hold; CPU places always interpret (the
+reference's CPU jit has no graph). A capture of an admitted program that
+fails raises: it never goes back to interpreting. ``PADDLE_TPU_FUSED_OPT``
+batches the dense optimizer updates (``opt_fusion.py``) in both forms.
+
+A program without backward ops runs under
 ``torch.inference_mode()``; a training run first copies every inference
 tensor it reads (state a startup, load or eval run left in the scope) out
 of inference mode, once, and puts the copy in the scope, so serving, eval
@@ -55,6 +68,8 @@ device under ``@RNG@``, seeded from ``program.random_seed`` on first use
 
 import contextlib
 import secrets
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -62,10 +77,12 @@ import torch
 from . import framework
 from .framework import Variable, torch_dtype
 from .op_registry import (DEVICE_KEY, RNG_KEY, SPARSE_SITES_KEY, amp_scope,
-                          run_op)
+                          env_flag, run_op)
+from .opt_fusion import run_fused_group
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "CPUPlace",
-           "CUDAPlace", "resolve_device", "place_for"]
+           "CUDAPlace", "resolve_device", "place_for", "CapturedStep",
+           "capture_rule", "state_writes"]
 
 
 _AUTODIFF_OPS = ("autodiff", "autodiff_vjp")
@@ -199,13 +216,312 @@ def to_tensor(value, device, var=None):
     return t.to(device=device, dtype=want)
 
 
+# one capture at a time in the process; capture_error_mode="thread_local"
+# lets the other threads (serving workers) keep launching meanwhile
+_CAPTURE_LOCK = threading.Lock()
+
+# op type -> why a program holding it is not captured: each waits on the
+# host, or feeds what the graph's fixed buffers cannot hold
+_DECODE_CACHE = ("fed cache copied per dispatch until the in-place cache "
+                 "write (ROADMAP A1b)")
+_NOT_CAPTURED = {
+    "kv_cache_write": _DECODE_CACHE,
+    "kv_cache_write_chunk": _DECODE_CACHE,
+    "cached_attention": _DECODE_CACHE,
+    "cached_attention_chunk": _DECODE_CACHE,
+    "sampling_id": "torch.multinomial checks its probabilities on the host",
+    "assign_value": "copies its host values to the device on every run",
+}
+
+
+def state_writes(ops, persist):
+    """The persistables ``ops`` write, in op order, leaving out the moving
+    statistics that a test-mode batch norm passes through unchanged."""
+    out = []
+    for op in ops:
+        keep = set()
+        if op.type in ("batch_norm", "fused_conv2d") and (
+                op.attr("is_test", False)
+                or op.attr("use_global_stats", False)):
+            keep = {v.name for s in ("MeanOut", "VarianceOut")
+                    for v in op.output_list(s)}
+        out.extend(n for n in op.output_arg_names
+                   if n in persist and n not in keep and n not in out)
+    return out
+
+
+def capture_rule(ops, writes=(), donate_state=True, use_program_cache=True,
+                 cuda=True):
+    """``(captured, reason)``: whether a step of ``ops`` is captured as one
+    CUDA graph, decided from the op list before any capture. ``writes``:
+    the persistables the step writes (:func:`state_writes`)."""
+    if not cuda:
+        return False, "CPU place: a CPU step has no graph"
+    if not use_program_cache:
+        return False, "use_program_cache=False: every step is interpreted"
+    if writes and not donate_state:
+        return False, ("writes state (%s) and donate_state=False: the "
+                       "graph would write the shared tensors in place"
+                       % writes[0])
+    for op in ops:
+        why = _NOT_CAPTURED.get(op.type)
+        if why is not None:
+            return False, "op '%s': %s" % (op.type, why)
+        if op.type == "autodiff" and op.attr("merge_sparse", False):
+            return False, ("op 'autodiff' merges sparse rows (merge_sparse): "
+                           "merge_sparse_rows reads its segment counts on "
+                           "the host")
+        if op.input("GradRows") is not None and (
+                op.type == "momentum"
+                or (op.type == "adam" and op.attr("lazy_mode", False))):
+            return False, ("op '%s' updates the touched rows of a sparse "
+                           "grad: the rows are picked by a boolean index, "
+                           "on the host" % op.type)
+    return True, "admitted"
+
+
+def feed_signature(gb, feed):
+    """``((name, shape, dtype), ...)`` of a feed, each dtype the one
+    :func:`to_tensor` coerces the value to."""
+    sig = []
+    for name in sorted(feed):
+        value = feed[name]
+        if not isinstance(value, torch.Tensor):
+            value = np.asarray(value)
+        var = gb.var(name) if gb.has_var(name) else None
+        sig.append((name, tuple(value.shape),
+                    torch_dtype(var.dtype if var is not None
+                                else value.dtype)))
+    return tuple(sig)
+
+
+class _Entry:
+    """One cache key's plan: the op list, the optimizer fusion plan, the
+    capture decision and, from call 2 on, its :class:`CapturedStep`."""
+
+    def __init__(self, program, scope, ops, plan, skip, writes, captured,
+                 reason):
+        # an id() in the key may be reused once its object is gone
+        self.program, self.scope = weakref.ref(program), weakref.ref(scope)
+        self.ops, self.plan, self.skip = ops, plan, skip
+        self.sparse = {n for op in ops if op.type == "autodiff"
+                       for n in op.attr("sparse_wrt_names") or ()}
+        self.wrt = {n for op in ops if op.type in _AUTODIFF_OPS
+                    for n in op.attr("wrt_names")} - self.sparse
+        self.amp = bool(getattr(program, "_amp_bf16", False))
+        self.writes = writes
+        self.captured, self.reason = captured, reason
+        self.step = None
+        self.warm = False  # call 1 ran: the next call captures
+        self.runs = {"interpreted": 0, "captures": 0, "replays": 0}
+        self.pool_bytes = None
+
+    @property
+    def training(self):
+        return bool(self.wrt or self.sparse)
+
+    def report(self):
+        return dict(captured=self.captured, reason=self.reason,
+                    graph=self.step is not None, pool_bytes=self.pool_bytes,
+                    **self.runs)
+
+
+def _run_ops(env, entry):
+    """Run the entry's ops over ``env`` in the mode its program needs;
+    returns the names written. Training: the step's wrt vars become leaf
+    tensors and autograd records the forward; the updates run under
+    ``no_grad``. Otherwise the whole step runs under ``inference_mode``."""
+    written = set()
+    with amp_scope(entry.amp), (contextlib.nullcontext() if entry.training
+                                else torch.inference_mode()):
+        if entry.training:
+            for n in entry.wrt:
+                t = env.get(n)
+                if t is not None and t.is_floating_point():
+                    env[n] = t.detach().requires_grad_(True)
+            if entry.sparse:
+                env[SPARSE_SITES_KEY] = {n: [] for n in entry.sparse}
+        for i, op in enumerate(entry.ops):
+            if i in entry.skip:
+                continue
+            group = entry.plan.get(i)
+            with (torch.no_grad() if op.attr("is_optimizer_op")
+                  else contextlib.nullcontext()):
+                if group is None:
+                    run_op(env, op)
+                    written.update(op.output_arg_names)
+                else:
+                    run_fused_group(env, group)
+                    for member in group:
+                        written.update(member.output_arg_names)
+    return written
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _same_view(a, b):
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+def _write_in_place(pairs, inference):
+    """Copy each new value into its state tensor, ``(dst, src)`` pairs. A
+    value that already is its tensor is skipped; one that shares storage
+    with a tensor being written is copied out first."""
+    dsts = {_storage(d) for d, _ in pairs}
+    todo = []
+    for dst, src in pairs:
+        src = src.detach()
+        if _same_view(dst, src):
+            continue
+        if _storage(src) in dsts:
+            src = src.clone()
+        todo.append((dst, src))
+    if not todo:
+        return
+    with (torch.inference_mode() if inference else torch.no_grad()):
+        torch._foreach_copy_([d for d, _ in todo], [s for _, s in todo])
+
+
+def _own(fetches, written_bufs):
+    """Fetch tensors that share storage with a state tensor written in
+    place are copied first, so they keep the value the step computed."""
+    ptrs = {_storage(t) for t in written_bufs}
+    return [f.clone() if _storage(f) in ptrs else f for f in fetches]
+
+
+def _host_array(value):
+    """A feed value as a tensor on its own device (numpy arrays become CPU
+    tensors without a copy)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    a = np.asarray(value)
+    if not a.flags.c_contiguous:  # a 0-d array always is: it keeps ()
+        a = np.ascontiguousarray(a)
+    return torch.from_numpy(a)
+
+
+class CapturedStep:
+    """The step body of one cache entry over static buffers: it reads the
+    state from the scope's own tensors and the feed from one buffer per
+    name, and writes the new state back INTO those tensors (the port's
+    counterpart of the reference's donated state). On the card the body is
+    captured once as a ``torch.cuda.CUDAGraph`` and replayed; on the CPU
+    :meth:`body` runs it eagerly, which is what the CPU tests check."""
+
+    def __init__(self, entry, scope, state_names, feed, fetch_names, device,
+                 gb):
+        self.entry = entry
+        self.state = {n: scope.get(n) for n in state_names}
+        self.gen = scope.get(RNG_KEY)
+        self.device = device
+        self.feed = {}
+        for name, value in feed.items():
+            var = gb.var(name) if gb.has_var(name) else None
+            src = _host_array(value)
+            self.feed[name] = torch.empty(
+                tuple(src.shape), device=device,
+                dtype=torch_dtype(var.dtype if var is not None
+                                  else src.dtype))
+        self.fetch_names = list(fetch_names)
+        missing = [n for n in entry.writes if n not in self.state]
+        if missing:
+            raise RuntimeError(
+                "captured step: persistable %r is written but was not in "
+                "the scope when the step was bound" % missing[0])
+        self.graph = None
+        self.fetches = None
+
+    def bound_to(self, scope):
+        """Whether every state name still maps to the tensor this step
+        reads and writes (another writer may have replaced it: a load, a
+        second startup run, a test copying weights in)."""
+        held = scope._vars
+        return held.get(RNG_KEY) is self.gen and all(
+            held.get(n) is t for n, t in self.state.items())
+
+    def load_feed(self, feed):
+        for name, value in feed.items():
+            self.feed[name].copy_(_host_array(value))
+
+    def body(self):
+        """One step over the static buffers; returns the fetch tensors."""
+        env = dict(self.state)
+        env.update(self.feed)
+        env[RNG_KEY] = self.gen
+        env[DEVICE_KEY] = self.device
+        written = _run_ops(env, self.entry)
+        pairs = [(self.state[n], env[n]) for n in self.entry.writes
+                 if n in written]
+        fetches = _own([env[n] for n in self.fetch_names],
+                       [d for d, _ in pairs])
+        _write_in_place(pairs, not self.entry.training)
+        return [f.detach() for f in fetches]
+
+    def capture(self, stream):
+        """Record :meth:`body` into a CUDA graph on ``stream``; nothing
+        runs until :meth:`replay`."""
+        graph = torch.cuda.CUDAGraph()
+        # each replay advances the scope's generator as an eager step
+        # would (dropout, the flash kernels' seeds)
+        graph.register_generator_state(self.gen)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(self.device)
+        try:
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.fetches = self.body()
+        except Exception as e:
+            e.add_note("  [capturing the step as one CUDA graph: the capture "
+                       "rule admitted this program, so the failing op above "
+                       "is a fault in the rule]")
+            raise
+        self.entry.pool_bytes = (torch.cuda.memory_reserved(self.device)
+                                 - before)
+        self.graph = graph
+
+    def replay(self, feed, return_numpy):
+        self.load_feed(feed)
+        self.graph.replay()
+        # the next replay overwrites the graph's buffers: hand out copies
+        if return_numpy:
+            return [np.array(to_numpy(f)) for f in self.fetches]
+        return [f.clone() for f in self.fetches]
+
+    def release(self):
+        self.graph = self.fetches = None
+        self.state = self.feed = {}
+
+
 class Executor:
+    """Runs programs on one place. Each (program, version, feed signature,
+    fetch set, state read, scope, AMP mark, ``donate_state``, fused
+    optimizer switch) is one cache entry, as the reference keys its
+    compiled programs (``paddle_tpu/core/executor.py:418-421``). On the
+    card an entry the capture rule admits runs interpreted once (call 1:
+    kernel builds, the generator, the inference-tensor copies), is
+    captured as one CUDA graph on call 2 and replayed from then on:
+    ``copy_`` of the feed into its buffers, one replay, the fetches read
+    out. :meth:`step_report` says whether a program's step is captured and
+    why not."""
+
     def __init__(self, place=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = resolve_device(self.place)
+        self._cache = {}
+        self._last = {}
+        self._lock = threading.Lock()
+        self._stream = None
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+            return_numpy=True, use_program_cache=True, donate_state=True):
+        """``use_program_cache=False`` interprets every step.
+        ``donate_state=False`` (the Predictor's) captures only a program
+        that writes no state: a captured step writes its state in place,
+        which clones serving one scope's weights must not see."""
         if program is None:
             program = framework.default_main_program()
         if scope is None:
@@ -214,59 +530,158 @@ class Executor:
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         gb = program.global_block()
+        with self._lock:
+            if RNG_KEY not in scope:
+                seed = program.random_seed or secrets.randbits(31)
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(int(seed))
+                scope.set(RNG_KEY, gen)
+            persist = {v.name for v in program.list_vars() if v.persistable}
+            state_in = tuple(sorted(n for n in persist if n in scope))
+            fused = env_flag("PADDLE_TPU_FUSED_OPT")
+            key = (id(program), program._version, feed_signature(gb, feed),
+                   tuple(fetch_names), state_in, id(scope),
+                   bool(getattr(program, "_amp_bf16", False)),
+                   bool(donate_state), fused)
+            entry = self._cache.get(key) if use_program_cache else None
+            if entry is None or entry.program() is not program \
+                    or entry.scope() is not scope:
+                entry = self._entry(program, scope, fetch_names, persist,
+                                    fused, donate_state, use_program_cache)
+                if use_program_cache:
+                    self._cache[key] = entry
+            self._last[id(program)] = entry
+            step = entry.step
+            if step is not None and not step.bound_to(scope):
+                step.release()  # dropped: captured again from call 1
+                step = entry.step = None
+                entry.warm = False
+            if step is not None:
+                entry.runs["replays"] += 1
+                return step.replay(feed, return_numpy)
+            if not entry.captured or not entry.warm:
+                out = self._interpret(program, entry, scope, feed,
+                                      fetch_names, persist, state_in,
+                                      return_numpy)
+                entry.warm = entry.captured
+                return out
+            step = CapturedStep(entry, scope, state_in, feed, fetch_names,
+                                self.device, gb)
+            step.load_feed(feed)
+            with _CAPTURE_LOCK:
+                step.capture(self._side_stream())
+            entry.step = step
+            entry.runs["captures"] += 1
+            return step.replay(feed, return_numpy)
 
-        if RNG_KEY not in scope:
-            seed = program.random_seed or secrets.randbits(31)
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
-            scope.set(RNG_KEY, gen)
+    def _entry(self, program, scope, fetch_names, persist, fused,
+               donate_state, use_program_cache):
+        from .opt_fusion import plan_opt_fusion
 
-        env = {}
-        persist = {v.name for v in program.list_vars() if v.persistable}
-        for n in persist:
-            if n in scope:
-                env[n] = scope.get(n)
+        ops, _ = fused_ops(program, fetch_names)
+        plan, skip = plan_opt_fusion(ops) if fused else ({}, set())
+        writes = state_writes(ops, persist)
+        captured, reason = capture_rule(
+            ops, writes, donate_state=donate_state,
+            use_program_cache=use_program_cache,
+            cuda=self.device.type == "cuda")
+        return _Entry(program, scope, ops, plan, skip, writes, captured,
+                      reason)
+
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    @contextlib.contextmanager
+    def _warm_up(self):
+        """Call 1 of a captured entry runs on the stream the capture will
+        use, so that per-stream lazy state (cuBLAS's workspace) is made
+        outside the capture."""
+        side = self._side_stream()
+        cur = torch.cuda.current_stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            yield
+        cur.wait_stream(side)
+
+    def _interpret(self, program, entry, scope, feed, fetch_names, persist,
+                   state_in, return_numpy):
+        gb = program.global_block()
+        env = {n: scope.get(n) for n in state_in}
         for name, value in feed.items():
             var = gb.var(name) if gb.has_var(name) else None
             env[name] = to_tensor(value, self.device, var)
         env[RNG_KEY] = scope.get(RNG_KEY)
         env[DEVICE_KEY] = self.device
-
-        ops, _ = fused_ops(program, fetch_names)
-        sparse = {n for op in ops if op.type == "autodiff"
-                  for n in op.attr("sparse_wrt_names") or ()}
-        wrt = {n for op in ops if op.type in _AUTODIFF_OPS
-               for n in op.attr("wrt_names")} - sparse
-        written = set()
-        with amp_scope(getattr(program, "_amp_bf16", False)):
-            if not wrt and not sparse:
-                with torch.inference_mode():
-                    for op in ops:
-                        run_op(env, op)
-                        written.update(op.output_arg_names)
-            else:
-                for n, t in list(env.items()):
-                    if isinstance(t, torch.Tensor) and t.is_inference():
-                        # made by a grad-free run (startup, load, eval):
-                        # it cannot be saved for backward, so it is copied,
-                        # once: the copy replaces it in the scope
-                        env[n] = t.clone()
-                        if n in persist:
-                            scope.set(n, env[n])
-                for n in wrt:
-                    t = env.get(n)
-                    if t is not None and t.is_floating_point():
-                        env[n] = t.detach().requires_grad_(True)
-                if sparse:
-                    env[SPARSE_SITES_KEY] = {n: [] for n in sparse}
-                for op in ops:
-                    with (torch.no_grad() if op.attr("is_optimizer_op")
-                          else contextlib.nullcontext()):
-                        run_op(env, op)
-                    written.update(op.output_arg_names)
-        for n in persist & written:
-            scope.set(n, env[n].detach())
-        fetches = [env[n] for n in fetch_names]
+        if entry.training:
+            for n, t in list(env.items()):
+                if isinstance(t, torch.Tensor) and t.is_inference():
+                    # made by a grad-free run (startup, load, eval): it
+                    # cannot be saved for backward, so it is copied, once:
+                    # the copy replaces it in the scope
+                    env[n] = t.clone()
+                    if n in persist:
+                        scope.set(n, env[n])
+        warm = entry.captured
+        with (self._warm_up() if warm else contextlib.nullcontext()):
+            written = _run_ops(env, entry)
+            fetches = [env[n] for n in fetch_names]
+            new = {n: env[n] for n in persist & written}
+            if warm:
+                # call 1 of a captured entry: the state stays in the
+                # tensors the capture will bind, so two captured programs
+                # over one scope do not replace each other's
+                pairs, fresh = [], {}
+                for n, t in new.items():
+                    old = scope._vars.get(n)
+                    if (old is not None and old.shape == t.shape
+                            and old.dtype == t.dtype
+                            and old.device == t.device):
+                        pairs.append((old, t))
+                    else:
+                        fresh[n] = t
+                        if old is not None:
+                            entry.captured = False
+                            entry.reason = ("state '%s' changes shape or "
+                                            "dtype in a step" % n)
+                fetches = _own(fetches, [d for d, _ in pairs])
+                _write_in_place(pairs, not entry.training)
+                new = fresh
+        for n, t in new.items():
+            scope.set(n, t.detach())
+        entry.runs["interpreted"] += 1
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches
+
+    def step_report(self, program=None):
+        """The capture decision of ``program``'s most recent run on this
+        executor: ``captured`` (whether the capture rule admits it),
+        ``reason``, ``graph`` (whether a graph is held now),
+        ``pool_bytes`` (the device memory the capture reserved), and the
+        runs it has had: ``interpreted``, ``captures``, ``replays``."""
+        if program is None:
+            program = framework.default_main_program()
+        entry = self._last.get(id(program))
+        if entry is None or entry.program() is not program:
+            raise KeyError("step_report: no run of this program on this "
+                           "executor")
+        return entry.report()
+
+    def close(self):
+        """Release every cache entry and its graph (the reference's
+        ``Executor::Close``, ``executor.cc:139``): the graphs' memory
+        pools go back to the allocator."""
+        with self._lock:
+            held = False
+            for entry in self._cache.values():
+                if entry.step is not None:
+                    entry.step.release()
+                    entry.step = None
+                    held = True
+            self._cache.clear()
+            self._last.clear()
+            if held and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()

@@ -18,5 +18,7 @@ def _accuracy(env, op):
     total = pred_idx.shape[0]
     put(env, op.output("Accuracy"), (num_correct / total).reshape(()))
     put(env, op.output("Correct"), num_correct.to(torch.int32).reshape(1))
-    put(env, op.output("Total"), torch.tensor(
-        [total], dtype=torch.int32, device=pred_idx.device))
+    # a fill on the device, not a host copy: a captured step may not wait
+    # on the host
+    put(env, op.output("Total"), torch.full(
+        (1,), total, dtype=torch.int32, device=pred_idx.device))

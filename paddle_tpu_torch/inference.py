@@ -5,8 +5,10 @@ Reference: ``paddle/fluid/inference/api/analysis_predictor.cc:183``
 (``AnalysisPredictor::Init``) + ``:734`` (``Run``) + ``Clone``, configured
 by ``AnalysisConfig``. Here a predictor is a loaded program, an isolated
 ``Scope`` holding its weights on one device, and an ``Executor`` that
-interprets the program there. ``clone()`` shares the program and the
-weights (ref ``AnalysisPredictor::Clone``).
+runs the program there (captured as one CUDA graph per input signature
+on the card, see ``core/executor.py``). ``clone()`` shares the program and
+the weights (ref ``AnalysisPredictor::Clone``) and keeps its own
+``Executor``, so each serving thread owns its graphs and feed buffers.
 
 Device: ``AnalysisConfig`` selects ``CUDAPlace(0)`` by default, as
 ``enable_use_gpu`` does in the reference; ``disable_gpu()`` selects the
@@ -67,10 +69,17 @@ class ProgramPredictor:
             if missing:
                 raise ValueError("missing feeds: %s" % sorted(missing))
         # the scope is passed explicitly: clones serving from other
-        # threads must not race on the process-global scope stack
+        # threads must not race on the process-global scope stack; no
+        # donation (``paddle_tpu/inference.py:113-123``): a program that
+        # writes the shared weights is never captured
         return self._exe.run(self._program, feed=feed,
                              fetch_list=self._fetch_vars, scope=self._scope,
-                             return_numpy=return_numpy)
+                             return_numpy=return_numpy, donate_state=False)
+
+    def close(self):
+        """Release this predictor's cached steps and their CUDA graphs
+        (:meth:`Executor.close`); it still runs afterwards."""
+        self._exe.close()
 
     def clone(self):
         """A predictor sharing this one's program and weights (ref

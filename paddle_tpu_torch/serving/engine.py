@@ -241,12 +241,14 @@ class ServingEngine:
                            **decode_kw).result(timeout_s)
 
     def warmup(self, example_feed=None):
-        """Run every batch rung once on every replica,
-        so the first real request at any bucket finds its shapes warm and
-        the kernels built. ``example_feed`` is one example (leading dim 1);
-        by default one is made from the program's var metadata. Returns
-        the number of (replica, bucket) runs. Decode mode: every step
-        and chunk geometry of every replica (``DecodeBatcher.warmup``)."""
+        """Run every batch rung twice on every replica, so the first
+        real request at any bucket finds its shapes warm, the kernels
+        built and, on the card, the step captured (the executor interprets
+        a key's first run and captures its second). ``example_feed`` is
+        one example (leading dim 1); by default one is made from the
+        program's var metadata. Returns the number of (replica, bucket)
+        pairs warmed. Decode mode: every step and chunk geometry of every
+        replica (``DecodeBatcher.warmup``)."""
         if self._decoders is not None:
             return sum(d.warmup() for d in self._decoders)
         feed = example_feed
@@ -257,7 +259,8 @@ class ServingEngine:
         for pred in self._replicas:
             for rung in self.ladder:
                 padded, _ = pad_to_bucket(feed, (rung,))
-                pred.run(padded)
+                for _ in range(2):
+                    pred.run(padded)
                 warmed += 1
         return warmed
 

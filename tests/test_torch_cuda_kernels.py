@@ -1706,3 +1706,161 @@ def test_layer_norm_backward_writes_every_output(dev, monkeypatch, rows, d):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+# -- the captured step ------------------------------------------------------
+
+def _state_names(program, scope):
+    return sorted(v.name for v in program.list_vars()
+                  if v.persistable and v.name in scope)
+
+
+def _steps_from(main, scope, feed, fetch, start, gen_state, use_cache,
+                steps=4):
+    """``steps`` runs of ``main`` from the state ``start`` and the
+    generator state ``gen_state`` with a fresh executor: the fetches of
+    each step, the state after the last, and the step's report."""
+    for n, t in start.items():
+        scope.set(n, t.clone())
+    scope.get(t_executor.RNG_KEY).set_state(gen_state)
+    exe = tfluid.Executor()
+    outs = [exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    use_program_cache=use_cache) for _ in range(steps)]
+    state = {n: scope.get(n).float().cpu().numpy() for n in start}
+    report = exe.step_report(main)
+    exe.close()
+    return outs, state, report
+
+
+def _captured_vs_interpreted(main, startup, feed, fetch):
+    """Four captured steps against four interpreted ones from one state
+    and one generator state. The distance between two interpreted runs of
+    the same steps (the flash backward's dQ sums by f32 atomics) sets the
+    bound: captured-vs-interpreted at most twice it plus 1e-6, in relative
+    L2 over every fetch of every step and every state tensor at once."""
+    scope = tfluid.Scope()
+    tfluid.Executor().run(startup, scope=scope)
+    start = {n: scope.get(n).clone() for n in _state_names(main, scope)}
+    gen_state = scope.get(t_executor.RNG_KEY).get_state()
+    runs = [_steps_from(main, scope, feed, fetch, start, gen_state, cache)
+            for cache in (False, False, True)]
+    i1, i2, cap = runs
+    assert not i1[2]["captured"] and cap[2]["captured"], cap[2]
+    assert (cap[2]["interpreted"], cap[2]["captures"],
+            cap[2]["replays"]) == (1, 1, 2)
+
+    def dist(a, b):
+        pairs = [(np.asarray(x, np.float64), np.asarray(y, np.float64))
+                 for sa, sb in zip(a[0], b[0]) for x, y in zip(sa, sb)]
+        pairs += [(a[1][n], b[1][n]) for n in sorted(start)]
+        num = sum(float(np.square(x - y).sum()) for x, y in pairs)
+        den = sum(float(np.square(y).sum()) for _, y in pairs)
+        return float(np.sqrt(num / max(den, 1e-300)))
+
+    d_ii, d_ci = dist(i2, i1), dist(cap, i1)
+    assert d_ci <= 2 * d_ii + 1e-6, (d_ci, d_ii)
+    return cap[2]
+
+
+def test_captured_transformer_amp_matches_interpreted(dev,
+                                                      fresh_port_programs):
+    spec = tfluid.models.transformer.transformer_base(
+        src_vocab=64, trg_vocab=64, seq_len=32, d_model=64, d_ff=128,
+        n_head=2, n_layer=2, dropout_rate=0.1)
+    tfluid.amp.decorate(tfluid.optimizer.Adam(1e-3)).minimize(spec.loss)
+    main = tfluid.default_main_program()
+    main.random_seed = tfluid.default_startup_program().random_seed = 5
+    feed = spec.sample_batch(4, np.random.RandomState(0))
+    report = _captured_vs_interpreted(main, tfluid.default_startup_program(),
+                                      feed, [spec.loss])
+    assert report["pool_bytes"] >= 0
+
+
+def test_captured_resnet_block_matches_interpreted(dev, fresh_port_programs):
+    # Momentum, not Adam: at this size cuDNN's backward sums in no fixed
+    # order, and Adam moves an element whose gradient is within rounding
+    # of zero by up to twice the learning rate, so a few such elements set
+    # the distance between any two runs; Momentum keeps it at rounding
+    spec = tfluid.models.resnet.resnet_cifar10(depth=8, class_num=10)
+    tfluid.optimizer.Momentum(1e-3, momentum=0.9).minimize(spec.loss)
+    main = tfluid.default_main_program()
+    tfluid.default_startup_program().random_seed = 5
+    feed = spec.sample_batch(4, np.random.RandomState(0))
+    before = tfc.conv_moments.launches
+    _captured_vs_interpreted(main, tfluid.default_startup_program(), feed,
+                             [spec.loss, spec.fetches["acc"]])
+    assert tfc.conv_moments.launches > before
+
+
+def test_captured_fetch_is_a_copy_and_rebinds(dev, fresh_port_programs):
+    spec = tfluid.models.transformer.transformer_base(
+        src_vocab=64, trg_vocab=64, seq_len=16, d_model=32, d_ff=64,
+        n_head=2, n_layer=1, dropout_rate=0.0)
+    tfluid.optimizer.Adam(1e-3).minimize(spec.loss)
+    main = tfluid.default_main_program()
+    exe = tfluid.Executor()
+    scope = tfluid.Scope()
+    exe.run(tfluid.default_startup_program(), scope=scope)
+    feed = spec.sample_batch(4, np.random.RandomState(0))
+    for _ in range(2):
+        exe.run(main, feed=feed, fetch_list=[spec.loss], scope=scope)
+    got, = exe.run(main, feed=feed, fetch_list=[spec.loss], scope=scope,
+                   return_numpy=False)
+    kept = got.clone()
+    exe.run(main, feed=feed, fetch_list=[spec.loss], scope=scope)
+    assert torch.equal(got, kept)
+    assert exe.step_report(main)["replays"] == 2
+    w = main.all_parameters()[0].name
+    scope.set(w, scope.get(w).clone())  # another writer replaced it
+    for _ in range(2):
+        exe.run(main, feed=feed, fetch_list=[spec.loss], scope=scope)
+    report = exe.step_report(main)
+    assert (report["interpreted"], report["captures"]) == (2, 2)
+    exe.close()
+
+
+def test_two_threads_serve_predictor_clones(dev, fresh_port_programs,
+                                            tmp_path):
+    import threading
+
+    seq, vocab = 16, 100
+    L = tfluid.layers
+    ids = L.data("input_ids", shape=[seq], dtype="int64")
+    seg = L.data("segment_ids", shape=[seq], dtype="int64")
+    lens = L.data("input_len", shape=[], dtype="int64")
+    x = tfluid.models.bert.bert_encoder(ids, seg, lens, seq, vocab, 64, 128,
+                                        2, 2, dropout_rate=0.0)
+    cls = L.squeeze(L.slice(x, axes=[1], starts=[0], ends=[1]), [1])
+    prob = L.softmax(L.fc(cls, size=2))
+    exe = tfluid.Executor()
+    exe.run(tfluid.default_startup_program())
+    tfluid.io.save_inference_model(
+        str(tmp_path), ["input_ids", "segment_ids", "input_len"], [prob], exe)
+    pred = tfluid.inference.Predictor(str(tmp_path))
+    rng = np.random.RandomState(0)
+    feeds = [{"input_ids": rng.randint(0, vocab, (4, seq)),
+              "segment_ids": rng.randint(0, 2, (4, seq)),
+              "input_len": rng.randint(1, seq + 1, (4,))} for _ in range(12)]
+    want = [pred.clone().run(f)[0] for f in feeds]  # interpreted, each
+    clones = [pred.clone(), pred.clone()]
+    got = [[None] * len(feeds) for _ in clones]
+    errors = []
+
+    def serve(k):
+        try:
+            for i, f in enumerate(feeds):
+                got[k][i] = clones[k].run(f)[0]
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for k, c in enumerate(clones):
+        report = c._exe.step_report(c._program)
+        assert report["captured"] and report["replays"] == len(feeds) - 2
+        for w, g in zip(want, got[k]):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
