@@ -18,7 +18,8 @@ version's error) (the
 conv kernels also against an f64 conv, beside cuDNN's f32 one, and for
 bitwise equal moments across two runs; the flash kernels at head dims 12 to
 512, with a rich bias, and against an f64 attention, beside the plain
-version's f32 one; the fused CE kernel at ragged T, D and V, for bitwise
+version's f32 one, and the bf16 wgmma backward 50 times against its first
+run: dk, dv, dbias bitwise, dq within its stated bound; the fused CE kernel at ragged T, D and V, for bitwise
 equal results across two runs, and against an f64 projection and CE, beside
 the plain version's f32 one), times
 it (the conv kernels at each of ResNet-50's distinct fused geometries,
@@ -64,9 +65,11 @@ it and read just after:
   ``decode_spec.json`` -> ``ServingEngine(dir, decode=True, ...)`` ->
   ``DecodeBatcher`` (slot recycling; in a second arm chunked prefill,
   speculative decode with the full program as draft, and the prefix
-  cache) -> step and chunk dispatches -> the LayerNorm forward kernel, and
-  the flash forward in the draft's passes; 64 requests in a closed loop
-  of 16.
+  cache) -> step and chunk dispatches, captured over the replica's own
+  caches -> the LayerNorm forward kernel, and the flash forward in the
+  draft's passes; 64 requests in a closed loop of 16; each arm's
+  dispatch wall, busy share and memory beside an interpreted batcher's
+  and engine's.
 
 Before each training path, ``train_check``, ``amp_train_check``,
 ``resnet_train_check``, ``resnet_amp_train_check``, ``deepfm_train_check``
@@ -87,13 +90,20 @@ solo, batched, chunked and speculative decode.
 The executor runs each main path as the reference does, one compiled step
 per (program, feed signature, fetch set): the first run of a key is
 interpreted, the second captured as one CUDA graph, every later run a
-replay. Phase ``capture_check`` (before the timed phases) holds four
-captured steps of each main-path program (Transformer-base f32 and AMP,
-ResNet-50 AMP train and eval, DeepFM, BERT-base serving) against four
-interpreted ones from the same state and generator state, within twice
-the distance of two interpreted runs, runs each one's first call under
-``torch.cuda.set_sync_debug_mode("error")``, and holds a decode step and a
-merged-sparse step to ``captured: false`` with their reasons. Each timed
+replay; the decode tier's step and chunk dispatches too, over the caches
+the batcher lends (written in place), captured in the engine's warmup.
+Phase ``capture_check`` (before the timed phases) holds four captured
+steps of each main-path program (Transformer-base f32 and AMP, ResNet-50
+AMP train and eval, DeepFM, BERT-base serving) against four interpreted
+ones from the same state and generator state, within twice the distance
+of two interpreted runs, and runs each one's first call under
+``torch.cuda.set_sync_debug_mode("error")``; seven steps under
+``exponential_decay`` (the rate of the replays bitwise the interpreted
+run's); decode step and chunk dispatches over lent caches; five fresh
+eval clones through one executor (``memory_reserved`` flat: dead keys'
+graphs are released); two keys of one executor replayed in turns (one
+pool, one fetch arena); and holds a decode step over an unlent cache and
+a merged-sparse step to ``captured: false`` with their reasons. Each timed
 phase prints ``captured`` and ``reason``; ``amp_train``,
 ``resnet_amp_train`` and ``deepfm_train`` also time interpreted steps in
 the same call, and ``amp_train`` captured steps with
@@ -107,6 +117,7 @@ outside the repository, it exits non-zero and prints no result.
 """
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -793,7 +804,67 @@ def phase_flash_bwd_check(torch, dev):
         del out, grads, want, want_grads, plain_in, inputs
     errs.update(_flash_bf16_check(torch, dev, gen))
     _flash_f64_check(torch, dev)
+    _flash_bwd_repeat(torch, dev)
     return errs
+
+
+def _flash_bwd_repeat(torch, dev, runs=50):
+    """The bf16 wgmma flash backward at the training shape (padding mask,
+    dropout 0.1, dbias), ``runs`` times against its first run: dk, dv and
+    dbias bitwise equal every time (each is summed by one block in a fixed
+    order); dq, summed over the Tk / 64 key blocks by f32 atomics in no
+    fixed order and rounded to bf16 once, within one bf16 ulp of the
+    larger value plus 2 (n - 1) 2^-24 of the element's sum of |terms|
+    (scale * sum_j |dS_ij| |K_j|, dS from the plain backward). Prints how
+    often and how far dq moved."""
+    import paddle_tpu_torch.ops.flash_attention as tfa
+
+    gen = torch.Generator().manual_seed(SEED)
+    b, t, h, d = 8, 256, 8, 64
+    q, k, v, dout = (torch.randn(b, t, h * d, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(4))
+    bias = _padding_bias(torch, gen, b, t, dev)
+    seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
+    out, lse = tfa.flash_attention_fwd(q, k, v, h, bias, False, 0.1, seed)
+    split = [tfa._split(x, h) for x in (q, k, v, out)]
+    ds = tfa.mha_bwd_plain(*split, lse, tfa._split(dout, h),
+                           tfa._plain_bias(bias), False, dropout_rate=0.1,
+                           seed=seed)[3]
+    terms = (torch.matmul(ds.to(torch.bfloat16).float().abs(),
+                          split[1].float().abs()) / d ** 0.5
+             ).transpose(1, 2).reshape(b, t, h * d)
+    n0 = tfa.flash_attention_bwd.wgmma_launches
+    first = tfa.flash_attention_bwd(q, k, v, out, lse, dout, h, bias, False,
+                                    0.1, seed, want_dbias=True)
+    dq0 = first[0].float()
+    differ = moved = most = 0
+    worst, ratio = 0.0, 0.0
+    for _ in range(runs - 1):
+        got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, h, bias,
+                                      False, 0.1, seed, want_dbias=True)
+        differ += not all(torch.equal(g, f) for g, f in zip(got[1:],
+                                                            first[1:]))
+        diff = (got[0].float() - dq0).abs()
+        bound = (2 ** -7 * torch.maximum(got[0].float().abs(), dq0.abs())
+                 + 2 * (-(-t // 64) - 1) * 2 ** -24 * terms)
+        n = int((diff > 0).sum())
+        moved += n > 0
+        most = max(most, n)
+        worst = max(worst, float(diff.max()))
+        over = torch.where(bound > 0, diff / bound.clamp_min(1e-30),
+                           torch.where(diff > 0, float("inf"), 0.0))
+        ratio = max(ratio, float(over.max()))
+    torch.cuda.synchronize()
+    emit({"phase": "flash_bwd_repeat", "shape": [b, t, h, d], "runs": runs,
+          "form": "wgmma",
+          "wgmma_launches": tfa.flash_attention_bwd.wgmma_launches - n0,
+          "dk_dv_dbias_runs_differing": differ,
+          "dq_runs_differing": moved, "dq_elements_differing_max": most,
+          "dq_max_abs_diff": worst, "dq_max_diff_over_bound": ratio})
+    check(differ == 0 and ratio <= 1.0
+          and tfa.flash_attention_bwd.wgmma_launches - n0 == runs,
+          "flash_bwd_repeat: dk/dv/dbias differed in %d runs, dq at %g of "
+          "its bound" % (differ, ratio))
 
 
 # the flash kernels' bf16 (AMP) cases: name, B, Tq, Tk, H, D, causal, bias,
@@ -1763,22 +1834,27 @@ def phase_profile(torch, fluid, model_dir, feeds, runs=20):
           "device_busy_share": busy / wall_ms if wall_ms else None})
 
 
-def _optimizer(fluid, amp):
+def _optimizer(fluid, amp, lr=1e-4):
     """Adam(1e-4), under ``fluid.amp.decorate`` when ``amp`` (as
-    paddle_tpu's bench.py:225-231 wraps it)."""
-    opt = fluid.optimizer.Adam(learning_rate=1e-4)
+    paddle_tpu's bench.py:225-231 wraps it); ``lr`` may be a schedule's
+    Variable."""
+    opt = fluid.optimizer.Adam(learning_rate=lr)
     return fluid.amp.decorate(opt) if amp else opt
 
 
-def build_transformer(fluid, dropout_rate, amp=False):
+def build_transformer(fluid, dropout_rate, amp=False, schedule=None):
     """Transformer-base with Adam(1e-4), as paddle_tpu's bench.py trains
-    it, in fresh programs, in f32 or under ``amp.decorate``. Returns
-    (main, startup, spec)."""
+    it, in fresh programs, in f32 or under ``amp.decorate``; with
+    ``schedule(layers)``, Adam at that learning-rate schedule (the spec's
+    ``extras["lr"]``). Returns (main, startup, spec)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         spec = fluid.models.transformer.transformer_base(
             dropout_rate=dropout_rate, **TRANSFORMER)
-        _optimizer(fluid, amp).minimize(spec.loss)
+        lr = 1e-4
+        if schedule is not None:
+            lr = spec.extras["lr"] = schedule(fluid.layers)
+        _optimizer(fluid, amp, lr).minimize(spec.loss)
     main.random_seed = startup.random_seed = SEED
     return main, startup, spec
 
@@ -1799,8 +1875,8 @@ CAPTURE_DECODE = dict(vocab=512, d_model=64, d_ff=128, n_head=2, n_layer=2,
 
 
 def _capture_runs(torch, fluid, main, feed, fetch, scope, start, gen_state,
-                  cache, donate=True, sync_check=False):
-    """CAPTURE_STEPS runs of ``main`` with a fresh executor from the state
+                  cache, donate=True, sync_check=False, steps=CAPTURE_STEPS):
+    """``steps`` runs of ``main`` with a fresh executor from the state
     ``start`` and the generator state ``gen_state``. ``sync_check``: call
     1 runs under ``torch.cuda.set_sync_debug_mode("error")`` on feeds
     staged on the card, fetching tensors, so that any wait on the host in
@@ -1814,7 +1890,7 @@ def _capture_runs(torch, fluid, main, feed, fetch, scope, start, gen_state,
     scope.get(RNG_KEY).set_state(gen_state)
     exe = fluid.Executor()
     outs, launches = [], []
-    for i in range(CAPTURE_STEPS):
+    for i in range(steps):
         before = read_counts()
         if i == 0 and sync_check:
             staged = {n: torch.as_tensor(np.asarray(v)).to(exe.device)
@@ -1844,15 +1920,22 @@ def _capture_runs(torch, fluid, main, feed, fetch, scope, start, gen_state,
 
 
 def _capture_case(torch, fluid, name, main, startup, feed, fetch,
-                  donate=True, scope=None):
-    """One program of ``capture_check``: four captured steps (call 1 under
-    the sync check) against two runs of four interpreted ones
-    (``use_program_cache=False``), all from one copied state and one
-    generator state. The fetches of every step and every state tensor,
-    taken together (relative L2), must lie within twice the
-    interpreted-vs-interpreted distance plus F32_ROUNDING of the first
-    interpreted run; the capture call launches what call 1 launched, and
-    the replays nothing from Python."""
+                  donate=True, scope=None, steps=CAPTURE_STEPS, exact=(),
+                  spread=0.0):
+    """One program of ``capture_check``: two runs of ``steps`` captured
+    steps (the first's call 1 under the sync check) and two of as many
+    interpreted ones (``use_program_cache=False``), all from one copied
+    state and one generator state. The first captured run's fetches of
+    every step and state tensors, taken together (relative L2), must lie
+    within twice the run-to-run spread plus F32_ROUNDING of the first
+    interpreted run, and the fetches at the indices ``exact`` must equal
+    its own bitwise; the capture call launches what call 1 launched, and
+    the replays nothing from Python. The spread is the larger of the
+    interpreted-vs-interpreted and captured-vs-captured distances (or
+    ``spread``, another case's of the same model): the flash backward
+    sums dq by atomics in no fixed order, two interpreted runs may happen
+    to coincide, and the captured runs order them their own way. Returns
+    (captured distance, spread)."""
     from paddle_tpu_torch.core.executor import RNG_KEY
 
     if scope is None:
@@ -1863,9 +1946,13 @@ def _capture_case(torch, fluid, name, main, startup, feed, fetch,
     gen_state = scope.get(RNG_KEY).get_state()
     torch.cuda.reset_peak_memory_stats()
     i1, i2 = (_capture_runs(torch, fluid, main, feed, fetch, scope, start,
-                            gen_state, False, donate) for _ in range(2))
+                            gen_state, False, donate, steps=steps)
+              for _ in range(2))
     cap = _capture_runs(torch, fluid, main, feed, fetch, scope, start,
-                        gen_state, True, donate, sync_check=True)
+                        gen_state, True, donate, sync_check=True,
+                        steps=steps)
+    cap2 = _capture_runs(torch, fluid, main, feed, fetch, scope, start,
+                         gen_state, True, donate, steps=steps)
     peak = torch.cuda.max_memory_allocated()
 
     def sums(a, b):
@@ -1889,29 +1976,44 @@ def _capture_case(torch, fluid, name, main, startup, feed, fetch,
                 max(float(np.sqrt(n / max(d, 1e-300))) for n, d in parts))
 
     (d_ii, w_ii), (d_ci, w_ci) = dist(i2, i1), dist(cap, i1)
+    d_cc, w_cc = dist(cap2, cap)
+    floor = max(d_ii, d_cc, spread)
     report = cap[2]
     emit({"phase": "capture_check", "case": name,
           "captured": report["captured"], "reason": report["reason"],
           "step_report": report, "kernels_captured": cap[3][1],
           "kernels_call1": cap[3][0], "replay_launches": cap[3][2:],
           "graph_pool_bytes": report["pool_bytes"],
-          "peak_memory_bytes": peak, "steps": CAPTURE_STEPS,
+          "peak_memory_bytes": peak, "steps": steps,
+          "exact_fetches": {str(i): [float(np.asarray(o[i]).reshape(-1)[0])
+                                     for o in cap[0]] for i in exact},
           "state_tensors": len(start),
           "interpreted_vs_interpreted": d_ii,
+          "captured_vs_captured": d_cc,
           "captured_vs_interpreted": d_ci,
           "per_tensor_max": {"interpreted_vs_interpreted": w_ii,
+                             "captured_vs_captured": w_cc,
                              "captured_vs_interpreted": w_ci},
-          "tol": "captured <= 2 x interpreted + %g (rel L2)" % F32_ROUNDING,
+          "spread_floor": spread,
+          "tol": "captured vs interpreted <= 2 x max(interpreted vs "
+                 "interpreted, captured vs captured, spread_floor) + %g "
+                 "(rel L2)" % F32_ROUNDING,
           "sync_debug_call1": "error"})
     check(report["captured"] and (report["interpreted"], report["captures"],
-                                  report["replays"]) == (1, 1, 2),
+                                  report["replays"]) == (1, 1, steps - 2),
           "capture_check %s: %s" % (name, report))
+    for i in exact:
+        check(all(np.array_equal(c[i], w[i]) for c, w in zip(cap[0], i1[0])),
+              "capture_check %s: fetch %d of the replays %s != the "
+              "interpreted run's %s" % (name, i, [c[i] for c in cap[0]],
+                                        [w[i] for w in i1[0]]))
     check(cap[3][1] == cap[3][0] and not any(cap[3][2:]),
           "capture_check %s launches %s" % (name, cap[3]))
-    check(d_ci <= 2 * d_ii + F32_ROUNDING,
+    check(d_ci <= 2 * floor + F32_ROUNDING,
           "capture_check %s: captured vs interpreted %g, interpreted vs "
-          "interpreted %g" % (name, d_ci, d_ii))
-    return d_ci
+          "interpreted %g, captured vs captured %g (floor %g)"
+          % (name, d_ci, d_ii, d_cc, spread))
+    return d_ci, floor
 
 
 def _declined_case(torch, fluid, name, run, program, want):
@@ -1930,43 +2032,250 @@ def _declined_case(torch, fluid, name, run, program, want):
           "capture_check %s: %s" % (name, report))
 
 
+def _decode_programs(fluid, cfg):
+    """The step and chunk programs of ``cfg`` over one scope on the card
+    (the step's startup initialises the weights both read): (scope,
+    {"step": (main, spec, fetch names), "chunk": ...})."""
+    tr = fluid.models.transformer
+    progs = {}
+    scope = fluid.Scope()
+    for name, build in (("step", tr.transformer_lm_step),
+                        ("chunk", tr.transformer_lm_chunk)):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            fetch_vars, spec = build(**cfg)
+        startup.random_seed = SEED
+        if name == "step":
+            fluid.Executor().run(startup, scope=scope)
+        progs[name] = (main, spec, [v.name for v in fetch_vars])
+    return scope, progs
+
+
+def _decode_capture_case(torch, fluid, b=4, dispatches=8, k=4):
+    """Step and chunk dispatches over lent caches (one fixed set, written
+    in place), alternating, with tokens and positions from a seed (some
+    positions out of range, the chunk's pad lanes at C): each captured
+    (from its second run) against the same sequence interpreted twice
+    (``use_program_cache=False``), from the same caches. The logits of
+    every dispatch and the final caches must lie within twice the
+    interpreted-vs-interpreted distance plus F32_ROUNDING; each program
+    interprets once, captures once and replays after, the capture
+    launching what call 1 did and a replay nothing from Python."""
+    from paddle_tpu_torch.core.opimpl.attention_ops import lendable_cache
+
+    cfg = CAPTURE_DECODE
+    c = cfg["ctx_cap"]
+    scope, progs = _decode_programs(fluid, cfg)
+    names = [cf["feed"] for cf in progs["step"][1]["cache_feeds"]]
+    rng = np.random.RandomState(SEED)
+    seq = []
+    for i in range(dispatches):
+        kind = "chunk" if i % 2 else "step"
+        shape = (b, k) if kind == "chunk" else (b,)
+        tok = rng.randint(0, cfg["vocab"], shape).astype("int64")
+        pos = rng.randint(-2, c + 2, shape).astype("int32")
+        if kind == "chunk":
+            pos[:, -1] = c
+        else:
+            pos = np.clip(pos, 0, c - 1).astype("int32")
+        seq.append((kind, tok, pos))
+    start = [torch.randn(b, c, cfg["d_model"], device="cuda")
+             for _ in names]
+
+    def run(cache_on):
+        exes = {n: fluid.Executor() for n in progs}
+        caches = {}
+        for n, t in zip(names, start):
+            caches[n] = lendable_cache(b, c, (cfg["d_model"],),
+                                       torch.float32, t.device)
+            caches[n].copy_(t)
+        logits, launches = [], []
+        for kind, tok, pos in seq:
+            main, spec, fetch = progs[kind]
+            feed = dict(caches)
+            feed[spec["token_feed"]], feed[spec["pos_feed"]] = tok, pos
+            before = read_counts()
+            outs = exes[kind].run(main, feed=feed, fetch_list=fetch,
+                                  scope=scope, return_numpy=False,
+                                  use_program_cache=cache_on,
+                                  _lend=tuple(names))
+            after = read_counts()
+            launches.append({n: after[n] - before[n] for n in after
+                             if after[n] != before[n]})
+            check(all(o is caches[n] for o, n in zip(outs[1:], names)),
+                  "decode capture: a lent cache was not fetched back as "
+                  "itself")
+            lg = outs[0].double().cpu()
+            if kind == "chunk":   # pad lanes (pos >= C): NaN, ignored
+                lg[torch.from_numpy(pos >= c)] = 0.0
+            logits.append(lg)
+        reports = {kind: exes[kind].step_report(progs[kind][0])
+                   for kind in progs}
+        pool = sum(e.pool_bytes or 0 for x in exes.values()
+                   for e in x._cache.values())
+        for x in exes.values():
+            x.close()
+        return (logits + [caches[n].double().cpu() for n in names],
+                reports, launches, pool)
+
+    i1, i2 = run(False), run(False)
+    cap = run(True)
+
+    def dist(a, b_):
+        num = sum(float(torch.square(x - y).sum()) for x, y in zip(a, b_))
+        den = sum(float(torch.square(y).sum()) for y in b_)
+        return float(np.sqrt(num / max(den, 1e-300)))
+
+    d_ii, d_ci = dist(i2[0], i1[0]), dist(cap[0], i1[0])
+    bitwise = all(torch.equal(x, y) for x, y in zip(cap[0], i1[0]))
+    emit({"phase": "capture_check", "case": "decode_lent",
+          "config": cfg, "batch": b, "chunk": k, "dispatches": dispatches,
+          "step_report": cap[1]["step"], "chunk_report": cap[1]["chunk"],
+          "launches": cap[2], "graph_pool_bytes": cap[3],
+          "interpreted_vs_interpreted": d_ii, "captured_vs_interpreted": d_ci,
+          "bitwise_equal": bitwise,
+          "tol": "captured <= 2 x interpreted + %g (rel L2)" % F32_ROUNDING})
+    per = {"layer_norm_fwd": 2 * cfg["n_layer"] + 1}
+    for kind in progs:
+        r = cap[1][kind]
+        check(r["captured"] and r["reason"] == "admitted"
+              and (r["interpreted"], r["captures"], r["replays"])
+              == (1, 1, dispatches // 2 - 2),
+              "capture_check decode_lent %s: %s" % (kind, r))
+    check(cap[2][:4] == [per, per, per, per] and not any(cap[2][4:]),
+          "capture_check decode_lent launches %s" % cap[2])
+    check(d_ci <= 2 * d_ii + F32_ROUNDING,
+          "capture_check decode_lent: captured vs interpreted %g, "
+          "interpreted vs interpreted %g" % (d_ci, d_ii))
+    return d_ci
+
+
+def _clone_evals(torch, fluid, main, startup, spec, n=5):
+    """C7: ``n`` evaluations through one executor, each of a fresh
+    ``main.clone(for_test=True)`` (interpreted, captured, replayed) that is
+    dropped after: the executor releases each dead clone's graph, so the
+    device memory reserved (after ``empty_cache``) stays flat from the
+    second evaluation on."""
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    feed = spec.sample_batch(2, np.random.RandomState(SEED))
+    reserved, entries = [], []
+    for _ in range(n):
+        test = main.clone(for_test=True)
+        for _ in range(3):
+            exe.run(test, feed=feed, fetch_list=[spec.loss.name],
+                    scope=scope)
+        check(exe.step_report(test)["graph"], "clone eval not captured")
+        del test
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+        entries.append(len(exe._cache))
+    exe.run(startup, scope=scope)   # a live program: the reap runs
+    released = exe.step_report(startup)["released"]
+    exe.close()
+    emit({"phase": "capture_check", "case": "clone_evals", "evals": n,
+          "reserved_bytes": reserved, "entries": entries,
+          "released": released})
+    check(max(reserved[1:]) <= reserved[1] and released == n,
+          "capture_check clone_evals: reserved %s, released %d of %d"
+          % (reserved, released, n))
+
+
+def _interleaved_keys(torch, fluid, rounds=3):
+    """Two keys of one executor (BERT-base serving at 2 and 8 rows) share
+    its graph pool and fetch arena: their replays, interleaved, against
+    the same feeds interpreted, within F32_ROUNDING (rel L2)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        prob = build_bert_classifier(fluid)
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    s = BERT["seq"]
+
+    def feed(n):
+        return {"input_ids": rng.randint(0, BERT["vocab"], (n, s)),
+                "segment_ids": rng.randint(0, 2, (n, s)),
+                "input_len": rng.randint(1, s + 1, (n,))}
+
+    feeds = [feed(n) for _ in range(rounds + 2) for n in (2, 8)]
+    exe, ref = fluid.Executor(), fluid.Executor()
+    worst = 0.0
+    for f in feeds:
+        got, = exe.run(main, feed=f, fetch_list=[prob], scope=scope,
+                       donate_state=False)
+        want, = ref.run(main, feed=f, fetch_list=[prob], scope=scope,
+                        donate_state=False, use_program_cache=False)
+        worst = max(worst, float(np.linalg.norm(got - want)
+                                 / np.linalg.norm(want)))
+    runs = exe_runs(exe)
+    arena = exe._pool.arena.numel() if exe._pool.arena is not None else 0
+    exe.close()
+    emit({"phase": "capture_check", "case": "interleaved_keys",
+          "rows": [2, 8], "runs": runs, "max_rel_l2": worst,
+          "fetch_arena_bytes": arena})
+    check(runs == {"interpreted": 2, "captures": 2,
+                   "replays": len(feeds) - 4} and worst <= F32_ROUNDING,
+          "capture_check interleaved_keys: runs %s, rel L2 %g"
+          % (runs, worst))
+
+
 def phase_capture_check(torch):
     """Before the timed phases: each main-path program captured against
     the same steps interpreted (``_capture_case``), at full width and
     small batches: Transformer-base f32 and AMP (batch 2, dropout 0.1),
     ResNet-50 AMP train (batch 2) and its AMP eval clone, DeepFM f32
     (batch 64) and BERT-base serving (one rung of 8 rows, as the
-    Predictor runs it: ``donate_state=False``); then a decode step program
-    and a DeepFM step with merged sparse rows, which the rule keeps
-    interpreted with their reasons."""
+    Predictor runs it: ``donate_state=False``); Transformer-base under
+    ``exponential_decay`` (7 steps: the rate of 5 replays bitwise the
+    interpreted run's); the decode step and chunk programs over lent
+    caches (``_decode_capture_case``); fresh eval clones through one
+    executor (``_clone_evals``, C7); two keys of one executor replayed in
+    turns (``_interleaved_keys``: one pool, one fetch arena); then a
+    decode step over an unlent cache and a DeepFM step with merged sparse
+    rows, which the rule keeps interpreted with their reasons."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.backward import require_merged_sparse
-    from paddle_tpu_torch.inference import ProgramPredictor
 
     t0 = time.perf_counter()
     rng = np.random.RandomState(SEED)
-    dist = {}
+    dist, spread = {}, {}
     for amp in (False, True):
         main, startup, spec = build_transformer(fluid, 0.1, amp=amp)
-        dist["transformer_amp" if amp else "transformer"] = _capture_case(
-            torch, fluid, "transformer_amp" if amp else "transformer",
-            main, startup, spec.sample_batch(2, rng), [spec.loss])
+        name = "transformer_amp" if amp else "transformer"
+        dist[name], spread[name] = _capture_case(
+            torch, fluid, name, main, startup, spec.sample_batch(2, rng),
+            [spec.loss])
+    _clone_evals(torch, fluid, main, startup, spec)
+    # Adam at exponential_decay: the step counter and the rate stay on
+    # the card, the counter written in place; the rate of 5 replays
+    # equals the interpreted run's
+    main, startup, spec = build_transformer(
+        fluid, 0.1, schedule=lambda L: L.exponential_decay(1e-4, 2, 0.5))
+    dist["transformer_exp_decay"], _ = _capture_case(
+        torch, fluid, "transformer_exp_decay", main, startup,
+        spec.sample_batch(2, rng), [spec.loss, spec.extras["lr"]],
+        steps=7, exact=(1,), spread=spread["transformer"])
     main, startup, test, spec = build_resnet(fluid, amp=True)
     feed = spec.sample_batch(2, rng)
     scope = fluid.Scope()
     fluid.Executor().run(startup, scope=scope)
-    dist["resnet_amp_train"] = _capture_case(
+    dist["resnet_amp_train"], _ = _capture_case(
         torch, fluid, "resnet_amp_train", main, startup, feed,
         [spec.loss, spec.fetches["acc"]], scope=scope)
     fluid.amp.enable_bf16(test)
     logits = [op.input("X").name for op in test.global_block().ops
               if op.type == "softmax"][0]
-    dist["resnet_amp_eval"] = _capture_case(
+    dist["resnet_amp_eval"], _ = _capture_case(
         torch, fluid, "resnet_amp_eval", test, startup, feed,
         [spec.loss.name, spec.fetches["acc"].name, logits], scope=scope)
     del scope
     main, startup, spec = build_deepfm(fluid)
-    dist["deepfm"] = _capture_case(torch, fluid, "deepfm", main, startup,
+    dist["deepfm"], _ = _capture_case(torch, fluid, "deepfm", main, startup,
                                    spec.sample_batch(64, rng), [spec.loss])
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -1976,33 +2285,26 @@ def phase_capture_check(torch):
     feed = {"input_ids": rng.randint(0, BERT["vocab"], (8, s)),
             "segment_ids": rng.randint(0, 2, (8, s)),
             "input_len": rng.randint(1, s + 1, (8,))}
-    dist["bert_serving"] = _capture_case(
+    dist["bert_serving"], _ = _capture_case(
         torch, fluid, "bert_serving", main, startup, feed, [prob],
         donate=False)
 
-    # declined: a decode step (its caches are fed, out of place) and a
-    # sparse step whose rows are merged
-    main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup):
-        fetch_vars, dspec = fluid.models.transformer.transformer_lm_step(
-            **CAPTURE_DECODE)
-    scope = fluid.Scope()
-    fluid.Executor().run(startup, scope=scope)
-    feeds = [dspec["token_feed"], dspec["pos_feed"]] \
-        + [c["feed"] for c in dspec["cache_feeds"]]
+    dist["decode_lent"] = _decode_capture_case(torch, fluid)
+    _interleaved_keys(torch, fluid)
+    # declined: a decode step over a fed (unlent) cache, and a sparse step
+    # whose rows are merged
+    scope, progs = _decode_programs(fluid, CAPTURE_DECODE)
+    main, dspec, fetch = progs["step"]
     b, c = 4, CAPTURE_DECODE["ctx_cap"]
-    caches = {cf["feed"]: torch.zeros(b, c, CAPTURE_DECODE["d_model"],
-                                      device="cuda")
-              for cf in dspec["cache_feeds"]}
-
-    def decode_step(exe):
-        pred = ProgramPredictor(main, feeds, fetch_vars, scope=scope)
-        pred._exe = exe
-        _dispatch(pred, dspec, caches, np.zeros((b,), "int64"),
-                  np.zeros((b,), "int32"))
-
-    _declined_case(torch, fluid, "decode_step", decode_step, main,
-                   "op 'kv_cache_write': fed cache copied per dispatch")
+    feed = {cf["feed"]: torch.zeros(b, c, CAPTURE_DECODE["d_model"],
+                                    device="cuda")
+            for cf in dspec["cache_feeds"]}
+    feed[dspec["token_feed"]] = np.zeros((b,), "int64")
+    feed[dspec["pos_feed"]] = np.zeros((b,), "int32")
+    _declined_case(torch, fluid, "decode_step_unlent",
+                   lambda exe: exe.run(main, feed=feed, fetch_list=fetch,
+                                       scope=scope, return_numpy=False),
+                   main, "op 'kv_cache_write': fed cache copied per dispatch")
     main, startup, spec = build_deepfm(fluid)
     require_merged_sparse(main)
     scope = fluid.Scope()
@@ -4325,7 +4627,8 @@ def phase_decode_check(torch, smi_line, tol=1e-4):
       chain's next token, or a miss at a position whose top-2 margin is
       within 10x their largest difference;
     * ``kv_cache_write`` at positions -1 (wraps), C and C + 3 (drop) on
-      the card, bitwise as on the CPU, with no device assert;
+      the card, out of place and in place into a lent cache, bitwise as on
+      the CPU, with no device assert;
     * a request decoded alone and batched with strangers: bitwise the
       same ids at one (batch rung, ctx rung);
     * plain step-only, chunked-prefill and speculative decode: the same
@@ -4333,7 +4636,8 @@ def phase_decode_check(torch, smi_line, tol=1e-4):
       within 10x the largest step-vs-chunk logit difference (a tie under
       another product shape, not a fault)."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.core.opimpl.attention_ops import cache_write
+    from paddle_tpu_torch.core.opimpl.attention_ops import (
+        cache_write, cache_write_, lendable_cache)
 
     t0 = time.perf_counter()
     fam = build_lm_family(fluid, fluid.CUDAPlace(0))
@@ -4393,10 +4697,14 @@ def phase_decode_check(torch, smi_line, tol=1e-4):
     pos = torch.tensor([[-1, 0, 1], [c, c, c], [c + 3, 2, c], [5, -c, 7]],
                        dtype=torch.int32)
     got = cache_write(cache0.to(dev), rows.to(dev), pos.to(dev))
+    lent = lendable_cache(4, c, (GPT2["d_model"],), torch.float32, dev)
+    lent.copy_(cache0)
+    lent_got = cache_write_(lent, rows.to(dev), pos.to(dev))
     torch.cuda.synchronize()
     want = cache_write(cache0, rows, pos)
-    check(torch.equal(got.cpu(), want), "kv_cache_write out of range: the "
-          "card differs from the CPU")
+    check(torch.equal(got.cpu(), want) and lent_got is lent
+          and torch.equal(lent.cpu(), want), "kv_cache_write out of range: "
+          "the card (out of place or in place) differs from the CPU")
     check(torch.equal(want[0, c - 1], rows[0, 0])
           and torch.equal(want[1], cache0[1])
           and torch.equal(want[2, 2], rows[2, 1])
@@ -4563,36 +4871,82 @@ def _decode_kind(name):
     return "other"
 
 
+class _Interpreted:
+    """A predictor whose every dispatch is interpreted
+    (``use_program_cache=False``), a lent cache still written in place:
+    the decode tier without the capture, beside it in the same call."""
+
+    _lends_feeds = True
+
+    def __init__(self, pred):
+        self.pred = pred
+        self.fetch_names = pred.fetch_names
+        self.feed_names = pred.feed_names
+        self.device = pred.device
+
+    def clone(self):
+        return _Interpreted(self.pred.clone())
+
+    def run(self, feed, return_numpy=True, _lend=()):
+        p = self.pred
+        return p._exe.run(p._program, feed=feed, fetch_list=p._fetch_vars,
+                          scope=p._scope, return_numpy=return_numpy,
+                          use_program_cache=False, donate_state=False,
+                          _lend=_lend)
+
+
+def _exe_memory(*exes):
+    """(graph pool bytes, fetch arena bytes) the executors' captures
+    reserved."""
+    pool = sum(e.pool_bytes or 0 for x in exes for e in x._cache.values())
+    arena = sum(x._pool.arena.numel() for x in exes
+                if x._pool.arena is not None)
+    return pool, arena
+
+
 def _decode_profile(torch, make_batcher, reqs, skip, window):
     """Device ms per dispatch by kernel kind over dispatches [skip, skip +
-    window) of ``reqs`` through a fresh batcher driven on this thread:
-    once timed by the host clock, once more under torch.profiler (whose
-    CPU tracing slows the host); busy share = device time / the
-    unprofiled wall of the same dispatches."""
+    window) of ``reqs`` through a fresh batcher, warmed up (every geometry
+    twice), driven on this thread: once timed by the host clock, once more
+    under torch.profiler (whose CPU tracing slows the host); busy share =
+    device time / the unprofiled wall of the same dispatches. Also the
+    device memory reserved after the warmup (after ``empty_cache``), the
+    port's kernels by kind in the profiled window (each dispatch's and
+    each draft pass's, whether interpreted or replayed from a graph), the
+    ids, and the batcher (``make_batcher()`` returns (batcher, draft or
+    None))."""
     from torch.profiler import ProfilerActivity, profile
 
     def drive(prof):
-        bat = make_batcher()
+        gc.collect()   # the last window's batcher and its graphs
+        bat, draft = make_batcher()
+        bat.warmup()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
         futs = [bat.submit(p, max_new_tokens=n) for p, n in reqs]
         bat.drive(max_steps=skip)
+        passes = draft.passes if draft is not None else 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if prof is None:
+        with (prof if prof is not None else contextlib.nullcontext()):
             n = bat.drive(max_steps=window)
-        else:
-            with prof:
-                n = bat.drive(max_steps=window)
-        torch.cuda.synchronize()
+            # inside the profiled window: its last kernels are recorded
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        passes = (draft.passes if draft is not None else 0) - passes
         bat.drive()
         check(n == window and all(f.done() for f in futs),
               "profile window: %d dispatches of %d" % (n, window))
-        return wall
+        ids = [[int(t) for t in f.result(0)] for f in futs]
+        return wall, reserved, passes, ids, bat
 
-    wall = drive(None)
+    wall, reserved, _, ids, _bat = drive(None)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    prof_wall = drive(prof)
-    kinds, n_kernels = {}, 0
+    prof_wall, _, passes, ids2, bat = drive(prof)
+    check(ids2 == ids, "the profiled window's ids differ from the timed "
+          "one's")
+    kinds, counts, n_kernels = {}, {}, 0
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
@@ -4600,28 +4954,92 @@ def _decode_profile(torch, make_batcher, reqs, skip, window):
                      getattr(e, "self_cuda_time_total", 0.0))
         kind = _decode_kind(e.key.lower())
         kinds[kind] = kinds.get(kind, 0.0) + us
+        counts[kind] = counts.get(kind, 0) + e.count
         n_kernels += e.count
     device_ms = sum(kinds.values()) / 1e3
+    want = {k: window * PER_DISPATCH[k] + passes * PER_DRAFT_PASS[k]
+            for k in KERNELS}
+    got = {k: counts.get(k, 0) for k in KERNELS}
+    # within one: the profiler may drop the record of a kernel at the
+    # window's edge (999 of 1,000 in two whole runs); a dispatch or a pass
+    # short of a kernel would miss one in each of them
+    check(all(want[k] - 1 <= got[k] <= want[k] for k in KERNELS),
+          "decode profile window: the port's kernels %s != %d dispatches "
+          "and %d draft passes' %s" % (got, window, passes, want))
     return {"requests": len(reqs), "dispatches": [skip, skip + window],
             "wall_ms_per_dispatch": wall / window * 1e3,
             "profiled_wall_ms_per_dispatch": prof_wall / window * 1e3,
             "device_ms_per_dispatch": {k: v / window / 1e3
                                        for k, v in sorted(kinds.items())},
             "kernels_per_dispatch": n_kernels / window,
-            "device_busy_share": device_ms / (wall * 1e3)}
+            "kernel_launches_by_kind_per_dispatch": {
+                k: v / window for k, v in sorted(counts.items())},
+            "draft_passes_in_window": passes,
+            "device_busy_share": device_ms / (wall * 1e3),
+            "reserved_after_warmup_bytes": reserved,
+            "step_report": bat.step_report(), "ids": ids}
 
 
-def _decode_arm(torch, fluid, model_dir, reqs, in_flight, **engine_kw):
-    """One engine over the saved step program serving ``reqs`` in a closed
-    loop of ``in_flight`` outstanding requests, after ``warmup()``."""
+def _settled_memory(torch):
+    """(reserved, allocated) device bytes once dead objects (an earlier
+    engine's graphs) are collected and the allocator's free blocks
+    returned. A difference of two reserved readings undercounts where new
+    tensors reuse free blocks of segments still held; the allocated one
+    counts live tensors only (a graph pool's freed scratch is reserved,
+    not allocated)."""
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return np.array([torch.cuda.memory_reserved(),
+                     torch.cuda.memory_allocated()])
+
+
+def _interpreted_replica_memory(torch, fluid, model_dir, **engine_kw):
+    """The device memory (reserved, allocated) an engine's replica adds by
+    the end of its warmup when every dispatch is interpreted
+    (``_Interpreted`` step and chunk predictors): its weights and rung
+    caches, no graph."""
+    from paddle_tpu_torch.inference import Predictor
+
+    base = _settled_memory(torch)
+    kw = dict(engine_kw)
+    if "decode_prefill" in kw:
+        kw["decode_prefill"] = dict(kw["decode_prefill"], predictor=(
+            _Interpreted(kw["decode_prefill"]["predictor"])))
+    model = Predictor(model_dir)
+    eng = fluid.serving.ServingEngine(
+        _Interpreted(model), decode=fluid.serving.load_decode_spec(model_dir),
+        **kw)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        memory = (_settled_memory(torch) - base).tolist()
+    finally:
+        eng.shutdown()
+    return memory, warm_s
+
+
+def _decode_arm(torch, fluid, model_dir, reqs, in_flight, chunk=None,
+                **engine_kw):
+    """One engine over the saved step program serving ``reqs`` in a closed
+    loop of ``in_flight`` outstanding requests, after ``warmup()`` (every
+    geometry twice: interpreted, then captured). ``chunk``: the chunk
+    predictor the engine's ``decode_prefill`` names, whose runs in this
+    arm are counted. Returns the ids and the arm's numbers, among them
+    the runs of the step and chunk executors and the memory the replica
+    reserves after its warmup."""
+    base = _settled_memory(torch)
     torch.cuda.reset_peak_memory_stats()
+    chunk_before = exe_runs(chunk._exe) if chunk is not None else None
     eng = fluid.serving.ServingEngine(model_dir, decode=True, **engine_kw)
     try:
         t0 = time.perf_counter()
         warmed = eng.warmup()
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
+        memory = (_settled_memory(torch) - base).tolist()
         futs = []
         t0 = time.perf_counter()
         for i, (p, n) in enumerate(reqs):
@@ -4631,8 +5049,19 @@ def _decode_arm(torch, fluid, model_dir, reqs, in_flight, **engine_kw):
         outs = [[int(t) for t in f.result(timeout=600)] for f in futs]
         wall = time.perf_counter() - t0
         snap = eng.metrics()
+        report_text = eng.metrics_report()
         geometries = eng.compiled_shape_counts()
         draft_failures = eng.draft_failures
+        dec = eng._decoders[0]
+        reports = dec.step_report()
+        step_exe = dec._predictor._exe
+        runs = {"step": exe_runs(step_exe)}
+        exes = [step_exe]
+        if chunk is not None:
+            after = exe_runs(chunk._exe)
+            runs["chunk"] = {k: after[k] - chunk_before[k] for k in after}
+            exes.append(chunk._exe)
+        pool, arena = _exe_memory(*exes)
     finally:
         eng.shutdown()
     check(draft_failures == 0, "%d draft passes raised" % draft_failures)
@@ -4644,6 +5073,15 @@ def _decode_arm(torch, fluid, model_dir, reqs, in_flight, **engine_kw):
     check(snap["requests_completed"] == len(reqs)
           and snap["requests_failed"] == 0, "decode requests failed: %s"
           % snap)
+    dispatches = 2 * warmed + snap["decode_steps"]
+    for name, r in reports.items():
+        check(r is not None and r["captured"]
+              and r["reason"] == "admitted"
+              and "decode0_%s_captured" % name in report_text,
+              "decode %s program not captured: %s" % (name, r))
+    check(sum(sum(r.values()) for r in runs.values()) == dispatches
+          and sum(r["replays"] for r in runs.values()) > 0,
+          "decode runs %s != %d dispatches" % (runs, dispatches))
     return outs, {
         "requests": len(reqs), "in_flight": in_flight, "wall_s": wall,
         "tokens": tokens, "tokens_per_s": tokens / wall,
@@ -4661,8 +5099,72 @@ def _decode_arm(torch, fluid, model_dir, reqs, in_flight, **engine_kw):
         "spec_accepted": snap["spec_accepted"],
         "spec_rejected": snap["spec_rejected"],
         "spec_accept_rate": snap["spec_accept_rate"],
-        "warmup_dispatches": warmed, "warmup_s": warm_s,
-        "geometries": geometries, "peak_memory_bytes": peak}
+        "warmup_geometries": warmed, "warmup_dispatches": 2 * warmed,
+        "warmup_s": warm_s, "geometries": geometries,
+        "step_captured": reports["step"]["captured"],
+        "chunk_captured": (reports["chunk"]["captured"]
+                           if "chunk" in reports else None),
+        "runs": runs,
+        "replica_after_warmup_bytes": dict(zip(("reserved", "allocated"),
+                                               memory)),
+        "graph_pool_bytes": pool, "fetch_arena_bytes": arena,
+        "peak_memory_bytes": peak}
+
+
+def _step_copies(torch, fam, b=8, ctxs=(256, 1024), dispatches=10):
+    """Device ms by kind a step dispatch at batch ``b`` and each ctx rung
+    (torch.profiler over ``dispatches``): captured over lent caches (the
+    in-place write, position-major caches) and interpreted over fed,
+    unlent ones (the out-of-place write that copies every cache, and
+    ``cached_attention``'s products copying their row-major operands):
+    whether the copy kernels still grow with B x C."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.core.opimpl.attention_ops import lendable_cache
+
+    spec, pred = fam["step_spec"], fam["step"]
+    d = GPT2["d_model"]
+    out = {}
+    for c in ctxs:
+        for mode in ("captured_lent", "interpreted_unlent"):
+            if mode == "captured_lent":
+                caches = {cf["feed"]: lendable_cache(b, c, (d,), torch.float32,
+                                                     pred.device)
+                          for cf in spec["cache_feeds"]}
+                kw = {"_lend": tuple(caches)}
+            else:
+                caches = {cf["feed"]: torch.zeros(b, c, d, device=pred.device)
+                          for cf in spec["cache_feeds"]}
+                kw = {}
+            feed = dict(caches)
+            feed[spec["token_feed"]] = np.zeros((b,), "int64")
+            feed[spec["pos_feed"]] = np.arange(b, dtype="int32")
+            for _ in range(3):   # interpreted, captured, replayed
+                pred.run(feed, return_numpy=False, **kw)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(dispatches):
+                    pred.run(feed, return_numpy=False, **kw)
+                torch.cuda.synchronize()
+            kinds, counts = {}, {}
+            for e in prof.key_averages():
+                if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                    continue
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                kind = _decode_kind(e.key.lower())
+                kinds[kind] = kinds.get(kind, 0.0) + us
+                counts[kind] = counts.get(kind, 0) + e.count
+            out["%s_b%d_c%d" % (mode, b, c)] = {
+                "copy_ms_per_dispatch": kinds.get("copy", 0.0)
+                / dispatches / 1e3,
+                "copy_kernels_per_dispatch": counts.get("copy", 0)
+                / dispatches,
+                "device_ms_per_dispatch": sum(kinds.values())
+                / dispatches / 1e3,
+                "cache_bytes": 2 * GPT2["n_layer"] * b * c * d * 4}
+    return out
 
 
 def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
@@ -4671,13 +5173,20 @@ def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
     ``decode_spec.json``, serving ``decode_workload`` in two arms: plain
     step-only decode, then chunked prefill + speculative decode (k = 4,
     the full program at seq 16 over the same weights as draft) + the
-    prefix cache. Launch counts are zeroed just before the first engine
-    and read after the second: every step or chunk dispatch (warmup
-    included) launches 25 ``layer_norm_fwd``, every draft pass 25 more and
-    12 ``flash_attention_fwd``. Then each arm's device time per dispatch
-    by kind, over a window of a replay of 8 short requests (in the fast
-    arm a dispatch is a chunk or a step, and the window's draft passes
-    count in its time)."""
+    prefix cache. Every step and chunk geometry is captured in the
+    engine's warmup over the replica's own caches, and each dispatch
+    after is a replay. Launch counts are zeroed just before the first
+    engine and read after the second: every interpreted or captured step
+    or chunk run launches 25 ``layer_norm_fwd`` from Python, every such
+    draft pass 25 more and 12 ``flash_attention_fwd``; a replay launches
+    none from Python and the same kernels from its graph
+    (``graph_replayed_launches``), which the profile windows hold by kind.
+    Then, for each arm, a window of a replay of 8 short requests through a
+    captured batcher and through an interpreted one
+    (``use_program_cache=False``): wall and device ms per dispatch, busy
+    share, memory after warmup, ids (equal). The windows' batchers run at
+    ctx rung 256 only (the short requests need no more), to keep their
+    warmups' captures few."""
     import paddle_tpu_torch as fluid
 
     rng = np.random.RandomState(SEED + 1)
@@ -4698,55 +5207,94 @@ def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
             "decode_speculative": {"draft": draft, "k": 4},
             "prefix_cache": {"max_bytes": 1 << 30}}
 
+    draft_before = exe_runs(fam["draft"]._exe)
     reset_counts()
-    draft_runs = launching_runs(fam["draft"]._exe)
     plain_ids, plain = _decode_arm(torch, fluid, model_dir, reqs, in_flight)
     fast_ids, fast_arm = _decode_arm(torch, fluid, model_dir, reqs,
-                                     in_flight, **fast)
+                                     in_flight, chunk=fam["chunk"], **fast)
     launches = read_counts()
     passes = draft.passes
-    # the step and chunk programs stay interpreted (their fed caches); the
-    # draft program is captured per batch rung, and only its interpreted
-    # and captured passes launch from Python
-    draft_runs = launching_runs(fam["draft"]._exe) - draft_runs
+    after = exe_runs(fam["draft"]._exe)
+    draft_runs = {k: after[k] - draft_before[k] for k in after}
     draft_report = fam["draft"]._exe.step_report(fam["programs"]["draft"][0])
+    for arm, kw in ((plain, {}), (fast_arm, fast)):
+        memory, arm["interpreted_warmup_s"] = _interpreted_replica_memory(
+            torch, fluid, model_dir, **kw)
+        arm["interpreted_replica_after_warmup_bytes"] = dict(zip(
+            ("reserved", "allocated"), memory))
     shutil.rmtree(model_dir)
+    copies = _step_copies(torch, fam)
 
-    dispatches = (plain["warmup_dispatches"] + plain["dispatches"]
-                  + fast_arm["warmup_dispatches"] + fast_arm["dispatches"])
-    want = {k: dispatches * PER_DISPATCH[k] + draft_runs * PER_DRAFT_PASS[k]
-            for k in KERNELS}
+    runs = [r for arm in (plain, fast_arm) for r in arm["runs"].values()]
+    launching = sum(r["interpreted"] + r["captures"] for r in runs)
+    replays = sum(r["replays"] for r in runs)
+    draft_launching = draft_runs["interpreted"] + draft_runs["captures"]
+    want = {k: launching * PER_DISPATCH[k] + draft_launching
+            * PER_DRAFT_PASS[k] for k in KERNELS}
+    replayed = {k: replays * PER_DISPATCH[k] + draft_runs["replays"]
+                * PER_DRAFT_PASS[k] for k in KERNELS}
     same = sum(a == b for a, b in zip(plain_ids, fast_ids))
 
     short = [r for i, r in enumerate(decode_workload(
         np.random.RandomState(SEED + 2), 10)) if i % 5 != 4]
 
-    def batcher(**kw):
-        return lambda: fluid.serving.DecodeBatcher(
-            fam["step"], fam["step_spec"], ladder=(1, 2, 4, 8),
-            start=False, **kw)
+    def batcher(interpreted, spec):
+        def make():
+            step = _Interpreted(fam["step"]) if interpreted else fam["step"]
+            kw, dr = {}, None
+            if spec:
+                chunk = (_Interpreted(fam["chunk"]) if interpreted
+                         else fam["chunk"])
+                dr = fluid.serving.DraftLM(
+                    _Interpreted(fam["draft"]) if interpreted
+                    else fam["draft"], fam["logits"], DRAFT_SEQ,
+                    lbl_feed=None)
+                kw = {"prefill": {"predictor": chunk,
+                                  "spec": fam["chunk_spec"]},
+                      "speculative": {"draft": dr, "k": 4},
+                      "prefix_cache": {"max_bytes": 1 << 30}}
+            return fluid.serving.DecodeBatcher(
+                step, fam["step_spec"], ladder=(1, 2, 4, 8),
+                ctx_ladder=(256,), start=False, **kw), dr
+        return make
 
-    plain["profile"] = _decode_profile(torch, batcher(), short, 8, 40)
-    fast_arm["profile"] = _decode_profile(torch, batcher(
-        prefill=prefill, speculative={"draft": draft, "k": 4},
-        prefix_cache={"max_bytes": 1 << 30}), short, 4, 12)
+    for name, arm, spec, skip, window in (("plain", plain, False, 8, 40),
+                                          ("fast", fast_arm, True, 4, 12)):
+        arm["profile"] = _decode_profile(torch, batcher(False, spec), short,
+                                         skip, window)
+        arm["profile_interpreted"] = _decode_profile(
+            torch, batcher(True, spec), short, skip, window)
+        check(arm["profile"]["ids"] == arm["profile_interpreted"]["ids"],
+              "decode %s: the captured batcher's ids differ from the "
+              "interpreted one's" % name)
+        for key in ("profile", "profile_interpreted"):
+            arm[key]["ids_equal_captured_interpreted"] = True
+            del arm[key]["ids"]
     for name, arm in (("plain", plain), ("fast", fast_arm)):
         emit(dict({"phase": "decode", "arm": name, "config": GPT2,
                    "params": fam["n_params"], "ladder": [1, 2, 4, 8],
                    "system_prefix": SYSTEM_PREFIX, "device": smi_line},
                   **arm))
     emit({"phase": "decode", "launches": launches, "want": want,
-          "dispatches": dispatches, "draft_passes": passes,
-          "draft_launching_passes": draft_runs,
+          "graph_replayed_launches": replayed,
+          "step_chunk_launching_runs": launching,
+          "step_chunk_replays": replays, "draft_passes": passes,
+          "draft_runs": draft_runs,
           "draft_captured": draft_report["captured"],
           "draft_reason": draft_report["reason"],
-          "requests_with_equal_ids": same, "save_s": save_s})
+          "step_captured": plain["step_captured"]
+          and fast_arm["step_captured"],
+          "chunk_captured": fast_arm["chunk_captured"],
+          "requests_with_equal_ids": same, "save_s": save_s,
+          "step_dispatch_copies": copies})
     check(launches == want, "decode launches %s != %s" % (launches, want))
+    check(same == len(reqs), "plain and fast arms' ids differ in %d of %d "
+          "requests" % (len(reqs) - same, len(reqs)))
     check(passes > 0 and fast_arm["spec_accepted"] > 0
           and fast_arm["prefix_hits"] > 0
           and fast_arm["prefill_chunks"] > 0,
           "the fast arm skipped a fast path: %s" % fast_arm)
-    return launches
+    return launches, replayed
 
 
 def main():
@@ -4846,7 +5394,7 @@ def main():
     paths["deepfm_amp_train"], replayed["deepfm_amp_train"] = \
         phase_deepfm_train(torch, smi_line, amp=True)
     fam = phase_decode_check(torch, smi_line)
-    paths["decode"] = phase_decode(torch, smi_line, fam)
+    paths["decode"], replayed["decode"] = phase_decode(torch, smi_line, fam)
     del fam
 
     src = {"flash_attention_fwd": ("flash_attention_fwd.cu",

@@ -3,15 +3,33 @@
 its rewrites on (copied: importing it from ``paddle_tpu`` pulls in jax).
 
 An op reads its input names, and an ``autodiff``/``autodiff_vjp`` op also
-the ``wrt_names`` it differentiates; it writes its output names. Those
-replay ops' ``fwd_ops`` lists alias the enclosing ops and are not recursed
-into. The port runs no control-flow or Switch-guarded op, so the
-reference's sub-regions and read-modify-write reads are left out.
+the ``wrt_names`` it differentiates; a Switch-guarded op (``_switch_cond``)
+also reads its condition and the old values of its outputs, which
+``run_op`` blends in (``paddle_tpu/analysis/dataflow.py:62``
+``own_reads``); it writes its output names. Those replay ops' ``fwd_ops``
+lists alias the enclosing ops and are not recursed into. The port runs no
+control-flow block op, so the reference's sub-regions are left out.
 """
 
-__all__ = ["OpNode", "Region", "build_region"]
+__all__ = ["OpNode", "Region", "build_region", "own_reads"]
 
 _REPLAY_OPS = frozenset({"autodiff", "autodiff_vjp"})
+
+
+def own_reads(op, switch_rmw=True):
+    """Names ``op`` itself reads. ``switch_rmw=False`` leaves out a
+    Switch-guarded op's read of its own outputs: the blend engages only
+    when the var already exists, so a guarded op may be its var's first
+    definition."""
+    reads = set(op.input_arg_names)
+    cond = op.attrs.get("_switch_cond")
+    if cond is not None:
+        reads.add(cond)
+        if switch_rmw:
+            reads.update(op.output_arg_names)  # prior values blended in
+    if op.type in _REPLAY_OPS:
+        reads.update(op.attr("wrt_names") or ())
+    return reads
 
 
 class OpNode:
@@ -20,9 +38,7 @@ class OpNode:
     def __init__(self, index, op):
         self.index = index
         self.op = op
-        self.reads = set(op.input_arg_names)
-        if op.type in _REPLAY_OPS:
-            self.reads.update(op.attr("wrt_names") or ())
+        self.reads = own_reads(op)
         self.writes = set(op.output_arg_names)
 
 

@@ -32,9 +32,9 @@ per (program, version, fetch set) (``core/executor.py``), before the
 forward runs: the port differentiates the tape the fused ops record, so
 the rewrite must come first. The ``autodiff``/``autodiff_vjp`` ops'
 ``fwd_ops`` lists are rewritten too, as in ``paddle_tpu``, although the
-port's autodiff reads the tape and not that list. The port runs no
-Switch-guarded op, so the reference's ``_switch_cond`` refusals have
-nothing to refuse here and are left out.
+port's autodiff reads the tape and not that list. A Switch-guarded op
+(``_switch_cond``, which ``run_op`` blends with its outputs' old values)
+never joins a chain, as in the reference.
 """
 
 from ..analysis.dataflow import build_region
@@ -140,7 +140,7 @@ def _match_chain(m, i, report):
     """Try to match a fusable chain headed by conv op ``i``; returns
     (absorbed indices, add_op, act_op, residual_var) or None."""
     conv = m.ops[i]
-    if conv.type != "conv2d":
+    if conv.type != "conv2d" or conv.attrs.get("_switch_cond") is not None:
         return None
     out = conv.output("Output")
     if out is None:
@@ -148,6 +148,7 @@ def _match_chain(m, i, report):
     j, why = m.sole_consumer(i, out)
     bn = m.ops[j] if j is not None else None
     if bn is None or bn.type != "batch_norm" \
+            or bn.attrs.get("_switch_cond") is not None \
             or bn.input("X") is not out \
             or bn.attr("data_layout", "NCHW") != "NCHW":
         if why is not None and bn is None:
@@ -161,7 +162,8 @@ def _match_chain(m, i, report):
     y = bn.output("Y")
     k, _ = m.sole_consumer(j, y)
     nxt = m.ops[k] if k is not None else None
-    if nxt is not None and nxt.type == "elementwise_add":
+    if nxt is not None and nxt.type == "elementwise_add" \
+            and nxt.attrs.get("_switch_cond") is None:
         xin, yin = nxt.input("X"), nxt.input("Y")
         other = yin if xin is y else (xin if yin is y else None)
         # self-add (add(y, y)) would absorb y AND take it as Residual —
@@ -175,13 +177,15 @@ def _match_chain(m, i, report):
             dropped.append(y)
             k2, _ = m.sole_consumer(k, nxt.output("Out"))
             nxt2 = m.ops[k2] if k2 is not None else None
-            if nxt2 is not None and nxt2.type == "relu":
+            if nxt2 is not None and nxt2.type == "relu" \
+                    and nxt2.attrs.get("_switch_cond") is None:
                 act_op = nxt2
                 absorbed.append(k2)
                 dropped.append(nxt.output("Out"))
         else:
             nxt = None
-    elif nxt is not None and nxt.type == "relu":
+    elif nxt is not None and nxt.type == "relu" \
+            and nxt.attrs.get("_switch_cond") is None:
         act_op = nxt
         absorbed.append(k)
         dropped.append(y)

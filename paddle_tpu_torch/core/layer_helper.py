@@ -79,6 +79,12 @@ class LayerHelper:
             shape=shape, dtype=dtype, persistable=False,
             stop_gradient=stop_gradient)
 
+    def create_global_variable(self, name=None, shape=None, dtype="float32",
+                               persistable=True):
+        return self.main_program.global_block().create_var(
+            name=name or unique_name.generate(".".join([self.name, "global"])),
+            shape=shape, dtype=dtype, persistable=persistable)
+
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         return self.main_program.current_block().append_op(
             type, inputs, outputs, attrs)

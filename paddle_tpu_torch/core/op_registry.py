@@ -18,12 +18,15 @@ OP_IMPLS = {}
 
 # reserved env entries: the torch.Generator that random ops draw from
 # (also kept in the scope), the torch.device that ops which create
-# tensors from nothing create them on, and, in a training step with sparse
-# gradients, {table: [(ids, out leaf, padding_idx), ...]}: the sparse
-# lookup sites in the order they ran
+# tensors from nothing create them on, in a training step with sparse
+# gradients {table: [(ids, out leaf, padding_idx), ...]}: the sparse
+# lookup sites in the order they ran, and the names of the feeds the
+# caller lent for the step (a cache write into a lent feed writes it in
+# place)
 RNG_KEY = "@RNG@"
 DEVICE_KEY = "@DEVICE@"
 SPARSE_SITES_KEY = "@SPARSE_SITES@"
+LENT_KEY = "@LENT@"
 
 
 def register(*names):
@@ -136,6 +139,10 @@ def run_op(env, op):
         raise NotImplementedError(
             "paddle_tpu_torch has no impl for op type '%s' (inputs=%s)"
             % (op.type, op.input_arg_names))
+    cond_name = op.attrs.get("_switch_cond")
+    old = None
+    if cond_name is not None:
+        old = {n: env[n] for n in op.output_arg_names if n in env}
     try:
         impl(env, op)
     except NotImplementedError:
@@ -151,6 +158,14 @@ def run_op(env, op):
                    % (op.type, op.where(), ", ".join(shapes),
                       list(op.output_arg_names)))
         raise
+    if cond_name is not None:
+        # a Switch case's op (``layers.control_flow.Switch``): each output
+        # that held a value keeps it where the case does not fire, on the
+        # device (``paddle_tpu``'s ``op_registry.py:158``)
+        pred = env[cond_name].reshape(())
+        for n in op.output_arg_names:
+            if n in old:
+                env[n] = torch.where(pred, env[n], old[n])
 
 
 def get(env, var):

@@ -14,7 +14,8 @@ import math
 
 import torch
 
-from ..op_registry import register, get, put, next_rng, mxu_cast
+from ..op_registry import (LENT_KEY, get, mxu_cast, next_rng, put,
+                            register)
 
 
 @register("flash_attention")
@@ -35,34 +36,87 @@ def _flash_attention_op(env, op):
     put(env, op.output("Out"), out.to(out_dtype))
 
 
-def cache_write(cache, x, pos):
-    """``out[b, pos[b, j]] = x[b, j]`` out of place: cache [B, C, ...], x
-    [B, K, ...], pos [B, K] int. A position in [-C, 0) counts from the end
-    (``.at[...].set(mode="drop")`` in the reference); any other position
-    outside [0, C) writes nothing. The dropped lanes write into a scratch
-    column past the end of a [B, C + 1, ...] buffer, and the result is the
-    view of its first C columns: no index leaves the buffer (an
-    out-of-range index would raise on the CPU and assert on the card) and
-    nothing waits on the host."""
-    b, c = cache.shape[0], cache.shape[1]
-    pos = pos.to(device=cache.device, dtype=torch.long)
+def _write_index(pos, b, c, device):
+    """(rows, columns) of a cache write at ``pos`` [B, K]: a position in
+    [-C, 0) counts from the end (``.at[...].set(mode="drop")`` in the
+    reference) and any other position outside [0, C) goes to the scratch
+    column C, so no index leaves the buffer (an out-of-range index would
+    raise on the CPU and assert on the card) and nothing waits on the
+    host."""
+    pos = pos.to(device=device, dtype=torch.long)
     pos = torch.where(pos < 0, pos + c, pos)
     pos = torch.where((pos >= 0) & (pos < c), pos, c)
+    rows = torch.arange(b, device=device).unsqueeze(1).expand_as(pos)
+    return rows, pos
+
+
+def cache_write(cache, x, pos):
+    """``out[b, pos[b, j]] = x[b, j]`` out of place: cache [B, C, ...], x
+    [B, K, ...], pos [B, K] int. The cache is copied into a [B, C + 1, ...]
+    buffer whose scratch column takes the dropped lanes, and the result is
+    the view of its first C columns."""
+    b, c = cache.shape[0], cache.shape[1]
     buf = cache.new_empty((b, c + 1) + tuple(cache.shape[2:]))
     buf[:, :c] = cache
-    rows = torch.arange(b, device=cache.device).unsqueeze(1).expand_as(pos)
-    buf.index_put_((rows, pos), x.to(cache.dtype))
+    buf.index_put_(_write_index(pos, b, c, cache.device), x.to(cache.dtype))
     return buf[:, :c]
+
+
+def lendable_cache(b, c, tail, dtype, device):
+    """A zeroed [B, C, *tail] cache that a step may write in place
+    (:func:`cache_write_`): the first C positions of a [C + 1, B, *tail]
+    buffer, position-major, so that (row, head) is one batch stride of
+    ``cached_attention``'s products (no copy of the cache), and position C
+    is the scratch column."""
+    buf = torch.zeros((c + 1, b) + tuple(tail), dtype=dtype, device=device)
+    return buf[:c].transpose(0, 1)
+
+
+def _with_scratch(cache):
+    """The [B, C + 1, ...] view over a lent cache's storage whose column C
+    (the scratch column) lies outside the cache's own elements. Raises
+    unless the cache is row-major with room for it ([B, C + 1, ...]
+    buffers) or position-major (:func:`lendable_cache`)."""
+    b, c = cache.shape[0], cache.shape[1]
+    tail = tuple(cache.shape[2:])
+    row = math.prod(tail)
+    s0, s1 = cache.stride(0), cache.stride(1)
+    dense_tail = cache[0, 0].is_contiguous() if b and c else True
+    if dense_tail and ((s1 == row and s0 >= (c + 1) * row)
+                       or (s0 == row and s1 >= b * row)):
+        return cache.as_strided((b, c + 1) + tail, cache.stride(),
+                                cache.storage_offset())
+    raise ValueError(
+        "a lent cache [B, C, ...] must leave a scratch column C in its "
+        "storage (attention_ops.lendable_cache); got shape %s, strides %s"
+        % (tuple(cache.shape), cache.stride()))
+
+
+def cache_write_(cache, x, pos):
+    """:func:`cache_write` in place, into a lent cache: the dropped lanes
+    write its scratch column (:func:`_with_scratch`). Returns ``cache``."""
+    b, c = cache.shape[0], cache.shape[1]
+    _with_scratch(cache).index_put_(_write_index(pos, b, c, cache.device),
+                                    x.to(cache.dtype))
+    return cache
+
+
+def _write(env, op, x, pos):
+    cache = get(env, op.input("Cache"))
+    if op.input("Cache").name in env.get(LENT_KEY, ()):
+        out = cache_write_(cache, x, pos)
+    else:
+        out = cache_write(cache, x, pos)
+    put(env, op.output("Out"), out)
 
 
 @register("kv_cache_write")
 def _kv_cache_write(env, op):
     """Per-row cache update: Cache [B, C, ...], X [B, ...], Pos [B] ->
-    Out[b, Pos[b]] = X[b], other entries untouched."""
-    cache = get(env, op.input("Cache"))
-    x = get(env, op.input("X"))
-    pos = get(env, op.input("Pos")).reshape(-1, 1)
-    put(env, op.output("Out"), cache_write(cache, x.unsqueeze(1), pos))
+    Out[b, Pos[b]] = X[b], other entries untouched; in place into a lent
+    cache, which is then the output."""
+    _write(env, op, get(env, op.input("X")).unsqueeze(1),
+           get(env, op.input("Pos")).reshape(-1, 1))
 
 
 @register("kv_cache_write_chunk")
@@ -70,9 +124,7 @@ def _kv_cache_write_chunk(env, op):
     """K-row cache update: Cache [B, C, ...], X [B, K, ...], Pos [B, K] ->
     Out[b, Pos[b, j]] = X[b, j]. The scheduler pads a partial chunk lane
     with Pos = C, so a padded lane writes nothing."""
-    put(env, op.output("Out"), cache_write(
-        get(env, op.input("Cache")), get(env, op.input("X")),
-        get(env, op.input("Pos"))))
+    _write(env, op, get(env, op.input("X")), get(env, op.input("Pos")))
 
 
 def cached_attention(q, k, v, pos, num_heads):

@@ -18,12 +18,19 @@ concatenated in op order. Padded slots park on the sentinel row V with
 zero values (``:176-183``); duplicates are merged only when a clip or a
 decay asked for it (``backward.require_merged_sparse``).
 
+The learning-rate schedule ops (``control_ops.py:338-431``) follow: one
+op per schedule, reading the step counter (a persistable state var) on
+the device and writing a 0-d float32 rate, no value read on the host, so
+a scheduled training step is captured like any other.
+
 Not ported yet: rematerialization (memory slice; ``append_backward``
 raises for ``checkpoints``), the pipeline and gradient-scale strategies
 and the sparse path under pipeline parallelism (multi-device slice), and
 control flow (``cond_block``/``while_block``, queue A.7 of ROADMAP.md),
 whose op types have no impl here.
 """
+
+import math
 
 import torch
 
@@ -124,3 +131,89 @@ def _autodiff_vjp(env, op):
     grads = _grads(targets, cot, env, wrt_names)
     for v, g in zip(op.output_list("Grads"), grads):
         put(env, v, g)
+
+
+# ---------------- learning-rate schedule ops ----------------
+
+def _step(env, op):
+    return get(env, op.input("Step")).reshape(()).to(torch.float32)
+
+
+def _decay_div(env, op):
+    div = _step(env, op) / op.attr("decay_steps")
+    return torch.floor(div) if op.attr("staircase", False) else div
+
+
+@register("lr_exponential_decay")
+def _lr_exp_decay(env, op):
+    div = _decay_div(env, op)
+    put(env, op.output("Out"), op.attr("learning_rate")
+        * torch.pow(op.attr("decay_rate"), div))
+
+
+@register("lr_natural_exp_decay")
+def _lr_natural_exp(env, op):
+    div = _decay_div(env, op)
+    put(env, op.output("Out"), op.attr("learning_rate")
+        * torch.exp(-op.attr("decay_rate") * div))
+
+
+@register("lr_inverse_time_decay")
+def _lr_inverse_time(env, op):
+    div = _decay_div(env, op)
+    put(env, op.output("Out"), op.attr("learning_rate")
+        / (1.0 + op.attr("decay_rate") * div))
+
+
+@register("lr_polynomial_decay")
+def _lr_polynomial(env, op):
+    step = _step(env, op)
+    lr0 = op.attr("learning_rate")
+    decay_steps = op.attr("decay_steps")
+    end_lr = op.attr("end_learning_rate", 1e-4)
+    if op.attr("cycle", False):
+        decay = decay_steps * torch.ceil(
+            torch.clamp_min(step / decay_steps, 1.0))
+    else:
+        decay = decay_steps
+        step = torch.clamp_max(step, decay_steps)
+    put(env, op.output("Out"), (lr0 - end_lr) * torch.pow(
+        1 - step / decay, op.attr("power", 1.0)) + end_lr)
+
+
+@register("lr_piecewise_decay")
+def _lr_piecewise(env, op):
+    """values[i] for the i boundaries at or below the step (searchsorted,
+    side right), as a chain of selects: no table is copied to the
+    device."""
+    step = _step(env, op)
+    values = op.attr("values")
+    out = torch.full((), values[0], dtype=torch.float32, device=step.device)
+    for b, v in zip(op.attr("boundaries"), values[1:]):
+        out = torch.where(step >= b, v, out)
+    put(env, op.output("Out"), out)
+
+
+@register("lr_cosine_decay")
+def _lr_cosine(env, op):
+    cur_epoch = torch.floor(_step(env, op) / op.attr("step_each_epoch"))
+    put(env, op.output("Out"), op.attr("learning_rate") * 0.5 * (
+        torch.cos(cur_epoch * math.pi / op.attr("epochs")) + 1))
+
+
+@register("lr_noam_decay")
+def _lr_noam(env, op):
+    step = torch.clamp_min(_step(env, op), 1.0)
+    warmup = op.attr("warmup_steps")
+    put(env, op.output("Out"), op.attr("d_model") ** -0.5 * torch.minimum(
+        step ** -0.5, step * warmup ** -1.5))
+
+
+@register("lr_linear_warmup")
+def _lr_linear_warmup(env, op):
+    step = _step(env, op)
+    base = get(env, op.input("Base")).reshape(())
+    warmup = op.attr("warmup_steps")
+    start_lr, end_lr = op.attr("start_lr"), op.attr("end_lr")
+    warm = start_lr + (end_lr - start_lr) * step / warmup
+    put(env, op.output("Out"), torch.where(step < warmup, warm, base))

@@ -39,6 +39,34 @@ for _n, _f in _BINOPS.items():
     _make_binop(_n, _f, harmonize=_n not in ("elementwise_mod",
                                             "elementwise_floordiv"))
 
+# comparisons (``paddle_tpu``'s math_ops.py:52-82): bool outputs, never
+# harmonized (a demoted operand could flip a result at a rounding boundary)
+_CMPOPS = {
+    "less_than": torch.lt,
+    "less_equal": torch.le,
+    "greater_than": torch.gt,
+    "greater_equal": torch.ge,
+    "equal": torch.eq,
+    "not_equal": torch.ne,
+}
+
+for _n, _f in _CMPOPS.items():
+    _make_binop(_n, _f, harmonize=False)
+
+
+def _make_logical(name, fn, arity):
+    @register(name)
+    def _impl(env, op, fn=fn):
+        args = [get(env, op.input(s)) for s in ("X", "Y")[:arity]]
+        put(env, op.output("Out"), fn(*args))
+
+
+for _n, _f, _a in (("logical_and", torch.logical_and, 2),
+                   ("logical_or", torch.logical_or, 2),
+                   ("logical_xor", torch.logical_xor, 2),
+                   ("logical_not", torch.logical_not, 1)):
+    _make_logical(_n, _f, _a)
+
 
 _UNARY = {
     "sigmoid": torch.sigmoid,

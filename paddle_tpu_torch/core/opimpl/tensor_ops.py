@@ -37,6 +37,20 @@ def _gaussian_random(env, op):
     put(env, op.output("Out"), (mean + std * n).to(_out_dtype(op)))
 
 
+@register("increment")
+def _increment(env, op):
+    """``Out = X + step`` (``paddle_tpu``'s tensor_ops.py:373), in X's
+    dtype: an integer counter stays an integer (the reference's counter
+    turns float32 at its first step, by JAX's promotion of an int array
+    plus a Python float; its values are the same), so the state keeps its
+    dtype from step to step and a captured step can write it in place."""
+    x = get(env, op.input("X"))
+    step = op.attr("step", 1.0)
+    if not x.is_floating_point() and float(step).is_integer():
+        step = int(step)
+    put(env, op.output("Out"), (x + step).to(x.dtype))
+
+
 @register("assign")
 def _assign(env, op):
     put(env, op.output("Out"), get(env, op.input("X")))

@@ -54,9 +54,14 @@ class ProgramPredictor:
         """The ``torch.device`` the weights and the outputs live on."""
         return self._exe.device
 
-    def run(self, inputs, return_numpy=True):
+    # the executor writes the caches the decode batcher lends in place
+    # (``Executor.run``'s ``_lend``)
+    _lends_feeds = True
+
+    def run(self, inputs, return_numpy=True, _lend=()):
         """``inputs``: dict name->array, or a list/tuple in feed order.
-        Returns outputs in fetch order."""
+        Returns outputs in fetch order. ``_lend`` (the decode batcher's):
+        feeds whose tensors the caller lends (``Executor.run``)."""
         if isinstance(inputs, (list, tuple)):
             if len(inputs) != len(self.feed_names):
                 raise ValueError("expected %d inputs (%s), got %d"
@@ -74,7 +79,16 @@ class ProgramPredictor:
         # writes the shared weights is never captured
         return self._exe.run(self._program, feed=feed,
                              fetch_list=self._fetch_vars, scope=self._scope,
-                             return_numpy=return_numpy, donate_state=False)
+                             return_numpy=return_numpy, donate_state=False,
+                             _lend=_lend)
+
+    def step_report(self):
+        """The executor's capture report of this predictor's program
+        (:meth:`Executor.step_report`), or None before its first run."""
+        try:
+            return self._exe.step_report(self._program)
+        except KeyError:
+            return None
 
     def close(self):
         """Release this predictor's cached steps and their CUDA graphs

@@ -1,14 +1,18 @@
 """User-facing layers namespace (the subset of ``paddle_tpu.layers`` this
 slice of the port carries; ref ``python/paddle/fluid/layers/``)."""
 
+from . import control_flow
 from . import io
+from . import learning_rate_scheduler
 from . import metric_op
 from . import nn
 from . import ops
 from . import sequence_lod
 from . import tensor
 
+from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
+from .learning_rate_scheduler import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403

@@ -23,6 +23,7 @@ __all__ = [
     "sigmoid_cross_entropy_with_logits", "fused_linear_smooth_ce",
     "multi_head_attention", "kv_cache_write", "cached_multi_head_attention",
     "kv_cache_write_chunk", "cached_multi_head_attention_chunk",
+    "autoincreased_step_counter",
 ]
 
 
@@ -539,3 +540,32 @@ def cached_multi_head_attention_chunk(x, cache_k, cache_v, pos,
     return _cached_mha(x, cache_k, cache_v, pos, d_model, n_head, name,
                        "cached_multi_head_attention_chunk",
                        kv_cache_write_chunk, "cached_attention_chunk")
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A global step counter, incremented once per run of the program
+    (``paddle_tpu/layers/nn.py:1642``): a persistable int64 [1] var the
+    startup program sets to ``begin - step``, so a run's first value is
+    ``begin``. Idempotent per program and counter name. The counter lives
+    on the device and is written back in place with the other state."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    gb = helper.main_program.global_block()
+    if name in gb.vars:
+        for op in gb.ops:
+            if op.type == "increment" and op.output("Out").name == name:
+                return gb.vars[name]
+    counter = gb.create_var(
+        name=name, shape=(1,), dtype="int64", persistable=True)
+    startup_block = helper.startup_program.global_block()
+    if not any(op.output("Out") is not None
+               and op.output("Out").name == name
+               for op in startup_block.ops):
+        sp_var = startup_block.create_var(name=name, shape=(1,),
+                                          dtype="int64", persistable=True)
+        startup_block.append_op(
+            "fill_constant", outputs={"Out": sp_var},
+            attrs={"shape": (1,), "dtype": "int64", "value": begin - step})
+    helper.append_op("increment", {"X": counter}, {"Out": counter},
+                     {"step": float(step)})
+    return counter

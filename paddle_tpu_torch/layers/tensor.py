@@ -8,7 +8,8 @@ from ..core.framework import Variable, convert_np_dtype
 from ..core.layer_helper import LayerHelper
 
 __all__ = ["fill_constant", "cast", "concat", "assign", "range", "reshape",
-           "squeeze", "unsqueeze", "slice", "sampling_id"]
+           "squeeze", "unsqueeze", "slice", "sampling_id", "increment",
+           "create_global_var"]
 
 
 def _dt(x):
@@ -24,6 +25,36 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                      attrs={"shape": tuple(shape),
                             "dtype": str(convert_np_dtype(dtype)),
                             "value": float(value)})
+    return out
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global-block var the startup program fills with ``value``
+    (``paddle_tpu/layers/tensor.py:32``)."""
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(name=name, shape=shape, dtype=dtype,
+                                        persistable=persistable)
+    from ..core import framework
+    sb = framework.default_startup_program().global_block()
+    sp = sb.create_var(name=var.name, shape=shape, dtype=dtype,
+                       persistable=persistable)
+    sb.append_op("fill_constant", outputs={"Out": sp},
+                 attrs={"shape": tuple(shape), "dtype": dtype,
+                        "value": float(value)})
+    return var
+
+
+def increment(x, value=1.0, in_place=True):
+    """``x + value`` (``paddle_tpu/layers/tensor.py:387``), into ``x``
+    itself unless ``in_place`` is False."""
+    helper = LayerHelper("increment")
+    if in_place:
+        out = x
+    else:
+        out = helper.create_variable_for_type_inference(dtype=_dt(x),
+                                                        shape=x.shape)
+    helper.append_op("increment", {"X": x}, {"Out": out}, {"step": value})
     return out
 
 

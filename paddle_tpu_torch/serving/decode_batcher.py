@@ -9,14 +9,18 @@ the scheduling quantum:
 
   * a **slot table** of ``bucket_batch`` rows, each one in-flight request
     with its own fill level ``pos`` into fixed-capacity per-slot KV caches
-    ([B, C, ...] per layer), carried between dispatches as device tensors:
-    the fetched caches are fed back as they are;
+    ([B, C, ...] per layer): one set of device tensors per (batch, ctx)
+    rung, made at its first use and kept, which the step and chunk
+    programs of that rung write in place (a predictor that takes lent
+    feeds, ``ProgramPredictor``: its executor captures each geometry's
+    dispatch as one CUDA graph over them); any other predictor's fetched
+    caches are fed back as they are;
   * one geometry per ``(bucket_batch, bucket_ctx)`` on the pow2 ladders
     (``buckets.py``), so ``warmup`` can run every one of them;
   * **slot recycling**: requests enter free slots between steps and
     finished ones retire at once;
   * **re-bucketing** when occupancy crosses a ladder rung: live rows are
-    copied into caches of the new geometry by row index, on the device;
+    copied into the new rung's caches by row index, on the device;
   * prompt tokens are ingested through the same step program, one forced
     token a step, unless a chunk program rides along.
 
@@ -60,6 +64,7 @@ import numpy as np
 import torch
 
 from ..core.framework import torch_dtype
+from ..core.opimpl.attention_ops import lendable_cache
 from ..obs import trace
 from .admission import AdmissionController, DeadlineExceededError
 from .buckets import bucket_for, pow2_ladder
@@ -233,8 +238,10 @@ class DecodeBatcher:
     ``predictor``: anything with ``run(feed, return_numpy=False) -> list``
     in fetch order, ``fetch_names`` and ``device``, which holds the caches
     (a ``Predictor`` over a saved step program, a ``ProgramPredictor``, a
-    test fake). ``spec``: the decode-spec dict a step builder returns
-    (``models.transformer.transformer_lm_step``).
+    test fake). A predictor marked ``_lends_feeds`` is lent the rung's
+    caches (``run(..., _lend=names)``): they are written in place and
+    fetched back as themselves. ``spec``: the decode-spec dict a step
+    builder returns (``models.transformer.transformer_lm_step``).
 
     ``start=False`` runs no loop thread: :meth:`drive` then runs the
     scheduler on the calling thread, deterministic and without sleeps."""
@@ -332,6 +339,7 @@ class DecodeBatcher:
         self._pending = deque()
         self._slots = []          # list[_Slot | None], len == bucket_batch
         self._caches = {}         # feed name -> [B, C, *tail] tensor
+        self._rungs = {}          # (B, C) -> that rung's caches
         self._bucket = (0, 0)     # (bucket_batch, bucket_ctx)
         self.seen_signatures = set()
         self._cv = threading.Condition()
@@ -418,31 +426,53 @@ class DecodeBatcher:
 
     def warmup(self):
         """Run every (batch rung, ctx rung) step geometry and, with a chunk
-        program, every (batch, ctx, chunk rung) chunk geometry once on
-        zero inputs, so live traffic meets no first-run cost (on the card:
-        the kernels' builds and the GEMM heuristics). Returns the number
-        of dispatches."""
+        program, every (batch, ctx, chunk rung) chunk geometry twice on
+        zero tokens over the rung's own caches, so live traffic meets no
+        first-run cost (on the card: the kernels' builds, the GEMM
+        heuristics, and the capture of each dispatch, which the executor
+        makes on a key's second run), as the reference's warmup compiles
+        every geometry. The step writes position 0 of every row and the
+        chunk nothing (its lanes are pads), so it runs before any request
+        is admitted. Returns the number of geometries warmed (the
+        reference's count; each ran twice)."""
+        if any(s is not None for s in self._slots):
+            raise RuntimeError("warmup() with requests in flight: its "
+                               "dispatches write the live caches")
         warmed = 0
         for b in self.ladder:
             for c in self.ctx_ladder:
-                caches = self._zero_caches(b, c)
-                feed = dict(caches)
-                feed[self._tok_feed] = np.zeros((b,), np.int64)
-                feed[self._pos_feed] = np.zeros((b,), np.int32)
-                self._predictor.run(feed, return_numpy=False)
+                caches = self._rung_caches(b, c)
+                for _ in range(2):
+                    feed = dict(caches)
+                    feed[self._tok_feed] = np.zeros((b,), np.int64)
+                    feed[self._pos_feed] = np.zeros((b,), np.int32)
+                    self._run(self._predictor, feed, caches)
                 self.seen_signatures.add((b, c))
                 warmed += 1
                 if self._prefill is None:
                     continue
                 for k in self.prefill_ladder:
-                    cfeed = dict(caches)
-                    cfeed[self._prefill["tok"]] = np.zeros((b, k), np.int64)
-                    cfeed[self._prefill["pos"]] = np.full((b, k), c,
-                                                          np.int32)
-                    self._prefill["pred"].run(cfeed, return_numpy=False)
+                    for _ in range(2):
+                        cfeed = dict(caches)
+                        cfeed[self._prefill["tok"]] = np.zeros((b, k),
+                                                               np.int64)
+                        cfeed[self._prefill["pos"]] = np.full((b, k), c,
+                                                              np.int32)
+                        self._run(self._prefill["pred"], cfeed, caches)
                     self.seen_signatures.add((b, c, k))
                     warmed += 1
         return warmed
+
+    def step_report(self):
+        """Whether the step and chunk programs are captured:
+        ``{"step": report, "chunk": report}``, each the predictor's
+        ``step_report()`` (``Executor.step_report``) of its latest
+        dispatch, or None (no dispatch yet, or a predictor without one)."""
+        preds = {"step": self._predictor}
+        if self._prefill is not None:
+            preds["chunk"] = self._prefill["pred"]
+        return {name: (p.step_report() if hasattr(p, "step_report")
+                       else None) for name, p in preds.items()}
 
     def drive(self, max_steps=None):
         """Run the scheduler on the CALLING thread until idle (or
@@ -587,10 +617,24 @@ class DecodeBatcher:
         c = bucket_for(max(r.n_ctx for r in reqs), self.ctx_ladder)
         return (b, c)
 
-    def _zero_caches(self, b, c):
-        return {feed: torch.zeros((b, c) + tail, dtype=dtype,
-                                  device=self._device)
+    @torch.inference_mode()
+    def _rung_caches(self, b, c):
+        """The caches of rung (b, c), made zeroed at their first use and
+        kept: a rung's step and chunk dispatches always write the same
+        tensors, which a captured dispatch holds."""
+        caches = self._rungs.get((b, c))
+        if caches is None:
+            caches = self._rungs[(b, c)] = {
+                feed: lendable_cache(b, c, tail, dtype, self._device)
                 for feed, _idx, tail, dtype in self._cache_feeds}
+        return caches
+
+    def _run(self, pred, feed, caches):
+        """One dispatch of ``pred``, lending it ``caches`` where it takes
+        lent feeds."""
+        if getattr(pred, "_lends_feeds", False):
+            return pred.run(feed, return_numpy=False, _lend=tuple(caches))
+        return pred.run(feed, return_numpy=False)
 
     def _as_cache(self, value):
         """A fetched cache (a tensor, or a test fake's array) as a tensor
@@ -605,8 +649,9 @@ class DecodeBatcher:
         Same geometry: admissions drop into free holes with no cache
         traffic: a recycled row needs no cleaning, since its new occupant
         starts at its own fill level and a row's mask never reaches past
-        it. Geometry moved: live rows are gathered by index into fresh
-        zero caches of the new geometry, on the device."""
+        it. Geometry moved: live rows are gathered by index into the new
+        rung's caches (other tensors than the old rung's), on the device;
+        what those rows held past each fill level stays unreachable."""
         new_b, new_c = self._target_bucket(admitting)
         if (new_b, new_c) == self._bucket:
             if admitting:
@@ -622,7 +667,7 @@ class DecodeBatcher:
             new_slots.append(_Slot(req))
         new_slots += [None] * (new_b - len(new_slots))
         copy_c = min(old_c, new_c)
-        caches = self._zero_caches(new_b, new_c)
+        caches = self._rung_caches(new_b, new_c)
         if live and self._caches:
             src = torch.tensor([i for i, _s in live], device=self._device)
             for feed, cache in caches.items():
@@ -749,7 +794,7 @@ class DecodeBatcher:
         feed = dict(self._caches)
         feed[pf["tok"]] = tok
         feed[pf["pos"]] = cpos
-        outs = pf["pred"].run(feed, return_numpy=False)
+        outs = self._run(pf["pred"], feed, self._caches)
         self.seen_signatures.add((b, c, k))
         for name, idx in pf["cache_map"]:
             self._caches[name] = self._as_cache(outs[idx])
@@ -846,9 +891,10 @@ class DecodeBatcher:
         feed = dict(self._caches)
         feed[self._tok_feed] = toks
         feed[self._pos_feed] = pos
-        outs = self._predictor.run(feed, return_numpy=False)
+        outs = self._run(self._predictor, feed, self._caches)
         self.seen_signatures.add((b, c))
         # carried state: the fetched caches feed the next dispatch as-is
+        # (a lent cache is fetched back as itself)
         for name, idx, _tail, _dtype in self._cache_feeds:
             self._caches[name] = self._as_cache(outs[idx])
         greedy = None

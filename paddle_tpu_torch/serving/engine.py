@@ -21,7 +21,9 @@ continuous batching replaces the one-shot pipeline. Each replica is a
 ``DecodeBatcher`` over a clone of the step predictor (with an optional
 chunk program, speculative draft and one prefix cache for the fleet);
 ``submit(prompt)`` goes to the least-loaded replica and resolves to the
-generated ids.
+generated ids. On the card each replica's step and chunk dispatches are
+captured as CUDA graphs over its own caches (``metrics_report`` says
+whether they are).
 
 The device is CUDA unless the caller passes ``device="cpu"`` (or a
 CPU-configured ``AnalysisConfig``/predictor); without CUDA the default
@@ -268,7 +270,19 @@ class ServingEngine:
         return self.metrics_.snapshot()
 
     def metrics_report(self):
-        return self.metrics_.report()
+        """The metrics table; in decode mode also, for each replica,
+        whether its step and chunk programs are captured (``-`` before a
+        dispatch)."""
+        report = self.metrics_.report()
+        if self._decoders is None:
+            return report
+        lines = [report]
+        for i, d in enumerate(self._decoders):
+            for name, r in d.step_report().items():
+                lines.append("%-32s %14s" % (
+                    "decode%d_%s_captured" % (i, name),
+                    "-" if r is None else "yes" if r["captured"] else "no"))
+        return "\n".join(lines)
 
     def compiled_shape_counts(self):
         """Decode mode: the distinct dispatch geometries of each replica,
