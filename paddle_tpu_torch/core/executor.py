@@ -774,9 +774,9 @@ class Executor:
         caller lends for the step. Each must be a tensor on this device in
         its var's dtype, read only as the ``Cache`` of a
         ``kv_cache_write(_chunk)``; the write goes into it in place and the
-        fetch of that write returns the tensor itself. A lent cache's
-        first C columns are the cache, and its storage holds a scratch
-        column C past them (``attention_ops.lendable_cache``)."""
+        fetch of that write returns the tensor itself. A lent cache is
+        ``attention_ops.lendable_cache``'s: the first C positions of a
+        [C + 1, B, ...] buffer whose position C is the scratch column."""
         if verify:
             raise NotImplementedError(
                 "Executor.run(verify=...): the static program verifier "

@@ -75,17 +75,18 @@ def lendable_cache(b, c, tail, dtype, device):
 def _with_scratch(cache):
     """The [B, C + 1, ...] view over a lent cache's storage whose column C
     (the scratch column) lies outside the cache's own elements. Raises
-    unless the cache is row-major with room for it ([B, C + 1, ...]
-    buffers) or position-major (:func:`lendable_cache`)."""
+    unless the cache is :func:`lendable_cache`'s: the first C positions of
+    a whole [C + 1, B, ...] buffer, so that position C is nobody's data (a
+    view of a wider buffer could hold live rows there)."""
     b, c = cache.shape[0], cache.shape[1]
     tail = tuple(cache.shape[2:])
     row = math.prod(tail)
-    s0, s1 = cache.stride(0), cache.stride(1)
     dense_tail = cache[0, 0].is_contiguous() if b and c else True
-    if dense_tail and ((s1 == row and s0 >= (c + 1) * row)
-                       or (s0 == row and s1 >= b * row)):
-        return cache.as_strided((b, c + 1) + tail, cache.stride(),
-                                cache.storage_offset())
+    whole = (c + 1) * b * row * cache.element_size()
+    if (dense_tail and cache.stride()[:2] == (row, b * row)
+            and cache.storage_offset() == 0
+            and cache.untyped_storage().nbytes() == whole):
+        return cache.as_strided((b, c + 1) + tail, cache.stride(), 0)
     raise ValueError(
         "a lent cache [B, C, ...] must leave a scratch column C in its "
         "storage (attention_ops.lendable_cache); got shape %s, strides %s"

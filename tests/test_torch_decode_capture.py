@@ -6,7 +6,8 @@ replays the body eagerly):
 
 * the in-place ``cache_write_`` equals the reference's ``kv_cache_write``
   and ``kv_cache_write_chunk`` exactly, for every position in [-C-2, C+2]
-  (pad lanes at C included), on both lendable layouts;
+  (pad lanes at C included), into a ``lendable_cache``, and a lent cache
+  of any other layout is refused;
 * every step and chunk dispatch of a captured batcher (lent caches)
   equals the same dispatch of an interpreted one (``use_program_cache=
   False``, lent caches) bitwise, logits and the caches each row can
@@ -35,12 +36,6 @@ C, D = 8, 6
 STEP_POSITIONS = list(range(-C - 2, C + 3))   # one row each
 
 
-def _layout(kind, b, c, d):
-    if kind == "position_major":
-        return lendable_cache(b, c, (d,), torch.float32, "cpu")
-    return torch.zeros(b, c + 1, d)[:, :c]   # row-major, scratch column C
-
-
 def _write_program(pkg, op, k):
     main, start = pkg.Program(), pkg.Program()
     with pkg.program_guard(main, start):
@@ -56,9 +51,8 @@ def _write_program(pkg, op, k):
     return main, out
 
 
-@pytest.mark.parametrize("layout", ["position_major", "row_major"])
 @pytest.mark.parametrize("op", ["kv_cache_write", "kv_cache_write_chunk"])
-def test_in_place_write_matches_reference(op, layout, port_programs):  # noqa: F811
+def test_in_place_write_matches_reference(op, port_programs):  # noqa: F811
     rng = np.random.RandomState(5)
     if op == "kv_cache_write":
         b, k = len(STEP_POSITIONS), 1
@@ -79,7 +73,7 @@ def test_in_place_write_matches_reference(op, layout, port_programs):  # noqa: F
         want, = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
                                                      fetch_list=[out])
     main, out = _write_program(tfluid, op, k)
-    lent = _layout(layout, b, C, D)
+    lent = lendable_cache(b, C, (D,), torch.float32, "cpu")
     lent.copy_(torch.from_numpy(cache))
     exe = tfluid.Executor(tfluid.CPUPlace())
     got, = exe.run(main, feed=dict(feed, cache=lent), fetch_list=[out],
@@ -93,10 +87,25 @@ def test_in_place_write_matches_reference(op, layout, port_programs):  # noqa: F
     np.testing.assert_array_equal(feed["cache"], cache)
 
 
-def test_lent_cache_needs_a_scratch_column():
+# lent caches whose position C is not a scratch column of their own: no
+# room for it, room in a row-major buffer, and the live position C of a
+# wider lendable cache
+REFUSED_LAYOUTS = {
+    "dense": lambda: torch.zeros(2, C, D),
+    "row_major_view": lambda: torch.zeros(2, C + 1, D)[:, :C],
+    "wider_lendable_view": lambda: lendable_cache(
+        2, C + 1, (D,), torch.float32, "cpu")[:, :C],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(REFUSED_LAYOUTS))
+def test_lent_cache_needs_a_scratch_column(layout):
+    cache = REFUSED_LAYOUTS[layout]()
+    before = cache.clone()
     with pytest.raises(ValueError, match="scratch column"):
-        cache_write_(torch.zeros(2, C, D), torch.zeros(2, 1, D),
-                     torch.zeros(2, 1, dtype=torch.int32))
+        cache_write_(cache, torch.ones(2, 1, D),
+                     torch.full((2, 1), C, dtype=torch.int32))
+    assert torch.equal(cache, before)
 
 
 def test_lent_feed_read_elsewhere_is_refused(port_programs):  # noqa: F811
