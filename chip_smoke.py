@@ -58,6 +58,14 @@ it and read just after:
   kernel, once per step, for 3 warm-up and 20 timed steps, in f32
   (``deepfm_train``) and under ``fluid.amp.decorate``
   (``deepfm_amp_train``: bf16 MLP products, the f32 table and scatter);
+* training BERT-base pretraining (config 4: the masked-LM head over the
+  fused projection + CE and the next-sentence head; random weights from
+  seed 11) at 128 x 128 tokens with dropout 0.1 under
+  ``fluid.amp.decorate(Adam(1e-4))`` as ``bench.py:192-198,225-231``
+  trains it, and under Lamb(1e-4) with ``accumulate_steps=2`` and
+  ``fluid.memory_optimize`` (``bert_pretrain``: the bf16 flash, LayerNorm
+  and CE kernels at BERT's shapes, the recompute's forwards counted from
+  the remat segments);
 * serving generation at GPT-2 small's widths (the repo's ``transformer_lm``:
   vocab 50257, d_model 768, d_ff 3072, 12 heads, 12 layers, 1024
   positions, 163,000,320 parameters; random weights from seed 11): the
@@ -81,7 +89,13 @@ within half the CPU's AMP-vs-f32 distance of its AMP step, where the
 card's f32 step must not, and every kernel with a bf16 form must have
 launched in bf16, the flash forward and CE on their wgmma forms;
 ResNet-50's AMP step, chaotic at random init, is held
-so op by op, each op run on the CPU AMP chain's own inputs); before
+so op by op, each op run on the CPU AMP chain's own inputs);
+``bert_pretrain_check`` holds BERT pretraining at batch 2 the same way in
+four arms (f32 Adam, AMP Adam, Lamb, Lamb with accumulation and remat:
+the loss change over each update too), and ``optimizer_check`` trains
+DeepFM three steps under each new update op and the parameter averages
+against the CPU, the scatter-add launched once a step where the
+optimizer densifies the table's sparse gradient; before
 decode, ``decode_check`` holds four step
 dispatches and
 a chunk against the CPU, out-of-range cache positions, and the ids of
@@ -149,6 +163,13 @@ BERT = dict(vocab=30522, seq=128, d_model=768, d_ff=3072, heads=12,
 TRANSFORMER = dict(src_vocab=30000, trg_vocab=30000, seq_len=256,
                    d_model=512, d_ff=2048, n_head=8, n_layer=6)
 TRAIN_BATCH = 128
+# the bf16 kernels' timing shapes (``_bf16_kernel_timing``): the AMP
+# Transformer step's (its encoder self-attention, the smoothed CE)
+TRANSFORMER_TIMING = dict(batch=TRAIN_BATCH, seq=TRANSFORMER["seq_len"],
+                          heads=TRANSFORMER["n_head"],
+                          d_model=TRANSFORMER["d_model"],
+                          vocab=TRANSFORMER["trg_vocab"], dropout=0.0,
+                          ce_eps=0.1, ce_bias=False)
 # ResNet-50 as paddle_tpu's bench.py trains it (BASELINE config 2,
 # :200-207, :229), in f32 and under AMP (bench.py:225-231)
 RESNET = dict(depth=50, class_num=1000, image_shape=(3, 224, 224))
@@ -174,7 +195,7 @@ WGMMA_FORMS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd",
 # the main paths that run under fluid.amp: every launch of a kernel with a
 # bf16 form is a bf16 launch there (their phases check it)
 AMP_PATHS = ("amp_train", "resnet_amp_train", "resnet_amp_eval",
-             "deepfm_amp_train")
+             "deepfm_amp_train", "bert_pretrain")
 
 
 def emit(obj):
@@ -318,12 +339,14 @@ def launching_runs(exe):
     return runs["interpreted"] + runs["captures"]
 
 
-def counted_step(exe, program, per_step, amp, label, **kw):
+def counted_step(exe, program, per_step, amp, label, wgmma=None, **kw):
     """``exe.run(program, **kw)`` with the port's launch counts held: a run
     that interprets or captures the step launches ``per_step`` (under AMP
-    all of it in bf16, the WGMMA_FORMS on their wgmma form), a replay none
-    from Python (its kernels are held by name in the profiler, see
-    ``check_replay_kernels``). Returns (outputs, seconds, replayed)."""
+    all of it in bf16, the WGMMA_FORMS on their wgmma form, or as
+    ``wgmma(counts, amp)`` gives), a replay none from Python (its kernels
+    are held by name in the profiler, see ``check_replay_kernels``).
+    Returns (outputs, seconds, replayed)."""
+    wgmma = wgmma or wgmma_part
     replays = exe_runs(exe)["replays"]
     before = read_counts(), read_bf16_counts(), read_wgmma_counts()
     t = time.perf_counter()
@@ -335,7 +358,7 @@ def counted_step(exe, program, per_step, amp, label, **kw):
     per, per_bf16, per_wgmma = ({k: a[k] - b[k] for k in a}
                                 for a, b in zip(after, before))
     check(per == want and per_bf16 == bf16_part(want, amp)
-          and per_wgmma == wgmma_part(want, amp),
+          and per_wgmma == wgmma(want, amp),
           "%s launches %s (bf16 %s, wgmma %s) != %s"
           % (label, per, per_bf16, per_wgmma, want))
     return out, dt, replayed
@@ -1486,7 +1509,7 @@ def flash_kernel_timing(torch, dev, gen):
     return rows
 
 
-def _bf16_kernel_timing(torch, dev, gen, only=None):
+def _bf16_kernel_timing(torch, dev, gen, only=None, cfg=None):
     """The bf16 forms (AMP) of rows 1-9 at Transformer-base's training
     shapes, each beside its plain version on the same bf16 inputs, one
     PyTorch call on bf16 as a yardstick (timed here only; the port never
@@ -1499,8 +1522,11 @@ def _bf16_kernel_timing(torch, dev, gen, only=None):
     bytes (each input read once, each output written once). The flash
     forward, flash backward and CE rows also time the mma.sync form on the
     same inputs (``mma_sync_ms``). ``only``: the rows to time (all by default; the
-    inputs are drawn alike either way). ``tools/flash_ab.py`` times
-    another checkout's flash forward and CE through this function."""
+    inputs are drawn alike either way). ``cfg``: the shapes
+    (TRANSFORMER_TIMING by default; BERT_TIMING: BERT pretraining's, the
+    flash kernels with dropout 0.1, the CE unsmoothed with a bias).
+    ``tools/flash_ab.py`` times another checkout's flash forward and CE
+    through this function."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1521,47 +1547,53 @@ def _bf16_kernel_timing(torch, dev, gen, only=None):
 
     bf = torch.bfloat16
     rows = {}
-    b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
-    h, hd = TRANSFORMER["n_head"], TRANSFORMER["d_model"]
+    cfg = cfg or TRANSFORMER_TIMING
+    b, t, h, hd = cfg["batch"], cfg["seq"], cfg["heads"], cfg["d_model"]
     d = hd // h
+    p = cfg["dropout"]
+    seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
+    drop = (False, p, seed)  # causal, dropout rate, seed
     q, k, v, dout = (torch.randn(b, t, hd, generator=gen).to(dev, bf)
                      for _ in range(4))
     kb = _padding_bias(torch, gen, b, t, dev)
-    out, lse = fa.flash_attention_fwd(q, k, v, h, kb)
+    out, lse = fa.flash_attention_fwd(q, k, v, h, kb, *drop)
     mask = kb[:, None, None, :].to(bf)
 
     def split(x):
         return x.view(b, t, h, d).transpose(1, 2)
 
     lib_in = [split(x).detach().requires_grad_(True) for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask)
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask,
+                                             dropout_p=p)
     nbytes = 2 * 4 * b * t * hd + 4 * (b * t + b * h * t)
     bnd, by = bf16_bound(nbytes, 4 * b * h * t * t * d)
     if want("flash_attention_fwd"):
         rows["flash_attention_fwd"] = dict(
-            ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb),
+            ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb, *drop),
                        iters=20),
-            plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, kb),
-                             iters=20),
+            plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, kb,
+                                                        *drop), iters=20),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                split(q), split(k), split(v), attn_mask=mask), iters=20),
+                split(q), split(k), split(v), attn_mask=mask, dropout_p=p),
+                iters=20),
             library="F.scaled_dot_product_attention (bf16)",
             mma_sync_ms=on_mma_sync(
                 fa, "fwd_form",
-                lambda: fa.flash_attention_fwd(q, k, v, h, kb), iters=20),
+                lambda: fa.flash_attention_fwd(q, k, v, h, kb, *drop),
+                iters=20),
             bound_ms=bnd, bound_by=by, shape=[b, t, t, h, d], bytes=nbytes)
     nbytes = 2 * 8 * b * t * hd + 4 * (b * h * t + b * t)
     bnd, by = bf16_bound(nbytes, 10 * b * h * t * t * d)
     if want("flash_attention_bwd"):
         rows["flash_attention_bwd"] = dict(
             ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse,
-                                                      dout, h, kb),
+                                                      dout, h, kb, *drop),
                        iters=20),
             mma_sync_ms=on_mma_sync(
                 fa, "bwd_form", lambda: fa.flash_attention_bwd(
-                    q, k, v, out, lse, dout, h, kb), iters=20),
+                    q, k, v, out, lse, dout, h, kb, *drop), iters=20),
             plain_ms=time_ms(lambda: fa.attention_bwd_plain(
-                q, k, v, out, lse, dout, h, kb), iters=10),
+                q, k, v, out, lse, dout, h, kb, *drop), iters=10),
             library_ms=time_ms(lambda: torch.autograd.grad(
                 lib_out, lib_in, split(dout), retain_graph=True), iters=20),
             library="F.scaled_dot_product_attention backward (bf16, autograd)",
@@ -1604,24 +1636,27 @@ def _bf16_kernel_timing(torch, dev, gen, only=None):
             bound_ms=bnd, bound_by=by, shape=[n, hd], bytes=nbytes)
     del x, dy, p_in, p_out, l_in, l_out
 
-    vv = TRANSFORMER["trg_vocab"]
+    vv, eps = cfg["vocab"], cfg["ce_eps"]
     x = torch.randn(n, hd, generator=gen).to(dev, bf)
     w = (torch.randn(hd, vv, generator=gen) / hd ** 0.5).to(dev, bf)
+    cb = (torch.randn(vv, generator=gen).to(dev, bf) if cfg["ce_bias"]
+          else None)
     y = torch.randint(0, vv, (n,), generator=gen).to(dev)
-    nbytes = 2 * (n * hd + hd * vv) + 4 * 3 * n
+    nbytes = 2 * (n * hd + hd * vv + (vv if cfg["ce_bias"] else 0)) \
+        + 4 * 3 * n
     bnd, by = bf16_bound(nbytes, 2 * n * hd * vv)
     if want("fused_ce_fwd"):
         rows["fused_ce_fwd"] = dict(
-            ms=time_ms(lambda: fce.fused_ce_fwd(x, w, None, y, 0.1), iters=10,
+            ms=time_ms(lambda: fce.fused_ce_fwd(x, w, cb, y, eps), iters=10,
                        warmup=2),
-            plain_ms=time_ms(lambda: fce.linear_smooth_ce_plain(x, w, None, y,
-                                                                0.1),
+            plain_ms=time_ms(lambda: fce.linear_smooth_ce_plain(x, w, cb, y,
+                                                                eps),
                              iters=10, warmup=2),
             library_ms=time_ms(lambda: torch.matmul(x, w), iters=10, warmup=2),
             library="torch.matmul(x, w) on bf16, projection only",
             mma_sync_ms=on_mma_sync(
                 fce, "ce_form",
-                lambda: fce.fused_ce_fwd(x, w, None, y, 0.1), iters=10,
+                lambda: fce.fused_ce_fwd(x, w, cb, y, eps), iters=10,
                 warmup=2),
             bound_ms=bnd, bound_by=by, shape=[n, hd, vv], bytes=nbytes)
     return rows
@@ -2577,13 +2612,14 @@ def _float_state_dtypes(torch, scope):
 
 
 def _amp_step_runs(torch, fluid, main, startup, feed, fetch, names,
-                   want_counts):
+                   want_counts, wgmma=wgmma_part):
     """One step of the AMP-marked ``main`` on the card, then from the same
     parameters one f32 step on the card (the control), one AMP and one
     f32 step with the port on the CPU, and one CPU AMP step on the
     parameters scaled by 1 + 2^-20. The card's AMP step must launch
     ``want_counts``, its kernels with a bf16 form all in bf16; its f32
-    step the same counts, none in bf16. Returns a dict of the fetches
+    step the same counts, none in bf16 (the wgmma forms' launches as
+    ``wgmma(counts, amp)`` gives). Returns a dict of the fetches
     ("gpu", "gpu_f32", "amp", "f32", "pert"), the card scope's floating
     dtypes after its AMP step ("dtypes"), the AMP step's launches
     ("counts", "bf16_counts") and the CPU steps' seconds ("cpu_s")."""
@@ -2600,14 +2636,14 @@ def _amp_step_runs(torch, fluid, main, startup, feed, fetch, names,
         reset_counts()
         out[key] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         counts, bf16 = read_counts(), read_bf16_counts()
-        wgmma = read_wgmma_counts()
+        wgmma_n = read_wgmma_counts()
         check(counts == want_counts and bf16 == bf16_part(counts, amp)
-              and wgmma == wgmma_part(counts, amp),
+              and wgmma_n == wgmma(counts, amp),
               "AMP check %s launches %s (bf16 %s, wgmma %s) != %s" % (
                   key, counts, bf16, wgmma, want_counts))
         if amp:
             out.update(dtypes=_float_state_dtypes(torch, scope),
-                       counts=counts, bf16_counts=bf16, wgmma_counts=wgmma)
+                       counts=counts, bf16_counts=bf16, wgmma_counts=wgmma_n)
     for key, amp, scale in (("amp", True, 1.0), ("f32", False, 1.0),
                             ("pert", True, 1.0 + 2.0 ** -20)):
         (fluid.amp.enable_bf16 if amp else fluid.amp.disable_bf16)(main)
@@ -3601,10 +3637,11 @@ def phase_scatter_check(torch, dev, tol=1e-5):
     return errs
 
 
-def _scatter_kernel_timing(torch, dev):
-    """Row 13 at the DeepFM shape: 851,968 uniform ids into the 100000 x
-    32 f32 table, added in place as the densify adds them (the table stays
-    allocated, so every run adds into it). Beside it the plain version,
+def _scatter_kernel_timing(torch, dev, batch=DEEPFM_BATCH):
+    """Row 13 at the DeepFM shape: ``batch`` x 26 uniform ids (851,968 at
+    the training batch) into the 100000 x 32 f32 table, added in place as
+    the densify adds them (the table stays allocated, so every run adds
+    into it). Beside it the plain version,
     one ``index_add_`` on the in-range int64 rows as the library
     yardstick (timed here only; the port never calls it), the bound, and
     the kernel on Zipf-skewed ids with their own bound (the bytes of the
@@ -3613,7 +3650,7 @@ def _scatter_kernel_timing(torch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     v, k = DEEPFM["sparse_feature_dim"], DEEPFM_WIDTH
-    n = DEEPFM_BATCH * DEEPFM["num_fields"]
+    n = batch * DEEPFM["num_fields"]
     rows = _deepfm_rows(torch, "uniform", n, v, SEED).to(dev)
     zipf = _deepfm_rows(torch, "zipf", n, v, SEED).to(dev)
     rows64 = rows.long()
@@ -4031,6 +4068,539 @@ def phase_deepfm_train(torch, smi_line, warmup=3, steps=20, prof_steps=2,
           "deepfm_train launches %s" % launches)
     return launches, {k: n * runs["replayed"]
                       for k, n in DEEPFM_PER_STEP.items()}
+
+
+# ---------------------------------------------------------------------------
+# BERT-base pretraining, and the optimizers' sparse routes
+# ---------------------------------------------------------------------------
+
+# BERT-base pretraining as paddle_tpu's bench.py trains it (BASELINE
+# config 4, :192-198, under fluid.amp.decorate(Adam(1e-4)), :225-231)
+BERT_PRETRAIN_BATCH = 128
+# an interpreted or captured step without remat: a flash forward and
+# backward a layer (self-attention), a LayerNorm forward and backward at
+# the embeddings, twice a layer and at the MLM transform, one fused CE
+BERT_PER_STEP = per_run(flash_attention_fwd=BERT["layers"],
+                        flash_attention_bwd=BERT["layers"],
+                        layer_norm_fwd=2 * BERT["layers"] + 2,
+                        layer_norm_bwd=2 * BERT["layers"] + 2,
+                        fused_ce_fwd=1)
+# BERT pretraining's kernel shapes: 128 x 128 tokens, 12 heads of 64,
+# attention dropout 0.1; the MLM head's CE over 30522 words, with a bias,
+# unsmoothed
+BERT_TIMING = dict(batch=BERT_PRETRAIN_BATCH, seq=BERT["seq"],
+                   heads=BERT["heads"], d_model=BERT["d_model"],
+                   vocab=BERT["vocab"], dropout=0.1, ce_eps=0.0,
+                   ce_bias=True)
+# the kernel behind each op type: (forward, backward)
+_OP_KERNELS = {"flash_attention": ("flash_attention_fwd",
+                                   "flash_attention_bwd"),
+               "layer_norm": ("layer_norm_fwd", "layer_norm_bwd"),
+               "fused_linear_smooth_ce": ("fused_ce_fwd", None)}
+
+
+def build_bert_pretrain(fluid, dropout_rate, opt="adam", amp=False,
+                        accumulate_steps=None, remat=False, lr=1e-4):
+    """BERT-base pretraining (``models.bert.bert_base`` at config 4) in
+    fresh programs, minimized by Adam or Lamb at ``lr`` (under
+    ``amp.decorate`` when ``amp``), with ``accumulate_steps`` and, with
+    ``remat``, ``fluid.memory_optimize``. Returns (main, startup, spec)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        spec = fluid.models.bert.bert_base(
+            vocab_size=BERT["vocab"], seq_len=BERT["seq"],
+            d_model=BERT["d_model"], d_ff=BERT["d_ff"],
+            n_head=BERT["heads"], n_layer=BERT["layers"],
+            dropout_rate=dropout_rate)
+        o = {"adam": fluid.optimizer.Adam,
+             "lamb": fluid.optimizer.Lamb}[opt](learning_rate=lr)
+        (fluid.amp.decorate(o) if amp else o).minimize(
+            spec.loss, accumulate_steps=accumulate_steps)
+    if remat:
+        fluid.memory_optimize(main)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, spec
+
+
+def bert_feed(spec, batch):
+    """A fixed batch: random ids, key lengths from half the sequence to
+    all of it (the first row full), 15% of the positions weighted in the
+    MLM loss."""
+    rng = np.random.RandomState(SEED)
+    feed = spec.sample_batch(batch, rng)
+    seq = BERT["seq"]
+    lens = rng.randint(seq // 2, seq + 1, batch)
+    lens[0] = seq
+    feed["input_len"] = lens.astype("int64")
+    feed["mlm_weights"] = (rng.rand(batch, seq) < 0.15).astype("float32")
+    return feed
+
+
+def program_launches(main, fetch_names):
+    """The launches of one interpreted or captured step of ``main``, read
+    from the op list the Executor runs: each flash_attention op a flash
+    forward and backward, each layer_norm over the last axis a LayerNorm
+    forward and backward, each fused_linear_smooth_ce a CE forward, and
+    the forwards once more for each such op inside a rematerialized
+    segment (``executor.remat_segments``: the backward recomputes a
+    segment whole)."""
+    from paddle_tpu_torch.core.executor import remat_segments, step_plan
+
+    ops = step_plan(main, fetch_names, False)[0]
+    inside = {i for s, (e, _) in remat_segments(ops, fetch_names).items()
+              for i in range(s, e)}
+    counts = per_run()
+    for i, op in enumerate(ops):
+        kernels = _OP_KERNELS.get(op.type)
+        if kernels is None or (op.type == "layer_norm" and op.attr(
+                "begin_norm_axis", 1) != len(op.input("X").shape) - 1):
+            continue
+        counts[kernels[0]] += 2 if i in inside else 1
+        if kernels[1] is not None:
+            counts[kernels[1]] += 1
+    return counts
+
+
+def bert_wgmma(counts, amp):
+    """The launches of WGMMA_FORMS on their wgmma form in a BERT run of
+    ``counts``: under AMP every flash forward and backward (128 keys,
+    heads of 64, a per-key bias), no CE (D = 768 is above the wgmma CE's
+    WGMMA_MAX_D: it takes the bf16 mma.sync form); none in f32."""
+    return {name: counts[name] if amp and name.startswith("flash") else 0
+            for name in WGMMA_FORMS}
+
+
+def _bert_runs(torch, fluid, main, startup, feed, fetches, per_step,
+               cpu_runs=True):
+    """``len(fetches)`` runs of ``main`` on the card from a fresh startup
+    (call 1 interpreted, call 2 captured, later ones replays; each launch
+    count held by ``counted_step``, f32), then, with ``cpu_runs``, the
+    same runs with the port on the CPU from the card's initial parameters.
+    Returns (card outputs, CPU outputs or None, initial parameters, the
+    card's parameters after each run, the card's step report after each
+    run, the CPU's seconds)."""
+    names = [p.name for p in main.all_parameters()]
+    scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    params = {n: scope.numpy(n).copy() for n in names}
+    gpu, after, reports = [], [], []
+    for i, fetch in enumerate(fetches):
+        out, _, _ = counted_step(exe, main, per_step, False, "run %d" % i,
+                                 feed=feed, fetch_list=fetch, scope=scope)
+        gpu.append(out)
+        after.append({n: scope.numpy(n).copy() for n in names})
+        reports.append(exe.step_report(main))
+    exe.close()
+    if not cpu_runs:
+        return gpu, None, params, after, reports, 0.0
+    cpu_scope = fluid.Scope()
+    cexe = fluid.Executor(fluid.CPUPlace())
+    cexe.run(startup, scope=cpu_scope)
+    fluid.bridge.load_program_params(cpu_scope, params, main, "cpu")
+    t0 = time.perf_counter()
+    counts = read_counts()
+    cpu = [cexe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+           for fetch in fetches]
+    check(read_counts() == counts, "a CPU step launched a kernel")
+    return gpu, cpu, params, after, reports, time.perf_counter() - t0
+
+
+def _grad_errors(names, gpu, cpu):
+    """(relative loss error, {param: grad relative L2}) of one run's
+    [loss] + grads fetches."""
+    loss = abs(float(gpu[0]) - float(cpu[0])) / max(abs(float(cpu[0])),
+                                                    1e-30)
+    return loss, {n: _rel_l2(g, c) for n, g, c in zip(names, gpu[1:],
+                                                       cpu[1:])}
+
+
+def phase_bert_pretrain_check(torch, smi_line, batch=2, lamb_lr=1e-3):
+    """One full-width BERT-base pretraining step (batch 2, dropout 0) on
+    the card against the same step with the port on the CPU, from the
+    same weights and feed (f32, TF32 off), in four arms:
+
+    * ``adam_f32``: the loss within 1e-4 relative, every gradient within
+      1e-2 relative L2 (``train_check``'s bounds);
+    * ``adam_amp``: under ``fluid.amp.decorate``, held by the AMP verdict
+      (``_amp_verdict``, as ``amp_train_check``): every flash, LayerNorm
+      and CE launch bf16, the flash ones on their wgmma forms, the card's
+      f32 step must fail the verdict;
+    * ``lamb``: Lamb(1e-3): the step's loss and gradients as ``adam_f32``,
+      and the loss change over the update (a second run on the same
+      batch) within 1e-2 of the CPU's: the update's first-order effect;
+    * ``lamb_acc2_remat``: Lamb with ``accumulate_steps=2`` under
+      ``memory_optimize``: run 1 only accumulates (the card's parameters
+      bitwise unchanged), run 2 applies, run 3 reads the loss after it;
+      held to ``lamb``'s CPU runs, from the same initial parameters
+      (checked bitwise): runs 1-2 to its step (two equal micro-steps
+      average to the same gradient, and run 2 still sees the initial
+      parameters), the loss change from run 1 to 3 to its loss change; the
+      step captured, and the launches those the segments give
+      (``program_launches``).
+
+    Launch counts are exact in every arm."""
+    import paddle_tpu_torch as fluid
+
+    arms, lamb_cpu = {}, None
+    for arm, kw in (("adam_f32", {}),
+                    ("lamb", dict(opt="lamb", lr=lamb_lr)),
+                    ("lamb_acc2_remat", dict(opt="lamb", lr=lamb_lr,
+                                             accumulate_steps=2,
+                                             remat=True))):
+        main, startup, spec = build_bert_pretrain(fluid, 0.0, **kw)
+        names = [p.name for p in main.all_parameters()]
+        gb = main.global_block()
+        grads = [spec.loss] + [gb.var(n + "@GRAD") for n in names]
+        fetches = {"adam_f32": [grads], "lamb": [grads, [spec.loss]],
+                   "lamb_acc2_remat": [grads, grads, [spec.loss]]}[arm]
+        per_step = program_launches(main, [v.name for v in grads])
+        if "remat" not in arm:
+            check(per_step == BERT_PER_STEP, "%s: the program launches %s, "
+                  "not %s" % (arm, per_step, BERT_PER_STEP))
+        feed = bert_feed(spec, batch)
+        acc = arm == "lamb_acc2_remat"
+        gpu, cpu, params, after, reports, cpu_s = _bert_runs(
+            torch, fluid, main, startup, feed, fetches, per_step,
+            cpu_runs=not acc)
+        if arm == "lamb":
+            lamb_cpu = (cpu, [params[n] for n in names])
+        elif acc:  # lamb's CPU runs: grads, grads again, the loss after
+            check(all(np.array_equal(params[n], p0) for n, p0 in zip(
+                names, lamb_cpu[1])), "%s: the initial parameters differ "
+                "from lamb's" % arm)
+            cpu = [lamb_cpu[0][0], lamb_cpu[0][0], lamb_cpu[0][1]]
+        report = reports[min(1, len(reports) - 1)]  # the grads key's
+        errs = [_grad_errors(names, g, c) for g, c in zip(gpu, cpu)
+                if len(g) > 1]
+        r = {"loss_gpu": [float(g[0]) for g in gpu],
+             "loss_cpu": [float(c[0]) for c in cpu],
+             "loss_rel_err": [e[0] for e in errs],
+             "grad_rel_l2_max": [max(e[1].values()) for e in errs],
+             "grad_rel_l2_param": [max(e[1], key=e[1].get) for e in errs],
+             "launches_per_step": per_step, "captured": report["captured"],
+             "runs": {k: report[k] for k in ("interpreted", "captures",
+                                             "replays")},
+             "cpu_s": cpu_s}
+        if acc:
+            r["cpu_runs_of"] = "lamb"
+        if arm != "adam_f32":
+            d_gpu = float(gpu[-1][0]) - float(gpu[0][0])
+            d_cpu = float(cpu[-1][0]) - float(cpu[0][0])
+            r.update(loss_change_gpu=d_gpu, loss_change_cpu=d_cpu,
+                     loss_change_rel_err=abs(d_gpu - d_cpu) / max(
+                         abs(d_cpu), 1e-30))
+        if arm == "lamb_acc2_remat":
+            r["frozen_after_run_1"] = all(
+                np.array_equal(after[0][n], params[n]) for n in names)
+            r["moved_after_run_2"] = all(
+                not np.array_equal(after[1][n], params[n]) for n in names
+                if not n.startswith("pos_emb"))
+        arms[arm] = r
+        check(np.isfinite(r["loss_gpu"]).all() and all(
+            np.isfinite(g).all() for run in gpu for g in run[1:]),
+            "%s: non-finite loss or grads on the card" % arm)
+        check(max(r["loss_rel_err"]) <= 1e-4
+              and max(r["grad_rel_l2_max"]) <= 1e-2,
+              "%s: loss errors %s, grads %s" % (
+                  arm, r["loss_rel_err"], r["grad_rel_l2_max"]))
+        if "loss_change_rel_err" in r:
+            check(r["loss_change_rel_err"] <= 1e-2 and r["loss_change_cpu"]
+                  < 0, "%s: loss change %g on the card, %g on the CPU"
+                  % (arm, r["loss_change_gpu"], r["loss_change_cpu"]))
+        if arm == "lamb_acc2_remat":
+            check(r["frozen_after_run_1"] and r["moved_after_run_2"],
+                  "%s: run 1 moved a parameter or run 2 left one" % arm)
+            check(report["captured"] and report["captures"] == 1,
+                  "%s not captured: %s" % (arm, report))
+        del gpu, cpu, params, after
+
+    # AMP Adam: the verdict of amp_train_check
+    main, startup, spec = build_bert_pretrain(fluid, 0.0, amp=True)
+    names = [p.name for p in main.all_parameters()]
+    gb = main.global_block()
+    fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in names]
+    r = _amp_step_runs(torch, fluid, main, startup, bert_feed(spec, batch),
+                       fetch, names, BERT_PER_STEP, wgmma=bert_wgmma)
+    runs = [r[k] for k in ("amp", "f32", "pert")]
+    v = _amp_verdict(["loss"] + names, r["gpu"], *runs)
+    control = _amp_verdict(["loss"] + names, r["gpu_f32"], *runs)
+    arms["adam_amp"] = dict(
+        {"loss_gpu": float(r["gpu"][0]), "loss_cpu_amp": float(r["amp"][0]),
+         "loss_cpu_f32": float(r["f32"][0]), "state_dtypes": r["dtypes"],
+         "launches": r["counts"], "bf16_launches": r["bf16_counts"],
+         "wgmma_launches": r["wgmma_counts"], "cpu_s": r["cpu_s"]},
+        **_amp_report(v, control))
+    emit({"phase": "bert_pretrain_check", "batch": batch,
+          "config": dict(BERT, dropout_rate=0.0), "arms": arms,
+          "tol": "loss 1e-4 rel, grads 1e-2 rel L2, the loss change over "
+                 "an update 1e-2 rel; AMP: the amp_train_check verdict",
+          "device": smi_line})
+    check(np.isfinite([float(r["gpu"][0])]).all(),
+          "adam_amp: non-finite loss on the card")
+    _amp_checks("bert_pretrain_check adam_amp", v, control)
+    check(r["dtypes"] == ["torch.float32"], "AMP state dtypes %s"
+          % r["dtypes"])
+    return arms
+
+
+def phase_bert_pretrain(torch, smi_line, warmup=3, steps=10, prof_steps=2):
+    """The main path: BERT-base pretraining at batch 128 x 128 tokens with
+    dropout 0.1 under ``fluid.amp.decorate``, captured from the key's
+    second step on, on one fixed batch (an overfit check), in two arms:
+    ``adam``, Adam(1e-4) as ``bench.py:192-198,225-231`` trains it, and
+    ``lamb_acc2_remat``, Lamb(1e-4) with ``accumulate_steps=2`` under
+    ``memory_optimize`` (a micro-step of the same 16,384 tokens; the
+    recompute launches the forwards of each segment again). Per arm: wall
+    and device ms a (micro-)step, tokens/s, busy share, peak memory
+    allocated (the arm alone: the peak statistics reset before it), the
+    kernels a step, and the launches of each bf16 form; every interpreted
+    or captured step launches ``program_launches`` exactly, all bf16, the
+    flash ones on wgmma; each replay the first step's kernels by kind."""
+    import paddle_tpu_torch as fluid
+
+    out, launched, replayed = {}, per_run(), per_run()
+    for arm, kw in (("adam", {}),
+                    ("lamb_acc2_remat", dict(opt="lamb", accumulate_steps=2,
+                                             remat=True))):
+        t0 = time.perf_counter()
+        main, startup, spec = build_bert_pretrain(fluid, 0.1, amp=True,
+                                                  **kw)
+        per_step = program_launches(main, [spec.loss.name])
+        scope = fluid.Scope()
+        exe = fluid.Executor()  # CUDAPlace(0)
+        exe.run(startup, scope=scope)
+        feed = bert_feed(spec, BERT_PRETRAIN_BATCH)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = torch.cuda.memory_allocated()
+        setup_s = time.perf_counter() - t0
+        losses, step_s, runs = [], [], {"launched": 0, "replayed": 0}
+
+        def run_step():
+            (loss,), dt, rep = counted_step(
+                exe, main, per_step, True, "%s step %d" % (arm, len(losses)),
+                wgmma=bert_wgmma, feed=feed, fetch_list=[spec.loss],
+                scope=scope)
+            runs["replayed" if rep else "launched"] += 1
+            losses.append(float(loss))
+            return dt
+
+        reset_counts()
+        micro = 2 if kw.get("accumulate_steps") else 1
+        call1 = {}
+        _profile_steps(torch, run_step, 1, counts=call1)
+        for i in range(warmup * micro - 1 + steps * micro):
+            dt = run_step()
+            if i >= warmup * micro - 1:
+                step_s.append(dt)
+        peak = torch.cuda.max_memory_allocated()
+        replay = {}
+        device_ms, kernels, prof_wall, top_other = _profile_steps(
+            torch, run_step, prof_steps * micro, counts=replay)
+        report = exe.step_report(main)
+        launches, bf16 = read_counts(), read_bf16_counts()
+        wgmma = read_wgmma_counts()
+        exe.close()
+        del scope
+        med = statistics.median(step_s)
+        busy = sum(device_ms.values())
+        tokens = BERT_PRETRAIN_BATCH * BERT["seq"]
+        out[arm] = {
+            "optimizer": {"adam": "Adam(1e-4)",
+                          "lamb_acc2_remat": "Lamb(1e-4), accumulate_steps"
+                          "=2, memory_optimize"}[arm],
+            "captured": report["captured"], "reason": report["reason"],
+            "step_report": report, "micro_steps_per_update": micro,
+            "warmup_steps": warmup * micro, "steps": len(step_s),
+            "step_ms_median": med * 1e3, "step_ms": [x * 1e3 for x in step_s],
+            "tokens_per_s": tokens / med,
+            "model_tflops_per_s": spec.flops_per_example
+            * BERT_PRETRAIN_BATCH / med / 1e12,
+            "device_ms_per_step": device_ms, "device_ms": busy,
+            "device_busy_share": busy / (med * 1e3),
+            "kernels_per_step": kernels, "kernels_by_kind": {
+                "call1": call1, "replay": replay},
+            "profiled_wall_ms_per_step": prof_wall,
+            "top_other_kernels": top_other, "losses": losses,
+            "state_bytes": state, "peak_memory_bytes": peak,
+            "peak_above_state_bytes": peak - state,
+            "launches": launches, "bf16_launches": bf16,
+            "wgmma_launches": wgmma, "launches_per_step": per_step,
+            "steps_by_kind": runs, "setup_s": setup_s}
+        check(report["captured"] and report["replays"] >= steps,
+              "bert_pretrain %s not captured: %s" % (arm, report))
+        check_replay_kernels("bert_pretrain " + arm, call1, replay)
+        check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
+        check(losses[-1] < losses[0], "%s: loss did not fall: %s"
+              % (arm, losses))
+        check(launches == {k: n * runs["launched"]
+                           for k, n in per_step.items()},
+              "bert_pretrain %s launches %s" % (arm, launches))
+        for k, n in per_step.items():
+            launched[k] += n * runs["launched"]
+            replayed[k] += n * runs["replayed"]
+    a, b = out["adam"], out["lamb_acc2_remat"]
+    emit({"phase": "bert_pretrain", "model": "bert_base (pretraining)",
+          "precision": "bf16 (fluid.amp.decorate)",
+          "config": dict(BERT, dropout_rate=0.1),
+          "batch": BERT_PRETRAIN_BATCH, "arms": out,
+          "remat_over_adam": {
+              "micro_step_ms": b["step_ms_median"] / a["step_ms_median"],
+              "peak_above_state": b["peak_above_state_bytes"]
+              / a["peak_above_state_bytes"]},
+          "device": smi_line})
+    return launched, replayed
+
+
+def phase_bert_kernel_timing(torch, dev):
+    """Rows 1-9's bf16 forms at BERT pretraining's shapes (BERT_TIMING),
+    each beside its plain version, its library call and its bound, as
+    ``timing`` times them at the Transformer's."""
+    rows = _bf16_kernel_timing(torch, dev, torch.Generator().manual_seed(
+        SEED), cfg=BERT_TIMING)
+    for name, r in rows.items():
+        r["launches_per_step"] = BERT_PER_STEP[name]
+        emit(dict({"phase": "bert_kernel_timing", "kernel": name}, **r))
+    return rows
+
+
+# DeepFM under each new update op: (name, optimizer, densifies its sparse
+# grad through the scatter-add); RMSProp twice, plain and centered
+OPTIMIZER_CHECKS = (
+    ("lars_momentum", lambda o: o.LarsMomentum(1e-3, 0.9), True),
+    ("adagrad", lambda o: o.Adagrad(1e-2), False),
+    ("adamax", lambda o: o.Adamax(1e-3), True),
+    ("decayed_adagrad", lambda o: o.DecayedAdagrad(1e-2), True),
+    ("adadelta", lambda o: o.Adadelta(1.0), True),
+    ("rmsprop", lambda o: o.RMSProp(1e-3), True),
+    ("rmsprop_centered", lambda o: o.RMSProp(1e-3, momentum=0.5,
+                                              centered=True), True),
+    ("ftrl", lambda o: o.Ftrl(1e-2), True),
+    ("lamb", lambda o: o.Lamb(1e-3), True),
+    ("model_average", lambda o: o.Adam(1e-3), True),
+    ("ema", lambda o: o.Adam(1e-3), True))
+
+
+def phase_optimizer_check(torch, smi_line, batch=64, steps=3):
+    """DeepFM at full width (config 5: its fused table
+    ``embedding(is_sparse=True)``) at batch 64 takes ``steps`` steps under
+    each new update op on the card (captured from the second step, but
+    Adagrad's sparse branch, which picks the touched rows on the host)
+    and with the port on the CPU from the same weights and feed: every
+    step's loss within 1e-4 relative (the first 1e-5), and each
+    parameter's update over the steps (after - before) within 1e-2
+    relative L2. The densifying optimizers launch the scatter-add once a
+    step (interpreted and captured steps; ``_kernel_choice``
+    ``cuda_scatter_add``), Adagrad never. ModelAverage and
+    ExponentialMovingAverage (over Adam) are held through ``apply``: the
+    applied parameters' distance from the trained ones within 1e-2
+    relative L2 of the CPU's, and ``restore`` gives the trained
+    parameters back bitwise. Beside it, row 13 timed at this shape."""
+    import paddle_tpu_torch as fluid
+
+    results = {}
+    for name, make, densifies in OPTIMIZER_CHECKS:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            spec = fluid.models.deepfm.deepfm(**DEEPFM)
+            make(fluid.optimizer).minimize(spec.loss)
+            avg = None
+            if name == "model_average":
+                avg = fluid.optimizer.ModelAverage(0.15)
+                avg._append_average_ops(main)
+            elif name == "ema":
+                avg = fluid.optimizer.ExponentialMovingAverage(0.9)
+                avg.update(main)
+        main.random_seed = startup.random_seed = SEED
+        names = [p.name for p in main.all_parameters()]
+        upd_op = [o for o in main.global_block().ops
+                  if o.attr("is_optimizer_op") and o.input("Param")
+                  is not None and o.input("Param").name == "fm_table"][0]
+        feeds = [spec.sample_batch(batch, np.random.RandomState(SEED + i))
+                 for i in range(steps)]
+        per_step = per_run(scatter_add=1) if densifies else per_run()
+        got = {}
+        for side in ("gpu", "cpu"):
+            scope = fluid.Scope()
+            exe = fluid.Executor(None if side == "gpu" else fluid.CPUPlace())
+            exe.run(startup, scope=scope)
+            if side == "gpu":
+                params = {n: scope.numpy(n).copy() for n in names}
+                reset_counts()
+            else:
+                fluid.bridge.load_program_params(scope, params, main, "cpu")
+            losses = []
+            for i, feed in enumerate(feeds):
+                if side == "gpu":
+                    (loss,), _, _ = counted_step(
+                        exe, main, per_step, False, "%s step %d" % (name, i),
+                        feed=feed, fetch_list=[spec.loss], scope=scope)
+                else:
+                    loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
+                                    scope=scope)
+                losses.append(float(loss))
+            trained = {n: scope.numpy(n).copy() for n in names}
+            applied = None
+            if avg is not None:
+                with avg.apply(exe, scope=scope):
+                    applied = {n: scope.numpy(n).copy() for n in names}
+                restored = all(np.array_equal(scope.numpy(n), trained[n])
+                               for n in names)
+                check(restored, "%s: restore on the %s did not give the "
+                      "trained parameters back" % (name, side))
+            got[side] = dict(losses=losses, trained=trained, applied=applied,
+                             choice=upd_op.attr("_kernel_choice"))
+            if side == "gpu":
+                got[side].update(report=exe.step_report(main),
+                                 launches=read_counts())
+            exe.close()
+        g, c = got["gpu"], got["cpu"]
+        loss_err = [abs(a - b) / max(abs(b), 1e-30)
+                    for a, b in zip(g["losses"], c["losses"])]
+        upd = {n: _rel_l2(g["trained"][n] - params[n],
+                          c["trained"][n] - params[n]) for n in names}
+        r = {"losses_gpu": g["losses"], "losses_cpu": c["losses"],
+             "loss_rel_err": loss_err, "update_rel_l2": upd,
+             "update_rel_l2_max": max(upd.values()),
+             "kernel_choice": g["choice"], "scatter_launches":
+             g["launches"]["scatter_add"], "captured": g["report"][
+                 "captured"], "reason": g["report"]["reason"],
+             "runs": {k: g["report"][k] for k in ("interpreted",
+                                                  "captures", "replays")}}
+        if avg is not None:
+            ap = {n: _rel_l2(g["applied"][n] - g["trained"][n],
+                             c["applied"][n] - c["trained"][n])
+                  for n in names}
+            r["applied_rel_l2_max"] = max(ap.values())
+        results[name] = r
+        check(loss_err[0] <= 1e-5 and max(loss_err) <= 1e-4,
+              "optimizer_check %s: losses %s" % (name, loss_err))
+        check(r["update_rel_l2_max"] <= 1e-2, "optimizer_check %s: updates "
+              "%s" % (name, upd))
+        check(r.get("applied_rel_l2_max", 0.0) <= 1e-2,
+              "optimizer_check %s: applied averages %s" % (name, r))
+        want_choice = {"kernel": "cuda_scatter_add"} if densifies else None
+        check(g["choice"] == want_choice, "optimizer_check %s: the table's "
+              "update recorded %s" % (name, g["choice"]))
+        check(r["captured"] == (name != "adagrad"),
+              "optimizer_check %s: captured %s (%s)"
+              % (name, r["captured"], r["reason"]))
+        launched = g["report"]["interpreted"] + g["report"]["captures"]
+        check(r["scatter_launches"] == (launched if densifies else 0),
+              "optimizer_check %s: %d scatter launches in %d launching "
+              "steps" % (name, r["scatter_launches"], launched))
+    timing = _scatter_kernel_timing(torch, torch.device("cuda", 0),
+                                    batch=batch)["scatter_add"]
+    emit({"phase": "optimizer_check", "model": "deepfm", "config": DEEPFM,
+          "batch": batch, "steps": steps, "optimizers": results,
+          "scatter_timing": timing,
+          "tol": "losses 1e-4 rel (step 1 1e-5), updates and applied "
+                 "averages 1e-2 rel L2, restore bitwise",
+          "device": smi_line})
+    return timing
 
 
 def build_resnet(fluid, amp=False):
@@ -5499,6 +6069,11 @@ def main():
     phase_deepfm_amp_train_check(torch, smi_line)
     paths["deepfm_amp_train"], replayed["deepfm_amp_train"] = \
         phase_deepfm_train(torch, smi_line, amp=True)
+    phase_bert_pretrain_check(torch, smi_line)
+    paths["bert_pretrain"], replayed["bert_pretrain"] = phase_bert_pretrain(
+        torch, smi_line)
+    bert_times = phase_bert_kernel_timing(torch, dev)
+    opt_scatter = phase_optimizer_check(torch, smi_line)
     fam = phase_decode_check(torch, smi_line)
     paths["decode"], replayed["decode"] = phase_decode(torch, smi_line, fam)
     del fam
@@ -5544,6 +6119,10 @@ def main():
                     "zipf_bound_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
+        if name in bert_times:  # the bf16 form at BERT pretraining's shape
+            kernels[-1]["bert_pretrain_shape"] = bert_times[name]
+        if name == "scatter_add":  # the densify of the new optimizers
+            kernels[-1]["optimizer_check_shape"] = opt_scatter
         if "bf16" in r:  # rows 1-12: the bf16 form (AMP), training shape
             bf16_by_path = {path: paths[path][name] for path in AMP_PATHS}
             kernels[-1]["bf16"] = dict(r["bf16"],

@@ -44,3 +44,32 @@ from . import inference  # noqa: F401
 from . import bridge  # noqa: F401
 from . import serving  # noqa: F401
 from . import models  # noqa: F401
+
+
+def memory_optimize(input_program=None, skip_opt_set=None, print_log=False,
+                    level=0, skip_grads=False):
+    """Rematerialization (``paddle_tpu/__init__.py:65``; ref
+    ``memory_optimization_transpiler.py``): the program's backward
+    recomputes the forward's activations instead of keeping them, segment
+    by segment (the Executor's ``remat_segments``: without checkpoints,
+    about the square root of the forward's op count in segments). Returns
+    the program."""
+    prog = input_program or framework.default_main_program()
+    hit = False
+    for op in prog.global_block().ops:
+        if op.type == "autodiff":
+            op.attrs["remat"] = True
+            hit = True
+    if hit:
+        prog._version += 1
+    elif print_log:
+        print("memory_optimize: no backward in the program")
+    return prog
+
+
+def release_memory(input_program=None, skip_opt_set=None):
+    """Ref ``release_memory`` (insert delete_var ops): a step's
+    intermediates are dropped at its end, and a captured step's live in
+    the graph's pool; returns the program unchanged, as
+    ``paddle_tpu`` does."""
+    return input_program or framework.default_main_program()

@@ -39,12 +39,13 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None, checkpoints=None):
     """Append gradient computation for ``loss`` w.r.t. trainable
     parameters; returns ``[(param, grad_var), ...]`` like the reference.
-    ``checkpoints`` (rematerialization) raises until the memory slice is
-    ported."""
-    if checkpoints:
-        raise NotImplementedError(
-            "append_backward(checkpoints=...): rematerialization comes with "
-            "the memory slice of paddle_tpu_torch")
+
+    ``checkpoints`` (Variables or names) turns on rematerialization
+    (``paddle_tpu/backward.py:31``, which sets the autodiff op's
+    ``remat``): the forward runs in segments that end where each
+    checkpoint is written, each segment keeps only what later ops read,
+    and the backward recomputes its activations from them (the Executor's
+    :func:`~.core.executor.remat_segments`)."""
     prog = loss.block.program
     gb = prog.global_block()
     fwd_ops = list(gb.ops)
@@ -76,7 +77,9 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         "autodiff", {"Loss": loss},
         {"Grads": grad_vars, "SparseRows": rows_vars},
         {"fwd_ops": fwd_ops, "wrt_names": [p.name for p in params],
-         "sparse_wrt_names": sparse_names})
+         "sparse_wrt_names": sparse_names, "remat": bool(checkpoints),
+         "checkpoints": [c.name if isinstance(c, Variable) else str(c)
+                         for c in checkpoints or ()]})
     prog._backward_ops.append(op)
     return list(zip(params, grad_vars))
 

@@ -75,11 +75,22 @@ follows the forward's dtypes.
 Randomness: the scope holds one ``torch.Generator`` on the executor's
 device under ``@RNG@``, seeded from ``program.random_seed`` on first use
 (0 means a random seed, as in the reference).
+
+Rematerialization (an autodiff op with ``remat``: ``append_backward``'s
+``checkpoints``, ``memory_optimize``): the forward runs in segments
+(:func:`remat_segments`), each under ``torch.utils.checkpoint``
+(non-reentrant): a segment keeps only the values later ops read, and the
+backward recomputes the rest from its inputs, under the AMP flag its
+forward ran under and with the random draws its forward made
+(``op_registry.RngTape``), so the gradients are the ones without remat.
+``paddle_tpu`` wraps its whole forward replay in one ``jax.checkpoint``
+(``control_ops.py:152``).
 """
 
 import collections
 import contextlib
 import gc
+import math
 import secrets
 import threading
 import weakref
@@ -89,13 +100,14 @@ import torch
 
 from . import framework
 from .framework import Variable, torch_dtype
-from .op_registry import (DEVICE_KEY, LENT_KEY, RNG_KEY, SPARSE_SITES_KEY,
-                          amp_scope, env_flag, run_op)
+from .op_registry import (AMP, DEVICE_KEY, LENT_KEY, RNG_KEY, RNG_TAPE_KEY,
+                          SPARSE_SITES_KEY, RngTape, amp_scope, env_flag,
+                          run_op)
 from .opt_fusion import run_fused_group
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "CPUPlace",
            "CUDAPlace", "resolve_device", "place_for", "CapturedStep",
-           "capture_rule", "state_writes", "step_plan"]
+           "capture_rule", "state_writes", "step_plan", "remat_segments"]
 
 
 _AUTODIFF_OPS = ("autodiff", "autodiff_vjp")
@@ -321,6 +333,93 @@ def state_writes(ops, persist):
     return out
 
 
+def _reads(op):
+    """The names ``op`` reads, its Switch condition included."""
+    cond = op.attrs.get("_switch_cond")
+    return list(op.input_arg_names) + ([cond] if cond else [])
+
+
+def remat_segments(ops, fetch_names=(), writes=()):
+    """``{start: (end, keep)}``: the rematerialized segments of a step's
+    forward, ``ops[start:end]`` each, and the names each keeps (those it
+    writes that a later op reads, a fetch, or a state write). Empty unless
+    an ``autodiff`` op has ``remat``. A segment ends after the op that
+    writes each of its ``checkpoints``, or, without checkpoints, every
+    ~sqrt(n) of the n forward ops. Two kinds of op run outside every
+    segment: a sparse table's lookup (its output is the gradient's leaf),
+    and the fused projection + CE, whose backward keeps only its inputs
+    and a row's statistics, so a recompute would save nothing and cost
+    the vocabulary's products again."""
+    ad = next((i for i, op in enumerate(ops)
+               if op.type == "autodiff" and op.attr("remat", False)), None)
+    if ad is None:
+        return {}
+    sparse = set(ops[ad].attr("sparse_wrt_names") or ())
+    ckpts = set(ops[ad].attr("checkpoints") or ())
+    if ckpts:
+        cuts = {i + 1 for i in range(ad)
+                if ckpts & set(ops[i].output_arg_names)}
+    else:
+        step = max(1, int(round(math.sqrt(ad))))
+        cuts = set(range(step, ad, step))
+
+    def outside(op):
+        return (op.attr("is_optimizer_op")
+                or op.type == "fused_linear_smooth_ce"
+                or (op.type == "lookup_table" and op.input("W") is not None
+                    and op.input("W").name in sparse))
+
+    spans, start = [], None
+    for i in range(ad + 1):
+        if start is not None and (i in cuts or i == ad or outside(ops[i])):
+            spans.append((start, i))
+            start = None
+        if i < ad and start is None and not outside(ops[i]):
+            start = i
+    later = set(fetch_names) | set(writes)
+    segments = {}
+    for start, end in reversed(spans):
+        for op in ops[end:]:
+            later.update(_reads(op))
+        written = []
+        for op in ops[start:end]:
+            written += [n for n in op.output_arg_names if n not in written]
+        segments[start] = (end, [n for n in written if n in later])
+    return segments
+
+
+def _run_segment(env, ops, keep):
+    """One rematerialized segment: ``ops`` under a non-reentrant
+    checkpoint over a copy of ``env``; only ``keep`` goes back into
+    ``env``. The recompute runs under the AMP flag of the forward (it may
+    run on autograd's device thread), replays the forward's draws, and
+    runs the whole segment (no early stop), so a step's kernel launches
+    follow from the segments alone."""
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+    base, tape, amp = dict(env), RngTape(), AMP.enabled
+
+    def body():
+        local = dict(base)
+        local[RNG_TAPE_KEY] = tape
+        for op in ops:
+            run_op(local, op)
+        return [local.get(n) for n in keep]
+
+    @contextlib.contextmanager
+    def recompute():
+        tape.replay = 0
+        with amp_scope(amp):
+            yield
+
+    with set_checkpoint_early_stop(False):
+        outs = checkpoint(body, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              recompute()))
+    env.update((n, t) for n, t in zip(keep, outs) if t is not None)
+
+
 def capture_rule(ops, writes=(), donate_state=True, use_program_cache=True,
                  cuda=True, lent=()):
     """``(captured, reason)``: whether a step of ``ops`` is captured as one
@@ -351,7 +450,7 @@ def capture_rule(ops, writes=(), donate_state=True, use_program_cache=True,
                            "merge_sparse_rows reads its segment counts on "
                            "the host")
         if op.input("GradRows") is not None and (
-                op.type == "momentum"
+                op.type in ("momentum", "adagrad")
                 or (op.type == "adam" and op.attr("lazy_mode", False))):
             return False, ("op '%s' updates the touched rows of a sparse "
                            "grad: the rows are picked by a boolean index, "
@@ -393,6 +492,7 @@ class _Entry:
                     for n in op.attr("wrt_names")} - self.sparse
         self.amp = bool(getattr(program, "_amp_bf16", False))
         self.writes = writes
+        self.remat = remat_segments(ops, fetch_names, writes)
         self.lent = frozenset(lent)
         self.lent_out = lent_outputs(ops, self.lent)
         self.captured, self.reason = captured, reason
@@ -446,8 +546,17 @@ def _run_ops(env, entry, plan=None, after=None):
                     env[n] = t.detach().requires_grad_(True)
             if entry.sparse:
                 env[SPARSE_SITES_KEY] = {n: [] for n in entry.sparse}
+        remat = entry.remat if after is None else {}
+        end = 0
         for i, op in enumerate(ops):
-            if i in skip:
+            if i in skip or i < end:
+                continue
+            seg = remat.get(i)
+            if seg is not None:
+                end, keep = seg
+                _run_segment(env, ops[i:end], keep)
+                for member in ops[i:end]:
+                    written.update(member.output_arg_names)
                 continue
             group = groups.get(i)
             before = None if after is None else {

@@ -27,6 +27,8 @@ RNG_KEY = "@RNG@"
 DEVICE_KEY = "@DEVICE@"
 SPARSE_SITES_KEY = "@SPARSE_SITES@"
 LENT_KEY = "@LENT@"
+# inside a rematerialized segment of a training step: its RngTape
+RNG_TAPE_KEY = "@RNG_TAPE@"
 
 
 def register(*names):
@@ -69,14 +71,43 @@ def amp_enabled():
     return AMP.enabled
 
 
+class _SingleRounding:
+    """cuBLAS's ``allow_bf16_reduced_precision_reduction`` held off while
+    any thread is inside an AMP block, and given back as it was when the
+    last one leaves. The flag is the process's, so the blocks of all
+    threads share one count."""
+    lock = threading.Lock()
+    depth = 0
+    saved = None
+
+
 @contextlib.contextmanager
 def amp_scope(enabled):
-    """Set the flag for a block and restore it afterwards."""
+    """Set the flag for a block and restore it afterwards. Inside an AMP
+    block cuBLAS also reduces bf16 products in f32: with
+    ``allow_bf16_reduced_precision_reduction`` (PyTorch's default) it may
+    sum split-K partials in bf16 and round a product twice, where the
+    reference's dots (``preferred_element_type=f32``) round once. That
+    setting is restored when the last AMP block of the process ends."""
+    matmul = torch.backends.cuda.matmul
+    if enabled:
+        with _SingleRounding.lock:
+            if _SingleRounding.depth == 0:
+                _SingleRounding.saved = \
+                    matmul.allow_bf16_reduced_precision_reduction
+                matmul.allow_bf16_reduced_precision_reduction = False
+            _SingleRounding.depth += 1
     prev, AMP.enabled = AMP.enabled, bool(enabled)
     try:
         yield
     finally:
         AMP.enabled = prev
+        if enabled:
+            with _SingleRounding.lock:
+                _SingleRounding.depth -= 1
+                if _SingleRounding.depth == 0:
+                    matmul.allow_bf16_reduced_precision_reduction = \
+                        _SingleRounding.saved
 
 
 def mxu_cast(*xs):
@@ -188,10 +219,33 @@ def put(env, var, val):
         env[var.name] = val
 
 
-def next_rng(env):
-    """The executor's ``torch.Generator`` (stateful: each draw advances
-    it, the torch counterpart of splitting the threaded JAX key)."""
-    return env[RNG_KEY]
+class RngTape:
+    """The random draws of one rematerialized forward segment: kept as its
+    forward makes them (a dropout's keep mask, a flash kernel's seed) and
+    handed out again, in order, to its recompute, which so draws exactly
+    what the forward drew. Nothing touches the generator's state: the
+    recompute runs in the backward, where the generator has moved on, and
+    inside a captured step, where its state lives in the graph."""
+
+    def __init__(self):
+        self.draws = []
+        self.replay = None  # the next draw's index while recomputing
+
+    def draw(self, fn, generator):
+        if self.replay is None:
+            self.draws.append(fn(generator))
+            return self.draws[-1]
+        self.replay += 1
+        return self.draws[self.replay - 1]
+
+
+def rng_draw(env, fn):
+    """``fn(generator)``: a random op's draw from the executor's generator,
+    through the segment's :class:`RngTape` under rematerialization."""
+    tape = env.get(RNG_TAPE_KEY)
+    if tape is None:
+        return fn(env[RNG_KEY])
+    return tape.draw(fn, env[RNG_KEY])
 
 
 def merge_sparse_rows(rows, vals, sentinel):

@@ -14,13 +14,12 @@ import math
 
 import torch
 
-from ..op_registry import (LENT_KEY, get, mxu_cast, next_rng, put,
-                            register)
+from ..op_registry import LENT_KEY, get, mxu_cast, put, register, rng_draw
 
 
 @register("flash_attention")
 def _flash_attention_op(env, op):
-    from ...ops.flash_attention import flash_attention
+    from ...ops.flash_attention import draw_seed, flash_attention
 
     q = get(env, op.input("Q"))
     out_dtype = q.dtype
@@ -28,11 +27,13 @@ def _flash_attention_op(env, op):
     # dtype (paddle_tpu's attention_ops.py:17-33)
     q, k, v = mxu_cast(q, get(env, op.input("K")), get(env, op.input("V")))
     dropout = op.attr("dropout_rate", 0.0)
+    seed = None
+    if dropout > 0.0:
+        seed = rng_draw(env, lambda gen: draw_seed(gen, q.device))
     out = flash_attention(
         q, k, v, op.attr("num_heads", 1),
         bias=get(env, op.input("Bias")), causal=op.attr("causal", False),
-        dropout_rate=dropout,
-        generator=next_rng(env) if dropout > 0.0 else None, op=op)
+        dropout_rate=dropout, seed=seed, op=op)
     put(env, op.output("Out"), out.to(out_dtype))
 
 
@@ -183,5 +184,6 @@ def _sampling_id(env, op):
     the 32-bit convention (``paddle_tpu``'s int64 is int32 without x64)."""
     x = get(env, op.input("X"))
     p = torch.clamp_min(x.float(), 1e-20)
-    ids = torch.multinomial(p, 1, generator=next_rng(env)).squeeze(1)
+    ids = rng_draw(env, lambda gen: torch.multinomial(
+        p, 1, generator=gen)).squeeze(1)
     put(env, op.output("Out"), ids.to(torch.int32))

@@ -8,7 +8,7 @@ card), as ``paddle_tpu`` leaves it to ``lax.conv_general_dilated``."""
 import torch
 import torch.nn.functional as F
 
-from ..op_registry import (register, get, put, next_rng, run_op, mxu_cast,
+from ..op_registry import (register, get, put, rng_draw, run_op, mxu_cast,
                            weak_scalar)
 
 
@@ -189,6 +189,9 @@ def _layer_norm(env, op):
         # (fused_layer_norm.py:27-39) was a TPU measurement
         from ...ops.fused_layer_norm import fused_layer_norm
 
+        op.attrs["_kernel_choice"] = {
+            "kernel": "plain" if x.device.type == "cpu"
+            else "cuda_layer_norm", "dtype": str(x.dtype).split(".")[-1]}
         y, mean, var = fused_layer_norm(x, scale, bias, eps)
         put(env, op.output("Y"), y)
         put(env, op.output("Mean"), mean)
@@ -221,8 +224,8 @@ def _dropout(env, op):
         put(env, op.output("Out"), x * weak_scalar(x, 1.0 - p)
             if impl == "downgrade_in_infer" else x)
         return
-    keep = torch.rand(x.shape, generator=next_rng(env),
-                      device=x.device) < (1.0 - p)
+    keep = rng_draw(env, lambda gen: torch.rand(
+        x.shape, generator=gen, device=x.device) < (1.0 - p))
     mask = keep.to(x.dtype)
     if impl == "upscale_in_train":
         out = torch.zeros_like(x) if p >= 1.0 \
@@ -246,13 +249,17 @@ def _fused_linear_smooth_ce(env, op):
     [.., V] logits never reach device memory (``ops/fused_ce.py``). Under
     AMP x, W and the bias go in as bf16 (``paddle_tpu``'s
     nn_ops.py:580-590); the loss is f32 either way."""
-    from ...ops.fused_ce import linear_smooth_ce
+    from ...ops.fused_ce import ce_form, linear_smooth_ce
 
     x = get(env, op.input("X"))
     ids = get(env, op.input("Label"))
     if ids.dim() == x.dim():
         ids = ids.squeeze(-1)
     x, w, b = mxu_cast(x, get(env, op.input("W")), get(env, op.input("Bias")))
+    op.attrs["_kernel_choice"] = (
+        {"kernel": "plain"} if x.device.type == "cpu" else
+        {"kernel": "cuda_fused_ce", "dtype": str(x.dtype).split(".")[-1],
+         "form": ce_form(x.reshape(-1, x.shape[-1]), w)})
     put(env, op.output("Loss"), linear_smooth_ce(
         x, w, b, ids, op.attr("epsilon", 0.0)))
 
@@ -290,3 +297,165 @@ def _sigmoid_ce(env, op):
     if op.attr("normalize", False):
         loss = loss / torch.clamp_min((~ignore).sum().to(x.dtype), 1.0)
     put(env, op.output("Out"), loss)
+
+
+# ---------------- the other losses (``paddle_tpu``'s nn_ops.py:495-721) ----
+
+def _label_ids(label, x):
+    """Hard labels as int64 ids shaped like ``x`` without its last axis."""
+    ids = label.long()
+    if ids.dim() == x.dim():
+        ids = ids.squeeze(-1)
+    return ids
+
+
+def _gather_last(x, ids):
+    """``x[..., ids]`` per row with ids that may be out of range (masked
+    by the caller): they read column 0."""
+    ok = (ids >= 0) & (ids < x.shape[-1])
+    return torch.gather(x, -1, torch.where(ok, ids, 0)[..., None])
+
+
+@register("log_softmax")
+def _log_softmax(env, op):
+    x = get(env, op.input("X"))
+    out = torch.log_softmax(x.float(), dim=op.attr("axis", -1))
+    put(env, op.output("Out"), out.to(x.dtype))
+
+
+@register("cross_entropy")
+def _cross_entropy(env, op):
+    """Ref ``cross_entropy_op.cc``: X holds probabilities. A hard label
+    gives -log(p[label] + 1e-8), 0 at ``ignore_index``; a soft one
+    -sum(label * log(p + 1e-8))."""
+    x = get(env, op.input("X"))
+    label = get(env, op.input("Label"))
+    eps = 1e-8
+    if op.attr("soft_label", False):
+        loss = -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)
+    else:
+        ids = _label_ids(label, x)
+        loss = -torch.log(_gather_last(x, ids) + eps)
+        loss = torch.where((ids == op.attr("ignore_index", -100))[..., None],
+                           torch.zeros_like(loss), loss)
+    put(env, op.output("Y"), loss)
+
+
+@register("smooth_softmax_ce")
+def _smooth_softmax_ce(env, op):
+    """Label-smoothed softmax CE in closed form, f32 statistics:
+    lse(logits) - (1 - eps) * logits[y] - eps * mean(logits)."""
+    lf = get(env, op.input("Logits")).float()
+    ids = _label_ids(get(env, op.input("Label")), lf)
+    eps = op.attr("epsilon", 0.0)
+    loss = torch.logsumexp(lf, dim=-1) - (1.0 - eps) * _gather_last(
+        lf, ids)[..., 0]
+    if eps:
+        loss = loss - eps * lf.mean(dim=-1)
+    put(env, op.output("Loss"), loss)
+
+
+@register("square_error_cost")
+def _square_error_cost(env, op):
+    x = get(env, op.input("X"))
+    put(env, op.output("Out"), torch.square(x - get(env, op.input("Y"))))
+
+
+@register("smooth_l1_loss")
+def _smooth_l1(env, op):
+    x = get(env, op.input("X"))
+    s2 = op.attr("sigma", 1.0) ** 2
+    diff = x - get(env, op.input("Y"))
+    iw = get(env, op.input("InsideWeight"))
+    ow = get(env, op.input("OutsideWeight"))
+    if iw is not None:
+        diff = diff * iw
+    ad = torch.abs(diff)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    if ow is not None:
+        loss = loss * ow
+    put(env, op.output("Diff"), diff)
+    put(env, op.output("Out"),
+        loss.sum(dim=tuple(range(1, x.dim()))).reshape(x.shape[0], 1))
+
+
+@register("huber_loss")
+def _huber_loss(env, op):
+    x = get(env, op.input("X"))
+    delta = op.attr("delta", 1.0)
+    r = get(env, op.input("Y")) - x
+    ar = torch.abs(r)
+    put(env, op.output("Residual"), r)
+    put(env, op.output("Out"), torch.where(
+        ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta)))
+
+
+@register("label_smooth")
+def _label_smooth(env, op):
+    x = get(env, op.input("X"))
+    eps = op.attr("epsilon", 0.0)
+    dist = get(env, op.input("PriorDist"))
+    prior = eps * dist if dist is not None else eps / x.shape[-1]
+    put(env, op.output("Out"), (1 - eps) * x + prior)
+
+
+@register("kldiv_loss")
+def _kldiv_loss(env, op):
+    x = get(env, op.input("X"))  # log-probabilities
+    target = get(env, op.input("Target"))
+    loss = target * (torch.log(torch.clamp_min(target, 1e-12)) - x)
+    red = op.attr("reduction", "mean")
+    if red == "mean":
+        loss = loss.mean()
+    elif red == "sum":
+        loss = loss.sum()
+    elif red == "batchmean":
+        loss = loss.sum() / x.shape[0]
+    put(env, op.output("Loss"), loss)
+
+
+@register("bpr_loss")
+def _bpr_loss(env, op):
+    """Bayesian personalised ranking: the mean over the other columns of
+    -log(sigmoid(x[label] - x) + 1e-8)."""
+    x = get(env, op.input("X"))
+    ids = _label_ids(get(env, op.input("Label")), x)
+    loss = -torch.log(torch.sigmoid(_gather_last(x, ids) - x) + 1e-8)
+    others = 1.0 - F.one_hot(ids.clamp(0, x.shape[-1] - 1),
+                             x.shape[-1]).to(x.dtype)
+    put(env, op.output("Y"), (loss * others).sum(dim=-1, keepdim=True)
+        / max(x.shape[-1] - 1, 1))
+
+
+@register("hinge_loss")
+def _hinge_loss(env, op):
+    logits = get(env, op.input("Logits"))
+    labels = get(env, op.input("Labels"))
+    put(env, op.output("Loss"),
+        torch.clamp_min(1.0 - (2.0 * labels - 1.0) * logits, 0.0))
+
+
+@register("log_loss")
+def _log_loss(env, op):
+    p = get(env, op.input("Predicted"))
+    label = get(env, op.input("Labels"))
+    eps = op.attr("epsilon", 1e-4)
+    put(env, op.output("Loss"), -label * torch.log(p + eps)
+        - (1 - label) * torch.log(1 - p + eps))
+
+
+@register("margin_rank_loss")
+def _margin_rank_loss(env, op):
+    x1 = get(env, op.input("X1"))
+    x2 = get(env, op.input("X2"))
+    label = get(env, op.input("Label"))
+    out = torch.clamp_min(-label * (x1 - x2) + op.attr("margin", 0.0), 0.0)
+    put(env, op.output("Out"), out)
+    put(env, op.output("Activated"), (out > 0).to(x1.dtype))
+
+
+@register("mse_loss")
+def _mse_loss(env, op):
+    x = get(env, op.input("X"))
+    put(env, op.output("Out"),
+        torch.square(x - get(env, op.input("Y"))).mean())

@@ -7,7 +7,7 @@ import torch
 
 from ..framework import convert_np_dtype, torch_dtype
 from ..op_registry import (DEVICE_KEY, SPARSE_SITES_KEY, amp_out_cast,
-                           get, get_list, next_rng, put, register)
+                           get, get_list, put, register, rng_draw)
 
 
 def _out_dtype(op):
@@ -24,16 +24,18 @@ def _fill_constant(env, op):
 @register("uniform_random")
 def _uniform_random(env, op):
     lo, hi = op.attr("min", -1.0), op.attr("max", 1.0)
-    u = torch.rand(tuple(op.attr("shape")), generator=next_rng(env),
-                   dtype=torch.float32, device=env[DEVICE_KEY])
+    u = rng_draw(env, lambda gen: torch.rand(
+        tuple(op.attr("shape")), generator=gen, dtype=torch.float32,
+        device=env[DEVICE_KEY]))
     put(env, op.output("Out"), (lo + (hi - lo) * u).to(_out_dtype(op)))
 
 
 @register("gaussian_random")
 def _gaussian_random(env, op):
     mean, std = op.attr("mean", 0.0), op.attr("std", 1.0)
-    n = torch.randn(tuple(op.attr("shape")), generator=next_rng(env),
-                    dtype=torch.float32, device=env[DEVICE_KEY])
+    n = rng_draw(env, lambda gen: torch.randn(
+        tuple(op.attr("shape")), generator=gen, dtype=torch.float32,
+        device=env[DEVICE_KEY]))
     put(env, op.output("Out"), (mean + std * n).to(_out_dtype(op)))
 
 
@@ -173,3 +175,29 @@ def _lookup_table(env, op):
     # under AMP the rows go on in bf16 (paddle_tpu's tensor_ops.py:314-315);
     # a sparse site's leaf stays the f32 gather, so its gradient is f32
     put(env, op.output("Out"), amp_out_cast(out))
+
+
+@register("scatter")
+def _scatter(env, op):
+    """``X.at[Ids].set(Updates)`` (``overwrite``) or ``.add`` along dim 0
+    (``paddle_tpu``'s ``tensor_ops.py:235``, XLA's scatter there, so a
+    plain one here): an id in [-N, 0) counts from the end and any other
+    out-of-range id drops, as JAX's scatter drops it. The ids are masked
+    on the device, never filtered on the host, so a captured step may
+    hold the op (gradient accumulation's sparse branch)."""
+    x = get(env, op.input("X"))
+    n = x.shape[0]
+    idx = get(env, op.input("Ids")).reshape(-1).long()
+    upd = get(env, op.input("Updates")).to(x.dtype)
+    upd = upd.reshape((idx.shape[0],) + tuple(x.shape[1:]))
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    if op.attr("overwrite", True):
+        # the dropped ids write a scratch row past the end
+        out = torch.cat([x, x[:1]]).index_copy(
+            0, torch.where(valid, idx, n), upd)[:n]
+    else:
+        mask = valid.reshape((-1,) + (1,) * (upd.dim() - 1))
+        out = x.index_add(0, torch.where(valid, idx, 0),
+                          torch.where(mask, upd, torch.zeros_like(upd)))
+    put(env, op.output("Out"), out)

@@ -21,6 +21,10 @@ __all__ = [
     "elementwise_mod", "reduce_sum",
     "topk", "softmax_with_cross_entropy",
     "sigmoid_cross_entropy_with_logits", "fused_linear_smooth_ce",
+    "log_softmax", "cross_entropy", "smooth_softmax_with_cross_entropy",
+    "square_error_cost", "smooth_l1", "huber_loss", "label_smooth",
+    "kldiv_loss", "bpr_loss", "hinge_loss", "log_loss", "margin_rank_loss",
+    "mse_loss",
     "multi_head_attention", "kv_cache_write", "cached_multi_head_attention",
     "kv_cache_write_chunk", "cached_multi_head_attention_chunk",
     "autoincreased_step_counter",
@@ -390,6 +394,116 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
                      {"X": x, "Label": label}, {"Out": out},
                      {"ignore_index": ignore_index, "normalize": normalize})
     return out
+
+
+def _loss_layer(op_type, inputs, out_slot, shape, dtype, attrs=None,
+                name=None, extra=(), helper_name=None):
+    """One loss op: each of ``extra`` and then ``out_slot`` a new var
+    shaped ``shape`` (in the reference's order of creation); returns the
+    ``out_slot`` var."""
+    helper = LayerHelper(helper_name or op_type, name=name)
+    outs = {slot: helper.create_variable_for_type_inference(dtype=dtype,
+                                                            shape=shape)
+            for slot in tuple(extra) + (out_slot,)}
+    helper.append_op(op_type, {k: v for k, v in inputs.items()
+                               if v is not None}, outs, attrs or {})
+    return outs[out_slot]
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _loss_layer("log_softmax", {"X": input}, "Out", input.shape,
+                       _dtype(input), {"axis": axis}, name)
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100,
+                  name=None):
+    """-log of the label's probability (``input`` holds probabilities),
+    [..., 1]."""
+    return _loss_layer("cross_entropy", {"X": input, "Label": label}, "Y",
+                       tuple(input.shape[:-1]) + (1,), _dtype(input),
+                       {"soft_label": soft_label,
+                        "ignore_index": ignore_index}, name)
+
+
+def smooth_softmax_with_cross_entropy(logits, label, epsilon=0.0):
+    """Label-smoothed softmax CE in closed form, one pass over the logits
+    (``paddle_tpu/layers/nn.py:749``); the loss has the class axis
+    reduced away."""
+    return _loss_layer("smooth_softmax_ce", {"Logits": logits,
+                                             "Label": label}, "Loss",
+                       tuple(logits.shape[:-1]), "float32",
+                       {"epsilon": float(epsilon)},
+                       helper_name="smooth_softmax_with_cross_entropy")
+
+
+def square_error_cost(input, label, name=None):
+    return _loss_layer("square_error_cost", {"X": input, "Y": label}, "Out",
+                       input.shape, _dtype(input), name=name)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=1.0,
+              name=None):
+    helper = LayerHelper("smooth_l1_loss", name=name)
+    diff = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                     shape=x.shape)
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(x), shape=(x.shape[0], 1))
+    inputs = {"X": x, "Y": y, "InsideWeight": inside_weight,
+              "OutsideWeight": outside_weight}
+    helper.append_op("smooth_l1_loss",
+                     {k: v for k, v in inputs.items() if v is not None},
+                     {"Diff": diff, "Out": out}, {"sigma": sigma})
+    return out
+
+
+def huber_loss(input, label, delta, name=None):
+    return _loss_layer("huber_loss", {"X": input, "Y": label}, "Out",
+                       input.shape, _dtype(input), {"delta": delta}, name,
+                       extra=("Residual",))
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    return _loss_layer("label_smooth", {"X": label, "PriorDist": prior_dist},
+                       "Out", label.shape, dtype,
+                       {"epsilon": float(epsilon)}, name)
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    shape = () if reduction in ("mean", "sum", "batchmean") else x.shape
+    return _loss_layer("kldiv_loss", {"X": x, "Target": target}, "Loss",
+                       shape, _dtype(x), {"reduction": reduction}, name)
+
+
+def bpr_loss(input, label, name=None):
+    return _loss_layer("bpr_loss", {"X": input, "Label": label}, "Y",
+                       (input.shape[0], 1), _dtype(input), name=name)
+
+
+def hinge_loss(input, label, name=None):
+    return _loss_layer("hinge_loss", {"Logits": input, "Labels": label},
+                       "Loss", input.shape, _dtype(input), name=name)
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return _loss_layer("log_loss", {"Predicted": input, "Labels": label},
+                       "Loss", input.shape, _dtype(input),
+                       {"epsilon": epsilon}, name)
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out, act = (helper.create_variable_for_type_inference(
+        dtype=_dtype(left), shape=left.shape) for _ in range(2))
+    helper.append_op("margin_rank_loss",
+                     {"X1": left, "X2": right, "Label": label},
+                     {"Out": out, "Activated": act}, {"margin": margin})
+    return out
+
+
+def mse_loss(input, label, name=None):
+    return _loss_layer("mse_loss", {"X": input, "Y": label}, "Out", (),
+                       _dtype(input), name=name)
 
 
 def fused_linear_smooth_ce(input, label, size, epsilon=0.0,

@@ -3,6 +3,9 @@
 from . import bert  # noqa: F401
 from . import common  # noqa: F401
 from . import deepfm  # noqa: F401
+from . import mnist  # noqa: F401
 from . import resnet  # noqa: F401
+from . import se_resnext  # noqa: F401
 from . import transformer  # noqa: F401
+from . import vgg  # noqa: F401
 from . import word2vec  # noqa: F401

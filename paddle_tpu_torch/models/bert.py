@@ -1,14 +1,19 @@
-"""BERT-base encoder (BASELINE config 4; ``paddle_tpu/models/bert.py``).
+"""BERT-base pretraining (BASELINE config 4; ``paddle_tpu/models/bert.py``).
 
-``bert_encoder`` builds the same program as ``paddle_tpu``'s, var for var
-and name for name, so weights saved by either package load in the other.
-A served model puts its own head on the encoder (``chip_smoke.py`` builds
-a [CLS] classifier)."""
+``bert_encoder`` and ``bert_base`` build the same programs as
+``paddle_tpu``'s, var for var and name for name, so weights saved by
+either package load in the other. ``bert_base`` is the pretraining model
+``paddle_tpu``'s bench.py trains: the masked-LM head (gelu transform,
+LayerNorm, the fused vocabulary projection + CE over every position,
+weighted by ``mlm_weights``) and the next-sentence head on [CLS]. A
+served model puts its own head on the encoder (``chip_smoke.py`` builds a
+[CLS] classifier)."""
 
 from .. import layers
 from ..core.param_attr import ParamAttr
+from .common import FeedSpec, ModelSpec
 
-__all__ = ["bert_encoder"]
+__all__ = ["bert_base", "bert_encoder"]
 
 
 def _postnorm(x, sub, dropout_rate):
@@ -59,3 +64,60 @@ def bert_encoder(input_ids, segment_ids, input_len, seq_len, vocab_size,
                 name=nm + "_ffn2"),
             dropout_rate)
     return x
+
+
+def bert_base(vocab_size=30522, seq_len=128, d_model=768, d_ff=3072,
+              n_head=12, n_layer=12, dropout_rate=0.1):
+    """The pretraining loss: the masked-LM CE at every position, weighted
+    by ``mlm_weights`` over their sum + 1e-6 (static shapes: no gather of
+    the masked positions), plus the mean next-sentence CE."""
+    input_ids = layers.data("input_ids", shape=[seq_len], dtype="int64")
+    segment_ids = layers.data("segment_ids", shape=[seq_len], dtype="int64")
+    input_len = layers.data("input_len", shape=[], dtype="int64")
+    mlm_labels = layers.data("mlm_labels", shape=[seq_len], dtype="int64")
+    mlm_weights = layers.data("mlm_weights", shape=[seq_len],
+                              dtype="float32")
+    nsp_label = layers.data("nsp_label", shape=[1], dtype="int64")
+
+    x = bert_encoder(input_ids, segment_ids, input_len, seq_len, vocab_size,
+                     d_model, d_ff, n_head, n_layer, dropout_rate)
+
+    # MLM head: transform, then the fused vocabulary projection + CE
+    h = layers.fc(x, size=d_model, num_flatten_dims=2, act="gelu",
+                  name="mlm_transform")
+    h = layers.layer_norm(h, begin_norm_axis=2)
+    mlm_ce = layers.fused_linear_smooth_ce(
+        h, mlm_labels, size=vocab_size,
+        param_attr=ParamAttr(name="mlm_out.w", sharding=(None, "mp")),
+        name="mlm_out")
+    mlm_loss = layers.elementwise_div(
+        layers.reduce_sum(layers.elementwise_mul(mlm_ce, mlm_weights)),
+        layers.elementwise_add(
+            layers.reduce_sum(mlm_weights),
+            layers.fill_constant([], "float32", 1e-6)))
+
+    # NSP head on [CLS] (position 0)
+    cls = layers.slice(x, axes=[1], starts=[0], ends=[1])
+    cls = layers.squeeze(cls, [1])
+    pooled = layers.fc(cls, size=d_model, act="tanh", name="pooler")
+    nsp_logits = layers.fc(pooled, size=2, name="nsp_out")
+    nsp_loss = layers.mean(
+        layers.softmax_with_cross_entropy(nsp_logits, nsp_label))
+
+    loss = layers.elementwise_add(mlm_loss, nsp_loss)
+
+    per_layer_mac = (4 * d_model * d_model + 2 * d_model * d_ff
+                     + 2 * seq_len * d_model)
+    total_mac = n_layer * per_layer_mac + d_model * vocab_size
+    return ModelSpec(
+        loss,
+        feeds={"input_ids": FeedSpec([seq_len], "int64", 0, vocab_size),
+               "segment_ids": FeedSpec([seq_len], "int64", 0, 2),
+               "input_len": FeedSpec([], "int64", seq_len, seq_len + 1),
+               "mlm_labels": FeedSpec([seq_len], "int64", 0, vocab_size),
+               "mlm_weights": FeedSpec([seq_len], "float32", 0.0, 1.0),
+               "nsp_label": FeedSpec([1], "int64", 0, 2)},
+        flops_per_example=2 * 3 * total_mac * seq_len,
+        tokens_per_example=seq_len,
+        sequence_feeds=["input_ids", "segment_ids", "mlm_labels",
+                        "mlm_weights"])

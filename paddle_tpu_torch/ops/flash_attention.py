@@ -663,19 +663,17 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, num_heads, bias=None, causal=False,
-                    dropout_rate=0.0, generator=None, op=None):
+                    dropout_rate=0.0, op=None, seed=None):
     """q,k,v: [B, T, H*D] (packed heads). ``bias``: None, the additive
     ``[B, 1, 1, Tk]`` / ``[B, Tk]`` key mask, or any bias broadcastable to
-    ``[B, H, Tq, Tk]``. When ``dropout_rate > 0`` and a ``generator`` is
-    given, the attention weights are dropped with a seed drawn from it.
+    ``[B, H, Tq, Tk]``. When ``dropout_rate > 0`` and a ``seed`` (an int64
+    [1] tensor, :func:`draw_seed`) is given, the attention weights are
+    dropped with it.
     ``op``: the op to record :func:`kernel_choice`'s decision in
     (``_kernel_choice``). Returns [B, T, H*D]."""
     choice = kernel_choice(q, num_heads, k, bias)
     if op is not None:
         op.attrs["_kernel_choice"] = choice
-    seed = None
-    if dropout_rate > 0.0 and generator is not None:
-        seed = draw_seed(generator, q.device)
     if not torch.is_grad_enabled():  # no tape: skip the Function's cost
         fwd = attention_plain if choice["kernel"] == "plain" \
             else flash_attention_fwd

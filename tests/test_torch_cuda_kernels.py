@@ -1906,3 +1906,141 @@ def test_two_threads_serve_predictor_clones(dev, fresh_port_programs,
         assert report["captured"] and report["replays"] == len(feeds) - 2
         for w, g in zip(want, got[k]):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+# -- the optimizers' sparse routes and rematerialization ---------------------
+
+DENSIFYING = {
+    "lars_momentum": lambda o: o.LarsMomentum(1e-2, 0.9),
+    "adamax": lambda o: o.Adamax(1e-3),
+    "decayed_adagrad": lambda o: o.DecayedAdagrad(1e-2),
+    "adadelta": lambda o: o.Adadelta(1.0),
+    "rmsprop": lambda o: o.RMSProp(1e-3, momentum=0.5, centered=True),
+    "ftrl": lambda o: o.Ftrl(1e-2),
+    "lamb": lambda o: o.Lamb(1e-3),
+}
+
+
+@pytest.mark.parametrize("name", list(DENSIFYING))
+def test_densifying_optimizer_scatters_through_the_kernel(
+        dev, fresh_port_programs, name):
+    """One step of a tiny DeepFM under each optimizer that densifies its
+    sparse grad: the step launches the scatter-add kernel once, records
+    ``cuda_scatter_add``, and its loss and the table's update agree with
+    the CPU's (the plain scatter) within 1e-5 relative and 1e-4 relative
+    L2: the optimizers' first steps move an element by about lr * sign(g)
+    or lr * g / |g|, so an element whose grad is within rounding of zero
+    may part."""
+    spec = tfluid.models.deepfm.deepfm(
+        sparse_feature_dim=1000, num_fields=6, embedding_size=8,
+        dense_dim=5, hidden_sizes=(16, 16))
+    DENSIFYING[name](tfluid.optimizer).minimize(spec.loss)
+    main = tfluid.default_main_program()
+    startup = tfluid.default_startup_program()
+    startup.random_seed = 3
+    upd = [o for o in main.global_block().ops if o.type == name
+           and o.input("Param").name == "fm_table"][0]
+    feed = spec.sample_batch(16, np.random.RandomState(0))
+    gpu_scope, cpu_scope = tfluid.Scope(), tfluid.Scope()
+    exe = tfluid.Executor()
+    exe.run(startup, scope=gpu_scope)
+    params = {p.name: gpu_scope.get(p.name).cpu().numpy()
+              for p in main.all_parameters()}
+    before = tscatter.scatter_add.launches
+    got, = exe.run(main, feed=feed, fetch_list=[spec.loss], scope=gpu_scope)
+    assert tscatter.scatter_add.launches == before + 1
+    assert upd.attr("_kernel_choice") == {"kernel": "cuda_scatter_add"}
+    cexe = tfluid.Executor(tfluid.CPUPlace())
+    cexe.run(startup, scope=cpu_scope)
+    tfluid.bridge.load_program_params(cpu_scope, params, main, "cpu")
+    want, = cexe.run(main, feed=feed, fetch_list=[spec.loss],
+                     scope=cpu_scope)
+    assert upd.attr("_kernel_choice") == {"kernel": "plain_scatter_add"}
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    start = params["fm_table"]
+    upd_gpu = gpu_scope.get("fm_table").cpu().numpy() - start
+    upd_cpu = cpu_scope.get("fm_table").numpy() - start
+    assert np.abs(upd_cpu).max() > 0
+    assert np.linalg.norm(upd_gpu - upd_cpu) <= \
+        1e-4 * np.linalg.norm(upd_cpu)
+
+
+def _tiny_bert(remat):
+    """Tiny BERT pretraining (2 layers, width 32, dropout 0.1) under Adam
+    in fresh programs with fresh names, with ``memory_optimize`` when
+    ``remat``: (main, startup, loss and grads)."""
+    old = t_unique_name.switch()
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with tfluid.program_guard(main, startup):
+        spec = tfluid.models.bert.bert_base(
+            vocab_size=97, seq_len=16, d_model=32, d_ff=64, n_head=2,
+            n_layer=2, dropout_rate=0.1)
+        pg = tfluid.optimizer.Adam(1e-3).minimize(spec.loss)[1]
+    if remat:
+        tfluid.memory_optimize(main)
+    t_unique_name.switch(old)
+    return main, startup, spec, [spec.loss] + [g for _, g in pg]
+
+
+def test_captured_remat_step_matches_plain_step(dev):
+    """Two steps of tiny BERT under ``memory_optimize`` with dropout 0.1:
+    the first interpreted, the second captured (its backward recomputes
+    every segment inside the graph, replaying the forward's dropout masks
+    and flash seeds); a program without remat, interpreted, from the same
+    weights and generator seed gives each step's loss and gradients within
+    1e-6 relative L2: the recompute reproduces the forward, and dropout
+    draws no new mask."""
+    main, startup, spec, fetch = _tiny_bert(True)
+    pmain, pstartup, pspec, pfetch = _tiny_bert(False)
+    assert [v.name for v in fetch] == [v.name for v in pfetch]
+    feed = spec.sample_batch(4, np.random.RandomState(1))
+    feed["input_len"] = np.array([16, 9, 12, 3], "int64")
+    scope, pscope = tfluid.Scope(), tfluid.Scope()
+    exe, pexe = tfluid.Executor(), tfluid.Executor()
+    exe.run(startup, scope=scope)
+    pexe.run(pstartup, scope=pscope)
+    tfluid.bridge.load_program_params(
+        pscope, {p.name: scope.numpy(p.name) for p in main.all_parameters()},
+        pmain)
+    for step in range(2):
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        want = pexe.run(pmain, feed=feed, fetch_list=pfetch, scope=pscope,
+                        use_program_cache=False)
+        for v, g, w in zip(fetch, got, want):
+            assert np.linalg.norm(g - w) <= 1e-6 * max(
+                np.linalg.norm(w), 1e-30), (step, v.name)
+    report = exe.step_report(main)
+    assert report["captured"] and report["captures"] == 1, report
+    assert len(exe._last[id(main)].remat) > 1
+    exe.close()
+
+
+def test_amp_products_round_once(dev, fresh_port_programs):
+    """A bf16 product under AMP at few rows and a long reduction (the CE
+    backward's dx at BERT's vocabulary, 256 rows) rounds once, as the
+    reference's f32-accumulated dots do: within the error of the f64
+    product rounded to bf16 (cuBLAS's bf16 split-K reduction, PyTorch's
+    default, adds a second rounding: 2.28e-3 against 1.67e-3 relative L2
+    on an H100)."""
+    x, w = (tfluid.layers.data(n, shape=s, dtype="float32",
+                               append_batch_size=False)
+            for n, s in (("x", [256, 30522]), ("w", [30522, 768])))
+    main = tfluid.default_main_program()
+    y = main.global_block().create_var(name="y", shape=(256, 768),
+                                       dtype="float32")
+    main.global_block().append_op("mul", {"X": x, "Y": w}, {"Out": y},
+                                  {"x_num_col_dims": 1, "y_num_col_dims": 1})
+    tfluid.amp.enable_bf16(main)
+    gen = torch.Generator().manual_seed(0)
+    xv = torch.randn(256, 30522, generator=gen) * 1e-4
+    xv[:, 0] = -1.0
+    wv = torch.randn(30522, 768, generator=gen) / 768 ** 0.5
+    got, = tfluid.Executor().run(main, feed={"x": xv.numpy(),
+                                             "w": wv.numpy()},
+                                 fetch_list=[y], return_numpy=False)
+    assert got.dtype == torch.bfloat16
+    ref = (xv.bfloat16().double() @ wv.bfloat16().double()).to(dev)
+    once = ref.bfloat16().double()
+    err = float((got.double() - ref).norm() / ref.norm())
+    assert err <= 1.001 * float((once - ref).norm() / ref.norm())

@@ -261,7 +261,8 @@ def test_dropout_draws_from_the_generator(rng):
 
     def run(seed):
         g = torch.Generator().manual_seed(seed)
-        return tfa.flash_attention(*t, H, dropout_rate=0.5, generator=g)
+        return tfa.flash_attention(*t, H, dropout_rate=0.5,
+                                   seed=tfa.draw_seed(g, t[0].device))
 
     assert torch.equal(run(3), run(3))
     assert not torch.equal(run(3), run(4))
