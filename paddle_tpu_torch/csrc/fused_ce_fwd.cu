@@ -493,21 +493,50 @@ cudaError_t dispatch(dim3 grid, cudaStream_t s, const void* x,
 // ---------------------------------------------------------------------------
 namespace wgce {
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 5, DMAX = 512;
+constexpr int BM = 128, BN = 128;
 constexpr int THREADS = 384;          // producer warpgroup + 2 consumers
-constexpr int X_SLAB = BM * 128;      // x's 128 rows of one 64-wide k slab
-constexpr int W_SLAB = BK * 128;      // 64 k rows of one 64-wide v slab
-constexpr int W_STAGE = 2 * W_SLAB;   // one k chunk of a 128-column tile
+constexpr int X_SLAB = BM * 128;      // 128 rows of one 64-wide k slab
 constexpr int LEAD = 2;               // chunks warpgroup 1 starts ahead
-constexpr size_t SMEM = 1024 + size_t(DMAX / BK) * X_SLAB +
-                        size_t(STAGES) * W_STAGE +
-                        (2 * STAGES + 1) * sizeof(uint64_t) +
-                        BM * (sizeof(int) + sizeof(float));
+
+// The x plans (the C entry's `xplan`): XRES, x's 128 rows resident (to
+// DMAX) or streamed beside W through the ring; WK, the k depth of a ring
+// stage. Each plan's STAGES fill the 227 KB a block may use.
+template <bool XRES, int WK>
+struct Plan;
+template <>
+struct Plan<true, 64> {  // PR 12's form: D <= 512
+  static constexpr int DMAX = 512, STAGES = 5;
+};
+template <>
+struct Plan<false, 64> {  // any D: a stage holds x's slab and W's chunk
+  static constexpr int DMAX = 1 << 30, STAGES = 7;
+};
+template <>
+struct Plan<true, 32> {  // D <= 768: 192 KB of x beside 4 shallow stages
+  static constexpr int DMAX = 768, STAGES = 4;
+};
+
+template <bool XRES, int WK>
+struct Layout {
+  static constexpr int DMAX = Plan<XRES, WK>::DMAX;
+  static constexpr int STAGES = Plan<XRES, WK>::STAGES;
+  static constexpr int W_SLAB = WK * 128;  // WK k rows of one 64-wide v slab
+  static constexpr int W_STAGE = 2 * W_SLAB;  // one k chunk of a tile
+  static constexpr int X_STAGE = XRES ? 0 : X_SLAB;  // x's slab in a stage
+  static constexpr int STAGE = X_STAGE + W_STAGE;
+  static constexpr int X_BYTES = (XRES ? DMAX / 64 : 0) * X_SLAB;
+  static constexpr size_t SMEM = 1024 + size_t(X_BYTES) +
+                                 size_t(STAGES) * STAGE +
+                                 (2 * STAGES + 1) * sizeof(uint64_t) +
+                                 BM * (sizeof(int) + sizeof(float));
+  static_assert(SMEM <= 232448, "over the 227 KB a block may use");
+};
 
 }  // namespace wgce
 
-// partial as fused_ce_kernel's. tx: x [T, D] (box 64 x 128 rows), tw: W
-// [D, V] (box 64 v x 64 k); ksum: 64-deep chunks per fresh accumulator.
+// partial as fused_ce_kernel's. tx: x [T, D] (box 64 k x 128 rows), tw: W
+// [D, V] (box 64 v x WK k); ksum: chunks per fresh accumulator.
+template <bool XRES, int WK>
 __global__ void __launch_bounds__(wgce::THREADS, 1)
 fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                       const __grid_constant__ CUtensorMap tw,
@@ -515,15 +544,16 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                       const int* __restrict__ y, float4* __restrict__ partial,
                       int T, int D, int V, int cols_per_split, int ksum) {
   // shadow the mma.sync forms' tile constants of the enclosing namespace
-  constexpr int BM = wgce::BM, BN = wgce::BN, BK = wgce::BK;
-  constexpr int STAGES = wgce::STAGES, DMAX = wgce::DMAX, LEAD = wgce::LEAD;
-  constexpr int X_SLAB = wgce::X_SLAB, W_SLAB = wgce::W_SLAB;
-  constexpr int W_STAGE = wgce::W_STAGE;
+  using L = wgce::Layout<XRES, WK>;
+  constexpr int BM = wgce::BM, BN = wgce::BN, STAGES = L::STAGES;
+  constexpr int LEAD = wgce::LEAD, X_SLAB = wgce::X_SLAB;
+  constexpr int W_SLAB = L::W_SLAB, W_STAGE = L::W_STAGE;
+  constexpr int X_STAGE = L::X_STAGE, STAGE = L::STAGE;
   extern __shared__ __align__(1024) unsigned char ce_smem[];
   unsigned char* xs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(ce_smem) + 1023) & ~uintptr_t(1023));
-  unsigned char* ws = xs + (DMAX / BK) * X_SLAB;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ws + STAGES * W_STAGE);
+  unsigned char* ring = xs + L::X_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
   uint64_t* empty = full + STAGES;
   uint64_t* xbar = empty + STAGES;
   int* lbl_s = reinterpret_cast<int*>(xbar + 1);
@@ -533,7 +563,7 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   const int t0 = blockIdx.x * BM;
   const int v_begin = blockIdx.y * cols_per_split;
   const int v_end = min(V, v_begin + cols_per_split);
-  const int nk = (D + BK - 1) / BK;
+  const int nk = (D + WK - 1) / WK;
   const int ntile = (v_end - v_begin + BN - 1) / BN;
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
@@ -550,12 +580,16 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   __syncthreads();
 
   if (tid < 128) {
-    // producer: x once, then W's chunks tile by tile through the ring
+    // producer: a resident x once, then (x's slab and) W's chunks tile by
+    // tile through the ring
     regs_dealloc<40>();
     if (tid == 0) {
-      mbar_expect_tx(xbar, nk * X_SLAB);
-      for (int a = 0; a < nk; ++a)
-        tma_load_2d(xs + a * X_SLAB, &tx, xbar, a * BK, t0);
+      if constexpr (XRES) {
+        const int nx = (D + 63) / 64;
+        mbar_expect_tx(xbar, nx * X_SLAB);
+        for (int a = 0; a < nx; ++a)
+          tma_load_2d(xs + a * X_SLAB, &tx, xbar, a * 64, t0);
+      }
       int stage = 0;
       unsigned phase = 0;
       for (int tile = 0; tile < ntile; ++tile) {
@@ -563,11 +597,15 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         const bool two = v0 + 64 < V;  // else the second slab is all past V
         for (int c = 0; c < nk; ++c) {
           mbar_wait(&empty[stage], phase ^ 1);
-          unsigned char* st = ws + stage * W_STAGE;
-          mbar_expect_tx(&full[stage], two ? W_STAGE : W_SLAB);
-          tma_load_2d(st, &tw, &full[stage], v0, c * BK);
+          unsigned char* st = ring + stage * STAGE;
+          mbar_expect_tx(&full[stage],
+                         X_STAGE + (two ? W_STAGE : W_SLAB));
+          if constexpr (!XRES)
+            tma_load_2d(st, &tx, &full[stage], c * WK, t0);
+          tma_load_2d(st + X_STAGE, &tw, &full[stage], v0, c * WK);
           if (two)
-            tma_load_2d(st + W_SLAB, &tw, &full[stage], v0 + 64, c * BK);
+            tma_load_2d(st + X_STAGE + W_SLAB, &tw, &full[stage], v0 + 64,
+                        c * WK);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -589,8 +627,7 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
           sz[2] = {0.f, 0.f};
     const int lead = min(LEAD, ntile * nk);
     if (cw == 1) named_sync(1, 256);  // start LEAD chunks behind
-    mbar_wait(xbar, 0);
-    const unsigned char* xw = xs + cw * 64 * 128;
+    if constexpr (XRES) mbar_wait(xbar, 0);
     int stage = 0, done = 0;
     unsigned phase = 0;
     for (int tile = 0; tile < ntile; ++tile) {
@@ -600,11 +637,16 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       for (int c = 0; c < nk; ++c) {
         mbar_wait(&full[stage], phase);
         const bool fresh = c % ksum == 0;
-        const unsigned char* xa = xw + c * X_SLAB;
-        const unsigned char* wb = ws + stage * W_STAGE;
+        const unsigned char* st = ring + stage * STAGE;
+        // this warpgroup's 64 rows of x at k = c * WK, and W's chunk
+        const unsigned char* xa =
+            XRES ? xs + (c * WK / 64) * X_SLAB + (c * WK % 64) * 2 +
+                       cw * 64 * 128
+                 : st + cw * 64 * 128;
+        const unsigned char* wb = st + X_STAGE;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < WK / 16; ++kk)
           wgmma_ss_n128<1>(part, wg_desc(xa + 32 * kk, 16, 1024),
                            wg_desc(wb + 2048 * kk, W_SLAB, 1024),
                            (fresh && kk == 0) ? 0 : 1);
@@ -704,35 +746,40 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
+// One plan's instantiation: W's map reads `ldw`-element rows (W itself,
+// or its copy with 16-byte rows) as V columns, so TMA fills zeros past V.
+template <bool XRES, int WK>
 cudaError_t launch_wgmma(dim3 grid, cudaStream_t s, const void* x,
                          const void* w, const float* bias, const int* y,
-                         float4* partial, int T_, int D, int V,
+                         float4* partial, int T_, int D, int V, int ldw,
                          int cols_per_split, int ksum) {
+  using L = wgce::Layout<XRES, WK>;
   CUtensorMap mx, mw;
   const uint64_t xdims[2] = {uint64_t(D), uint64_t(T_)};
   const uint64_t xstr[1] = {uint64_t(D) * 2};
   const uint32_t xbox[2] = {64, wgce::BM};
   const uint64_t wdims[2] = {uint64_t(V), uint64_t(D)};
-  const uint64_t wstr[1] = {uint64_t(V) * 2};
-  const uint32_t wbox[2] = {64, wgce::BK};
+  const uint64_t wstr[1] = {uint64_t(ldw) * 2};
+  const uint32_t wbox[2] = {64, WK};
   cudaError_t err = encode_bf16_map(&mx, x, 2, xdims, xstr, xbox);
   if (err != cudaSuccess) return err;
   err = encode_bf16_map(&mw, w, 2, wdims, wstr, wbox);
   if (err != cudaSuccess) return err;
   static std::atomic<unsigned> ready{0};
+  auto* kern = fused_ce_wgmma_kernel<XRES, WK>;
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned bit = 1u << (dev & 31);
   if (!(ready.load() & bit)) {
-    err = cudaFuncSetAttribute(fused_ce_wgmma_kernel,
+    err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(wgce::SMEM));
+                               int(L::SMEM));
     if (err != cudaSuccess) return err;
     ready.fetch_or(bit);
   }
-  fused_ce_wgmma_kernel<<<grid, wgce::THREADS, wgce::SMEM, s>>>(
-      mx, mw, bias, y, partial, T_, D, V, cols_per_split, ksum);
+  kern<<<grid, wgce::THREADS, L::SMEM, s>>>(mx, mw, bias, y, partial, T_, D,
+                                            V, cols_per_split, ksum);
   return cudaGetLastError();
 }
 
@@ -774,17 +821,25 @@ int fused_ce_fwd(const void* x, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-// The bf16 form on warpgroup products (fused_ce_wgmma_kernel): x, w
-// bf16, 16-byte aligned, D a multiple of 8 up to 512, V a multiple of 8;
-// ksum: 64-deep k chunks per fresh accumulator (>= 1). The plan and the
-// other arguments as fused_ce_fwd's. Two launches on `stream`.
+// The bf16 forms on warpgroup products (fused_ce_wgmma_kernel): x bf16
+// [T, D], D a multiple of 8, 16-byte aligned; w bf16 with rows of `ldw`
+// elements (ldw >= V, a multiple of 8; 16-byte aligned), of which the
+// first V are W's; xplan: 0 x streamed beside W (any D), 1 x resident
+// with 64-deep stages (D <= 512), 2 x resident with 32-deep stages (D <=
+// 768); chunk_k: the k depth per fresh accumulator, a positive multiple
+// of 64. The plan and the other arguments as fused_ce_fwd's. Two
+// launches on `stream`.
 int fused_ce_fwd_wgmma(const void* x, const void* w, const void* bias,
                        const void* y, void* loss, void* lse, void* partial,
-                       int T, int D, int V, int rows_per_block, int nsplit,
-                       int cols_per_split, int ksum, float eps,
-                       void* stream) {
-  if (T <= 0 || D <= 0 || D > wgce::DMAX || D % 8 != 0 || V <= 0 ||
-      V % 8 != 0 || !aligned16(x) || !aligned16(w) || ksum < 1 ||
+                       int T, int D, int V, int ldw, int rows_per_block,
+                       int nsplit, int cols_per_split, int chunk_k,
+                       int xplan, float eps, void* stream) {
+  const int dmax = xplan == 1   ? wgce::Plan<true, 64>::DMAX
+                   : xplan == 2 ? wgce::Plan<true, 32>::DMAX
+                                : wgce::Plan<false, 64>::DMAX;
+  if (T <= 0 || D <= 0 || D % 8 != 0 || D > dmax || V <= 0 || ldw < V ||
+      ldw % 8 != 0 || xplan < 0 || xplan > 2 || !aligned16(x) ||
+      !aligned16(w) || chunk_k < 64 || chunk_k % 64 != 0 ||
       rows_per_block != wgce::BM || cols_per_split <= 0 ||
       cols_per_split % wgce::BN != 0 ||
       nsplit != (V + cols_per_split - 1) / cols_per_split)
@@ -792,9 +847,18 @@ int fused_ce_fwd_wgmma(const void* x, const void* w, const void* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((T + wgce::BM - 1) / wgce::BM, nsplit);
   float4* p = static_cast<float4*>(partial);
-  cudaError_t err = launch_wgmma(
-      grid, s, x, w, static_cast<const float*>(bias),
-      static_cast<const int*>(y), p, T, D, V, cols_per_split, ksum);
+  const float* bf = static_cast<const float*>(bias);
+  const int* yi = static_cast<const int*>(y);
+  cudaError_t err;
+  if (xplan == 0)
+    err = launch_wgmma<false, 64>(grid, s, x, w, bf, yi, p, T, D, V, ldw,
+                                  cols_per_split, chunk_k / 64);
+  else if (xplan == 1)
+    err = launch_wgmma<true, 64>(grid, s, x, w, bf, yi, p, T, D, V, ldw,
+                                 cols_per_split, chunk_k / 64);
+  else
+    err = launch_wgmma<true, 32>(grid, s, x, w, bf, yi, p, T, D, V, ldw,
+                                 cols_per_split, chunk_k / 32);
   if (err != cudaSuccess) return err;
   fused_ce_combine<<<(T + 255) / 256, 256, 0, s>>>(
       p, static_cast<float*>(loss), static_cast<float*>(lse), T, V, nsplit,

@@ -674,9 +674,11 @@ CE_FORM_CASES = [
     (777, 72, 304, True, 0.0, "wgmma"),     # D not a multiple of 64
     (129, 40, 256, False, 0.1, "wgmma"),
     (300, 512, 8, True, 0.1, "wgmma"),      # one slab of one tile
-    (1000, 512, 30001, True, 0.1, "mma_sync"),  # V % 8 != 0
+    (1000, 512, 30001, True, 0.1, "wgmma_stream"),  # V % 8 != 0
     (200, 75, 1000, False, 0.1, "mma_sync"),    # D % 8 != 0
-    (257, 520, 1000, True, 0.1, "mma_sync"),    # D above 512
+    (257, 520, 1000, True, 0.1, "wgmma_stream"),    # D above 512
+    (16384, 768, 30522, True, 0.0, "wgmma_stream"),  # BERT's MLM head
+    (4097, 768, 30522, True, 0.1, "wgmma_stream"),   # ragged rows, D 768
 ]
 
 
@@ -689,12 +691,13 @@ def test_fused_ce_bf16_forms_match_plain(dev, t, d, v, with_bias, eps, form):
     x, w, b, y = (a.to(torch.bfloat16) if a is not None and
                   a.is_floating_point() else a
                   for a in _ce_inputs(gen, t, d, v, with_bias, dev))
+    assert tfce.ce_form(x, w) == form
     n0 = tfce.fused_ce_fwd.wgmma_launches
     loss, lse = tfce.fused_ce_fwd(x, w, b, y, eps)
     again = tfce.fused_ce_fwd(x, w, b, y, eps)
     want, want_lse = tfce.linear_smooth_ce_plain(x, w, b, y, eps)
     torch.cuda.synchronize()
-    assert tfce.fused_ce_fwd.wgmma_launches - n0 == 2 * (form == "wgmma")
+    assert tfce.fused_ce_fwd.wgmma_launches - n0 == 2 * (form != "mma_sync")
     assert _rel_err(loss, want) <= 2e-5 and _rel_err(lse, want_lse) <= 2e-5
     assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
 

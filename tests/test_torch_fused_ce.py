@@ -146,7 +146,8 @@ def test_split_plan_splits_only_to_fill_the_card():
     assert tfce.split_plan(4096, 30000, 132)[:2] == (4, 59 * 128)
 
 
-FORM_TILES = {"mma_sync": tfce.MMA_SYNC_TILE, "wgmma": tfce.WGMMA_TILE}
+FORM_TILES = {"mma_sync": tfce.MMA_SYNC_TILE, "wgmma": tfce.WGMMA_TILE,
+              "wgmma_stream": tfce.WGMMA_TILE}
 
 
 @pytest.mark.parametrize("form", sorted(FORM_TILES))
@@ -191,27 +192,74 @@ def test_split_plan_per_form_splits_only_to_fill_the_card(form):
 @pytest.mark.parametrize("dtype,d,v,offset,form", [
     (torch.bfloat16, 512, 30000, 0, "wgmma"),     # the training shape
     (torch.bfloat16, 8, 8, 0, "wgmma"),
-    (torch.bfloat16, 512, 30001, 0, "mma_sync"),  # V % 8 != 0
+    (torch.bfloat16, 512, 30001, 0, "wgmma_stream"),  # V % 8 != 0
     (torch.bfloat16, 72, 304, 0, "wgmma"),
     (torch.bfloat16, 75, 1000, 0, "mma_sync"),    # D % 8 != 0
-    (torch.bfloat16, 520, 1000, 0, "mma_sync"),   # D above the resident x
+    (torch.bfloat16, 520, 1000, 0, "wgmma_stream"),   # D above the resident x
     (torch.bfloat16, 512, 1000, 1, "mma_sync"),   # x not 16-byte aligned
+    (torch.bfloat16, 768, 30522, 0, "wgmma_stream"),  # BERT's MLM head
+    (torch.bfloat16, 768, 30528, 0, "wgmma_stream"),
+    (torch.bfloat16, 768, 30522, 1, "mma_sync"),  # x not 16-byte aligned
     (torch.float32, 512, 30000, 0, "mma_sync"),   # f32: 3xTF32 only
 ])
 def test_ce_form_routes_by_shape(dtype, d, v, offset, form):
-    """The bf16 forms are routed by shape and alignment: the wgmma form
-    takes D and V multiples of 8, D up to WGMMA_MAX_D, from 16-byte
-    aligned x and W; every other call keeps the mma.sync form."""
-    x = torch.zeros(4 * d + offset, dtype=dtype)[offset:].view(4, d)
-    w = torch.zeros(d, v, dtype=dtype)
+    """The bf16 forms are routed by shape and alignment: the resident-x
+    wgmma form takes D up to WGMMA_MAX_D with V a multiple of 8 and W
+    16-byte aligned; the streamed wgmma form every other D that is a
+    multiple of 8, at any V; the mma.sync form keeps D % 8 != 0 and a
+    misaligned x."""
+    x = torch.empty(4 * d + offset, dtype=dtype)[offset:].view(4, d)
+    w = torch.empty(d, v, dtype=dtype)
     assert tfce.ce_form(x, w) == form
 
 
-def test_wgmma_chunk_depth_is_whole_ring_chunks():
-    """The wgmma form sums k in chunks of its 64-deep ring stages: the
-    depth the wrapper passes is a positive multiple of 64."""
+def test_ce_form_streams_a_misaligned_w():
+    """A W that is not 16-byte aligned goes to the streamed form, which
+    reads it through an aligned copy."""
+    x = torch.empty(4, 512, dtype=torch.bfloat16)
+    w = torch.randn(512 * 1000 + 1).to(torch.bfloat16)[1:].view(512, 1000)
+    assert tfce.ce_form(x, w) == "wgmma_stream"
+    wm, ldw = tfce.wgmma_w_operand(w)
+    assert wm.data_ptr() % 16 == 0 and ldw == 1000
+    assert torch.equal(wm, w)
+
+
+def test_wgmma_limits_and_chunk_depth():
+    """Both wgmma forms sum k in chunks of whole 64-deep ring stages (the
+    depth the wrapper passes is a positive multiple of 64) over 128 x 128
+    tiles. x stays resident up to WGMMA_MAX_D = 512: its 128 rows (128 KB)
+    beside a 5-stage ring of 16 KB W chunks fill a block's 227 KB, which
+    the 192 KB of D = 768 do not leave room for; past it the streamed form
+    takes every D. Each form names its x plan of the C entry."""
     assert tfce.WGMMA_CHUNK_K >= 64 and tfce.WGMMA_CHUNK_K % 64 == 0
     assert tfce.WGMMA_MAX_D == 512 and tfce.WGMMA_TILE[:2] == (128, 128)
+    resident = 128 * tfce.WGMMA_MAX_D * 2 + 5 * 64 * 128 * 2
+    assert resident <= 232448 < 128 * 768 * 2 + 5 * 64 * 128 * 2
+    assert tfce._XPLAN == {"wgmma": 1, "wgmma_stream": 0}
+
+
+@pytest.mark.parametrize("v", [30522, 30528, 1, 9, 16])
+def test_wgmma_w_operand_keeps_values_and_hides_the_pad(v):
+    """W as the wgmma forms' tensor map reads it: W itself where V is a
+    multiple of 8 (16-byte rows), else a copy into rows of V rounded up to
+    8 whose first V columns are W's. The map's geometry (dims V x D, row
+    stride ldw) reads exactly W: pad columns filled with NaN reach no
+    logit of the plain CE over that view."""
+    d = 24
+    w = torch.randn(d, v).to(torch.bfloat16)
+    wm, ldw = tfce.wgmma_w_operand(w)
+    assert ldw % 8 == 0 and v <= ldw < v + 8 and wm.shape == (d, ldw)
+    assert (wm is w) == (v % 8 == 0)
+    if ldw > v:
+        wm[:, v:] = float("nan")
+    view = torch.as_strided(wm, (d, v), (ldw, 1))
+    assert torch.equal(view, w)
+    x = torch.randn(5, d).to(torch.bfloat16)
+    y = torch.arange(5) % v
+    got = tfce.linear_smooth_ce_plain(x, view, None, y, 0.1)
+    want = tfce.linear_smooth_ce_plain(x, w, None, y, 0.1)
+    assert all(torch.equal(g, e) for g, e in zip(got, want))
+    assert torch.isfinite(got[0]).all()
 
 
 def test_kernel_wrapper_refuses_bf16_before_building():
@@ -349,3 +397,22 @@ def test_bf16_plain_matches_pallas_kernel_and_vjp(rng, eps, with_bias):
                                    atol=2.0 ** -8 * max(1.0,
                                                         np.abs(wg).max()),
                                    err_msg=name)
+
+
+def test_bf16_plain_matches_pallas_kernel_at_bert_width(rng):
+    """At BERT's MLM head's width (D 768) and a vocabulary that is 2 past a
+    multiple of 8 as BERT's 30,522 is (V 1,026), with a bias and eps 0:
+    the port's plain bf16 forward, which the card's wgmma forms are held
+    to, against ``paddle_tpu``'s Pallas forward in interpret mode on the
+    same bf16 inputs. Both give f32 loss from exact bf16 products summed
+    in other orders: atol 1e-5 * max(1, max|reference|)."""
+    t, d, v = 16, 768, 1026
+    x, w, b, y, _ = _data(rng, t, d, v, True)
+    bf = jnp.bfloat16
+    want = jfce._fused(jnp.asarray(x).astype(bf), jnp.asarray(w).astype(bf),
+                       jnp.asarray(b).astype(bf), jnp.asarray(y), 0.0)
+    want = np.asarray(want)
+    tx, tw, tb = (a.to(torch.bfloat16) for a in _torch(x, w, b))
+    got = tfce.linear_smooth_ce(tx, tw, tb, torch.from_numpy(y), 0.0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * max(1.0, np.abs(want).max()))
