@@ -64,8 +64,8 @@ it and read just after:
   ``fluid.amp.decorate(Adam(1e-4))`` as ``bench.py:192-198,225-231``
   trains it, and under Lamb(1e-4) with ``accumulate_steps=2`` and
   ``fluid.memory_optimize`` (``bert_pretrain``: the bf16 flash, LayerNorm
-  and CE kernels at BERT's shapes, the recompute's forwards counted from
-  the remat segments);
+  and CE kernels at BERT's shapes, the flash and CE on their wgmma forms,
+  the recompute's forwards counted from the remat segments);
 * serving generation at GPT-2 small's widths (the repo's ``transformer_lm``:
   vocab 50257, d_model 768, d_ff 3072, 12 heads, 12 layers, 1024
   positions, 163,000,320 parameters; random weights from seed 11): the
@@ -304,11 +304,11 @@ def read_wgmma_counts():
 def wgmma_part(counts, amp):
     """The launches of WGMMA_FORMS that a run of ``counts`` launches makes
     in their wgmma form: all of them on the AMP paths (every flash forward
-    of the AMP Transformer has 256 keys and heads of 64, every flash
-    backward heads of 64 and a padding mask or none, every CE D 512 and V
-    30000; every conv_moments of ResNet-50's AMP training step and every
-    conv_apply of its AMP eval C and O multiples of 64 and Wo <= 56), none
-    in f32."""
+    of the AMP Transformer has 256 keys and heads of 64, BERT's 128 keys
+    and heads of 64; every flash backward heads of 64 and a padding mask
+    or none; every CE a D that is a multiple of 8, 512 or 768; every
+    conv_moments of ResNet-50's AMP training step and every conv_apply of
+    its AMP eval C and O multiples of 64 and Wo <= 56), none in f32."""
     return {name: counts[name] if amp else 0 for name in WGMMA_FORMS}
 
 
@@ -1225,11 +1225,15 @@ CE_CASES = [("bias_1000x512x1000", 1000, 512, 1000, True, 0.1),
 
 
 # the bf16 cases beside CE_CASES at the wgmma form's route boundaries (D
-# not a multiple of 64, one 8-column slab, D above the resident x's 512)
+# not a multiple of 64, one 8-column slab, D above the old resident-x 512)
+# and at BERT pretraining's MLM head (D 768, V 30522 = 8 x 3815 + 2, its W
+# read through the copy into 16-byte rows), in full and at ragged rows
 CE_BF16_CASES = [("v304_777x72x304", 777, 72, 304, True, 0.0),
                  ("d40_129x40x256", 129, 40, 256, False, 0.1),
                  ("v8_300x512x8", 300, 512, 8, True, 0.1),
-                 ("d520_257x520x1000", 257, 520, 1000, True, 0.1)]
+                 ("d520_257x520x1000", 257, 520, 1000, True, 0.1),
+                 ("bert_16384x768x30522", 16384, 768, 30522, True, 0.0),
+                 ("d768_4097x768x30522", 4097, 768, 30522, True, 0.1)]
 
 
 def _ce_form_ran(fce, n_wgmma, calls):
@@ -1242,8 +1246,9 @@ def _ce_form_ran(fce, n_wgmma, calls):
 
 
 def _ce_wants_wgmma(d, v):
-    """The shapes the wgmma form takes (contiguous, aligned tensors)."""
-    return d % 8 == 0 and v % 8 == 0 and d <= 512
+    """The shapes the wgmma form takes (contiguous tensors, x aligned):
+    every D that is a multiple of 8, at any V."""
+    return d % 8 == 0
 
 
 def _ce_inputs(torch, gen, dev, t, d, v, with_bias):
@@ -1311,11 +1316,10 @@ def phase_ce_check(torch, dev):
     del grads
     # bf16 (AMP) x, W and b: the bf16 forms against the plain version,
     # which forms f32 logits from the same bf16 operands, at the training
-    # shape and the ragged cases (the wgmma form where D and V are
-    # multiples of 8 and D is at most 512; else the mma.sync form, whose
-    # D % 8 != 0 and V % 8 != 0 take element-wise copies), loss and lse
-    # within 2e-5 * max(1, max|plain|), each twice, each on the form the
-    # route names
+    # shape, the ragged cases and BERT's MLM head (the wgmma form where D
+    # is a multiple of 8; else the mma.sync form, whose D % 8 != 0 takes
+    # element-wise copies), loss and lse within 2e-5 * max(1, max|plain|),
+    # each twice, each on the form the route names
     for name, t, d_, v_, with_bias, eps in cases + CE_CASES + CE_BF16_CASES:
         x, w, b, y = _ce_inputs(torch, gen, dev, t, d_, v_, with_bias)
         x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
@@ -1360,8 +1364,10 @@ def _ce_f64_check(torch, dev):
     Then the bf16 forms on x and W rounded to bf16, against f64 on those
     values: at most 1.5 times the plain version's errors (f32 logits from
     the same bf16 operands): the wgmma form at the training width (the
-    case that chose its chunk depth, ``fused_ce.WGMMA_CHUNK_K``) and with a
-    bias at 4,097 rows, and the mma.sync form at V 30001 (V % 8 != 0)."""
+    case that chose its chunk depth, ``fused_ce.WGMMA_CHUNK_K``), with a
+    bias at 4,097 rows, at V 30001 (V % 8 != 0, W read through its copy)
+    and at BERT's MLM head's D 768 and V 30522 with a bias at 4,097 rows
+    (the same depth holds there), and the mma.sync form at D 75."""
     from paddle_tpu_torch.ops import fused_ce as fce
 
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -1371,7 +1377,9 @@ def _ce_f64_check(torch, dev):
          eps) for name, _, d_, v_, bias, eps in CE_CASES]
     cases += [(cases[0][0] + "_bf16",) + cases[0][1:],
               ("bias_4097x%dx1000_bf16" % d, 4097, d, 1000, True, 0.1),
-              ("v30001_4097x%dx30001_bf16" % d, 4097, d, 30001, True, 0.1)]
+              ("v30001_4097x%dx30001_bf16" % d, 4097, d, 30001, True, 0.1),
+              ("bert_4097x768x30522_bf16", 4097, 768, 30522, True, 0.0),
+              ("d75_4097x75x1000_bf16", 4097, 75, 1000, False, 0.1)]
     for name, t, d_, v_, with_bias, eps in cases:
         x, w, b, y = _ce_inputs(torch, gen, dev, t, d_, v_, with_bias)
         bf16 = name.endswith("_bf16")
@@ -1654,6 +1662,7 @@ def _bf16_kernel_timing(torch, dev, gen, only=None, cfg=None):
                              iters=10, warmup=2),
             library_ms=time_ms(lambda: torch.matmul(x, w), iters=10, warmup=2),
             library="torch.matmul(x, w) on bf16, projection only",
+            form=fce.ce_form(x, w),
             mma_sync_ms=on_mma_sync(
                 fce, "ce_form",
                 lambda: fce.fused_ce_fwd(x, w, cb, y, eps), iters=10,
@@ -4161,15 +4170,6 @@ def program_launches(main, fetch_names):
     return counts
 
 
-def bert_wgmma(counts, amp):
-    """The launches of WGMMA_FORMS on their wgmma form in a BERT run of
-    ``counts``: under AMP every flash forward and backward (128 keys,
-    heads of 64, a per-key bias), no CE (D = 768 is above the wgmma CE's
-    WGMMA_MAX_D: it takes the bf16 mma.sync form); none in f32."""
-    return {name: counts[name] if amp and name.startswith("flash") else 0
-            for name in WGMMA_FORMS}
-
-
 def _bert_runs(torch, fluid, main, startup, feed, fetches, per_step,
                cpu_runs=True):
     """``len(fetches)`` runs of ``main`` on the card from a fresh startup
@@ -4224,8 +4224,8 @@ def phase_bert_pretrain_check(torch, smi_line, batch=2, lamb_lr=1e-3):
       1e-2 relative L2 (``train_check``'s bounds);
     * ``adam_amp``: under ``fluid.amp.decorate``, held by the AMP verdict
       (``_amp_verdict``, as ``amp_train_check``): every flash, LayerNorm
-      and CE launch bf16, the flash ones on their wgmma forms, the card's
-      f32 step must fail the verdict;
+      and CE launch bf16, the flash and CE ones on their wgmma forms, the
+      card's f32 step must fail the verdict;
     * ``lamb``: Lamb(1e-3): the step's loss and gradients as ``adam_f32``,
       and the loss change over the update (a second run on the same
       batch) within 1e-2 of the CPU's: the update's first-order effect;
@@ -4321,7 +4321,7 @@ def phase_bert_pretrain_check(torch, smi_line, batch=2, lamb_lr=1e-3):
     gb = main.global_block()
     fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in names]
     r = _amp_step_runs(torch, fluid, main, startup, bert_feed(spec, batch),
-                       fetch, names, BERT_PER_STEP, wgmma=bert_wgmma)
+                       fetch, names, BERT_PER_STEP)
     runs = [r[k] for k in ("amp", "f32", "pert")]
     v = _amp_verdict(["loss"] + names, r["gpu"], *runs)
     control = _amp_verdict(["loss"] + names, r["gpu_f32"], *runs)
@@ -4352,11 +4352,12 @@ def phase_bert_pretrain(torch, smi_line, warmup=3, steps=10, prof_steps=2):
     ``lamb_acc2_remat``, Lamb(1e-4) with ``accumulate_steps=2`` under
     ``memory_optimize`` (a micro-step of the same 16,384 tokens; the
     recompute launches the forwards of each segment again). Per arm: wall
-    and device ms a (micro-)step, tokens/s, busy share, peak memory
-    allocated (the arm alone: the peak statistics reset before it), the
-    kernels a step, and the launches of each bf16 form; every interpreted
-    or captured step launches ``program_launches`` exactly, all bf16, the
-    flash ones on wgmma; each replay the first step's kernels by kind."""
+    and device ms a (micro-)step, tokens/s, busy share, the fused CE
+    forward's share of the device time, peak memory allocated (the arm
+    alone: the peak statistics reset before it), the kernels a step, and
+    the launches of each bf16 form; every interpreted or captured step
+    launches ``program_launches`` exactly, all bf16, the flash and CE ones
+    on wgmma; each replay the first step's kernels by kind."""
     import paddle_tpu_torch as fluid
 
     out, launched, replayed = {}, per_run(), per_run()
@@ -4382,7 +4383,7 @@ def phase_bert_pretrain(torch, smi_line, warmup=3, steps=10, prof_steps=2):
         def run_step():
             (loss,), dt, rep = counted_step(
                 exe, main, per_step, True, "%s step %d" % (arm, len(losses)),
-                wgmma=bert_wgmma, feed=feed, fetch_list=[spec.loss],
+                feed=feed, fetch_list=[spec.loss],
                 scope=scope)
             runs["replayed" if rep else "launched"] += 1
             losses.append(float(loss))
@@ -4421,6 +4422,7 @@ def phase_bert_pretrain(torch, smi_line, warmup=3, steps=10, prof_steps=2):
             * BERT_PRETRAIN_BATCH / med / 1e12,
             "device_ms_per_step": device_ms, "device_ms": busy,
             "device_busy_share": busy / (med * 1e3),
+            "ce_device_share": device_ms["fused_ce_fwd"] / busy,
             "kernels_per_step": kernels, "kernels_by_kind": {
                 "call1": call1, "replay": replay},
             "profiled_wall_ms_per_step": prof_wall,

@@ -82,32 +82,50 @@
 //     and one block an SM are the f32 form's, so ops/fused_ce.py
 //     split_plan plans both.
 //   * bf16 on warpgroup products (fused_ce_wgmma_kernel; the route,
-//     ops/fused_ce.py ce_form, sends it every bf16 call whose D and V are
-//     multiples of 8, D at most 512, from 16-byte aligned x and W: the
-//     tensor maps need 16-byte row strides; the training shape's
-//     30000 x 2 bytes is one. Other bf16 calls keep the mma.sync form
-//     above.) That form runs mma.sync m16n8k16 from B fragments packed
-//     element by element, at 0.14 of the bound. This one:
-//       - A block of three warpgroups owns BM = 128 rows. x's 128 rows
-//         (128 x D bf16, 128 KB at D = 512) are loaded once by TMA and
-//         stay resident, so only W streams: the L2 serves W once per row
-//         tile (7.9 GB at the training shape) and x once, against 15.7
-//         GB when both streamed through 128 x 128 tiles.
-//       - Warpgroup 0 is the producer: one thread issues the TMA loads of
-//         W's [64 k x 128 v] chunks into a ring of 5 stages (two 64-wide
-//         slabs, 128-byte swizzle; full/empty mbarriers) and the
-//         warpgroup gives its registers to the consumers (setmaxnreg 40 /
-//         232).
+//     ops/fused_ce.py ce_form, sends it every bf16 call whose D is a
+//     multiple of 8 from a 16-byte aligned x, at any V: the tensor map of
+//     x needs 16-byte rows. W's map reads W, or where V % 8 != 0 or W is
+//     misaligned the wrapper's copy of it into rows of V rounded up to 8
+//     (ops/fused_ce.py wgmma_w_operand): the map's dimensions stop at V,
+//     so TMA reads zeros past it and no pad column reaches a logit; the
+//     copy is 0.063 ms of BERT's W. Other bf16 calls keep the mma.sync
+//     form above.) That form runs mma.sync m16n8k16 from B fragments
+//     packed element by element, at 0.14 of the bound at D = 512 and 0.048
+//     at BERT's MLM head (T = 16384, D = 768, V = 30522, bound 0.777 ms).
+//     This one:
+//       - A block of three warpgroups owns BM = 128 rows. Warpgroup 0 is
+//         the producer: one thread issues the TMA loads of x's [128 rows x
+//         64 k] slab and W's [64 k x 128 v] chunk (two 64-wide slabs) into
+//         one stage of a 7-stage ring (32 KB a stage, 128-byte swizzle;
+//         full/empty mbarriers), and the warpgroup gives its registers to
+//         the consumers (setmaxnreg 40 / 232).
+//       - Why x streams. The earlier form kept x's 128 rows resident (128 KB
+//         at D <= 512) and streamed W alone; at D = 768 x takes 192 KB of
+//         the 227 KB, leaving room for four 8 KB W stages only. Timed on
+//         an H100 (tools/wgmma_variants.py --ce at the commit that built
+//         the three plans, chunk depth 64): at BERT's shape x streamed
+//         2.114 ms, x resident with four 32-deep W stages 2.704 ms (half
+//         the L2 bytes: 6.0 GB against 12.0, but 32 KB in flight against
+//         224); at Transformer-base's [32768, 512] x [512, 30000] x
+//         streamed 2.579 ms against the resident form's 2.600 in the same
+//         call. So one streamed form serves every D. The L2 serves W once
+//         per row tile and x once per column tile: 12.0 GB at BERT's shape
+//         in 2.114 ms, 15.7 GB at the Transformer's in 2.579 ms (6.1
+//         TB/s), so this card's L2 reads at least that. The split plan is
+//         the resident form's (WGMMA_TILE): one split of 128 row tiles at
+//         BERT's shape, 4 of 132 SMs idle.
 //       - Warpgroups 1 and 2 own 64 rows each and run wgmma m64n128k16
-//         with A = x from shared memory (K-major) and B = W's chunk
-//         (V-contiguous: the transpose bit). Both read each W chunk; a
-//         stage is refilled after both have retired it.
+//         with A = x's slab from shared memory (K-major) and B = W's chunk
+//         (V-contiguous: the transpose bit). Both read each stage; it is
+//         refilled after both have retired it.
 //       - Chunk sums: each `ksum` chunks of 64 k (the wrapper's depth)
 //         sum into a fresh accumulator, added into the tile's f32 sum on
 //         the FMA pipe, as the mma.sync forms do per 32 k: the tensor
 //         cores round their additions toward zero, and the loss and lse
-//         stay f32. ops/fused_ce.py WGMMA_CHUNK_K holds the depth chosen
-//         by chip_smoke.py's fused_ce_f64 bf16 case (PERF.md).
+//         stay f32. ops/fused_ce.py WGMMA_CHUNK_K holds the depth, 128:
+//         the deepest whose errors against f64 stay within 1.1x the plain
+//         version's at D 768 and D 512 (tools/wgmma_variants.py --ce;
+//         chip_smoke.py's fused_ce_f64 allows 1.5x; PERF.md).
 //       - Overlap: warpgroup 2 starts LEAD chunks behind warpgroup 1, so
 //         while one runs its softmax epilogue on its accumulator the
 //         other's products keep the tensor cores busy; the ring (both
@@ -121,6 +139,8 @@
 //         rows (16 of them), so no cross-warp combine is needed, and two
 //         runs give bitwise-equal loss and lse. The splits and the
 //         combine launch are shared with the other forms.
+//       - ptxas: 168 registers (the cap of a 384-thread block, which
+//         setmaxnreg redistributes), no spills.
 
 #include <cuda_runtime.h>
 
@@ -493,50 +513,21 @@ cudaError_t dispatch(dim3 grid, cudaStream_t s, const void* x,
 // ---------------------------------------------------------------------------
 namespace wgce {
 
-constexpr int BM = 128, BN = 128;
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 7;
 constexpr int THREADS = 384;          // producer warpgroup + 2 consumers
-constexpr int X_SLAB = BM * 128;      // 128 rows of one 64-wide k slab
+constexpr int X_SLAB = BM * 128;      // x's 128 rows of one 64-wide k slab
+constexpr int W_SLAB = BK * 128;      // 64 k rows of one 64-wide v slab
+constexpr int STAGE = X_SLAB + 2 * W_SLAB;  // x's slab, W's chunk of a tile
 constexpr int LEAD = 2;               // chunks warpgroup 1 starts ahead
-
-// The x plans (the C entry's `xplan`): XRES, x's 128 rows resident (to
-// DMAX) or streamed beside W through the ring; WK, the k depth of a ring
-// stage. Each plan's STAGES fill the 227 KB a block may use.
-template <bool XRES, int WK>
-struct Plan;
-template <>
-struct Plan<true, 64> {  // PR 12's form: D <= 512
-  static constexpr int DMAX = 512, STAGES = 5;
-};
-template <>
-struct Plan<false, 64> {  // any D: a stage holds x's slab and W's chunk
-  static constexpr int DMAX = 1 << 30, STAGES = 7;
-};
-template <>
-struct Plan<true, 32> {  // D <= 768: 192 KB of x beside 4 shallow stages
-  static constexpr int DMAX = 768, STAGES = 4;
-};
-
-template <bool XRES, int WK>
-struct Layout {
-  static constexpr int DMAX = Plan<XRES, WK>::DMAX;
-  static constexpr int STAGES = Plan<XRES, WK>::STAGES;
-  static constexpr int W_SLAB = WK * 128;  // WK k rows of one 64-wide v slab
-  static constexpr int W_STAGE = 2 * W_SLAB;  // one k chunk of a tile
-  static constexpr int X_STAGE = XRES ? 0 : X_SLAB;  // x's slab in a stage
-  static constexpr int STAGE = X_STAGE + W_STAGE;
-  static constexpr int X_BYTES = (XRES ? DMAX / 64 : 0) * X_SLAB;
-  static constexpr size_t SMEM = 1024 + size_t(X_BYTES) +
-                                 size_t(STAGES) * STAGE +
-                                 (2 * STAGES + 1) * sizeof(uint64_t) +
-                                 BM * (sizeof(int) + sizeof(float));
-  static_assert(SMEM <= 232448, "over the 227 KB a block may use");
-};
+constexpr size_t SMEM = 1024 + size_t(STAGES) * STAGE +
+                        2 * STAGES * sizeof(uint64_t) +
+                        BM * (sizeof(int) + sizeof(float));
+static_assert(SMEM <= 232448, "over the 227 KB a block may use");
 
 }  // namespace wgce
 
 // partial as fused_ce_kernel's. tx: x [T, D] (box 64 k x 128 rows), tw: W
-// [D, V] (box 64 v x WK k); ksum: chunks per fresh accumulator.
-template <bool XRES, int WK>
+// [D, V] (box 64 v x 64 k); ksum: 64-deep chunks per fresh accumulator.
 __global__ void __launch_bounds__(wgce::THREADS, 1)
 fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                       const __grid_constant__ CUtensorMap tw,
@@ -544,33 +535,29 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                       const int* __restrict__ y, float4* __restrict__ partial,
                       int T, int D, int V, int cols_per_split, int ksum) {
   // shadow the mma.sync forms' tile constants of the enclosing namespace
-  using L = wgce::Layout<XRES, WK>;
-  constexpr int BM = wgce::BM, BN = wgce::BN, STAGES = L::STAGES;
-  constexpr int LEAD = wgce::LEAD, X_SLAB = wgce::X_SLAB;
-  constexpr int W_SLAB = L::W_SLAB, W_STAGE = L::W_STAGE;
-  constexpr int X_STAGE = L::X_STAGE, STAGE = L::STAGE;
+  constexpr int BM = wgce::BM, BN = wgce::BN, BK = wgce::BK;
+  constexpr int STAGES = wgce::STAGES, LEAD = wgce::LEAD;
+  constexpr int X_SLAB = wgce::X_SLAB, W_SLAB = wgce::W_SLAB;
+  constexpr int STAGE = wgce::STAGE;
   extern __shared__ __align__(1024) unsigned char ce_smem[];
-  unsigned char* xs = reinterpret_cast<unsigned char*>(
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(ce_smem) + 1023) & ~uintptr_t(1023));
-  unsigned char* ring = xs + L::X_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
   uint64_t* empty = full + STAGES;
-  uint64_t* xbar = empty + STAGES;
-  int* lbl_s = reinterpret_cast<int*>(xbar + 1);
+  int* lbl_s = reinterpret_cast<int*>(empty + STAGES);
   float* zy_s = reinterpret_cast<float*>(lbl_s + BM);
 
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * BM;
   const int v_begin = blockIdx.y * cols_per_split;
   const int v_end = min(V, v_begin + cols_per_split);
-  const int nk = (D + WK - 1) / WK;
+  const int nk = (D + BK - 1) / BK;
   const int ntile = (v_end - v_begin + BN - 1) / BN;
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(&full[st], 1);
       mbar_init(&empty[st], 8);  // lane 0 of each consumer warp
     }
-    mbar_init(xbar, 1);
     mbar_init_fence();
   }
   if (tid < BM) {
@@ -580,16 +567,10 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   __syncthreads();
 
   if (tid < 128) {
-    // producer: a resident x once, then (x's slab and) W's chunks tile by
-    // tile through the ring
+    // producer: x's slab and W's chunk, chunk by chunk, tile by tile,
+    // through the ring
     regs_dealloc<40>();
     if (tid == 0) {
-      if constexpr (XRES) {
-        const int nx = (D + 63) / 64;
-        mbar_expect_tx(xbar, nx * X_SLAB);
-        for (int a = 0; a < nx; ++a)
-          tma_load_2d(xs + a * X_SLAB, &tx, xbar, a * 64, t0);
-      }
       int stage = 0;
       unsigned phase = 0;
       for (int tile = 0; tile < ntile; ++tile) {
@@ -598,14 +579,12 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         for (int c = 0; c < nk; ++c) {
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = ring + stage * STAGE;
-          mbar_expect_tx(&full[stage],
-                         X_STAGE + (two ? W_STAGE : W_SLAB));
-          if constexpr (!XRES)
-            tma_load_2d(st, &tx, &full[stage], c * WK, t0);
-          tma_load_2d(st + X_STAGE, &tw, &full[stage], v0, c * WK);
+          mbar_expect_tx(&full[stage], X_SLAB + (two ? 2 : 1) * W_SLAB);
+          tma_load_2d(st, &tx, &full[stage], c * BK, t0);
+          tma_load_2d(st + X_SLAB, &tw, &full[stage], v0, c * BK);
           if (two)
-            tma_load_2d(st + X_STAGE + W_SLAB, &tw, &full[stage], v0 + 64,
-                        c * WK);
+            tma_load_2d(st + X_SLAB + W_SLAB, &tw, &full[stage], v0 + 64,
+                        c * BK);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -627,7 +606,6 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
           sz[2] = {0.f, 0.f};
     const int lead = min(LEAD, ntile * nk);
     if (cw == 1) named_sync(1, 256);  // start LEAD chunks behind
-    if constexpr (XRES) mbar_wait(xbar, 0);
     int stage = 0, done = 0;
     unsigned phase = 0;
     for (int tile = 0; tile < ntile; ++tile) {
@@ -637,16 +615,12 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       for (int c = 0; c < nk; ++c) {
         mbar_wait(&full[stage], phase);
         const bool fresh = c % ksum == 0;
-        const unsigned char* st = ring + stage * STAGE;
-        // this warpgroup's 64 rows of x at k = c * WK, and W's chunk
-        const unsigned char* xa =
-            XRES ? xs + (c * WK / 64) * X_SLAB + (c * WK % 64) * 2 +
-                       cw * 64 * 128
-                 : st + cw * 64 * 128;
-        const unsigned char* wb = st + X_STAGE;
+        // this warpgroup's 64 rows of x's slab, and W's chunk
+        const unsigned char* xa = ring + stage * STAGE + cw * 64 * 128;
+        const unsigned char* wb = ring + stage * STAGE + X_SLAB;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < WK / 16; ++kk)
+        for (int kk = 0; kk < 4; ++kk)
           wgmma_ss_n128<1>(part, wg_desc(xa + 32 * kk, 16, 1024),
                            wg_desc(wb + 2048 * kk, W_SLAB, 1024),
                            (fresh && kk == 0) ? 0 : 1);
@@ -746,40 +720,37 @@ fused_ce_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-// One plan's instantiation: W's map reads `ldw`-element rows (W itself,
-// or its copy with 16-byte rows) as V columns, so TMA fills zeros past V.
-template <bool XRES, int WK>
+// W's map reads `ldw`-element rows (W itself, or its copy with 16-byte
+// rows) as V columns, so TMA fills zeros past V
 cudaError_t launch_wgmma(dim3 grid, cudaStream_t s, const void* x,
                          const void* w, const float* bias, const int* y,
                          float4* partial, int T_, int D, int V, int ldw,
                          int cols_per_split, int ksum) {
-  using L = wgce::Layout<XRES, WK>;
   CUtensorMap mx, mw;
   const uint64_t xdims[2] = {uint64_t(D), uint64_t(T_)};
   const uint64_t xstr[1] = {uint64_t(D) * 2};
   const uint32_t xbox[2] = {64, wgce::BM};
   const uint64_t wdims[2] = {uint64_t(V), uint64_t(D)};
   const uint64_t wstr[1] = {uint64_t(ldw) * 2};
-  const uint32_t wbox[2] = {64, WK};
+  const uint32_t wbox[2] = {64, wgce::BK};
   cudaError_t err = encode_bf16_map(&mx, x, 2, xdims, xstr, xbox);
   if (err != cudaSuccess) return err;
   err = encode_bf16_map(&mw, w, 2, wdims, wstr, wbox);
   if (err != cudaSuccess) return err;
   static std::atomic<unsigned> ready{0};
-  auto* kern = fused_ce_wgmma_kernel<XRES, WK>;
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned bit = 1u << (dev & 31);
   if (!(ready.load() & bit)) {
-    err = cudaFuncSetAttribute(kern,
+    err = cudaFuncSetAttribute(fused_ce_wgmma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(L::SMEM));
+                               int(wgce::SMEM));
     if (err != cudaSuccess) return err;
     ready.fetch_or(bit);
   }
-  kern<<<grid, wgce::THREADS, L::SMEM, s>>>(mx, mw, bias, y, partial, T_, D,
-                                            V, cols_per_split, ksum);
+  fused_ce_wgmma_kernel<<<grid, wgce::THREADS, wgce::SMEM, s>>>(
+      mx, mw, bias, y, partial, T_, D, V, cols_per_split, ksum);
   return cudaGetLastError();
 }
 
@@ -821,44 +792,30 @@ int fused_ce_fwd(const void* x, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-// The bf16 forms on warpgroup products (fused_ce_wgmma_kernel): x bf16
+// The bf16 form on warpgroup products (fused_ce_wgmma_kernel): x bf16
 // [T, D], D a multiple of 8, 16-byte aligned; w bf16 with rows of `ldw`
 // elements (ldw >= V, a multiple of 8; 16-byte aligned), of which the
-// first V are W's; xplan: 0 x streamed beside W (any D), 1 x resident
-// with 64-deep stages (D <= 512), 2 x resident with 32-deep stages (D <=
-// 768); chunk_k: the k depth per fresh accumulator, a positive multiple
-// of 64. The plan and the other arguments as fused_ce_fwd's. Two
+// first V are W's; chunk_k: the k depth per fresh accumulator, a positive
+// multiple of 64. The plan and the other arguments as fused_ce_fwd's. Two
 // launches on `stream`.
 int fused_ce_fwd_wgmma(const void* x, const void* w, const void* bias,
                        const void* y, void* loss, void* lse, void* partial,
                        int T, int D, int V, int ldw, int rows_per_block,
-                       int nsplit, int cols_per_split, int chunk_k,
-                       int xplan, float eps, void* stream) {
-  const int dmax = xplan == 1   ? wgce::Plan<true, 64>::DMAX
-                   : xplan == 2 ? wgce::Plan<true, 32>::DMAX
-                                : wgce::Plan<false, 64>::DMAX;
-  if (T <= 0 || D <= 0 || D % 8 != 0 || D > dmax || V <= 0 || ldw < V ||
-      ldw % 8 != 0 || xplan < 0 || xplan > 2 || !aligned16(x) ||
-      !aligned16(w) || chunk_k < 64 || chunk_k % 64 != 0 ||
-      rows_per_block != wgce::BM || cols_per_split <= 0 ||
-      cols_per_split % wgce::BN != 0 ||
+                       int nsplit, int cols_per_split, int chunk_k, float eps,
+                       void* stream) {
+  if (T <= 0 || D <= 0 || D % 8 != 0 || V <= 0 || ldw < V || ldw % 8 != 0 ||
+      !aligned16(x) || !aligned16(w) || chunk_k < wgce::BK ||
+      chunk_k % wgce::BK != 0 || rows_per_block != wgce::BM ||
+      cols_per_split <= 0 || cols_per_split % wgce::BN != 0 ||
       nsplit != (V + cols_per_split - 1) / cols_per_split)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((T + wgce::BM - 1) / wgce::BM, nsplit);
   float4* p = static_cast<float4*>(partial);
-  const float* bf = static_cast<const float*>(bias);
-  const int* yi = static_cast<const int*>(y);
-  cudaError_t err;
-  if (xplan == 0)
-    err = launch_wgmma<false, 64>(grid, s, x, w, bf, yi, p, T, D, V, ldw,
-                                  cols_per_split, chunk_k / 64);
-  else if (xplan == 1)
-    err = launch_wgmma<true, 64>(grid, s, x, w, bf, yi, p, T, D, V, ldw,
-                                 cols_per_split, chunk_k / 64);
-  else
-    err = launch_wgmma<true, 32>(grid, s, x, w, bf, yi, p, T, D, V, ldw,
-                                 cols_per_split, chunk_k / 32);
+  cudaError_t err = launch_wgmma(
+      grid, s, x, w, static_cast<const float*>(bias),
+      static_cast<const int*>(y), p, T, D, V, ldw, cols_per_split,
+      chunk_k / wgce::BK);
   if (err != cudaSuccess) return err;
   fused_ce_combine<<<(T + 255) / 256, 256, 0, s>>>(
       p, static_cast<float*>(loss), static_cast<float*>(lse), T, V, nsplit,

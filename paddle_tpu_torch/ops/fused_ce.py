@@ -28,18 +28,16 @@ chunked backward on both. Neither falls back to the other.
 bf16 (AMP): x, W and the bias arrive in bf16. The kernel's bf16 forms
 take one bf16 tensor-core product per f32 one (each product of two bf16
 values is exact in f32) and keep the f32 statistics of the 3xTF32 form;
-loss and lse are f32. Three forms, chosen by shape (:func:`ce_form`; the
-two on warpgroup products fed by TMA, ``fused_ce_wgmma_kernel``, counted
-by ``fused_ce_fwd.wgmma_launches``): ``"wgmma"`` keeps x's 128 rows
-resident in shared memory (D at most :data:`WGMMA_MAX_D`, V a multiple of
-8, W 16-byte aligned); ``"wgmma_stream"`` streams x's 64-deep slices
-beside W's through one ring and takes every other call whose D is a
-multiple of 8 from a 16-byte aligned x, at any V (BERT's MLM head: D 768,
-V 30522), reading W through :func:`wgmma_w_operand`; the ``mma.sync``
-form keeps D % 8 != 0 and a misaligned x. All are checked kernels: a
-route by shape, not a fallback. Each plans its own grid (:func:`split_plan`
-with the form's tile). The plain version computes f32 logits from the
-same bf16 operands, and the backward rounds where ``_bwd_impl`` does.
+loss and lse are f32. Two forms, chosen by shape (:func:`ce_form`, counted
+by ``fused_ce_fwd.wgmma_launches``): warpgroup products fed by TMA
+(``fused_ce_wgmma_kernel``, x's 64-deep slices streamed beside W's through
+one ring) for every call whose D is a multiple of 8 from a 16-byte
+aligned x, at any V (BERT's MLM head: D 768, V 30522), W read through
+:func:`wgmma_w_operand`; the ``mma.sync`` form otherwise. Both are checked
+kernels: a route by shape, not a fallback. Each plans its own grid
+(:func:`split_plan` with the form's tile). The plain version computes f32
+logits from the same bf16 operands, and the backward rounds where
+``_bwd_impl`` does.
 """
 
 import ctypes
@@ -54,7 +52,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 __all__ = ["linear_smooth_ce", "fused_ce_fwd", "linear_smooth_ce_bwd",
            "linear_smooth_ce_plain", "split_plan", "ce_form",
            "linear_smooth_ce_3xtf32_emulated", "wgmma_w_operand",
-           "MMA_SYNC_TILE", "WGMMA_TILE", "WGMMA_MAX_D", "WGMMA_CHUNK_K"]
+           "MMA_SYNC_TILE", "WGMMA_TILE", "WGMMA_CHUNK_K"]
 
 _CHUNK_BYTES = 512 * 1024 * 1024  # one [chunk, V] f32 tile at most
 # the mma.sync forms' tile (csrc/fused_ce_fwd.cu BM, BN): rows per block,
@@ -68,20 +66,19 @@ _BN = 128
 # H100 at 4,096 rows (4 splits) and within 0.1% of it at 32,768 rows (17
 # splits; one split is 2.9% slower).
 MMA_SYNC_TILE = (_BM, _BN, 0.25)
-# wgmma (csrc/fused_ce_fwd.cu wgce::BM, BN), both forms: the same block
-# cost. On an H100 tools/kernel_plans.py times the resident form's 1, 2,
+# wgmma (csrc/fused_ce_fwd.cu wgce::BM, BN): the same block cost. On an
+# H100 tools/kernel_plans.py times the earlier x-resident form under 1, 2,
 # 3, 4 and 8 splits at 32,768 rows 2.594, 2.569, 2.539, 2.518 and 2.487 ms
 # (the blocks' x loads cost less than the tail of two waves of
 # whole-vocabulary blocks), and at 4,096 rows 4 splits fastest (PERF.md)
 WGMMA_TILE = (128, 128, 0.25)
-# the resident-x form's limit (x's 128 rows of D bf16 beside a W ring in
-# 227 KB of shared memory), and the depth of both wgmma forms' chunk sums
-# (k per fresh tensor-core accumulator, a multiple of 64), chosen by
-# chip_smoke.py's fused_ce_f64 bf16 cases (PERF.md)
-WGMMA_MAX_D = 512
-WGMMA_CHUNK_K = 64
-# the C entry's x plan of each wgmma form (csrc/fused_ce_fwd.cu xplan)
-_XPLAN = {"wgmma_stream": 0, "wgmma": 1}
+# the depth of the wgmma form's chunk sums (k per fresh tensor-core
+# accumulator, a multiple of its 64-deep ring stages): the deepest whose
+# loss and lse errors against f64 stay within 1.1x the plain version's at
+# D 768 and D 512 (tools/wgmma_variants.py --ce on an H100: 128 reads at
+# most 1.03x and 1.10x and is 5.5% and 7.6% faster than 64; 256 reads
+# 1.21x at D 512); chip_smoke.py's fused_ce_f64 holds it to 1.5x (PERF.md)
+WGMMA_CHUNK_K = 128
 
 
 def linear_smooth_ce_plain(x, w, b, y, eps):
@@ -129,28 +126,24 @@ def split_plan(t, v, sms, tile=MMA_SYNC_TILE):
 
 def ce_form(x, w):
     """The bf16 form for x [T, D] and w [D, V] as the kernel gets them
-    (contiguous): ``"mma_sync"`` for f32, for D not a multiple of 8 or an
-    x not 16-byte aligned (the tensor map of x needs 16-byte rows and
-    base); else ``"wgmma"`` where x's 128 rows stay resident (D at most
-    :data:`WGMMA_MAX_D`) and W's map reads W itself (V a multiple of 8, W
-    16-byte aligned); else ``"wgmma_stream"`` (x streamed, any D and V;
-    W through :func:`wgmma_w_operand`)."""
-    d, v = w.shape
-    if x.dtype != torch.bfloat16 or d % 8 or x.data_ptr() % 16:
+    (contiguous): ``"wgmma"`` where D is a multiple of 8 and x is 16-byte
+    aligned (the tensor map of x needs 16-byte rows and base; any V: W is
+    read through :func:`wgmma_w_operand`); else ``"mma_sync"`` (the
+    mma.sync form, and the f32 one)."""
+    if x.dtype != torch.bfloat16 or w.shape[0] % 8 or x.data_ptr() % 16:
         return "mma_sync"
-    if d <= WGMMA_MAX_D and v % 8 == 0 and w.data_ptr() % 16 == 0:
-        return "wgmma"
-    return "wgmma_stream"
+    return "wgmma"
 
 
 def wgmma_w_operand(w):
-    """W [D, V] (contiguous) as the wgmma forms' tensor map reads it:
+    """W [D, V] (contiguous) as the wgmma form's tensor map reads it:
     ``(tensor, ldw)``, rows of ``ldw`` elements of which the first V are
     W's. W itself where its rows are whole 16-byte pieces (V a multiple
     of 8) from a 16-byte aligned pointer; else a copy into [D, V rounded
     up to 8] from ``torch.empty``, whose pad columns are never written:
     the map's dimensions stop at V, so TMA reads zeros past them and no
-    pad column reaches a logit."""
+    pad column reaches a logit. The copy is counted in the kernel's time
+    (0.063 ms of BERT's [768, 30522] on an H100, PERF.md)."""
     d, v = w.shape
     if v % 8 == 0 and w.data_ptr() % 16 == 0:
         return w, v
@@ -321,7 +314,7 @@ def linear_smooth_ce_bwd(x, w, b, y, lse, g, eps):
 
 
 # the C entries' int arguments after their 7 pointers
-_C_INTS = {"fused_ce_fwd": 7, "fused_ce_fwd_wgmma": 9}
+_C_INTS = {"fused_ce_fwd": 7, "fused_ce_fwd_wgmma": 8}
 
 
 def _c_fn(entry="fused_ce_fwd"):
@@ -373,27 +366,23 @@ def fused_ce_fwd(x, w, b, y, eps):
     partial = torch.empty(nsplit, t, 4, device=x.device,
                           dtype=torch.float32)
     if form == "mma_sync":
-        _build.launch(_c_fn(), "fused_ce_fwd", x.device, x.data_ptr(),
-                      w.data_ptr(), b.data_ptr() if b is not None else None,
-                      y.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-                      partial.data_ptr(), _DTYPE_CODES[x.dtype], t, d, v,
-                      rows, nsplit, per, float(eps))
+        entry, wm = "fused_ce_fwd", w
+        ints = (_DTYPE_CODES[x.dtype], t, d, v, rows, nsplit, per)
     else:
-        wm, ldw = wgmma_w_operand(w)
-        _build.launch(_c_fn("fused_ce_fwd_wgmma"), "fused_ce_fwd", x.device,
-                      x.data_ptr(), wm.data_ptr(),
-                      b.data_ptr() if b is not None else None, y.data_ptr(),
-                      loss.data_ptr(), lse.data_ptr(), partial.data_ptr(),
-                      t, d, v, ldw, rows, nsplit, per, WGMMA_CHUNK_K,
-                      _XPLAN[form], float(eps))
-        fused_ce_fwd.wgmma_launches += 1
+        entry, (wm, ldw) = "fused_ce_fwd_wgmma", wgmma_w_operand(w)
+        ints = (t, d, v, ldw, rows, nsplit, per, WGMMA_CHUNK_K)
+    _build.launch(_c_fn(entry), "fused_ce_fwd", x.device, x.data_ptr(),
+                  wm.data_ptr(), b.data_ptr() if b is not None else None,
+                  y.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+                  partial.data_ptr(), *ints, float(eps))
+    fused_ce_fwd.wgmma_launches += form == "wgmma"
     fused_ce_fwd.launches += 1
     fused_ce_fwd.bf16_launches += x.dtype == torch.bfloat16
     return loss, lse
 
 
 fused_ce_fwd.launches = fused_ce_fwd.bf16_launches = 0
-fused_ce_fwd.wgmma_launches = 0  # of them, the warpgroup-product forms
+fused_ce_fwd.wgmma_launches = 0  # of them, the warpgroup-product form
 
 
 class _FusedCE(torch.autograd.Function):

@@ -35,17 +35,20 @@ of a build that takes the sums from the C tile in shared memory instead
 without the sums; with the C-tile build's largest difference from the
 form's sums, relative to the largest sum.
 
-``--ce``: the bf16 fused CE forward (``fused_ce_wgmma_kernel``) under each
-of its x plans (the C entry's ``xplan``: 0 x streamed beside W, 1 x
-resident with 64-deep stages to D 512, 2 x resident with 32-deep stages to
-D 768; each plan an instantiation of the package's own library, chosen by
-replacing ``fused_ce._XPLAN`` and the route for the call) at BERT
-pretraining's MLM head ([16384, 768] x [768, 30522], a bias, unsmoothed),
-at a ragged 4,097 rows of it and at Transformer-base's [32768, 512] x
-[512, 30000] (eps 0.1), beside the ``mma.sync`` form, ``torch.matmul``
-(projection only), the copy of W into 16-byte rows, and the L2 bytes each
-plan reads by the tile model with the rate they imply; each plan's loss
-and lse against the plain version.
+``--ce``: the bf16 fused CE forward (``fused_ce_wgmma_kernel``) at BERT
+pretraining's MLM head ([16384, 768] x [768, 30522], a bias, unsmoothed)
+and at Transformer-base's [32768, 512] x [512, 30000] (eps 0.1), beside
+its ``mma.sync`` form, ``torch.matmul`` (projection only) and the copy of
+W into 16-byte rows, with the L2 bytes the blocks read by the tile model
+(W once per row tile, x once per column tile) and the rate they imply;
+its loss and lse against the plain version, and two runs bitwise. Then
+the chunk sums' depth (``fused_ce.WGMMA_CHUNK_K``, replaced for the call)
+at 64, 128, 256 and 768 (up to D): the time at BERT's and the
+Transformer's shapes and, at 4,097 rows of BERT's (a bias) and 4,096 of
+the Transformer's (``fused_ce_f64``'s depth-choosing case), the loss and
+lse errors against an f64 projection + CE on the same bf16 values beside
+the plain version's (``chip_smoke.py``'s ``fused_ce_f64`` holds the form
+to 1.5 times those).
 
 Prints one JSON line per measurement. The variants' results are not
 checked: they time pieces, and some skip work the result needs."""
@@ -462,89 +465,94 @@ def conv(cs, torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# the fused CE's x plans
+# the fused CE
 # ---------------------------------------------------------------------------
-
-# plan name -> (route form, the C entry's xplan, the deepest D it takes)
-CE_PLANS = {"resident": ("wgmma", 1, 512), "stream": ("wgmma_stream", 0,
-                                                      None),
-            "resident32": ("wgmma_stream", 2, 768)}
-
-
-def _ce_l2_bytes(t, d, v, xres):
-    """Bytes the blocks read through the L2 by the tile model (128 x 128
-    tiles, one split): W once per row tile; x once per block if resident,
-    else once per column tile."""
-    rt, ct = -(-t // 128), -(-v // 128)
-    return 2 * d * (rt * v + (t if xres else ct * t))
-
 
 def ce(cs, torch, dev):
     from paddle_tpu_torch.ops import fused_ce as fce
 
     bf = torch.bfloat16
     gen = torch.Generator().manual_seed(cs.SEED)
-    shapes = (("bert", 16384, 768, 30522, True, 0.0),
-              ("bert_ragged", 4097, 768, 30522, True, 0.0),
-              ("transformer", 32768, 512, 30000, False, 0.1))
-    saved_form, saved_plan = fce.ce_form, dict(fce._XPLAN)
-    try:
-        for label, t, d, v, with_bias, eps in shapes:
-            x, w, b, y = cs._ce_inputs(torch, gen, dev, t, d, v, with_bias)
-            x, w = x.to(bf), w.to(bf)
-            b = b.to(bf) if b is not None else None
-            want = fce.linear_smooth_ce_plain(x, w, b, y, eps)
-            scale = max(1.0, want[0].abs().max().item(),
-                        want[1].abs().max().item())
-            flops = 2 * t * d * v
-            nbytes = 2 * (t * d + d * v + (v if with_bias else 0)) + 12 * t
-            bound, by = cs.bf16_bound(nbytes, flops)
-            line = {"kernel": "fused_ce_fwd", "shape": label,
-                    "t_d_v": [t, d, v], "bias": with_bias, "eps": eps,
-                    "route": saved_form(x, w), "bound_ms": bound,
-                    "bound_by": by, "plans": {}}
-            for name, (form, xplan, dmax) in CE_PLANS.items():
-                if dmax is not None and d > dmax:
-                    continue
-                fce.ce_form = lambda *_a, _f=form: _f
-                fce._XPLAN[form] = xplan
-                n0 = fce.fused_ce_fwd.wgmma_launches
-                got = fce.fused_ce_fwd(x, w, b, y, eps)
-                again = fce.fused_ce_fwd(x, w, b, y, eps)
-                torch.cuda.synchronize()
-                err = max((g - e).abs().max().item()
-                          for g, e in zip(got, want)) / scale
-                r = {"xplan": xplan, "max_err_rel": err,
-                     "bitwise_repeat": all(torch.equal(a, c) for a, c in
-                                           zip(got, again)),
-                     "wgmma_launches": fce.fused_ce_fwd.wgmma_launches - n0}
-                if label != "bert_ragged":
-                    r["ms"] = cs.time_ms(
-                        lambda: fce.fused_ce_fwd(x, w, b, y, eps), iters=10,
+    for label, t, d, v, with_bias, eps in (
+            ("bert", 16384, 768, 30522, True, 0.0),
+            ("transformer", 32768, 512, 30000, False, 0.1)):
+        x, w, b, y = cs._ce_inputs(torch, gen, dev, t, d, v, with_bias)
+        x, w = x.to(bf), w.to(bf)
+        b = b.to(bf) if b is not None else None
+        want = fce.linear_smooth_ce_plain(x, w, b, y, eps)
+        got = fce.fused_ce_fwd(x, w, b, y, eps)
+        again = fce.fused_ce_fwd(x, w, b, y, eps)
+        torch.cuda.synchronize()
+        scale = max(1.0, want[0].abs().max().item(),
+                    want[1].abs().max().item())
+        nbytes = 2 * (t * d + d * v + (v if with_bias else 0)) + 12 * t
+        bound, by = cs.bf16_bound(nbytes, 2 * t * d * v)
+        ms = cs.time_ms(lambda: fce.fused_ce_fwd(x, w, b, y, eps), iters=10,
                         warmup=2)
-                    r["l2_bytes"] = _ce_l2_bytes(t, d, v, xplan != 0)
-                    r["l2_tb_per_s"] = r["l2_bytes"] / r["ms"] / 1e9
-                    r["bound_share"] = bound / r["ms"]
-                line["plans"][name] = r
-                fce.ce_form = saved_form
-                fce._XPLAN.update(saved_plan)
-            if label != "bert_ragged":
-                fce.ce_form = lambda *_a: "mma_sync"
-                line["mma_sync_ms"] = cs.time_ms(
-                    lambda: fce.fused_ce_fwd(x, w, b, y, eps), iters=5,
-                    warmup=1)
-                fce.ce_form = saved_form
-                line["matmul_ms"] = cs.time_ms(lambda: torch.matmul(x, w),
-                                               iters=10, warmup=2)
-                if v % 8:
-                    line["w_copy_ms"] = cs.time_ms(
-                        lambda: fce.wgmma_w_operand(w), iters=20)
-            print(json.dumps(line), flush=True)
-            del x, w, b, y, want
-    finally:
-        fce.ce_form = saved_form
-        fce._XPLAN.update(saved_plan)
+        with cs.mma_sync_route(fce, "ce_form"):
+            mma_ms = cs.time_ms(lambda: fce.fused_ce_fwd(x, w, b, y, eps),
+                                iters=5, warmup=1)
+        l2 = 2 * d * (-(-t // 128) * v + -(-v // 128) * t)
+        print(json.dumps({
+            "kernel": "fused_ce_fwd", "shape": label, "t_d_v": [t, d, v],
+            "bias": with_bias, "eps": eps, "form": fce.ce_form(x, w),
+            "ms": ms, "mma_sync_ms": mma_ms,
+            "matmul_ms": cs.time_ms(lambda: torch.matmul(x, w), iters=10,
+                                    warmup=2),
+            "w_copy_ms": cs.time_ms(lambda: fce.wgmma_w_operand(w),
+                                    iters=20) if v % 8 else 0.0,
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+            "l2_bytes": l2, "l2_tb_per_s": l2 / ms / 1e9,
+            "max_err_rel": max((g - e).abs().max().item()
+                               for g, e in zip(got, want)) / scale,
+            "bitwise_repeat": all(torch.equal(p, q)
+                                  for p, q in zip(got, again))}),
+            flush=True)
+        del x, w, b, y, want, got, again
+    _ce_depths(cs, torch, dev, fce)
 
+
+def _ce_depths(cs, torch, dev, fce):
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(cs.SEED + 3)
+    saved = fce.WGMMA_CHUNK_K
+    try:
+        for timed, checked, with_bias, eps in (
+                ((16384, 768, 30522), (4097, 768, 30522), True, 0.0),
+                ((32768, 512, 30000), (4096, 512, 30000), False, 0.1)):
+            full = [a.to(bf) if a is not None and a.is_floating_point()
+                    else a for a in cs._ce_inputs(torch, gen, dev, *timed,
+                                                  with_bias)]
+            part = [a.to(bf) if a is not None and a.is_floating_point()
+                    else a for a in cs._ce_inputs(torch, gen, dev, *checked,
+                                                  with_bias)]
+            exact = cs._ce_f64(torch, *part, eps)
+            plain = fce.linear_smooth_ce_plain(*part, eps)
+
+            def errs(out):
+                return {n: {"max_abs_err": (o.double() - e).abs().max()
+                            .item(),
+                            "rel_l2": ((o.double() - e).norm()
+                                       / e.norm()).item()}
+                        for n, o, e in zip(("loss", "lse"), out, exact)}
+
+            for depth in (64, 128, 256, 768):
+                if depth > checked[1]:
+                    continue
+                fce.WGMMA_CHUNK_K = depth
+                got = fce.fused_ce_fwd(*part, eps)
+                torch.cuda.synchronize()
+                print(json.dumps({
+                    "kernel": "fused_ce_fwd", "chunk_k": depth,
+                    "ms": cs.time_ms(lambda: fce.fused_ce_fwd(*full, eps),
+                                     iters=10, warmup=2),
+                    "t_d_v_timed": list(timed),
+                    "t_d_v_checked": list(checked), "bias": with_bias,
+                    "eps": eps, "kernel_f64": errs(got),
+                    "plain_bf16_f64": errs(plain)}), flush=True)
+            del full, part, exact, plain
+    finally:
+        fce.WGMMA_CHUNK_K = saved
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])

@@ -674,11 +674,11 @@ CE_FORM_CASES = [
     (777, 72, 304, True, 0.0, "wgmma"),     # D not a multiple of 64
     (129, 40, 256, False, 0.1, "wgmma"),
     (300, 512, 8, True, 0.1, "wgmma"),      # one slab of one tile
-    (1000, 512, 30001, True, 0.1, "wgmma_stream"),  # V % 8 != 0
+    (1000, 512, 30001, True, 0.1, "wgmma"),  # V % 8 != 0: W copied
     (200, 75, 1000, False, 0.1, "mma_sync"),    # D % 8 != 0
-    (257, 520, 1000, True, 0.1, "wgmma_stream"),    # D above 512
-    (16384, 768, 30522, True, 0.0, "wgmma_stream"),  # BERT's MLM head
-    (4097, 768, 30522, True, 0.1, "wgmma_stream"),   # ragged rows, D 768
+    (257, 520, 1000, True, 0.1, "wgmma"),    # D above the old resident 512
+    (16384, 768, 30522, True, 0.0, "wgmma"),  # BERT's MLM head
+    (4097, 768, 30522, True, 0.1, "wgmma"),   # ragged rows, D 768
 ]
 
 

@@ -146,8 +146,7 @@ def test_split_plan_splits_only_to_fill_the_card():
     assert tfce.split_plan(4096, 30000, 132)[:2] == (4, 59 * 128)
 
 
-FORM_TILES = {"mma_sync": tfce.MMA_SYNC_TILE, "wgmma": tfce.WGMMA_TILE,
-              "wgmma_stream": tfce.WGMMA_TILE}
+FORM_TILES = {"mma_sync": tfce.MMA_SYNC_TILE, "wgmma": tfce.WGMMA_TILE}
 
 
 @pytest.mark.parametrize("form", sorted(FORM_TILES))
@@ -192,50 +191,47 @@ def test_split_plan_per_form_splits_only_to_fill_the_card(form):
 @pytest.mark.parametrize("dtype,d,v,offset,form", [
     (torch.bfloat16, 512, 30000, 0, "wgmma"),     # the training shape
     (torch.bfloat16, 8, 8, 0, "wgmma"),
-    (torch.bfloat16, 512, 30001, 0, "wgmma_stream"),  # V % 8 != 0
+    (torch.bfloat16, 512, 30001, 0, "wgmma"),     # V % 8 != 0: W copied
     (torch.bfloat16, 72, 304, 0, "wgmma"),
     (torch.bfloat16, 75, 1000, 0, "mma_sync"),    # D % 8 != 0
-    (torch.bfloat16, 520, 1000, 0, "wgmma_stream"),   # D above the resident x
+    (torch.bfloat16, 520, 1000, 0, "wgmma"),      # D above the old resident 512
     (torch.bfloat16, 512, 1000, 1, "mma_sync"),   # x not 16-byte aligned
-    (torch.bfloat16, 768, 30522, 0, "wgmma_stream"),  # BERT's MLM head
-    (torch.bfloat16, 768, 30528, 0, "wgmma_stream"),
+    (torch.bfloat16, 768, 30522, 0, "wgmma"),     # BERT's MLM head
+    (torch.bfloat16, 768, 30528, 0, "wgmma"),
     (torch.bfloat16, 768, 30522, 1, "mma_sync"),  # x not 16-byte aligned
     (torch.float32, 512, 30000, 0, "mma_sync"),   # f32: 3xTF32 only
 ])
 def test_ce_form_routes_by_shape(dtype, d, v, offset, form):
-    """The bf16 forms are routed by shape and alignment: the resident-x
-    wgmma form takes D up to WGMMA_MAX_D with V a multiple of 8 and W
-    16-byte aligned; the streamed wgmma form every other D that is a
-    multiple of 8, at any V; the mma.sync form keeps D % 8 != 0 and a
-    misaligned x."""
+    """The bf16 forms are routed by shape and alignment: the wgmma form
+    takes every D that is a multiple of 8 from a 16-byte aligned x, at any
+    V; the mma.sync form keeps D % 8 != 0 and a misaligned x."""
     x = torch.empty(4 * d + offset, dtype=dtype)[offset:].view(4, d)
     w = torch.empty(d, v, dtype=dtype)
     assert tfce.ce_form(x, w) == form
 
 
-def test_ce_form_streams_a_misaligned_w():
-    """A W that is not 16-byte aligned goes to the streamed form, which
-    reads it through an aligned copy."""
+def test_ce_form_takes_a_misaligned_w_through_its_copy():
+    """A W that is not 16-byte aligned keeps the wgmma form, which reads
+    it through an aligned copy of the same values."""
     x = torch.empty(4, 512, dtype=torch.bfloat16)
     w = torch.randn(512 * 1000 + 1).to(torch.bfloat16)[1:].view(512, 1000)
-    assert tfce.ce_form(x, w) == "wgmma_stream"
+    assert tfce.ce_form(x, w) == "wgmma"
     wm, ldw = tfce.wgmma_w_operand(w)
     assert wm.data_ptr() % 16 == 0 and ldw == 1000
     assert torch.equal(wm, w)
 
 
-def test_wgmma_limits_and_chunk_depth():
-    """Both wgmma forms sum k in chunks of whole 64-deep ring stages (the
-    depth the wrapper passes is a positive multiple of 64) over 128 x 128
-    tiles. x stays resident up to WGMMA_MAX_D = 512: its 128 rows (128 KB)
-    beside a 5-stage ring of 16 KB W chunks fill a block's 227 KB, which
-    the 192 KB of D = 768 do not leave room for; past it the streamed form
-    takes every D. Each form names its x plan of the C entry."""
+def test_wgmma_chunk_depth_is_whole_ring_chunks():
+    """The wgmma form sums k in chunks of its whole 64-deep ring stages
+    (the depth the wrapper passes is a positive multiple of 64) over
+    128 x 128 tiles, and has no limit on D: x streams through the ring
+    beside W, so D = 4,096 routes to it as D = 8 does."""
     assert tfce.WGMMA_CHUNK_K >= 64 and tfce.WGMMA_CHUNK_K % 64 == 0
-    assert tfce.WGMMA_MAX_D == 512 and tfce.WGMMA_TILE[:2] == (128, 128)
-    resident = 128 * tfce.WGMMA_MAX_D * 2 + 5 * 64 * 128 * 2
-    assert resident <= 232448 < 128 * 768 * 2 + 5 * 64 * 128 * 2
-    assert tfce._XPLAN == {"wgmma": 1, "wgmma_stream": 0}
+    assert tfce.WGMMA_TILE[:2] == (128, 128)
+    for d in (8, 512, 768, 4096):
+        x = torch.empty(4, d, dtype=torch.bfloat16)
+        assert tfce.ce_form(x, torch.empty(d, 30522, dtype=x.dtype)) \
+            == "wgmma"
 
 
 @pytest.mark.parametrize("v", [30522, 30528, 1, 9, 16])
