@@ -77,7 +77,20 @@ it and read just after:
   caches -> the LayerNorm forward kernel, and the flash forward in the
   draft's passes; 64 requests in a closed loop of 16; each arm's
   dispatch wall, busy share and memory beside an interpreted batcher's
-  and engine's.
+  and engine's;
+* the attention seq2seq NMT model at its reference width
+  (``models.machine_translation``: vocabulary 10000/10000, sequence 50,
+  bi-GRU encoder and GRU decoder 512 wide, one attention head of 512;
+  random weights from seed 11): training at batch 128 x 50 tokens under
+  Adam(1e-3) (``mt_train``: the GRUs' steps on the tape, the flash
+  forward and backward at head dim 512, captured), beam decode (beam 4,
+  50 steps) in a While loop on the trained weights at batch 64
+  (``mt_decode``: interpreted, the loop reads its condition on the host;
+  a flash forward at Tq = 1 against 50 keys every trip), and the beam and
+  greedy programs served one-shot through ``ServingEngine(ladder=(1, 2,
+  4, 8))`` over a ``ProgramPredictor`` (``mt_serve``: 256 requests of 1-4
+  sentences in a closed loop of 16, then 64 greedy; solo equals batched
+  at rung 4, bitwise).
 
 Before each training path, ``train_check``, ``amp_train_check``,
 ``resnet_train_check``, ``resnet_amp_train_check``, ``deepfm_train_check``
@@ -95,7 +108,14 @@ four arms (f32 Adam, AMP Adam, Lamb, Lamb with accumulation and remat:
 the loss change over each update too), and ``optimizer_check`` trains
 DeepFM three steps under each new update op and the parameter averages
 against the CPU, the scatter-add launched once a step where the
-optimizer densifies the table's sparse gradient; before
+optimizer densifies the table's sparse gradient; ``mt_train_check``
+holds one NMT step at batch 2 (loss, every gradient, the Adam update)
+against the CPU, and ``mt_decode`` its first 16 decoded sentences under a
+near-tie rule (the beams each step kept exact up to a row's first step
+whose K-th and (K+1)-th candidates lie within 2e-4 + 1e-5 x |score| on
+the CPU, the
+sentences and scores of the rows with no such step), on the trained
+weights and on the initial ones with the output projection 1000x; before
 decode, ``decode_check`` holds four step
 dispatches and
 a chunk against the CPU, out-of-range cache positions, and the ids of
@@ -212,7 +232,7 @@ def check(cond, msg):
 TIMED_HELPERS = ("_capture_case", "_decode_capture_case", "_clone_evals",
                  "_interleaved_keys", "_flash_bwd_repeat", "_decode_arm",
                  "_interpreted_replica_memory", "_step_copies",
-                 "_decode_profile")
+                 "_decode_profile", "_cpu_verdict", "_serve_arm")
 
 
 def time_phases(ns, out):
@@ -1438,83 +1458,113 @@ def phase_timing(torch, dev):
 
 
 def flash_kernel_timing(torch, dev, gen):
-    """The flash kernels (rows 1-6), f32, key padding bias, each beside its
-    plain version, ``F.scaled_dot_product_attention`` as a yardstick (timed
-    here only; the port never calls it) and its bound: the forward at
-    BERT-base's served shape (8 x 128 tokens, 12 heads of 64) with the
-    training shape's row in ``trained_shape``, and the backward at
-    Transformer-base's training shape (128 x 256 tokens, 8 heads of 64,
-    the encoder self-attention call). ``tools/flash_ab.py`` times another
-    checkout's kernels through this function."""
+    """The flash kernels (rows 1-6), f32, key padding bias, through
+    :func:`flash_shape_timing`: the forward at BERT-base's served shape (8
+    x 128 tokens, 12 heads of 64) with the training shape's row in
+    ``trained_shape``, and the backward at Transformer-base's training
+    shape (128 x 256 tokens, 8 heads of 64, the encoder self-attention
+    call). ``tools/flash_ab.py`` times another checkout's kernels through
+    this function."""
+    h = BERT["heads"]
+    fwd, _ = flash_shape_timing(torch, dev, gen, 8, BERT["seq"], BERT["seq"],
+                                h, BERT["d_model"] // h)
+    # the training shape: the step launches each 18 times
+    t, h = TRANSFORMER["seq_len"], TRANSFORMER["n_head"]
+    fwd["trained_shape"], bwd = flash_shape_timing(
+        torch, dev, gen, TRAIN_BATCH, t, t, h, TRANSFORMER["d_model"] // h,
+        bwd=True, iters=20)
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
+
+
+def flash_shape_timing(torch, dev, gen, b, tq, tk, h, d, bwd=False,
+                       iters=50, backend=False, lse_tol=1e-4):
+    """The f32 flash kernels at one shape [B, Tq, Tk, H, D] with a key
+    padding bias [B, 1, 1, Tk]: the forward (and with ``bwd`` the
+    backward) first held against the plain version on the same inputs
+    (out and lse within 1e-4 absolute, ``phase_flash_check``'s f32 bound;
+    dq, dk and dv within 2e-4 x max(1, max|plain|),
+    ``phase_flash_bwd_check``'s), then timed beside the plain version,
+    beside ``F.scaled_dot_product_attention`` (timed here only; the port
+    never calls it; with ``backend`` the SDPA backend it took) and beside
+    its bound. Returns the forward's row and the backward's (or None),
+    each with its ``max_abs_err``."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    rows = {}
-    b, t, h = 8, BERT["seq"], BERT["heads"]
-    hd = BERT["d_model"]
-    d = hd // h
-    q, k, v = (torch.randn(b, t, hd, generator=gen).to(dev) for _ in range(3))
-    kb = _padding_bias(torch, gen, b, t, dev)
-    bias4 = kb[:, None, None, :]
-    qh, kh, vh = (x.view(b, t, h, d).transpose(1, 2) for x in (q, k, v))
-    nbytes = 4 * (4 * b * t * hd + b * t + b * h * t)
-    flops = 4 * b * h * t * t * d
-    bnd, by, bnd_fma = tensor_core_bound(nbytes, flops)
-    rows["flash_attention_fwd"] = dict(
-        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb)),
-        plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, bias4)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=bias4)),
-        bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma,
-        shape=[b, t, t, h, d], bytes=nbytes, flops=flops)
-
-    b, t = TRAIN_BATCH, TRANSFORMER["seq_len"]
-    h, hd = TRANSFORMER["n_head"], TRANSFORMER["d_model"]
-    d = hd // h
-    q, k, v, dout = (torch.randn(b, t, hd, generator=gen).to(dev)
-                     for _ in range(4))
-    kb = _padding_bias(torch, gen, b, t, dev)
-    out, lse = fa.flash_attention_fwd(q, k, v, h, kb)
-    plain_in = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    plain_out, _ = fa.attention_plain(*plain_in, h, kb)
+    hd = h * d
+    q = torch.randn(b, tq, hd, generator=gen).to(dev)
+    k, v = (torch.randn(b, tk, hd, generator=gen).to(dev) for _ in range(2))
+    dout = torch.randn(b, tq, hd, generator=gen).to(dev) if bwd else None
+    mask = _padding_bias(torch, gen, b, tk, dev)[:, None, None, :]
+    shape = [b, tq, tk, h, d]
+    case = "timing_%dx%dx%dx%dx%d" % tuple(shape)
 
     def split(x):
-        return x.view(b, t, h, d).transpose(1, 2)
+        return x.view(b, -1, h, d).transpose(1, 2)
 
-    lib_in = [split(x).detach().requires_grad_(True) for x in (q, k, v)]
-    mask = kb[:, None, None, :]
+    out, lse = fa.flash_attention_fwd(q, k, v, h, mask)
+    plain_in = [x.clone().requires_grad_(bwd) for x in (q, k, v)]
+    want, want_lse = fa.attention_plain(*plain_in, h, mask)
+    torch.cuda.synchronize()
+    live = want_lse > -1e30  # rows that see at least one key
+    err = (out - want).abs().max().item()
+    lse_err = (lse - want_lse)[live].abs().max().item()
+    emit({"phase": "flash_attention_fwd", "case": case, "shape": shape,
+          "bias": "key", "dtype": "torch.float32", "max_abs_err": err,
+          "lse_err": lse_err, "tol": 1e-4, "lse_tol": lse_tol})
+    check(torch.equal(lse <= -1e30, ~live), case + ": masked rows differ")
+    check(err <= 1e-4 and lse_err <= lse_tol,
+          "flash %s error %g (lse %g) > 1e-4" % (case, err, lse_err))
+    lib = [split(x) for x in (q, k, v)]
+    nbytes = 4 * (2 * b * tq * hd + 2 * b * tk * hd + b * tk + b * h * tq)
+    flops = 4 * b * h * tq * tk * d
+    bnd, by, bnd_fma = tensor_core_bound(nbytes, flops)
+    fwd = dict(
+        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, mask),
+                   iters=iters),
+        plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, mask),
+                         iters=iters),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            *lib, attn_mask=mask), iters=iters),
+        library="F.scaled_dot_product_attention",
+        bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma, shape=shape,
+        bytes=nbytes, flops=flops, max_abs_err=err, lse_err=lse_err)
+    if backend:
+        fwd["library_backend"] = _sdpa_backend(torch, lambda: (
+            F.scaled_dot_product_attention(*lib, attn_mask=mask)))
+    if not bwd:
+        return fwd, None
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, h, mask)[:3]
+    want_grads = torch.autograd.grad(want, plain_in, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    err = check_close("flash_attention_bwd", case, list(zip(
+        ("dq", "dk", "dv"), grads, want_grads)), 2e-4, shape=shape,
+        bias="key")
+    del grads, want_grads
+    lib_in = [x.detach().requires_grad_(True) for x in lib]
     lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask)
     lib_dout = split(dout)
 
-    # flash forward at the same shape: the step launches it 18 times
-    nbytes = 4 * (4 * b * t * hd + b * t + b * h * t)
-    flops = 4 * b * h * t * t * d
-    bnd, by, bnd_fma = tensor_core_bound(nbytes, flops)
-    rows["flash_attention_fwd"]["trained_shape"] = dict(
-        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, h, kb), iters=20),
-        plain_ms=time_ms(lambda: fa.attention_plain(q, k, v, h, kb),
-                         iters=20),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            split(q), split(k), split(v), attn_mask=mask), iters=20),
-        library="F.scaled_dot_product_attention",
-        bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma,
-        shape=[b, t, t, h, d], bytes=nbytes, flops=flops)
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, lib_in, lib_dout,
+                                   retain_graph=True)
 
-    nbytes = 4 * (8 * b * t * hd + b * h * t + b * t)
-    flops = 10 * b * h * t * t * d
+    nbytes = 4 * (4 * b * tq * hd + 4 * b * tk * hd + b * h * tq + b * tk)
+    flops = 10 * b * h * tq * tk * d
     bnd, by, bnd_fma = tensor_core_bound(nbytes, flops)
-    rows["flash_attention_bwd"] = dict(
+    row = dict(
         ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, h,
-                                                  kb), iters=20),
+                                                  mask), iters=20),
         plain_ms=time_ms(lambda: torch.autograd.grad(
-            plain_out, plain_in, dout, retain_graph=True), iters=20),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, lib_in, lib_dout, retain_graph=True), iters=20),
+            want, plain_in, dout, retain_graph=True), iters=20),
+        library_ms=time_ms(lib_bwd, iters=20),
         library="F.scaled_dot_product_attention backward (autograd)",
-        bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma,
-        shape=[b, t, t, h, d], bytes=nbytes, flops=flops)
-    return rows
+        bound_ms=bnd, bound_by=by, bound_ms_f32_fma=bnd_fma, shape=shape,
+        bytes=nbytes, flops=flops, max_abs_err=err)
+    if backend:
+        row["library_backend"] = _sdpa_backend(torch, lib_bwd)
+    return fwd, row
 
 
 def _bf16_kernel_timing(torch, dev, gen, only=None, cfg=None):
@@ -5972,6 +6022,581 @@ def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
     return launches, replayed
 
 
+# ---------------------------------------------------------------------------
+# attention seq2seq NMT (models.machine_translation) at its reference width
+# ---------------------------------------------------------------------------
+
+# machine_translation.py:51-52,100-102's defaults
+MT = dict(src_vocab=10000, trg_vocab=10000, seq_len=50, emb_dim=512,
+          hid_dim=512)
+MT_BEAM = 4
+MT_TRAIN_BATCH = 128
+MT_DECODE_BATCH = 64
+MT_LR = 1e-3
+# a train step: the decoder's attention, one flash forward and backward
+MT_PER_STEP = per_run(flash_attention_fwd=1, flash_attention_bwd=1)
+# a beam (or greedy) decode run: one flash forward a While trip
+MT_PER_DECODE = per_run(flash_attention_fwd=MT["seq_len"])
+# two extensions whose scores lie closer than this may be ordered
+# differently by the card and the CPU (f32 sums in other orders, the
+# 3xTF32 flash forward); the sentence scores agree within it
+MT_NEAR_TIE = 2e-4
+# the CPU side of the decode comparison on the trained weights: its first
+# rows (they all meet a near tie a few steps in); the sharpened arm holds
+# the whole batch
+MT_CPU_ROWS = 16
+# the factor on the initial output projection in the decode check's second
+# arm: the initial logits' spread is a few thousandths, this makes it a few
+# units
+MT_SHARPEN = 1000.0
+
+
+def build_mt(fluid):
+    """The train program (``seq2seq_attention`` + Adam(MT_LR)) and the
+    beam and greedy decode programs, each in fresh programs with fresh
+    names; the decode programs read the train program's ``mt_*``
+    parameters by name. Returns a dict."""
+    mt = fluid.models.machine_translation
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        fluid.unique_name.switch()
+        spec = mt.seq2seq_attention(**MT)
+        fluid.optimizer.Adam(learning_rate=MT_LR).minimize(spec.loss)
+    out = {"main": main, "startup": startup, "spec": spec}
+    for key, fn, kw in (("beam", mt.seq2seq_attention_infer,
+                         {"beam_size": MT_BEAM}),
+                        ("greedy", mt.seq2seq_attention_greedy_infer, {})):
+        prog = fluid.Program()
+        with fluid.program_guard(prog, fluid.Program()):
+            fluid.unique_name.switch()
+            out[key] = (prog, list(fn(**dict(MT, **kw))))
+    return out
+
+
+def mt_feed(spec, batch, seed=SEED):
+    """A fixed batch: random ids, source and target lengths from a fifth
+    of the sequence to all of it (the first row full)."""
+    rng = np.random.RandomState(seed)
+    feed = spec.sample_batch(batch, rng)
+    seq = MT["seq_len"]
+    for name in ("src_len", "trg_len"):
+        lens = rng.randint(seq // 5, seq + 1, batch)
+        lens[0] = seq
+        feed[name] = lens.astype("int64")
+    return feed
+
+
+def _mt_params(scope, program):
+    return {p.name: scope.numpy(p.name).copy()
+            for p in program.all_parameters()}
+
+
+def phase_mt_train_check(torch, smi_line, batch=2):
+    """One full-width NMT train step (batch 2) on the card and with the
+    port on the CPU from the same weights and feed (f32, TF32 off): the
+    loss within 1e-4 relative, every gradient within 1e-2 relative L2
+    (``train_check``'s bounds), and the Adam update of every parameter
+    (after - before) within 1e-2 relative L2: Adam's first step moves an
+    element by about the rate times the sign of its gradient, so a
+    gradient within rounding of zero may flip its update, which the
+    phase counts. The card's step launches one flash forward and
+    backward; the CPU's none."""
+    import paddle_tpu_torch as fluid
+
+    m = build_mt(fluid)
+    main, spec = m["main"], m["spec"]
+    names = [p.name for p in main.all_parameters()]
+    gb = main.global_block()
+    fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in names]
+    feed = mt_feed(spec, batch)
+    runs = {}
+    for side in ("gpu", "cpu"):
+        scope = fluid.Scope()
+        exe = fluid.Executor(None if side == "gpu" else fluid.CPUPlace())
+        exe.run(m["startup"], scope=scope)
+        if side == "gpu":
+            params = _mt_params(scope, main)
+        else:
+            fluid.bridge.load_program_params(scope, params, main, "cpu")
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        runs[side + "_s"] = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in read_counts().items()}
+        check(counts == (MT_PER_STEP if side == "gpu" else per_run()),
+              "mt_train_check %s step launched %s" % (side, counts))
+        runs[side] = (out, _mt_params(scope, main))
+        exe.close()
+    (gpu, gpu_after), (cpu, cpu_after) = runs["gpu"], runs["cpu"]
+    loss_err, grad_l2 = _grad_errors(names, gpu, cpu)
+    upd_l2, flips = {}, {}
+    for n in names:
+        dg, dc = gpu_after[n] - params[n], cpu_after[n] - params[n]
+        upd_l2[n] = _rel_l2(dg, dc.astype("f8"))
+        flips[n] = int(np.count_nonzero(np.sign(dg) != np.sign(dc)))
+    worst_g = max(grad_l2, key=grad_l2.get)
+    worst_u = max(upd_l2, key=upd_l2.get)
+    emit({"phase": "mt_train_check", "batch": batch, "config": MT,
+          "optimizer": "Adam(%g)" % MT_LR, "loss_gpu": float(gpu[0]),
+          "loss_cpu": float(cpu[0]), "loss_rel_err": loss_err,
+          "grads_compared": len(names), "grad_rel_l2_max": grad_l2[worst_g],
+          "grad_rel_l2_param": worst_g, "update_rel_l2_max": upd_l2[worst_u],
+          "update_rel_l2_param": worst_u,
+          "update_sign_flips": sum(flips.values()),
+          "update_elements": int(sum(p.size for p in params.values())),
+          "launches": MT_PER_STEP, "cpu_step_s": runs["cpu_s"],
+          "gpu_step_s": runs["gpu_s"],
+          "tol": "loss 1e-4 rel, grads and Adam updates 1e-2 rel L2",
+          "device": smi_line})
+    check(np.isfinite(float(gpu[0])) and all(
+        np.isfinite(g).all() for g in gpu[1:]),
+        "mt_train_check: non-finite loss or grads on the card")
+    check(loss_err <= 1e-4 and grad_l2[worst_g] <= 1e-2
+          and upd_l2[worst_u] <= 1e-2,
+          "mt_train_check: loss %g, %s grad %g, %s update %g" % (
+              loss_err, worst_g, grad_l2[worst_g], worst_u, upd_l2[worst_u]))
+
+
+def phase_mt_train(torch, smi_line, warmup=3, steps=10, prof_steps=2):
+    """The main path: the NMT train program at batch 128 x 50 tokens,
+    Adam(MT_LR), on one fixed batch, captured from the key's second step
+    on: 3 warm-up and 10 timed steps. Prints target tokens/s, ms a step
+    (median and every step), busy share, peak memory, ``captured`` and
+    ``reason``, device ms by kernel kind, and the kernels a step by kind
+    for the interpreted first step and a replay (held equal kind by kind
+    for the port's kernels); every interpreted or captured step launches
+    MT_PER_STEP exactly, a replay none from Python. Returns (launches,
+    replayed launches, ``build_mt``'s programs, the trained scope)."""
+    import paddle_tpu_torch as fluid
+
+    t0 = time.perf_counter()
+    m = build_mt(fluid)
+    main, spec = m["main"], m["spec"]
+    scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(m["startup"], scope=scope)
+    feed = mt_feed(spec, MT_TRAIN_BATCH)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = torch.cuda.memory_allocated()
+    setup_s = time.perf_counter() - t0
+    losses, step_s, runs = [], [], {"launched": 0, "replayed": 0}
+
+    def run_step():
+        (loss,), dt, rep = counted_step(
+            exe, main, MT_PER_STEP, False, "mt_train step %d" % len(losses),
+            feed=feed, fetch_list=[spec.loss], scope=scope)
+        runs["replayed" if rep else "launched"] += 1
+        losses.append(float(loss))
+        return dt
+
+    reset_counts()
+    call1 = {}
+    _profile_steps(torch, run_step, 1, counts=call1)
+    for i in range(warmup - 1 + steps):
+        dt = run_step()
+        if i >= warmup - 1:
+            step_s.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    replay = {}
+    device_ms, kernels, prof_wall, top_other = _profile_steps(
+        torch, run_step, prof_steps, counts=replay)
+    report = exe.step_report(main)
+    launches = read_counts()
+    exe.close()
+    med = statistics.median(step_s)
+    busy = sum(device_ms.values())
+    tokens = MT_TRAIN_BATCH * MT["seq_len"]
+    emit({"phase": "mt_train", "model": "seq2seq_attention",
+          "config": MT, "batch": MT_TRAIN_BATCH, "precision": "f32",
+          "optimizer": "Adam(%g)" % MT_LR, "captured": report["captured"],
+          "reason": report["reason"], "step_report": report,
+          "warmup_steps": warmup, "steps": len(step_s),
+          "step_ms_median": med * 1e3, "step_ms": [x * 1e3 for x in step_s],
+          "step_ms_spread": (max(step_s) - min(step_s)) * 1e3,
+          "tokens_per_s": tokens / med, "device_ms_per_step": device_ms,
+          "device_ms": busy, "device_busy_share": busy / (med * 1e3),
+          "kernels_per_step": kernels, "kernels_by_kind": {
+              "call1": call1, "replay": replay},
+          "profiled_wall_ms_per_step": prof_wall,
+          "top_other_kernels": top_other, "losses": losses,
+          "state_bytes": state, "peak_memory_bytes": peak,
+          "launches_per_launching_step": MT_PER_STEP,
+          "flash_launches_per_step": {
+              "interpreted": {k: MT_PER_STEP[k] for k in KERNELS[:2]},
+              "captured": {k: MT_PER_STEP[k] for k in KERNELS[:2]},
+              "replay_from_python": {k: 0 for k in KERNELS[:2]}},
+          "launches": launches, "steps_by_kind": runs, "setup_s": setup_s,
+          "device": smi_line})
+    check(report["captured"] and report["replays"] >= steps,
+          "mt_train not captured: %s" % report)
+    check_replay_kernels("mt_train", call1, replay)
+    check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
+    check(losses[-1] < losses[0], "mt_train: loss did not fall: %s"
+          % losses)
+    check(launches == {k: n * runs["launched"]
+                       for k, n in MT_PER_STEP.items()},
+          "mt_train launches %s" % launches)
+    return (launches, {k: n * runs["replayed"]
+                       for k, n in MT_PER_STEP.items()}, m, scope)
+
+
+def _margin_hook(margins):
+    """The port's ``beam_search_step`` impl, also recording each step's
+    [B] margins into ``margins``: (the gap between a row's K-th and
+    (K+1)-th best extensions, |the K-th's score|)."""
+    from paddle_tpu_torch.core import op_registry
+    from paddle_tpu_torch.core.opimpl.decode_ops import (beam_candidates,
+                                                         top_k_stable)
+
+    impl = op_registry.OP_IMPLS["beam_search_step"]
+
+    def hooked(env, op):
+        impl(env, op)
+        ins = [env[op.input(s_).name]
+               for s_ in ("PreIds", "PreScores", "Scores")]
+        k = ins[2].shape[1]
+        top, _ = top_k_stable(beam_candidates(*ins, op.attr("end_id")),
+                              k + 1)
+        margins.append(((top[:, k - 1] - top[:, k]).cpu().numpy(),
+                        top[:, k - 1].abs().cpu().numpy()))
+
+    return hooked
+
+
+@contextlib.contextmanager
+def _swap_impl(op_type, impl):
+    from paddle_tpu_torch.core import op_registry
+
+    saved = op_registry.OP_IMPLS[op_type]
+    op_registry.OP_IMPLS[op_type] = impl
+    try:
+        yield
+    finally:
+        op_registry.OP_IMPLS[op_type] = saved
+
+
+def _decode_fetch(prog, outs):
+    """The decode outputs and ``beam_search_decode``'s recorded arrays
+    (ids and parents, [T, B, K]: slot t is step t's selection)."""
+    op = next(o for o in prog.global_block().ops
+              if o.type == "beam_search_decode")
+    return list(outs) + [op.input("IdsArray"), op.input("ParentsArray")]
+
+
+def beam_prefixes(ids_arr, par_arr, t, b):
+    """Row ``b``'s K beams after step ``t`` of a beam decode's recorded
+    arrays ([T, B, K], slot s step s's selection), each as its tokens of
+    steps 0..t (followed back through the parents), sorted: the set the
+    step kept, whatever the beams' order."""
+    out = []
+    for j in range(ids_arr.shape[2]):
+        toks, p = [], j
+        for s_ in range(t, -1, -1):
+            toks.append(int(ids_arr[s_, b, p]))
+            p = int(par_arr[s_, b, p])
+        out.append(tuple(reversed(toks)))
+    return sorted(out)
+
+
+def near_tie_verdict(got, want, margins, tol):
+    """One beam decode against another: ``got``/``want`` its (ids [B, K,
+    T], scores [B, K], ids array, parents array) fetches, ``margins`` the
+    ``want`` side's per step ([B] gaps between the K-th and (K+1)-th best
+    extension, [B] |K-th score|). Two candidates closer than ``tol`` +
+    1e-5 x |score| may be ordered differently by the two sides (a score
+    sums a step's f32 log-probability into it at every step). Per row,
+    the beams each step kept (``beam_prefixes``, so an order swap of
+    near-equal beams is no difference) must agree at every step before
+    the row's first such near tie; a row with none must also decode the
+    same sentences (as a set) with the same sorted scores within that
+    bound. Returns the verdict's counts (``ok`` whether it holds)."""
+    margin = np.stack([g for g, _ in margins])      # [T, B]
+    near_at = margin < tol + 1e-5 * np.stack([a for _, a in margins])
+    out = {"rows": int(want[0].shape[0]), "near_tie_rows": 0,
+           "near_tie_first_steps": [], "rows_fully_compared": 0,
+           "steps_compared": 0, "ok": True, "score_max_abs_err": 0.0,
+           "min_margin": float(margin.min()),
+           "median_margin": float(np.median(margin)), "tol": tol}
+    for b in range(out["rows"]):
+        near = np.nonzero(near_at[:, b])[0]
+        first = int(near[0]) if near.size else margin.shape[0]
+        same = all(beam_prefixes(got[2], got[3], t, b)
+                   == beam_prefixes(want[2], want[3], t, b)
+                   for t in range(first))
+        out["steps_compared"] += first
+        if near.size:
+            out["near_tie_rows"] += 1
+            out["near_tie_first_steps"].append(first)
+        else:
+            w = np.sort(want[1][b])
+            diff = np.abs(np.sort(got[1][b]) - w)
+            err = float(diff.max())
+            out["score_max_abs_err"] = max(out["score_max_abs_err"], err)
+            same = same and bool((diff <= tol + 1e-5 * np.abs(w)).all()) \
+                and sorted(
+                map(tuple, got[0][b].tolist())) == sorted(
+                map(tuple, want[0][b].tolist()))
+            out["rows_fully_compared"] += 1
+        out["ok"] = out["ok"] and bool(same)
+    return out
+
+
+def _cpu_verdict(fluid, prog, fetch, scope, feed, card):
+    """``near_tie_verdict`` of the card's decode ``card`` (fetches of
+    ``feed``'s rows) against the port on the CPU from ``scope``'s
+    parameters, margins from the CPU run. Returns (verdict, CPU s)."""
+    cpu_scope = fluid.Scope()
+    fluid.bridge.load_numpy_params(cpu_scope, _mt_params(scope, prog), "cpu",
+                                   prog)
+    margins = []
+    t0 = time.perf_counter()
+    with _swap_impl("beam_search_step", _margin_hook(margins)):
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            prog, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    return (near_tie_verdict(card, cpu, margins, MT_NEAR_TIE),
+            time.perf_counter() - t0)
+
+
+def phase_mt_decode(torch, smi_line, m, scope, runs=3):
+    """The beam program (``seq2seq_attention_infer``, beam 4, 50 steps) at
+    batch 64 on the trained scope: interpreted (``captured`` false, with
+    its reason: the While reads its condition on the host before every
+    trip), one warm-up and ``runs`` timed runs (wall ms a batch), one
+    profiled (device ms by kind, busy share); each run launches exactly 50
+    flash forwards and nothing else of the table. The first MT_CPU_ROWS
+    rows against the port on the CPU from the same weights
+    (``near_tie_verdict``), and the whole batch (256 beam rows) again
+    from the initial weights (the startup run) with the output projection
+    scaled by MT_SHARPEN. A few Adam steps move the output weights of the
+    tokens of the trained batch alike, so the trained model's best
+    candidates lie within the tolerance of each other a few steps in (it
+    compares those steps); the random initial logits, spread to a few
+    units, keep most candidates apart, so there the rule compares the
+    decode of most rows whole."""
+    import paddle_tpu_torch as fluid
+
+    prog, outs = m["beam"]
+    fetch = _decode_fetch(prog, outs)
+    feed = {k: v for k, v in mt_feed(m["spec"], MT_DECODE_BATCH,
+                                     SEED + 2).items()
+            if k in ("src_ids", "src_len")}
+    rows = {k: v[:MT_CPU_ROWS] for k, v in feed.items()}
+    exe = fluid.Executor()  # CUDAPlace(0)
+    reset_counts()
+
+    def run(on=scope, batch=feed):
+        before = read_counts()
+        t0 = time.perf_counter()
+        got = exe.run(prog, feed=batch, fetch_list=fetch, scope=on)
+        dt = time.perf_counter() - t0
+        per = {k: v - before[k] for k, v in read_counts().items()}
+        check(per == MT_PER_DECODE, "mt_decode run launched %s" % per)
+        return got, dt
+
+    card, _ = run()
+    wall = [run()[1] for _ in range(runs)]
+    device_ms, kernels, prof_wall, top_other = _profile_steps(
+        torch, lambda: run()[1], 1)
+    report = exe.step_report(prog)
+    sharp = fluid.Scope()
+    fluid.Executor().run(m["startup"], scope=sharp)
+    sharp.set("mt_out_fc_w", sharp.get("mt_out_fc_w") * MT_SHARPEN)
+    card_sharp, _ = run(sharp)
+    launches = read_counts()
+    n_runs = runs + 3
+    exe.close()
+    verdicts, cpu_s = {}, {}
+    for key, on, batch, got in (
+            ("trained", scope, rows,
+             [card[0][:MT_CPU_ROWS], card[1][:MT_CPU_ROWS],
+              card[2][:, :MT_CPU_ROWS], card[3][:, :MT_CPU_ROWS]]),
+            ("sharpened", sharp, feed, card_sharp)):
+        verdicts[key], cpu_s[key] = _cpu_verdict(fluid, prog, fetch, on,
+                                                 batch, got)
+    check(read_counts() == launches, "the CPU decode launched a kernel")
+    med = statistics.median(wall)
+    busy = sum(device_ms.values())
+    emit({"phase": "mt_decode", "model": "seq2seq_attention_infer",
+          "config": dict(MT, beam_size=MT_BEAM, max_out_len=MT["seq_len"]),
+          "batch": MT_DECODE_BATCH, "captured": report["captured"],
+          "reason": report["reason"], "step_report": report,
+          "runs": n_runs, "wall_ms_per_batch": med * 1e3,
+          "wall_ms": [x * 1e3 for x in wall],
+          "sentences_per_s": MT_DECODE_BATCH / med,
+          "device_ms_per_batch": device_ms, "device_ms": busy,
+          "device_busy_share": busy / (med * 1e3),
+          "kernels_per_batch": kernels,
+          "profiled_wall_ms_per_batch": prof_wall,
+          "top_other_kernels": top_other,
+          "flash_fwd_per_run": MT_PER_DECODE["flash_attention_fwd"],
+          "launches": launches, "cpu_s": cpu_s,
+          "cpu_rows": {"trained": MT_CPU_ROWS, "sharpened": MT_DECODE_BATCH},
+          "verdicts": verdicts, "device": smi_line})
+    check(not report["captured"] and report["reason"].startswith(
+        "op 'while_block'"), "mt_decode: %s" % report)
+    check(card[0].shape == (MT_DECODE_BATCH, MT_BEAM, MT["seq_len"])
+          and np.isfinite(card[1]).all(), "mt_decode: outputs %s"
+          % (card[0].shape,))
+    check(all(v["ok"] for v in verdicts.values()),
+          "mt_decode: card vs CPU %s" % verdicts)
+    check(launches == {k: n * n_runs for k, n in MT_PER_DECODE.items()},
+          "mt_decode launches %s" % launches)
+    return launches, per_run()
+
+
+def _serve_arm(torch, fluid, prog, outs, scope, reqs, in_flight, k):
+    """``reqs`` one-shot through ``ServingEngine(ladder=(1, 2, 4, 8))``
+    over a ``ProgramPredictor`` of ``prog`` in a closed loop of
+    ``in_flight``: requests/s, p50, p99, the batches, launches."""
+    pred = fluid.inference.ProgramPredictor(
+        prog, ["src_ids", "src_len"], outs, scope=scope)
+    engine = fluid.serving.ServingEngine(pred, num_replicas=1,
+                                         ladder=(1, 2, 4, 8))
+    before = read_counts()
+    try:
+        t0 = time.perf_counter()
+        warmed = engine.warmup()
+        t_warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        futures = []
+        for i, f in enumerate(reqs):
+            if i >= in_flight:
+                futures[i - in_flight].result(timeout=300)
+            futures.append(engine.submit(f))
+        results = [f.result(timeout=300) for f in futures]
+        wall = time.perf_counter() - t0
+        snap = engine.metrics()
+    finally:
+        engine.shutdown()
+    report = pred.step_report()
+    runs = exe_runs(pred._exe)
+    pred.close()
+    launches = {n: v - before[n] for n, v in read_counts().items()}
+    for f, (ids, sc) in zip(reqs, results):
+        n = f["src_ids"].shape[0]
+        want = (n, k, MT["seq_len"]) if k > 1 else (n, MT["seq_len"])
+        check(ids.shape == want and sc.shape == want[:-1]
+              and np.isfinite(sc).all(), "served %s, %s" % (ids.shape,
+                                                            sc.shape))
+    lat = snap["latency_s"]
+    dispatches = 2 * warmed + snap["batches"]
+    check(snap["requests_completed"] == len(reqs)
+          and snap["requests_failed"] == 0, "requests failed: %s" % snap)
+    check(not report["captured"] and runs == {
+        "interpreted": dispatches, "captures": 0, "replays": 0},
+        "mt_serve: %s, runs %s, %d dispatches" % (report, runs, dispatches))
+    check(launches == {n: v * dispatches for n, v in MT_PER_DECODE.items()},
+          "mt_serve launches %s for %d dispatches" % (launches, dispatches))
+    return {"requests": len(reqs), "in_flight": in_flight,
+            "rows": int(sum(f["src_ids"].shape[0] for f in reqs)),
+            "requests_per_s": len(reqs) / wall, "wall_s": wall,
+            "p50_ms": lat["p50"] * 1e3, "p99_ms": lat["p99"] * 1e3,
+            "batches": snap["batches"],
+            "avg_batch_size": snap["avg_batch_size"],
+            "batch_occupancy": snap["batch_occupancy"],
+            "warmup_runs": 2 * warmed, "warmup_s": t_warm,
+            "captured": report["captured"], "reason": report["reason"],
+            "runs": runs, "dispatches": dispatches, "launches": launches}
+
+
+def _solo_vs_batched(fluid, prog, outs, scope, reqs):
+    """A request served alone and the same request among three others,
+    all at rung 4 (``ladder=(4,)``): bitwise equal ids and scores."""
+    pred = fluid.inference.ProgramPredictor(
+        prog, ["src_ids", "src_len"], outs, scope=scope)
+    engine = fluid.serving.ServingEngine(pred, num_replicas=1, ladder=(4,),
+                                         max_wait_ms=50)
+    try:
+        solo = engine.submit(reqs[0]).result(timeout=300)
+        futs = [engine.submit(r) for r in reqs[:4]]
+        batched = [f.result(timeout=300) for f in futs]
+    finally:
+        engine.shutdown()
+    pred.close()
+    return all(np.array_equal(a, b) for a, b in zip(solo, batched[0]))
+
+
+def phase_mt_serve(torch, smi_line, m, scope, n_requests=256, in_flight=16,
+                   n_greedy=64):
+    """The beam program served one-shot: ``n_requests`` requests of 1-4
+    sentences (lengths 10-50) in a closed loop of ``in_flight`` through
+    ``ServingEngine(ladder=(1, 2, 4, 8))`` over a ``ProgramPredictor`` on
+    the trained scope (every dispatch interpreted: the While), then
+    ``n_greedy`` through the greedy program the same way. Every dispatch,
+    warm-up included, launches 50 flash forwards and nothing else of the
+    table. A 1-sentence request served alone and among three others at
+    rung 4 gives bitwise equal ids and scores (beam program)."""
+    import paddle_tpu_torch as fluid
+
+    rng = np.random.RandomState(SEED + 3)
+    seq = MT["seq_len"]
+    reqs = []
+    for _ in range(n_requests):
+        n = int(rng.randint(1, 5))
+        reqs.append({"src_ids": rng.randint(2, MT["src_vocab"], (n, seq)),
+                     "src_len": rng.randint(seq // 5, seq + 1, (n,))})
+    singles = [{k: v[:1] for k, v in r.items()} for r in reqs[:4]]
+    reset_counts()
+    arms = {"beam": _serve_arm(torch, fluid, *m["beam"], scope, reqs,
+                               in_flight, MT_BEAM),
+            "greedy": _serve_arm(torch, fluid, *m["greedy"], scope,
+                                 reqs[:n_greedy], in_flight, 1)}
+    launches = read_counts()
+    bitwise = _solo_vs_batched(fluid, *m["beam"], scope, singles)
+    emit({"phase": "mt_serve", "model": "seq2seq_attention_infer",
+          "config": dict(MT, beam_size=MT_BEAM), "arrival": "closed loop",
+          "ladder": [1, 2, 4, 8], "arms": arms, "launches": launches,
+          "solo_equals_batched_at_rung_4": bitwise, "device": smi_line})
+    check(bitwise, "mt_serve: solo != batched at rung 4")
+    return launches, per_run()
+
+
+def mt_flash_timing(torch, dev):
+    """The f32 flash kernels at the NMT model's shapes (one head of 512,
+    50 keys, a per-key padding bias [B, 1, 1, 50]) through
+    :func:`flash_shape_timing`, each held against its plain version
+    first: the forward and backward at the train step's [128, 50, 50] and
+    the forward at a decode step's (Tq = 1, batch x beam = 256 rows), with
+    the SDPA backend each took."""
+    gen = torch.Generator().manual_seed(SEED)
+    d, tk = MT["hid_dim"], MT["seq_len"]
+    fwd, bwd = flash_shape_timing(torch, dev, gen, MT_TRAIN_BATCH, tk, tk, 1,
+                                  d, bwd=True, backend=True)
+    decode, _ = flash_shape_timing(torch, dev, gen, MT_DECODE_BATCH * MT_BEAM,
+                                   1, tk, 1, d, backend=True)
+    rows = {"flash_attention_fwd": {"train": fwd, "decode": decode},
+            "flash_attention_bwd": {"train": bwd}}
+    for name, r in rows.items():
+        emit({"phase": "mt_flash_timing", "kernel": name, "shapes": r})
+    return rows
+
+
+def _sdpa_backend(torch, fn):
+    """The SDPA backend one call of ``fn`` took, named from the device
+    kernels the profiler saw: ``flash``, ``efficient``, ``cudnn`` or
+    ``math``, with the kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profile_edge(torch, prof)  # late in a run the first records drop
+        fn()
+        profile_edge(torch, prof)
+    names = sorted({e.key for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and "spin_kernel" not in e.key})  # the edges' guards
+    low = " ".join(names).lower()
+    kind = ("flash" if "flash" in low else "efficient" if (
+        "fmha" in low or "efficient" in low or "mem_eff" in low)
+        else "cudnn" if "cudnn" in low else "math")
+    return {"backend": kind, "kernels": [n[:80] for n in names[:6]]}
+
+
 def main():
     try:
         import torch
@@ -6079,6 +6704,15 @@ def main():
     fam = phase_decode_check(torch, smi_line)
     paths["decode"], replayed["decode"] = phase_decode(torch, smi_line, fam)
     del fam
+    phase_mt_train_check(torch, smi_line)
+    paths["mt_train"], replayed["mt_train"], mt, mt_scope = phase_mt_train(
+        torch, smi_line)
+    paths["mt_decode"], replayed["mt_decode"] = phase_mt_decode(
+        torch, smi_line, mt, mt_scope)
+    paths["mt_serve"], replayed["mt_serve"] = phase_mt_serve(
+        torch, smi_line, mt, mt_scope)
+    del mt, mt_scope
+    mt_times = mt_flash_timing(torch, dev)
 
     src = {"flash_attention_fwd": ("flash_attention_fwd.cu",
                                    "paddle_tpu/ops/flash_attention.py:1001"),
@@ -6123,6 +6757,8 @@ def main():
                 kernels[-1][key] = r[key]
         if name in bert_times:  # the bf16 form at BERT pretraining's shape
             kernels[-1]["bert_pretrain_shape"] = bert_times[name]
+        if name in mt_times:  # f32, one head of 512: the NMT model's
+            kernels[-1]["mt_shape"] = mt_times[name]
         if name == "scatter_add":  # the densify of the new optimizers
             kernels[-1]["optimizer_check_shape"] = opt_scatter
         if "bf16" in r:  # rows 1-12: the bf16 form (AMP), training shape

@@ -7,13 +7,49 @@ the ``wrt_names`` it differentiates; a Switch-guarded op (``_switch_cond``)
 also reads its condition and the old values of its outputs, which
 ``run_op`` blends in (``paddle_tpu/analysis/dataflow.py:62``
 ``own_reads``); it writes its output names. Those replay ops' ``fwd_ops``
-lists alias the enclosing ops and are not recursed into. The port runs no
-control-flow block op, so the reference's sub-regions are left out.
+lists alias the enclosing ops and are not recursed into. A control-flow
+op (``cond_block``, ``while_block``, ``scan_block``) runs its body on a
+copy of the enclosing env, so it also reads its body's free names: those
+a body op reads before the body defines them, less the names the op binds
+at body entry (its carries and scanned inputs; :func:`body_reads`,
+``paddle_tpu/analysis/dataflow.py:44-103``). The body's own writes stay
+local to it.
 """
 
-__all__ = ["OpNode", "Region", "build_region", "own_reads"]
+__all__ = ["OpNode", "Region", "build_region", "own_reads", "body_reads",
+           "bodies"]
 
 _REPLAY_OPS = frozenset({"autodiff", "autodiff_vjp"})
+
+# op type -> ((attr holding a body's op list, fn(op) -> the names the op
+# binds at that body's entry), ...)
+_BODIES = {
+    "cond_block": (("true_ops", lambda op: ()), ("false_ops", lambda op: ())),
+    "while_block": (("body_ops", lambda op: [op.attr("cond_name")] + [
+        v.name for v in op.input_list("Carry")]),),
+    "scan_block": (("step_ops", lambda op: list(
+        op.attr("x_step_names") or ()) + list(op.attr("carry_names")
+                                              or ())),),
+}
+
+
+def bodies(op):
+    """``[(body ops, names bound at its entry), ...]`` of a control-flow
+    op; [] for any other op."""
+    return [(op.attr(attr) or (), bound(op))
+            for attr, bound in _BODIES.get(op.type, ())]
+
+
+def body_reads(op):
+    """The free names of ``op``'s control-flow bodies (none for any other
+    op), nested bodies included."""
+    free = set()
+    for ops, bound in bodies(op):
+        defined = set(bound)
+        for o in ops:
+            free |= (set(o.input_arg_names) | body_reads(o)) - defined
+            defined |= set(o.output_arg_names)
+    return free
 
 
 def own_reads(op, switch_rmw=True):
@@ -29,7 +65,9 @@ def own_reads(op, switch_rmw=True):
             reads.update(op.output_arg_names)  # prior values blended in
     if op.type in _REPLAY_OPS:
         reads.update(op.attr("wrt_names") or ())
-    return reads
+    if op.type == "while_block":
+        reads.add(op.attr("cond_name"))
+    return reads | body_reads(op)
 
 
 class OpNode:

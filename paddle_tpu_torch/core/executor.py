@@ -98,6 +98,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..analysis.dataflow import bodies, body_reads
 from . import framework
 from .framework import Variable, torch_dtype
 from .op_registry import (AMP, DEVICE_KEY, LENT_KEY, RNG_KEY, RNG_TAPE_KEY,
@@ -294,7 +295,20 @@ _NOT_CAPTURED = {
     "cached_attention_chunk": _DECODE_CACHE,
     "sampling_id": "torch.multinomial checks its probabilities on the host",
     "assign_value": "copies its host values to the device on every run",
+    "while_block": ("reads its loop condition on the host before every "
+                    "trip: the trip count is not known when the step is "
+                    "captured"),
+    "cond_block": ("reads its predicate on the host: the branch is not "
+                   "known when the step is captured"),
 }
+
+def _with_bodies(ops):
+    """``ops`` and, after each control-flow op, the ops of its bodies
+    (nested ones too), in order."""
+    for op in ops:
+        yield op
+        for body, _ in bodies(op):
+            yield from _with_bodies(body)
 
 
 def lent_outputs(ops, lent):
@@ -334,9 +348,11 @@ def state_writes(ops, persist):
 
 
 def _reads(op):
-    """The names ``op`` reads, its Switch condition included."""
+    """The names ``op`` reads, its Switch condition and its control-flow
+    bodies' free names included."""
     cond = op.attrs.get("_switch_cond")
-    return list(op.input_arg_names) + ([cond] if cond else [])
+    return (list(op.input_arg_names) + ([cond] if cond else [])
+            + sorted(body_reads(op)))
 
 
 def remat_segments(ops, fetch_names=(), writes=()):
@@ -436,7 +452,7 @@ def capture_rule(ops, writes=(), donate_state=True, use_program_cache=True,
                        "graph would write the shared tensors in place"
                        % writes[0])
     in_place = set(lent) | set(lent_outputs(ops, lent))
-    for op in ops:
+    for op in _with_bodies(ops):
         if op.type in _CACHE_WRITES and op.input("Cache").name in in_place:
             continue
         if op.type in _CACHE_READS and {op.input("CacheK").name,

@@ -23,11 +23,18 @@ op per schedule, reading the step counter (a persistable state var) on
 the device and writing a 0-d float32 rate, no value read on the host, so
 a scheduled training step is captured like any other.
 
-Not ported yet: rematerialization (memory slice; ``append_backward``
-raises for ``checkpoints``), the pipeline and gradient-scale strategies
-and the sparse path under pipeline parallelism (multi-device slice), and
-control flow (``cond_block``/``while_block``, queue A.7 of ROADMAP.md),
-whose op types have no impl here.
+Control flow (``control_ops.py:247-340``): the reference lowers its
+sub-block bodies to ``lax.cond`` / ``lax.while_loop`` / ``lax.scan``; the
+port runs the recorded body ops itself. ``while_block`` and
+``cond_block`` read their condition on the host (once per trip, once per
+run), so a program holding either is interpreted, never captured
+(``core/executor.py`` ``_NOT_CAPTURED``); ``scan_block``'s trip count is
+the static length of its inputs, so a StaticRNN's step is captured like
+any other. Each trip, branch or step starts from the env the block op saw,
+updated with the carries, as a traced body starts from its closure.
+
+Not ported yet: the pipeline and gradient-scale strategies and the sparse
+path under pipeline parallelism (multi-device slice).
 """
 
 import math
@@ -35,7 +42,7 @@ import math
 import torch
 
 from ..op_registry import (SPARSE_SITES_KEY, get, merge_sparse_rows, put,
-                           register)
+                           register, run_op)
 
 
 def _loss_seed(loss_val):
@@ -131,6 +138,78 @@ def _autodiff_vjp(env, op):
     grads = _grads(targets, cot, env, wrt_names)
     for v, g in zip(op.output_list("Grads"), grads):
         put(env, v, g)
+
+
+# ---------------- control flow ----------------
+
+def _run_body(env, ops, carry):
+    """Run ``ops`` over a copy of ``env`` updated with ``carry``
+    ({name: tensor}); returns the copy."""
+    local = dict(env)
+    local.update(carry)
+    for o in ops:
+        run_op(local, o)
+    return local
+
+
+@register("cond_block")
+def _cond_block(env, op):
+    """The branch the 0-d Cond selects (read on the host), its outputs
+    merged into Out: ``true_out_names`` or ``false_out_names``, in
+    order."""
+    pred = bool(get(env, op.input("Cond")).reshape(()))
+    outs = op.output_list("Out")
+    names = op.attr("true_out_names" if pred else "false_out_names") or [
+        v.name for v in outs]
+    local = _run_body(env, op.attr("true_ops" if pred else "false_ops"), {})
+    for v, n in zip(outs, names):
+        put(env, v, local[n])
+
+
+@register("while_block")
+def _while_block(env, op):
+    """Run the body while the bool var ``cond_name`` holds (read on the
+    host before each trip; the body recomputes it). The carries are the
+    condition, the listed loop vars (``Carry``) and the fill levels
+    (``<array>@LEN``) of the arrays among them, so ``array_write`` in the
+    body updates the carried array and ``array_length`` stays right; Out
+    takes the loop vars' final values, the levels go back into the env."""
+    body = op.attr("body_ops")
+    cond_name = op.attr("cond_name")
+    names = [cond_name] + [v.name for v in op.input_list("Carry")]
+    names += [n + "@LEN" for n in names[1:] if n + "@LEN" in env]
+    carry = {n: env[n] for n in names}
+    while bool(carry[cond_name].reshape(())):
+        local = _run_body(env, body, carry)
+        carry = {n: local[n] for n in names}
+    for v, src in zip(op.output_list("Out"), op.input_list("Carry")):
+        put(env, v, carry[src.name])
+    for n in names:
+        if n.endswith("@LEN"):
+            env[n] = carry[n]
+
+
+@register("scan_block")
+def _scan_block(env, op):
+    """StaticRNN's step over the leading (time) axis of the X inputs:
+    ``carry_names`` start from Init and take ``carry_out_names`` after
+    each step, ``x_step_names`` read step t of X, and the ``y_names`` of
+    every step are stacked into Ys; Last holds the final carries."""
+    xs = [get(env, v) for v in op.input_list("X")]
+    carry = [get(env, v) for v in op.input_list("Init")]
+    carry_names = op.attr("carry_names")
+    x_names = op.attr("x_step_names")
+    ys = []
+    for t in range(xs[0].shape[0]):
+        step = dict(zip(carry_names, carry))
+        step.update((n, x[t]) for n, x in zip(x_names, xs))
+        local = _run_body(env, op.attr("step_ops"), step)
+        carry = [local[n] for n in op.attr("carry_out_names")]
+        ys.append([local[n] for n in op.attr("y_names")])
+    for v, val in zip(op.output_list("Last"), carry):
+        put(env, v, val)
+    for i, v in enumerate(op.output_list("Ys")):
+        put(env, v, torch.stack([y[i] for y in ys]))
 
 
 # ---------------- learning-rate schedule ops ----------------

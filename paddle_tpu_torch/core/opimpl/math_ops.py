@@ -1,7 +1,8 @@
-"""Elementwise / activation / reduction / matmul ops (the subset of
-``paddle_tpu/core/opimpl/math_ops.py`` the served and trained models run,
-and the clip ops of ``clip.py``). All are plain PyTorch ops; ``paddle_tpu``
-left them to XLA as well."""
+"""Elementwise / activation / reduction / matmul ops (the port's
+``paddle_tpu/core/opimpl/math_ops.py``: every op type it registers). All
+are plain PyTorch ops; ``paddle_tpu`` left them to XLA as well. A scalar
+attribute meets a bf16 tensor as JAX's weak typing has it
+(``weak_scalar``)."""
 
 import torch
 import torch.nn.functional as F
@@ -70,10 +71,28 @@ for _n, _f, _a in (("logical_and", torch.logical_and, 2),
 
 _UNARY = {
     "sigmoid": torch.sigmoid,
+    "logsigmoid": F.logsigmoid,
+    "exp": torch.exp,
     "tanh": torch.tanh,
-    "relu": torch.relu,
+    "tanh_shrink": lambda x: x - torch.tanh(x),
     "sqrt": torch.sqrt,
+    "rsqrt": torch.rsqrt,
+    "abs": torch.abs,
+    "ceil": torch.ceil,
+    "floor": torch.floor,
+    "round": torch.round,  # half to even, as jnp.round
+    "cos": torch.cos,
+    "sin": torch.sin,
+    "reciprocal": lambda x: 1.0 / x,
+    "log": torch.log,
+    "square": torch.square,
+    # jax.nn.softplus is logaddexp(x, 0); F.softplus turns linear past 20
+    "softplus": lambda x: torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device)),
+    "softsign": lambda x: x / (1 + torch.abs(x)),
+    "relu": torch.relu,
     "sign": torch.sign,
+    "erf": torch.erf,
 }
 
 
@@ -97,6 +116,103 @@ def _gelu(env, op):
     put(env, op.output("Out"), F.gelu(get(env, op.input("X")),
                                       approximate="tanh" if approx
                                       else "none"))
+
+
+def _attr(env, op, name, default):
+    """Attribute ``name`` as a scalar for X's dtype (``weak_scalar``)."""
+    return weak_scalar(get(env, op.input("X")), op.attr(name, default))
+
+
+@register("relu6")
+def _relu6(env, op):
+    put(env, op.output("Out"), torch.clamp(
+        get(env, op.input("X")), 0.0, _attr(env, op, "threshold", 6.0)))
+
+
+@register("leaky_relu")
+def _leaky_relu(env, op):
+    x = get(env, op.input("X"))
+    put(env, op.output("Out"),
+        torch.where(x > 0, x, _attr(env, op, "alpha", 0.02) * x))
+
+
+@register("elu")
+def _elu(env, op):
+    x = get(env, op.input("X"))
+    put(env, op.output("Out"), torch.where(
+        x > 0, x, _attr(env, op, "alpha", 1.0) * (torch.exp(x) - 1)))
+
+
+@register("prelu")
+def _prelu(env, op):
+    """``where(x > 0, x, alpha * x)``; ``channel`` mode aligns alpha [C]
+    with axis 1, the other modes broadcast it as it is."""
+    x = get(env, op.input("X"))
+    alpha = get(env, op.input("Alpha"))
+    if op.attr("mode", "all") == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    put(env, op.output("Out"), torch.where(x > 0, x, alpha * x))
+
+
+@register("brelu")
+def _brelu(env, op):
+    put(env, op.output("Out"), torch.clamp(
+        get(env, op.input("X")), _attr(env, op, "t_min", 0.0),
+        _attr(env, op, "t_max", 24.0)))
+
+
+@register("stanh")
+def _stanh(env, op):
+    put(env, op.output("Out"), _attr(env, op, "scale_b", 1.7159)
+        * torch.tanh(_attr(env, op, "scale_a", 0.67)
+                     * get(env, op.input("X"))))
+
+
+@register("hard_sigmoid")
+def _hard_sigmoid(env, op):
+    x = get(env, op.input("X"))
+    put(env, op.output("Out"), torch.clamp(
+        _attr(env, op, "slope", 0.2) * x + _attr(env, op, "offset", 0.5),
+        0.0, 1.0))
+
+
+@register("hard_shrink")
+def _hard_shrink(env, op):
+    x = get(env, op.input("X"))
+    t = _attr(env, op, "threshold", 0.5)
+    put(env, op.output("Out"), torch.where(torch.abs(x) > t, x,
+                                           torch.zeros_like(x)))
+
+
+@register("soft_shrink")
+def _soft_shrink(env, op):
+    x = get(env, op.input("X"))
+    lam = _attr(env, op, "lambda", 0.5)
+    zero = torch.zeros_like(x)
+    put(env, op.output("Out"), torch.where(
+        x > lam, x - lam, torch.where(x < -lam, x + lam, zero)))
+
+
+@register("thresholded_relu")
+def _thresholded_relu(env, op):
+    x = get(env, op.input("X"))
+    put(env, op.output("Out"), torch.where(
+        x > _attr(env, op, "threshold", 1.0), x, torch.zeros_like(x)))
+
+
+@register("swish")
+def _swish(env, op):
+    x = get(env, op.input("X"))
+    put(env, op.output("Out"),
+        x * torch.sigmoid(_attr(env, op, "beta", 1.0) * x))
+
+
+@register("maxout")
+def _maxout(env, op):
+    x = get(env, op.input("X"))  # NCHW
+    g = op.attr("groups")
+    n, c, h, w = x.shape
+    put(env, op.output("Out"), x.reshape(n, c // g, g, h, w).amax(dim=2))
 
 
 @register("pow")
@@ -186,6 +302,15 @@ def _mean(env, op):
     put(env, op.output("Out"), get(env, op.input("X")).mean().reshape(()))
 
 
+def _reduce_prod(x, dim=None, keepdim=False):
+    """``torch.prod`` over several dims (it takes one)."""
+    if dim is None:
+        return torch.prod(x)
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
 def _make_reduce(name, fn):
     @register(name)
     def _impl(env, op, fn=fn):
@@ -202,7 +327,71 @@ def _make_reduce(name, fn):
         put(env, op.output("Out"), out)
 
 
-_make_reduce("reduce_sum", torch.sum)
+for _n, _f in (("reduce_sum", torch.sum), ("reduce_mean", torch.mean),
+               ("reduce_max", torch.amax), ("reduce_min", torch.amin),
+               ("reduce_prod", _reduce_prod)):
+    _make_reduce(_n, _f)
+
+
+@register("cumsum")
+def _cumsum(env, op):
+    """Along ``axis`` (the flattened X with ``flatten``); ``reverse`` sums
+    from the end, ``exclusive`` leaves each element out of its own sum."""
+    x = get(env, op.input("X"))
+    axis = op.attr("axis", -1)
+    if op.attr("flatten", False):
+        x, axis = x.reshape(-1), 0
+    axis %= x.dim()
+    reverse = op.attr("reverse", False)
+    xx = torch.flip(x, (axis,)) if reverse else x
+    out = torch.cumsum(xx, dim=axis)
+    if op.attr("exclusive", False):
+        out = torch.cat([torch.zeros_like(out.narrow(axis, 0, 1)),
+                         out.narrow(axis, 0, out.shape[axis] - 1)], dim=axis)
+    if reverse:
+        out = torch.flip(out, (axis,))
+    put(env, op.output("Out"), out)
+
+
+@register("norm")
+def _norm(env, op):
+    """l2_normalize along ``axis``: Out = X / Norm, Norm = sqrt(sum(X^2) +
+    epsilon), kept (``norm_op.cc``)."""
+    x = get(env, op.input("X"))
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=op.attr("axis", -1),
+                                keepdim=True) + op.attr("epsilon", 1e-10))
+    put(env, op.output("Out"), x / norm)
+    put(env, op.output("Norm"), norm)
+
+
+# index outputs are int32, the reference's 32-bit convention; ties give
+# the first index, as in jnp
+@register("argmax")
+def _argmax(env, op):
+    put(env, op.output("Out"), torch.argmax(
+        get(env, op.input("X")), dim=op.attr("axis", -1)).to(torch.int32))
+
+
+@register("argmin")
+def _argmin(env, op):
+    put(env, op.output("Out"), torch.argmin(
+        get(env, op.input("X")), dim=op.attr("axis", -1)).to(torch.int32))
+
+
+@register("argsort")
+def _argsort(env, op):
+    """Ascending along ``axis``, stable (``jnp.argsort``'s default)."""
+    out, idx = torch.sort(get(env, op.input("X")), dim=op.attr("axis", -1),
+                          stable=True)
+    put(env, op.output("Indices"), idx.to(torch.int32))
+    put(env, op.output("Out"), out)
+
+
+@register("isfinite")
+def _isfinite(env, op):
+    """One bool: whether every element of X is finite (``isfinite_op``)."""
+    put(env, op.output("Out"),
+        torch.isfinite(get(env, op.input("X"))).all().reshape(1))
 
 
 @register("clip")

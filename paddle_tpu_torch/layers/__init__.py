@@ -1,9 +1,10 @@
-"""User-facing layers namespace (the subset of ``paddle_tpu.layers`` this
-slice of the port carries; ref ``python/paddle/fluid/layers/``)."""
+"""User-facing layers namespace (the subset of ``paddle_tpu.layers`` the
+port carries; ref ``python/paddle/fluid/layers/``)."""
 
 from . import control_flow
 from . import io
 from . import learning_rate_scheduler
+from . import math_op_patch  # noqa: F401
 from . import metric_op
 from . import nn
 from . import ops

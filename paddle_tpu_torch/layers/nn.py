@@ -1,4 +1,4 @@
-"""Neural layers (the subset of ``paddle_tpu/layers/nn.py`` this slice
+"""Neural layers (the subset of ``paddle_tpu/layers/nn.py`` the port
 carries; ref ``python/paddle/fluid/layers/nn.py``). Every layer appends
 symbolic ops and creates its parameters exactly as ``paddle_tpu`` does, so
 both packages give every var and parameter the same name."""
@@ -28,6 +28,13 @@ __all__ = [
     "multi_head_attention", "kv_cache_write", "cached_multi_head_attention",
     "kv_cache_write_chunk", "cached_multi_head_attention_chunk",
     "autoincreased_step_counter",
+    "mul", "matmul", "clip", "clip_by_norm", "reduce_mean", "reduce_max",
+    "reduce_min", "reduce_prod", "argmax", "argmin", "argsort",
+    "l2_normalize", "cos_sim", "relu", "prelu", "maxout", "swish", "gelu",
+    "brelu", "leaky_relu", "elu", "relu6", "stanh", "hard_sigmoid",
+    "one_hot", "pad", "pad2d", "split", "cumsum",
+    "dynamic_gru", "gru_unit", "beam_search", "beam_search_gather",
+    "beam_search_decode",
 ]
 
 
@@ -354,6 +361,241 @@ def _reduce_layer(op_type, input, dim, keep_dim, name):
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_prod", input, dim, keep_dim, name)
+
+
+# ---------------------------------------------------------------------------
+# the activations, products and tensor basics of paddle_tpu/layers/nn.py
+# (:406-718, :1121-1157)
+# ---------------------------------------------------------------------------
+
+def _unary_layer(op_type, x, attrs=None, name=None, out_shape=None,
+                 out_dtype=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(
+        dtype=out_dtype or _dtype(x),
+        shape=x.shape if out_shape is None else out_shape)
+    helper.append_op(op_type, {"X": x}, {"Out": out}, attrs or {})
+    return out
+
+
+def relu(x, name=None):
+    return _unary_layer("relu", x, name=name)
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _unary_layer("relu6", x, {"threshold": threshold}, name)
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _unary_layer("leaky_relu", x, {"alpha": alpha}, name)
+
+
+def elu(x, alpha=1.0, name=None):
+    return _unary_layer("elu", x, {"alpha": alpha}, name)
+
+
+def gelu(x, approximate=None, name=None):
+    """``approximate=None`` lets the op pick (exact in f32, the tanh form
+    under AMP); a bool pins the form."""
+    attrs = {} if approximate is None else {"approximate": approximate}
+    return _unary_layer("gelu", x, attrs, name)
+
+
+def swish(x, beta=1.0, name=None):
+    return _unary_layer("swish", x, {"beta": beta}, name)
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _unary_layer("brelu", x, {"t_min": t_min, "t_max": t_max}, name)
+
+
+def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
+    return _unary_layer("stanh", x, {"scale_a": scale_a, "scale_b": scale_b},
+                        name)
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _unary_layer("hard_sigmoid", x, {"slope": slope, "offset": offset},
+                        name)
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """``where(x > 0, x, alpha * x)`` with a learned alpha (0.25 at start):
+    one, one a channel, or one an element of x's non-batch dims."""
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = [int(np.prod(x.shape[1:]))]
+    alpha = helper.create_parameter(
+        helper.param_attr, shape=alpha_shape, dtype=_dtype(x),
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                    shape=x.shape)
+    helper.append_op("prelu", {"X": x, "Alpha": alpha}, {"Out": out},
+                     {"mode": mode})
+    return out
+
+
+def maxout(x, groups, name=None):
+    n, c, h, w = x.shape
+    return _unary_layer("maxout", x, {"groups": groups}, name,
+                        out_shape=(n, c // groups, h, w))
+
+
+def clip(x, min, max, name=None):
+    return _unary_layer("clip", x, {"min": min, "max": max}, name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _unary_layer("clip_by_norm", x, {"max_norm": max_norm}, name)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out_shape = (tuple(x.shape[:x_num_col_dims])
+                 + tuple(y.shape[y_num_col_dims:]))
+    out = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                    shape=out_shape)
+    helper.append_op("mul", {"X": x, "Y": y}, {"Out": out},
+                     {"x_num_col_dims": x_num_col_dims,
+                      "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    xs, ys = list(x.shape), list(y.shape)
+    if transpose_x and len(xs) >= 2:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y and len(ys) >= 2:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    batch = xs[:-2] if len(xs) >= len(ys) else ys[:-2]
+    out_shape = (tuple(batch) + (xs[-2], ys[-1])
+                 if len(xs) >= 2 and len(ys) >= 2 else None)
+    out = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                    shape=out_shape)
+    helper.append_op("matmul", {"X": x, "Y": y}, {"Out": out},
+                     {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                      "alpha": alpha})
+    return out
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    return _unary_layer("cumsum", x, {"axis": axis, "exclusive": exclusive,
+                                      "reverse": reverse}, name)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    axis = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        sections = [input.shape[axis] // num_or_sections] * num_or_sections
+        attrs = {"num": num_or_sections, "axis": axis}
+    else:
+        sections = list(num_or_sections)
+        attrs = {"sections": sections, "axis": axis}
+    outs = [helper.create_variable_for_type_inference(
+        dtype=_dtype(input),
+        shape=tuple(sec if i == axis else s
+                    for i, s in enumerate(input.shape)))
+        for sec in sections]
+    helper.append_op("split", {"X": input}, {"Out": outs}, attrs)
+    return outs
+
+
+def _drop_axis(x, axis):
+    return tuple(s for i, s in enumerate(x.shape) if i != axis % len(x.shape))
+
+
+def argmax(x, axis=0, name=None):
+    return _unary_layer("argmax", x, {"axis": axis}, name,
+                        out_shape=_drop_axis(x, axis), out_dtype="int32")
+
+
+def argmin(x, axis=0, name=None):
+    return _unary_layer("argmin", x, {"axis": axis}, name,
+                        out_shape=_drop_axis(x, axis), out_dtype="int32")
+
+
+def argsort(input, axis=-1, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(dtype=_dtype(input),
+                                                    shape=input.shape)
+    ids = helper.create_variable_for_type_inference(
+        dtype="int32", shape=input.shape, stop_gradient=True)
+    helper.append_op("argsort", {"X": input},
+                     {"Out": out, "Indices": ids}, {"axis": axis})
+    return out, ids
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                    shape=x.shape)
+    norm = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                     shape=x.shape)
+    helper.append_op("norm", {"X": x}, {"Out": out, "Norm": norm},
+                     {"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def cos_sim(X, Y, name=None):
+    return reduce_sum(elementwise_mul(l2_normalize(X, axis=-1),
+                                      l2_normalize(Y, axis=-1)),
+                      dim=-1, keep_dim=True)
+
+
+def one_hot(input, depth, name=None):
+    """float32 rows of ``depth``, 1 at each id (``paddle_tpu/layers/
+    nn.py:1121``); a trailing dim of 1 on the ids is dropped."""
+    base = (input.shape[:-1] if input.shape and input.shape[-1] == 1
+            else input.shape)
+    return _unary_layer("one_hot", input, {"depth": depth}, name,
+                        out_shape=tuple(base) + (depth,), out_dtype="float32")
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    shape = tuple((s + paddings[2 * i] + paddings[2 * i + 1]) if s >= 0
+                  else -1 for i, s in enumerate(x.shape))
+    out = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                    shape=shape)
+    helper.append_op("pad", {"X": x}, {"Out": out},
+                     {"paddings": list(paddings), "pad_value": pad_value})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    n, c, h, w = input.shape
+    shape = (n, c, h + paddings[0] + paddings[1] if h >= 0 else -1,
+             w + paddings[2] + paddings[3] if w >= 0 else -1)
+    out = helper.create_variable_for_type_inference(dtype=_dtype(input),
+                                                    shape=shape)
+    helper.append_op("pad2d", {"X": input}, {"Out": out},
+                     {"paddings": list(paddings), "mode": mode,
+                      "pad_value": pad_value})
+    return out
 
 
 def topk(input, k, name=None):
@@ -683,3 +925,108 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     helper.append_op("increment", {"X": counter}, {"Out": counter},
                      {"step": float(step)})
     return counter
+
+
+# ---------------------------------------------------------------------------
+# GRUs and beam search (paddle_tpu/layers/nn.py:1062-1120, :1529-1575)
+# ---------------------------------------------------------------------------
+
+def dynamic_gru(input, size, lengths=None, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", origin_mode=False, h_0=None,
+                name=None):
+    """GRU over a pre-projected ``[B, T, 3H]`` sequence (``gru_seq``);
+    ``size`` is the hidden width H, ``lengths`` [B] the valid steps of
+    each row. The activations are the reference's fixed ones."""
+    helper = LayerHelper("dynamic_gru", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dtype = _dtype(input)
+    w = helper.create_parameter(helper.param_attr, shape=[size, 3 * size],
+                                dtype=dtype)
+    b = helper.create_parameter(helper.bias_attr, shape=[3 * size],
+                                dtype=dtype, is_bias=True)
+    hidden = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(input.shape[0], input.shape[1], size))
+    inputs = {"Input": input, "Weight": w, "Bias": b}
+    if lengths is not None:
+        inputs["Lengths"] = lengths
+    helper.append_op("gru_seq", inputs, {"Hidden": hidden},
+                     {"is_reverse": is_reverse, "origin_mode": origin_mode})
+    return hidden
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid", origin_mode=False,
+             name=None):
+    """One GRU step: ``input`` [B, 3H] pre-projected, ``hidden`` [B, H];
+    ``size`` is 3H. Returns the new hidden [B, H] only, as the
+    reference's composed models use."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    h = size // 3
+    dtype = _dtype(input)
+    w = helper.create_parameter(helper.param_attr, shape=[h, 3 * h],
+                                dtype=dtype)
+    b = helper.create_parameter(helper.bias_attr, shape=[3 * h], dtype=dtype,
+                                is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    shape=hidden.shape)
+    helper.append_op("gru_unit", {"Input": input, "HiddenPrev": hidden,
+                                  "Weight": w, "Bias": b},
+                     {"Hidden": out}, {"origin_mode": origin_mode})
+    return out
+
+
+def beam_search(pre_ids, pre_scores, scores, beam_size, end_id,
+                return_parent_idx=True, name=None):
+    """One pruning step over dense beams: ``pre_ids``/``pre_scores``
+    [B, K], ``scores`` [B, K, V] log-probs. Returns (selected_ids,
+    selected_scores[, parent_idx]), each [B, K]. Start from pre_scores
+    [0, -1e9, ...] so that the K copies of the start beam collapse to
+    one."""
+    helper = LayerHelper("beam_search", name=name)
+    b, k = tuple(pre_ids.shape)[:2]
+    sel_ids = helper.create_variable_for_type_inference(
+        dtype=_dtype(pre_ids), shape=(b, k))
+    sel_scores = helper.create_variable_for_type_inference(
+        dtype=_dtype(pre_scores), shape=(b, k))
+    parent = helper.create_variable_for_type_inference(dtype="int32",
+                                                       shape=(b, k))
+    helper.append_op(
+        "beam_search_step",
+        {"PreIds": pre_ids, "PreScores": pre_scores, "Scores": scores},
+        {"SelectedIds": sel_ids, "SelectedScores": sel_scores,
+         "ParentIdx": parent},
+        {"beam_size": beam_size, "end_id": end_id})
+    if return_parent_idx:
+        return sel_ids, sel_scores, parent
+    return sel_ids, sel_scores
+
+
+def beam_search_gather(x, parent_idx, name=None):
+    """Reorder per-beam state ``x`` [B, K, ...] by ``parent_idx`` [B, K]."""
+    helper = LayerHelper("beam_search_gather", name=name)
+    out = helper.create_variable_for_type_inference(dtype=_dtype(x),
+                                                    shape=x.shape)
+    helper.append_op("beam_search_gather", {"X": x, "Ids": parent_idx},
+                     {"Out": out}, {})
+    return out
+
+
+def beam_search_decode(ids_array, parents_array, length, final_scores,
+                       beam_size, end_id, name=None):
+    """Backtrack the per-step (ids, parents) arrays that ``array_write``
+    filled in the decode loop into sentences [B, K, T] and their scores
+    [B, K]."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent = helper.create_variable_for_type_inference(dtype="int64",
+                                                     shape=None)
+    sscores = helper.create_variable_for_type_inference(
+        dtype=_dtype(final_scores), shape=final_scores.shape)
+    helper.append_op(
+        "beam_search_decode",
+        {"IdsArray": ids_array, "ParentsArray": parents_array,
+         "Length": length, "FinalScores": final_scores},
+        {"SentenceIds": sent, "SentenceScores": sscores},
+        {"beam_size": beam_size, "end_id": end_id})
+    return sent, sscores

@@ -1,10 +1,15 @@
-"""Unary activation layers (the port's ``paddle_tpu/layers/ops.py``; ref
-``python/paddle/fluid/layers/ops.py:21-58``, which generates them from the
-registered activation ops): the unaries whose ops the port registers."""
+"""Unary activation and math layers (the port's
+``paddle_tpu/layers/ops.py``; ref ``python/paddle/fluid/layers/ops.py:
+21-58``, which generates them from the registered activation ops)."""
 
 from ..core.layer_helper import LayerHelper
 
-__all__ = ["sigmoid", "tanh", "sqrt", "sign"]
+__all__ = [
+    "sigmoid", "logsigmoid", "exp", "tanh", "tanh_shrink", "sqrt", "rsqrt",
+    "abs", "ceil", "floor", "cos", "sin", "round", "reciprocal", "log",
+    "square", "softplus", "softsign", "hard_shrink", "soft_shrink",
+    "thresholded_relu", "sign", "erf",
+]
 
 
 def _make(op_type):

@@ -3,6 +3,7 @@
 from . import bert  # noqa: F401
 from . import common  # noqa: F401
 from . import deepfm  # noqa: F401
+from . import machine_translation  # noqa: F401
 from . import mnist  # noqa: F401
 from . import resnet  # noqa: F401
 from . import se_resnext  # noqa: F401

@@ -349,6 +349,41 @@ def test_flash_kernels_match_plain_gradients(dev, b, t, tk, h, d, causal,
         assert _rel_err(got, want) <= 2e-4
 
 
+@pytest.mark.parametrize("b,tq", [(4, 50), (8, 1)])
+def test_flash_kernels_at_the_nmt_shapes(dev, b, tq):
+    """The f32 flash kernels at the attention seq2seq model's shapes: one
+    head of 512 over 50 keys with a per-key padding bias [B, 1, 1, 50];
+    the train step (Tq = 50: forward and backward through the autograd
+    Function) and a decode step (Tq = 1 against 50 keys, B = batch x
+    beam: forward, its lse too) against the plain version, within 2e-4
+    of max(1, max|plain|)."""
+    gen = torch.Generator().manual_seed(19)
+    tk, d = 50, 512
+    q, k, v = _qkv(gen, b, tq, tk, 1, d, dev, torch.float32)
+    kb = _bias(gen, "key4", b, 1, tq, tk, dev)
+    assert tfa.kernel_choice(q, 1, k, kb)["kernel"] == "cuda_flash"
+    out, lse = tfa.flash_attention_fwd(q, k, v, 1, kb)
+    want, want_lse = tfa.attention_plain(q, k, v, 1, kb)
+    assert _rel_err(out, want) <= 2e-4
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    if tq == 1:
+        return
+    dout = torch.randn(b, tq, d, generator=gen).to(dev)
+    runs = []
+    for kernel in (True, False):
+        ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        n0 = tfa.flash_attention_bwd.launches
+        if kernel:
+            o = tfa._FlashAttention.apply(*ins, kb, None, 1, False, 0.0)
+        else:
+            o, _ = tfa.attention_plain(*ins, 1, kb)
+        runs.append((o,) + torch.autograd.grad(o, ins, dout))
+        assert tfa.flash_attention_bwd.launches == n0 + int(kernel)
+    torch.cuda.synchronize()
+    for got, want in zip(*runs):
+        assert _rel_err(got, want) <= 2e-4
+
+
 BF16_GRAD_CASES = [
     # (B, Tq, Tk, H, D, causal, bias form, dropout rate): the training
     # shape and one case of every width family
