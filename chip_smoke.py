@@ -90,7 +90,20 @@ it and read just after:
   greedy programs served one-shot through ``ServingEngine(ladder=(1, 2,
   4, 8))`` over a ``ProgramPredictor`` (``mt_serve``: 256 requests of 1-4
   sentences in a closed loop of 16, then 64 greedy; solo equals batched
-  at rung 4, bitwise).
+  at rung 4, bitwise);
+* the Fluid benchmark's stacked LSTM (``models.stacked_lstm``'s
+  ``stacked_lstm_net`` at its defaults: a 30000 x 512 table, three
+  512-wide LSTMs over 80 steps, the later two reversed, max-pooled, 2
+  classes; 30,057,474 parameters; random weights from seed 11) trained at
+  batch 128 with random lengths under Adam(1e-3) (``lstm_train``: each
+  LSTM step on the tape, captured; no port kernel: the table is 512
+  wide);
+* semantic role labeling with its CRF at the book chapter's widths
+  (``models.label_semantic_roles.srl_crf(word_dim=32, hidden_dim=512,
+  depth=8)``) trained at batch 128 x 16 (``srl_train``: its three narrow
+  dense tables' lookup backward on the row scatter-add kernel, 3 launches
+  a step, captured), then ``crf_decoding`` through its
+  ``clone(for_test=True)``.
 
 Before each training path, ``train_check``, ``amp_train_check``,
 ``resnet_train_check``, ``resnet_amp_train_check``, ``deepfm_train_check``
@@ -115,8 +128,16 @@ near-tie rule (the beams each step kept exact up to a row's first step
 whose K-th and (K+1)-th candidates lie within 2e-4 + 1e-5 x |score| on
 the CPU, the
 sentences and scores of the rows with no such step), on the trained
-weights and on the initial ones with the output projection 1000x; before
-decode, ``decode_check`` holds four step
+weights and on the initial ones with the output projection 1000x;
+``lstm_train_check`` holds one full-width stacked-LSTM step at batch 2
+and ``srl_check`` one SRL step at batch 128 against the CPU (the loss,
+every gradient and Adam update), ``srl_check`` also the Viterbi paths of
+the for_test clone under a near-tie rule; ``rnn_zoo_check`` one step of
+each other builder of the group at its defaults (the book's sentiment
+and recommender models, fit_a_line, CTC OCR, word2vec under nce and
+hsigmoid) against the CPU; ``narrow_scatter_check`` holds the scatter
+kernel at SRL's three table shapes against its plain version and times
+it; before decode, ``decode_check`` holds four step
 dispatches and
 a chunk against the CPU, out-of-range cache positions, and the ids of
 solo, batched, chunked and speculative decode.
@@ -6027,6 +6048,111 @@ def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
 # ---------------------------------------------------------------------------
 
 # machine_translation.py:51-52,100-102's defaults
+def _card_cpu_step(fluid, main, startup, spec, feed, per_step, label,
+                   extra=()):
+    """One step of ``main`` on the card and with the port on the CPU from
+    the card's initial parameters: the card's step launches ``per_step``
+    exactly, the CPU's none. Fetches the loss, every parameter's gradient
+    and ``extra``. Returns (names, initial params, {side: (fetches,
+    params after)}, {side: seconds})."""
+    names = [p.name for p in main.all_parameters()]
+    gb = main.global_block()
+    fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in names] + list(extra)
+    runs, secs = {}, {}
+    for side in ("gpu", "cpu"):
+        scope = fluid.Scope()
+        exe = fluid.Executor(None if side == "gpu" else fluid.CPUPlace())
+        exe.run(startup, scope=scope)
+        if side == "gpu":
+            params = _mt_params(scope, main)
+        else:
+            fluid.bridge.load_program_params(scope, params, main, "cpu")
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        secs[side] = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in read_counts().items()}
+        check(counts == (per_step if side == "gpu" else per_run()),
+              "%s %s step launched %s" % (label, side, counts))
+        runs[side] = (out, _mt_params(scope, main))
+        exe.close()
+    return names, params, runs, secs
+
+
+def _train_path(torch, fluid, smi_line, phase, main, startup, spec, feed,
+                per_step, tokens, warmup, steps, prof_steps, extra):
+    """A main path's training run on the card: ``main`` on one fixed
+    ``feed``, captured from the key's second step on, ``warmup`` + ``steps``
+    timed steps and ``prof_steps`` profiled replays; every interpreted or
+    captured step launches ``per_step``. Emits the phase's line (``extra``
+    merged in) and returns (launches, replayed launches, scope)."""
+    t0 = time.perf_counter()
+    scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = torch.cuda.memory_allocated()
+    setup_s = time.perf_counter() - t0
+    losses, step_s, runs = [], [], {"launched": 0, "replayed": 0}
+
+    def run_step():
+        (loss,), dt, rep = counted_step(
+            exe, main, per_step, False, "%s step %d" % (phase, len(losses)),
+            feed=feed, fetch_list=[spec.loss], scope=scope)
+        runs["replayed" if rep else "launched"] += 1
+        losses.append(float(loss))
+        return dt
+
+    reset_counts()
+    call1 = {}
+    _profile_steps(torch, run_step, 1, counts=call1)
+    for i in range(warmup - 1 + steps):
+        dt = run_step()
+        if i >= warmup - 1:
+            step_s.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    replay = {}
+    device_ms, kernels, prof_wall, top_other = _profile_steps(
+        torch, run_step, prof_steps, counts=replay)
+    report = exe.step_report(main)
+    launches = read_counts()
+    exe.close()
+    med = statistics.median(step_s)
+    busy = sum(device_ms.values())
+    emit(dict({"phase": phase, "batch": len(next(iter(feed.values()))),
+               "precision": "f32", "captured": report["captured"],
+               "reason": report["reason"], "step_report": report,
+               "warmup_steps": warmup, "steps": len(step_s),
+               "step_ms_median": med * 1e3,
+               "step_ms": [x * 1e3 for x in step_s],
+               "step_ms_spread": (max(step_s) - min(step_s)) * 1e3,
+               "tokens_per_s": tokens / med, "device_ms_per_step": device_ms,
+               "device_ms": busy, "device_busy_share": busy / (med * 1e3),
+               "kernels_per_step": kernels, "kernels_by_kind": {
+                   "call1": call1, "replay": replay},
+               "profiled_wall_ms_per_step": prof_wall,
+               "top_other_kernels": top_other, "losses": losses,
+               "state_bytes": state, "peak_memory_bytes": peak,
+               "peak_above_state_bytes": peak - state,
+               "launches_per_launching_step": per_step,
+               "launches": launches, "steps_by_kind": runs,
+               "setup_s": setup_s, "device": smi_line}, **extra))
+    check(report["captured"] and report["replays"] >= steps,
+          "%s not captured: %s" % (phase, report))
+    check_replay_kernels(phase, call1, replay)
+    check(np.isfinite(losses).all(), "%s: non-finite loss: %s"
+          % (phase, losses))
+    check(losses[-1] < losses[0], "%s: loss did not fall: %s"
+          % (phase, losses))
+    check(launches == {k: n * runs["launched"] for k, n in per_step.items()},
+          "%s launches %s" % (phase, launches))
+    return (launches, {k: n * runs["replayed"] for k, n in per_step.items()},
+            scope)
+
+
 MT = dict(src_vocab=10000, trg_vocab=10000, seq_len=50, emb_dim=512,
           hid_dim=512)
 MT_BEAM = 4
@@ -6105,29 +6231,9 @@ def phase_mt_train_check(torch, smi_line, batch=2):
     import paddle_tpu_torch as fluid
 
     m = build_mt(fluid)
-    main, spec = m["main"], m["spec"]
-    names = [p.name for p in main.all_parameters()]
-    gb = main.global_block()
-    fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in names]
-    feed = mt_feed(spec, batch)
-    runs = {}
-    for side in ("gpu", "cpu"):
-        scope = fluid.Scope()
-        exe = fluid.Executor(None if side == "gpu" else fluid.CPUPlace())
-        exe.run(m["startup"], scope=scope)
-        if side == "gpu":
-            params = _mt_params(scope, main)
-        else:
-            fluid.bridge.load_program_params(scope, params, main, "cpu")
-        before = read_counts()
-        t0 = time.perf_counter()
-        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
-        runs[side + "_s"] = time.perf_counter() - t0
-        counts = {k: v - before[k] for k, v in read_counts().items()}
-        check(counts == (MT_PER_STEP if side == "gpu" else per_run()),
-              "mt_train_check %s step launched %s" % (side, counts))
-        runs[side] = (out, _mt_params(scope, main))
-        exe.close()
+    names, params, runs, secs = _card_cpu_step(
+        fluid, m["main"], m["startup"], m["spec"], mt_feed(m["spec"], batch),
+        MT_PER_STEP, "mt_train_check")
     (gpu, gpu_after), (cpu, cpu_after) = runs["gpu"], runs["cpu"]
     loss_err, grad_l2 = _grad_errors(names, gpu, cpu)
     upd_l2, flips = {}, {}
@@ -6145,8 +6251,8 @@ def phase_mt_train_check(torch, smi_line, batch=2):
           "update_rel_l2_param": worst_u,
           "update_sign_flips": sum(flips.values()),
           "update_elements": int(sum(p.size for p in params.values())),
-          "launches": MT_PER_STEP, "cpu_step_s": runs["cpu_s"],
-          "gpu_step_s": runs["gpu_s"],
+          "launches": MT_PER_STEP, "cpu_step_s": secs["cpu"],
+          "gpu_step_s": secs["gpu"],
           "tol": "loss 1e-4 rel, grads and Adam updates 1e-2 rel L2",
           "device": smi_line})
     check(np.isfinite(float(gpu[0])) and all(
@@ -6170,78 +6276,18 @@ def phase_mt_train(torch, smi_line, warmup=3, steps=10, prof_steps=2):
     replayed launches, ``build_mt``'s programs, the trained scope)."""
     import paddle_tpu_torch as fluid
 
-    t0 = time.perf_counter()
     m = build_mt(fluid)
-    main, spec = m["main"], m["spec"]
-    scope = fluid.Scope()
-    exe = fluid.Executor()  # CUDAPlace(0)
-    exe.run(m["startup"], scope=scope)
-    feed = mt_feed(spec, MT_TRAIN_BATCH)
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    state = torch.cuda.memory_allocated()
-    setup_s = time.perf_counter() - t0
-    losses, step_s, runs = [], [], {"launched": 0, "replayed": 0}
-
-    def run_step():
-        (loss,), dt, rep = counted_step(
-            exe, main, MT_PER_STEP, False, "mt_train step %d" % len(losses),
-            feed=feed, fetch_list=[spec.loss], scope=scope)
-        runs["replayed" if rep else "launched"] += 1
-        losses.append(float(loss))
-        return dt
-
-    reset_counts()
-    call1 = {}
-    _profile_steps(torch, run_step, 1, counts=call1)
-    for i in range(warmup - 1 + steps):
-        dt = run_step()
-        if i >= warmup - 1:
-            step_s.append(dt)
-    peak = torch.cuda.max_memory_allocated()
-    replay = {}
-    device_ms, kernels, prof_wall, top_other = _profile_steps(
-        torch, run_step, prof_steps, counts=replay)
-    report = exe.step_report(main)
-    launches = read_counts()
-    exe.close()
-    med = statistics.median(step_s)
-    busy = sum(device_ms.values())
-    tokens = MT_TRAIN_BATCH * MT["seq_len"]
-    emit({"phase": "mt_train", "model": "seq2seq_attention",
-          "config": MT, "batch": MT_TRAIN_BATCH, "precision": "f32",
-          "optimizer": "Adam(%g)" % MT_LR, "captured": report["captured"],
-          "reason": report["reason"], "step_report": report,
-          "warmup_steps": warmup, "steps": len(step_s),
-          "step_ms_median": med * 1e3, "step_ms": [x * 1e3 for x in step_s],
-          "step_ms_spread": (max(step_s) - min(step_s)) * 1e3,
-          "tokens_per_s": tokens / med, "device_ms_per_step": device_ms,
-          "device_ms": busy, "device_busy_share": busy / (med * 1e3),
-          "kernels_per_step": kernels, "kernels_by_kind": {
-              "call1": call1, "replay": replay},
-          "profiled_wall_ms_per_step": prof_wall,
-          "top_other_kernels": top_other, "losses": losses,
-          "state_bytes": state, "peak_memory_bytes": peak,
-          "launches_per_launching_step": MT_PER_STEP,
-          "flash_launches_per_step": {
-              "interpreted": {k: MT_PER_STEP[k] for k in KERNELS[:2]},
-              "captured": {k: MT_PER_STEP[k] for k in KERNELS[:2]},
-              "replay_from_python": {k: 0 for k in KERNELS[:2]}},
-          "launches": launches, "steps_by_kind": runs, "setup_s": setup_s,
-          "device": smi_line})
-    check(report["captured"] and report["replays"] >= steps,
-          "mt_train not captured: %s" % report)
-    check_replay_kernels("mt_train", call1, replay)
-    check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
-    check(losses[-1] < losses[0], "mt_train: loss did not fall: %s"
-          % losses)
-    check(launches == {k: n * runs["launched"]
-                       for k, n in MT_PER_STEP.items()},
-          "mt_train launches %s" % launches)
-    return (launches, {k: n * runs["replayed"]
-                       for k, n in MT_PER_STEP.items()}, m, scope)
+    launches, replayed, scope = _train_path(
+        torch, fluid, smi_line, "mt_train", m["main"], m["startup"],
+        m["spec"], mt_feed(m["spec"], MT_TRAIN_BATCH), MT_PER_STEP,
+        MT_TRAIN_BATCH * MT["seq_len"], warmup, steps, prof_steps,
+        {"model": "seq2seq_attention", "config": MT,
+         "optimizer": "Adam(%g)" % MT_LR,
+         "flash_launches_per_step": {
+             "interpreted": {k: MT_PER_STEP[k] for k in KERNELS[:2]},
+             "captured": {k: MT_PER_STEP[k] for k in KERNELS[:2]},
+             "replay_from_python": {k: 0 for k in KERNELS[:2]}}})
+    return launches, replayed, m, scope
 
 
 def _margin_hook(margins):
@@ -6597,6 +6643,442 @@ def _sdpa_backend(torch, fn):
     return {"backend": kind, "kernels": [n[:80] for n in names[:6]]}
 
 
+# ---------------------------------------------------------------------------
+# The RNN and sequence group: the stacked LSTM at full width (the main path
+# of the group), SRL with its CRF (the narrow dense lookups' backward on the
+# scatter-add kernel), the other book builders, word2vec's sampled losses
+# ---------------------------------------------------------------------------
+
+# the Fluid benchmark's stacked_dynamic_lstm (``models/stacked_lstm.py``
+# defaults): 30000 words, embeddings and LSTMs 512 wide (gates 2048), 3
+# stacked, the later two reversed, 80 steps, 2 classes
+STACKED_LSTM = dict(dict_size=30000, emb_dim=512, hid_dim=512,
+                    stacked_num=3, class_num=2, seq_len=80)
+LSTM_BATCH = 128
+LSTM_LR = 1e-3
+# emb 512 does not divide into 128 lanes: the path runs no port kernel
+LSTM_PER_STEP = per_run()
+# SRL at the book chapter's widths (tests/book/test_label_semantic_roles.py:
+# word_dim 32, hidden_dim 512, depth 8); the rest at the builder's
+# defaults (500 words, 50 predicates, 20 labels, 16 steps)
+SRL = dict(word_dim=32, hidden_dim=512, depth=8)
+SRL_BATCH = 128
+SRL_LR = 1e-3
+# its three tables ([500, 32], [50, 32], [2, 32]) are dense and narrow: one
+# scatter-add a table a step (the lookups' backward)
+SRL_PER_STEP = per_run(scatter_add=3)
+SRL_TABLES = ((500, 32), (50, 32), (2, 32))
+# two Viterbi candidates closer than this (+ 1e-5 x |score|) may be
+# ordered differently by the card and the CPU
+SRL_NEAR_TIE = 2e-4
+# the other builders at their defaults: (builder, kwargs, batch, launches a
+# step); ngram_lm's shared table is sparse, densified by Adam through the
+# scatter-add once a step; nce's negatives come from its op's seed (fixed
+# at NCE_SEED on both sides), so the card and the CPU take the same ones
+RNN_ZOO = (
+    ("understand_sentiment", "books", {}, 64, per_run(scatter_add=1)),
+    ("recommender_system", "books", {}, 256, per_run(scatter_add=5)),
+    ("fit_a_line", "books", {}, 256, per_run()),
+    ("crnn_ctc", "ocr_ctc", {}, 32, per_run()),
+    ("ngram_lm", "word2vec", {"loss_type": "nce"}, 256,
+     per_run(scatter_add=1)),
+    ("ngram_lm", "word2vec", {"loss_type": "hsigmoid"}, 256,
+     per_run(scatter_add=1)),
+)
+NCE_SEED = 7
+STEP_TOL = ("loss 1e-4 rel, grads 1e-2 rel L2, Adam updates 1e-2 rel L2 "
+            "where no sign flipped; a flip only where the gradient is "
+            "within the sides' largest difference of 0")
+
+
+def _build_trained(fluid, module, fn, kw, lr):
+    """``fluid.models.<module>.<fn>(**kw)`` + Adam(lr) in fresh programs
+    with fresh names: (main, startup, spec)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        fluid.unique_name.switch()
+        spec = getattr(getattr(fluid.models, module), fn)(**kw)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(spec.loss)
+    return main, startup, spec
+
+
+def seq_feed(spec, batch, seq, name, low, seed=SEED):
+    """A fixed batch of ``spec``'s feeds with its length feed ``name``
+    drawn from [low, seq] (the first row full)."""
+    rng = np.random.RandomState(seed)
+    feed = spec.sample_batch(batch, rng)
+    lens = rng.randint(low, seq + 1, batch)
+    lens[0] = seq
+    feed[name] = lens.astype("int64")
+    return feed
+
+
+def _step_verdict(names, params, runs):
+    """The loss's relative error, every gradient's relative L2 and every
+    Adam update's (after - before): a dict; ``ok`` under train_check's
+    bounds (loss 1e-4 relative, gradients 1e-2 relative L2) and the
+    update's. Adam's first step moves an element by about the rate times
+    the sign of its gradient, so where a gradient is within the two
+    sides' difference of zero its update may flip sign: a flip is allowed
+    only there (|CPU gradient| <= the parameter's largest gradient
+    difference; a sparse gradient, one value row per id, bounds no
+    element), and the updates of the elements that did not flip must
+    agree within 1e-2 relative L2."""
+    (gpu, gpu_after), (cpu, cpu_after) = runs["gpu"], runs["cpu"]
+    n = len(names)
+    loss_err, grad_l2 = _grad_errors(names, gpu[:n + 1], cpu[:n + 1])
+    upd_l2, flips, unexplained = {}, 0, {}
+    for i, p in enumerate(names):
+        dg, dc = gpu_after[p] - params[p], cpu_after[p] - params[p]
+        flip = np.sign(dg) != np.sign(dc)
+        upd_l2[p] = _rel_l2(np.where(flip, 0.0, dg),
+                            np.where(flip, 0.0, dc).astype("f8"))
+        flips += int(np.count_nonzero(flip))
+        gg, gc = np.asarray(gpu[1 + i]), np.asarray(cpu[1 + i])
+        if gg.shape == dg.shape:
+            noise = float(np.abs(gg.astype("f8") - gc).max())
+            bad = int(np.count_nonzero(flip & (np.abs(gc) > noise)))
+            if bad:
+                unexplained[p] = bad
+    worst_g = max(grad_l2, key=grad_l2.get)
+    worst_u = max(upd_l2, key=upd_l2.get)
+    finite = np.isfinite(float(gpu[0])) and all(
+        np.isfinite(np.asarray(g)).all() for g in gpu[1:n + 1])
+    return {"loss_gpu": float(gpu[0]), "loss_cpu": float(cpu[0]),
+            "loss_rel_err": loss_err, "grads_compared": n,
+            "grad_rel_l2_max": grad_l2[worst_g],
+            "grad_rel_l2_param": worst_g,
+            "update_rel_l2_max": upd_l2[worst_u],
+            "update_rel_l2_param": worst_u, "update_sign_flips": flips,
+            "update_flips_beyond_grad_noise": unexplained,
+            "update_elements": int(sum(p.size for p in params.values())),
+            "finite": bool(finite),
+            "ok": bool(finite and loss_err <= 1e-4
+                       and grad_l2[worst_g] <= 1e-2
+                       and upd_l2[worst_u] <= 1e-2 and not unexplained)}
+
+
+def phase_lstm_train_check(torch, smi_line, batch=2):
+    """One full-width stacked-LSTM step (``stacked_lstm_net`` at its
+    defaults, Adam(LSTM_LR), batch 2, one row full and one of random
+    length) on the card and with the port on the CPU from the same
+    weights and feed (f32, TF32 off): the loss, every gradient and every
+    Adam update under ``_step_verdict``'s bounds. No port kernel
+    launches: the 512-wide table is gathered by ``index_select``."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, spec = _build_trained(
+        fluid, "stacked_lstm", "stacked_lstm_net", STACKED_LSTM, LSTM_LR)
+    feed = seq_feed(spec, batch, STACKED_LSTM["seq_len"], "lengths",
+                    STACKED_LSTM["seq_len"] // 5)
+    names, params, runs, secs = _card_cpu_step(
+        fluid, main, startup, spec, feed, LSTM_PER_STEP, "lstm_train_check")
+    v = _step_verdict(names, params, runs)
+    emit(dict({"phase": "lstm_train_check", "batch": batch,
+               "config": STACKED_LSTM, "optimizer": "Adam(%g)" % LSTM_LR,
+               "lengths": feed["lengths"].tolist(),
+               "parameters": v["update_elements"],
+               "launches": LSTM_PER_STEP, "cpu_step_s": secs["cpu"],
+               "gpu_step_s": secs["gpu"],
+               "tol": STEP_TOL, "device": smi_line}, **v))
+    check(v["ok"], "lstm_train_check: %s" % v)
+
+
+def phase_lstm_train(torch, smi_line, warmup=3, steps=10, prof_steps=2):
+    """The group's main path: ``stacked_lstm_net`` at its defaults
+    (30000 x 512 table, three 512-wide LSTMs over 80 steps, the later two
+    reversed), Adam(LSTM_LR), batch 128 with random lengths, captured from
+    the key's second step on: 3 warm-up and 10 timed steps. Prints ms a
+    step, tokens/s (128 x 80 a step), busy share, kernels a step by kind
+    (interpreted first step and a replay), device ms by kind (GEMMs,
+    gather, other: the LSTM steps' elementwise kernels and Adam), peak
+    memory above the state, and ``capture_rule``'s verdict. Returns
+    (launches, replayed launches)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, spec = _build_trained(
+        fluid, "stacked_lstm", "stacked_lstm_net", STACKED_LSTM, LSTM_LR)
+    feed = seq_feed(spec, LSTM_BATCH, STACKED_LSTM["seq_len"], "lengths",
+                    STACKED_LSTM["seq_len"] // 5)
+    n_params = int(sum(np.prod(p.shape) for p in main.all_parameters()))
+    launches, replayed, _ = _train_path(
+        torch, fluid, smi_line, "lstm_train", main, startup, spec, feed,
+        LSTM_PER_STEP, LSTM_BATCH * STACKED_LSTM["seq_len"], warmup, steps,
+        prof_steps, {"model": "stacked_lstm_net", "config": STACKED_LSTM,
+                     "parameters": n_params,
+                     "valid_tokens_per_step": int(feed["lengths"].sum()),
+                     "optimizer": "Adam(%g)" % LSTM_LR})
+    return launches, replayed
+
+
+def build_srl(fluid):
+    """SRL (``srl_crf(**SRL)``) + Adam(SRL_LR) and its
+    ``clone(for_test=True)``: (main, startup, spec, test program)."""
+    main, startup, spec = _build_trained(
+        fluid, "label_semantic_roles", "srl_crf", SRL, SRL_LR)
+    return main, startup, spec, main.clone(for_test=True)
+
+
+def srl_feed(spec, batch, seed=SEED):
+    return seq_feed(spec, batch, 16, "length", 8, seed)
+
+
+def viterbi_margins(emission, transition, length):
+    """The CPU side's Viterbi decisions in f64 (the reference's recursion,
+    ``loss_ops.py:121-170``): per row, the smallest gap between the best
+    and the second-best candidate over the decisions its best path takes
+    (each kept step's back-pointer and the final state), beside the
+    path's |score|."""
+    e = emission.astype("f8")
+    t = transition.astype("f8")
+    start, end, w = t[0], t[1], t[2:]
+    b, t_max, d = e.shape
+    gaps, scores = np.full(b, np.inf), np.zeros(b)
+    for r in range(b):
+        n = int(length[r])
+        v = start + e[r, 0]
+        back, gap_at = [], []
+        for s in range(1, n):
+            cand = v[:, None] + w                       # [prev, cur]
+            srt = np.sort(cand, axis=0)
+            back.append(np.argmax(cand, axis=0))
+            gap_at.append(srt[-1] - srt[-2])
+            v = srt[-1] + e[r, s]
+        fin = np.sort(v + end)
+        state = int(np.argmax(v + end))
+        g = fin[-1] - fin[-2]
+        for s in range(len(back) - 1, -1, -1):
+            g = min(g, gap_at[s][state])
+            state = int(back[s][state])
+        gaps[r], scores[r] = g, abs(fin[-1])
+    return gaps, scores
+
+
+def srl_decode_verdict(card, cpu, gaps, scores, length, tol=SRL_NEAR_TIE):
+    """The card's Viterbi paths against the CPU's: a row whose decisions
+    all clear ``tol`` + 1e-5 x |score| must decode the same path over its
+    length (0 past it on both); a row with a near tie may differ. Fewer
+    than half the rows may meet one. Returns the counts (``ok``)."""
+    near = gaps < tol + 1e-5 * scores
+    same = np.array([np.array_equal(card[r], cpu[r])
+                     for r in range(card.shape[0])])
+    return {"rows": int(card.shape[0]), "near_tie_rows": int(near.sum()),
+            "rows_equal": int(same.sum()),
+            "rows_differing": int((~same).sum()),
+            "rows_differing_without_near_tie": int((~same & ~near).sum()),
+            "min_gap": float(gaps.min()), "median_gap": float(
+                np.median(gaps)), "tol": tol,
+            "steps_compared": int(length[~near].sum()),
+            "ok": bool(not (~same & ~near).any()
+                       and near.sum() < card.shape[0] / 2)}
+
+
+def phase_srl_check(torch, smi_line, batch=SRL_BATCH):
+    """SRL at the book chapter's widths (``srl_crf(word_dim=32,
+    hidden_dim=512, depth=8)``) at batch 128: one training step on the
+    card and with the port on the CPU from the same weights and feed, the
+    CRF loss, every gradient and Adam update under ``_step_verdict``'s
+    bounds, the card's step launching the scatter-add kernel exactly 3
+    times (the three narrow tables' backward) and recording
+    ``cuda_scatter_add`` on each lookup, the CPU's ``plain_scatter_add``;
+    then ``crf_decoding`` through ``clone(for_test=True)`` on both sides
+    from the card's updated weights: the paths under
+    ``srl_decode_verdict`` (near ties from the CPU side's f64 Viterbi)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, spec, test = build_srl(fluid)
+    feed = srl_feed(spec, batch)
+    lookups = [op for op in main.global_block().ops
+               if op.type == "lookup_table"]
+    check([tuple(op.input("W").shape) for op in lookups]
+          == list(SRL_TABLES), "srl tables %s" % [
+              op.input("W").shape for op in lookups])
+    decoded = spec.fetches["decoded"]
+    emission = next(op for op in main.global_block().ops
+                    if op.type == "crf_decoding").input("Emission")
+    names, params, runs, secs = _card_cpu_step(
+        fluid, main, startup, spec, feed, SRL_PER_STEP, "srl_check")
+    choices = [op.attr("_kernel_choice") for op in lookups]
+    v = _step_verdict(names, params, runs)
+    check(choices == [{"kernel": "plain_scatter_add"}] * 3,
+          "srl_check: the CPU run's lookups recorded %s" % choices)
+    # the card's updated weights on both sides, one decode each
+    weights = runs["gpu"][1]
+    outs = {}
+    for side, place in (("gpu", None), ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        fluid.bridge.load_program_params(
+            scope, weights, main, None if side == "gpu" else "cpu")
+        exe = fluid.Executor(place)
+        before = read_counts()
+        outs[side] = exe.run(test, feed=feed, fetch_list=[
+            decoded.name, emission.name], scope=scope)
+        check(read_counts() == before, "srl decode launched a kernel")
+        exe.close()
+    gaps, scores = viterbi_margins(outs["cpu"][1], weights["crfw"],
+                                   feed["length"])
+    dv = srl_decode_verdict(outs["gpu"][0], outs["cpu"][0], gaps, scores,
+                            feed["length"])
+    emit(dict({"phase": "srl_check", "batch": batch, "config": SRL,
+               "tables": [list(t) for t in SRL_TABLES],
+               "optimizer": "Adam(%g)" % SRL_LR, "launches": SRL_PER_STEP,
+               "kernel_choice_cpu": choices, "cpu_step_s": secs["cpu"],
+               "gpu_step_s": secs["gpu"], "decode": dv,
+               "tol": STEP_TOL + "; paths equal but at near ties",
+               "device": smi_line}, **v))
+    check(v["ok"], "srl_check step: %s" % v)
+    check(dv["ok"], "srl_check decode: %s" % dv)
+
+
+def phase_srl_train(torch, smi_line, warmup=3, steps=10, prof_steps=2,
+                    passes=5):
+    """SRL's training path at batch 128 x 16 tokens, Adam(SRL_LR),
+    captured: every interpreted or captured step launches the scatter-add
+    kernel exactly 3 times; then ``crf_decoding`` through
+    ``clone(for_test=True)`` on the trained weights, captured too (ms a
+    batch of 128, the paths inside [0, 20) and 0 past each row's
+    length). Returns (launches, replayed launches)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, spec, test = build_srl(fluid)
+    feed = srl_feed(spec, SRL_BATCH)
+    n_params = int(sum(np.prod(p.shape) for p in main.all_parameters()))
+    launches, replayed, scope = _train_path(
+        torch, fluid, smi_line, "srl_train", main, startup, spec, feed, SRL_PER_STEP,
+        SRL_BATCH * 16, warmup, steps, prof_steps,
+        {"model": "srl_crf", "config": SRL, "parameters": n_params,
+         "tables": [list(t) for t in SRL_TABLES],
+         "optimizer": "Adam(%g)" % SRL_LR})
+    exe = fluid.Executor()
+    decoded = spec.fetches["decoded"].name
+    times = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path, = exe.run(test, feed=feed, fetch_list=[decoded], scope=scope)
+        times.append(time.perf_counter() - t0)
+    report = exe.step_report(test)
+    exe.close()
+    live = np.arange(16)[None, :] < feed["length"][:, None]
+    emit({"phase": "srl_train", "case": "decode", "batch": SRL_BATCH,
+          "passes": passes, "ms": [x * 1e3 for x in times],
+          "ms_median_after_capture": statistics.median(times[2:]) * 1e3,
+          "captured": report["captured"], "reason": report["reason"],
+          "device": smi_line})
+    check(path.shape == (SRL_BATCH, 16) and (path >= 0).all()
+          and (path < 20).all() and not path[~live].any(),
+          "srl decode paths out of range")
+    return launches, replayed
+
+
+def phase_rnn_zoo_check(torch, smi_line):
+    """The group's other builders at their defaults, one Adam(1e-3) step
+    each on the card and with the port on the CPU from the same weights
+    and feed: ``understand_sentiment`` (its [500, 32] table's backward on
+    the scatter-add, 1 launch), ``recommender_system`` (five 16-wide
+    tables, 5 launches), ``fit_a_line``, ``crnn_ctc`` (conv + bi-GRU +
+    CTC over 62 steps) and ``ngram_lm`` under nce and hsigmoid (the
+    sparse shared table densified by Adam through the scatter-add, 1
+    launch); nce's negatives from its op's seed, fixed on both sides. The
+    loss, gradients and updates under ``_step_verdict``'s bounds; then
+    one card step of nce with the executor's generator (seed 0): finite.
+    Returns the launches."""
+    import paddle_tpu_torch as fluid
+
+    total = per_run()
+    for fn, module, kw, batch, per_step in RNN_ZOO:
+        main, startup, spec = _build_trained(fluid, module, fn, kw, 1e-3)
+        label = "rnn_zoo_check %s%s" % (fn, "".join(
+            " " + str(v) for v in kw.values()))
+        nce = [op for op in main.global_block().ops if op.type == "nce"]
+        for op in nce:
+            op.attrs["seed"] = NCE_SEED
+        feed = spec.sample_batch(batch, np.random.RandomState(SEED))
+        names, params, runs, secs = _card_cpu_step(
+            fluid, main, startup, spec, feed, per_step, label)
+        v = _step_verdict(names, params, runs)
+        total = {k: total[k] + per_step[k] for k in total}
+        line = {"phase": "rnn_zoo_check", "builder": fn, "kwargs": kw,
+                "batch": batch, "launches": per_step,
+                "cpu_step_s": secs["cpu"], "gpu_step_s": secs["gpu"],
+                "tol": STEP_TOL, "device": smi_line}
+        if nce:
+            for op in nce:
+                op.attrs["seed"] = 0
+            scope = fluid.Scope()
+            exe = fluid.Executor()
+            exe.run(startup, scope=scope)
+            before = read_counts()
+            loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
+                            scope=scope)
+            check(read_counts() == {k: before[k] + per_step[k]
+                                    for k in before},
+                  "%s seed 0 launches" % label)
+            total = {k: total[k] + per_step[k] for k in total}
+            exe.close()
+            line["seed_0_loss"] = float(loss)
+            check(np.isfinite(float(loss)), "%s seed 0 loss %s"
+                  % (label, loss))
+        emit(dict(line, **v))
+        check(v["ok"], "%s: %s" % (label, v))
+    return total
+
+
+def phase_narrow_scatter_check(torch, dev, tol=1e-5):
+    """Row 13 at SRL's three tables ([500, 32], [50, 32], [2, 32]) with
+    128 x 16 uniform ids each, into zero tables as the lookups' backward
+    adds them (the [2, 32] mark table takes about a thousand duplicates a
+    row, the per-block sort's worst case): the kernel against its plain
+    version within ``tol`` x max(1, the row's |vals| sum) (as
+    ``scatter_check``), then timed beside the plain version and one
+    ``index_add_`` (int64 rows; timed here only), with its bound (each
+    id, val and table element read or written once) and its launches a
+    SRL step. Returns ({shape name: row}, max abs error)."""
+    from paddle_tpu_torch.ops import scatter as sc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n = SRL_BATCH * 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, worst = {}, 0.0
+    for i, (v, k) in enumerate(SRL_TABLES):
+        ids = _deepfm_rows(torch, "uniform", n, v, SEED + 20 + i).to(dev)
+        vals = torch.randn(n, k, generator=gen, device=dev)
+        zero = torch.zeros(v, k, device=dev)
+        before = read_counts()["scatter_add"]
+        got = sc.scatter_add_rows(zero, ids, vals)
+        check(read_counts()["scatter_add"] == before + 1,
+              "narrow scatter %dx%d did not launch once" % (v, k))
+        want = sc.scatter_add_plain(zero, ids, vals)
+        mass = sc.scatter_add_plain(zero, ids, vals.abs())
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        rel = (err / mass.clamp_min(1.0)).max().item()
+        worst = max(worst, err.max().item())
+        hot = int(torch.bincount(ids.long(), minlength=v).max().item())
+        out = torch.zeros(v, k, device=dev)
+        ids64 = ids.long()
+        nbytes = 4 * (n * k + n + 2 * v * k)
+        bnd, by = bound(nbytes, n * k)
+        name = "%dx%d" % (v, k)
+        rows[name] = dict(
+            ms=time_ms(lambda: sc.scatter_add(out, ids, vals)),
+            plain_ms=time_ms(lambda: sc.scatter_add_plain(out, ids, vals,
+                                                          inplace=True)),
+            library_ms=time_ms(lambda: out.index_add_(0, ids64, vals)),
+            library="Tensor.index_add_ (int64 rows, all in range)",
+            bound_ms=bnd, bound_by=by, shape=[v, k, n], bytes=nbytes,
+            flops=n * k, launches_per_srl_step=1, max_abs_err=err.max().item(),
+            max_err_over_row_mass=rel, hottest_row_slots=hot,
+            plan=list(sc.scatter_plan(n, k, True, sms)))
+        emit(dict({"phase": "narrow_scatter_check", "case": name,
+                   "tol": "%g * max(1, sum over the row's slots of |vals|)"
+                   % tol}, **rows[name]))
+        check(rel <= tol, "narrow scatter %s: error %g of the row mass > %g"
+              % (name, rel, tol))
+    return rows, worst
+
+
 def main():
     try:
         import torch
@@ -6713,6 +7195,15 @@ def main():
         torch, smi_line, mt, mt_scope)
     del mt, mt_scope
     mt_times = mt_flash_timing(torch, dev)
+    phase_lstm_train_check(torch, smi_line)
+    paths["lstm_train"], replayed["lstm_train"] = phase_lstm_train(
+        torch, smi_line)
+    phase_srl_check(torch, smi_line)
+    paths["srl_train"], replayed["srl_train"] = phase_srl_train(
+        torch, smi_line)
+    paths["rnn_zoo"], replayed["rnn_zoo"] = \
+        phase_rnn_zoo_check(torch, smi_line), per_run()
+    srl_scatter, _ = phase_narrow_scatter_check(torch, dev)
 
     src = {"flash_attention_fwd": ("flash_attention_fwd.cu",
                                    "paddle_tpu/ops/flash_attention.py:1001"),
@@ -6761,6 +7252,8 @@ def main():
             kernels[-1]["mt_shape"] = mt_times[name]
         if name == "scatter_add":  # the densify of the new optimizers
             kernels[-1]["optimizer_check_shape"] = opt_scatter
+            # the narrow dense lookups' backward at SRL's three tables
+            kernels[-1]["srl_shapes"] = srl_scatter
         if "bf16" in r:  # rows 1-12: the bf16 form (AMP), training shape
             bf16_by_path = {path: paths[path][name] for path in AMP_PATHS}
             kernels[-1]["bf16"] = dict(r["bf16"],

@@ -9,6 +9,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ...ops.rowops import pack_factor, packed_take
 from ..framework import convert_np_dtype, torch_dtype
 from ..op_registry import (DEVICE_KEY, SPARSE_SITES_KEY, amp_out_cast,
                            get, get_list, put, register, rng_draw)
@@ -140,15 +141,24 @@ def _range(env, op):
 def _lookup_table(env, op):
     """Embedding lookup (ref ``lookup_table_op.cc``); padding_idx rows give
     zeros. Ids may be int32 or int64. ``paddle_tpu``'s 128-lane packed
-    gather (``ops/rowops.py``) exists for TPU lanes; here it is a plain
-    row index. A lookup whose op carries ``out_of_range="fill"`` indexes
+    gather (``ops/rowops.py``) exists for TPU lanes; here the forward is a
+    plain row index. A lookup whose op carries ``out_of_range="fill"`` indexes
     as ``jnp.take`` does (the reference's gather for tables whose width
     does not divide 128): an id in [-V, 0) counts from the end, and any
     other outside [0, V) gives a row of NaN, not an index error (on the
     card, a device assert). Only the decode chunk's position lookup
     carries it (``models.transformer``): its pad lanes feed position C,
     past the position table when C is its size, and their outputs are
-    ignored. Every other lookup is one ``index_select``.
+    ignored. Every other lookup gathers with ``index_select``.
+
+    A dense 2-D table of a narrow width (``rowops.pack_factor(K) > 1``: K
+    below 128 and dividing it, where the reference gathers through its
+    packed layout) takes ``rowops.packed_take``, whose backward is the row
+    scatter-add kernel on the card (``_kernel_choice``
+    ``cuda_scatter_add``; ``plain_scatter_add`` on the CPU), as the
+    reference's backward is its Pallas scatter (``paddle_tpu/core/
+    opimpl/tensor_ops.py:292-319``); any other width keeps
+    ``index_select``'s own backward.
 
     A table with a sparse gradient in a training step (listed under
     ``SPARSE_SITES_KEY`` by the Executor) is not on the tape: the lookup
@@ -160,20 +170,24 @@ def _lookup_table(env, op):
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     flat = ids.reshape(-1)
+    sites = env.get(SPARSE_SITES_KEY)
+    sparse = (sites is not None and w_name in sites
+              and torch.is_grad_enabled())
     if op.attr("out_of_range") == "fill":
         v = w.shape[0]
         flat = torch.where(flat < 0, flat + v, flat)
         valid = (flat >= 0) & (flat < v)
         out = w.index_select(0, torch.where(valid, flat, 0))
         out = torch.where(valid.unsqueeze(1), out, float("nan"))
+    elif not sparse and w.dim() == 2 and pack_factor(w.shape[1]) > 1:
+        out = packed_take(w, flat, op)
     else:
         out = w.index_select(0, flat)
     out = out.reshape(*ids.shape, w.shape[1])
     padding_idx = op.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
-    sites = env.get(SPARSE_SITES_KEY)
-    if sites is not None and w_name in sites and torch.is_grad_enabled():
+    if sparse:
         out = out.detach().requires_grad_(True)
         sites[w_name].append((ids, out, padding_idx))
     # under AMP the rows go on in bf16 (paddle_tpu's tensor_ops.py:314-315);

@@ -34,7 +34,9 @@ __all__ = [
     "brelu", "leaky_relu", "elu", "relu6", "stanh", "hard_sigmoid",
     "one_hot", "pad", "pad2d", "split", "cumsum",
     "dynamic_gru", "gru_unit", "beam_search", "beam_search_gather",
-    "beam_search_decode",
+    "beam_search_decode", "dynamic_lstm", "dynamic_lstmp", "attention_lstm",
+    "tree_conv", "lstm", "warpctc", "linear_chain_crf", "crf_decoding", "nce",
+    "hsigmoid",
 ]
 
 
@@ -1030,3 +1032,372 @@ def beam_search_decode(ids_array, parents_array, length, final_scores,
         {"SentenceIds": sent, "SentenceScores": sscores},
         {"beam_size": beam_size, "end_id": end_id})
     return sent, sscores
+
+
+# ---------------------------------------------------------------------------
+# LSTMs and tree conv (paddle_tpu/layers/nn.py:1235-1407, :1477-1526)
+# ---------------------------------------------------------------------------
+
+def dynamic_lstm(input, size, lengths=None, h_0=None, c_0=None,
+                 param_attr=None, bias_attr=None,
+                 use_peepholes=False, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype=None, name=None):
+    """LSTM over a pre-projected sequence (ref ``nn.py`` dynamic_lstm).
+
+    ``input`` is ``[B, T, 4H]`` — the x@W projection done by a preceding
+    ``fc`` (matching the reference contract where ``size = 4*hidden`` and the
+    input projection is the user's fc). ``lengths`` `[B]` masks padding (the
+    LoD replacement); ``h_0``/``c_0`` `[B, H]` seed the recurrent state
+    (zeros when omitted). Returns ``(hidden [B,T,H], cell [B,T,H])``.
+    ``use_peepholes`` is accepted and ignored, as the reference ignores it
+    (its bias stays [4H])."""
+    helper = LayerHelper("dynamic_lstm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    hidden_size = size // 4
+    dtype = dtype or _dtype(input)
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[hidden_size, 4 * hidden_size],
+                                dtype=dtype)
+    b = helper.create_parameter(helper.bias_attr, shape=[4 * hidden_size],
+                                dtype=dtype, is_bias=True)
+    b_sz, t_sz = input.shape[0], input.shape[1]
+    hidden = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(b_sz, t_sz, hidden_size))
+    cell = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(b_sz, t_sz, hidden_size))
+    inputs = {"Input": input, "Weight": w, "Bias": b}
+    if lengths is not None:
+        inputs["Lengths"] = lengths
+    if h_0 is not None:
+        inputs["H0"] = h_0
+    if c_0 is not None:
+        inputs["C0"] = c_0
+    helper.append_op("lstm_seq", inputs, {"Hidden": hidden, "Cell": cell},
+                     {"is_reverse": is_reverse})
+    return hidden, cell
+
+
+def dynamic_lstmp(input, size, proj_size, lengths=None, h_0=None, c_0=None,
+                  param_attr=None, bias_attr=None, use_peepholes=False,
+                  is_reverse=False, gate_activation="sigmoid",
+                  cell_activation="tanh", candidate_activation="tanh",
+                  proj_activation="tanh", cell_clip=0.0, proj_clip=0.0,
+                  dtype=None, name=None):
+    """Projection LSTM (ref ``nn.py`` dynamic_lstmp / ``lstmp_op.cc``):
+    the recurrent state is the P-dim projection of the hidden state.
+    ``input`` is ``[B, T, 4H]`` pre-projected; returns
+    ``(projection [B,T,P], cell [B,T,H])``."""
+    helper = LayerHelper("dynamic_lstmp", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    hidden_size = size // 4
+    dtype = dtype or _dtype(input)
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[proj_size, 4 * hidden_size],
+                                dtype=dtype)
+    pattr = ParamAttr._to_attr(param_attr)
+    pattr = copy.copy(pattr)
+    if pattr.name is not None:
+        pattr.name = pattr.name + "_proj"
+    wp = helper.create_parameter(pattr, shape=[hidden_size, proj_size],
+                                 dtype=dtype)
+    b = helper.create_parameter(helper.bias_attr, shape=[4 * hidden_size],
+                                dtype=dtype, is_bias=True)
+    b_sz, t_sz = input.shape[0], input.shape[1]
+    proj = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(b_sz, t_sz, proj_size))
+    cell = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(b_sz, t_sz, hidden_size))
+    inputs = {"Input": input, "Weight": w, "ProjWeight": wp, "Bias": b}
+    if lengths is not None:
+        inputs["Lengths"] = lengths
+    if h_0 is not None:
+        inputs["H0"] = h_0
+    if c_0 is not None:
+        inputs["C0"] = c_0
+    helper.append_op("lstmp_seq", inputs,
+                     {"Projection": proj, "Cell": cell},
+                     {"is_reverse": is_reverse, "cell_clip": cell_clip,
+                      "proj_clip": proj_clip,
+                      "proj_activation": proj_activation})
+    return proj, cell
+
+
+def attention_lstm(input, size, lengths=None, h_0=None, c_0=None,
+                   param_attr=None, bias_attr=None, name=None):
+    """Attention LSTM (ref ``attention_lstm_op.cc``): each step attends
+    over the whole sequence with c_{t-1} and feeds the pooled vector to
+    an LSTM cell. ``input`` [B, T, M]; returns (hidden [B,T,D], cell)."""
+    helper = LayerHelper("attention_lstm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    d = size
+    m = int(input.shape[-1])
+    dtype = _dtype(input)
+    aw = helper.create_parameter(helper.param_attr, shape=[m + d, 1],
+                                 dtype=dtype)
+    ab = helper.create_parameter(helper.bias_attr, shape=[1], dtype=dtype,
+                                 is_bias=True)
+    asc = helper.create_parameter(None, shape=[1], dtype=dtype)
+    asb = helper.create_parameter(None, shape=[1], dtype=dtype,
+                                  is_bias=True)
+    pattr = copy.copy(ParamAttr._to_attr(param_attr))
+    if pattr.name is not None:
+        pattr.name = pattr.name + "_lstm"
+    lw = helper.create_parameter(pattr, shape=[m + d, 4 * d], dtype=dtype)
+    lb = helper.create_parameter(None, shape=[4 * d], dtype=dtype,
+                                 is_bias=True)
+    b_sz, t_sz = input.shape[0], input.shape[1]
+    hidden = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(b_sz, t_sz, d))
+    cell = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(b_sz, t_sz, d))
+    inputs = {"X": input, "AttentionWeight": aw, "AttentionBias": ab,
+              "AttentionScalar": asc, "AttentionScalarBias": asb,
+              "LSTMWeight": lw, "LSTMBias": lb}
+    if lengths is not None:
+        inputs["Lengths"] = lengths
+    if h_0 is not None:
+        inputs["H0"] = h_0
+    if c_0 is not None:
+        inputs["C0"] = c_0
+    helper.append_op("attention_lstm", inputs,
+                     {"Hidden": hidden, "Cell": cell}, {})
+    return hidden, cell
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    """Tree-based convolution (ref ``nn.py`` tree_conv /
+    ``tree_conv_op.cc``, TBCNN): continuous-binary-tree filters over
+    subtree patches. Returns [*, N, output_size, num_filters] (batched)
+    like the reference's [N, output_size, num_filters]."""
+    helper = LayerHelper("tree_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = _dtype(nodes_vector)
+    fdim = int(nodes_vector.shape[-1])
+    w = helper.create_parameter(
+        helper.param_attr, shape=[fdim, 3, output_size, num_filters],
+        dtype=dtype)
+    lead = tuple(nodes_vector.shape[:-1])
+    out = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=lead + (output_size, num_filters))
+    helper.append_op("tree_conv",
+                     {"NodesVector": nodes_vector, "EdgeSet": edge_set,
+                      "Filter": w},
+                     {"Out": out}, {"max_depth": max_depth})
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr,
+                                    shape=[num_filters], dtype=dtype,
+                                    is_bias=True)
+        biased = helper.create_variable_for_type_inference(
+            dtype=dtype, shape=out.shape)
+        helper.append_op("elementwise_add", {"X": out, "Y": b},
+                         {"Out": biased}, {"axis": -1})
+        out = biased
+    return helper.append_activation(out)
+
+
+def lstm(input, init_h=None, init_c=None, max_len=None, hidden_size=None,
+         num_layers=1, dropout_prob=0.0, is_bidirec=False, lengths=None,
+         is_test=False, name=None, default_initializer=None, seed=-1):
+    """Multi-layer (optionally bidirectional) LSTM on ``[B, T, D]`` input
+    (ref ``nn.py`` lstm / ``cudnn_lstm_op``). The per-layer input projection
+    is an fc over [B*T] rows; the recurrence is ``lstm_seq``.
+    ``init_h``/``init_c`` `[B, H]` seed layer 0's forward direction (zeros
+    when omitted; deeper layers / the reverse direction always start at
+    zero). ``max_len`` is unused (static shapes carry the length).
+    Returns ``(out [B,T,H*dirs], last_h, last_c)`` where last_* are
+    ``[B, H*dirs]`` of the final layer."""
+    from . import tensor as tensor_layers
+    from .sequence_lod import sequence_first_step, sequence_last_step
+
+    x = input
+    hidden = None
+    cell = None
+    h_r = c_r = None
+    for layer in range(num_layers):
+        lname = None if name is None else "%s_l%d" % (name, layer)
+        proj = fc(x, size=4 * hidden_size, num_flatten_dims=2,
+                  name=None if lname is None else lname + "_proj")
+        hidden, cell = dynamic_lstm(proj, 4 * hidden_size, lengths=lengths,
+                                    h_0=init_h if layer == 0 else None,
+                                    c_0=init_c if layer == 0 else None,
+                                    name=lname)
+        if is_bidirec:
+            proj_r = fc(x, size=4 * hidden_size, num_flatten_dims=2,
+                        name=None if lname is None else lname + "_proj_r")
+            h_r, c_r = dynamic_lstm(proj_r, 4 * hidden_size, lengths=lengths,
+                                    is_reverse=True, name=lname)
+            hidden = tensor_layers.concat([hidden, h_r], axis=-1)
+        if dropout_prob and layer < num_layers - 1:
+            hidden = dropout(hidden, dropout_prob, is_test=is_test)
+        x = hidden
+    # final states per direction: forward direction ends at t=len-1; the
+    # reverse scan's final state sits at original position 0
+    fwd_h = sequence_last_step(
+        hidden if not is_bidirec else
+        tensor_layers.slice(hidden, axes=[2], starts=[0],
+                            ends=[hidden_size]), lengths=lengths)
+    fwd_c = sequence_last_step(cell, lengths=lengths)
+    if is_bidirec:
+        last_h = tensor_layers.concat(
+            [fwd_h, sequence_first_step(h_r)], axis=-1)
+        last_c = tensor_layers.concat(
+            [fwd_c, sequence_first_step(c_r)], axis=-1)
+    else:
+        last_h, last_c = fwd_h, fwd_c
+    return hidden, last_h, last_c
+
+
+# ---------------------------------------------------------------------------
+# CTC, CRF, NCE and hierarchical sigmoid (paddle_tpu/layers/nn.py:907-1059)
+# ---------------------------------------------------------------------------
+
+def warpctc(input, label, blank=0, norm_by_times=False, input_length=None,
+            label_length=None, name=None):
+    """CTC loss (ref ``warpctc_op.cc``): padded ``[B, T, C]`` logits
+    (softmax applied internally, warp-ctc convention), ``label`` [B, L],
+    per-example ``input_length``/``label_length`` [B] (defaulting to the
+    padded sizes). Returns [B, 1] negative log likelihood (the alpha
+    recursion of ``core/opimpl/loss_ops.py``, no warp-ctc library)."""
+    helper = LayerHelper("warpctc", name=name)
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=(input.shape[0], 1))
+    inputs = {"Logits": input, "Label": label}
+    if input_length is not None:
+        inputs["LogitsLength"] = input_length
+    if label_length is not None:
+        inputs["LabelLength"] = label_length
+    helper.append_op("warpctc", inputs, {"Loss": out},
+                     {"blank": blank, "norm_by_times": norm_by_times})
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None, name=None):
+    """Linear-chain CRF negative log likelihood (ref
+    ``linear_chain_crf_op.cc``): ``input`` [B, T, D] emissions, ``label``
+    [B, T]; creates the [D+2, D] transition parameter (row 0 start, row 1
+    end, rows 2.. pairwise). Returns [B, 1] cost to minimize."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr,
+                         name=name)
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        helper.param_attr, shape=[size + 2, size], dtype=_dtype(input))
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=(input.shape[0], 1))
+    inputs = {"Emission": input, "Transition": transition, "Label": label}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("linear_chain_crf", inputs,
+                     {"LogLikelihood": out}, {})
+    return out
+
+
+def crf_decoding(input, param_attr, label=None, length=None, name=None):
+    """Viterbi decode with the CRF's transition parameter (ref
+    ``crf_decoding_op.cc``); pass the same ``param_attr`` name used by
+    ``linear_chain_crf``. With ``label`` given, returns the per-position
+    correctness mask instead of the path (reference semantics)."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr, name=name)
+    size = input.shape[-1]
+    from ..core import framework as _fw
+    attr = ParamAttr._to_attr(param_attr)
+    gb = _fw.default_main_program().global_block()
+    if attr.name and gb.has_var(attr.name):
+        # reuse the trained transition var in-program (no duplicate init)
+        transition = gb.var(attr.name)
+    else:
+        # separate infer program: create under the shared name; values come
+        # from the scope at run time
+        transition = helper.create_parameter(
+            helper.param_attr, shape=[size + 2, size], dtype=_dtype(input))
+    out = helper.create_variable_for_type_inference(
+        dtype="int32", shape=tuple(input.shape[:2]))
+    inputs = {"Emission": input, "Transition": transition}
+    if label is not None:
+        inputs["Label"] = label
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("crf_decoding", inputs, {"ViterbiPath": out}, {})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None, sampler="uniform",
+        custom_dist=None, seed=0, is_sparse=False):
+    """Noise-contrastive estimation loss (ref ``nce_op.cc``): ``input``
+    [B, D], ``label`` [B, 1]; samples ``num_neg_samples`` noise classes per
+    example (uniform or log_uniform). ``seed`` != 0 fixes the sample draw
+    (every run takes the same negatives); 0 draws them from the executor's
+    generator each run."""
+    if custom_dist is not None or sample_weight is not None:
+        raise NotImplementedError(
+            "nce custom_dist/sample_weight are not supported; use "
+            "sampler='uniform' or 'log_uniform'")
+    if sampler not in ("uniform", "log_uniform"):
+        raise ValueError("unsupported nce sampler %r" % (sampler,))
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=_dtype(input))
+    b = helper.create_parameter(helper.bias_attr,
+                                shape=[num_total_classes],
+                                dtype=_dtype(input), is_bias=True)
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=(input.shape[0], 1))
+    helper.append_op(
+        "nce", {"Input": input, "Label": label, "Weight": w, "Bias": b},
+        {"Cost": out},
+        {"num_neg_samples": num_neg_samples or 10, "sampler": sampler,
+         "seed": seed})
+    return out
+
+
+def _hsigmoid_simple_code_tables(num_classes):
+    """Default complete-binary-tree paths (ref ``math/matrix_bit_code.h``
+    SimpleCode): class c maps to code c + num_classes; node index at bit i
+    is (code >> (i+1)) - 1, bit value (code >> i) & 1."""
+    rows = []
+    for c in range(num_classes):
+        code = c + num_classes
+        length = code.bit_length() - 1
+        rows.append(([(code >> (i + 1)) - 1 for i in range(length)],
+                     [(code >> i) & 1 for i in range(length)]))
+    max_len = max(len(r[0]) for r in rows)
+    table = [r[0] + [-1] * (max_len - len(r[0])) for r in rows]
+    codes = [[float(v) for v in r[1]] + [0.0] * (max_len - len(r[1]))
+             for r in rows]
+    return table, codes
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """Hierarchical sigmoid (ref ``hierarchical_sigmoid_op.cc``): log-time
+    softmax over a class tree. Default: complete binary tree with
+    ``num_classes - 1`` internal nodes; custom: ``path_table``/``path_code``
+    vars [B, L] (pad with -1)."""
+    helper = LayerHelper("hsigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    n_nodes = num_classes if is_custom else num_classes - 1
+    w = helper.create_parameter(helper.param_attr, shape=[n_nodes, dim],
+                                dtype=_dtype(input))
+    b = helper.create_parameter(helper.bias_attr, shape=[n_nodes],
+                                dtype=_dtype(input), is_bias=True)
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=(input.shape[0], 1))
+    inputs = {"Input": input, "Label": label, "W": w, "Bias": b}
+    attrs = {"num_classes": num_classes}
+    if is_custom:
+        inputs["PathTable"] = path_table
+        inputs["PathCode"] = path_code
+    else:
+        table, codes = _hsigmoid_simple_code_tables(num_classes)
+        attrs["path_table"] = table
+        attrs["path_code"] = codes
+    helper.append_op("hsigmoid", inputs, {"Cost": out}, attrs)
+    return out

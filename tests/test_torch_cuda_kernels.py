@@ -1187,6 +1187,41 @@ def test_scatter_kernel_inplace_and_refusals(dev):
                                       rows, torch.ones(4, 4, device=dev))
 
 
+# SRL's three narrow dense tables (word, predicate, mark) at batch 128 x 16
+SRL_TABLES = [(500, 32), (50, 32), (2, 32)]
+
+
+@pytest.mark.parametrize("v,k", SRL_TABLES)
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_narrow_lookup_backward_on_the_kernel(dev, v, k, g_dtype):
+    """``rowops.packed_take``'s backward (the lookup of a dense table with
+    K dividing 128) launches the scatter-add kernel once and records
+    ``cuda_scatter_add``; its table gradient agrees with the plain
+    version's on the CPU within ``_scatter_tol`` (the [2, 32] table takes
+    about a thousand duplicates a row). Under AMP the rows go on in bf16
+    and their gradient comes back through the cast, into the f32 table."""
+    from paddle_tpu_torch.ops import rowops
+
+    assert rowops.pack_factor(k) > 1
+    gen = torch.Generator().manual_seed(8)
+    w = torch.randn(v, k, generator=gen)
+    ids = torch.randint(0, v, (128 * 16,), generator=gen)
+    g = torch.randn(128 * 16, k, generator=gen).to(g_dtype)
+    op = type("Op", (), {"attrs": {}})()
+    wd = w.to(dev).requires_grad_(True)
+    before = tscatter.scatter_add.launches
+    out = rowops.packed_take(wd, ids.to(dev), op)
+    assert torch.equal(out.detach().cpu(), w[ids])
+    out.to(g_dtype).backward(g.to(dev))
+    torch.cuda.synchronize()
+    assert tscatter.scatter_add.launches == before + 1
+    assert op.attrs["_kernel_choice"] == {"kernel": "cuda_scatter_add"}
+    want = tscatter.scatter_add_plain(torch.zeros(v, k), ids, g.float())
+    err = (wd.grad.cpu() - want).abs()
+    assert bool((err <= _scatter_tol(v, k, ids, g.float())).all()), \
+        err.max()
+
+
 def test_tiny_deepfm_step_on_gpu_matches_cpu(dev, fresh_port_programs):
     """One Adam step of a tiny DeepFM on the card and on the CPU from the
     same weights: loss, prob, the sparse grad of fm_table, every Adam
