@@ -40,6 +40,7 @@ from . import clip  # noqa: F401
 from . import amp  # noqa: F401
 from .clip import set_gradient_clip  # noqa: F401
 from . import io  # noqa: F401
+from . import metrics  # noqa: F401
 from . import inference  # noqa: F401
 from . import bridge  # noqa: F401
 from . import serving  # noqa: F401

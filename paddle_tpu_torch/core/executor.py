@@ -115,6 +115,11 @@ _AUTODIFF_OPS = ("autodiff", "autodiff_vjp")
 
 
 class CPUPlace:
+    """The host; ``device_id`` is kept for the reference's signature."""
+
+    def __init__(self, device_id=0):
+        self.device_id = int(device_id)
+
     def __repr__(self):
         return "CPUPlace()"
 

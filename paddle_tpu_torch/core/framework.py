@@ -144,6 +144,15 @@ class Variable:
         self.is_data = is_data
         self.op = None  # producing op, set by append_op
 
+    @property
+    def grad_name(self):
+        return grad_var_name(self.name)
+
+    def astype(self, dtype):
+        from ..layers import tensor as tensor_layers
+
+        return tensor_layers.cast(self, dtype)
+
     def to_string(self, throw_on_error=False, with_details=False):
         return "Variable(name=%s, shape=%s, dtype=%s, persistable=%s)" % (
             self.name, self.shape, self.dtype, self.persistable)

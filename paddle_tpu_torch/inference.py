@@ -20,7 +20,8 @@ combined-file model form (``prog_file``/``params_file``) are not ported.
 from . import io as io_mod
 from .core.executor import CPUPlace, CUDAPlace, Executor, Scope, scope_guard
 
-__all__ = ["AnalysisConfig", "Predictor", "ProgramPredictor"]
+__all__ = ["AnalysisConfig", "Predictor", "ProgramPredictor",
+           "create_paddle_predictor"]
 
 
 class AnalysisConfig:
@@ -126,3 +127,7 @@ class Predictor(ProgramPredictor):
         self.config = config
         self._exe = exe
 
+
+def create_paddle_predictor(config):
+    """Factory-name parity with the reference C-API."""
+    return Predictor(config)

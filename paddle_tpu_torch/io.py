@@ -7,8 +7,8 @@ per save (written to a temp file, then renamed) plus a ``manifest.json``,
 and for an inference model a pickled ``__model__`` holding the pruned
 program (here the port's ``Program``) with its feed and fetch names. A
 ``params.npz`` saved by either package loads in the other
-(``bridge.load_reference_params``). The StableHLO export and custom
-model/params file names are not ported.
+(``bridge.load_reference_params``). ``load_inference_model`` reads other
+model and params file names; the StableHLO export is not ported.
 """
 
 import json
@@ -19,11 +19,13 @@ import tempfile
 import numpy as np
 
 from .core import framework
+from .core.framework import Parameter
 from .core.executor import global_scope, to_numpy, to_tensor
 
 __all__ = [
-    "save_vars", "save_persistables", "load_vars", "load_persistables",
-    "save_inference_model", "load_inference_model",
+    "save_vars", "save_params", "save_persistables", "load_vars",
+    "load_params", "load_persistables", "save_inference_model",
+    "load_inference_model",
 ]
 
 
@@ -61,6 +63,12 @@ def save_vars(executor, dirname, main_program=None, vars=None,
     return path
 
 
+def save_params(executor, dirname, main_program=None, filename=None):
+    return save_vars(executor, dirname, main_program,
+                     predicate=lambda v: isinstance(v, Parameter),
+                     filename=filename)
+
+
 def save_persistables(executor, dirname, main_program=None, filename=None):
     return save_vars(executor, dirname, main_program,
                      predicate=lambda v: v.persistable, filename=filename)
@@ -78,6 +86,11 @@ def load_vars(executor, dirname, main_program=None, vars=None,
         for v in vars:
             if v.name in data:
                 scope.set(v.name, to_tensor(data[v.name], executor.device, v))
+
+
+def load_params(executor, dirname, main_program=None, filename=None):
+    load_vars(executor, dirname, main_program,
+              predicate=lambda v: isinstance(v, Parameter), filename=filename)
 
 
 def load_persistables(executor, dirname, main_program=None, filename=None):
@@ -106,13 +119,17 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     return [v.name for v in target_vars]
 
 
-def load_inference_model(dirname, executor):
-    """Unpickles ``__model__``: load only model directories you trust."""
-    with open(os.path.join(dirname, "__model__"), "rb") as f:
+def load_inference_model(dirname, executor, model_filename=None,
+                         params_filename=None):
+    """Unpickles ``model_filename`` (``__model__``): load only model
+    directories you trust. ``params_filename`` defaults to ``params.npz``,
+    the file ``save_inference_model`` writes."""
+    with open(os.path.join(dirname, model_filename or "__model__"),
+              "rb") as f:
         model = pickle.load(f)
     program = model["program"]
     load_persistables(executor, dirname, program,
-                      filename="params.npz")
+                      filename=params_filename or "params.npz")
     gb = program.global_block()
     fetch_vars = [gb.var(n) for n in model["fetch_names"]]
     return program, model["feed_names"], fetch_vars

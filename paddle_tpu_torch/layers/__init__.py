@@ -2,6 +2,8 @@
 port carries; ref ``python/paddle/fluid/layers/``)."""
 
 from . import control_flow
+from . import detection
+from . import extras
 from . import io
 from . import learning_rate_scheduler
 from . import math_op_patch  # noqa: F401
@@ -12,6 +14,8 @@ from . import sequence_lod
 from . import tensor
 
 from .control_flow import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
+from .extras import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403

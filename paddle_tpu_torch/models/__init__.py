@@ -1,5 +1,6 @@
 """Model builders (the subset of ``paddle_tpu.models`` the port carries)."""
 
+from .common import ModelSpec  # noqa: F401
 from . import bert  # noqa: F401
 from . import books  # noqa: F401
 from . import common  # noqa: F401
@@ -10,6 +11,7 @@ from . import mnist  # noqa: F401
 from . import ocr_ctc  # noqa: F401
 from . import resnet  # noqa: F401
 from . import se_resnext  # noqa: F401
+from . import ssd  # noqa: F401
 from . import stacked_lstm  # noqa: F401
 from . import transformer  # noqa: F401
 from . import vgg  # noqa: F401

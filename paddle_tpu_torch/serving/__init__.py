@@ -22,15 +22,17 @@ from .buckets import (BucketError, bucket_for, pad_to_bucket,  # noqa: F401
                       pow2_ladder, unpad_fetch)
 from .engine import EngineShutdownError, ServingEngine  # noqa: F401
 from .metrics import Histogram, ServingMetrics  # noqa: F401
-from .prefix_cache import PrefixCache  # noqa: F401
-from .decode_batcher import (DecodeBatcher, DraftLM,  # noqa: F401
-                             default_ctx_ladder, default_prefill_ladder,
+from .prefix_cache import PrefixCache, PrefixEntry, PrefixMatch  # noqa: F401
+from .decode_batcher import (DecodeBatcher, DecodeRequest,  # noqa: F401
+                             DraftLM, default_ctx_ladder,
+                             default_prefill_ladder,
                              load_decode_spec, save_decode_spec)
 
 __all__ = ["ServingEngine", "EngineShutdownError", "DynamicBatcher",
            "Request", "ServingMetrics", "Histogram", "AdmissionController",
            "ServerOverloadedError", "DeadlineExceededError", "BucketError",
            "pow2_ladder", "bucket_for", "pad_to_bucket", "unpad_fetch",
-           "DecodeBatcher", "DraftLM", "PrefixCache", "save_decode_spec",
+           "DecodeBatcher", "DecodeRequest", "DraftLM", "PrefixCache",
+           "PrefixEntry", "PrefixMatch", "save_decode_spec",
            "load_decode_spec", "default_ctx_ladder",
            "default_prefill_ladder"]
