@@ -111,7 +111,15 @@ it and read just after:
   multibox loss on the tape, captured; no port kernel: the epilogue
   fusion's four 3x3 stride-2 trunk sites are declined by the fused conv's
   gate), then decode + NMS and ``detection_map`` through its
-  ``clone(for_test=True)`` (``ssd_eval``).
+  ``clone(for_test=True)`` (``ssd_eval``);
+* DCGAN (Radford et al. 2016) at its LSUN widths (``build_dcgan``: G from
+  z [100, 1, 1] through 4x4 transposed convs 1024-512-256-128 to 3 x 64 x
+  64, D through 4x4 convs 128-256-512-1024; 12.7 M + 11.0 M parameters;
+  random weights from seed 11) trained at batch 128 under Adam(2e-4,
+  beta1 0.5) in three programs over one scope, each captured: G's images,
+  a D step, a G step through D (``dcgan_train``; no port kernel: the
+  transposed convs are cuDNN's, and the epilogue fusion declines D's 4x4
+  stride-2 sites).
 
 Before each training path, ``train_check``, ``amp_train_check``,
 ``resnet_train_check``, ``resnet_amp_train_check``, ``deepfm_train_check``
@@ -154,7 +162,23 @@ card against the port on the CPU (floats within 1e-5, gradients within
 ``ssd_lite`` step at batch 4 (the loss, every gradient and Adam update,
 the bipartite match and the mined negatives; ``ssd_eval`` holds the
 clone's detections against the CPU under a near-tie rule and its mAP
-against the CPU's on the card's detections); before decode, ``decode_check`` holds four step
+against the CPU's on the card's detections); ``srl_check`` also scores
+its paths with ``chunk_eval`` (IOB) and ``rnn_zoo_check`` decodes
+``crnn_ctc``'s eval clone with ``ctc_greedy_decoder`` and scores it with
+``edit_distance`` (both against the CPU under a near-tie rule);
+``misc_nn_ops_check`` runs each of the 52 op types of ``misc_ops`` and
+``nn_ops`` that came last (group_norm at ResNet-50's stage 1, lrn at
+AlexNet's conv1, conv3d and pool3d at C3D's first block, the DeepLab-v3+
+4x upsample, ``sample_logits`` at BERT's vocabulary, ...) on the card
+against the CPU (floats within 1e-5, gradients within 1e-5 relative L2,
+integers equal; the random ops each held to its own draw);
+``sdpa_check`` holds the ``scaled_dot_product_attention`` layer at
+Transformer-base widths, forward and backward, on the flash kernels
+against the CPU; ``debug_ops_check`` holds ``Print``'s text and
+``py_func``'s values in a training step against the CPU, and both
+programs interpreted; ``dcgan_train_check`` one D and one G step of
+full-width DCGAN at batch 4 against the CPU; before decode,
+``decode_check`` holds four step
 dispatches and
 a chunk against the CPU, out-of-range cache positions, and the ids of
 solo, batched, chunked and speculative decode.
@@ -4727,6 +4751,15 @@ def _elem_err(a, b):
         float(np.abs(b).max()), 1.0)
 
 
+def _over_sensitivity(errs, tol):
+    """The names in ``errs`` ({name: (card's error from the CPU, the CPU's
+    own distance from its run on the input scaled by 1 + 2^-20)}) whose
+    error passes the larger of ``tol`` and 5x that rounding sensitivity:
+    the bound of a step whose f32 rounding is amplified (ResNet-50's and
+    DCGAN's batch-statistic BNs)."""
+    return sorted(n for n, (e, s) in errs.items() if e > max(tol, 5 * s))
+
+
 def phase_resnet_train_check(torch, smi_line, batch=2):
     """One full-width ResNet-50 step (224 x 224, 1000 classes, batch 2) on
     the card and with the port on the CPU from the same weights and feed
@@ -4788,12 +4821,10 @@ def phase_resnet_train_check(torch, smi_line, batch=2):
         flips["perturbed_cpu_vs_cpu"] += int(((p > 0) != (c > 0)).sum())
         flips["elements"] += int(c.size)
 
-    def over(errs, tol):
-        return sorted(n for n, (e, s) in errs.items() if e > max(tol, 5 * s))
-
     worst_g = max(grads, key=lambda n: grads[n][0])
     worst_s = max(stats, key=lambda n: stats[n][0])
-    bad = over({"loss": loss}, 1e-4) + over(grads, 1e-2) + over(stats, 1e-4)
+    bad = (_over_sensitivity({"loss": loss}, 1e-4)
+           + _over_sensitivity(grads, 1e-2) + _over_sensitivity(stats, 1e-4))
     emit({"phase": "resnet_train_check", "batch": batch, "config": RESNET,
           "loss_gpu": float(gpu[0]), "loss_cpu": float(cpu[0]),
           "loss_rel_err": loss[0], "loss_rel_sensitivity": loss[1],
@@ -6902,6 +6933,55 @@ def srl_decode_verdict(card, cpu, gaps, scores, length, tol=SRL_NEAR_TIE):
                        and near.sum() < card.shape[0] / 2)}
 
 
+# the Fluid book's chunk_eval over SRL's labels: IOB, with
+# ceil((label_dict_len - 1) / 2) chunk types (label_dict_len 20)
+SRL_CHUNK_TYPES = 10
+CHUNK_SLOTS = ("precision", "recall", "f1", "num_infer_chunks",
+               "num_label_chunks", "num_correct_chunks")
+
+
+def srl_chunk_eval(fluid, test, decoded):
+    """``chunk_eval`` (IOB, SRL_CHUNK_TYPES) of the decoded paths against
+    the label feed over the lengths, appended to the for_test clone: its
+    six output names."""
+    gb = test.global_block()
+    with fluid.program_guard(test, fluid.Program()):
+        outs = fluid.layers.chunk_eval(
+            gb.var(decoded), gb.var("label"), "IOB", SRL_CHUNK_TYPES,
+            gb.var("length"))
+    return [o.name for o in outs]
+
+
+def chunk_verdict(fluid, card_paths, feed, card, cpu, paths_equal):
+    """The card's ``chunk_eval`` outputs against ``chunk_eval`` on the CPU
+    over the card's own paths (equal: the op on both sides), and against
+    the CPU run's where every path decoded equal (its own paths)."""
+    L = fluid.layers
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        fluid.unique_name.switch()
+        v = {k: L.data(k, shape=list(a.shape), dtype=str(a.dtype),
+                       append_batch_size=False)
+             for k, a in (("inf", card_paths), ("label", feed["label"]),
+                          ("length", feed["length"]))}
+        outs = L.chunk_eval(v["inf"], v["label"], "IOB", SRL_CHUNK_TYPES,
+                            v["length"])
+    # in the default scope, where later card phases capture: the scope
+    # keeps a generator per device (``executor.rng_name``)
+    on_card_paths = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed={"inf": card_paths, "label": feed["label"],
+                    "length": feed["length"]}, fetch_list=list(outs))
+    same_op = all(np.array_equal(a, b) for a, b in zip(card, on_card_paths))
+    same_run = all(np.array_equal(a, b) for a, b in zip(card, cpu))
+    return {"card": {k: np.asarray(x).item() for k, x in zip(CHUNK_SLOTS,
+                                                              card)},
+            "cpu_run": {k: np.asarray(x).item() for k, x in zip(CHUNK_SLOTS,
+                                                                cpu)},
+            "equal_to_cpu_on_card_paths": same_op,
+            "equal_to_cpu_run": same_run, "paths_equal": paths_equal,
+            "ok": bool(same_op and (same_run or not paths_equal))}
+
+
 def phase_srl_check(torch, smi_line, batch=SRL_BATCH):
     """SRL at the book chapter's widths (``srl_crf(word_dim=32,
     hidden_dim=512, depth=8)``) at batch 128: one training step on the
@@ -6912,7 +6992,9 @@ def phase_srl_check(torch, smi_line, batch=SRL_BATCH):
     ``cuda_scatter_add`` on each lookup, the CPU's ``plain_scatter_add``;
     then ``crf_decoding`` through ``clone(for_test=True)`` on both sides
     from the card's updated weights: the paths under
-    ``srl_decode_verdict`` (near ties from the CPU side's f64 Viterbi)."""
+    ``srl_decode_verdict`` (near ties from the CPU side's f64 Viterbi),
+    and ``chunk_eval`` (IOB, as the Fluid book scores SRL) of the paths
+    against the labels under ``chunk_verdict``."""
     import paddle_tpu_torch as fluid
 
     main, startup, spec, test = build_srl(fluid)
@@ -6925,6 +7007,7 @@ def phase_srl_check(torch, smi_line, batch=SRL_BATCH):
     decoded = spec.fetches["decoded"]
     emission = next(op for op in main.global_block().ops
                     if op.type == "crf_decoding").input("Emission")
+    chunks = srl_chunk_eval(fluid, test, decoded.name)
     names, params, runs, secs = _card_cpu_step(
         fluid, main, startup, spec, feed, SRL_PER_STEP, "srl_check")
     choices = [op.attr("_kernel_choice") for op in lookups]
@@ -6941,22 +7024,27 @@ def phase_srl_check(torch, smi_line, batch=SRL_BATCH):
         exe = fluid.Executor(place)
         before = read_counts()
         outs[side] = exe.run(test, feed=feed, fetch_list=[
-            decoded.name, emission.name], scope=scope)
+            decoded.name, emission.name] + chunks, scope=scope)
         check(read_counts() == before, "srl decode launched a kernel")
         exe.close()
     gaps, scores = viterbi_margins(outs["cpu"][1], weights["crfw"],
                                    feed["length"])
     dv = srl_decode_verdict(outs["gpu"][0], outs["cpu"][0], gaps, scores,
                             feed["length"])
+    cv = chunk_verdict(fluid, outs["gpu"][0], feed, outs["gpu"][2:],
+                       outs["cpu"][2:], dv["rows_differing"] == 0)
     emit(dict({"phase": "srl_check", "batch": batch, "config": SRL,
                "tables": [list(t) for t in SRL_TABLES],
                "optimizer": "Adam(%g)" % SRL_LR, "launches": SRL_PER_STEP,
                "kernel_choice_cpu": choices, "cpu_step_s": secs["cpu"],
-               "gpu_step_s": secs["gpu"], "decode": dv,
-               "tol": STEP_TOL + "; paths equal but at near ties",
+               "gpu_step_s": secs["gpu"], "decode": dv, "chunk_eval": cv,
+               "tol": STEP_TOL + "; paths equal but at near ties; "
+                      "chunk_eval's counts equal the CPU's on the card's "
+                      "paths, and the CPU run's where the paths are equal",
                "device": smi_line}, **v))
     check(v["ok"], "srl_check step: %s" % v)
     check(dv["ok"], "srl_check decode: %s" % dv)
+    check(cv["ok"], "srl_check chunk_eval: %s" % cv)
 
 
 def phase_srl_train(torch, smi_line, warmup=3, steps=10, prof_steps=2,
@@ -7000,6 +7088,64 @@ def phase_srl_train(torch, smi_line, warmup=3, steps=10, prof_steps=2,
     return launches, replayed
 
 
+def levenshtein(a, b):
+    d = np.arange(len(b) + 1, dtype=np.int64)
+    for i, ca in enumerate(a):
+        prev, d[0] = d.copy(), i + 1
+        for j, cb in enumerate(b):
+            d[j + 1] = min(prev[j + 1] + 1, d[j] + 1, prev[j] + (ca != cb))
+    return int(d[len(b)])
+
+
+def ctc_decode_check(fluid, main, feed, weights):
+    """``crnn_ctc``'s eval clone decoded as PaddlePaddle's
+    ``ocr_recognition`` CTC model decodes it (``ctc_greedy_decoder`` over
+    the logits, blank = the last class) and scored with ``edit_distance``
+    against the labels, on the card and with the port on the CPU from the
+    card's trained weights. A row whose every step's top two logits lie
+    more than twice the largest card-vs-CPU logit difference apart on the
+    CPU takes the same argmax on both sides, so its ids, length and
+    distance must be equal; a row with a nearer tie may differ. Each card
+    distance equals a plain Levenshtein of the card's own ids."""
+    L = fluid.layers
+    test = main.clone(for_test=True)
+    gb = test.global_block()
+    ctc = next(op for op in gb.ops if op.type == "warpctc")
+    logits = ctc.input("Logits")
+    with fluid.program_guard(test, fluid.Program()):
+        ids, lens = L.ctc_greedy_decoder(gb.var(logits.name),
+                                         blank=ctc.attr("blank"))
+        dist, _ = L.edit_distance(ids, gb.var("label"), normalized=False,
+                                  input_length=lens,
+                                  label_length=gb.var("label_len"))
+    fetch = [ids, lens, dist, logits.name]
+    outs = {}
+    for side, place in (("gpu", None), ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        fluid.bridge.load_program_params(
+            scope, weights, main, None if side == "gpu" else "cpu")
+        exe = fluid.Executor(place)
+        outs[side] = exe.run(test, feed=feed, fetch_list=fetch, scope=scope)
+        exe.close()
+    (gi, gl, gd, glog), (ci, cl, cd, clog) = outs["gpu"], outs["cpu"]
+    err = float(np.abs(glog - clog).max())
+    top2 = np.sort(clog, axis=-1)[..., -2:]
+    gap = (top2[..., 1] - top2[..., 0]).min(axis=1)
+    near = gap <= 2 * err
+    same = np.array([np.array_equal(gi[r], ci[r]) and gl[r] == cl[r]
+                     and gd[r, 0] == cd[r, 0] for r in range(gi.shape[0])])
+    lev = all(levenshtein(gi[r, :gl[r]], feed["label"][r, :feed[
+        "label_len"][r]]) == gd[r, 0] for r in range(gi.shape[0]))
+    return {"rows": int(gi.shape[0]), "logits_max_abs_err": err,
+            "min_gap": float(gap.min()), "near_tie_rows": int(near.sum()),
+            "rows_equal": int(same.sum()),
+            "rows_differing_without_near_tie": int((~same & ~near).sum()),
+            "mean_distance_card": float(gd.mean()),
+            "mean_distance_cpu": float(cd.mean()),
+            "distances_are_levenshtein": bool(lev),
+            "ok": bool(lev and not (~same & ~near).any())}
+
+
 def phase_rnn_zoo_check(torch, smi_line):
     """The group's other builders at their defaults, one Adam(1e-3) step
     each on the card and with the port on the CPU from the same weights
@@ -7009,7 +7155,9 @@ def phase_rnn_zoo_check(torch, smi_line):
     CTC over 62 steps) and ``ngram_lm`` under nce and hsigmoid (the
     sparse shared table densified by Adam through the scatter-add, 1
     launch); nce's negatives from its op's seed, fixed on both sides. The
-    loss, gradients and updates under ``_step_verdict``'s bounds; then
+    loss, gradients and updates under ``_step_verdict``'s bounds;
+    ``crnn_ctc``'s eval clone also decoded and scored
+    (``ctc_decode_check``); then
     one card step of nce with the executor's generator (seed 0): finite.
     Returns the launches."""
     import paddle_tpu_torch as fluid
@@ -7031,6 +7179,11 @@ def phase_rnn_zoo_check(torch, smi_line):
                 "batch": batch, "launches": per_step,
                 "cpu_step_s": secs["cpu"], "gpu_step_s": secs["gpu"],
                 "tol": STEP_TOL, "device": smi_line}
+        if fn == "crnn_ctc":
+            line["decode"] = ctc_decode_check(fluid, main, feed,
+                                              runs["gpu"][1])
+            check(line["decode"]["ok"], "%s decode: %s"
+                  % (label, line["decode"]))
         if nce:
             for op in nce:
                 op.attrs["seed"] = 0
@@ -7519,69 +7672,100 @@ def _time_ops(torch, ops, env, runs=5):
     return statistics.median(times) * 1e3, [t * 1e3 for t in times], peak
 
 
-DET_OUT_TOL = 1e-5  # largest error over max(1, max |CPU output|)
-DET_GRAD_TOL = 1e-5  # gradient relative L2
+# op-by-op checks (detection, misc and nn ops, the attention layer)
+OP_OUT_TOL = 1e-5  # largest error over max(1, max |CPU output|)
+OP_GRAD_TOL = 1e-5  # gradient relative L2
+
+
+def _op_cases_check(torch, smi_line, phase, cases):
+    """Each case of ``cases`` ((name, size, feed, differentiated inputs,
+    build, own)) as a program of its ops (``_det_program``) on the card
+    against the port on the CPU, on the same feed, each run in a scope of
+    its own: float outputs within OP_OUT_TOL of max(1, max |CPU|), the
+    gradients of sum(out^2) within OP_GRAD_TOL relative L2, and every
+    integer and boolean output equal (``_det_compare``). A case with an
+    ``own`` check draws from each side's generator instead: ``own(fetches,
+    feed)`` holds each side's output to its own draw. Per case: the
+    interpreted wall ms of its ops over device tensors (``_time_ops``),
+    the peak memory, the CPU's seconds. The counts are zeroed first and
+    must stay 0 (no port kernel). Returns (the largest output error over
+    the compared cases, the op types run, the counts)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import to_tensor
+    from paddle_tpu_torch.core.op_registry import RNG_KEY
+
+    dev = fluid.CUDAPlace(0).torch_device()
+    seen, worst = set(), 0.0
+    tol = "outputs %g of max(1, max|CPU|), gradients %g rel L2, discrete " \
+          "equal" % (OP_OUT_TOL, OP_GRAD_TOL)
+    reset_counts()
+    for name, size, feed, floats, build, own in cases:
+        t_case = time.perf_counter()
+        main, outs, grads, fwd = _det_program(fluid, build, feed, floats)
+        seen |= {op.type for op in fwd}
+        fetch = outs + list(grads)
+        card = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
+                                    scope=fluid.Scope())
+        t0 = time.perf_counter()
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=fluid.Scope())
+        cpu_s = time.perf_counter() - t0
+        env = {k: to_tensor(a, dev, main.global_block().var(k))
+               for k, a in feed.items()}
+        env[RNG_KEY] = torch.Generator(device=dev).manual_seed(SEED)
+        ms, all_ms, peak = _time_ops(torch, fwd, env)
+        line = {"phase": phase, "case": name, "size": size,
+                "op_types": sorted({op.type for op in fwd}),
+                "interpreted_ms": ms, "interpreted_ms_runs": all_ms,
+                "peak_bytes_above_inputs": peak, "cpu_s": cpu_s,
+                "outputs": [list(np.shape(o)) for o in card],
+                "device": smi_line}
+        if own is None:
+            cmp = _det_compare(card, cpu, len(outs))
+            worst = max(worst, cmp["max_err_over_magnitude"])
+            ok = (cmp["max_err_over_magnitude"] <= OP_OUT_TOL
+                  and cmp["discrete_equal"]
+                  and (cmp["grad_rel_l2"] is None
+                       or cmp["grad_rel_l2"] <= OP_GRAD_TOL))
+            line.update(cmp, tol=tol)
+        else:
+            (ok_card, card_draw), (ok_cpu, cpu_draw) = own(card, feed), \
+                own(cpu, feed)
+            ok = ok_card and ok_cpu
+            line.update(card_draw=card_draw, cpu_draw=cpu_draw,
+                        tol="each side's output equals its own draw")
+        emit(dict(line, ok=ok, case_s=time.perf_counter() - t_case))
+        check(ok, "%s %s: %s" % (phase, name, line))
+        del card, cpu, env
+    counts = read_counts()
+    check(counts == per_run(), "%s: a port kernel launched: %s"
+          % (phase, counts))
+    return worst, seen, counts
 
 
 def phase_detection_ops_check(torch, smi_line):
     """Each of the 26 detection op types on the card against the port on
     the CPU, on the same seeded inputs at the published model's size
-    (``DETECTION_CASES``): float outputs within DET_OUT_TOL of the CPU's
-    over max(1, max |CPU|), the gradient of sum(out^2) of roi_align,
-    roi_pool, psroi_pool, roi_perspective_transform and yolov3_loss within
-    DET_GRAD_TOL relative L2, and every discrete output (matches, mined
+    (``DETECTION_CASES``), under ``_op_cases_check``: the gradient of
+    sum(out^2) of roi_align, roi_pool, psroi_pool, roi_perspective_transform
+    and yolov3_loss is held, and every discrete output (matches, mined
     indices, labels, NMS keeps, counts) equal: the decode's exp is taken
     in f64 and rounded once (``detection_ops.exp_once``), so both sides
     feed their NMS the same boxes bitwise, and the remaining arithmetic
-    before a decision is IEEE-exact on both. Per op: the interpreted wall
-    ms of its ops over device tensors (``_time_ops``), the peak memory,
-    the CPU's seconds. No port kernel launches."""
-    import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.core.executor import to_tensor
-
-    rng = np.random.RandomState(SEED + 21)
-    inputs = _det_inputs(rng)
-    dev = fluid.CUDAPlace(0).torch_device()
-    seen, worst = set(), 0.0
-    before = read_counts()
-    for name, (size, floats, others, build) in DETECTION_CASES.items():
-        feed = {k: inputs[k] for k in floats + _case_keys(others)}
-        main, outs, grads, fwd = _det_program(fluid, build, feed, floats)
-        seen |= {op.type for op in fwd}
-        fetch = outs + list(grads)
-        card = fluid.Executor().run(main, feed=feed, fetch_list=fetch)
-        t0 = time.perf_counter()
-        cpu = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
-                                                   fetch_list=fetch)
-        cpu_s = time.perf_counter() - t0
-        env = {k: to_tensor(a, dev, main.global_block().var(k))
-               for k, a in feed.items()}
-        ms, all_ms, peak = _time_ops(torch, fwd, env)
-        cmp = _det_compare(card, cpu, len(outs))
-        worst = max(worst, cmp["max_err_over_magnitude"])
-        ok = (cmp["max_err_over_magnitude"] <= DET_OUT_TOL
-              and cmp["discrete_equal"]
-              and (cmp["grad_rel_l2"] is None
-                   or cmp["grad_rel_l2"] <= DET_GRAD_TOL))
-        emit(dict({"phase": "detection_ops_check", "case": name,
-                   "size": size, "op_types": sorted({op.type for op in fwd}),
-                   "interpreted_ms": ms, "interpreted_ms_runs": all_ms,
-                   "peak_bytes_above_inputs": peak, "cpu_s": cpu_s,
-                   "outputs": [list(np.shape(o)) for o in card],
-                   "tol": "outputs %g of max(1, max|CPU|), gradients %g "
-                          "rel L2, discrete equal" % (DET_OUT_TOL,
-                                                       DET_GRAD_TOL),
-                   "ok": ok, "device": smi_line}, **cmp))
-        check(ok, "detection_ops_check %s: %s" % (name, cmp))
-        del card, cpu, env
-    check(read_counts() == before, "a detection op launched a port kernel")
+    before a decision is IEEE-exact on both. Returns the path's counts (no
+    port kernel launches)."""
     from paddle_tpu_torch.core.op_registry import OP_IMPLS
 
+    inputs = _det_inputs(np.random.RandomState(SEED + 21))
+    _, seen, counts = _op_cases_check(torch, smi_line, "detection_ops_check", (
+        (name, size, {k: inputs[k] for k in floats + _case_keys(others)},
+         floats, build, None)
+        for name, (size, floats, others, build) in DETECTION_CASES.items()))
     types = {n for n, f in OP_IMPLS.items() if f.__module__.endswith(
-        (".detection_ops", ".misc_ops"))}
+        ".detection_ops")} | {"detection_map", "psroi_pool"}
     check(len(types) == 26 and types <= seen,
           "detection ops not run: %s" % sorted(types - seen))
-    return worst
+    return counts
 
 
 def build_ssd(fluid):
@@ -7906,7 +8090,936 @@ def phase_ssd_eval(torch, smi_line, trained, passes=5):
     return per_run()
 
 
+# DCGAN (Radford et al., ICLR 2016, arXiv:1511.06434) at its LSUN widths:
+# G from z [100, 1, 1] through 4x4 transposed convs 1024 (s1, p0), 512,
+# 256, 128 (s2, p1) to 3 x 64 x 64, BN + ReLU after each but the last,
+# then tanh; D through 4x4 s2 p1 convs 128, 256, 512, 1024, LeakyReLU 0.2,
+# BN after the last three, and a 4x4 s1 conv to one logit; the 4x4 kernels
+# are those of PyTorch's examples/dcgan; weights N(0, 0.02), BN scales
+# N(1, 0.02), no conv biases; Adam(2e-4, beta1 0.5) on each side
+DCGAN = dict(z_dim=100, g_widths=(1024, 512, 256, 128),
+             d_widths=(128, 256, 512, 1024), channels=3)
+DCGAN_BATCH = 128
+DCGAN_LR = 2e-4
+DCGAN_BETA1 = 0.5
+# no port kernel: the transposed convs are cuDNN's, and the epilogue
+# fusion declines D's 4x4 stride-2 conv -> BN sites (``supported_geometry``)
+DCGAN_PER_STEP = per_run()
+
+
+def build_dcgan(fluid, z_dim, g_widths, d_widths, channels=3, lr=DCGAN_LR,
+                beta1=DCGAN_BETA1):
+    """DCGAN from public layers in three programs that share the
+    parameters by name, and one startup program: ``g`` (z -> images),
+    ``d`` (D on fed real and fake images, sigmoid cross-entropy against 1
+    and 0, Adam over D's parameters) and ``dg`` (G through D against 1,
+    Adam over G's). The image side is 4 x 2^len(g_widths). Returns a
+    namespace of the programs, the fetch vars and the parameter lists.
+    Works in either package (the CPU tests build it in both)."""
+    import types
+
+    L, init = fluid.layers, fluid.initializer
+
+    def w(name):
+        return fluid.ParamAttr(name=name, initializer=init.Normal(0.0, 0.02))
+
+    def bn(x, name, act):
+        return L.batch_norm(
+            x, act=act, param_attr=fluid.ParamAttr(
+                name=name + "_s", initializer=init.Normal(1.0, 0.02)),
+            bias_attr=fluid.ParamAttr(name=name + "_b",
+                                      initializer=init.Constant(0.0)),
+            moving_mean_name=name + "_m", moving_variance_name=name + "_v")
+
+    def generator(z):
+        h = bn(L.conv2d_transpose(z, g_widths[0], filter_size=4, stride=1,
+                                  padding=0, param_attr=w("g_w0"),
+                                  bias_attr=False), "g_bn0", "relu")
+        for i, c in enumerate(g_widths[1:], 1):
+            h = bn(L.conv2d_transpose(h, c, filter_size=4, stride=2,
+                                      padding=1, param_attr=w("g_w%d" % i),
+                                      bias_attr=False), "g_bn%d" % i, "relu")
+        return L.tanh(L.conv2d_transpose(
+            h, channels, filter_size=4, stride=2, padding=1,
+            param_attr=w("g_w%d" % len(g_widths)), bias_attr=False))
+
+    def discriminator(x):
+        h = x
+        for i, c in enumerate(d_widths):
+            h = L.conv2d(h, c, 4, stride=2, padding=1,
+                         param_attr=w("d_w%d" % i), bias_attr=False)
+            if i:
+                h = bn(h, "d_bn%d" % i, None)
+            h = L.leaky_relu(h, alpha=0.2)
+        h = L.conv2d(h, 1, 4, stride=1, padding=0,
+                     param_attr=w("d_w%d" % len(d_widths)), bias_attr=False)
+        return L.reshape(h, [-1, 1])
+
+    def bce(logit, value):
+        label = L.fill_constant_batch_size_like(logit, [-1, 1], "float32",
+                                                value)
+        return L.mean(L.sigmoid_cross_entropy_with_logits(logit, label))
+
+    side = 4 * 2 ** len(g_widths)
+    img = [channels, side, side]
+    startup = fluid.Program()
+    g, d, dg = fluid.Program(), fluid.Program(), fluid.Program()
+    for prog in (startup, g, d, dg):
+        prog.random_seed = SEED
+    with fluid.program_guard(g, startup):
+        fake = generator(L.data("z", shape=[z_dim, 1, 1]))
+    with fluid.program_guard(d, startup):
+        d_loss = L.elementwise_add(
+            bce(discriminator(L.data("real", shape=img)), 1.0),
+            bce(discriminator(L.data("fake", shape=img)), 0.0))
+        d_params = [p.name for p in d.all_parameters() if p.trainable]
+        fluid.optimizer.Adam(learning_rate=lr, beta1=beta1).minimize(
+            d_loss, parameter_list=d_params)
+    with fluid.program_guard(dg, startup):
+        g_loss = bce(discriminator(generator(L.data("z", shape=[
+            z_dim, 1, 1]))), 1.0)
+        g_params = [p.name for p in dg.all_parameters()
+                    if p.trainable and p.name.startswith("g_")]
+        fluid.optimizer.Adam(learning_rate=lr, beta1=beta1).minimize(
+            g_loss, parameter_list=g_params)
+    return types.SimpleNamespace(
+        g=g, d=d, dg=dg, startup=startup, fake=fake, d_loss=d_loss,
+        g_loss=g_loss, d_params=d_params, g_params=g_params, image=img,
+        z_dim=z_dim)
+
+
+def dcgan_feed(net, batch, seed=SEED):
+    """Seeded noise for z (N(0, 1)) and the real images (U(-1, 1)):
+    LSUN is not in the repository, and image quality is not asked for."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(batch, net.z_dim, 1, 1).astype("f4"),
+            rng.uniform(-1, 1, [batch] + net.image).astype("f4"))
+
+
+# ---------------- the rest of A4: misc_ops' and nn_ops' last ops ----------
+
+def _f32(rng, *shape):
+    return rng.standard_normal(shape, dtype=np.float32)
+
+
+def _ints(rng, lo, hi, *shape):
+    return rng.integers(lo, hi, shape).astype("int32")
+
+
+def _one(fluid, op_type, inputs, slot="Out", attrs=None, dtype="float32"):
+    return _raw_op(fluid, op_type, inputs, {slot: dtype}, attrs)[0]
+
+
+def _pool_unpool(fluid, v):
+    out, mask = fluid.layers.max_pool2d_with_index(v["x"], [2, 2])
+    return [out, mask, fluid.layers.unpool(out, mask, 224, 224)]
+
+
+def _ctc_ids(rng, b, t, classes):
+    """Greedy-decoder-like ids: runs of repeats, a blank (0) in about a
+    third of the steps."""
+    ids = rng.integers(1, classes, (b, t))
+    ids = np.where(rng.random((b, t)) < 0.3, 0, ids)
+    rep = rng.random((b, t)) < 0.4
+    for s in range(1, t):
+        ids[:, s] = np.where(rep[:, s], ids[:, s - 1], ids[:, s])
+    return ids.astype("int32")
+
+
+def _crop_check(out, x, shape):
+    """A crop of ``x``'s trailing axes at one offset per axis: the
+    offsets where x holds out's first element, then the whole window."""
+    lead = x.ndim - len(shape)
+    head = x[(0,) * lead]
+    room = tuple(slice(0, d - s + 1) for d, s in zip(head.shape, shape))
+    for off in np.argwhere(head[room] == out[(0,) * out.ndim]):
+        sl = tuple([slice(None)] * lead
+                   + [slice(o, o + s) for o, s in zip(off, shape)])
+        if np.array_equal(out, x[sl]):
+            return True, [int(o) for o in off]
+    return False, None
+
+
+def _sample_check(out, logits, labels, num):
+    """SampledLogits = the gather at Samples less log(num / C), column 0
+    the label, every draw in range."""
+    got, samples, slabels = out
+    logq = np.float32(np.log(num / float(logits.shape[1])))
+    want = np.take_along_axis(logits, samples.astype(np.int64), 1) - logq
+    return bool(np.array_equal(samples[:, 0], labels[:, 0])
+                and (samples >= 0).all() and (samples < logits.shape[1]).all()
+                and not slabels.any()
+                and np.abs(got - want).max() <= 1e-6 * max(
+                    1.0, float(np.abs(want).max()))), {
+        "draw_mean": float(samples[:, 1:].mean()),
+        "draw_mean_expected": (logits.shape[1] - 1) / 2.0}
+
+
+# name -> (published size, inputs(rng), differentiated inputs,
+# build(fluid, v) -> outputs, None or a check of the card's draws)
+MISC_NN_CASES = {
+    # ---- nn_ops
+    "group_norm": (
+        "ResNet-50 stage 1 [32, 256, 56, 56], 32 groups (Wu & He 2018)",
+        lambda r: {"x": _f32(r, 32, 256, 56, 56), "s": _f32(r, 256),
+                   "b": _f32(r, 256)}, ["x", "s", "b"],
+        lambda fl, v: _raw_op(fl, "group_norm", {"X": v["x"], "Scale": v["s"],
+                                                 "Bias": v["b"]},
+                              {"Y": "float32"}, {"groups": 32}), None),
+    "lrn": ("AlexNet conv1 [128, 96, 55, 55], n 5",
+            lambda r: {"x": _f32(r, 128, 96, 55, 55)}, ["x"],
+            lambda fl, v: [fl.layers.lrn(v["x"], n=5, k=2.0, alpha=1e-4,
+                                         beta=0.75)], None),
+    "conv3d": ("C3D conv1a [8, 3, 16, 112, 112] -> 64, 3x3x3",
+               lambda r: {"x": _f32(r, 8, 3, 16, 112, 112),
+                          "w": _f32(r, 64, 3, 3, 3, 3) * 0.1}, [],
+               lambda fl, v: [_one(fl, "conv3d", {"Input": v["x"],
+                                                  "Filter": v["w"]},
+                                   "Output", {"paddings": [1, 1, 1]})], None),
+    "pool3d": ("C3D pool1 over [8, 64, 16, 112, 112], 1x2x2",
+               lambda r: {"x": _f32(r, 8, 64, 16, 112, 112)}, [],
+               lambda fl, v: [_one(fl, "pool3d", {"X": v["x"]}, "Out", {
+                   "pooling_type": "max", "ksize": [1, 2, 2],
+                   "strides": [1, 2, 2]})], None),
+    "pool3d_avg": ("C3D pool2 over [8, 128, 16, 56, 56], 2x2x2 avg",
+                   lambda r: {"x": _f32(r, 8, 128, 16, 56, 56)}, ["x"],
+                   lambda fl, v: [_one(fl, "pool3d", {"X": v["x"]}, "Out", {
+                       "pooling_type": "avg", "ksize": [2, 2, 2],
+                       "strides": [2, 2, 2]})], None),
+    "conv2d_transpose": (
+        "DCGAN G layer 2 at batch 32: [32, 1024, 4, 4] -> 512, 4x4 s2",
+        lambda r: {"x": _f32(r, 32, 1024, 4, 4),
+                   "w": _f32(r, 1024, 512, 4, 4) * 0.02}, ["x", "w"],
+        lambda fl, v: [_one(fl, "conv2d_transpose", {
+            "Input": v["x"], "Filter": v["w"]}, "Output", {
+            "strides": [2, 2], "paddings": [1, 1]})], None),
+    "depthwise_conv2d": (
+        "MobileNet-v1 block 4 [32, 256, 28, 28], 3x3",
+        lambda r: {"x": _f32(r, 32, 256, 28, 28),
+                   "w": _f32(r, 256, 1, 3, 3) * 0.3}, ["x", "w"],
+        lambda fl, v: [_one(fl, "depthwise_conv2d", {
+            "Input": v["x"], "Filter": v["w"]}, "Output",
+            {"paddings": [1, 1]})], None),
+    "depthwise_conv2d_transpose": (
+        "[32, 256, 14, 14] -> 28 x 28, 4x4 s2 p1 a channel",
+        lambda r: {"x": _f32(r, 32, 256, 14, 14),
+                   "w": _f32(r, 256, 1, 4, 4) * 0.3}, ["x", "w"],
+        lambda fl, v: [_one(fl, "depthwise_conv2d_transpose", {
+            "Input": v["x"], "Filter": v["w"]}, "Output", {
+            "strides": [2, 2], "paddings": [1, 1]})], None),
+    "conv3d_transpose": (
+        "V-Net up-conv [4, 64, 16, 32, 32] -> 32, 2x2x2 s2",
+        lambda r: {"x": _f32(r, 4, 64, 16, 32, 32),
+                   "w": _f32(r, 64, 32, 2, 2, 2) * 0.1}, ["x", "w"],
+        lambda fl, v: [_one(fl, "conv3d_transpose", {
+            "Input": v["x"], "Filter": v["w"]}, "Output",
+            {"strides": [2, 2, 2]})], None),
+    "bilinear_interp_up": (
+        "DeepLab-v3+ decoder 4x of [16, 256, 64, 64], corners aligned",
+        lambda r: {"x": _f32(r, 16, 256, 64, 64)}, [],
+        lambda fl, v: [fl.layers.resize_bilinear(v["x"], [256, 256])], None),
+    "bilinear_interp_down": (
+        "a 2x shrink of [16, 256, 128, 128] (anti-aliased)",
+        lambda r: {"x": _f32(r, 16, 256, 128, 128)}, ["x"],
+        lambda fl, v: [fl.layers.resize_bilinear(
+            v["x"], [64, 64], align_corners=False)], None),
+    "nearest_interp": ("FPN top-down 2x of [16, 256, 50, 50]",
+                       lambda r: {"x": _f32(r, 16, 256, 50, 50)}, ["x"],
+                       lambda fl, v: [fl.layers.resize_nearest(
+                           v["x"], [100, 100])], None),
+    "im2sequence": ("OCR attention features [64, 128, 6, 48], 6x1",
+                    lambda r: {"x": _f32(r, 64, 128, 6, 48)}, ["x"],
+                    lambda fl, v: [fl.layers.im2sequence(v["x"], [6, 1])],
+                    None),
+    "grid_sampler": (
+        "STN [32, 3, 224, 224] on a [32, 224, 224, 2] grid",
+        lambda r: {"x": _f32(r, 32, 3, 224, 224),
+                   "g": r.uniform(-1.1, 1.1, (32, 224, 224, 2)).astype(
+                       "f4")}, ["x", "g"],
+        lambda fl, v: [fl.layers.grid_sampler(v["x"], v["g"])], None),
+    "pixel_shuffle": ("ESPCN x4 [16, 48, 128, 128]",
+                      lambda r: {"x": _f32(r, 16, 48, 128, 128)}, ["x"],
+                      lambda fl, v: [fl.layers.pixel_shuffle(v["x"], 4)],
+                      None),
+    "adaptive_pool2d": ("[32, 512, 14, 14] to 7 x 7",
+                        lambda r: {"x": _f32(r, 32, 512, 14, 14)}, ["x"],
+                        lambda fl, v: [fl.layers.adaptive_pool2d(
+                            v["x"], 7, pool_type="avg")], None),
+    # ---- misc_ops: losses and metrics
+    "losses": (
+        "RankNet / CTR pairs [4096, 1], [1024, 512] distances",
+        lambda r: {"a": _f32(r, 4096, 1), "b": _f32(r, 4096, 1),
+                   "y": _ints(r, 0, 2, 4096, 1).astype("f4"),
+                   "t": r.uniform(-0.5, 1.5, (4096, 1)).astype("f4"),
+                   "m": _f32(r, 1024, 512), "n": _f32(r, 1024, 512)},
+        ["a", "b", "m", "n"],
+        lambda fl, v: [
+            fl.layers.rank_loss(v["y"], v["a"], v["b"]),
+            fl.layers.modified_huber_loss(v["a"], v["y"]),
+            fl.layers.teacher_student_sigmoid_loss(v["a"], v["t"]),
+            fl.layers.squared_l2_distance(v["m"], v["n"]),
+            _one(fl, "l1_norm", {"X": v["m"]})], None),
+    "mean_iou": ("DeepLab VOC eval, 16 x 512 x 512 pixels, 21 classes",
+                 lambda r: {"p": _ints(r, 0, 21, 16 * 512 * 512),
+                            "l": _ints(r, 0, 21, 16 * 512 * 512)}, [],
+                 lambda fl, v: list(fl.layers.mean_iou(v["p"], v["l"], 21)),
+                 None),
+    "edit_distance": (
+        "CTC OCR hypotheses [256, 32] against labels [256, 24]",
+        lambda r: {"h": _ints(r, 0, 8, 256, 32), "r": _ints(r, 0, 8, 256, 24),
+                   "hl": _ints(r, 0, 33, 256), "rl": _ints(r, 1, 25, 256)},
+        [], lambda fl, v: list(fl.layers.edit_distance(
+            v["h"], v["r"], normalized=True, input_length=v["hl"],
+            label_length=v["rl"])), None),
+    "chunk_eval": ("CoNLL-style tags [128, 64], 9 types, IOB",
+                   lambda r: {"i": _ints(r, 0, 19, 128, 64),
+                              "l": _ints(r, 0, 19, 128, 64),
+                              "n": _ints(r, 1, 65, 128)}, [],
+                   lambda fl, v: list(fl.layers.chunk_eval(
+                       v["i"], v["l"], "IOB", 9, v["n"])), None),
+    "positive_negative_pair": (
+        "LTR: 2048 documents in 64 queries",
+        lambda r: {"s": np.round(_f32(r, 2048) * 4) / 4,
+                   "l": _ints(r, 0, 5, 2048).astype("f4"),
+                   "q": _ints(r, 0, 64, 2048)}, [],
+        lambda fl, v: _raw_op(fl, "positive_negative_pair", {
+            "Score": v["s"], "Label": v["l"], "QueryID": v["q"]},
+            {"PositivePair": "float32", "NegativePair": "float32",
+             "NeutralPair": "float32"}), None),
+    # ---- image and tensor ops
+    "affine_channel": ("Detectron frozen BN, [32, 256, 56, 56]",
+                       lambda r: {"x": _f32(r, 32, 256, 56, 56),
+                                  "s": _f32(r, 256), "b": _f32(r, 256)},
+                       ["x", "s", "b"],
+                       lambda fl, v: [fl.layers.affine_channel(
+                           v["x"], v["s"], v["b"])], None),
+    "affine_grid": ("STN theta [32, 2, 3] -> 224 x 224",
+                    lambda r: {"t": _f32(r, 32, 2, 3)}, ["t"],
+                    lambda fl, v: [fl.layers.affine_grid(
+                        v["t"], [32, 3, 224, 224])], None),
+    "space_to_depth": ("YOLOv2 passthrough [32, 64, 26, 26], block 2",
+                       lambda r: {"x": _f32(r, 32, 64, 26, 26)}, ["x"],
+                       lambda fl, v: [fl.layers.space_to_depth(v["x"], 2)],
+                       None),
+    "shuffle_channel": ("ShuffleNet stage 2 [32, 240, 28, 28], 3 groups",
+                        lambda r: {"x": _f32(r, 32, 240, 28, 28)}, ["x"],
+                        lambda fl, v: [fl.layers.shuffle_channel(v["x"], 3)],
+                        None),
+    "crop": ("[32, 3, 256, 256] to 224", lambda r: {
+        "x": _f32(r, 32, 3, 256, 256)}, ["x"],
+        lambda fl, v: [fl.layers.crop(v["x"], [32, 3, 224, 224],
+                                      [0, 0, 16, 16])], None),
+    "pad_constant_like": (
+        "[32, 64, 56, 56] padded to 57 x 57",
+        lambda r: {"x": _f32(r, 32, 64, 57, 57), "y": _f32(r, 32, 64, 56,
+                                                           56)}, ["y"],
+        lambda fl, v: [fl.layers.pad_constant_like(v["x"], v["y"], 0.5)],
+        None),
+    "pool_with_index_unpool": (
+        "SegNet encoder and decoder [16, 64, 224, 224], 2x2",
+        lambda r: {"x": _f32(r, 16, 64, 224, 224)}, [], _pool_unpool, None),
+    "max_pool3d_with_index": (
+        "[8, 64, 16, 56, 56], 2x2x2",
+        lambda r: {"x": _f32(r, 8, 64, 16, 56, 56)}, [],
+        lambda fl, v: _raw_op(fl, "max_pool3d_with_index", {"X": v["x"]},
+                              {"Out": "float32", "Mask": "int32"},
+                              {"ksize": [2, 2, 2], "strides": [2, 2, 2]}),
+        None),
+    "spp": ("SPP-net ZF-5 conv5 [32, 256, 13, 13], 3 levels",
+            lambda r: {"x": _f32(r, 32, 256, 13, 13)}, ["x"],
+            lambda fl, v: [fl.layers.spp(v["x"], 3)], None),
+    "similarity_focus": ("[32, 64, 28, 28], 3 channels",
+                         lambda r: {"x": _f32(r, 32, 64, 28, 28)}, [],
+                         lambda fl, v: [fl.layers.similarity_focus(
+                             v["x"], 1, [0, 5, 9])], None),
+    "spectral_norm": (
+        "SN-GAN D weight [512, 256, 4, 4]",
+        lambda r: {"w": _f32(r, 512, 256, 4, 4) * 0.02, "u": _f32(r, 512),
+                   "v": _f32(r, 4096)}, ["w"],
+        lambda fl, v: [_one(fl, "spectral_norm", {
+            "Weight": v["w"], "U": v["u"], "V": v["v"]},
+            attrs={"power_iters": 1})], None),
+    "random_crop": (
+        "ImageNet crop [128, 3, 256, 256] to 224",
+        lambda r: {"x": _f32(r, 128, 3, 256, 256)}, [],
+        lambda fl, v: [fl.layers.random_crop(v["x"], [3, 224, 224])],
+        lambda out, inp: _crop_check(out[0], inp["x"], [3, 224, 224])),
+    "multiplex": ("4 candidates [1024, 512]", lambda r: {
+        "a": _f32(r, 1024, 512), "b": _f32(r, 1024, 512),
+        "c": _f32(r, 1024, 512), "d": _f32(r, 1024, 512),
+        "i": _ints(r, 0, 4, 1024, 1)}, ["a", "b", "c", "d"],
+        lambda fl, v: [fl.layers.multiplex(
+            [v["a"], v["b"], v["c"], v["d"]], v["i"])], None),
+    "tensor_misc": (
+        "SNN selu [1024, 4096], minus, is_empty",
+        lambda r: {"x": _f32(r, 1024, 4096), "y": _f32(r, 1024, 4096)},
+        ["x", "y"],
+        lambda fl, v: [fl.layers.selu(v["x"]),
+                       _one(fl, "minus", {"X": v["x"], "Y": v["y"]}),
+                       _one(fl, "is_empty", {"X": v["x"]}, dtype="bool")],
+        None),
+    "bilinear_tensor_product": (
+        "[256, 128] x [64, 128, 128] x [256, 128]",
+        lambda r: {"x": _f32(r, 256, 128), "y": _f32(r, 256, 128),
+                   "w": _f32(r, 64, 128, 128) * 0.1, "b": _f32(r, 64)},
+        ["x", "y", "w", "b"],
+        lambda fl, v: [_one(fl, "bilinear_tensor_product", {
+            "X": v["x"], "Y": v["y"], "Weight": v["w"], "Bias": v["b"]})],
+        None),
+    "add_position_encoding": (
+        "Transformer-base [64, 256, 512]",
+        lambda r: {"x": _f32(r, 64, 256, 512)}, ["x"],
+        lambda fl, v: [fl.layers.add_position_encoding(v["x"], 0.5, 1.0)],
+        None),
+    "conv_shift": ("NTM shift [256, 128] by [256, 3]",
+                   lambda r: {"x": _f32(r, 256, 128), "y": _f32(r, 256, 3)},
+                   ["x", "y"],
+                   lambda fl, v: [_one(fl, "conv_shift", {
+                       "X": v["x"], "Y": v["y"]})], None),
+    "hash": ("[4096, 1] ids, 4 hashes", lambda r: {
+        "x": r.integers(0, 2 ** 31 - 1, (4096, 1)).astype("int32")}, [],
+        lambda fl, v: [fl.layers.hash(v["x"], 1000003, num_hash=4)], None),
+    "data_norm": (
+        "CTR dense features [4096, 256]",
+        lambda r: {"x": _f32(r, 4096, 256),
+                   "n": np.full(256, 1e4, "f4"), "s": _f32(r, 256) * 100,
+                   "q": np.abs(_f32(r, 256)) * 1e4 + 1e4}, ["x"],
+        lambda fl, v: _raw_op(fl, "data_norm", {
+            "X": v["x"], "BatchSize": v["n"], "BatchSum": v["s"],
+            "BatchSquareSum": v["q"]},
+            {"Y": "float32", "Means": "float32", "Scales": "float32",
+             "BatchSizeOut": "float32", "BatchSumOut": "float32",
+             "BatchSquareSumOut": "float32"}), None),
+    # ---- sequences
+    "sequence_ops": (
+        "[256, 512] rows to 64 steps; [256, 64, 512] reshaped; "
+        "[256, 1024] scattered at [256, 64] ids",
+        lambda r: {"x": _f32(r, 256, 512), "n": _ints(r, 0, 65, 256),
+                   "s": _f32(r, 256, 64, 512), "t": _f32(r, 256, 1024),
+                   "i": _ints(r, 0, 1024, 256, 64), "u": _f32(r, 256, 64)},
+        ["x", "s", "t", "u"],
+        lambda fl, v: [fl.layers.sequence_expand_as(v["x"], v["n"], 64),
+                       fl.layers.sequence_reshape(v["s"], 1024),
+                       fl.layers.sequence_scatter(v["t"], v["i"], v["u"])],
+        None),
+    # ---- updates and sampling
+    "proximal": (
+        "[1024, 1024] parameters",
+        lambda r: {"p": _f32(r, 1024, 1024), "g": _f32(r, 1024, 1024),
+                   "m": np.abs(_f32(r, 1024, 1024)),
+                   "lr": np.array([0.05], "f4")}, [],
+        lambda fl, v: [
+            _one(fl, "proximal_gd", {"Param": v["p"], "Grad": v["g"],
+                                     "LearningRate": v["lr"]}, "ParamOut",
+                 {"l1": 0.1, "l2": 0.01})] + _raw_op(
+            fl, "proximal_adagrad", {"Param": v["p"], "Grad": v["g"],
+                                     "Moment": v["m"],
+                                     "LearningRate": v["lr"]},
+            {"ParamOut": "float32", "MomentOut": "float32"},
+            {"l1": 0.1, "l2": 0.01}), None),
+    "sample_logits": (
+        "BERT's vocabulary: [1024, 30522], 4096 samples",
+        lambda r: {"x": _f32(r, 1024, 30522),
+                   "y": _ints(r, 0, 30522, 1024, 1)}, [],
+        lambda fl, v: _raw_op(fl, "sample_logits", {
+            "Logits": v["x"], "Labels": v["y"]},
+            {"SampledLogits": "float32", "Samples": "int32",
+             "SampledLabels": "int32"}, {"num_samples": 4096}),
+        lambda out, inp: _sample_check(out, inp["x"], inp["y"], 4096)),
+    # ---- recurrent and CTC
+    "lstm_unit": ("[256, 4 x 512]", lambda r: {
+        "x": _f32(r, 256, 2048), "c": _f32(r, 256, 512)}, ["x", "c"],
+        lambda fl, v: _raw_op(fl, "lstm_unit", {"X": v["x"],
+                                                "C_prev": v["c"]},
+                              {"C": "float32", "H": "float32"},
+                              {"forget_bias": 1.0}), None),
+    "ctc_align": ("CRNN greedy ids [256, 128], blank 0",
+                  lambda r: {"x": _ctc_ids(r, 256, 128, 37),
+                             "n": _ints(r, 1, 129, 256)}, [],
+                  lambda fl, v: _raw_op(fl, "ctc_align", {
+                      "Input": v["x"], "InputLength": v["n"]},
+                      {"Output": "int32", "OutputLength": "int32"},
+                      {"blank": 0}), None),
+}
+
+
+def phase_misc_nn_ops_check(torch, smi_line):
+    """Each op type of ``misc_ops`` and ``nn_ops`` that the port gained
+    last (``MISC_NN_CASES``: 52 types, each at the size of a public model
+    that runs it) on the card against the port on the CPU on the same
+    seeded inputs, under ``_op_cases_check``: every integer and boolean
+    output (hash ids, pooling indices, ``ctc_align``, ``edit_distance``,
+    ``chunk_eval``'s counts) equal. The random ops (``random_crop``,
+    ``sample_logits``) draw from each side's own generator: each side's
+    output is held to its own draw (the crop a window of x, the logits
+    the gather at Samples less log q). Returns the path's counts (no port
+    kernel launches)."""
+    from paddle_tpu_torch.core.op_registry import OP_IMPLS
+
+    _, seen, counts = _op_cases_check(torch, smi_line, "misc_nn_ops_check", (
+        (name, size, make(np.random.default_rng(SEED + 22 + i)), floats,
+         build, own)
+        for i, (name, (size, make, floats, build, own)) in enumerate(
+            MISC_NN_CASES.items())))
+    types = {n for n, f in OP_IMPLS.items()
+             if f.__module__.endswith(".misc_ops")} - {"psroi_pool",
+                                                        "detection_map"}
+    types |= {"depthwise_conv2d", "conv3d", "conv2d_transpose", "pool3d",
+              "conv3d_transpose", "depthwise_conv2d_transpose",
+              "group_norm", "lrn", "bilinear_interp", "nearest_interp",
+              "im2sequence", "grid_sampler", "pixel_shuffle"}
+    check(len(types) == 52 and types <= seen,
+          "misc and nn ops not run: %s" % sorted(types - seen))
+    return counts
+
+
+# scaled_dot_product_attention at Transformer-base widths: batch 64, 256
+# steps, 8 heads of 64; f32, forward and backward
+SDPA = dict(batch=64, seq=256, heads=8, d_model=512)
+SDPA_PER_STEP = per_run(flash_attention_fwd=1, flash_attention_bwd=1)
+
+
+def phase_sdpa_check(torch, smi_line):
+    """The ``scaled_dot_product_attention`` layer (one ``flash_attention``
+    op) at SDPA's widths with the gradients of sum(out * c) w.r.t. q, k
+    and v: on the card one step launches the flash forward and backward
+    kernels once each (counted, and seen by kind in a profiled step), and
+    its output and gradients are held against the port on the CPU (the
+    kernels' plain version): output within OP_OUT_TOL of max(1, max
+    |CPU|), gradients within OP_GRAD_TOL relative L2. Returns the
+    launches."""
+    import paddle_tpu_torch as fluid
+
+    b, t, d = SDPA["batch"], SDPA["seq"], SDPA["d_model"]
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        fluid.unique_name.switch()
+        q, k, v = (L.data(n, shape=[b, t, d], append_batch_size=False,
+                          stop_gradient=False) for n in "qkv")
+        c = L.data("c", shape=[b, t, d], append_batch_size=False)
+        out = L.scaled_dot_product_attention(q, k, v,
+                                             num_heads=SDPA["heads"])
+        grads = fluid.gradients(L.reduce_sum(L.elementwise_mul(out, c)),
+                                [q, k, v])
+    rng = np.random.default_rng(SEED + 23)
+    feed = {n: _f32(rng, b, t, d) for n in "qkvc"}
+    fetch = [out] + grads
+    exe, scope = fluid.Executor(), fluid.Scope()
+    reset_counts()
+    card = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    launches = read_counts()
+    check(launches == SDPA_PER_STEP, "sdpa step launched %s" % launches)
+    kinds = {}
+    device_ms, n_kernels, wall, _ = _profile_steps(
+        torch, lambda: exe.run(main, feed=feed, fetch_list=fetch,
+                               scope=scope), 1, counts=kinds)
+    exe.close()
+    choice = next(op for op in main.global_block().ops
+                  if op.type == "flash_attention").attr("_kernel_choice")
+    cpu = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
+                                               fetch_list=fetch,
+                                               scope=fluid.Scope())
+    cmp = _det_compare(card, cpu, 1)
+    ok = (cmp["max_err_over_magnitude"] <= OP_OUT_TOL
+          and cmp["grad_rel_l2"] <= OP_GRAD_TOL
+          and kinds.get("flash_attention_fwd") == 1
+          and kinds.get("flash_attention_bwd") == 1)
+    emit(dict({"phase": "sdpa_check", "shape": SDPA, "launches": launches,
+               "profiled_kernels_by_kind": kinds,
+               "device_ms_by_kind": device_ms, "kernels": n_kernels,
+               "profiled_wall_ms": wall, "kernel_choice": choice,
+               "tol": "out %g of max(1, max|CPU|), q/k/v gradients %g rel "
+                      "L2" % (OP_OUT_TOL, OP_GRAD_TOL),
+               "ok": ok, "device": smi_line}, **cmp))
+    check(ok, "sdpa_check: %s" % cmp)
+    return launches
+
+
+def _debug_program(fluid, with_print=True, with_py_func=True):
+    """x [8, 16] (multiples of 1/8) -> x * w (w a [16] parameter, 1 at
+    start) -> Print(both phases) -> py_func(a -> a^2, backward 2 a dout)
+    -> mean, SGD(0.5): every printed value and the first step's loss and
+    gradient are exact in f32 on both sides."""
+    from paddle_tpu_torch.core.layer_helper import LayerHelper
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        fluid.unique_name.switch()
+        x = L.data("x", shape=[16])
+        w = LayerHelper("dbg").create_parameter(
+            fluid.ParamAttr(name="dbg_w",
+                            initializer=fluid.initializer.Constant(1.0)),
+            shape=[16], dtype="float32")
+        h = L.elementwise_mul(x, w, axis=1)
+        if with_print:
+            h = L.Print(h, message="dbg:", summarize=6)
+        if with_py_func:
+            sq = main.global_block().create_var(name="dbg_sq",
+                                                shape=(-1, 16),
+                                                dtype="float32")
+            L.py_func(func=lambda a: a * a, x=h, out=sq,
+                      backward_func=lambda a, o, do: 2.0 * a * do)
+            h = sq
+        loss = L.mean(h)
+        fluid.optimizer.SGD(0.5).minimize(loss)
+    return main, startup, loss, x
+
+
+def phase_debug_ops_check(torch, smi_line):
+    """``Print`` and ``py_func`` in a small training program
+    (``_debug_program``) on the card and with the port on the CPU, three
+    SGD steps: the printed lines (each step's forward value and gradient,
+    ``bwd-grad``: exact in f32 on both sides, the squares taken in numpy
+    on the host), the first step's loss and w's gradient and the w it
+    leaves are equal; the card
+    interprets all three runs (``step_report``: not captured, the reason
+    naming ``print``), and a program with only ``py_func`` likewise names
+    ``py_func``."""
+    import contextlib as cl
+    import io
+
+    import paddle_tpu_torch as fluid
+
+    feed = {"x": (np.arange(128, dtype="f4").reshape(8, 16) - 64) / 8}
+    sides = {}
+    reset_counts()
+    for side, place in (("gpu", None), ("cpu", fluid.CPUPlace())):
+        main, startup, loss, x = _debug_program(fluid)
+        gb = main.global_block()
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            out = exe.run(main, feed=feed, fetch_list=[
+                loss, gb.var("dbg_w@GRAD")], scope=scope)
+            w = scope.numpy("dbg_w")
+            for _ in range(2):
+                exe.run(main, feed=feed, fetch_list=[
+                    loss, gb.var("dbg_w@GRAD")], scope=scope)
+        report = exe.step_report(main) if side == "gpu" else None
+        exe.close()
+        sides[side] = (buf.getvalue(), out, w, report)
+    text, out, w, report = sides["gpu"]
+    ctext, cout, cw, _ = sides["cpu"]
+    main, startup, loss, _ = _debug_program(fluid, with_print=False)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    py_report = exe.step_report(main)
+    exe.close()
+    counts = read_counts()
+    lines = text.strip().split("\n")
+    ok = (text == ctext and len(lines) == 6
+          and all(" fwd " in ln for ln in lines[::2])
+          and all(" bwd-grad " in ln for ln in lines[1::2])
+          and all(np.array_equal(a, b) for a, b in zip(out, cout))
+          and np.array_equal(w, cw)
+          and not report["captured"] and report["captures"] == 0
+          and report["interpreted"] == 3
+          and report["reason"].startswith("op 'print'")
+          and not py_report["captured"] and py_report["captures"] == 0
+          and py_report["reason"].startswith("op 'py_func'"))
+    emit({"phase": "debug_ops_check", "printed": lines,
+          "printed_equal": text == ctext, "loss": float(out[0]),
+          "w_grad_equal": bool(np.array_equal(out[1], cout[1])),
+          "w_after_equal": bool(np.array_equal(w, cw)),
+          "step_report": report, "py_func_step_report": py_report,
+          "launches": counts, "ok": ok, "device": smi_line})
+    check(ok, "debug_ops_check: card %r cpu %r report %s / %s"
+          % (text, ctext, report, py_report))
+    check(counts == per_run(), "debug_ops launched %s" % counts)
+    return counts
+
+
+def _dcgan_built(fluid, **kw):
+    fluid.unique_name.switch()
+    return build_dcgan(fluid, **dict(DCGAN, **kw))
+
+
+def _rounding_verdict(names, params, runs, pert):
+    """One DCGAN step, card against CPU, each quantity held to the larger
+    of its bound and 5x the CPU step's own rounding sensitivity (its
+    distance from ``pert``, the same CPU step on the input scaled by
+    1 + 2^-20), as ``resnet_train_check`` holds ResNet-50
+    (``_over_sensitivity``): the loss (1e-4 relative), each gradient (1e-2
+    relative L2), each Adam update (1e-2 relative L2) and each parameter
+    without a gradient, BN's moving statistics (1e-4 of max(1, max
+    |CPU|)). Adam's first step moves an element by lr g / (|g| + eps /
+    sqrt(1 - beta2)), about lr sign(g), so an element whose CPU gradient
+    lies within the largest gradient difference of 0 (card's or scaled
+    input's from the CPU, whichever is larger) may take any update of
+    either sign: the updates and their sensitivity are compared over the
+    other elements, and a flipped update only there is allowed."""
+    (gpu, gpu_after), (cpu, cpu_after) = runs["gpu"], runs["cpu"]
+    pert_out, pert_after = pert
+
+    def rel(a):
+        return abs(float(a[0]) - float(cpu[0])) / abs(float(cpu[0]))
+
+    loss = {"loss": (rel(gpu), rel(pert_out))}
+    grads, updates, rows, unexplained = {}, {}, {}, {}
+    for i, p in enumerate(names):
+        gg, gc, gp = (np.asarray(o[1 + i]) for o in (gpu, cpu, pert_out))
+        live = np.abs(gc) > max(float(np.abs(g.astype("f8") - gc).max())
+                                for g in (gg, gp))
+        du, dc, dp = (after[p] - params[p]
+                      for after in (gpu_after, cpu_after, pert_after))
+        flip = np.sign(du) != np.sign(dc)
+        if np.count_nonzero(flip & live):
+            unexplained[p] = int(np.count_nonzero(flip & live))
+        grads[p] = (_rel_l2(gg, gc), _rel_l2(gp, gc))
+        updates[p] = (_rel_l2(du[live], dc[live]), _rel_l2(dp[live], dc[live]))
+        rows[p] = {"grad": grads[p][0], "grad_sensitivity": grads[p][1],
+                   "update": updates[p][0],
+                   "update_sensitivity": updates[p][1],
+                   "elements": int(du.size),
+                   "beyond_grad_noise": int(live.sum()),
+                   "flips": int(flip.sum())}
+    stats = {p: (_elem_err(gpu_after[p], cpu_after[p]),
+                 _elem_err(pert_after[p], cpu_after[p]))
+             for p in sorted(set(params) - set(names))}
+    bad = (_over_sensitivity(loss, 1e-4) + _over_sensitivity(grads, 1e-2)
+           + ["update " + p for p in _over_sensitivity(updates, 1e-2)]
+           + _over_sensitivity(stats, 1e-4))
+    worst = max(rows, key=lambda p: rows[p]["grad"])
+    worst_u = max(rows, key=lambda p: rows[p]["update"])
+    worst_s = max(stats, key=lambda p: stats[p][0])
+    finite = np.isfinite(float(gpu[0])) and all(
+        np.isfinite(np.asarray(g)).all() for g in gpu[1:len(names) + 1])
+    return {"loss_gpu": float(gpu[0]), "loss_cpu": float(cpu[0]),
+            "loss_rel_err": loss["loss"][0],
+            "loss_rel_sensitivity": loss["loss"][1],
+            "grads_compared": len(names), "worst_grad_param": worst,
+            "worst_grad": rows[worst], "worst_update_param": worst_u,
+            "worst_update": rows[worst_u], "per_param": rows,
+            "no_grad_compared": len(stats), "worst_no_grad_param": worst_s,
+            "worst_no_grad": stats[worst_s],
+            "update_flips_beyond_grad_noise": unexplained,
+            "over_tolerance": bad, "finite": bool(finite),
+            "ok": bool(finite and not bad and not unexplained)}
+
+
+def phase_dcgan_train_check(torch, smi_line, batch=4):
+    """One D step and one G step of full-width DCGAN (``build_dcgan`` at
+    DCGAN's widths) at batch 4 on the card and with the port on the CPU
+    from one initial state (f32, TF32 off), and each CPU step again on its
+    input scaled by 1 + 2^-20: the fake images of the G program within
+    OP_OUT_TOL of max(1, max |CPU|); each step on the card three times
+    with cuDNN's default algorithms (those ``dcgan_train`` runs) and twice
+    with ``torch.backends.cudnn.deterministic``, every run under
+    ``_rounding_verdict`` against the one CPU step. The G step's gradients
+    are sensitive to rounding (the scaled input moves them by about 1e-3
+    relative L2 on the CPU), and the default algorithms are not
+    reproducible (some accumulate with atomics), so the default runs
+    differ from each other; the deterministic runs do not. The line gives
+    each run's worst distances and the largest gradient distance between
+    two card runs of each kind. No port kernel launches
+    (DCGAN_PER_STEP)."""
+    import paddle_tpu_torch as fluid
+    import types
+
+    net = _dcgan_built(fluid)
+    z, real = dcgan_feed(net, batch)
+    fake = {}
+    reset_counts()
+    for side, place in (("gpu", None), ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(net.startup, scope=scope)
+        if side == "gpu":
+            init = _mt_params(scope, net.dg)
+        else:
+            fluid.bridge.load_program_params(scope, init, net.dg, "cpu")
+        fake[side], = exe.run(net.g, feed={"z": z}, fetch_list=[net.fake],
+                              scope=scope)
+        exe.close()
+    g_err = float(np.abs(fake["gpu"] - fake["cpu"]).max())
+    scale = np.float32(1.0 + 2.0 ** -20)
+    verdicts = {}
+    for step, prog, loss, feed in (
+            ("d", net.d, net.d_loss, {"real": real, "fake": fake["gpu"]}),
+            ("g", net.dg, net.g_loss, {"z": z})):
+        names, params, runs, secs = _card_cpu_step(
+            fluid, prog, net.startup, types.SimpleNamespace(loss=loss),
+            feed, DCGAN_PER_STEP, "dcgan_train_check %s" % step)
+        gb = prog.global_block()
+        fetch = [loss] + [gb.var(n + "@GRAD") for n in names]
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(net.startup, scope=scope)
+        fluid.bridge.load_program_params(scope, params, prog, "cpu")
+        pert = (exe.run(prog, feed={k: (v * scale).astype("f4")
+                                    for k, v in feed.items()},
+                        fetch_list=fetch, scope=scope),
+                _mt_params(scope, prog))
+        exe.close()
+
+        def card_run():
+            sc = fluid.Scope()
+            ex = fluid.Executor()
+            ex.run(net.startup, scope=sc)
+            check(all(np.array_equal(sc.numpy(n), params[n])
+                      for n in params),
+                  "dcgan_train_check: the card's initial state changed")
+            out = ex.run(prog, feed=feed, fetch_list=fetch, scope=sc)
+            after = _mt_params(sc, prog)
+            ex.close()
+            return out, after
+
+        card = {"default": [runs["gpu"], card_run(), card_run()]}
+        torch.backends.cudnn.deterministic = True
+        try:
+            card["cudnn_deterministic"] = [card_run(), card_run()]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        each = {mode: [_rounding_verdict(names, params, {
+            "gpu": r, "cpu": runs["cpu"]}, pert) for r in rs]
+            for mode, rs in card.items()}
+        verdicts[step] = dict(
+            each["default"][0], cpu_step_s=secs["cpu"],
+            gpu_step_s=secs["gpu"],
+            runs={mode: [{"ok": v["ok"], "loss_rel_err": v["loss_rel_err"],
+                          "grad_param": v["worst_grad_param"],
+                          "grad_rel_l2": v["worst_grad"]["grad"],
+                          "update_param": v["worst_update_param"],
+                          "update_rel_l2": v["worst_update"]["update"],
+                          "over_tolerance": v["over_tolerance"]}
+                         for v in vs] for mode, vs in each.items()},
+            card_vs_card_grad_rel_l2={mode: max(
+                _rel_l2(np.asarray(a[0][1 + i]), np.asarray(b[0][1 + i]))
+                for a, b in itertools.combinations(rs, 2)
+                for i in range(len(names))) for mode, rs in card.items()},
+            ok=all(v["ok"] for vs in each.values() for v in vs))
+    launches = read_counts()
+    g_params = int(sum(np.prod(p.shape) for p in net.dg.all_parameters()
+                       if p.name in net.g_params))
+    d_params = int(sum(np.prod(p.shape) for p in net.d.all_parameters()
+                       if p.name in net.d_params))
+    ok = (g_err <= OP_OUT_TOL * max(1.0, float(np.abs(
+        fake["cpu"]).max())) and all(v["ok"] for v in verdicts.values()))
+    emit({"phase": "dcgan_train_check", "batch": batch, "config": DCGAN,
+          "g_parameters": g_params, "d_parameters": d_params,
+          "optimizer": "Adam(%g, beta1 %g)" % (DCGAN_LR, DCGAN_BETA1),
+          "fake_max_abs_err": g_err, "d_step": verdicts["d"],
+          "g_step": verdicts["g"], "launches": launches,
+          "tol": "max(stated, 5 x sensitivity): loss 1e-4 rel, grads and "
+                 "the updates beyond the gradient noise 1e-2 rel L2, moving "
+                 "stats 1e-4 of max(1, max|cpu|); flipped updates only "
+                 "within the gradient noise", "ok": ok,
+          "device": smi_line})
+    check(ok, "dcgan_train_check: fake err %g, %s" % (g_err, verdicts))
+    check(launches == DCGAN_PER_STEP, "dcgan_train_check launched %s"
+          % launches)
+
+
+def phase_dcgan_train(torch, smi_line, warmup=3, steps=10, prof_steps=2):
+    """Full-width DCGAN at batch 128, each iteration G's images (the g
+    program), one D step on them and the seeded real images (d) and one
+    G step through D (dg), all three captured from their key's second run
+    on, over one scope: 3 warm-up and 10 timed iterations on one fixed
+    batch. Prints images/s, ms an iteration and a program, busy share,
+    kernels an iteration by kind, peak memory above the state, each
+    program's ``step_report``, both losses (a GAN's losses need not fall:
+    the two sides train against each other); every loss is finite and
+    every trained parameter moved. Returns (launches, replayed launches):
+    none, none."""
+    import paddle_tpu_torch as fluid
+
+    net = _dcgan_built(fluid)
+    z, real = dcgan_feed(net, DCGAN_BATCH)
+    dev = fluid.CUDAPlace(0).torch_device()
+    z, real = torch.from_numpy(z).to(dev), torch.from_numpy(real).to(dev)
+    t0 = time.perf_counter()
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(net.startup, scope=scope)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = torch.cuda.memory_allocated()
+    setup_s = time.perf_counter() - t0
+    d_losses, g_losses = [], []
+    ms = {"iteration": [], "g": [], "d": [], "dg": []}
+    runs = {"launched": 0, "replayed": 0}
+
+    def iteration(record=True):
+        n = len(d_losses)
+        t_it = time.perf_counter()
+        (fake,), dt_g, rep = counted_step(
+            exe, net.g, DCGAN_PER_STEP, False, "dcgan g %d" % n,
+            feed={"z": z}, fetch_list=[net.fake], scope=scope,
+            return_numpy=False)
+        (dl,), dt_d, rep_d = counted_step(
+            exe, net.d, DCGAN_PER_STEP, False, "dcgan d %d" % n,
+            feed={"real": real, "fake": fake}, fetch_list=[net.d_loss],
+            scope=scope)
+        (gl,), dt_dg, rep_g = counted_step(
+            exe, net.dg, DCGAN_PER_STEP, False, "dcgan dg %d" % n,
+            feed={"z": z}, fetch_list=[net.g_loss], scope=scope)
+        for r in (rep, rep_d, rep_g):
+            runs["replayed" if r else "launched"] += 1
+        d_losses.append(float(dl))
+        g_losses.append(float(gl))
+        if record:
+            ms["iteration"].append((time.perf_counter() - t_it) * 1e3)
+            for k, dt in (("g", dt_g), ("d", dt_d), ("dg", dt_dg)):
+                ms[k].append(dt * 1e3)
+
+    start = {n: scope.numpy(n) for n in net.g_params + net.d_params}
+    reset_counts()
+    call1 = {}
+    _profile_steps(torch, lambda: iteration(False), 1, counts=call1)
+    for i in range(warmup - 1 + steps):
+        iteration(i >= warmup - 1)
+    peak = torch.cuda.max_memory_allocated()
+    replay = {}
+    device_ms, kernels, prof_wall, top_other = _profile_steps(
+        torch, lambda: iteration(False), prof_steps, counts=replay)
+    reports = {k: exe.step_report(getattr(net, k)) for k in ("g", "d", "dg")}
+    launches = read_counts()
+    still = [n for n in start if np.array_equal(start[n], scope.numpy(n))]
+    exe.close()
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    busy = sum(device_ms.values())
+    emit({"phase": "dcgan_train", "batch": DCGAN_BATCH, "config": DCGAN,
+          "precision": "f32",
+          "captured": all(r["captured"] for r in reports.values()),
+          "step_reports": reports, "warmup_iterations": warmup,
+          "iterations": steps, "iteration_ms_median": med["iteration"],
+          "iteration_ms": ms["iteration"],
+          "g_program_ms_median": med["g"], "d_step_ms_median": med["d"],
+          "g_step_ms_median": med["dg"],
+          "images_per_s": DCGAN_BATCH / med["iteration"] * 1e3,
+          "device_ms_per_iteration": device_ms, "device_ms": busy,
+          "device_busy_share": busy / med["iteration"],
+          "kernels_per_iteration": kernels,
+          "kernels_by_kind": {"call1": call1, "replay": replay},
+          "profiled_wall_ms_per_iteration": prof_wall,
+          "top_other_kernels": top_other, "d_losses": d_losses,
+          "g_losses": g_losses, "state_bytes": state,
+          "peak_memory_bytes": peak, "peak_above_state_bytes": peak - state,
+          "launches": launches, "runs_by_kind": runs, "setup_s": setup_s,
+          "device": smi_line})
+    check(all(r["captured"] and r["replays"] >= steps
+              for r in reports.values()), "dcgan not captured: %s" % reports)
+    check(np.isfinite(d_losses + g_losses).all(),
+          "dcgan: non-finite loss: %s %s" % (d_losses, g_losses))
+    check(not still, "dcgan: parameters not trained: %s" % still)
+    check(launches == per_run(), "dcgan launches %s" % launches)
+    return launches, per_run()
+
+
 def main():
+    import faulthandler
+
+    # a crash in native code prints the Python stack of every thread
+    faulthandler.enable()
     try:
         import torch
     except ImportError:
@@ -8032,14 +9145,26 @@ def main():
         phase_rnn_zoo_check(torch, smi_line), per_run()
     srl_scatter, _ = phase_narrow_scatter_check(torch, dev)
     # detection: no port kernel on these paths (their counts stay 0)
-    phase_detection_ops_check(torch, smi_line)
-    paths["detection_ops"], replayed["detection_ops"] = per_run(), per_run()
+    paths["detection_ops"], replayed["detection_ops"] = \
+        phase_detection_ops_check(torch, smi_line), per_run()
     phase_ssd_train_check(torch, smi_line)
     paths["ssd_train"], replayed["ssd_train"], ssd = phase_ssd_train(
         torch, smi_line)
     paths["ssd_eval"], replayed["ssd_eval"] = \
         phase_ssd_eval(torch, smi_line, ssd), per_run()
     del ssd
+    # the rest of A4: misc_ops' and nn_ops' last ops (no port kernel), the
+    # scaled_dot_product_attention layer (the flash kernels, once each),
+    # Print and py_func (interpreted), DCGAN trained (no port kernel)
+    paths["misc_nn_ops"], replayed["misc_nn_ops"] = \
+        phase_misc_nn_ops_check(torch, smi_line), per_run()
+    paths["sdpa"], replayed["sdpa"] = phase_sdpa_check(torch, smi_line), \
+        per_run()
+    paths["debug_ops"], replayed["debug_ops"] = \
+        phase_debug_ops_check(torch, smi_line), per_run()
+    phase_dcgan_train_check(torch, smi_line)
+    paths["dcgan_train"], replayed["dcgan_train"] = phase_dcgan_train(
+        torch, smi_line)
 
     src = {"flash_attention_fwd": ("flash_attention_fwd.cu",
                                    "paddle_tpu/ops/flash_attention.py:1001"),

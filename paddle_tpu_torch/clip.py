@@ -1,18 +1,28 @@
 """Gradient clipping (ref ``python/paddle/fluid/clip.py``; the port's copy
 of ``paddle_tpu/clip.py``): GradientClipByValue/Norm/GlobalNorm,
-set_gradient_clip, append_gradient_clip_ops. A sparse (rows, values) grad
-goes through the same ops on its values, with its rows merged."""
+set_gradient_clip, append_gradient_clip_ops, ErrorClipByValue. A sparse
+(rows, values) grad goes through the same ops on its values, with its rows
+merged."""
 
 from .core.framework import Parameter
 
 __all__ = ["GradientClipByValue", "GradientClipByNorm",
            "GradientClipByGlobalNorm", "set_gradient_clip",
-           "append_gradient_clip_ops"]
+           "append_gradient_clip_ops", "ErrorClipByValue"]
 
 
 class BaseGradientClipAttr:
     def _process(self, params_grads):
         raise NotImplementedError
+
+
+class ErrorClipByValue:
+    """Kept for API parity (ref clip.py ErrorClipByValue); forward-error
+    clipping has no role when the backward is exact autograd."""
+
+    def __init__(self, max, min=None):
+        self.max = max
+        self.min = min if min is not None else -max
 
 
 class GradientClipByValue(BaseGradientClipAttr):

@@ -72,9 +72,13 @@ Mixed precision: a program marked by ``amp.py`` (``_amp_bf16``) runs with
 ``executor.py:567-590``). The casts are ops on the tape, so the backward
 follows the forward's dtypes.
 
-Randomness: the scope holds one ``torch.Generator`` on the executor's
-device under ``@RNG@``, seeded from ``program.random_seed`` on first use
-(0 means a random seed, as in the reference).
+Randomness: the scope holds one ``torch.Generator`` per device, seeded
+from ``program.random_seed`` on the device's first run there (0 means a
+random seed, as in the reference): ``@RNG@`` is the generator of the first
+device that ran in the scope, ``@RNG@<device>`` (``@RNG@cuda:0``) another
+device's (:func:`rng_name`). So a CPU run and a card run may share a scope:
+each draws on its own device, and a captured step registers a generator on
+its graph's device.
 
 Rematerialization (an autodiff op with ``remat``: ``append_backward``'s
 ``checkpoints``, ``memory_optimize``): the forward runs in segments
@@ -305,6 +309,10 @@ _NOT_CAPTURED = {
                     "captured"),
     "cond_block": ("reads its predicate on the host: the branch is not "
                    "known when the step is captured"),
+    "print": ("prints its tensor (and its gradient) from the host on every "
+              "run: a replayed graph runs no host code"),
+    "py_func": ("calls a Python function on host copies of its inputs on "
+                "every run: a replayed graph runs no host code"),
 }
 
 def _with_bodies(ops):
@@ -719,6 +727,15 @@ class _GraphPool:
         self.done.record(torch.cuda.current_stream(self.device))
 
 
+def rng_name(scope, device):
+    """The name of ``device``'s generator in ``scope`` (see the module
+    docstring); the generator itself may not be there yet."""
+    first = scope.find_var(RNG_KEY)
+    if first is None or first.device == device:
+        return RNG_KEY
+    return RNG_KEY + str(device)
+
+
 class CapturedStep:
     """The step body of one cache entry over static buffers: it reads the
     state from the scope's own tensors and the feed from one buffer per
@@ -734,7 +751,8 @@ class CapturedStep:
                  gb, pool=None):
         self.entry = entry
         self.state = {n: scope.get(n) for n in state_names}
-        self.gen = scope.get(RNG_KEY)
+        self.rng = rng_name(scope, device)
+        self.gen = scope.get(self.rng)
         self.device = device
         self.pool = pool
         self.feed = {}
@@ -764,7 +782,8 @@ class CapturedStep:
         second startup run, a test copying weights in), and every lent
         feed is the tensor the graph writes."""
         held = scope._vars
-        return (held.get(RNG_KEY) is self.gen
+        return (rng_name(scope, self.device) == self.rng
+                and held.get(self.rng) is self.gen
                 and all(held.get(n) is t for n, t in self.state.items())
                 and all(_same_view(feed[n], self.feed[n])
                         for n in self.entry.lent))
@@ -935,11 +954,12 @@ class Executor:
                         self.device))
         with self._lock:
             self._reap()
-            if RNG_KEY not in scope:
+            rng = rng_name(scope, self.device)
+            if rng not in scope:
                 seed = program.random_seed or secrets.randbits(31)
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(int(seed))
-                scope.set(RNG_KEY, gen)
+                scope.set(rng, gen)
             persist = {v.name for v in program.list_vars() if v.persistable}
             state_in = tuple(sorted(n for n in persist if n in scope))
             if check_nan_inf:
@@ -1030,7 +1050,8 @@ class Executor:
             for entry in self._cache.values():
                 step = entry.step
                 if (step is not None and entry.scope() is scope
-                        and (name in step.state or name == RNG_KEY)):
+                        and (name in step.state
+                             or name in (RNG_KEY, step.rng))):
                     self._drop_entry(entry)
 
     def _entry(self, program, scope, fetch_names, persist, fused,
@@ -1066,7 +1087,7 @@ class Executor:
         for name, value in feed.items():
             var = gb.var(name) if gb.has_var(name) else None
             env[name] = to_tensor(value, self.device, var)
-        env[RNG_KEY] = scope.get(RNG_KEY)
+        env[RNG_KEY] = scope.get(rng_name(scope, self.device))
         env[DEVICE_KEY] = self.device
         return env
 

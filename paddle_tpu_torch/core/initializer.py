@@ -13,9 +13,10 @@ import math
 import numpy as np
 
 __all__ = [
-    "Constant", "Uniform", "Normal", "Xavier",
-    "ConstantInitializer", "UniformInitializer", "NormalInitializer",
-    "XavierInitializer",
+    "Constant", "Uniform", "Normal", "TruncatedNormal", "Xavier", "MSRA",
+    "Bilinear", "ConstantInitializer", "UniformInitializer",
+    "NormalInitializer", "TruncatedNormalInitializer", "XavierInitializer",
+    "MSRAInitializer", "BilinearInitializer", "NumpyArrayInitializer",
 ]
 
 
@@ -68,6 +69,17 @@ class NormalInitializer(Initializer):
                    "mean": self.loc, "std": self.scale, "seed": self.seed})
 
 
+class TruncatedNormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "truncated_gaussian_random", outputs={"Out": var},
+            attrs={"shape": var.shape, "dtype": str(var.dtype),
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
+
+
 class XavierInitializer(Initializer):
     """Glorot init (ref ``initializer.py`` XavierInitializer)."""
 
@@ -87,8 +99,59 @@ class XavierInitializer(Initializer):
             NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class MSRAInitializer(Initializer):
+    """Kaiming/He init (ref ``initializer.py`` MSRAInitializer)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fi, _ = self._fans(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            NormalInitializer(0.0, math.sqrt(2.0 / fi), self.seed)(var, block)
+
+
+class BilinearInitializer(Initializer):
+    """Bilinear upsampling kernel for a transposed conv (ref
+    ``initializer.py`` BilinearInitializer)."""
+
+    def __call__(self, var, block):
+        shape = var.shape
+        if len(shape) != 4:
+            raise ValueError("BilinearInitializer needs a 4-D weight")
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        size = shape[3]
+        i = np.arange(int(np.prod(shape)))
+        x, y = i % size, (i // size) % size
+        weight = ((1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))).astype(
+            "float32")
+        block.append_op(
+            "assign_value", outputs={"Out": var},
+            attrs={"shape": shape, "dtype": "float32",
+                   "values": weight.tolist()})
+
+
+class NumpyArrayInitializer(Initializer):
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        block.append_op(
+            "assign_value", outputs={"Out": var},
+            attrs={"shape": self.value.shape, "dtype": str(self.value.dtype),
+                   "values": self.value.flatten().tolist()})
+
+
 # aliases matching the reference's short names
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer
+Bilinear = BilinearInitializer

@@ -1,10 +1,21 @@
-"""Convolution / pooling / normalization / dropout / softmax / loss ops
-(the subset of ``paddle_tpu/core/opimpl/nn_ops.py`` the served and trained
-models run). ``layer_norm`` over the last axis, ``fused_linear_smooth_ce``
+"""Convolution / pooling / normalization / dropout / softmax / loss /
+interpolation ops (``paddle_tpu/core/opimpl/nn_ops.py``, all but
+``moe_ffn``). ``layer_norm`` over the last axis, ``fused_linear_smooth_ce``
 and ``fused_conv2d`` call the port's hand-written kernels on CUDA
-(``paddle_tpu_torch/ops``). Plain ``conv2d`` is ``F.conv2d`` (cuDNN on the
-card), as ``paddle_tpu`` leaves it to ``lax.conv_general_dilated``."""
+(``paddle_tpu_torch/ops``). Plain ``conv2d``, ``conv3d`` and the
+transposed convs are ``F.conv*d`` / ``F.conv_transpose*d`` (cuDNN on the
+card), as ``paddle_tpu`` leaves them to ``lax.conv_general_dilated``: a
+transposed conv there is the fractionally-strided conv of the flipped,
+I/O-swapped kernel, which is what ``F.conv_transpose2d`` computes from the
+reference's [Cin, Cout/groups, kh, kw] filter. ``lrn``, ``group_norm``,
+``grid_sampler`` and the interpolations port the reference's formulas:
+``F.local_response_norm`` divides alpha by n, ``F.grid_sample`` has no mode
+that clamps the corners but keeps their weights, and ``jax.image.resize``
+(the reference's resize outside align_corners bilinear) anti-aliases a
+shrink with its own triangle weights and picks nearest pixels by
+floor((i + 0.5) * in / out)."""
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -18,17 +29,64 @@ def _pair(v):
     return (int(v), int(v))
 
 
-@register("conv2d")
+def _triple(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * 3
+
+
+@register("conv2d", "depthwise_conv2d")
 def _conv2d(env, op):
     x = get(env, op.input("Input"))  # NCHW
     w = get(env, op.input("Filter"))  # OIHW
+    groups = op.attr("groups", 1)
+    if op.type == "depthwise_conv2d":
+        groups = x.shape[1]
     # under AMP bf16 in, bf16 out (paddle_tpu's nn_ops.py:35-41)
     x, w = mxu_cast(x, w)
     put(env, op.output("Output"), F.conv2d(
         x, w, stride=_pair(op.attr("strides", [1, 1])),
         padding=_pair(op.attr("paddings", [0, 0])),
-        dilation=_pair(op.attr("dilations", [1, 1])),
+        dilation=_pair(op.attr("dilations", [1, 1])), groups=groups))
+
+
+@register("conv3d")
+def _conv3d(env, op):
+    x = get(env, op.input("Input"))  # NCDHW
+    w = get(env, op.input("Filter"))  # OIDHW
+    put(env, op.output("Output"), F.conv3d(
+        x, w, stride=_triple(op.attr("strides", [1, 1, 1])),
+        padding=_triple(op.attr("paddings", [0, 0, 0])),
+        dilation=_triple(op.attr("dilations", [1, 1, 1])),
         groups=op.attr("groups", 1)))
+
+
+@register("conv2d_transpose", "depthwise_conv2d_transpose")
+def _conv2d_transpose(env, op):
+    """Output (i - 1) * s - 2p + d * (k - 1) + 1 per axis, the filter
+    [Cin, Cout/groups, kh, kw]; the depthwise form has groups = Cin."""
+    x = get(env, op.input("Input"))
+    w = get(env, op.input("Filter"))
+    groups = op.attr("groups", 1) or 1
+    if op.type == "depthwise_conv2d_transpose":
+        groups = x.shape[1]
+    x, w = mxu_cast(x, w)
+    put(env, op.output("Output"), F.conv_transpose2d(
+        x, w, stride=_pair(op.attr("strides", [1, 1])),
+        padding=_pair(op.attr("paddings", [0, 0])),
+        dilation=_pair(op.attr("dilations", [1, 1])), groups=groups))
+
+
+@register("conv3d_transpose")
+def _conv3d_transpose(env, op):
+    x = get(env, op.input("Input"))
+    w = get(env, op.input("Filter"))  # [Cin, Cout/g, kd, kh, kw]
+    x, w = mxu_cast(x, w)
+    put(env, op.output("Output"), F.conv_transpose3d(
+        x, w, stride=_triple(op.attr("strides", [1, 1, 1])),
+        padding=_triple(op.attr("paddings", [0, 0, 0])),
+        dilation=_triple(op.attr("dilations", [1, 1, 1])),
+        groups=op.attr("groups", 1) or 1))
 
 
 @register("pool2d")
@@ -42,23 +100,30 @@ def _pool2d(env, op):
     strides = _pair(op.attr("strides", [1, 1]))
     pads = _pair(op.attr("paddings", [0, 0]))
     ceil_mode = op.attr("ceil_mode", False)
-    if op.attr("global_pooling", False):
+    adaptive = op.attr("adaptive", False)
+    if op.attr("global_pooling", False) or (adaptive and ksize == (1, 1)):
         out = x.amax(dim=(2, 3), keepdim=True) if ptype == "max" \
             else x.mean(dim=(2, 3), keepdim=True)
         put(env, op.output("Out"), out)
         return
+    if adaptive:
+        # equal bins of a divisible input (nn_ops.py:125-133)
+        n, c, h, w = x.shape
+        oh, ow = ksize
+        assert h % oh == 0 and w % ow == 0, \
+            "adaptive pool needs divisible dims"
+        xr = x.reshape(n, c, oh, h // oh, ow, w // ow)
+        put(env, op.output("Out"), xr.amax(dim=(3, 5)) if ptype == "max"
+            else xr.mean(dim=(3, 5)))
+        return
     # ceil mode extends the high-side padding so that the last window
     # fits, as the reference pads; that window is kept even where it
     # starts in the padding (torch's ceil_mode would drop it)
-    hi = [0, 0]
-    if ceil_mode:
-        for i in range(2):
-            size = x.shape[2 + i] + 2 * pads[i]
-            out_i = -(-(size - ksize[i]) // strides[i]) + 1
-            hi[i] = max(0, (out_i - 1) * strides[i] + ksize[i] - size)
-    cfg = (pads[1], pads[1] + hi[1], pads[0], pads[0] + hi[0])
+    pad_cfg = _ceil_pads(x.shape[2:], ksize, strides, pads, ceil_mode)
+    cfg = [v for lo_hi in reversed(pad_cfg) for v in lo_hi]  # F.pad's order
     if ptype == "max":
-        if hi == [0, 0] and all(p <= k // 2 for p, k in zip(pads, ksize)):
+        if all(lo == hi for lo, hi in pad_cfg) \
+                and all(p <= k // 2 for p, k in zip(pads, ksize)):
             out = F.max_pool2d(x, ksize, strides, pads)  # pads with -inf
         else:
             out = F.max_pool2d(F.pad(x, cfg, value=float("-inf")), ksize,
@@ -73,6 +138,58 @@ def _pool2d(env, op):
         s = s / (F.avg_pool2d(ones, ksize, strides) * area)
     else:
         s = s / area
+    put(env, op.output("Out"), s)
+
+
+def _ceil_pads(shape, ksize, strides, pads, ceil_mode):
+    """(low, high) padding per spatial axis; ceil mode extends the high
+    side so that the last window fits."""
+    cfg = []
+    for sp, k, st, p in zip(shape, ksize, strides, pads):
+        hi = 0
+        if ceil_mode:
+            out_i = -(-(sp + 2 * p - k) // st) + 1
+            hi = max(0, (out_i - 1) * st + k - (sp + 2 * p))
+        cfg.append((p, p + hi))
+    return cfg
+
+
+@register("pool3d")
+def _pool3d(env, op):
+    """Max / average over 3-D windows, NCDHW (``nn_ops.py:171-218``), with
+    pool2d's padding semantics."""
+    x = get(env, op.input("X"))
+    ptype = op.attr("pooling_type", "max")
+    ksize = _triple(op.attr("ksize"))
+    strides = _triple(op.attr("strides", [1, 1, 1]))
+    pads = _triple(op.attr("paddings", [0, 0, 0]))
+    ceil_mode = op.attr("ceil_mode", False)
+    if op.attr("global_pooling", False):
+        put(env, op.output("Out"), x.amax(dim=(2, 3, 4), keepdim=True)
+            if ptype == "max" else x.mean(dim=(2, 3, 4), keepdim=True))
+        return
+    if op.attr("adaptive", False):
+        n, c, d, h, w = x.shape
+        od, oh, ow = ksize
+        assert d % od == 0 and h % oh == 0 and w % ow == 0, \
+            "adaptive pool3d needs divisible dims"
+        xr = x.reshape(n, c, od, d // od, oh, h // oh, ow, w // ow)
+        put(env, op.output("Out"), xr.amax(dim=(3, 5, 7)) if ptype == "max"
+            else xr.mean(dim=(3, 5, 7)))
+        return
+    cfg = _ceil_pads(x.shape[2:], ksize, strides, pads, ceil_mode)
+    flat = [v for lo_hi in reversed(cfg) for v in lo_hi]  # F.pad's order
+    if ptype == "max":
+        put(env, op.output("Out"), F.max_pool3d(
+            F.pad(x, flat, value=float("-inf")), ksize, strides))
+        return
+    vol = float(ksize[0] * ksize[1] * ksize[2])
+    s = F.avg_pool3d(F.pad(x, flat), ksize, strides) * vol
+    if op.attr("exclusive", True) and (any(pads) or ceil_mode):
+        ones = F.pad(torch.ones_like(x[:1, :1]), flat)
+        s = s / (F.avg_pool3d(ones, ksize, strides) * vol)
+    else:
+        s = s / vol
     put(env, op.output("Out"), s)
 
 
@@ -213,6 +330,41 @@ def _layer_norm(env, op):
     put(env, op.output("Y"), norm.to(in_dtype))
     put(env, op.output("Mean"), mean.reshape(mean.shape[:begin]))
     put(env, op.output("Variance"), var.reshape(var.shape[:begin]))
+
+
+@register("group_norm")
+def _group_norm(env, op):
+    x = get(env, op.input("X"))  # NC...
+    scale = get(env, op.input("Scale"))
+    bias = get(env, op.input("Bias"))
+    g = op.attr("groups")
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = torch.square(xg - mean).mean(dim=axes, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + op.attr("epsilon", 1e-5))
+         ).reshape(x.shape)
+    cshape = (1, c) + (1,) * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(cshape)
+    if bias is not None:
+        y = y + bias.reshape(cshape)
+    put(env, op.output("Y"), y)
+
+
+@register("lrn")
+def _lrn(env, op):
+    """x / (k + alpha * sum of x^2 over n channels)^beta: alpha is not
+    divided by n (``nn_ops.py:449-460``)."""
+    x = get(env, op.input("X"))  # NCHW
+    n_size = op.attr("n", 5)
+    half = n_size // 2
+    pad = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    acc = sum(pad[:, i:i + x.shape[1]] for i in range(n_size))
+    put(env, op.output("Out"), x / torch.pow(
+        op.attr("k", 1.0) + op.attr("alpha", 1e-4) * acc,
+        op.attr("beta", 0.75)))
 
 
 @register("dropout")
@@ -459,3 +611,152 @@ def _mse_loss(env, op):
     x = get(env, op.input("X"))
     put(env, op.output("Out"),
         torch.square(x - get(env, op.input("Y"))).mean())
+
+
+# ---------------- interpolation / resize ----------------
+
+def _scalar(v, device):
+    """``v`` as a 0-d f32 tensor: CUDA divides by a Python number as a
+    product with its reciprocal, which moves a quotient by an ulp, and a
+    floor of it (a pixel index) by one; a tensor divisor divides."""
+    return torch.full((), float(v), dtype=torch.float32, device=device)
+
+
+def jnp_linspace(start, stop, num, device):
+    """``jnp.linspace(start, stop, num)`` in f32 as the reference computes
+    it: start * (1 - t) + stop * t with t = iota / (num - 1), the last
+    point exactly ``stop`` (``torch.linspace`` rounds some points the
+    other way)."""
+    if num == 1:
+        return torch.full((1,), float(start), device=device)
+    t = torch.arange(num - 1, dtype=torch.float32, device=device) \
+        / _scalar(num - 1, device)
+    head = start * (1 - t) + stop * t
+    return torch.cat([head, torch.full((1,), float(stop), device=device)])
+
+
+def _resize_weights(m, n, device):
+    """[m, n] weights of ``jax.image.resize``'s linear kernel from m input
+    to n output pixels (``scale.py`` compute_weight_mat): half-pixel
+    centres, the triangle widened by in / out when shrinking
+    (anti-aliasing), each column normalised to sum 1."""
+    inv = 1.0 / (n / m)
+    kscale = max(inv, 1.0)
+    sample = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) \
+        * inv - 0.5
+    dist = torch.abs(sample[None, :] - torch.arange(
+        m, dtype=torch.float32, device=device)[:, None]) \
+        / _scalar(kscale, device)
+    w = torch.clamp_min(1 - torch.abs(dist), 0)
+    tot = w.sum(dim=0, keepdim=True)
+    w = torch.where(torch.abs(tot) > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(tot != 0, tot, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def _nearest_index(m, n, device):
+    """``jax.image.resize``'s nearest pixel: floor((i + 0.5) * m / n) in
+    f32 (torch's ``nearest`` floors i * m / n)."""
+    off = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * m \
+        / _scalar(n, device)
+    return torch.floor(off).long()
+
+
+@register("bilinear_interp", "nearest_interp")
+def _interp(env, op):
+    x = get(env, op.input("X"))  # NCHW
+    out_h, out_w = op.attr("out_h"), op.attr("out_w")
+    scale = op.attr("scale", 0.0)
+    if scale and (not out_h or out_h <= 0):
+        out_h = int(x.shape[2] * scale)
+        out_w = int(x.shape[3] * scale)
+    h_in, w_in = x.shape[2], x.shape[3]
+    dev = x.device
+    if op.type == "bilinear_interp" and op.attr("align_corners", True) \
+            and out_h > 1 and out_w > 1:
+        # align_corners: the reference's explicit gather (nn_ops.py:735-748)
+        ys = jnp_linspace(0.0, h_in - 1.0, out_h, dev)
+        xs = jnp_linspace(0.0, w_in - 1.0, out_w, dev)
+        y0, x0 = torch.floor(ys).long(), torch.floor(xs).long()
+        y1 = torch.clamp_max(y0 + 1, h_in - 1)
+        x1 = torch.clamp_max(x0 + 1, w_in - 1)
+        wy = (ys - y0)[None, None, :, None]
+        wx = (xs - x0)[None, None, None, :]
+
+        def g(yy, xx):
+            return x[:, :, yy, :][:, :, :, xx]
+
+        out = (g(y0, x0) * (1 - wy) * (1 - wx) + g(y1, x0) * wy * (1 - wx)
+               + g(y0, x1) * (1 - wy) * wx + g(y1, x1) * wy * wx)
+    elif op.type == "nearest_interp":
+        out = x
+        if out_h != h_in:
+            out = out[:, :, _nearest_index(h_in, out_h, dev)]
+        if out_w != w_in:
+            out = out[:, :, :, _nearest_index(w_in, out_w, dev)]
+    else:
+        out = x if x.is_floating_point() else x.float()
+        if out_h != h_in:
+            out = torch.einsum("nchw,hy->ncyw", out, _resize_weights(
+                h_in, out_h, dev).to(out.dtype))
+        if out_w != w_in:
+            out = torch.einsum("nchw,wx->nchx", out, _resize_weights(
+                w_in, out_w, dev).to(out.dtype))
+    put(env, op.output("Out"), out.to(x.dtype))
+
+
+# ---------------- misc nn ----------------
+
+@register("im2sequence")
+def _im2sequence(env, op):
+    """Every kh x kw patch as a row [N * oh * ow, C * kh * kw], features
+    channel-major (``nn_ops.py:756-773``)."""
+    x = get(env, op.input("X"))  # NCHW
+    kh, kw = op.attr("kernels")
+    strides = tuple(op.attr("strides", [1, 1]))
+    p = op.attr("paddings", [0, 0, 0, 0])
+    n, c = x.shape[0], x.shape[1]
+    xp = F.pad(x, (p[1], p[3], p[0], p[2]))
+    oh = (xp.shape[2] - kh) // strides[0] + 1
+    ow = (xp.shape[3] - kw) // strides[1] + 1
+    patches = F.unfold(xp, (kh, kw), stride=strides)  # [N, C*kh*kw, L]
+    put(env, op.output("Out"), patches.transpose(1, 2).reshape(
+        n * oh * ow, c * kh * kw))
+
+
+@register("grid_sampler")
+def _grid_sampler(env, op):
+    """Bilinear sampling at grid [N, Ho, Wo, 2] in [-1, 1] (corners
+    aligned): the corner indices are clamped into the image and the
+    weights are those of the unclamped floor (``nn_ops.py:776-798``)."""
+    x = get(env, op.input("X"))  # NCHW
+    grid = get(env, op.input("Grid"))
+    n, c, h, w = x.shape
+    gx = (grid[..., 0] + 1) * (w - 1) / 2
+    gy = (grid[..., 1] + 1) * (h - 1) / 2
+    x0 = torch.clamp(torch.floor(gx).long(), 0, w - 1)
+    y0 = torch.clamp(torch.floor(gy).long(), 0, h - 1)
+    x1 = torch.clamp(x0 + 1, 0, w - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    wx = gx - x0
+    wy = gy - y0
+    bidx = torch.arange(n, device=x.device)[:, None, None]
+
+    def gat(yy, xx):
+        return x[bidx, :, yy, xx]  # [N, Ho, Wo, C]
+
+    out = (gat(y0, x0) * ((1 - wy) * (1 - wx))[..., None]
+           + gat(y0, x1) * ((1 - wy) * wx)[..., None]
+           + gat(y1, x0) * (wy * (1 - wx))[..., None]
+           + gat(y1, x1) * (wy * wx)[..., None])
+    put(env, op.output("Output"), out.permute(0, 3, 1, 2))
+
+
+@register("pixel_shuffle")
+def _pixel_shuffle(env, op):
+    x = get(env, op.input("X"))
+    r = op.attr("upscale_factor")
+    n, c, h, w = x.shape
+    out = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    put(env, op.output("Out"), out.reshape(n, c // (r * r), h * r, w * r))

@@ -1,7 +1,9 @@
-"""User-facing layers namespace (the subset of ``paddle_tpu.layers`` the
-port carries; ref ``python/paddle/fluid/layers/``)."""
+"""User-facing layers namespace (``paddle_tpu.layers`` but ``moe_ffn``,
+which comes with the multi-device slice; ref
+``python/paddle/fluid/layers/``)."""
 
 from . import control_flow
+from . import debug_ops
 from . import detection
 from . import extras
 from . import io
@@ -14,6 +16,7 @@ from . import sequence_lod
 from . import tensor
 
 from .control_flow import *  # noqa: F401,F403
+from .debug_ops import Print, py_func  # noqa: F401
 from .detection import *  # noqa: F401,F403
 from .extras import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403

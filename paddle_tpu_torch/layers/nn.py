@@ -1,5 +1,5 @@
-"""Neural layers (the subset of ``paddle_tpu/layers/nn.py`` the port
-carries; ref ``python/paddle/fluid/layers/nn.py``). Every layer appends
+"""Neural layers (``paddle_tpu/layers/nn.py`` but ``moe_ffn``; ref
+``python/paddle/fluid/layers/nn.py``). Every layer appends
 symbolic ops and creates its parameters exactly as ``paddle_tpu`` does, so
 both packages give every var and parameter the same name."""
 
@@ -37,6 +37,10 @@ __all__ = [
     "beam_search_decode", "dynamic_lstm", "dynamic_lstmp", "attention_lstm",
     "tree_conv", "lstm", "warpctc", "linear_chain_crf", "crf_decoding", "nce",
     "hsigmoid",
+    "depthwise_conv2d", "conv3d", "conv2d_transpose", "adaptive_pool2d",
+    "group_norm", "lrn", "lod_reset", "image_resize", "resize_bilinear",
+    "resize_nearest", "grid_sampler", "pixel_shuffle", "im2sequence",
+    "row_conv", "scaled_dot_product_attention",
 ]
 
 
@@ -141,15 +145,7 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         "conv2d", {"Input": input, "Filter": filt}, {"Output": out},
         {"strides": list(s), "paddings": list(p), "dilations": list(d),
          "groups": groups})
-    if helper.bias_attr is not False:
-        b = helper.create_parameter(helper.bias_attr, shape=[num_filters],
-                                    dtype=_dtype(input), is_bias=True)
-        tmp = helper.create_variable_for_type_inference(
-            dtype=_dtype(input), shape=out_shape)
-        helper.append_op("elementwise_add", {"X": out, "Y": b}, {"Out": tmp},
-                         {"axis": 1})
-        out = tmp
-    return helper.append_activation(out)
+    return _bias_act(helper, out, num_filters, _dtype(input))
 
 
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
@@ -172,6 +168,94 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
         {"pooling_type": pool_type, "ksize": list(k), "strides": list(s),
          "paddings": list(p), "global_pooling": global_pooling,
          "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def depthwise_conv2d(input, num_filters, filter_size, **kwargs):
+    kwargs["groups"] = input.shape[1]
+    return conv2d(input, num_filters, filter_size, **kwargs)
+
+
+def _bias_act(helper, out, num_filters, dtype):
+    """The per-channel bias (unless ``bias_attr`` is False) and the
+    activation of a conv layer."""
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, shape=[num_filters],
+                                    dtype=dtype, is_bias=True)
+        tmp = helper.create_variable_for_type_inference(dtype=dtype,
+                                                        shape=out.shape)
+        helper.append_op("elementwise_add", {"X": out, "Y": b}, {"Out": tmp},
+                         {"axis": 1})
+        out = tmp
+    return helper.append_activation(out)
+
+
+def _triple(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v,) * 3
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv3d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    k, s, p, d = (_triple(v) for v in (filter_size, stride, padding,
+                                       dilation))
+    n, c = input.shape[0], input.shape[1]
+    filt = helper.create_parameter(
+        helper.param_attr, shape=[num_filters, c // groups] + list(k),
+        dtype=_dtype(input))
+    out_shape = (n, num_filters) + tuple(
+        _conv_out(sz, k[i], s[i], p[i], d[i])
+        for i, sz in enumerate(input.shape[2:]))
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=out_shape)
+    helper.append_op(
+        "conv3d", {"Input": input, "Filter": filt}, {"Output": out},
+        {"strides": list(s), "paddings": list(p), "dilations": list(d),
+         "groups": groups})
+    return _bias_act(helper, out, num_filters, _dtype(input))
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """Transposed conv, NCHW, filter [C, num_filters / groups, kh, kw]; the
+    filter size follows from ``output_size`` when not given."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    s, p, d = _pair(stride), _pair(padding), _pair(dilation)
+    n, c, h, w_ = input.shape
+    if filter_size is None:
+        assert output_size is not None
+        osz = _pair(output_size)
+        k = tuple(osz[i] - (input.shape[2 + i] - 1) * s[i] + 2 * p[i]
+                  for i in range(2))
+    else:
+        k = _pair(filter_size)
+    filt = helper.create_parameter(
+        helper.param_attr, shape=[c, num_filters // groups, k[0], k[1]],
+        dtype=_dtype(input))
+    oh = (h - 1) * s[0] - 2 * p[0] + d[0] * (k[0] - 1) + 1 if h > 0 else -1
+    ow = (w_ - 1) * s[1] - 2 * p[1] + d[1] * (k[1] - 1) + 1 if w_ > 0 else -1
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=(n, num_filters, oh, ow))
+    helper.append_op(
+        "conv2d_transpose", {"Input": input, "Filter": filt},
+        {"Output": out},
+        {"strides": list(s), "paddings": list(p), "dilations": list(d),
+         "groups": groups})
+    return _bias_act(helper, out, num_filters, _dtype(input))
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    k = _pair(pool_size)
+    n, c = input.shape[0], input.shape[1]
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=(n, c, k[0], k[1]))
+    helper.append_op(
+        "pool2d", {"X": input}, {"Out": out},
+        {"pooling_type": pool_type, "ksize": list(k), "adaptive": True})
     return out
 
 
@@ -243,6 +327,30 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      {"Y": out, "Mean": mean, "Variance": var},
                      {"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(out)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1]
+    dtype = _dtype(input)
+    scale = helper.create_parameter(
+        helper.param_attr, shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    shape=input.shape)
+    helper.append_op("group_norm",
+                     {"X": input, "Scale": scale, "Bias": bias},
+                     {"Y": out}, {"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    return _unary_layer("lrn", input, {"n": n, "k": k, "alpha": alpha,
+                                       "beta": beta}, name)
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
@@ -1400,4 +1508,111 @@ def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
         attrs["path_table"] = table
         attrs["path_code"] = codes
     helper.append_op("hsigmoid", inputs, {"Cost": out}, attrs)
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """The identity: sequence lengths travel as explicit tensors."""
+    return x
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1):
+    helper = LayerHelper("image_resize", name=name)
+    n, c, h, w = input.shape
+    if out_shape is not None:
+        oh, ow = out_shape
+    else:
+        oh, ow = int(h * scale), int(w * scale)
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=(n, c, oh, ow))
+    op_type = "bilinear_interp" if resample.upper() == "BILINEAR" \
+        else "nearest_interp"
+    helper.append_op(op_type, {"X": input}, {"Out": out},
+                     {"out_h": oh, "out_w": ow,
+                      "align_corners": align_corners})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        actual_shape, align_corners, align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        actual_shape, align_corners)
+
+
+def grid_sampler(x, grid, name=None):
+    helper = LayerHelper("grid_sampler", name=name)
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(x), shape=(x.shape[0], x.shape[1], grid.shape[1],
+                                grid.shape[2]))
+    helper.append_op("grid_sampler", {"X": x, "Grid": grid},
+                     {"Output": out}, {})
+    return out
+
+
+def pixel_shuffle(x, upscale_factor, name=None):
+    helper = LayerHelper("pixel_shuffle", name=name)
+    n, c, h, w = x.shape
+    r = upscale_factor
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(x), shape=(n, c // (r * r), h * r, w * r))
+    helper.append_op("pixel_shuffle", {"X": x}, {"Out": out},
+                     {"upscale_factor": r})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    helper = LayerHelper("im2sequence", name=name)
+    k, s = _pair(filter_size), _pair(stride)
+    p = padding if isinstance(padding, (list, tuple)) else [padding] * 4
+    n, c, h, w = input.shape
+    oh = (h + p[0] + p[2] - k[0]) // s[0] + 1 if h > 0 else -1
+    ow = (w + p[1] + p[3] - k[1]) // s[1] + 1 if w > 0 else -1
+    rows = n * oh * ow if n > 0 and oh > 0 and ow > 0 else -1
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(input), shape=(rows, c * k[0] * k[1]))
+    helper.append_op("im2sequence", {"X": input}, {"Out": out},
+                     {"kernels": list(k), "strides": list(s),
+                      "paddings": list(p)})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """Lookahead conv (ref ``row_conv_op``): a ``sequence_conv`` with
+    context [0, future_context_size]."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act,
+                         name=name)
+    d = input.shape[-1]
+    ctx = future_context_size + 1
+    w = helper.create_parameter(helper.param_attr, shape=[ctx * d, d],
+                                dtype=_dtype(input))
+    out = helper.create_variable_for_type_inference(dtype=_dtype(input),
+                                                    shape=input.shape)
+    helper.append_op("sequence_conv", {"X": input, "Filter": w},
+                     {"Out": out},
+                     {"contextLength": ctx, "contextStart": 0})
+    return helper.append_activation(out)
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """softmax(q k^T / sqrt(d)) v over ``num_heads`` heads, one
+    ``flash_attention`` op: the port's flash kernels on the card."""
+    helper = LayerHelper("scaled_dot_product_attention")
+    out = helper.create_variable_for_type_inference(
+        dtype=_dtype(queries), shape=queries.shape)
+    helper.append_op(
+        "flash_attention", {"Q": queries, "K": keys, "V": values},
+        {"Out": out},
+        {"num_heads": num_heads, "dropout_rate": dropout_rate,
+         "causal": False})
     return out

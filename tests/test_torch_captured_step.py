@@ -486,3 +486,47 @@ def test_predictor_clones_leave_weights_untouched(cpu_capture, tmp_path):
     for n, t in values.items():
         assert pred._scope.get(n) is weights[n], n
         assert torch.equal(pred._scope.get(n), t), n
+
+
+def _dropout_mlp():
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data("x", shape=[12])
+        h = tfluid.layers.dropout(tfluid.layers.fc(x, size=16, act="relu"),
+                                  dropout_prob=0.5)
+        loss = tfluid.layers.mean(tfluid.layers.fc(h, size=1))
+        tfluid.optimizer.SGD(0.1).minimize(loss)
+    return main, startup, loss
+
+
+def test_scope_keeps_a_generator_per_device(cpu_capture):
+    """A scope whose ``@RNG@`` another device made (a stand-in for a card's
+    generator) gives a CPU executor a generator of its own under
+    ``@RNG@cpu``: its interpreted, captured and replayed steps draw the
+    dropout masks a fresh scope draws, and the other device's generator
+    stays as it was."""
+    main, startup, loss = _dropout_mlp()
+    feed = _mlp_feed()
+    other = type("CardGenerator", (), {"device": torch.device("cuda", 0)})()
+    losses = {}
+    for shared in (False, True):
+        scope = t_executor.Scope()
+        if shared:
+            scope.set(t_executor.RNG_KEY, other)
+        exe = tfluid.Executor(tfluid.CPUPlace())
+        exe.run(startup, scope=scope)
+        losses[shared] = [exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0] for _ in range(4)]
+        report = exe.step_report(main)
+        assert (report["interpreted"], report["captures"],
+                report["replays"]) == (1, 1, 2)
+        step = next(e.step for e in exe._cache.values() if e.step)
+        name = "@RNG@cpu" if shared else t_executor.RNG_KEY
+        assert step.rng == name and step.gen is scope.get(name)
+        assert isinstance(step.gen, torch.Generator)
+        exe.close()
+    assert scope.get(t_executor.RNG_KEY) is other
+    assert len({float(v) for v in losses[False]}) > 1
+    for got, want in zip(losses[True], losses[False]):
+        np.testing.assert_array_equal(got, want)

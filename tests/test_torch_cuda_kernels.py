@@ -2117,3 +2117,43 @@ def test_amp_products_round_once(dev, fresh_port_programs):
     once = ref.bfloat16().double()
     err = float((got.double() - ref).norm() / ref.norm())
     assert err <= 1.001 * float((once - ref).norm() / ref.norm())
+
+
+def test_cpu_run_then_captured_card_steps_share_a_scope(dev):
+    """A CPU run first makes the scope's ``@RNG@`` on the CPU; card steps
+    in that scope then draw from a CUDA generator of their own
+    (``@RNG@cuda:0``), which their graph registers, and train as they do
+    in a fresh scope: the same losses, captured and replayed."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with tfluid.program_guard(main, startup):
+        t_unique_name.switch()
+        x = tfluid.layers.data("x", shape=[12])
+        h = tfluid.layers.dropout(tfluid.layers.fc(x, size=16, act="relu"),
+                                  dropout_prob=0.5)
+        loss = tfluid.layers.mean(tfluid.layers.fc(h, size=1))
+        tfluid.optimizer.SGD(0.1).minimize(loss)
+    masked = tfluid.Program()
+    with tfluid.program_guard(masked, tfluid.Program()):
+        y = tfluid.layers.dropout(tfluid.layers.data("x", shape=[12]),
+                                  dropout_prob=0.5)
+    feed = {"x": np.random.RandomState(0).randn(8, 12).astype("f4")}
+    losses = {}
+    for shared in (False, True):
+        scope = t_executor.Scope()
+        if shared:
+            tfluid.Executor(tfluid.CPUPlace()).run(
+                masked, feed=feed, fetch_list=[y], scope=scope)
+        exe = tfluid.Executor(tfluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        losses[shared] = [exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0] for _ in range(5)]
+        report = exe.step_report(main)
+        assert report["captured"] and report["captures"] == 1, report
+        assert report["replays"] == 3, report
+        gen = scope.get("@RNG@cuda:0" if shared else t_executor.RNG_KEY)
+        assert gen.device == dev
+        exe.close()
+    assert scope.get(t_executor.RNG_KEY).device.type == "cpu"
+    for got, want in zip(losses[True], losses[False]):
+        np.testing.assert_array_equal(got, want)
