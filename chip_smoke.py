@@ -78,6 +78,16 @@ it and read just after:
   draft's passes; 64 requests in a closed loop of 16; each arm's
   dispatch wall, busy share and memory beside an interpreted batcher's
   and engine's;
+* the serving front door over those two directories: ``serving.Router``
+  over two worker processes (``python -m paddle_tpu_torch.serving.worker``,
+  each one ``ServingEngine`` on ``cuda:0``, every rung captured before
+  READY) -> ``rpc`` frames -> the engines above; BERT-base 400 requests
+  in a closed loop of 32 beside the in-process numbers, the CPU check,
+  one trace stitched across the processes (``router_serve``); a burst of
+  64 with one worker SIGKILLed, its respawn and the flight dump's audit
+  (``router_chaos``); GPT-2-small decode through two workers with the
+  prefix cache, SIGKILLed mid-decode (``router_decode``). Each worker's
+  launches are read in that process (its ``stats`` verb and exit line);
 * the attention seq2seq NMT model at its reference width
   (``models.machine_translation``: vocabulary 10000/10000, sequence 50,
   bi-GRU encoder and GRU decoder 512 wide, one attention head of 512;
@@ -343,20 +353,15 @@ def time_ms(fn, iters=50, warmup=5):
 
 def kernel_fns():
     """name -> the wrapper whose ``launches`` counts that kernel (and,
-    for BF16_FORMS, whose ``bf16_launches`` counts its bf16 form)."""
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import fused_ce as fce
-    from paddle_tpu_torch.ops import fused_conv as fc
-    from paddle_tpu_torch.ops import fused_layer_norm as fln
-    from paddle_tpu_torch.ops import scatter as sc
+    for BF16_FORMS, whose ``bf16_launches`` counts its bf16 form), in the
+    order of ``ops.KERNEL_WRAPPERS`` (KERNELS')."""
+    import importlib
 
-    return {"flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd": fa.flash_attention_bwd,
-            "layer_norm_fwd": fln.layer_norm_fwd,
-            "layer_norm_bwd": fln.layer_norm_bwd,
-            "fused_ce_fwd": fce.fused_ce_fwd,
-            "conv_moments": fc.conv_moments, "bn_apply": fc.bn_apply,
-            "conv_apply": fc.conv_apply, "scatter_add": sc.scatter_add}
+    from paddle_tpu_torch import ops
+
+    return {name: getattr(importlib.import_module(
+        "paddle_tpu_torch.ops." + mod), name)
+        for name, mod in ops.KERNEL_WRAPPERS}
 
 
 def reset_counts():
@@ -1871,7 +1876,10 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
     closed loop that keeps ``in_flight`` of them outstanding (a few seconds
     of traffic, so the rate and p99 rest on a thousand samples). Launch
     counts are zeroed just before it and read just after; the CPU
-    comparison runs the plain versions and launches nothing."""
+    comparison runs the plain versions and launches nothing. The saved
+    model directory is kept and returned third, with the seeded feeds and
+    the rate and latencies (for the router phases), for the caller to
+    delete."""
     import paddle_tpu_torch as fluid
 
     rng = np.random.RandomState(SEED)
@@ -1926,13 +1934,13 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
     # each (replica, rung) key interprets its first run and captures its
     # second (both in warmup); every later dispatch is a replay
     runs = dict.fromkeys(("interpreted", "captures", "replays"), 0)
-    for pred in engine._replicas:
+    replicas = [w.predictor for w in engine._workers]
+    for pred in replicas:
         for k, n in exe_runs(pred._exe).items():
             runs[k] += n
     launching = runs["interpreted"] + runs["captures"]
-    step_report = engine._replicas[0]._exe.step_report(
-        engine._replicas[0]._program)
-    for pred in engine._replicas:
+    step_report = replicas[0]._exe.step_report(replicas[0]._program)
+    for pred in replicas:
         pred.close()
     dispatches = 2 * warmed + snap["batches"]
 
@@ -1952,7 +1960,6 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
         cpu_err = max(cpu_err, float(np.abs(results[i] - want).max()))
     check(read_counts() == launches, "the CPU check launched a kernel")
     phase_profile(torch, fluid, model_dir, feeds)
-    shutil.rmtree(model_dir)
 
     lat = snap["latency_s"]
     emit({"phase": "serve", "model": "bert_base_classifier", "config": BERT,
@@ -1983,9 +1990,12 @@ def phase_serve(torch, smi_line, n_requests=1000, in_flight=32):
           "layer_norm launches %d != %d x %d launching dispatches"
           % (launches["layer_norm_fwd"], 2 * BERT["layers"] + 1,
              launching))
-    return launches, {"flash_attention_fwd": BERT["layers"] * runs["replays"],
-                      "layer_norm_fwd": (2 * BERT["layers"] + 1)
-                      * runs["replays"]}
+    return (launches,
+            {"flash_attention_fwd": BERT["layers"] * runs["replays"],
+             "layer_norm_fwd": (2 * BERT["layers"] + 1) * runs["replays"]},
+            {"model_dir": model_dir, "feeds": feeds,
+             "requests_per_s": n_requests / wall,
+             "p50_ms": lat["p50"] * 1e3, "p99_ms": lat["p99"] * 1e3})
 
 
 def phase_profile(torch, fluid, model_dir, feeds, runs=20):
@@ -5971,7 +5981,8 @@ def _step_copies(torch, fam, b=8, ctxs=(256, 1024), unlent_ctx=256,
     return out
 
 
-def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
+def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16,
+                 keep_dir=False):
     """The main path: ``ServingEngine(model_dir, decode=True, ...)`` over a
     ``save_inference_model`` directory of the step program with its
     ``decode_spec.json``, serving ``decode_workload`` in two arms: plain
@@ -5990,7 +6001,8 @@ def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
     (``use_program_cache=False``): wall and device ms per dispatch, busy
     share, memory after warmup, ids (equal). The windows' batchers run at
     ctx rung 256 only (the short requests need no more), to keep their
-    warmups' captures few."""
+    warmups' captures few. With ``keep_dir`` the saved step directory is
+    kept and returned third, for the caller to delete."""
     import paddle_tpu_torch as fluid
 
     rng = np.random.RandomState(SEED + 1)
@@ -6026,7 +6038,8 @@ def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
             torch, fluid, model_dir, **kw)
         arm["interpreted_replica_after_warmup_bytes"] = dict(zip(
             ("reserved", "allocated"), memory))
-    shutil.rmtree(model_dir)
+    if not keep_dir:
+        shutil.rmtree(model_dir)
     copies = _step_copies(torch, fam)
 
     runs = [r for arm in (plain, fast_arm) for r in arm["runs"].values()]
@@ -6098,7 +6111,417 @@ def phase_decode(torch, smi_line, fam, n_requests=64, in_flight=16):
           and fast_arm["prefix_hits"] > 0
           and fast_arm["prefill_chunks"] > 0,
           "the fast arm skipped a fast path: %s" % fast_arm)
+    if keep_dir:  # the step directory, for the router phases to delete
+        return launches, replayed, model_dir
     return launches, replayed
+
+
+# ---------------------------------------------------------------------------
+# the serving front door: a router over worker processes on the card
+# ---------------------------------------------------------------------------
+
+ROUTER_WORKERS = 2
+ROUTER_LADDER = (1, 2, 4, 8)
+ROUTER_REQUESTS = 400
+ROUTER_IN_FLIGHT = 32
+ROUTER_CPU_CHECKED = 8
+ROUTER_BURST = 64
+ROUTER_DECODE_REQUESTS = 32
+ROUTER_DECODE_MAX_NEW = 16
+ROUTER_TIMEOUT_S = 300.0
+ROUTER_DEVICE = "cuda:0"  # where every worker must say it serves
+
+
+def compute_apps():
+    """[pid, used MiB] of each compute process nvidia-smi lists. In a
+    container nvidia-smi cannot map a process to this PID namespace and
+    reports another pid (on the sandboxed H100: 1 for every process), so
+    the checks count the processes and their memory rather than match
+    pids."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    check(r.returncode == 0, "nvidia-smi --query-compute-apps failed: "
+          + r.stderr)
+    apps = []
+    for line in r.stdout.strip().splitlines():
+        pid, _, mib = (p.strip() for p in line.partition(","))
+        if pid.isdigit():
+            apps.append([int(pid), float(mib)
+                         if mib.replace(".", "", 1).isdigit() else None])
+    return apps
+
+
+def _check_compute_apps(torch, phase, apps, workers):
+    """nvidia-smi lists one compute process a live worker, plus this one
+    when it holds a CUDA context, and no other."""
+    own = int(torch.cuda.is_initialized())
+    check(len(apps) == workers + own,
+          "%s: nvidia-smi lists %d compute processes %s, want %d workers "
+          "+ %d" % (phase, len(apps), apps, workers, own))
+
+
+def worker_kernels(router):
+    """Each live worker's kernel report through its ``stats`` verb: the
+    device, executor runs, batches and launch counters read in that
+    process (a worker is a process this script did not start)."""
+    from paddle_tpu_torch.serving import rpc
+
+    reports = []
+    for w in router._workers:
+        sock = rpc.connect(w.address, timeout=60.0)
+        try:
+            rpc.send_msg(sock, {"type": "stats"})
+            header, _ = rpc.recv_msg(sock)
+        finally:
+            sock.close()
+        reports.append(header["kernels"])
+    return reports
+
+
+def _check_worker(phase, report, per_launch, geometries, dispatches,
+                  live=False):
+    """One worker's counters against its path's identities: ``--warmup``
+    interpreted and captured each of its ``geometries`` once, every
+    later dispatch (``dispatches``: its engine batches or decode steps)
+    replayed the graph; each launching run launches ``per_launch`` and
+    nothing else. ``live``: read while the worker dispatches, so one
+    replay may not be counted as a dispatch yet. Returns (launching
+    runs, replays)."""
+    runs = report["runs"]
+    launching = runs["interpreted"] + runs["captures"]
+    want = {k: per_launch.get(k, 0) * launching for k in KERNELS}
+    check(report["device"] == ROUTER_DEVICE,
+          "%s: a worker served on %s" % (phase, report["device"]))
+    check(runs["interpreted"] == runs["captures"] == geometries
+          and 0 <= runs["replays"] - report[dispatches] <= int(live),
+          "%s: worker %d runs %s, %d geometries, %d %s" % (
+              phase, report["pid"], runs, geometries, report[dispatches],
+              dispatches))
+    check(report["launches"] == want, "%s: worker %d launches %s != %s"
+          % (phase, report["pid"], report["launches"], want))
+    return launching, runs["replays"]
+
+
+def _path_counts(per_launch, launching, replays):
+    return ({k: per_launch.get(k, 0) * launching for k in KERNELS},
+            {k: per_launch.get(k, 0) * replays for k in KERNELS})
+
+
+BERT_PER_DISPATCH = {"flash_attention_fwd": BERT["layers"],
+                     "layer_norm_fwd": 2 * BERT["layers"] + 1}
+
+
+def phase_router_serve(torch, smi_line, bert, fleet):
+    """The main path through the front door: ``Router(bert_dir,
+    num_workers=2, worker_args=["--warmup", "--ladder", "1,2,4,8"])``,
+    each worker one ``ServingEngine`` on ``cuda:0`` over the BERT-base
+    directory ``serve`` saved, tracing and flight-recording into
+    ``fleet``'s directories. ``ROUTER_REQUESTS`` of ``serve``'s seeded
+    requests (1-4 rows) in a closed loop of 32 through one
+    ``RouterClient``; then ``ROUTER_CPU_CHECKED`` of them one at a time
+    (the answers ``router_chaos`` repeats after its kill) against the
+    port on the CPU, and one traced request. Each worker's launch
+    counters, read through its ``stats`` verb, obey ``serve``'s
+    identities. The fleet stays up for ``router_chaos``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.obs import flight, trace
+    from paddle_tpu_torch.serving import Router, RouterClient
+
+    reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the fleet
+    fleet["flight_env"] = os.environ.get(flight.ENV_FLIGHT_DIR)
+    os.environ[flight.ENV_FLIGHT_DIR] = fleet["flight_dir"]
+    router = Router(bert["model_dir"], num_workers=ROUTER_WORKERS,
+                    worker_args=["--warmup", "--ladder",
+                                 ",".join(map(str, ROUTER_LADDER))],
+                    worker_env={"PADDLE_TPU_TRACE": fleet["trace_dir"],
+                                "PADDLE_TPU_FLIGHT": fleet["flight_dir"]})
+    fleet["router"] = router
+    fleet["feeds_burst"] = bert["feeds"][ROUTER_REQUESTS:ROUTER_REQUESTS
+                                         + ROUTER_BURST]
+    t0 = time.perf_counter()
+    router.start()
+    spawn_s = time.perf_counter() - t0
+    client = RouterClient(router.address, pool_size=ROUTER_IN_FLIGHT)
+    fleet["client"] = client
+    apps = compute_apps()
+    pids = [w.pid for w in router._workers]
+    feeds = bert["feeds"][:ROUTER_REQUESTS]
+    done = {}
+
+    def timed(i):
+        t_sub = time.perf_counter()
+        fut = client.submit(feeds[i], timeout_s=ROUTER_TIMEOUT_S)
+        fut.add_done_callback(
+            lambda f, i=i: done.__setitem__(i, time.perf_counter() - t_sub))
+        return fut
+
+    t0 = time.perf_counter()
+    futs = []
+    for i in range(len(feeds)):
+        if i >= ROUTER_IN_FLIGHT:
+            futs[i - ROUTER_IN_FLIGHT].result(ROUTER_TIMEOUT_S)
+        futs.append(timed(i))
+    results = [f.result(ROUTER_TIMEOUT_S)[0] for f in futs]
+    wall = time.perf_counter() - t0
+    lat = sorted(done.values())
+    snap = router.metrics_.snapshot()
+    for f, r in zip(feeds, results):
+        check(r.shape == (f["input_ids"].shape[0], 2) and np.isfinite(r).all()
+              and np.abs(r.sum(1) - 1.0).max() <= 1e-5,
+              "router_serve: a reply of shape %s does not sum to 1"
+              % (r.shape,))
+    # the checked requests, one at a time, against the port on the CPU
+    checked = list(range(0, ROUTER_REQUESTS,
+                         ROUTER_REQUESTS // ROUTER_CPU_CHECKED))
+    fleet["checked"] = [feeds[i] for i in checked]
+    fleet["before"] = [client.predict(f, timeout_s=ROUTER_TIMEOUT_S)[0]
+                       for f in fleet["checked"]]
+    config = fluid.inference.AnalysisConfig(bert["model_dir"])
+    config.disable_gpu()
+    cpu = fluid.inference.Predictor(config)
+    cpu_err = max(float(np.abs(got - cpu.run(f)[0]).max())
+                  for f, got in zip(fleet["checked"], fleet["before"]))
+    loop_err = max(float(np.abs(results[i] - cpu.run(feeds[i])[0]).max())
+                   for i in checked)
+    # one traced request: the client, the door and the dispatch hop
+    # record here, the worker queue, the batch and the run in the worker
+    served = [r["served"] for r in worker_kernels(router)]
+    trace.start(trace_dir=fleet["trace_dir"])
+    try:
+        client.predict(feeds[1], timeout_s=ROUTER_TIMEOUT_S)
+    finally:
+        tracer = trace.stop()
+    roots = [s for s in tracer.drain() if s["name"] == "client.predict"]
+    reports = worker_kernels(router)
+    fleet["traced_worker"] = next(
+        i for i, (r, n) in enumerate(zip(reports, served))
+        if r["served"] > n)
+    fleet["trace_id"] = roots[0]["trace_id"] if len(roots) == 1 else None
+    fleet["serve_reports"] = reports
+    launching = replays = 0
+    for r in reports:
+        a, b = _check_worker("router_serve", r, BERT_PER_DISPATCH,
+                             len(ROUTER_LADDER), "batches")
+        launching, replays = launching + a, replays + b
+    check(read_counts() == per_run(),
+          "router_serve: this process launched a kernel: %s" % read_counts())
+    emit({"phase": "router_serve", "model": "bert_base_classifier",
+          "workers": ROUTER_WORKERS, "ladder": list(ROUTER_LADDER),
+          "requests": ROUTER_REQUESTS, "arrival": "closed loop",
+          "in_flight": ROUTER_IN_FLIGHT, "spawn_s": spawn_s,
+          "requests_per_s": ROUTER_REQUESTS / wall, "wall_s": wall,
+          "client_p50_ms": lat[len(lat) // 2] * 1e3,
+          "client_p99_ms": lat[int(0.99 * (len(lat) - 1))] * 1e3,
+          "router_latency_ms": {k: v * 1e3 for k, v in
+                                snap["latency_s"].items()},
+          "in_process_serve": {k: bert[k] for k in
+                               ("requests_per_s", "p50_ms", "p99_ms")},
+          "rerouted": snap["rerouted"], "door_shed": snap["door_shed"],
+          "cpu_checked": len(checked), "cpu_max_abs_err": cpu_err,
+          "closed_loop_cpu_max_abs_err": loop_err,
+          "ready": [w.ready[-1] for w in router._workers],
+          "compute_apps_mib": apps, "worker_reports": reports,
+          "traced_roots": len(roots), "device": smi_line})
+    check(snap["requests_completed"] == ROUTER_REQUESTS
+          and snap["requests_failed"] == 0,
+          "router_serve: requests failed: %s" % snap)
+    check(max(cpu_err, loop_err) <= 1e-4,
+          "router_serve: served vs CPU error %g > 1e-4"
+          % max(cpu_err, loop_err))
+    check(all(w.ready[-1]["device"] == ROUTER_DEVICE
+              for w in router._workers),
+          "router_serve: READY lines %s" % [w.ready for w in
+                                             router._workers])
+    _check_compute_apps(torch, "router_serve", apps, len(pids))
+    check(len(roots) == 1, "router_serve: %d traced roots" % len(roots))
+    return _path_counts(BERT_PER_DISPATCH, launching, replays)
+
+
+def phase_router_chaos(torch, smi_line, fleet):
+    """``paddle_tpu_torch/tools/chaos_router.py``'s drill on the
+    ``router_serve`` fleet: a burst of ``ROUTER_BURST`` requests with the
+    worker that did not serve the traced request SIGKILLed as soon as it
+    holds one of them in flight; the drill's verdict requires that the
+    kill caught at least one request there and that the router rerouted
+    at least one (the summary's ``victim_in_flight`` and ``rerouted``).
+    Every accepted request must end in a result or a typed error; the
+    killed process is reaped and respawned (it recaptures its graphs in
+    its warmup), after which the checked requests answer bitwise as
+    before the kill and nvidia-smi lists one process per live worker.
+    Then the fleet shuts down: the router's flight dump holds a
+    ``request.outcome`` for each request and the ``worker.respawn``; each
+    worker's exit line names ``cuda:0`` and its counters obey ``serve``'s
+    identities; and the traced request's spans, from this process and the
+    worker, stitch into one trace (``obs.trace.load_dir``), written as a
+    chrome trace."""
+    sys.path.insert(0, os.path.join(REPO, "paddle_tpu_torch", "tools"))
+    import chaos_router
+    from paddle_tpu_torch.obs import flight, trace
+
+    router, client = fleet["router"], fleet["client"]
+    reset_counts()
+    victim = 1 - fleet["traced_worker"]
+    survivor_before = worker_kernels(router)[1 - victim]
+    t0 = time.perf_counter()
+    summary, outs, probes = chaos_router.drill(
+        router, client, fleet["feeds_burst"], True, ROUTER_TIMEOUT_S,
+        probes=fleet["checked"], victim=victim)
+    drill_s = time.perf_counter() - t0
+    killed = summary["killed_pid"]
+    respawned = router._workers[victim]
+    respawn_ready = respawned.ready[-1]
+    apps = compute_apps()
+    live = [w.pid for w in router._workers]
+    reaped = not os.path.exists("/proc/%d" % killed)
+    router.shutdown()
+    client.close()
+    dump = flight.load(flight.dump_path())
+    audit = chaos_router.audit_flight(dump, summary, len(fleet["checked"]),
+                                      kill=True)
+    summary["flight"] = audit
+    ok = chaos_router.verdict(summary)
+    prev = fleet.pop("flight_env")
+    if prev is None:
+        os.environ.pop(flight.ENV_FLIGHT_DIR, None)
+    else:
+        os.environ[flight.ENV_FLIGHT_DIR] = prev
+    same = sum(np.array_equal(a[0], b) for a, b in zip(probes,
+                                                       fleet["before"]))
+    exits = {i: w.exits for i, w in enumerate(router._workers)}
+    launching = replays = 0
+    survivor = exits[1 - victim][-1]
+    a, b = _check_worker("router_chaos", survivor, BERT_PER_DISPATCH,
+                         len(ROUTER_LADDER), "batches")
+    base = survivor_before["runs"]
+    launching += a - base["interpreted"] - base["captures"]
+    replays += b - base["replays"]
+    a, b = _check_worker("router_chaos", exits[victim][-1],
+                         BERT_PER_DISPATCH, len(ROUTER_LADDER), "batches")
+    launching, replays = launching + a, replays + b
+    # the traced request, stitched across this process and a worker
+    spans = trace.load_dir(fleet["trace_dir"])
+    tid = fleet["trace_id"]
+    tspans = [s for s in spans if s["trace_id"] == tid]
+    names = sorted({s["name"] for s in tspans})
+    ids = {s["span_id"] for s in tspans}
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    chrome_path = os.path.join(REPO, "chiprun_out", "router_trace.json")
+    with open(chrome_path, "w") as f:
+        json.dump(trace.chrome_trace(tspans), f)
+    check(read_counts() == per_run(),
+          "router_chaos: this process launched a kernel: %s" % read_counts())
+    emit({"phase": "router_chaos", "burst": ROUTER_BURST,
+          "victim": victim, "drill_s": drill_s, "summary": summary,
+          "probes_bitwise_equal": same, "killed_pid_reaped": reaped,
+          "respawned_ready": respawn_ready, "live_pids": live,
+          "compute_apps_mib": apps, "exit_reports": exits,
+          "trace": {"spans": len(tspans), "names": names,
+                    "pids": len({s["pid"] for s in tspans}),
+                    "chrome_trace": chrome_path,
+                    "chrome_trace_bytes": os.path.getsize(chrome_path)},
+          "device": smi_line})
+    check(ok, "router_chaos: the drill's verdict failed: %s" % summary)
+    check(summary["accepted"] == summary["completed"]
+          + sum(summary["typed_errors"].values()),
+          "router_chaos: accepted %d != completed + typed" %
+          summary["accepted"])
+    check(summary["respawns"] >= 1 and respawned.pid != killed and reaped,
+          "router_chaos: no reaped respawn of %d" % killed)
+    check(same == len(fleet["checked"]),
+          "router_chaos: %d of %d checked answers moved after the respawn"
+          % (len(fleet["checked"]) - same, len(fleet["checked"])))
+    # the killed worker's memory went back to the card: one compute
+    # process a live worker
+    _check_compute_apps(torch, "router_chaos", apps, len(live))
+    check(len(exits[1 - victim]) == 1 and len(exits[victim]) == 1,
+          "router_chaos: exit lines %s" % exits)
+    check({"client.predict", "router.door", "router.dispatch",
+           "worker.queue", "engine.batch", "executor.run"} <= set(names)
+          and all(s["parent_id"] in ids for s in tspans
+                  if s["parent_id"] is not None),
+          "router_chaos: the traced request's spans %s do not stitch"
+          % names)
+    return _path_counts(BERT_PER_DISPATCH, launching, replays)
+
+
+GPT2_PER_DISPATCH = {"layer_norm_fwd": 2 * GPT2["n_layer"] + 1}
+
+
+def phase_router_decode(torch, smi_line, step_dir):
+    """The decode tier through the front door: two workers on the
+    GPT-2-small step directory ``decode`` saved (with its
+    ``decode_spec.json``), ``PADDLE_TPU_PREFIX_CACHE_MB=1024`` and
+    ``PADDLE_TPU_DECODE_MAX_NEW=16``, each capturing its 28 step
+    geometries in ``--warmup``; then ``chaos_decode.py``'s drill at
+    ``decode``'s workload (``decode_workload`` at its seed, 32 prompts
+    behind one 128-token prefix, 16 new tokens): a cold pass, a hot pass,
+    a burst with worker 0 SIGKILLed mid-decode (with at least one request
+    in flight there, and at least one rerouted), and a pass after the
+    respawn, each sent as one burst. Every completed reply equals its
+    cold-pass reply bitwise; each worker's 25 LayerNorm forwards a
+    launching step dispatch (the step program's attention is the plain
+    ``cached_attention``: no flash launch) and its replays equal its
+    decode steps."""
+    sys.path.insert(0, os.path.join(REPO, "paddle_tpu_torch", "tools"))
+    import chaos_decode
+    from paddle_tpu_torch.serving import Router, RouterClient, decode_batcher
+
+    reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [p for p, _ in decode_workload(rng, ROUTER_DECODE_REQUESTS)]
+    router = Router(step_dir, num_workers=ROUTER_WORKERS,
+                    worker_args=["--warmup", "--ladder",
+                                 ",".join(map(str, ROUTER_LADDER))],
+                    worker_env={"PADDLE_TPU_PREFIX_CACHE_MB": "1024",
+                                "PADDLE_TPU_DECODE_MAX_NEW":
+                                    str(ROUTER_DECODE_MAX_NEW)})
+    t0 = time.perf_counter()
+    router.start()
+    spawn_s = time.perf_counter() - t0
+    client = RouterClient(router.address, pool_size=ROUTER_DECODE_REQUESTS)
+    before_kill = {}
+    try:
+        summary, passes = chaos_decode.decode_drill(
+            router, client, prompts, ROUTER_DECODE_REQUESTS,
+            ROUTER_DECODE_MAX_NEW, True, ROUTER_TIMEOUT_S, concurrent=True,
+            before_kill=lambda: before_kill.update(
+                report=worker_kernels(router)[0]))
+        client.close()
+    finally:
+        router.shutdown()
+    ok = chaos_decode.verdict(summary)
+    geometries = len(ROUTER_LADDER) * len(decode_batcher.default_ctx_ladder(
+        decode_batcher.load_decode_spec(step_dir)))
+    launching = replays = 0
+    reports = [w.exits[-1] for w in router._workers if w.exits] + \
+        [before_kill["report"]]
+    for i, r in enumerate(reports):
+        a, b = _check_worker("router_decode", r, GPT2_PER_DISPATCH,
+                             geometries, "decode_steps",
+                             live=i == len(reports) - 1)
+        launching, replays = launching + a, replays + b
+    check(read_counts() == per_run(),
+          "router_decode: this process launched a kernel: %s"
+          % read_counts())
+    tok = {k: v["tokens"] / v["seconds"] for k, v in passes.items()}
+    emit({"phase": "router_decode", "config": GPT2,
+          "workers": ROUTER_WORKERS, "requests": ROUTER_DECODE_REQUESTS,
+          "max_new": ROUTER_DECODE_MAX_NEW, "system_prefix": SYSTEM_PREFIX,
+          "spawn_s": spawn_s, "passes": passes, "tokens_per_s": tok,
+          "summary": summary, "geometries": geometries,
+          "worker_reports": reports,
+          "killed_worker_report_read_before_the_kill":
+              before_kill["report"]["pid"], "device": smi_line})
+    check(ok, "router_decode: the drill's verdict failed: %s" % summary)
+    check(len(reports) == 3, "router_decode: %d worker reports (want the "
+          "killed worker's, read before the kill, and two exit lines)"
+          % len(reports))
+    return _path_counts(GPT2_PER_DISPATCH, launching, replays)
 
 
 # ---------------------------------------------------------------------------
@@ -9076,7 +9499,7 @@ def main():
     # and the launches its graph replays repeated, by kernel
     paths, replayed = {}, {}
     phase_capture_check(torch)
-    paths["serve"], replayed["serve"] = phase_serve(torch, smi_line)
+    paths["serve"], replayed["serve"], bert = phase_serve(torch, smi_line)
     phase_train_check(torch, smi_line)
     paths["train"], replayed["train"] = phase_train(torch, smi_line, {
         "flash_attention_fwd": times["flash_attention_fwd"][
@@ -9124,8 +9547,26 @@ def main():
     bert_times = phase_bert_kernel_timing(torch, dev)
     opt_scatter = phase_optimizer_check(torch, smi_line)
     fam = phase_decode_check(torch, smi_line)
-    paths["decode"], replayed["decode"] = phase_decode(torch, smi_line, fam)
+    paths["decode"], replayed["decode"], step_dir = phase_decode(
+        torch, smi_line, fam, keep_dir=True)
     del fam
+    # the front door: a router over two worker processes on the card, on
+    # the directories serve and decode saved
+    fleet = {"trace_dir": tempfile.mkdtemp(prefix="router_trace_"),
+             "flight_dir": tempfile.mkdtemp(prefix="router_flight_")}
+    try:
+        paths["router_serve"], replayed["router_serve"] = \
+            phase_router_serve(torch, smi_line, bert, fleet)
+        paths["router_chaos"], replayed["router_chaos"] = \
+            phase_router_chaos(torch, smi_line, fleet)
+        paths["router_decode"], replayed["router_decode"] = \
+            phase_router_decode(torch, smi_line, step_dir)
+    finally:  # no worker process outlives the script
+        if "router" in fleet:
+            fleet["router"].shutdown()
+    for d in (bert["model_dir"], step_dir, fleet["trace_dir"],
+              fleet["flight_dir"]):
+        shutil.rmtree(d)
     phase_mt_train_check(torch, smi_line)
     paths["mt_train"], replayed["mt_train"], mt, mt_scope = phase_mt_train(
         torch, smi_line)

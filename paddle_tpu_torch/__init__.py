@@ -43,6 +43,8 @@ from . import io  # noqa: F401
 from . import metrics  # noqa: F401
 from . import inference  # noqa: F401
 from . import bridge  # noqa: F401
+from . import obs  # noqa: F401
+from . import reliability  # noqa: F401
 from . import serving  # noqa: F401
 from . import models  # noqa: F401
 

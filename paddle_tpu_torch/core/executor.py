@@ -103,6 +103,7 @@ import numpy as np
 import torch
 
 from ..analysis.dataflow import bodies, body_reads
+from ..obs import trace as obs_trace
 from . import framework
 from .framework import Variable, torch_dtype
 from .op_registry import (AMP, DEVICE_KEY, LENT_KEY, RNG_KEY, RNG_TAPE_KEY,
@@ -962,52 +963,72 @@ class Executor:
                 scope.set(rng, gen)
             persist = {v.name for v in program.list_vars() if v.persistable}
             state_in = tuple(sorted(n for n in persist if n in scope))
-            if check_nan_inf:
-                return self._run_checked(program, scope, feed, fetch_names,
-                                         persist, state_in, lend,
-                                         return_numpy)
-            fused = env_flag("PADDLE_TPU_FUSED_OPT")
-            key = (id(program), program._version, feed_signature(gb, feed),
-                   tuple(fetch_names), state_in, id(scope),
-                   bool(getattr(program, "_amp_bf16", False)),
-                   bool(donate_state), fused, lend)
-            entry = self._cache.get(key) if use_program_cache else None
-            if entry is None or entry.program() is not program \
-                    or entry.scope() is not scope:
-                entry = self._entry(program, scope, fetch_names, persist,
-                                    fused, donate_state, use_program_cache,
-                                    lend)
-                if use_program_cache:
-                    self._cache[key] = entry
-                    ref, me = weakref.ref(entry), weakref.ref(self)
-                    for owner in (program, scope):
-                        weakref.finalize(owner, Executor._collected, me, key,
-                                         ref)
-            self._last[id(program)] = entry
-            step = entry.step
-            if step is not None and not step.bound_to(scope, feed):
-                step.release()  # dropped: captured again from call 1
-                step = entry.step = None
-                entry.warm = None
-            if step is not None:
-                entry.runs["replays"] += 1
-                return step.replay(feed, return_numpy)
-            thread = threading.get_ident()
-            if not entry.captured or entry.warm != thread:
-                out = self._interpret(program, entry, scope, feed,
-                                      fetch_names, persist, state_in,
-                                      return_numpy)
-                entry.warm = thread if entry.captured else None
-                return out
-            step = CapturedStep(entry, scope, state_in, feed, fetch_names,
-                                self.device, gb, pool=self._pool)
-            step.load_feed(feed)
-            with _CAPTURE_LOCK:
-                step.capture(self._side_stream())
-            entry.step = step
-            entry.runs["captures"] += 1
-            scope._binders.add(self)
+            sp = obs_trace.span("executor.run")
+            with sp:
+                out = self._run_locked(
+                    program, scope, feed, fetch_names, persist, state_in,
+                    lend, return_numpy, gb, check_nan_inf, donate_state,
+                    use_program_cache)
+                if sp and self.device.type == "cuda":
+                    # under tracing the step is timed honestly: the span
+                    # closes after the run's stream has done its work (the
+                    # reference blocks on the fetches); it opens around
+                    # the replay, the interpreted run, or the capture and
+                    # its first replay, never inside a capture
+                    torch.cuda.current_stream(self.device).synchronize()
+            return out
+
+    def _run_locked(self, program, scope, feed, fetch_names, persist,
+                    state_in, lend, return_numpy, gb, check_nan_inf,
+                    donate_state, use_program_cache):
+        """:meth:`run`'s body under the executor's lock: the cache entry
+        of this key, then a replay, an interpreted run or a capture."""
+        if check_nan_inf:
+            return self._run_checked(program, scope, feed, fetch_names,
+                                     persist, state_in, lend,
+                                     return_numpy)
+        fused = env_flag("PADDLE_TPU_FUSED_OPT")
+        key = (id(program), program._version, feed_signature(gb, feed),
+               tuple(fetch_names), state_in, id(scope),
+               bool(getattr(program, "_amp_bf16", False)),
+               bool(donate_state), fused, lend)
+        entry = self._cache.get(key) if use_program_cache else None
+        if entry is None or entry.program() is not program \
+                or entry.scope() is not scope:
+            entry = self._entry(program, scope, fetch_names, persist,
+                                fused, donate_state, use_program_cache,
+                                lend)
+            if use_program_cache:
+                self._cache[key] = entry
+                ref, me = weakref.ref(entry), weakref.ref(self)
+                for owner in (program, scope):
+                    weakref.finalize(owner, Executor._collected, me, key,
+                                     ref)
+        self._last[id(program)] = entry
+        step = entry.step
+        if step is not None and not step.bound_to(scope, feed):
+            step.release()  # dropped: captured again from call 1
+            step = entry.step = None
+            entry.warm = None
+        if step is not None:
+            entry.runs["replays"] += 1
             return step.replay(feed, return_numpy)
+        thread = threading.get_ident()
+        if not entry.captured or entry.warm != thread:
+            out = self._interpret(program, entry, scope, feed,
+                                  fetch_names, persist, state_in,
+                                  return_numpy)
+            entry.warm = thread if entry.captured else None
+            return out
+        step = CapturedStep(entry, scope, state_in, feed, fetch_names,
+                            self.device, gb, pool=self._pool)
+        step.load_feed(feed)
+        with _CAPTURE_LOCK:
+            step.capture(self._side_stream())
+        entry.step = step
+        entry.runs["captures"] += 1
+        scope._binders.add(self)
+        return step.replay(feed, return_numpy)
 
     @staticmethod
     def _collected(me, key, ref):
@@ -1069,6 +1090,17 @@ class Executor:
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         return self._stream
+
+    def take_stream(self, other):
+        """Run call 1 and the capture of this executor's captured entries
+        on ``other``'s side stream instead of a stream of its own (no-op
+        once this one has its own, or across devices). A serving replica
+        rebuilt in place of an evicted one takes the evicted executor's
+        stream: PyTorch keeps a cuBLAS workspace for each stream a GEMM
+        ran on until the process ends, so a new stream every rebuild
+        would hold one more workspace each time."""
+        if self._stream is None and other.device == self.device:
+            self._stream = other._stream
 
     @contextlib.contextmanager
     def _warm_up(self):

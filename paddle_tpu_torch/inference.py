@@ -13,23 +13,38 @@ the weights (ref ``AnalysisPredictor::Clone``) and keeps its own
 Device: ``AnalysisConfig`` selects ``CUDAPlace(0)`` by default, as
 ``enable_use_gpu`` does in the reference; ``disable_gpu()`` selects the
 CPU (another card goes through ``ServingEngine(device=...)``). Without a CUDA device, a predictor that was not asked for the CPU
-raises. ``shard``, int8 serving, the StableHLO predictor and the
-combined-file model form (``prog_file``/``params_file``) are not ported.
+raises. ``clone(device=...)`` pins a replica to one device: its scope is
+a copy of the weights on that ``torch.device`` (the
+``ServingEngine(placement="per_device")`` building block,
+``paddle_tpu/inference.py:127-134``). ``shard`` (A7), int8 serving and the
+StableHLO predictor (A5b) are not ported.
 """
 
+import os
+
+import torch
+
 from . import io as io_mod
-from .core.executor import CPUPlace, CUDAPlace, Executor, Scope, scope_guard
+from .core.executor import (CPUPlace, CUDAPlace, Executor, Scope, place_for,
+                            scope_guard)
 
 __all__ = ["AnalysisConfig", "Predictor", "ProgramPredictor",
            "create_paddle_predictor"]
 
 
 class AnalysisConfig:
-    """Model directory plus the device to serve on."""
+    """Model directory (or the combined-file form: ``prog_file`` and
+    ``params_file`` paths inside one directory, ref
+    ``SetModel(prog_file, params_file)``) plus the device to serve on."""
 
-    def __init__(self, model_dir):
+    def __init__(self, model_dir=None, prog_file=None, params_file=None):
         self.model_dir = model_dir
+        self.prog_file = prog_file
+        self.params_file = params_file
         self.place = CUDAPlace(0)
+
+    def set_model(self, model_dir):
+        self.model_dir = model_dir
 
     def disable_gpu(self):
         self.place = CPUPlace()
@@ -96,17 +111,34 @@ class ProgramPredictor:
         (:meth:`Executor.close`); it still runs afterwards."""
         self._exe.close()
 
-    def clone(self):
+    def clone(self, device=None):
         """A predictor sharing this one's program and weights (ref
-        ``AnalysisPredictor::Clone``)."""
+        ``AnalysisPredictor::Clone``), with its own executor.
+
+        ``device`` (a device string, ``torch.device`` or place): pin the
+        clone to that device — its scope becomes a copy of every weight
+        there (no longer shared with the parent) and its executor runs
+        there. The ``placement="per_device"`` replica constructor."""
         other = object.__new__(type(self))
         other.config = self.config
         other._scope = self._scope
-        other._exe = Executor(self._exe.place)
+        other._exe = Executor(self._exe.place if device is None
+                              else place_for(device))
         other._program = self._program
         other.feed_names = list(self.feed_names)
         other._fetch_vars = self._fetch_vars
         other.fetch_names = list(self.fetch_names)
+        if device is not None:
+            dev = other._exe.device
+            pinned = Scope()
+            for name in self._scope.var_names():
+                if name.startswith("@"):
+                    continue  # the generator: each scope seeds its own
+                value = self._scope.get(name)
+                if isinstance(value, torch.Tensor):
+                    value = value.to(dev)
+                pinned.set(name, value)
+            other._scope = pinned
         return other
 
 
@@ -117,11 +149,32 @@ class Predictor(ProgramPredictor):
     def __init__(self, config):
         if isinstance(config, str):
             config = AnalysisConfig(model_dir=config)
+        model_dir = config.model_dir
+        # combined-file form: the directory comes from the file paths,
+        # which must agree (``paddle_tpu/inference.py:214-226``)
+        for fp in (config.prog_file, config.params_file):
+            if fp is None:
+                continue
+            d = os.path.dirname(os.path.abspath(fp))
+            if model_dir is None:
+                model_dir = d
+            elif os.path.abspath(model_dir) != d:
+                raise ValueError(
+                    "AnalysisConfig: %r is not inside model_dir %r"
+                    % (fp, model_dir))
+        if model_dir is None:
+            raise ValueError("AnalysisConfig needs model_dir (the "
+                             "save_inference_model output directory) or "
+                             "prog_file/params_file paths")
         scope = Scope()
         exe = Executor(config.place)
         with scope_guard(scope):
             prog, feed_names, fetch_vars = io_mod.load_inference_model(
-                config.model_dir, exe)
+                model_dir, exe,
+                model_filename=(os.path.basename(config.prog_file)
+                                if config.prog_file else None),
+                params_filename=(os.path.basename(config.params_file)
+                                 if config.params_file else None))
         ProgramPredictor.__init__(self, prog, feed_names, fetch_vars,
                                   scope=scope, place=config.place)
         self.config = config

@@ -1,30 +1,50 @@
 """Dapper-style request tracing with an injectable clock: the port's copy
-of ``paddle_tpu/obs/trace.py`` (stdlib only), its span API.
+of ``paddle_tpu/obs/trace.py`` (stdlib only).
 
-1. **Disabled = free.** Call sites run unconditionally in hot paths (the
-   decode batcher's every step), so the off state costs one module-global
-   load and zero allocations: ``span(...)`` returns the preallocated falsy
-   :data:`_NULL_SPAN` when no tracer is installed. Tag dicts are built only
-   when a span is live: guard with ``if sp: sp.set(...)``.
-2. **Deterministic under a fake clock.** :class:`Tracer` takes ``clock=``;
-   tests drive time by hand. With a real clock, exports carry wall time
-   through an offset captured at tracer start.
+Design goals, in priority order:
 
-Spans are recorded into a bounded in-memory list; ``flush()`` and
-``stop()`` append them as JSON lines to ``<dir>/trace-<pid>.jsonl`` when
-``start(trace_dir=<dir>)`` set one. The ``PADDLE_TPU_TRACE`` switch, the
-exit-time flush, the rpc-header propagation (``inject``/``extract``, remote
-``activate``), ``chrome_trace`` and ``load_dir`` come with the router
-slice.
+1. **Disabled = free.** Call sites run unconditionally in hot paths
+   (``Executor.run``, the engine batch loop, every router request), so
+   the off state must cost one module-global load and zero allocations.
+   ``span(...)`` returns the preallocated falsy :data:`_NULL_SPAN`
+   singleton when no tracer is installed — the same fast-path shape as
+   ``reliability.faults.trip``. Tag dicts are only built when a span is
+   live: guard with ``if sp: sp.set(...)``.
+2. **Deterministic under a fake clock.** :class:`Tracer` takes
+   ``clock=`` exactly like ``reliability/policy.py``; tests drive time
+   by hand and never sleep. Exports convert the injected monotonic
+   clock to wall time via an offset captured at tracer start, so real
+   traces line up across processes while fake-clock traces stay exact.
+3. **Cross-process stitching over the rpc header.** :func:`inject`
+   writes ``header["trace"] = {"tid": ..., "sid": ...}`` beside
+   ``deadline_s``; unknown header keys are ignored by old peers, so the
+   wire format is unchanged. Unlike the deadline (re-derived per hop),
+   the trace id propagates VERBATIM; each hop re-parents by re-injecting
+   its own current span context before forwarding. :func:`extract`
+   works without an active tracer so a hop that merely forwards does
+   not need tracing enabled to preserve the id.
+
+Spans are recorded into a bounded in-memory list and flushed as JSON
+lines to ``<dir>/trace-<pid>.jsonl`` when ``PADDLE_TPU_TRACE=<dir>``
+(or an explicit ``trace_dir=``) is set — one file per process, stitched
+afterwards by trace id (:func:`load_dir`). :func:`chrome_trace`
+converts span dicts to the chrome://tracing / Perfetto JSON array
+format the reference emits from ``tools/timeline.py``.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import random
 import threading
 import time
+
+ENV_TRACE_DIR = "PADDLE_TPU_TRACE"
+
+# Header key carrying the propagated context; see serving/rpc.py docs.
+HEADER_KEY = "trace"
 
 _ID_BITS = 64
 
@@ -144,6 +164,17 @@ class Tracer:
             return st[-1]
         return None
 
+    def activate(self, ctx):
+        """Push a remote context (from :func:`extract`) as the ambient
+        parent for this thread. Returns a token for :meth:`deactivate`."""
+        st = self._stack()
+        st.append(ctx)
+        return len(st)
+
+    def deactivate(self, token):
+        st = self._stack()
+        del st[token - 1:]
+
     # -- span lifecycle -------------------------------------------------
 
     def span(self, name, parent=None):
@@ -206,7 +237,7 @@ class Tracer:
         """Append spans recorded since the last flush to the trace file.
 
         No-op unless ``trace_dir`` is set. Keeps already-flushed spans
-        out of the file on repeated calls."""
+        out of the file on repeated calls (atexit + explicit flush)."""
         if not self.trace_dir:
             return None
         with self._lock:
@@ -230,12 +261,16 @@ class Tracer:
 # -- module-level fast-path API ----------------------------------------
 
 _TRACER = None
+_atexit_installed = False
 
 
 def start(clock=None, trace_dir=None, max_spans=65536):
     """Install a process-global tracer and return it."""
-    global _TRACER
+    global _TRACER, _atexit_installed
     _TRACER = Tracer(clock=clock, trace_dir=trace_dir, max_spans=max_spans)
+    if trace_dir and not _atexit_installed:
+        atexit.register(_atexit_flush)
+        _atexit_installed = True
     return _TRACER
 
 
@@ -251,6 +286,20 @@ def stop():
 
 def active():
     return _TRACER
+
+
+def maybe_start_from_env(clock=None):
+    """Start tracing if ``PADDLE_TPU_TRACE`` names a directory."""
+    d = os.environ.get(ENV_TRACE_DIR)
+    if d and _TRACER is None:
+        return start(clock=clock, trace_dir=d)
+    return _TRACER
+
+
+def _atexit_flush():
+    t = _TRACER
+    if t is not None:
+        t.flush()
 
 
 def span(name, parent=None):
@@ -269,8 +318,73 @@ def current():
     return t.current()
 
 
+def inject(header, ctx=None):
+    """Write the current (or given) context into an rpc header dict."""
+    if ctx is None:
+        t = _TRACER
+        if t is None:
+            return header
+        ctx = t.current()
+    if ctx is not None:
+        header[HEADER_KEY] = {"tid": ctx[0], "sid": ctx[1]}
+    return header
+
+
+def extract(header):
+    """Read a propagated context out of an rpc header, tracer or not."""
+    c = header.get(HEADER_KEY)
+    if not c:
+        return None
+    try:
+        return (c["tid"], c["sid"])
+    except (TypeError, KeyError):
+        return None
+
+
 def flush():
     t = _TRACER
     if t is None:
         return None
     return t.flush()
+
+
+# -- export -------------------------------------------------------------
+
+def chrome_trace(spans):
+    """Convert span dicts to chrome://tracing "X" complete events."""
+    events = []
+    for s in spans:
+        ev = {
+            "name": s["name"],
+            "ph": "X",
+            "ts": s["t0"] * 1e6,
+            "dur": s["dur"] * 1e6,
+            "pid": s.get("pid", 0),
+            "tid": s.get("tid", 0),
+            "args": dict(s.get("tags") or {}),
+        }
+        ev["args"]["trace_id"] = s["trace_id"]
+        ev["args"]["span_id"] = s["span_id"]
+        if s.get("parent_id"):
+            ev["args"]["parent_id"] = s["parent_id"]
+        events.append(ev)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def load_dir(trace_dir):
+    """Read every ``trace-*.jsonl`` under a directory into one span list."""
+    spans = []
+    if not os.path.isdir(trace_dir):
+        return spans
+    for fn in sorted(os.listdir(trace_dir)):
+        if not (fn.startswith("trace-") and fn.endswith(".jsonl")):
+            continue
+        with open(os.path.join(trace_dir, fn), encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    try:
+                        spans.append(json.loads(line))
+                    except ValueError:
+                        continue
+    return spans

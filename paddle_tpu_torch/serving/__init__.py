@@ -1,5 +1,5 @@
-"""``paddle_tpu_torch.serving`` — in-process serving (``paddle_tpu.serving``'s
-one-shot path and its decode tier):
+"""``paddle_tpu_torch.serving`` — the port of ``paddle_tpu.serving``: the
+in-process engine (one-shot and decode) and the multi-process front door:
 
     from paddle_tpu_torch import serving
 
@@ -13,6 +13,14 @@ one-shot path and its decode tier):
     serving.save_decode_spec(step_dir, decode_spec)
     eng = serving.ServingEngine(step_dir, decode=True, prefix_cache=True)
     ids = eng.predict([3, 7, 11], max_new_tokens=16)
+
+Multi-process front door (``router.py`` / ``worker.py`` / ``rpc.py``):
+
+    router = serving.Router("my/model/dir", num_workers=2)
+    router.start()                     # workers serve on cuda:0
+    client = serving.RouterClient(router.address)
+    prob, = client.predict({"x": rows}, timeout_s=1.0)
+    client.close(); router.shutdown()
 """
 
 from .admission import (AdmissionController, DeadlineExceededError,  # noqa: F401
@@ -27,6 +35,8 @@ from .decode_batcher import (DecodeBatcher, DecodeRequest,  # noqa: F401
                              DraftLM, default_ctx_ladder,
                              default_prefill_ladder,
                              load_decode_spec, save_decode_spec)
+from .router import (Router, RouterClient, RouterShutdownError,  # noqa: F401
+                     WorkerFailedError)
 
 __all__ = ["ServingEngine", "EngineShutdownError", "DynamicBatcher",
            "Request", "ServingMetrics", "Histogram", "AdmissionController",
@@ -35,4 +45,5 @@ __all__ = ["ServingEngine", "EngineShutdownError", "DynamicBatcher",
            "DecodeBatcher", "DecodeRequest", "DraftLM", "PrefixCache",
            "PrefixEntry", "PrefixMatch", "save_decode_spec",
            "load_decode_spec", "default_ctx_ladder",
-           "default_prefill_ladder"]
+           "default_prefill_ladder", "Router", "RouterClient",
+           "WorkerFailedError", "RouterShutdownError"]

@@ -1,5 +1,5 @@
 """Admission control: back-pressure and per-request deadlines (the copy of
-``paddle_tpu/serving/admission.py``, without EDF shedding).
+``paddle_tpu/serving/admission.py``; ``shortfall`` sizes EDF shedding).
 
 A serving engine that accepts unbounded work converts overload into
 unbounded latency for everyone; a bounded queue fast-fails new arrivals
@@ -16,7 +16,9 @@ __all__ = ["ServerOverloadedError", "DeadlineExceededError",
 
 class ServerOverloadedError(RuntimeError):
     """Queue depth limit hit — the request was rejected at the door.
-    Retryable with backoff (HTTP 429/503 semantics), not a server fault."""
+
+    Callers should treat this as retryable-with-backoff (HTTP 429/503
+    semantics), not as a server fault."""
 
 
 class DeadlineExceededError(TimeoutError):
@@ -24,10 +26,14 @@ class DeadlineExceededError(TimeoutError):
 
 
 class AdmissionController:
-    """Counting gate over the engine's in-flight examples: ``acquire``
-    admits up to ``max_queue_depth`` and raises
-    :class:`ServerOverloadedError` beyond that (it never blocks);
-    ``release`` returns capacity when a request leaves the system."""
+    """Counting gate over the engine's queue depth.
+
+    ``acquire`` admits up to ``max_queue_depth`` in-flight examples and
+    raises :class:`ServerOverloadedError` beyond that — it never blocks,
+    because blocking the submitter just moves the unbounded queue into the
+    callers' threads. ``release`` returns capacity when a request leaves
+    the system (served, failed, expired, or rejected by a later check).
+    """
 
     def __init__(self, max_queue_depth):
         if max_queue_depth is not None and max_queue_depth < 1:
@@ -52,3 +58,11 @@ class AdmissionController:
     def release(self, n=1):
         with self._lock:
             self._in_flight = max(0, self._in_flight - n)
+
+    def shortfall(self, n=1):
+        """How many slots short the gate is of admitting ``n`` more
+        examples right now (0 = would be admitted)."""
+        with self._lock:
+            if self.max_queue_depth is None:
+                return 0
+            return max(0, self._in_flight + n - self.max_queue_depth)

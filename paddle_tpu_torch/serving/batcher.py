@@ -1,6 +1,6 @@
 """Dynamic micro-batcher: coalesce requests until size or deadline.
 
-The copy of ``paddle_tpu/serving/batcher.py`` (without EDF shedding).
+The copy of ``paddle_tpu/serving/batcher.py`` (with its EDF ``shed_for``).
 Fluid's server-side batching idiom: single-example requests
 queue up and a worker cuts a batch when either ``max_batch_size`` examples
 are waiting or the oldest request has waited ``max_wait_ms`` — the standard
@@ -24,9 +24,14 @@ __all__ = ["Request", "DynamicBatcher"]
 class Request:
     """One queued inference request: ``feed`` (dict name -> array with a
     leading batch dim), its example count ``n``, the caller's ``future``,
-    and the admission timestamps the deadline checks read."""
+    the admission timestamps the deadline checks read, and ``retries``
+    (how many times a failed batch has re-enqueued it — the engine's
+    cross-replica retry budget). ``trace_ctx`` carries the submitter's
+    (trace_id, span_id) across the queue so the batch-serving thread can
+    parent its span onto the request's trace (``obs/trace.py``)."""
 
-    __slots__ = ("feed", "n", "future", "enqueue_t", "deadline")
+    __slots__ = ("feed", "n", "future", "enqueue_t", "deadline", "retries",
+                 "trace_ctx")
 
     def __init__(self, feed, n, future, enqueue_t, deadline=None):
         self.feed = feed
@@ -34,6 +39,8 @@ class Request:
         self.future = future
         self.enqueue_t = enqueue_t
         self.deadline = deadline
+        self.retries = 0
+        self.trace_ctx = None
 
 
 class DynamicBatcher:
@@ -90,6 +97,36 @@ class DynamicBatcher:
             self._depth = 0
             self._cv.notify_all()
         return out
+
+    def shed_for(self, deadline, shortfall=1):
+        """Earliest-deadline-first shedding: pop and return the queued
+        request with the LATEST deadline, provided (a) it is strictly
+        later than ``deadline`` (``None`` = no deadline = infinitely
+        late, so deadline-less queue entries are shed first and a
+        deadline-less arrival can never displace anything) and (b) the
+        TOTAL sheddable depth — examples on strictly-later deadlines —
+        covers ``shortfall``, so a victim is never killed for an arrival
+        that could not be admitted anyway. Returns None otherwise — the
+        caller then falls back to plain rejection."""
+        inf = float("inf")
+        incoming = inf if deadline is None else deadline
+        with self._cv:
+            worst_i = None
+            worst_d = -inf
+            sheddable = 0
+            for i, r in enumerate(self._queue):
+                d = inf if r.deadline is None else r.deadline
+                if d <= incoming:
+                    continue
+                sheddable += r.n
+                if d >= worst_d:  # ties shed the youngest (least sunk wait)
+                    worst_i, worst_d = i, d
+            if worst_i is None or sheddable < shortfall:
+                return None
+            victim = self._queue[worst_i]
+            del self._queue[worst_i]
+            self._depth -= victim.n
+            return victim
 
     def _cut_locked(self):
         """Pop a batch: greedy fill up to max_batch_size examples."""

@@ -1,11 +1,12 @@
 """Shape-bucketing policy: pad batches onto a fixed ladder of sizes.
 
-The batch-ladder part of ``paddle_tpu/serving/buckets.py`` (its
-sequence-length ladder is not ported). Padding the batch dim up to the
-nearest rung bounds the distinct feed shapes a replica ever runs at
-``len(ladder)``, so ``warmup()`` can touch every one of them before traffic lands. In
-``paddle_tpu`` each shape is an XLA compile; in the port it is the set of
-shapes the kernels and cuBLAS see.
+The copy of ``paddle_tpu/serving/buckets.py``. Padding the batch dim (and
+optionally a sequence dim) up to the nearest rung bounds the distinct feed
+shapes a replica ever runs at ``len(ladder)`` (times ``len(seq_ladder)``),
+so ``warmup()`` can touch every one of them before traffic lands. In
+``paddle_tpu`` each shape is an XLA compile; in the port it is one
+captured CUDA graph on the card and the set of shapes the kernels and
+cuBLAS see.
 
 Padding replicates the last real row (edge padding) rather than writing
 zeros: integer feeds are usually embedding ids or lengths, and zero-padding
@@ -17,7 +18,7 @@ out-of-distribution values. Replicated rows are sliced off by
 import numpy as np
 
 __all__ = ["pow2_ladder", "bucket_for", "pad_to_bucket", "unpad_fetch",
-           "BucketError"]
+           "edge_pad", "BucketError"]
 
 
 class BucketError(ValueError):
@@ -72,9 +73,14 @@ def edge_pad(a, target, axis):
     return np.take(a, idx, axis=axis)
 
 
-def pad_to_bucket(feed, ladder):
+def pad_to_bucket(feed, ladder, seq_ladder=None, seq_dim=1):
     """Pad every array in ``feed`` (dict name -> array with a leading batch
     dim) up to the ladder rung covering the actual batch size.
+
+    With ``seq_ladder``, arrays of rank >= 2 also get ``seq_dim`` padded up
+    its own rung (edge replication again — repeated trailing tokens), which
+    bounds compiles for variable-length text serving at
+    ``len(ladder) * len(seq_ladder)``.
 
     Returns ``(padded_feed, n)`` where ``n`` is the true batch size, for
     :func:`unpad_fetch`.
@@ -89,8 +95,17 @@ def pad_to_bucket(feed, ladder):
     if n < 1:
         raise ValueError("empty batch")
     rung = bucket_for(n, ladder)
-    return {k: edge_pad(a, rung, 0) if a.ndim else a
-            for k, a in arrays.items()}, n
+    out = {}
+    for k, a in arrays.items():
+        if a.ndim == 0:
+            out[k] = a
+            continue
+        a = edge_pad(a, rung, 0)
+        if seq_ladder is not None and a.ndim >= 2:
+            a = edge_pad(a, bucket_for(a.shape[seq_dim], seq_ladder),
+                         seq_dim)
+        out[k] = a
+    return out, n
 
 
 def unpad_fetch(fetches, n, padded_to=None):

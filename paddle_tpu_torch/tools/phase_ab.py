@@ -8,14 +8,17 @@ Loads ``DIR/chip_smoke.py`` (it builds and imports that checkout's
 ``paddle_tpu_torch``), builds the kernels, runs the named phases in the
 order given, each as the whole script runs it, and prints their lines,
 then one ``phase_ab`` line: the phase seconds, each training phase's
-median captured step ms, and decode's tokens/s, TPOT p50 and captured
-dispatch wall ms per arm. Run it once for each of two checkouts in one
-call to the card (parent, change, change, parent) to compare them: the
-timing arguments the script passes the training phases from its
-``timing`` phase are only printed beside their readings, so they are 0
-here. Phases: ``capture_check``, ``amp_train``, ``resnet_amp_train``,
-``deepfm_amp_train``, ``decode`` (with ``decode_check``, which builds its
-programs), and ``bert_pretrain_check`` where the checkout has it.
+median captured step ms, decode's tokens/s, TPOT p50 and captured
+dispatch wall ms per arm, and serve's requests/s and p50/p99 ms. Run it
+once for each of two checkouts in one call to the card (parent, change,
+change, parent) to compare them: the timing arguments the script passes
+the training phases from its ``timing`` phase are only printed beside
+their readings, so they are 0 here. Phases: ``serve`` (the BERT-base
+``ServingEngine`` closed loop; its saved model directory is deleted),
+``capture_check``, ``amp_train``,
+``resnet_amp_train``, ``deepfm_amp_train``, ``decode`` (with
+``decode_check``, which builds its programs), and ``bert_pretrain_check``
+where the checkout has it.
 """
 
 import argparse
@@ -23,6 +26,7 @@ import importlib.util
 import io
 import json
 import os
+import shutil
 import sys
 import time
 from contextlib import redirect_stdout
@@ -56,7 +60,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = cs.phase_device(torch)
     cs.phase_build()
+    def serve():
+        out = cs.phase_serve(torch, smi)
+        if len(out) > 2:  # a checkout whose serve keeps its directory
+            shutil.rmtree(out[2]["model_dir"])
+
     runs = {
+        "serve": serve,
         "capture_check": lambda: cs.phase_capture_check(torch),
         "amp_train": lambda: cs.phase_train(torch, smi, ZERO_FLASH,
                                             amp=True),
@@ -79,7 +89,11 @@ def main():
         out["seconds"][name] = time.perf_counter() - t0
         text = buf.getvalue()
         sys.stdout.write(text)
-        if name == "decode":
+        if name == "serve":
+            d = _lines(text, "serve")[-1]
+            out["serve"] = {k: d[k] for k in ("requests_per_s", "p50_ms",
+                                              "p99_ms", "wall_s")}
+        elif name == "decode":
             out["decode"] = {
                 d["arm"]: {"tokens_per_s": d["tokens_per_s"],
                            "tpot_ms_p50": d["tpot_ms"]["p50"],

@@ -279,10 +279,14 @@ def main():
         higher = sum(c > b for b, c in pairs)
         base_med = statistics.median(b for b, _ in pairs)
         change_med = statistics.median(c for _, c in pairs)
+        ratios = [c / b for b, c in pairs if b]
         summary[m] = {
             "base_median": base_med, "change_median": change_med,
-            "median_ratio": change_med / base_med,
-            "pair_ratio_median": statistics.median(c / b for b, c in pairs),
+            # a metric that reads 0 (no op runs outside a captured replay)
+            # has no ratio
+            "median_ratio": change_med / base_med if base_med else None,
+            "pair_ratio_median": (statistics.median(ratios) if ratios
+                                  else None),
             "change_higher": higher,
             "sign_test_p": _sign_test(higher, len(pairs))}
     emit({"summary": summary})

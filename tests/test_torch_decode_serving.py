@@ -459,8 +459,9 @@ def test_batcher_spans_under_a_tracer(tmp_path):
     """With a tracer started, every dispatch records one span: a
     ``decode.step`` per step, a ``prefill.chunk`` or ``spec.verify`` per
     chunk, tagged with its geometry and progress, whose sums are the
-    batcher's metrics; ``flush()`` writes them to the trace dir, and after
-    ``stop()`` ``span()`` is the falsy null span again."""
+    batcher's metrics, with the ``executor.run`` span of each dispatch's
+    predictor run nested under it; ``flush()`` writes them to the trace dir, and
+    after ``stop()`` ``span()`` is the falsy null span again."""
     import json
 
     from paddle_tpu_torch.obs import trace
@@ -490,7 +491,15 @@ def test_batcher_spans_under_a_tracer(tmp_path):
     spans = tracer.drain()
     with open(path) as f:
         assert [json.loads(line) for line in f] == spans
+    runs = [s for s in spans if s["name"] == "executor.run"]
+    spans = [s for s in spans if s["name"] != "executor.run"]
     assert all(s["dur"] > 0 and s["parent_id"] is None for s in spans)
+    dispatch_ids = {s["span_id"] for s in spans}
+    # each dispatch's predictor run nests under its span; the draft's
+    # passes run before the verify dispatch opens, as roots
+    nested = [s for s in runs if s["parent_id"] in dispatch_ids]
+    assert len(nested) == len(spans)
+    assert all(s["parent_id"] is None for s in runs if s not in nested)
     names = [s["name"] for s in spans]
     n_plain = metrics["plain"]["decode_steps"]
     assert names[:n_plain] == ["decode.step"] * n_plain
@@ -645,12 +654,17 @@ def test_decode_engine_from_saved_dir(tmp_path):
 
 
 def test_engine_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ServingEngine(FakeStepModelPredictor(), seq_ladder=(16,))
+    """What waits for a later slice raises, naming it: mp>1 (A7) and
+    staging a swap from a checkpoint directory (A6); decode arguments
+    outside decode mode are refused."""
+    with pytest.raises(NotImplementedError, match="A7"):
+        ServingEngine(FakeStepModelPredictor(), mp=2)
     eng = ServingEngine(FakeStepModelPredictor())
     try:
-        with pytest.raises(NotImplementedError):
-            eng.compiled_shape_counts()
+        assert eng.compiled_shape_counts() == [0]
+        for verb in (eng.reload, eng.prepare):
+            with pytest.raises(NotImplementedError, match="A6"):
+                verb("some/checkpoint/dir")
         with pytest.raises(ValueError):
             eng.submit({"x": np.zeros((1, 2))}, max_new_tokens=3)
     finally:

@@ -193,7 +193,7 @@ def test_engine_shutdown_without_drain_cancels_queued():
     assert queued.cancelled()
     gate.set()
     assert running.result(5.0)
-    for t in eng._threads:
+    for t in [w.thread for w in eng._workers]:
         t.join(5.0)
         assert not t.is_alive()
     assert eng._admission.in_flight == 0
