@@ -130,6 +130,23 @@ it and read just after:
   a D step, a G step through D (``dcgan_train``; no port kernel: the
   transposed convs are cuDNN's, and the epilogue fusion declines D's 4x4
   stride-2 sites).
+* the streaming loop at DeepFM's config 5 widths: ``stream_check`` (the
+  streaming trainer at batch 64 on the card and on the CPU from one
+  state over the same five stream batches: each loss, each published
+  version, the card's version loaded on the CPU bitwise, a captured
+  dropout step after a generator restore bitwise); ``stream_train``
+  (``AsyncExecutor.run`` over five sealed files through the C++ queue,
+  then ``StreamingTrainer`` at batch 32768 tail-following the part files
+  a producer thread appends, 3 + 20 steps, a version every 5 hot-swapped
+  by ``ModelPublisher`` into a ``ServingEngine`` under a closed loop of
+  requests: ingest rows/s, step ms and busy share, snapshot and writer
+  ms, staleness, p99 inside and outside swap windows, 0 dropped, the
+  held-out loss falling; one scatter-add a launching step); and
+  ``stream_fleet`` (two workers behind the router driven by
+  ``FleetPublisher`` through ``RouterTarget``: two-phase rounds answering
+  bitwise as an in-process predictor of the version, a corrupt version
+  refused at prepare, and the trainer CLI SIGKILLed inside a publish,
+  its torn version invisible and the restart's replay counted).
 
 Before each training path, ``train_check``, ``amp_train_check``,
 ``resnet_train_check``, ``resnet_amp_train_check``, ``deepfm_train_check``
@@ -9438,6 +9455,809 @@ def phase_dcgan_train(torch, smi_line, warmup=3, steps=10, prof_steps=2):
     return launches, per_run()
 
 
+# ---------------------------------------------------------------------------
+# The streaming loop (ROADMAP A6): a tail-followed record stream, versioned
+# checkpoints, the hot swap into a live engine and a two-worker fleet
+# ---------------------------------------------------------------------------
+
+# DeepFM at config 5's widths (DEEPFM) trained from the stream, Adam at
+# 1e-3 so that the held-out loss moves inside 23 steps; the stream's rows
+# are labelled by ``streaming.synthesize_stream_files``'s rule
+STREAM_LR = 1e-3
+STREAM_WARMUP = 3
+STREAM_STEPS = 20
+STREAM_PUBLISH_EVERY = 5
+STREAM_ASYNC_STEPS = 5
+STREAM_REQUEST_ROWS = 8
+STREAM_CLIENTS = 8
+STREAM_KILL_BATCH = 4096
+STREAM_CHECK_TOL = ("loss 1e-5 rel each step; each published parameter's "
+                    "update from the shared start within 1e-3 rel L2, every "
+                    "other published array (Adam's moments and beta "
+                    "powers) within 1e-5 rel L2: deepfm_train_check's rule")
+
+
+def stream_rule(seed):
+    """``synthesize_stream_files``' labelling rule at config 5's widths:
+    (per-id weights, dense weights, threshold)."""
+    rule = np.random.RandomState(seed)
+    w_id = rule.normal(0.0, 1.0, DEEPFM["sparse_feature_dim"])
+    w_dense = rule.normal(0.0, 1.0, DEEPFM["dense_dim"])
+    return w_id, w_dense, 0.5 * float(w_dense.sum())
+
+
+def stream_rows(rng, n, rule):
+    """``n`` rows drawn in bulk under ``rule``: the trainer's feed arrays
+    (feat_ids int64 [n, 26], dense_value f32 [n, 13], label int64 [n, 1])."""
+    w_id, w_dense, thresh = rule
+    ids = rng.randint(0, DEEPFM["sparse_feature_dim"],
+                      (n, DEEPFM["num_fields"]))
+    dense = rng.uniform(0.0, 1.0, (n, DEEPFM["dense_dim"])).astype("f4")
+    logit = w_id[ids].sum(1) + dense.astype("f8") @ w_dense
+    return {"feat_ids": ids.astype("int64"), "dense_value": dense,
+            "label": (logit > thresh).astype("int64")[:, None]}
+
+
+def write_stream_part(path, rng, n, rule, chunk=4096):
+    """Append ``n`` rows as recordio chunks of ``chunk`` records, serialised
+    with numpy in bulk: each record is ``DataFeedDesc.serialize``'s bytes
+    (the slots' little-endian buffers in order), framed as
+    ``streaming.encode_chunk`` frames it. Returns the rows' feed arrays."""
+    import struct
+    import zlib
+
+    rows = stream_rows(rng, n, rule)
+    dt = np.dtype([("len", "<u4"),
+                   ("feat_ids", "<i8", (DEEPFM["num_fields"],)),
+                   ("dense_value", "<f4", (DEEPFM["dense_dim"],)),
+                   ("label", "<i8", (1,))])
+    rec = np.empty(n, dt)
+    rec["len"] = dt.itemsize - 4
+    for name in ("feat_ids", "dense_value", "label"):
+        rec[name] = rows[name]
+    with open(path, "ab") as f:
+        for k in range(0, n, chunk):
+            payload = rec[k:k + chunk].tobytes()
+            f.write(struct.pack("<IIII", 0x7061646C, len(rec[k:k + chunk]),
+                                len(payload),
+                                zlib.crc32(payload) & 0xFFFFFFFF) + payload)
+            f.flush()
+    return rows
+
+
+def stream_trainer(fluid, ckpt_dir, batch, place, holdout=1,
+                   publish_every=STREAM_PUBLISH_EVERY):
+    from paddle_tpu_torch import streaming
+
+    return streaming.StreamingTrainer(
+        ckpt_dir, num_fields=DEEPFM["num_fields"],
+        sparse_feature_dim=DEEPFM["sparse_feature_dim"],
+        embedding_size=DEEPFM["embedding_size"],
+        dense_dim=DEEPFM["dense_dim"],
+        hidden_sizes=DEEPFM["hidden_sizes"], batch_size=batch,
+        learning_rate=STREAM_LR, publish_every_steps=publish_every,
+        max_versions=4, holdout_batches=holdout, seed=SEED, place=place)
+
+
+def _persistables(program, scope):
+    return [v.name for v in program.list_vars()
+            if v.persistable and v.name in scope]
+
+
+def _version_arrays(ckpt_dir, version):
+    with np.load(os.path.join(ckpt_dir, "checkpoint_%d" % version,
+                              "replicated.npz")) as z:
+        return {n: z[n] for n in z.files if not n.startswith("@")}
+
+
+def _published_verdict(start, params, card, cpu):
+    """STREAM_CHECK_TOL over one published version of each side: the
+    worst update's and the worst other array's relative L2."""
+    upd, other = {}, {}
+    for n, want in cpu.items():
+        got, want = card[n].astype("f8"), want.astype("f8")
+        if n in params:
+            upd[n] = _rel_l2(got - start[n], want - start[n])
+        else:
+            other[n] = _rel_l2(got, want)
+    wu, wo = max(upd, key=upd.get), max(other, key=other.get)
+    return {"worst_update": wu, "update_rel_l2": upd[wu],
+            "worst_other": wo, "other_rel_l2": other[wo],
+            "arrays": len(upd) + len(other),
+            "ok": bool(upd[wu] <= 1e-3 and other[wo] <= 1e-5)}
+
+
+def _dropout_restore_check(torch, fluid, ckpt_dir):
+    """A captured dropout step on the card: save (the generator's state),
+    three replays, load, three replays: the same draws, bitwise, from
+    the same generator object and the same graph."""
+    from paddle_tpu_torch import checkpoint
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        fluid.unique_name.switch()
+        y = fluid.layers.dropout(fluid.layers.data("x", shape=[4096]),
+                                 dropout_prob=0.5)
+    scope, exe = fluid.Scope(), fluid.Executor()
+    feed = {"x": np.ones((64, 4096), "f4")}
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[y], scope=scope)
+    checkpoint.save_checkpoint(exe, ckpt_dir, main_program=main, scope=scope,
+                               async_write=False)
+    gen = scope.get("@RNG@")
+    want = [exe.run(main, feed=feed, fetch_list=[y], scope=scope)[0]
+            for _ in range(3)]
+    checkpoint.load_checkpoint(exe, ckpt_dir, main_program=main, scope=scope)
+    got = [exe.run(main, feed=feed, fetch_list=[y], scope=scope)[0]
+           for _ in range(3)]
+    report = exe.step_report(main)
+    exe.close()
+    return {"bitwise": all(np.array_equal(a, b) for a, b in zip(got, want)),
+            "draws_differ": not np.array_equal(want[0], want[1]),
+            "same_generator": scope.get("@RNG@") is gen,
+            "generator_device": str(gen.device),
+            "captures": report["captures"], "replays": report["replays"]}
+
+
+def phase_stream_check(torch, smi_line, batch=64):
+    """The streaming trainer at config 5's widths (batch 64) on the card
+    and on the CPU from one startup state (the card's, copied across):
+    both read the same five stream batches (one held out, four trained)
+    and publish twice (every 2 steps, the second at the last step). Each
+    step's loss and each published version's arrays are held by
+    STREAM_CHECK_TOL; the card's last version, loaded into a fresh CPU
+    scope, must equal the card's scope bitwise; and a captured dropout
+    step, its generator restored from a checkpoint, must draw what the
+    uninterrupted run drew, bitwise. Returns (launches, replayed
+    launches): one scatter_add a launching step of the card's trainer."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import bridge, checkpoint, streaming
+
+    reset_counts()
+    tmp = tempfile.mkdtemp(prefix="stream_check_")
+    try:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        write_stream_part(os.path.join(data, "part-00000.recordio"),
+                          np.random.RandomState(SEED), 5 * batch,
+                          stream_rule(SEED), chunk=batch)
+        card = stream_trainer(fluid, os.path.join(tmp, "card"), batch,
+                              fluid.CUDAPlace(0), publish_every=2)
+        cpu = stream_trainer(fluid, os.path.join(tmp, "cpu"), batch,
+                             fluid.CPUPlace(), publish_every=2)
+        names = _persistables(card.main, card.scope)
+        params = {p.name for p in card.main.all_parameters()}
+        start = {n: card.scope.numpy(n) for n in names}
+        bridge.load_numpy_params(cpu.scope, start, "cpu", cpu.main)
+        losses = {"card": [], "cpu": []}
+        for side, tr in (("card", card), ("cpu", cpu)):
+            stream = streaming.RecordStream(data, poll_interval_s=0.0)
+            stream.close()
+            tr.run(stream, on_step=lambda t, k=side: losses[k].append(
+                t.last_train_loss))
+            tr.close()
+        counts = read_counts()
+        report = card.exe.step_report(card.main)
+        launching = report["interpreted"] + report["captures"]
+        loss_err = [abs(a - b) / abs(b)
+                    for a, b in zip(losses["card"], losses["cpu"])]
+        versions = checkpoint.candidate_versions(card.ckpt_dir)
+        cpu_versions = checkpoint.candidate_versions(cpu.ckpt_dir)
+        start64 = {n: a.astype("f8") for n, a in start.items()}
+        verdicts = {v: _published_verdict(
+            start64, params, _version_arrays(card.ckpt_dir, v),
+            _version_arrays(cpu.ckpt_dir, v)) for v in versions}
+        fresh, cexe = fluid.Scope(), fluid.Executor(fluid.CPUPlace())
+        checkpoint.load_checkpoint(cexe, card.ckpt_dir,
+                                   main_program=card.main, scope=fresh,
+                                   version=versions[0])
+        bitwise = [n for n in names
+                   if not np.array_equal(fresh.numpy(n),
+                                         card.scope.numpy(n))]
+        dropout = _dropout_restore_check(torch, fluid,
+                                         os.path.join(tmp, "dropout"))
+        card.exe.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "stream_check", "model": "deepfm", "config": DEEPFM,
+          "batch": batch, "lr": STREAM_LR, "steps": len(losses["card"]),
+          "losses_card": losses["card"], "losses_cpu": losses["cpu"],
+          "loss_rel_err_max": max(loss_err), "versions": versions,
+          "published": verdicts, "card_version_on_cpu_differs": bitwise,
+          "dropout_restore": dropout, "step_report": report,
+          "launches": counts, "tol": STREAM_CHECK_TOL, "device": smi_line})
+    check(len(losses["card"]) == len(losses["cpu"]) == 4,
+          "stream_check: steps %s" % losses)
+    check(max(loss_err) <= 1e-5, "stream_check: losses %s" % losses)
+    check(versions == cpu_versions == [1, 0],
+          "stream_check: versions %s / %s" % (versions, cpu_versions))
+    check(all(v["ok"] for v in verdicts.values()),
+          "stream_check: published arrays %s" % verdicts)
+    check(not bitwise, "stream_check: the card's version loaded on the CPU "
+          "differs from the card's scope in %s" % bitwise)
+    check(dropout["bitwise"] and dropout["draws_differ"]
+          and dropout["same_generator"] and dropout["captures"] == 1
+          and dropout["replays"] == 7,
+          "stream_check: dropout after a generator restore %s" % dropout)
+    check(report["captured"] and counts == per_run(scatter_add=launching),
+          "stream_check: launches %s, report %s" % (counts, report))
+    return counts, per_run(scatter_add=report["replays"])
+
+
+class _SwapTimer:
+    """The publisher's target: an engine whose reload windows are kept
+    as (start, end, version) on the host clock."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.windows = []
+
+    def reload(self, ckpt_dir, version=None):
+        t0 = time.perf_counter()
+        got = self.engine.reload(ckpt_dir, version=version)
+        self.windows.append((t0, time.perf_counter(), got))
+        return got
+
+
+def _closed_loop(engine, rng, rule, stop, out, timeout_s=120.0):
+    """One client of the closed loop: STREAM_REQUEST_ROWS-row DeepFM
+    requests back to back until ``stop``; (submit, done, ok) each."""
+    feed = stream_rows(rng, STREAM_REQUEST_ROWS, rule)
+    feed = {k: feed[k] for k in ("feat_ids", "dense_value")}
+    while not stop.is_set():
+        t0 = time.perf_counter()
+        try:
+            got, = engine.predict(feed, timeout_s=timeout_s)
+            ok = got.shape == (STREAM_REQUEST_ROWS, 1) \
+                and bool(np.isfinite(got).all())
+        except Exception:  # noqa: BLE001 — counted as a dropped request
+            ok = False
+        out.append((t0, time.perf_counter(), ok))
+
+
+def _latency_split(reqs, windows):
+    """requests/s and p99 ms of the requests that overlap a swap window
+    and of the rest."""
+    def p99(xs):
+        xs = sorted(xs)
+        return xs[int(0.99 * (len(xs) - 1))] * 1e3 if xs else None
+
+    inside, outside = [], []
+    for t0, t1, _ok in reqs:
+        hit = any(t0 < b and t1 > a for a, b, _v in windows)
+        (inside if hit else outside).append(t1 - t0)
+    span = max(t1 for _, t1, _ in reqs) - min(t0 for t0, _, _ in reqs)
+    in_s = sum(b - a for a, b, _ in windows)
+    return {"requests": len(reqs), "requests_per_s": len(reqs) / span,
+            "inside_swaps": {"requests": len(inside), "p99_ms": p99(inside),
+                             "seconds": in_s,
+                             "requests_per_s": len(inside) / in_s
+                             if in_s else None},
+            "outside_swaps": {"requests": len(outside),
+                              "p99_ms": p99(outside),
+                              "seconds": span - in_s,
+                              "requests_per_s": len(outside)
+                              / (span - in_s)}}
+
+
+def _overlap_ms(a, b, spans):
+    return sum(max(0.0, min(b, y) - max(a, x)) for x, y in spans) * 1e3
+
+
+def _step_split(step_t, run_t, device, publish_t, swaps, gcs, progress_t,
+                written, polls):
+    """Each step interval (one on_step to the next) split on the host
+    clock: the publish it held, the executor's run (host and device ms),
+    the progress ledger's write, the ingest left over and, of that, the
+    wait for the producer to finish the step's part file (step k reads
+    file k; file 0 is held out) and the stream's polls that returned
+    records (their ms and records); and the interval's overlap with the
+    engine's swap windows and the collector's pauses."""
+    out = []
+    for k in range(1, len(step_t)):
+        a, b = step_t[k - 1], step_t[k]
+        ms = (b - a) * 1e3
+        pub = _overlap_ms(a, b, publish_t)
+        run = (run_t[k][1] - run_t[k][0]) * 1e3
+        prog = (progress_t[k][1] - progress_t[k][0]) * 1e3
+        done = written.get(k + 1, a)
+        out.append({"step": k + 1, "ms": ms, "publish_ms": pub,
+                    "run_host_ms": run, "run_device_ms": device[k],
+                    "progress_ms": prog,
+                    "ingest_ms": ms - pub - run - prog,
+                    "producer_wait_ms": max(0.0, min(b, done) - a) * 1e3,
+                    "poll_ms": _overlap_ms(a, b, [(x, y) for x, y, _ in
+                                                  polls]),
+                    "polled_records": sum(n for x, y, n in polls
+                                          if a <= x < b),
+                    "swap_overlap_ms": _overlap_ms(
+                        a, b, [(x, y) for x, y, _ in swaps]),
+                    "gc_ms": _overlap_ms(a, b, [(x, y) for x, y, _ in gcs]),
+                    "gc_generations": sorted({g for x, y, g in gcs
+                                              if x < b and y > a})})
+    return out
+
+
+def phase_stream_train(torch, smi_line, ctx):
+    """The streaming loop at config 5's full widths, batch 32768, on the
+    card. A producer thread appends one 32768-row part file at a time
+    (numpy-serialised, ``write_stream_part``) while the trainer
+    tail-follows them. First ``AsyncExecutor.run`` over the five sealed
+    files (the C++ prefetch queue, 4 reader threads, 5 steps; its own
+    DeepFM, Adam(1e-4)); then ``StreamingTrainer`` (one held-out batch,
+    3 + 20 steps, publishing every 5 with ``async_write`` and once more at
+    the end) while ``ModelPublisher`` hot-swaps each version into a
+    ``ServingEngine`` on the card over the trainer's ``serve_dir``, under
+    a closed loop of STREAM_CLIENTS clients of 8-row requests. Prints the
+    ingest rate, step ms and the device's busy share (each step over 3x
+    the median split by ``_step_split``), the snapshot's ms
+    on the training thread beside the writer thread's, publish-to-swap
+    staleness, requests/s and p99 inside and outside the swap windows,
+    dropped requests (0), scatter_add's launches (one a launching step)
+    and replays, and the first and last held-out loss (the last lower).
+    Leaves the trainer and its directories in ``ctx`` for
+    ``stream_fleet``. Returns (launches, replayed launches)."""
+    import threading
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving, streaming
+    from paddle_tpu_torch.streaming.trainer import feed_desc
+
+    reset_counts()
+    tmp = ctx["tmp"] = tempfile.mkdtemp(prefix="stream_train_")
+    data = ctx["data"] = os.path.join(tmp, "data")
+    os.makedirs(data)
+    rule = ctx["rule"] = stream_rule(SEED)
+    batch = DEEPFM_BATCH
+    part = os.path.join(data, "part-%05d.recordio")
+    t0 = time.perf_counter()
+    for i in range(STREAM_ASYNC_STEPS):  # the sealed files
+        write_stream_part(part % i, np.random.RandomState(1000 + i), batch,
+                          rule)
+    write_s = time.perf_counter() - t0
+
+    # AsyncExecutor over the sealed files, through the native queue
+    main, startup, spec = build_deepfm(fluid)
+    ascope = fluid.Scope()
+    aexe = fluid.AsyncExecutor(fluid.CUDAPlace(0))
+    aexe._exe.run(startup, scope=ascope)
+    desc = feed_desc(DEEPFM["num_fields"], DEEPFM["dense_dim"], batch)
+    files = [part % i for i in range(STREAM_ASYNC_STEPS)]
+    check(fluid.native.native_available(), "the native data plane did not "
+          "build")
+    t0 = time.perf_counter()
+    aloss, = aexe.run(main, desc, files, thread_num=4, fetch=[spec.loss],
+                      scope=ascope)
+    async_s = time.perf_counter() - t0
+    async_report = aexe._exe.step_report(main)
+    async_run = dict(aexe.last_run)
+    aexe._exe.close()
+    del ascope
+
+    # the trainer, the engine on its serve dir, the publisher, the loop
+    trainer = ctx["trainer"] = stream_trainer(
+        fluid, os.path.join(tmp, "ckpt"), batch, fluid.CUDAPlace(0))
+    total_steps = STREAM_WARMUP + STREAM_STEPS
+    n_files = 1 + total_steps  # one held-out batch, then a batch a step
+    stop_producer = threading.Event()
+
+    written = {}  # part file -> when the producer finished it
+
+    def producer():
+        for i in range(STREAM_ASYNC_STEPS, n_files):
+            if stop_producer.is_set():
+                return
+            write_stream_part(part % i, np.random.RandomState(1000 + i),
+                              batch, rule)
+            written[i] = time.perf_counter()
+
+    engine = ctx["engine"] = serving.ServingEngine(
+        trainer.serve_dir, max_batch_size=STREAM_REQUEST_ROWS)
+    engine.warmup()
+    target = _SwapTimer(engine)
+    pub = ctx["publisher"] = streaming.ModelPublisher(
+        trainer.ckpt_dir, target, poll_interval_s=0.05)
+    stop = ctx["stop_clients"] = threading.Event()
+    reqs = []
+    clients = ctx["clients"] = [
+        threading.Thread(target=_closed_loop,
+                         args=(engine, np.random.RandomState(50 + k), rule,
+                               stop, reqs), daemon=True)
+        for k in range(STREAM_CLIENTS)]
+    for c in clients:
+        c.start()
+    pub.start()
+    prod = threading.Thread(target=producer, daemon=True)
+    ctx["producer"] = (prod, stop_producer)
+    stream = streaming.RecordStream(data, poll_interval_s=0.005)
+    step_t, evals, writers, dev_ms = [], [], [], []
+    orig_run = trainer.exe.run
+
+    def timed_run(program=None, **kw):
+        # events around each training step: the device's time for it
+        if program is not trainer.main:
+            return orig_run(program, **kw)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = orig_run(program, **kw)
+        b.record()
+        run_t.append((t0, time.perf_counter()))
+        dev_ms.append((a, b))
+        return out
+
+    trainer.exe.run = timed_run
+    run_t, publish_t, gc_t, gc_open, progress_t = [], [], [], {}, []
+    orig_progress = trainer._write_progress
+
+    def timed_progress():
+        t0 = time.perf_counter()
+        orig_progress()
+        progress_t.append((t0, time.perf_counter()))
+
+    trainer._write_progress = timed_progress
+    orig_poll = stream._poll_once
+
+    def timed_poll():
+        t0 = time.perf_counter()
+        got = orig_poll()
+        if got:
+            poll_t.append((t0, time.perf_counter(), len(got)))
+        return got
+
+    poll_t = []
+    stream._poll_once = timed_poll
+
+    def on_gc(phase, info):
+        # the collector's pauses on the host clock, to name slow steps
+        if phase == "start":
+            gc_open["t"] = time.perf_counter()
+        elif "t" in gc_open:
+            gc_t.append((gc_open.pop("t"), time.perf_counter(),
+                         info["generation"]))
+
+    def on_publish(tr):
+        publish_t.append((step_t[-1], time.perf_counter()))
+        evals.append(tr.last_eval_loss)
+        writers.append(tr._writer)
+
+    gc.callbacks.append(on_gc)
+    t_start = time.perf_counter()
+    prod.start()
+    try:
+        trainer.run(stream, max_steps=total_steps,
+                    on_step=lambda tr: step_t.append(time.perf_counter()),
+                    on_publish=on_publish)
+    finally:
+        gc.callbacks.remove(on_gc)
+    train_s = time.perf_counter() - t_start
+    rows = stream.rows_total
+    if trainer.publish() is not None:  # the last step's version
+        on_publish(trainer)
+    prod.join(60.0)
+    for w in writers:
+        w.wait()
+    trainer.exe.run = orig_run
+    del trainer._write_progress, stream._poll_once
+    newest = max(int(os.path.basename(w.path).split("_")[1])
+                 for w in writers)
+    deadline = time.perf_counter() + 60.0
+    while pub.served_version != newest and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    time.sleep(0.5)  # requests on the newest weights
+    stop.set()
+    for c in clients:
+        c.join(150.0)
+    pub.stop()
+    torch.cuda.synchronize()
+    step_ms = [(b - a) * 1e3 for a, b in zip(step_t, step_t[1:])]
+    timed_ms = step_ms[STREAM_WARMUP - 1:]
+    device = [a.elapsed_time(b) for a, b in dev_ms]
+    timed_dev = device[STREAM_WARMUP:]
+    report = trainer.exe.step_report(trainer.main)
+    counts = read_counts()
+    launching = (report["interpreted"] + report["captures"]
+                 + async_report["interpreted"] + async_report["captures"])
+    replays = report["replays"] + async_report["replays"]
+    dropped = sum(1 for _, _, ok in reqs if not ok)
+    split = _latency_split(reqs, target.windows)
+    snapshot_ms = [w.snapshot_s * 1e3 for w in writers]
+    split_steps = _step_split(step_t, run_t, device, publish_t,
+                              target.windows, gc_t, progress_t,
+                              written, poll_t)[STREAM_WARMUP - 1:]
+    slow = [r for r in split_steps
+            if r["ms"] > 3.0 * statistics.median(timed_ms)]
+    write_ms = [w.write_s * 1e3 for w in writers]
+    emit({"phase": "stream_train", "model": "deepfm", "config": DEEPFM,
+          "table": [DEEPFM["sparse_feature_dim"], DEEPFM_WIDTH],
+          "batch": batch, "lr": STREAM_LR, "producer": "one 32768-row "
+          "part file at a time, numpy-serialised, appended while the "
+          "trainer tail-follows", "sealed_files_write_s": write_s,
+          "async_executor": {"steps": async_run["steps"],
+                             "records": async_run["records"],
+                             "queue": async_run["queue"], "threads": 4,
+                             "seconds": async_s,
+                             "rows_per_s": async_run["records"] / async_s,
+                             "loss": float(np.asarray(aloss)),
+                             "step_report": async_report},
+          "steps": trainer.step, "rows_ingested": rows,
+          "ingest_rows_per_s": rows / train_s,
+          "ingest_gauge_rows_per_s": stream.rows_per_sec(),
+          "step_ms_median": statistics.median(timed_ms),
+          "step_ms_min": min(timed_ms), "step_ms_max": max(timed_ms),
+          "step_ms": timed_ms, "slow_steps": slow,
+          "step_split_median_ms": {
+              k: statistics.median(r[k] for r in split_steps)
+              for k in ("ingest_ms", "producer_wait_ms", "poll_ms",
+                        "polled_records", "run_host_ms",
+                        "run_device_ms", "progress_ms", "publish_ms",
+                        "swap_overlap_ms", "gc_ms")},
+          "device_ms_median":
+              statistics.median(timed_dev),
+          "device_busy_share": sum(timed_dev) / sum(timed_ms),
+          "snapshot_ms_training_thread": snapshot_ms,
+          "write_ms_writer_thread": write_ms,
+          "publishes": trainer.publishes,
+          "publish_failures": trainer.publish_failures,
+          "swaps": pub.swap_count, "served_version": pub.served_version,
+          "newest_version": newest,
+          "staleness_s": pub.staleness_samples,
+          "swap_ms": [(b - a) * 1e3 for a, b, _ in target.windows],
+          "serving": split, "dropped_requests": dropped,
+          "holdout_loss_first": evals[0], "holdout_loss_last": evals[-1],
+          "holdout_losses": evals, "step_report": report,
+          "launches": counts, "launching_steps": launching,
+          "replayed_steps": replays, "device": smi_line})
+    check(async_run["queue"] == "native" and async_run["steps"]
+          == STREAM_ASYNC_STEPS and async_run["records"]
+          == STREAM_ASYNC_STEPS * batch,
+          "stream_train: AsyncExecutor.run %s" % async_run)
+    check(trainer.step == total_steps and trainer.publish_failures == 0,
+          "stream_train: %d steps, %d failed publishes"
+          % (trainer.step, trainer.publish_failures))
+    check(report["captured"] and async_report["captured"],
+          "stream_train: not captured: %s / %s" % (report, async_report))
+    check(counts == per_run(scatter_add=launching),
+          "stream_train: launches %s, launching steps %d"
+          % (counts, launching))
+    check(dropped == 0 and split["requests"] > 0,
+          "stream_train: %d of %d requests dropped" % (dropped, len(reqs)))
+    check(pub.served_version == newest and pub.swap_count >= 2,
+          "stream_train: served %s of %s after %d swaps"
+          % (pub.served_version, newest, pub.swap_count))
+    check(np.isfinite(evals).all() and evals[-1] < evals[0],
+          "stream_train: held-out losses %s" % evals)
+    ctx["engine"] = None
+    engine.shutdown()
+    return counts, per_run(scatter_add=replays)
+
+
+def _worker_stats(router):
+    """Each worker's ``stats`` verb: its gauges (``serve_version``)."""
+    from paddle_tpu_torch.serving import rpc
+
+    out = []
+    for w in router._workers:
+        sock = rpc.connect(w.address, timeout=60.0)
+        try:
+            rpc.send_msg(sock, {"type": "stats"})
+            header, _ = rpc.recv_msg(sock)
+        finally:
+            sock.close()
+        out.append(header["stats"])
+    return out
+
+
+def _predictor_at(fluid, trainer, version):
+    """An in-process predictor on the card of the trainer's serve dir with
+    ``version``'s weights applied."""
+    from paddle_tpu_torch import checkpoint
+
+    pred = fluid.inference.Predictor(trainer.serve_dir)
+    _, updates, _ = checkpoint.load_staged(trainer.ckpt_dir, trainer.main,
+                                           version=version)
+    checkpoint.apply_updates(
+        pred._scope, [(n, a) for n, a in updates if n in pred._scope])
+    return pred
+
+
+def phase_stream_fleet(torch, smi_line, ctx, kill_steps=4):
+    """Two DeepFM workers on the card behind ``Router`` (``--warmup
+    --ladder 8``) over ``stream_train``'s serve dir, driven by
+    ``FleetPublisher`` through ``RouterTarget``: two clean two-phase
+    rounds (each after two more training steps of ``stream_train``'s
+    trainer, replays, and a publish), then a version corrupted with
+    ``checkpoint._flip_byte`` that both workers refuse at prepare, the
+    fleet staying on the intact one. After each round both workers report
+    one ``serve_version``, and an 8-row request's answer equals an
+    in-process predictor loaded from that version, bitwise. Then the kill
+    drill: the trainer CLI on the card (config 5's widths, batch
+    STREAM_KILL_BATCH) under ``PADDLE_TPU_FAULTS=checkpoint.write:hang``
+    is SIGKILLed inside its third publish; its torn version is invisible
+    to ``candidate_versions``, and a restarted trainer resumes from the
+    newest intact version, counts ``replayed_rows`` as the ledger's rows
+    less the cursor's, and publishes past the wreck. Returns (launches,
+    replayed launches) of this process."""
+    import signal
+    import warnings
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import checkpoint, streaming
+    from paddle_tpu_torch.serving import Router, RouterClient
+    from paddle_tpu_torch.streaming.trainer import TRAINER_READY_PREFIX
+
+    reset_counts()
+    trainer = ctx["trainer"]
+    d = trainer.ckpt_dir
+    router = ctx["router"] = Router(
+        trainer.serve_dir, num_workers=ROUTER_WORKERS,
+        worker_args=["--warmup", "--ladder", str(STREAM_REQUEST_ROWS),
+                     "--device", ROUTER_DEVICE])
+    t0 = time.perf_counter()
+    router.start()
+    spawn_s = time.perf_counter() - t0
+    client = ctx["client"] = RouterClient(router.address)
+    fp = streaming.FleetPublisher(d, {"router": streaming.RouterTarget(
+        client)})
+    rng = np.random.RandomState(77)
+    request = stream_rows(rng, STREAM_REQUEST_ROWS, ctx["rule"])
+    request = {k: request[k] for k in ("feat_ids", "dense_value")}
+    before = trainer.exe.step_report(trainer.main)["replays"]
+
+    def train_and_publish(steps, seed):
+        for k in range(steps):
+            trainer.exe.run(trainer.main, feed=stream_rows(
+                np.random.RandomState(seed + k), DEEPFM_BATCH, ctx["rule"]),
+                fetch_list=[trainer.loss], scope=trainer.scope)
+        w = trainer.publish()
+        w.wait()
+        return int(os.path.basename(w.path).split("_")[1])
+
+    rounds = []
+    for r in range(2):
+        v = train_and_publish(2, 9000 + 10 * r)
+        t0 = time.perf_counter()
+        got = fp.poll_once()
+        swap_s = time.perf_counter() - t0
+        served = [s.get("serve_version") for s in _worker_stats(router)]
+        answer = client.predict(request, timeout_s=ROUTER_TIMEOUT_S)[0]
+        want = _predictor_at(fluid, trainer, v).run(request)[0]
+        rounds.append({"version": v, "committed": got, "served": served,
+                       "two_phase_s": swap_s,
+                       "bitwise": bool(np.array_equal(answer, want)),
+                       "max_abs_diff": float(np.abs(answer - want).max())})
+    good = rounds[-1]["version"]
+    bad = train_and_publish(2, 9100)
+    checkpoint._flip_byte(os.path.join(d, "checkpoint_%d" % bad,
+                                       "replicated.npz"))
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        refused = fp.poll_once()
+    served_after = [s.get("serve_version") for s in _worker_stats(router)]
+    answer = client.predict(request, timeout_s=ROUTER_TIMEOUT_S)[0]
+    want = _predictor_at(fluid, trainer, good).run(request)[0]
+    corrupt = {"version": bad, "committed": refused,
+               "prepare_failures": fp.prepare_failures,
+               "fleet_version": fp.fleet_version, "served": served_after,
+               "bitwise_on_intact": bool(np.array_equal(answer, want))}
+    fleet_replays = trainer.exe.step_report(trainer.main)["replays"] - before
+    client.close()
+    router.shutdown()
+    ctx["router"] = None
+    fp.release()
+
+    # the kill drill: the trainer CLI on the card, killed mid-publish
+    kill_ck = os.path.join(ctx["tmp"], "kill_ckpt")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.streaming.trainer",
+           "--data-dir", ctx["data"], "--ckpt-dir", kill_ck,
+           "--device", ROUTER_DEVICE, "--publish-every", "2",
+           "--batch-size", str(STREAM_KILL_BATCH),
+           "--sparse-dim", str(DEEPFM["sparse_feature_dim"]),
+           "--num-fields", str(DEEPFM["num_fields"]),
+           "--embedding-size", str(DEEPFM["embedding_size"]),
+           "--dense-dim", str(DEEPFM["dense_dim"]),
+           "--hidden", ",".join(map(str, DEEPFM["hidden_sizes"])),
+           "--holdout-batches", "1", "--poll-interval", "0.02",
+           "--seed", str(SEED)]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = ctx["kill_proc"] = subprocess.Popen(
+        cmd + ["--steps", "999"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True,
+        env=dict(env, PADDLE_TPU_FAULTS="checkpoint.write:hang(600)@3"))
+    torn = os.path.join(kill_ck, "checkpoint_2")
+    deadline = time.perf_counter() + 300.0
+    while not os.path.isdir(torn):
+        check(proc.poll() is None and time.perf_counter() < deadline,
+              "stream_fleet: the killed trainer exited or never published "
+              "(rc %s)" % proc.poll())
+        time.sleep(0.02)
+    proc.send_signal(signal.SIGKILL)
+    proc.wait(60)
+    kill_s = time.perf_counter() - t0
+    dirs = sorted(n for n in os.listdir(kill_ck)
+                  if n.startswith("checkpoint_"))
+    visible = checkpoint.candidate_versions(kill_ck)
+    _, extra = checkpoint.load_extra(kill_ck)
+    with open(os.path.join(kill_ck, "progress.json")) as f:
+        ledger = json.load(f)
+    t0 = time.perf_counter()
+    proc = ctx["kill_proc"] = subprocess.Popen(
+        cmd + ["--steps", str(int(extra["step"]) + kill_steps)], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    out, err = proc.communicate(timeout=300)
+    restart_s = time.perf_counter() - t0
+    check(proc.returncode == 0, "stream_fleet: the restarted trainer "
+          "exited %d: %s" % (proc.returncode, err[-2000:]))
+    lines = out.strip().splitlines()
+    ready = json.loads(next(l for l in lines if l.startswith(
+        TRAINER_READY_PREFIX))[len(TRAINER_READY_PREFIX):])
+    result = json.loads(lines[-1])
+    after = checkpoint.candidate_versions(kill_ck)
+    counts = read_counts()
+    drill = {"dirs_at_kill": dirs, "visible_at_kill": visible,
+             "ledger_rows": ledger["rows"],
+             "cursor_rows": extra["cursor"]["rows"],
+             "resumed_version": ready["resumed_version"],
+             "replayed_rows": ready["replayed_rows"],
+             "restart_steps": result["steps"],
+             "restart_publish_failures": result["publish_failures"],
+             "versions_after": after, "kill_s": kill_s,
+             "restart_s": restart_s}
+    emit({"phase": "stream_fleet", "model": "deepfm", "config": DEEPFM,
+          "workers": ROUTER_WORKERS, "ladder": [STREAM_REQUEST_ROWS],
+          "spawn_s": spawn_s, "rounds": rounds, "corrupt_round": corrupt,
+          "kill_drill": drill, "training_replays": fleet_replays,
+          "launches": counts, "device": smi_line})
+    for r in rounds:
+        check(r["committed"] == r["version"]
+              and r["served"] == [r["version"]] * ROUTER_WORKERS
+              and r["bitwise"], "stream_fleet: round %s" % r)
+    check(refused is None and corrupt["prepare_failures"] == 1
+          and corrupt["fleet_version"] == good
+          and served_after == [good] * ROUTER_WORKERS
+          and corrupt["bitwise_on_intact"],
+          "stream_fleet: corrupt round %s" % corrupt)
+    torn_dirs = {int(n.split("_")[1]) for n in dirs} - set(visible)
+    check(2 in torn_dirs and visible and max(visible) < 2,
+          "stream_fleet: torn versions %s visible %s" % (dirs, visible))
+    check(ready["resumed_version"] == visible[0]
+          and ready["replayed_rows"] == ledger["rows"]
+          - extra["cursor"]["rows"] and result["publish_failures"] == 0
+          and after[0] > max(torn_dirs),
+          "stream_fleet: kill drill %s" % drill)
+    check(counts == per_run(), "stream_fleet: launches %s" % counts)
+    return counts, per_run(scatter_add=fleet_replays)
+
+
+def close_stream(ctx):
+    """Reap what the streaming phases started, whether or not they
+    passed: the kill drill's trainer, the router's workers, the engine,
+    the clients, the producer; then the directories."""
+    proc = ctx.get("kill_proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait(30)
+    if ctx.get("router") is not None:
+        ctx["router"].shutdown()
+    if ctx.get("stop_clients") is not None:
+        ctx["stop_clients"].set()
+    if ctx.get("publisher") is not None:
+        ctx["publisher"].stop()
+    if ctx.get("engine") is not None:
+        ctx["engine"].shutdown()
+    if ctx.get("producer") is not None:
+        ctx["producer"][1].set()
+        ctx["producer"][0].join(60.0)
+    if ctx.get("trainer") is not None:
+        ctx["trainer"].close()
+        ctx["trainer"].exe.close()
+    if ctx.get("tmp"):
+        shutil.rmtree(ctx["tmp"], ignore_errors=True)
+
+
 def main():
     import faulthandler
 
@@ -9606,6 +10426,18 @@ def main():
     phase_dcgan_train_check(torch, smi_line)
     paths["dcgan_train"], replayed["dcgan_train"] = phase_dcgan_train(
         torch, smi_line)
+    # the streaming loop (A6): a tail-followed stream, versioned
+    # checkpoints, the hot swap into an engine and a two-worker fleet
+    paths["stream_check"], replayed["stream_check"] = phase_stream_check(
+        torch, smi_line)
+    stream = {}
+    try:
+        paths["stream_train"], replayed["stream_train"] = \
+            phase_stream_train(torch, smi_line, stream)
+        paths["stream_fleet"], replayed["stream_fleet"] = \
+            phase_stream_fleet(torch, smi_line, stream)
+    finally:  # no process, thread or directory outlives the phases
+        close_stream(stream)
 
     src = {"flash_attention_fwd": ("flash_attention_fwd.cu",
                                    "paddle_tpu/ops/flash_attention.py:1001"),

@@ -40,6 +40,7 @@ from . import clip  # noqa: F401
 from . import amp  # noqa: F401
 from .clip import set_gradient_clip  # noqa: F401
 from . import io  # noqa: F401
+from . import checkpoint  # noqa: F401
 from . import metrics  # noqa: F401
 from . import inference  # noqa: F401
 from . import bridge  # noqa: F401
@@ -47,6 +48,13 @@ from . import obs  # noqa: F401
 from . import reliability  # noqa: F401
 from . import serving  # noqa: F401
 from . import models  # noqa: F401
+from . import native  # noqa: F401
+from . import data  # noqa: F401
+from .data.data_feed import DataFeedDesc  # noqa: F401
+from .data.feeder import DataFeeder  # noqa: F401
+from . import async_executor  # noqa: F401
+from .async_executor import AsyncExecutor  # noqa: F401
+from . import streaming  # noqa: F401
 
 
 def memory_optimize(input_program=None, skip_opt_set=None, print_log=False,

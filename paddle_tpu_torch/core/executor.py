@@ -204,8 +204,13 @@ class Scope:
             exe._release_bound(self, name)
 
     def numpy(self, name):
-        """Host copy of ``name``'s tensor (bf16 widens to float32)."""
-        return to_numpy(self._vars[name])
+        """Host copy of ``name``'s tensor (bf16 widens to float32); a copy
+        on the CPU too, where ``.numpy()`` would share the tensor's memory
+        and a captured step writes the next state into it."""
+        t = self._vars[name]
+        if t.device.type == "cpu" and t.dtype != torch.bfloat16:
+            t = t.detach().clone()
+        return to_numpy(t)
 
     def __contains__(self, name):
         return name in self._vars

@@ -9,6 +9,7 @@ program (here the port's ``Program``) with its feed and fetch names. A
 ``params.npz`` saved by either package loads in the other
 (``bridge.load_reference_params``). ``load_inference_model`` reads other
 model and params file names; the StableHLO export is not ported.
+``save_checkpoint`` / ``load_checkpoint`` are ``checkpoint.py``'s.
 """
 
 import json
@@ -20,12 +21,13 @@ import numpy as np
 
 from .core import framework
 from .core.framework import Parameter
+from .checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from .core.executor import global_scope, to_numpy, to_tensor
 
 __all__ = [
     "save_vars", "save_params", "save_persistables", "load_vars",
     "load_params", "load_persistables", "save_inference_model",
-    "load_inference_model",
+    "load_inference_model", "save_checkpoint", "load_checkpoint",
 ]
 
 

@@ -30,8 +30,14 @@ exercises the one-cross-worker-retry path, ``hang(s)`` burns the
 propagated deadline in the router), and ``worker.heartbeat`` (tripped in
 the router's health loop before each ping — ``error`` fakes a missed
 heartbeat, feeding the per-worker breaker and the respawn path). The
-reference's checkpoint, record-reader and streaming sites come with
-their modules.
+data and streaming plane: ``checkpoint.write`` (array-file writes;
+``corrupt`` flips bytes after the write, ``hang(s)`` stalls the writer
+thread before the file lands), ``checkpoint.publish`` (per trainer
+publish; ``error`` is a failed publish, ``corrupt`` a bad version
+landing), ``cursor.write`` (the ingest cursor of a publish),
+``recordio.read`` (per record ingested; ``corrupt`` truncates it),
+``stream.tail`` (per tail-follow poll) and ``lease.renew`` (per partition
+lease heartbeat).
 
 Multi-process note: the env grammar is how faults cross a process
 boundary — the router passes ``worker_env={"PADDLE_TPU_FAULTS":

@@ -42,9 +42,11 @@ step and chunk dispatches are captured as CUDA graphs over its own caches
 
 The device is CUDA unless the caller passes ``device="cpu"`` (or a
 CPU-configured ``AnalysisConfig``/predictor); without CUDA the default
-raises. Not ported yet: hot-swap from a checkpoint directory (A6: an
-update list works), ``mp>1`` (A7), and the decode build's static
-verification (A10).
+raises. Hot-swap (``reload``, and the two-phase ``prepare`` / ``commit``
+/ ``abort_swap``) takes a checkpoint directory, staged through
+``checkpoint.load_staged`` (CRC-verified, falling back past a corrupt
+newest version), or an update list. Not ported yet: ``mp>1`` (A7) and the
+decode build's static verification (A10).
 """
 
 import threading
@@ -615,19 +617,30 @@ class ServingEngine:
         worker.breaker.reset()
 
     # -- live hot-swap --------------------------------------------------------
-    def _staged_updates(self, source, verb):
-        if isinstance(source, str):
-            raise NotImplementedError(
-                "%s(%r): staging from a checkpoint directory "
-                "(checkpoint.load_staged) is not ported yet (ROADMAP A6); "
-                "pass an update list [(name, array), ...]" % (verb, source))
-        return list(source)
+    def _staged_updates(self, source, version, verb):
+        """``(version, updates)`` of a checkpoint directory (its newest
+        intact version, or ``version``; CRC-verified through
+        ``checkpoint.load_staged``) or of an update list."""
+        if not isinstance(source, str):
+            return version, list(source)
+        from .. import checkpoint
+
+        prog = getattr(self._parent, "_program", None)
+        if prog is None:
+            raise TypeError(
+                "%s from a checkpoint dir needs a program-backed "
+                "predictor; got %r" % (verb, type(self._parent).__name__))
+        version, updates, _extra = checkpoint.load_staged(
+            source, prog, version=version)
+        return version, updates
 
     def reload(self, source, version=None):
         """Hot-swap model parameters into every live replica WITHOUT
-        stopping serving. ``source`` is an update list ``[(name, array),
-        ...]`` (a checkpoint directory raises ``NotImplementedError``
-        until A6 ports ``checkpoint.load_staged``).
+        stopping serving — the streaming publish plane's engine verb.
+        ``source`` is a checkpoint directory (``checkpoint.load_staged``
+        stages the newest intact — or the given ``version`` — with CRC
+        verification and fallback past corrupt versions) or an
+        already-staged ``[(name, array), ...]`` update list.
 
         Each distinct predictor scope is COPIED into a fresh scope with the
         updated parameters overlaid (each on its old tensor's device and
@@ -644,7 +657,7 @@ class ServingEngine:
                 "conversation state entangled with the weights")
         if self._closed:
             raise RuntimeError("engine is shut down")
-        updates = self._staged_updates(source, "reload")
+        version, updates = self._staged_updates(source, version, "reload")
         sp = trace.span("model.swap")
         with sp:
             if sp:
@@ -657,9 +670,10 @@ class ServingEngine:
         return version
 
     def prepare(self, source, version=None):
-        """Phase 1 of the two-phase swap: stage an update list WITHOUT
-        touching the served weights, held until :meth:`commit` applies it
-        or :meth:`abort_swap` drops it. Fault site ``swap.prepare``:
+        """Phase 1 of the two-phase swap: stage a checkpoint version (or an
+        update list) WITHOUT touching the served weights, held until
+        :meth:`commit` applies it or :meth:`abort_swap` drops it; a
+        corrupt version fails here. Fault site ``swap.prepare``:
         ``error``/``corrupt`` fail the stage. Returns the staged
         version."""
         mode = faults.trip("swap.prepare")
@@ -669,7 +683,7 @@ class ServingEngine:
                 "are conversation state entangled with the weights")
         if self._closed:
             raise RuntimeError("engine is shut down")
-        updates = self._staged_updates(source, "prepare")
+        version, updates = self._staged_updates(source, version, "prepare")
         if mode == "corrupt":
             raise IOError("swap.prepare: staged bytes corrupt (injected)")
         self._staged_swap = (version, updates)

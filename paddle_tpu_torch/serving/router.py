@@ -60,9 +60,11 @@ or standalone::
     python -m paddle_tpu_torch.serving.router --model path/to/model \
         --workers 4 [--device cpu]
 
-The checkpoint verbs of the reference (``reload``, ``prepare``,
-``commit``, ``abort``) wait for ``checkpoint.py`` (ROADMAP A6): until then
-the router answers them as unknown message types.
+The checkpoint verbs (``reload``, and the two-phase ``prepare``,
+``commit``, ``abort``) are broadcast to every live worker, each of which
+stages the checkpoint directory itself (``checkpoint.load_staged``);
+``RouterClient.reload/prepare/commit/abort`` drive them, and
+``streaming.RouterTarget`` adapts a client to the publishers.
 """
 
 import argparse
@@ -710,6 +712,92 @@ class Router:
                 "breaker": w.breaker.state, "stats": dict(w.stats),
             } for w in self._workers]
 
+    def _handle_reload(self, header):
+        """Broadcast the hot-swap verb to every live worker (the
+        streaming publish plane's fleet-wide reload). Each worker stages
+        its own CRC-verified load and flips between micro-batches;
+        in-flight requests finish on the old weights. Per-worker results
+        ride back; the call fails typed only when NO worker swapped."""
+        fwd = {"type": "reload", "dir": header.get("dir"),
+               "version": header.get("version")}
+        results, swapped = self._broadcast_verb("reload", fwd, "reloaded")
+        if not swapped:
+            flight.record("model.swap_failed", where="router",
+                          workers=len(results))
+            return {"type": "error", "error": "ReloadFailed",
+                    "message": "no worker swapped: %s" % (results,)}, None
+        version = min(swapped)
+        flight.record("model.swap", where="router", version=version,
+                      workers=len(swapped))
+        return {"type": "reloaded", "version": version,
+                "workers": results}, None
+
+    def _broadcast_verb(self, verb, fwd, ok_type):
+        """Drive one swap verb across every live worker; per-worker
+        verdicts ride back. Returns (results, versions_that_succeeded)."""
+        with self._cv:
+            workers = list(self._workers)
+        results = []
+        for w in workers:
+            if not w.healthy:
+                results.append({"index": w.index, "error": "unhealthy"})
+                continue
+            try:
+                rh, _ = self._send_to_worker(w, dict(fwd), None, None)
+            except Exception as e:  # noqa: BLE001 — per-worker verdicts
+                results.append({"index": w.index,
+                                "error": "%s: %s" % (type(e).__name__, e)})
+                continue
+            if rh.get("type") == ok_type:
+                results.append({"index": w.index,
+                                "version": rh.get("version")})
+            else:
+                results.append({"index": w.index,
+                                "error": rh.get("message",
+                                                rh.get("error"))})
+        return results, [r["version"] for r in results if "version" in r]
+
+    def _handle_prepare(self, header):
+        """Phase 1, router-local all-or-nothing: EVERY worker must stage
+        the version or the router aborts its own workers and reports
+        typed failure — a router either joins the fleet's swap whole or
+        not at all."""
+        fwd = {"type": "prepare", "dir": header.get("dir"),
+               "version": header.get("version")}
+        results, prepared = self._broadcast_verb(
+            "prepare", fwd, "prepared")
+        if len(prepared) < len(results) or not prepared:
+            self._broadcast_verb("abort", {"type": "abort"}, "aborted")
+            flight.record("swap.prepare_failed", where="router",
+                          prepared=len(prepared), workers=len(results))
+            return {"type": "error", "error": "PrepareFailed",
+                    "message": "staged %d/%d workers: %s"
+                               % (len(prepared), len(results), results)}, \
+                None
+        flight.record("swap.prepare", where="router",
+                      version=min(prepared), workers=len(prepared))
+        return {"type": "prepared", "version": min(prepared),
+                "workers": results}, None
+
+    def _handle_commit(self, header):
+        """Phase 2: all live workers must flip (idempotent per worker,
+        so a retried commit converges). A partial worker commit is a typed
+        failure — the fleet publisher retries/quarantines the router."""
+        fwd = {"type": "commit", "version": header.get("version")}
+        results, committed = self._broadcast_verb(
+            "commit", fwd, "committed")
+        if len(committed) < len(results) or not committed:
+            flight.record("swap.commit_failed", where="router",
+                          committed=len(committed), workers=len(results))
+            return {"type": "error", "error": "CommitFailed",
+                    "message": "committed %d/%d workers: %s"
+                               % (len(committed), len(results),
+                                  results)}, None
+        flight.record("swap.commit", where="router",
+                      version=min(committed), workers=len(committed))
+        return {"type": "committed", "version": min(committed),
+                "workers": results}, None
+
     # -- front server -------------------------------------------------------
 
     def _make_server(self):
@@ -748,6 +836,17 @@ class Router:
                             "workers": router._worker_states(),
                             "prometheus": router.metrics_.prometheus_text(),
                         }, None
+                    elif kind == "reload":
+                        resp, out = router._handle_reload(header)
+                    elif kind == "prepare":
+                        resp, out = router._handle_prepare(header)
+                    elif kind == "commit":
+                        resp, out = router._handle_commit(header)
+                    elif kind == "abort":
+                        results, _ = router._broadcast_verb(
+                            "abort", {"type": "abort"}, "aborted")
+                        resp, out = {"type": "aborted",
+                                     "workers": results}, None
                     else:
                         resp, out = {"type": "error", "error": "Rpc",
                                      "message": "unknown message type %r"
@@ -853,6 +952,9 @@ class RouterClient:
         "DeadlineRefused": DeadlineExceededError,
         "WorkerFailed": WorkerFailedError,
         "RouterShutdown": RouterShutdownError,
+        "ReloadFailed": WorkerFailedError,
+        "PrepareFailed": WorkerFailedError,
+        "CommitFailed": WorkerFailedError,
         "Rpc": rpc.RpcError,
     }
 
@@ -943,6 +1045,50 @@ class RouterClient:
             self._raise_typed(header)
         return {"snapshot": header["snapshot"],
                 "workers": header["workers"]}
+
+    def reload(self, ckpt_dir, version=None):
+        """Hot-swap every worker to a published checkpoint version
+        (``version=None`` = each worker's newest intact). Returns
+        ``{"version": N, "workers": [...]}`` with per-worker verdicts.
+        Raises :class:`WorkerFailedError` (``kind`` ``ReloadFailed``)
+        only when no worker swapped."""
+        header, _ = self._roundtrip(
+            {"type": "reload", "dir": ckpt_dir, "version": version}, None)
+        if header.get("type") == "error":
+            self._raise_typed(header)
+        return {"version": header.get("version"),
+                "workers": header.get("workers", [])}
+
+    def prepare(self, ckpt_dir, version=None):
+        """Phase 1 of the fleet's two-phase swap: CRC-stage ``version``
+        on EVERY worker without swapping. All-or-nothing per router — a
+        partial stage aborts the router's workers and raises
+        :class:`WorkerFailedError` (``kind`` ``PrepareFailed``)."""
+        header, _ = self._roundtrip(
+            {"type": "prepare", "dir": ckpt_dir, "version": version},
+            None)
+        if header.get("type") == "error":
+            self._raise_typed(header)
+        return {"version": header.get("version"),
+                "workers": header.get("workers", [])}
+
+    def commit(self, version=None):
+        """Phase 2: flip every worker to its staged version (idempotent
+        under retry). Raises :class:`WorkerFailedError` (``kind``
+        ``CommitFailed``) when any worker failed to flip."""
+        header, _ = self._roundtrip(
+            {"type": "commit", "version": version}, None)
+        if header.get("type") == "error":
+            self._raise_typed(header)
+        return {"version": header.get("version"),
+                "workers": header.get("workers", [])}
+
+    def abort(self):
+        """Drop any staged-but-uncommitted version on every worker."""
+        header, _ = self._roundtrip({"type": "abort"}, None)
+        if header.get("type") == "error":
+            self._raise_typed(header)
+        return True
 
     def prometheus(self):
         """Scrape the router's Prometheus exposition text (ping path)."""

@@ -40,11 +40,17 @@ Protocol (one ``rpc`` frame in, one out, persistent connections):
   * ``{"type": "stats"}`` -> the gauges, the engine's Prometheus
     exposition and ``kernels`` (the exit line's report, read now).
   * ``{"type": "shutdown"}`` -> acked, then the process drains and exits.
-
-The checkpoint verbs of the reference (``reload``, ``prepare``,
-``commit``, ``abort``) stage from a checkpoint directory through
-``checkpoint.load_staged`` (ROADMAP A6); until then they get the typed
-answer of any unknown message type.
+  * ``{"type": "reload", "dir": <ckpt dir>, "version": <n or null>}`` ->
+    ``{"type": "reloaded", "version": N, "swap_count": K}``: the engine
+    stages the version through ``checkpoint.load_staged`` (CRC-verified)
+    and hot-swaps it between micro-batches.
+  * the two-phase swap: ``prepare`` (``dir``, ``version``) ->
+    ``{"type": "prepared", "version": N}`` stages without serving;
+    ``commit`` (``version``) -> ``{"type": "committed", ...}`` flips to
+    it (idempotent under retry); ``abort`` -> ``{"type": "aborted",
+    "staged": bool}`` drops it. A failure is typed (``ReloadFailed``,
+    ``PrepareFailed``, ``CommitFailed``) and never fatal: the worker
+    keeps serving the old weights.
 
 ``--model`` takes a ``save_inference_model`` directory (one holding
 ``decode_spec.json`` serves decode) or a ``builtin:<name>`` spec
@@ -265,6 +271,53 @@ def _handle_infer(state, header, arrays):
     return {"type": "result", "n_out": len(outs)}, out_arrays
 
 
+def _handle_reload(state, header):
+    """Hot-swap the engine to a published checkpoint version. Failure is
+    typed, never fatal: the worker keeps serving the old weights and the
+    caller (publisher/router) decides on fallback."""
+    ckpt_dir = header.get("dir")
+    if not ckpt_dir:
+        return {"type": "error", "error": "Rpc",
+                "message": "reload needs a 'dir' field"}
+    try:
+        version = state.engine.reload(ckpt_dir,
+                                      version=header.get("version"))
+    except Exception as e:
+        return {"type": "error", "error": "ReloadFailed",
+                "message": "%s: %s" % (type(e).__name__, e)}
+    return {"type": "reloaded", "version": version,
+            "swap_count": state.engine.swap_count}
+
+
+def _handle_prepare(state, header):
+    """Phase 1 of the fleet's two-phase swap: CRC-stage, don't touch the
+    served weights. A typed failure aborts the whole fleet's swap."""
+    ckpt_dir = header.get("dir")
+    if not ckpt_dir:
+        return {"type": "error", "error": "Rpc",
+                "message": "prepare needs a 'dir' field"}
+    try:
+        version = state.engine.prepare(ckpt_dir,
+                                       version=header.get("version"))
+    except Exception as e:
+        return {"type": "error", "error": "PrepareFailed",
+                "message": "%s: %s" % (type(e).__name__, e)}
+    return {"type": "prepared", "version": version}
+
+
+def _handle_commit(state, header):
+    """Phase 2: flip to the staged version (idempotent under retry). A
+    typed failure leaves this worker on the old weights; the fleet
+    publisher quarantines the target and makes the skew loud."""
+    try:
+        version = state.engine.commit(version=header.get("version"))
+    except Exception as e:
+        return {"type": "error", "error": "CommitFailed",
+                "message": "%s: %s" % (type(e).__name__, e)}
+    return {"type": "committed", "version": version,
+            "swap_count": state.engine.swap_count}
+
+
 def _make_server(host, port, state):
     class Handler(socketserver.BaseRequestHandler):
         def handle(self):
@@ -300,6 +353,15 @@ def _make_server(host, port, state):
                             state.engine.metrics_.prometheus_text(),
                         "kernels": _kernel_report(state),
                     }, None
+                elif kind == "reload":
+                    resp, out = _handle_reload(state, header), None
+                elif kind == "prepare":
+                    resp, out = _handle_prepare(state, header), None
+                elif kind == "commit":
+                    resp, out = _handle_commit(state, header), None
+                elif kind == "abort":
+                    resp, out = {"type": "aborted",
+                                 "staged": state.engine.abort_swap()}, None
                 elif kind == "shutdown":
                     resp, out = {"type": "ok"}, None
                 else:

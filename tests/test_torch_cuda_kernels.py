@@ -2157,3 +2157,113 @@ def test_cpu_run_then_captured_card_steps_share_a_scope(dev):
     assert scope.get(t_executor.RNG_KEY).device.type == "cpu"
     for got, want in zip(losses[True], losses[False]):
         np.testing.assert_array_equal(got, want)
+
+
+# -- the checkpoint and data plane on the card ---------------------------------
+
+def _tiny_deepfm():
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with tfluid.program_guard(main, startup):
+        t_unique_name.switch()
+        spec = tfluid.models.deepfm.deepfm(
+            sparse_feature_dim=1000, num_fields=6, embedding_size=8,
+            dense_dim=5, hidden_sizes=(16, 16))
+        tfluid.optimizer.Adam(1e-2).minimize(spec.loss)
+    return main, startup, spec
+
+
+def test_async_save_after_a_captured_deepfm_step_holds_step_k(dev,
+                                                              tmp_path):
+    """The snapshot owns its bytes: a save after a captured step, one more
+    replayed step (written into the same tensors), then ``wait()``: the
+    file holds the values of the save's step."""
+    from paddle_tpu_torch import checkpoint
+    from paddle_tpu_torch.reliability import faults
+
+    main, startup, spec = _tiny_deepfm()
+    scope = t_executor.Scope()
+    exe = tfluid.Executor(tfluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = spec.sample_batch(16, np.random.RandomState(0))
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[spec.loss], scope=scope)
+    assert exe.step_report(main)["captures"] == 1
+    names = [v.name for v in main.list_vars()
+             if v.persistable and v.name in scope]
+    want = {n: scope.numpy(n) for n in names}
+    held = {n: scope.get(n) for n in names}
+    with faults.fault_scope(faults.FaultPlan.from_spec(
+            "checkpoint.write:hang(0.5)@1")):
+        w = checkpoint.save_checkpoint(exe, str(tmp_path), main_program=main,
+                                       scope=scope)
+        exe.run(main, feed=spec.sample_batch(16, np.random.RandomState(1)),
+                fetch_list=[spec.loss], scope=scope)
+        torch.cuda.synchronize()
+        assert not w.done()
+        w.wait()
+    assert exe.step_report(main)["replays"] == 2
+    assert all(scope.get(n) is held[n] for n in names)
+    assert not np.array_equal(scope.numpy("fm_table"), want["fm_table"])
+    with np.load(tmp_path / "checkpoint_0" / "replicated.npz") as z:
+        for n in names:
+            np.testing.assert_array_equal(z[n], want[n], err_msg=n)
+    exe.close()
+
+
+def test_restored_generator_under_a_captured_dropout_step(dev, tmp_path):
+    """A generator state restored with ``set_state`` into the scope's CUDA
+    generator keeps the captured step bound: its replays draw what the
+    uninterrupted run drew, bitwise."""
+    from paddle_tpu_torch import checkpoint
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with tfluid.program_guard(main, startup):
+        t_unique_name.switch()
+        x = tfluid.layers.data("x", shape=[256])
+        y = tfluid.layers.dropout(x, dropout_prob=0.5)
+    scope = t_executor.Scope()
+    exe = tfluid.Executor(tfluid.CUDAPlace(0))
+    feed = {"x": np.ones((8, 256), "f4")}
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[y], scope=scope)
+    checkpoint.save_checkpoint(exe, str(tmp_path), main_program=main,
+                               scope=scope, async_write=False)
+    gen = scope.get(t_executor.RNG_KEY)
+    assert gen.device == dev
+    want = [exe.run(main, feed=feed, fetch_list=[y], scope=scope)[0]
+            for _ in range(3)]
+    checkpoint.load_checkpoint(exe, str(tmp_path), main_program=main,
+                               scope=scope)
+    assert scope.get(t_executor.RNG_KEY) is gen
+    got = [exe.run(main, feed=feed, fetch_list=[y], scope=scope)[0]
+           for _ in range(3)]
+    report = exe.step_report(main)
+    assert report["captures"] == 1 and report["replays"] == 7, report
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(want[0], want[1])
+    exe.close()
+
+
+def test_py_reader_staged_batches_equal_their_host_arrays(dev):
+    rd = tfluid.data.py_reader(capacity=2, shapes=[[-1, 64], [-1, 3]],
+                               dtypes=["float32", "int64"], name="pr")
+    rng = np.random.RandomState(0)
+    host = [{"pr_slot_0": rng.randn(32, 64).astype("f4"),
+             "pr_slot_1": rng.randint(0, 1000, (32, 3)).astype("int64")}
+            for _ in range(6)]
+    rd.decorate_batch_generator(lambda: iter(host))
+    got = []
+    for feed in rd:
+        # a big kernel on the consumer's stream first: the copies must
+        # be waited for, not raced
+        torch.cuda._sleep(1_000_000)
+        assert feed["pr_slot_0"].device == dev
+        got.append({k: v.cpu().numpy() for k, v in feed.items()})
+    assert rd.staged == len(host) == len(got)
+    for g, h in zip(got, host):
+        np.testing.assert_array_equal(g["pr_slot_0"], h["pr_slot_0"])
+        assert g["pr_slot_1"].dtype == np.int32
+        np.testing.assert_array_equal(g["pr_slot_1"], h["pr_slot_1"])

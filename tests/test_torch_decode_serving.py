@@ -654,16 +654,17 @@ def test_decode_engine_from_saved_dir(tmp_path):
 
 
 def test_engine_refuses_what_is_not_ported():
-    """What waits for a later slice raises, naming it: mp>1 (A7) and
-    staging a swap from a checkpoint directory (A6); decode arguments
-    outside decode mode are refused."""
+    """What waits for a later slice raises, naming it: mp>1 (A7); a swap
+    staged from a checkpoint directory needs a program-backed predictor
+    (the reference's TypeError; the directory verbs came with A6); decode
+    arguments outside decode mode are refused."""
     with pytest.raises(NotImplementedError, match="A7"):
         ServingEngine(FakeStepModelPredictor(), mp=2)
     eng = ServingEngine(FakeStepModelPredictor())
     try:
         assert eng.compiled_shape_counts() == [0]
         for verb in (eng.reload, eng.prepare):
-            with pytest.raises(NotImplementedError, match="A6"):
+            with pytest.raises(TypeError, match="program-backed"):
                 verb("some/checkpoint/dir")
         with pytest.raises(ValueError):
             eng.submit({"x": np.zeros((1, 2))}, max_new_tokens=3)

@@ -3,6 +3,7 @@ its entry points default to the GPU and raise without one, and every
 source compiles."""
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -58,6 +59,47 @@ def test_no_source_imports_jax_or_paddle_tpu(path):
         for n in names:
             assert n.split(".")[0] not in ("jax", "jaxlib", "paddle_tpu"), \
                 "%s imports %s" % (path, n)
+
+
+# the data, checkpoint and streaming plane: each module exists, imports in
+# a fresh interpreter, and pulls in neither jax nor paddle_tpu
+PLANE_MODULES = ["checkpoint", "native", "async_executor", "data",
+                 "data.common", "data.data_feed", "data.datasets",
+                 "data.feeder", "data.py_reader", "data.reader", "streaming",
+                 "streaming.stream", "streaming.trainer",
+                 "streaming.publisher", "streaming.coordinator"]
+
+
+@pytest.mark.parametrize("module", PLANE_MODULES)
+def test_plane_module_is_covered(module):
+    mod = importlib.import_module("paddle_tpu_torch." + module)
+    assert mod.__file__ in set(_sources())
+    test_no_source_imports_jax_or_paddle_tpu(mod.__file__)
+
+
+def test_plane_modules_alone_pull_in_neither_jax_nor_paddle_tpu():
+    code = (
+        "import importlib, sys\n"
+        "for m in %r:\n"
+        "    importlib.import_module('paddle_tpu_torch.' + m)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n" % (PLANE_MODULES,))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_the_eight_top_level_names_resolve():
+    import paddle_tpu as ref
+
+    for name in ("AsyncExecutor", "DataFeedDesc", "DataFeeder",
+                 "async_executor", "checkpoint", "data", "native",
+                 "streaming"):
+        assert hasattr(ref, name) and hasattr(tfluid, name), name
+    assert tfluid.async_executor.AsyncExecutor is tfluid.AsyncExecutor
+    assert tfluid.data.DataFeeder is tfluid.DataFeeder
 
 
 def test_package_compiles():
