@@ -304,7 +304,7 @@ WGMMA_FORMS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd",
 # the main paths that run under fluid.amp: every launch of a kernel with a
 # bf16 form is a bf16 launch there (their phases check it)
 AMP_PATHS = ("amp_train", "resnet_amp_train", "resnet_amp_eval",
-             "deepfm_amp_train", "bert_pretrain")
+             "deepfm_amp_train", "bert_pretrain", "dygraph_train")
 
 
 def emit(obj):
@@ -4603,7 +4603,7 @@ def phase_bert_pretrain(torch, smi_line, warmup=3, steps=10, prof_steps=2):
               "peak_above_state": b["peak_above_state_bytes"]
               / a["peak_above_state_bytes"]},
           "device": smi_line})
-    return launched, replayed
+    return launched, replayed, out["adam"]
 
 
 def phase_bert_kernel_timing(torch, dev):
@@ -4893,10 +4893,10 @@ def phase_resnet_train_check(torch, smi_line, batch=2):
 FORCED_FLOOR = 1e-5  # relative L2: two f32 computations of one op
 
 
-def _forced_chain(torch, main, fetch_names, params, feed):
+def _forced_chain(torch, main, fetch_names, params, feed, amp=True):
     """The forward ops of ``main``'s step (fused as the executor runs them)
-    and, for each, its inputs as the port's AMP chain on the CPU computes
-    them from ``params`` and ``feed``."""
+    and, for each, its inputs as the port's chain on the CPU (AMP unless
+    ``amp`` is false) computes them from ``params`` and ``feed``."""
     from paddle_tpu_torch.core import op_registry as reg
     from paddle_tpu_torch.core.executor import fused_ops, to_tensor
 
@@ -4909,7 +4909,7 @@ def _forced_chain(torch, main, fetch_names, params, feed):
     env[reg.DEVICE_KEY] = cpu
     env[reg.RNG_KEY] = torch.Generator().manual_seed(SEED)
     inputs = []
-    with torch.no_grad(), reg.amp_scope(True):
+    with torch.no_grad(), reg.amp_scope(amp):
         for op in ops:
             inputs.append({n: env[n] for n in op.input_arg_names
                            if n in env})
@@ -4917,12 +4917,16 @@ def _forced_chain(torch, main, fetch_names, params, feed):
     return ops, inputs
 
 
-def _forced_run(torch, ops, inputs, device, amp, cts):
+def _forced_run(torch, ops, inputs, device, amp, cts, fault=None,
+                flips=None):
     """Each op once on its recorded inputs (on ``device``; floating inputs
     widened to f32 unless ``amp``), with the VJP of the cotangents ``cts``
     ({(op index, output name): CPU tensor}; filled with seeded normals in
-    the outputs' dtypes on first use). Returns {(op index, type, "out" or
-    "grad", name): f32 CPU tensor}."""
+    the outputs' dtypes on first use), each zeroed where ``flips`` ({(op
+    index, output name): bool CPU tensor}) is set. ``fault(op, env)``, if
+    given, is applied to each op's outputs (a planted fault the check must
+    catch). Returns {(op index, type, "out" or "grad", name): f32 CPU
+    tensor}."""
     from paddle_tpu_torch.core import op_registry as reg
 
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -4940,6 +4944,8 @@ def _forced_run(torch, ops, inputs, device, amp, cts):
             env[n] = t
         with reg.amp_scope(amp):
             reg.run_op(env, op)
+        if fault is not None:
+            fault(op, env)
         outs = {n: env[n] for n in op.output_arg_names
                 if isinstance(env.get(n), torch.Tensor)
                 and env[n].is_floating_point()}
@@ -4950,7 +4956,10 @@ def _forced_run(torch, ops, inputs, device, amp, cts):
                 if (i, n) not in cts:
                     cts[(i, n)] = torch.randn(t.shape, generator=gen).to(
                         t.dtype)
-                pairs.append((t, cts[(i, n)].to(device, t.dtype)))
+                ct = cts[(i, n)]
+                if flips and (i, n) in flips:
+                    ct = ct.masked_fill(flips[(i, n)], 0)
+                pairs.append((t, ct.to(device, t.dtype)))
         grads = torch.autograd.grad(
             [p[0] for p in pairs], list(leaves.values()),
             [p[1] for p in pairs], allow_unused=True) if pairs and leaves \
@@ -4986,6 +4995,79 @@ def _forced_verdict(card, amp, f32):
     return {"aggregate": agg, "outside": outside, "quantities": len(per),
             "worst": {"name": "%d:%s:%s:%s" % worst, "card": per[worst][0],
                       "amp_vs_f32": per[worst][1]}}
+
+
+# The QAT step (f32) is held op by op as the AMP step is: a whole step's
+# gradients move by 1.35 relative L2 (median) when its input is scaled by
+# 1 + 2^-20, since a fake-quant rounds to a 255-level grid and each
+# rounding flip is amplified through the batch-statistic BNs, so no
+# whole-step limit can fail a wrong gradient. Each forward op runs once
+# on the inputs the CPU's chain gave it, with the VJP of one seeded
+# cotangent, on the card and on the CPU, both in f32 with TF32 off. On
+# identical inputs the fake-quant ops agree bitwise (each step of the
+# quantize-dequantize is one correctly rounded f32 operation on both, and
+# round is half to even on both) and the convs, BNs and the rest to f32
+# accumulation order (about 1e-6). A fused conv's ReLU is the exception:
+# where one side's output is exactly 0 and the other's is not, rounding
+# flipped a ReLU decision, and one such flip moves the BN bias gradient of
+# its channel by a cotangent element (4e-3 relative L2 over an op). So the
+# cotangent is zeroed at those positions on both sides and the VJPs run
+# again (``_forced_flips``): each side then differentiates through the
+# same mask. A fake-quant left out moves its output by its quantization
+# error (about 1e-2 at 8 bits) and a zeroed straight-through gradient
+# moves the input gradient by 1. So every output (unmasked) and input
+# gradient of every op lies within QAT_FORCED_TOL relative L2 of the
+# CPU's, and the two planted faults, run on the card, must each fail it.
+QAT_FORCED_TOL = 1e-4
+
+
+def _qat_faults(torch):
+    """The planted faults of the forced QAT check: {name: fault(op, env)}
+    for ``_forced_run``, each on every fake-quant op: "identity_fake_quant"
+    (Out is X: no quantization) and "zero_ste" (Out's value right, its
+    gradient zero)."""
+    def identity(op, env):
+        if op.type.startswith("fake_"):
+            env[op.output("Out").name] = env[op.input("X").name]
+
+    def zero_ste(op, env):
+        if op.type.startswith("fake_"):
+            out = op.output("Out").name
+            env[out] = env[out].detach()
+
+    return {"identity_fake_quant": identity, "zero_ste": zero_ste}
+
+
+def _forced_flips(card, cpu):
+    """{(op index, output name): bool tensor} of the positions where
+    exactly one of ``card`` and ``cpu`` (``_forced_run``'s) holds an output
+    of exactly 0, for the outputs that have any."""
+    flips = {}
+    for key, want in cpu.items():
+        if key[2] == "out":
+            f = (card[key] == 0) ^ (want == 0)
+            if bool(f.any()):
+                flips[(key[0], key[3])] = f
+    return flips
+
+
+def _forced_f32_verdict(card, cpu, tol):
+    """Relative L2 of each quantity of ``card`` from ``cpu`` (both
+    ``_forced_run``'s), the quantities past ``tol``, the worst, and the
+    worst by op type and kind."""
+    per, by_type = {}, {}
+    for key, want in cpu.items():
+        d = float((card[key].double() - want.double()).norm())
+        w = float(want.double().norm())
+        per[key] = d / w if w > 0 else (0.0 if d == 0 else float("inf"))
+        k = "%s:%s" % (key[1], key[2])
+        by_type[k] = max(by_type.get(k, 0.0), per[key])
+    worst = max(per, key=per.get)
+    return {"quantities": len(per), "worst": {"name": "%d:%s:%s:%s" % worst,
+                                             "rel_l2": per[worst]},
+            "worst_by_type": by_type,
+            "outside": ["%d:%s:%s:%s" % k for k, e in per.items()
+                        if not e <= tol]}
 
 
 def phase_resnet_amp_train_check(torch, smi_line, batch=2):
@@ -10169,7 +10251,11 @@ def phase_stream_fleet(torch, smi_line, ctx, kill_steps=4):
         env=dict(env, PADDLE_TPU_FAULTS="checkpoint.write:hang(600)@3"))
     torn = os.path.join(kill_ck, "checkpoint_2")
     deadline = time.perf_counter() + 300.0
-    while not os.path.isdir(torn):
+    # killed while version 2's write hangs, once versions 0 and 1 have
+    # landed: the trainer makes a version's directory when it publishes,
+    # and the writer thread may still be writing the two before it
+    while not (os.path.isdir(torn)
+               and 1 in checkpoint.candidate_versions(kill_ck)):
         check(proc.poll() is None and time.perf_counter() < deadline,
               "stream_fleet: the killed trainer exited or never published "
               "(rc %s)" % proc.poll())
@@ -10256,6 +10342,748 @@ def close_stream(ctx):
         ctx["trainer"].exe.close()
     if ctx.get("tmp"):
         shutil.rmtree(ctx["tmp"], ignore_errors=True)
+
+
+# -- dygraph (A8): BERT-base through the imperative modules -----------------
+
+# one step of models.bert_dygraph at BERT-base: a flash forward and backward
+# a layer (self-attention, called directly as the reference calls its
+# kernel), the MLM head's fused CE; the dygraph LayerNorm is plain torch,
+# as the reference's is jnp
+DY_PER_STEP = per_run(flash_attention_fwd=BERT["layers"],
+                      flash_attention_bwd=BERT["layers"], fused_ce_fwd=1)
+DY_LR = 1e-4
+DY_CAPTURE_STEPS = 4
+
+
+def dygraph_feed(batch, seed=SEED):
+    """``bert_dygraph.sample_batch`` at BERT's widths, with key lengths
+    from half the sequence to all of it (the first row full), so the
+    flash kernels read a per-key bias."""
+    from paddle_tpu_torch.models import bert_dygraph
+
+    rng = np.random.RandomState(seed)
+    ids, seg, _, lbl, wts, nsp = bert_dygraph.sample_batch(
+        batch, BERT["seq"], BERT["vocab"], rng)
+    seq = BERT["seq"]
+    lens = rng.randint(seq // 2, seq + 1, batch).astype(np.int32)
+    lens[0] = seq
+    return ids, seg, lens, lbl, wts, nsp
+
+
+def build_dygraph_bert(fluid, place, dropout_rate, amp):
+    """BERT-base pretraining from the dygraph modules (BASELINE config 4,
+    ``bench.py:1233-1284``) with its parameters on ``place``, drawn on the
+    host from seed SEED: a model built on the card and one on the CPU
+    hold the same weights. The three lazy FC heads are built in the order
+    their forward builds them."""
+    from paddle_tpu_torch.dygraph import layers as dlayers
+    from paddle_tpu_torch.models import bert_dygraph
+
+    dlayers.seed(SEED)
+    with fluid.unique_name.guard(), fluid.dygraph.guard(place):
+        model = bert_dygraph.bert_base_dygraph(
+            vocab_size=BERT["vocab"], seq_len=BERT["seq"],
+            d_model=BERT["d_model"], d_ff=BERT["d_ff"],
+            n_head=BERT["heads"], n_layer=BERT["layers"],
+            dropout_rate=dropout_rate, amp=amp)[0]
+        for fc in (model.mlm_transform, model.pooler, model.nsp_out):
+            fc._build_once(BERT["d_model"])
+    return model
+
+
+def _dygraph_eager(fluid, model, place, feed, label, want):
+    """One eager step of the tape (``loss.backward()``): its loss and
+    every parameter's gradient (numpy), the launches held to ``want``."""
+    before = read_counts(), read_bf16_counts(), read_wgmma_counts()
+    with fluid.dygraph.guard(place):
+        loss = model(*feed)
+        loss.backward()
+    out = [loss.numpy()] + [p.gradient() for p in model.parameters()]
+    for p in model.parameters():
+        p.clear_gradient()
+    after = read_counts(), read_bf16_counts(), read_wgmma_counts()
+    got = [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
+    check(got[0] == want[0] and got[1] == want[1] and got[2] == want[2],
+          "%s launches %s (bf16 %s, wgmma %s) != %s" % (label, *got,
+                                                        want[0]))
+    return out
+
+
+def _dygraph_capture_case(torch, fluid, amp, batch, dropout_rate):
+    """The captured step against the eager one (capture_check's rule):
+    DY_CAPTURE_STEPS steps of ``make_train_step`` called eagerly,
+    INTERPRETED_RUNS_ATOMIC times (the flash backward sums dq by atomics),
+    and the same steps through ``dygraph.CapturedTrainStep`` (call 1 eager
+    under the sync check, call 2 the capture, then replays), all from one
+    copied state and one generator state. The captured run's losses and
+    final parameters and moments, as one relative L2, lie within twice
+    the largest distance of two eager runs plus F32_ROUNDING; the capture
+    launches what call 1 launched, a replay nothing from Python."""
+    from paddle_tpu_torch.models import bert_dygraph
+
+    dev = torch.device("cuda", 0)
+    model = build_dygraph_bert(fluid, fluid.CUDAPlace(0), dropout_rate, amp)
+    step, params, opt = bert_dygraph.make_train_step(model, DY_LR)
+    names = sorted(params)
+    start = [{n: t.clone() for n, t in params.items()},
+             {k: {n: t.clone() for n, t in opt[k].items()}
+              for k in ("m", "v")}, opt["t"].clone()]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    gen_state = gen.get_state()
+    feed = [torch.as_tensor(f).to(dev) for f in dygraph_feed(batch)]
+
+    def reset():
+        for n in names:
+            params[n].copy_(start[0][n])
+            opt["m"][n].copy_(start[1]["m"][n])
+            opt["v"][n].copy_(start[1]["v"][n])
+        opt["t"].copy_(start[2])
+        gen.set_state(gen_state)
+
+    def state():
+        return ([params[n].double() for n in names]
+                + [opt[k][n].double() for k in ("m", "v") for n in names])
+
+    def run(captured):
+        reset()
+        cs = fluid.dygraph.CapturedTrainStep(step, params, opt, gen) \
+            if captured else None
+        losses, launches = [], []
+        for i in range(DY_CAPTURE_STEPS):
+            before = read_counts()
+            if cs is not None and i == 0:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    loss = cs(*feed)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            elif cs is not None:
+                loss = cs(*feed)
+            else:
+                loss = step(params, opt, gen, *feed)[0]
+            losses.append(loss.double().reshape(1))
+            after = read_counts()
+            launches.append({k: after[k] - before[k] for k in after
+                             if after[k] != before[k]})
+        out = [torch.cat(losses)] + state()
+        report = cs.report() if cs is not None else None
+        if cs is not None:
+            cs.close()
+        return out, launches, report
+
+    def dist(a, b):
+        num = sum(float(torch.square(x - y).sum()) for x, y in zip(a, b))
+        den = sum(float(torch.square(y).sum()) for y in b)
+        return float(np.sqrt(num / max(den, 1e-300)))
+
+    eager = [run(False) for _ in range(INTERPRETED_RUNS_ATOMIC)]
+    cap, cap_launches, report = run(True)
+    ii = [dist(x[0], y[0]) for x, y in itertools.combinations(eager, 2)]
+    d_ci = dist(cap, eager[0][0])
+    label = "dygraph capture (%s)" % ("amp" if amp else "f32")
+    emit({"phase": "dygraph_check", "case": "captured_vs_eager",
+          "amp": amp, "dropout": dropout_rate, "batch": batch,
+          "steps": DY_CAPTURE_STEPS, "step_report": report,
+          "eager_runs": len(eager), "eager_pairs": ii,
+          "captured_vs_eager": d_ci,
+          "losses_captured": [float(x) for x in cap[0]],
+          "losses_eager": [float(x) for x in eager[0][0][0]],
+          "launches_call1": cap_launches[0],
+          "launches_capture": cap_launches[1],
+          "replay_launches": cap_launches[2:],
+          "tol": "captured vs eager <= 2 x the largest eager vs eager + "
+                 "%g (rel L2 over the losses, parameters and moments)"
+                 % F32_ROUNDING, "sync_debug_call1": "error"})
+    check(report["captured"] and (report["interpreted"], report["captures"],
+                                  report["replays"])
+          == (1, 1, DY_CAPTURE_STEPS - 2), "%s: %s" % (label, report))
+    want = {k: v for k, v in DY_PER_STEP.items() if v}
+    check(cap_launches[0] == cap_launches[1] == want
+          and not any(cap_launches[2:]),
+          "%s launches %s" % (label, cap_launches))
+    check(d_ci <= 2 * max(ii) + F32_ROUNDING,
+          "%s: captured vs eager %g, eager vs eager %s" % (label, d_ci, ii))
+    del model
+    steps = INTERPRETED_RUNS_ATOMIC * DY_CAPTURE_STEPS + 2
+    return ({k: n * steps for k, n in DY_PER_STEP.items()},
+            {k: n * (DY_CAPTURE_STEPS - 2) for k, n in DY_PER_STEP.items()})
+
+
+def phase_dygraph_check(torch, smi_line, batch=2):
+    """One full-width BERT-base step through the dygraph tape at batch 2,
+    dropout 0, on the card and with the port on the CPU from the same
+    weights (drawn on the host from one seed) and feed. f32 by
+    ``train_check``'s rule: the loss and the global gradient norm within
+    1e-4 relative, every parameter's gradient within 1e-2 relative L2.
+    AMP (``amp=True``: bf16 products, the bf16 forms of the flash and CE
+    kernels, the flash forward and backward and the CE on their wgmma
+    forms) by ``_amp_verdict``'s, against the CPU's AMP, f32 and
+    perturbed (parameters x (1 + 2^-20)) AMP steps; the card's f32 step
+    must fail it. Each card step launches DY_PER_STEP, under AMP all in
+    bf16. Then the captured step against the eager one under AMP with
+    dropout 0.1 (``_dygraph_capture_case``). Returns (launches,
+    replayed)."""
+    import paddle_tpu_torch as fluid
+
+    card, cpu = fluid.CUDAPlace(0), fluid.CPUPlace()
+    feed = dygraph_feed(batch)
+    reset_counts()
+    runs, cpu_s = {}, {}
+    for amp in (False, True):
+        want = (DY_PER_STEP, bf16_part(DY_PER_STEP, amp),
+                wgmma_part(DY_PER_STEP, amp))
+        m = build_dygraph_bert(fluid, card, 0.0, amp)
+        runs[("gpu", amp)] = _dygraph_eager(fluid, m, card, feed,
+                                            "dygraph_check card", want)
+        names = [p.name for p in m.parameters()]
+        del m
+        none = (per_run(), bf16_part(per_run(), amp),
+                wgmma_part(per_run(), amp))
+        m = build_dygraph_bert(fluid, cpu, 0.0, amp)
+        scales = (1.0, 1.0 + 2.0 ** -20) if amp else (1.0,)
+        base = {p.name: p.value().clone() for p in m.parameters()}
+        for scale in scales:
+            m.load_pytree({n: v * scale for n, v in base.items()})
+            t0 = time.perf_counter()
+            runs[("cpu", amp, scale)] = _dygraph_eager(
+                fluid, m, cpu, feed, "dygraph_check CPU", none)
+            cpu_s["%s_%s" % ("amp" if amp else "f32", scale)] = \
+                time.perf_counter() - t0
+        del m, base
+    launched = {k: 2 * n for k, n in DY_PER_STEP.items()}
+
+    gpu, ref = runs[("gpu", False)], runs[("cpu", False, 1.0)]
+    n_p = len(names)
+    gnorm = [float(np.sqrt(sum(float(np.square(g.astype("f8")).sum())
+                               for g in r[1:]))) for r in (gpu, ref)]
+    errs = {"loss": abs(float(gpu[0]) - float(ref[0])) / abs(float(ref[0])),
+            "grad_norm": abs(gnorm[0] - gnorm[1]) / gnorm[1]}
+    l2 = {n: _rel_l2(g, c) for n, g, c in zip(names, gpu[1:], ref[1:])}
+    worst = max(l2, key=l2.get)
+    emit({"phase": "dygraph_check", "case": "f32", "batch": batch,
+          "config": BERT, "dropout": 0.0, "loss_gpu": float(gpu[0]),
+          "loss_cpu": float(ref[0]), "grad_norm_gpu": gnorm[0],
+          "grad_norm_cpu": gnorm[1], "rel_errors": errs, "tol_rel": 1e-4,
+          "grads_compared": n_p, "grad_rel_l2_max": l2[worst],
+          "grad_rel_l2_param": worst, "tol_rel_l2": 1e-2,
+          "launches_per_step": DY_PER_STEP, "cpu_step_s": cpu_s,
+          "device": smi_line})
+    check(np.isfinite([float(gpu[0]), gnorm[0]]).all(),
+          "dygraph_check: non-finite loss or grads on the card")
+    check(max(errs.values()) <= 1e-4, "dygraph_check errors %s" % errs)
+    check(l2[worst] <= 1e-2, "dygraph_check: %s gradient off by %g (rel "
+          "L2)" % (worst, l2[worst]))
+
+    keys = ["loss"] + names
+    amp_runs = [runs[("cpu", True, 1.0)], runs[("cpu", False, 1.0)],
+                runs[("cpu", True, 1.0 + 2.0 ** -20)]]
+    v = _amp_verdict(keys, runs[("gpu", True)], *amp_runs)
+    control = _amp_verdict(keys, runs[("gpu", False)], *amp_runs)
+    emit(dict({"phase": "dygraph_check", "case": "amp", "batch": batch,
+               "precision": "bf16 (amp=True)",
+               "loss_gpu": float(runs[("gpu", True)][0]),
+               "loss_cpu_amp": float(amp_runs[0][0]),
+               "loss_cpu_f32": float(amp_runs[1][0]),
+               "grad_dtypes": sorted({str(g.dtype) for g in
+                                      runs[("gpu", True)][1:]}),
+               "device": smi_line}, **_amp_report(v, control)))
+    check(np.isfinite(float(runs[("gpu", True)][0])),
+          "dygraph_check: non-finite AMP loss on the card")
+    _amp_checks("dygraph_check", v, control)
+    del runs, amp_runs
+    gc.collect()
+    cap_launched, replayed = _dygraph_capture_case(torch, fluid, True, batch,
+                                                   0.1)
+    launched = {k: launched[k] + cap_launched[k] for k in launched}
+    counts = read_counts()
+    check(counts == launched, "dygraph_check launches %s != %s"
+          % (counts, launched))
+    return launched, replayed
+
+
+def phase_dygraph_train(torch, smi_line, static=None, warmup=3, steps=10,
+                        eager_steps=3, prof_steps=2):
+    """The main path: BERT-base pretraining through the dygraph modules at
+    BASELINE config 4's settings (``bench.py:1241-1258``: batch 128 x 128,
+    ``amp=True``, Adam(1e-4), dropout 0.1, MLM on 15% and NSP), its
+    ``make_train_step`` captured by ``dygraph.CapturedTrainStep`` (call 1
+    eager, call 2 the capture, then replays, parameters and Adam state written
+    in place) for ``warmup`` + ``steps`` steps, after ``eager_steps``
+    timed eager calls of the same step function. Every eager or captured
+    step launches DY_PER_STEP (12 + 12 flash, 1 CE), all bf16 and on the
+    wgmma forms, a replay none from Python and, profiled, the first
+    step's device kernels kind by kind. Prints tokens/s, ms a step, busy
+    share, peak memory and kernels a step, beside the static
+    ``bert_pretrain`` Adam arm's ``static`` (a reading, not a gate).
+    Returns (launches, replayed)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert_dygraph
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    model = build_dygraph_bert(fluid, fluid.CUDAPlace(0), 0.1, True)
+    step, params, opt = bert_dygraph.make_train_step(model, DY_LR)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    feed = dygraph_feed(BERT_PRETRAIN_BATCH)
+    n_params = sum(int(t.numel()) for t in params.values())
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = torch.cuda.memory_allocated()
+    setup_s = time.perf_counter() - t0
+    cs = fluid.dygraph.CapturedTrainStep(step, params, opt, gen)
+    losses, runs = [], {"launched": 0, "replayed": 0}
+
+    def counted(fn, label):
+        before = read_counts(), read_bf16_counts(), read_wgmma_counts()
+        replays = cs.runs["replays"]
+        t = time.perf_counter()
+        loss = fn()
+        losses.append(float(loss))  # to the host: ends synchronised
+        dt = time.perf_counter() - t
+        after = read_counts(), read_bf16_counts(), read_wgmma_counts()
+        rep = cs.runs["replays"] > replays
+        want = per_run() if rep else DY_PER_STEP
+        got = [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
+        check(got == [want, bf16_part(want, True), wgmma_part(want, True)],
+              "%s launches %s != %s" % (label, got, want))
+        runs["replayed" if rep else "launched"] += 1
+        return dt
+
+    def eager_step():
+        return counted(lambda: step(params, opt, gen, *feed)[0],
+                       "dygraph eager step %d" % len(losses))
+
+    def run_step():
+        return counted(lambda: cs(*feed), "dygraph step %d" % len(losses))
+
+    reset_counts()
+    eager_s = [eager_step() for _ in range(eager_steps + 1)][1:]
+    e_dev, e_kernels, _, _ = _profile_steps(torch, eager_step, 1)
+    call1 = {}
+    _profile_steps(torch, run_step, 1, counts=call1)
+    step_s = []
+    for i in range(warmup - 1 + steps):
+        dt = run_step()
+        if i >= warmup - 1:
+            step_s.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    replay = {}
+    device_ms, kernels, prof_wall, top_other = _profile_steps(
+        torch, run_step, prof_steps, counts=replay)
+    report = cs.report()
+    launches, bf16 = read_counts(), read_bf16_counts()
+    wgmma = read_wgmma_counts()
+    med, e_med = statistics.median(step_s), statistics.median(eager_s)
+    busy, e_busy = sum(device_ms.values()), sum(e_dev.values())
+    tokens = BERT_PRETRAIN_BATCH * BERT["seq"]
+    out = {"phase": "dygraph_train",
+           "model": "bert_dygraph (BertPretrain, dygraph modules)",
+           "precision": "bf16 (amp=True)", "optimizer": "Adam(1e-4)",
+           "config": dict(BERT, dropout_rate=0.1), "params": n_params,
+           "batch": BERT_PRETRAIN_BATCH, "captured": report["captured"],
+           "reason": report["reason"], "step_report": report,
+           "warmup_steps": warmup, "steps": len(step_s),
+           "step_ms_median": med * 1e3, "step_ms": [x * 1e3 for x in step_s],
+           "tokens_per_s": tokens / med, "device_ms_per_step": device_ms,
+           "device_ms": busy, "device_busy_share": busy / (med * 1e3),
+           "kernels_per_step": kernels,
+           "kernels_by_kind": {"call1": call1, "replay": replay},
+           "profiled_wall_ms_per_step": prof_wall,
+           "top_other_kernels": top_other,
+           "eager": {"steps": len(eager_s), "step_ms_median": e_med * 1e3,
+                     "step_ms": [x * 1e3 for x in eager_s],
+                     "tokens_per_s": tokens / e_med, "device_ms": e_busy,
+                     "device_busy_share": e_busy / (e_med * 1e3),
+                     "kernels_per_step": e_kernels},
+           "losses": losses, "state_bytes": state, "peak_memory_bytes": peak,
+           "peak_above_state_bytes": peak - state,
+           "graph_pool_bytes": report["pool_bytes"], "launches": launches,
+           "bf16_launches": bf16, "wgmma_launches": wgmma,
+           "launches_per_step": DY_PER_STEP, "steps_by_kind": runs,
+           "setup_s": setup_s, "device": smi_line}
+    if static is not None:  # the static Program's step on the same card
+        out["static_bert_pretrain_adam"] = {
+            k: static[k] for k in ("step_ms_median", "tokens_per_s",
+                                   "device_busy_share", "peak_memory_bytes",
+                                   "kernels_per_step")}
+        out["dygraph_over_static_step_ms"] = \
+            med * 1e3 / static["step_ms_median"]
+    emit(out)
+    cs.close()
+    check(report["captured"] and report["replays"] >= steps,
+          "dygraph_train not captured: %s" % report)
+    check_replay_kernels("dygraph_train", call1, replay)
+    check(np.isfinite(losses).all(), "non-finite loss: %s" % losses)
+    check(losses[-1] < losses[0], "dygraph_train: loss did not fall: %s"
+          % losses)
+    check(launches == {k: n * runs["launched"]
+                       for k, n in DY_PER_STEP.items()},
+          "dygraph_train launches %s" % launches)
+    return launches, {k: n * runs["replayed"] for k, n in DY_PER_STEP.items()}
+
+
+# -- QAT (A9): ResNet-50 under the quantization transpiler -----------------
+
+def build_qat_resnet(fluid):
+    """ResNet-50 at config 2 (``RESNET``) under
+    ``QuantizeTranspiler.training_transpile`` (8-bit channel-wise weights,
+    moving-average activations) before ``Adam(1e-4).minimize``, the
+    reference's order (``quantize_transpiler.py:11-13``). Returns (main,
+    startup, spec, transpiler)."""
+    from paddle_tpu_torch.contrib.quantize import QuantizeTranspiler
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        spec = fluid.models.resnet.resnet_imagenet(**RESNET)
+        qt = QuantizeTranspiler()
+        qt.training_transpile(main, startup)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(spec.loss)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, spec, qt
+
+
+def _qat_fusion(main, fetch_names):
+    """The epilogue fusion's decisions on the QAT program: 53 sites, every
+    fused conv reading its weight's fake-quant output, none refused (the
+    reference's, held in ``tests/test_torch_quantize.py``)."""
+    from paddle_tpu_torch.core.executor import fused_ops
+
+    ops, report = fused_ops(main, fetch_names)
+    sites = [o for o in ops if o.type == "fused_conv2d"]
+    out = {"sites": len(report.fused), "refused": [str(r) for r in
+                                                   report.refused],
+           "quantized_filters": sum(o.input("Filter").name.endswith(
+               ".quantized") for o in sites),
+           "fake_quant_ops": sum(o.type.startswith("fake_") for o in ops)}
+    check(len(sites) == out["quantized_filters"] == 53
+          and not report.refused, "QAT fusion: %s" % out)
+    return out, sites
+
+
+def phase_qat_check(torch, smi_line, batch=2):
+    """One QAT ResNet-50 step (``build_qat_resnet``) at batch 2 on the card
+    and with the port on the CPU from the same weights and feed, plus the
+    CPU step on the input scaled by 1 + 2^-20, by
+    ``resnet_train_check``'s rule (each quantity within the larger of its
+    tolerance and 5x that rounding sensitivity): the loss 1e-4 relative,
+    every gradient 1e-2 relative L2, the 50 activation quant states (each
+    a batch abs-max) 1e-4 relative L2 as one vector. That rule is printed
+    and held, but it cannot fail a wrong gradient (a fake-quant's rounding
+    flips make the step chaotic: see QAT_FORCED_TOL); the check that can
+    is op by op: every forward op of the step and its VJP on the CPU
+    chain's inputs, the card within QAT_FORCED_TOL of the CPU, and two
+    planted faults on the card (an identity fake-quant, a zeroed
+    straight-through gradient) caught at the fake-quant ops. The card
+    step launches RESNET_PER_STEP (the fused convs at the 49 admitted
+    sites, their Filter the fake-quant output); the fusion's decisions as
+    ``_qat_fusion``. Returns (launches, replayed)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, spec, _ = build_qat_resnet(fluid)
+    trainable = [p.name for p in main.all_parameters() if p.trainable]
+    names = [p.name for p in main.all_parameters()]
+    gb = main.global_block()
+    fetch = [spec.loss] + [gb.var(n + "@GRAD") for n in trainable]
+    feed = spec.sample_batch(batch, np.random.RandomState(SEED))
+    gpu_scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=gpu_scope)
+    params = {n: gpu_scope.get(n).cpu().numpy() for n in names}
+    states = sorted(n for n in gpu_scope.var_names()
+                    if n.endswith(".quant_state"))
+    start_states = {n: gpu_scope.get(n).cpu().numpy() for n in states}
+    reset_counts()
+    gpu = exe.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+    counts = read_counts()
+    check(counts == RESNET_PER_STEP, "qat_check launches %s != %s"
+          % (counts, RESNET_PER_STEP))
+    gpu_states = [gpu_scope.get(n).cpu().numpy() for n in states]
+    fusion, _ = _qat_fusion(main, [spec.loss.name]
+                            + [v.name for v in fetch[1:]])
+    exe.close()
+    cpu_runs, cpu_s = [], []
+    for scale in (1.0, 1.0 + 2.0 ** -20):
+        cpu_scope = fluid.Scope()
+        cexe = fluid.Executor(fluid.CPUPlace())
+        cexe.run(startup, scope=cpu_scope)
+        fluid.bridge.load_program_params(cpu_scope, params, main, "cpu")
+        f = dict(feed, img=(feed["img"] * np.float32(scale)).astype("f4"))
+        t0 = time.perf_counter()
+        out = cexe.run(main, feed=f, fetch_list=fetch, scope=cpu_scope)
+        cpu_s.append(time.perf_counter() - t0)
+        cpu_runs.append((out, [cpu_scope.get(n).numpy() for n in states]))
+    check(read_counts() == counts, "the CPU QAT steps launched a kernel")
+    # op by op (see QAT_FORCED_TOL): the card, then the planted faults on
+    # the card, against the CPU on the CPU chain's inputs
+    t0 = time.perf_counter()
+    ops, inputs = _forced_chain(torch, main, [spec.loss.name],
+                                dict(params, **start_states), feed,
+                                amp=False)
+    dev, cpu_dev = fluid.CUDAPlace(0).torch_device(), torch.device("cpu")
+    cts = {}
+    want = _forced_run(torch, ops, inputs, cpu_dev, False, cts)
+    got = _forced_run(torch, ops, inputs, dev, False, cts)
+    flips = _forced_flips(got, want)
+    if flips:  # the VJPs again, through the same ReLU masks
+        want = _forced_run(torch, ops, inputs, cpu_dev, False, cts,
+                           flips=flips)
+        got = _forced_run(torch, ops, inputs, dev, False, cts, flips=flips)
+    forced = {"card": _forced_f32_verdict(got, want, QAT_FORCED_TOL)}
+    for name, fault in _qat_faults(torch).items():
+        forced[name] = _forced_f32_verdict(
+            _forced_run(torch, ops, inputs, dev, False, cts, fault, flips),
+            want, QAT_FORCED_TOL)
+    relu_flips = {"%d:%s" % k: int(f.sum()) for k, f in flips.items()}
+    forced_s = time.perf_counter() - t0
+    del want, got, inputs
+    (cpu, cpu_states), (pert, pert_states) = cpu_runs
+    n_t = len(trainable)
+    loss = (abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0])),
+            abs(float(pert[0]) - float(cpu[0])) / abs(float(cpu[0])))
+    grads = {n: (_rel_l2(g, c), _rel_l2(p, c)) for n, g, c, p in zip(
+        trainable, gpu[1:1 + n_t], cpu[1:1 + n_t], pert[1:1 + n_t])}
+    # each state is one batch abs-max of a chaotic forward (a rounding
+    # flip moves a value by a grid step): held as one vector
+    cat = [np.array([float(np.asarray(x).reshape(-1)[0]) for x in xs])
+           for xs in (gpu_states, cpu_states, pert_states)]
+    qstates = {"quant_states": (_rel_l2(cat[0], cat[1]),
+                                _rel_l2(cat[2], cat[1]))}
+    bad = (_over_sensitivity({"loss": loss}, 1e-4)
+           + _over_sensitivity(grads, 1e-2)
+           + _over_sensitivity(qstates, 1e-4))
+    worst = max(grads, key=lambda n: grads[n][0])
+    emit({"phase": "qat_check", "batch": batch, "config": RESNET,
+          "quantization": "8-bit channel-wise weights, moving-average "
+                          "activations", "loss_gpu": float(gpu[0]),
+          "loss_cpu": float(cpu[0]), "loss_rel_err": loss[0],
+          "loss_rel_sensitivity": loss[1], "grads_compared": n_t,
+          "grad_rel_l2_max": grads[worst][0], "grad_rel_l2_param": worst,
+          "grad_rel_l2_median": float(np.median([e for e, _ in
+                                                 grads.values()])),
+          "grad_sensitivity_median": float(np.median([s for _, s in
+                                                      grads.values()])),
+          "quant_states": len(states),
+          "quant_states_rel_l2": qstates["quant_states"][0],
+          "quant_states_sensitivity": qstates["quant_states"][1],
+          "quant_state_elem_err_max": max(
+              _elem_err(g, c) for g, c in zip(gpu_states, cpu_states)),
+          "fusion": fusion,
+          "tol": "max(stated, 5 x sensitivity): loss 1e-4 rel, grads 1e-2 "
+                 "rel L2, the quant states 1e-4 rel L2 as one vector",
+          "over_tolerance": bad, "forced_ops": len(ops),
+          "forced_s": forced_s, "forced_card": forced["card"],
+          "forced_relu_flips": relu_flips,
+          "forced_planted_faults": {k: dict(v, outside=len(v["outside"]))
+                                    for k, v in forced.items()
+                                    if k != "card"},
+          "forced_tol": "every op's outputs and input gradients within %g "
+                        "rel L2 of the CPU's; each planted fault must fail"
+                        % QAT_FORCED_TOL,
+          "launches": counts, "cpu_step_s": cpu_s, "device": smi_line})
+    check(np.isfinite(float(gpu[0])), "qat_check: non-finite loss")
+    check(not bad, "qat_check: over tolerance: %s" % bad)
+    check(not forced["card"]["outside"], "qat_check: forced ops past %g: %s"
+          % (QAT_FORCED_TOL, forced["card"]["outside"][:20]))
+    for name, kind in (("identity_fake_quant", ":out:"),
+                       ("zero_ste", ":grad:")):
+        check(any(":fake_" in o and kind in o
+                  for o in forced[name]["outside"]),
+              "qat_check: the forced check passed the planted fault %s"
+              % name)
+    return counts, per_run()
+
+
+def phase_qat_train(torch, smi_line, warmup=3, steps=10, prof_steps=2,
+                    passes=3, small=8):
+    """The main path: QAT ResNet-50 (``build_qat_resnet``) trained at batch
+    128 (224 x 224 x 3, 1000 classes), captured from its second step on,
+    ``warmup`` + ``steps`` steps on one fixed batch: each interpreted or
+    captured step launches conv_moments and bn_apply 49 times (the fused
+    convs, their Filter the weights' fake-quant outputs), a replay none
+    from Python and, profiled, the first step's kernels by kind. Then the
+    deployment: ``freeze_program`` on a pruned for_test clone (weights baked
+    onto the int8 grid, the weight quant ops dropped, the activation ones
+    frozen), ``passes`` eval passes of it at batch 128 (conv_apply 49 a
+    pass, captured); the frozen model against the unfrozen clone (its
+    activation quant ops frozen alike, the weights quantized in the step)
+    on ``small`` images: the baked weights bitwise the clone's fake-quant
+    outputs, the logits within twice the distance of two runs of the
+    clone plus F32_ROUNDING (relative L2);
+    ``export_int8`` / ``load_int8_params`` into a fresh scope: the weights
+    bitwise the frozen ones, the logits bitwise the frozen model's.
+    Returns (launches, replayed)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib.quantize import load_int8_params
+
+    t0 = time.perf_counter()
+    main, startup, spec, qt = build_qat_resnet(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor()  # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    feed = spec.sample_batch(RESNET_BATCH, np.random.RandomState(SEED))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, step_s, runs = [], [], {"launched": 0, "replayed": 0}
+
+    def run_step():
+        (loss,), dt, replayed = counted_step(
+            exe, main, RESNET_PER_STEP, False, "qat step %d" % len(losses),
+            feed=feed, fetch_list=[spec.loss], scope=scope)
+        runs["replayed" if replayed else "launched"] += 1
+        losses.append(float(loss))
+        return dt
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    call1 = {}
+    _profile_steps(torch, run_step, 1, counts=call1)
+    for i in range(warmup - 1 + steps):
+        dt = run_step()
+        if i >= warmup - 1:
+            step_s.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    replay = {}
+    device_ms, kernels, prof_wall, top_other = _profile_steps(
+        torch, run_step, prof_steps, counts=replay)
+    report = exe.step_report(main)
+    train_launches = read_counts()
+    fusion, sites = _qat_fusion(main, [spec.loss.name])
+    declined = [(tuple(o.input("Filter").shape), list(o.attr("strides")))
+                for o in sites if not o.attrs["_kernel_choice"]["admitted"]]
+    check(report["captured"] and report["replays"] >= steps,
+          "qat_train not captured: %s" % report)
+    check_replay_kernels("qat_train", call1, replay)
+    check(declined == RESNET_DECLINED, "qat declined sites %s" % declined)
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "qat_train: loss did not fall: %s" % losses)
+    check(train_launches == {k: n * runs["launched"]
+                             for k, n in RESNET_PER_STEP.items()},
+          "qat_train launches %s" % train_launches)
+
+    # deployment: the frozen clone, its int8 export, against the unfrozen
+    logits_name = [op.input("X").name for op in main.global_block().ops
+                   if op.type == "softmax"][0]
+    unfrozen = main.clone(for_test=True)
+    unfrozen = unfrozen.prune([unfrozen.global_block().var(logits_name)])
+    for op in unfrozen.global_block().ops:
+        if op.type == "fake_quantize_moving_average_abs_max":
+            op.attrs["is_test"] = True
+    small_feed = {"img": feed["img"][:small]}
+    quantized = sorted(n + ".quantized" for n in qt._weight_quants)
+    unfrozen_runs = [exe.run(unfrozen, feed=small_feed,
+                             fetch_list=[logits_name] + quantized,
+                             scope=scope) for _ in range(2)]
+    want = unfrozen_runs[0][0]
+    d_uu = _rel_l2(unfrozen_runs[1][0], want)
+    frozen = main.clone(for_test=True)
+    frozen = frozen.prune([frozen.global_block().var(logits_name)])
+    qt.freeze_program(frozen, scope=scope)
+    pass_s, eval_runs = [], {"launched": 0, "replayed": 0}
+    eval_feed = {"img": feed["img"]}
+    before = read_counts()
+
+    def run_pass():
+        _, dt, replayed = counted_step(
+            exe, frozen, RESNET_PER_EVAL, False, "qat eval pass",
+            feed=eval_feed, fetch_list=[logits_name], scope=scope)
+        eval_runs["replayed" if replayed else "launched"] += 1
+        pass_s.append(dt)
+
+    for _ in range(passes + 2):
+        run_pass()
+    eval_launches = {k: v - before[k] for k, v in read_counts().items()}
+    got = exe.run(frozen, feed=small_feed, fetch_list=[logits_name],
+                  scope=scope)[0]
+    # freeze is exact: the baked weights are the fake-quant outputs
+    baked_bitwise = all(np.array_equal(
+        scope.get(n[:-len(".quantized")]).cpu().numpy(), q)
+        for n, q in zip(quantized, unfrozen_runs[0][1:]))
+    d_fu = _rel_l2(got, want)
+    tmp = tempfile.mkdtemp(prefix="qat_int8_")
+    try:
+        qt.export_int8(tmp, scope=scope)
+        i8_scope = fluid.Scope()
+        for p in frozen.all_parameters():
+            if p.name in scope:
+                i8_scope.set(p.name, scope.get(p.name).clone())
+        for n in scope.var_names():
+            if n.endswith(".quant_state"):
+                i8_scope.set(n, scope.get(n).clone())
+        for n in qt._weight_quants:
+            i8_scope.set(n, torch.zeros_like(scope.get(n)))
+        loaded = load_int8_params(tmp, i8_scope, require=True)
+        int8_bytes = os.path.getsize(os.path.join(tmp, "params.int8.npz"))
+    finally:
+        shutil.rmtree(tmp)
+    weights_equal = all(torch.equal(i8_scope.get(n), scope.get(n))
+                        for n in loaded)
+    via_int8 = exe.run(frozen, feed=small_feed, fetch_list=[logits_name],
+                       scope=i8_scope)[0]
+    int8_err = _elem_err(via_int8, got)
+    eval_report = exe.step_report(frozen)
+    exe.close()
+    err = _elem_err(got, want)
+    med = statistics.median(step_s)
+    busy = sum(device_ms.values())
+    emit({"phase": "qat_train", "model": "resnet50 (QAT)",
+          "config": RESNET, "batch": RESNET_BATCH, "dtype": "float32",
+          "quantization": "8-bit channel-wise weights, moving-average "
+                          "activations (QuantizeTranspiler)",
+          "optimizer": "Adam(1e-4)", "captured": report["captured"],
+          "reason": report["reason"], "step_report": report,
+          "warmup_steps": warmup, "steps": steps,
+          "step_ms_median": med * 1e3, "step_ms": [x * 1e3 for x in step_s],
+          "images_per_s": RESNET_BATCH / med, "losses": losses,
+          "peak_memory_bytes": peak, "device_ms_per_step": device_ms,
+          "device_ms": busy, "device_busy_share": busy / (med * 1e3),
+          "kernels_per_step": kernels,
+          "kernels_by_kind": {"call1": call1, "replay": replay},
+          "profiled_wall_ms_per_step": prof_wall,
+          "top_other_kernels": top_other, "fusion": dict(
+              fusion, kernel_sites=len(sites) - len(declined),
+              declined=declined), "launches": train_launches,
+          "launches_per_step": RESNET_PER_STEP, "steps_by_kind": runs,
+          "frozen_eval": {
+              "passes_by_kind": eval_runs, "step_report": eval_report,
+              "pass_ms_median": statistics.median(pass_s[2:]) * 1e3,
+              "images_per_s": RESNET_BATCH / statistics.median(pass_s[2:]),
+              "launches": eval_launches, "small_batch": small,
+              "frozen_vs_unfrozen_max_err": err,
+              "frozen_vs_unfrozen_rel_l2": d_fu,
+              "unfrozen_vs_unfrozen_rel_l2": d_uu,
+              "baked_weights_bitwise": baked_bitwise,
+              "argmax_agree": float(np.mean(np.argmax(got, -1)
+                                            == np.argmax(want, -1))),
+              "int8_weights_loaded": len(loaded),
+              "int8_weights_bitwise": weights_equal,
+              "int8_logits_max_err": int8_err,
+              "int8_file_bytes": int8_bytes},
+          "setup_s": setup_s, "device": smi_line})
+    check(eval_report["captured"], "frozen eval not captured: %s"
+          % eval_report)
+    check(eval_launches == {k: n * eval_runs["launched"]
+                            for k, n in RESNET_PER_EVAL.items()},
+          "qat eval launches %s" % eval_launches)
+    check(baked_bitwise, "the frozen weights differ from the fake-quant "
+          "outputs of the unfrozen clone")
+    check(d_fu <= 2 * d_uu + F32_ROUNDING,
+          "frozen vs unfrozen logits %g (rel L2), unfrozen vs unfrozen %g"
+          % (d_fu, d_uu))
+    # the weights bitwise; the logits within f32 noise (the four declined
+    # sites run cuDNN, whose default algorithms are not reproducible)
+    check(len(loaded) == len(qt._weight_quants) and weights_equal
+          and int8_err <= 1e-5,
+          "the int8 export did not round-trip the frozen model (%g)"
+          % int8_err)
+    launched = {k: train_launches[k] + eval_launches[k] for k in KERNELS}
+    replayed = {k: RESNET_PER_STEP[k] * runs["replayed"]
+                + RESNET_PER_EVAL[k] * eval_runs["replayed"]
+                for k in KERNELS}
+    return launched, replayed
 
 
 def main():
@@ -10362,8 +11190,8 @@ def main():
     paths["deepfm_amp_train"], replayed["deepfm_amp_train"] = \
         phase_deepfm_train(torch, smi_line, amp=True)
     phase_bert_pretrain_check(torch, smi_line)
-    paths["bert_pretrain"], replayed["bert_pretrain"] = phase_bert_pretrain(
-        torch, smi_line)
+    paths["bert_pretrain"], replayed["bert_pretrain"], bert_adam = \
+        phase_bert_pretrain(torch, smi_line)
     bert_times = phase_bert_kernel_timing(torch, dev)
     opt_scatter = phase_optimizer_check(torch, smi_line)
     fam = phase_decode_check(torch, smi_line)
@@ -10438,6 +11266,16 @@ def main():
             phase_stream_fleet(torch, smi_line, stream)
     finally:  # no process, thread or directory outlives the phases
         close_stream(stream)
+    # dygraph (A8): BERT-base through the imperative modules, its captured
+    # step; QAT (A9): ResNet-50 under the quantization transpiler
+    paths["dygraph_check"], replayed["dygraph_check"] = phase_dygraph_check(
+        torch, smi_line)
+    paths["dygraph_train"], replayed["dygraph_train"] = phase_dygraph_train(
+        torch, smi_line, bert_adam)
+    paths["qat_check"], replayed["qat_check"] = phase_qat_check(
+        torch, smi_line)
+    paths["qat_train"], replayed["qat_train"] = phase_qat_train(
+        torch, smi_line)
 
     src = {"flash_attention_fwd": ("flash_attention_fwd.cu",
                                    "paddle_tpu/ops/flash_attention.py:1001"),

@@ -55,6 +55,8 @@ from .data.feeder import DataFeeder  # noqa: F401
 from . import async_executor  # noqa: F401
 from .async_executor import AsyncExecutor  # noqa: F401
 from . import streaming  # noqa: F401
+from . import dygraph  # noqa: F401
+from . import contrib  # noqa: F401
 
 
 def memory_optimize(input_program=None, skip_opt_set=None, print_log=False,

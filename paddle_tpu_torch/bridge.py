@@ -13,7 +13,7 @@ import numpy as np
 from .core.executor import resolve_device, to_tensor
 
 __all__ = ["load_numpy_params", "load_program_params",
-           "load_reference_params"]
+           "load_reference_params", "load_dygraph_state"]
 
 
 def load_numpy_params(scope, params, device=None, program=None):
@@ -45,6 +45,27 @@ def load_program_params(scope, params, program, device=None):
                        % (sorted(want - set(params)),
                           sorted(set(params) - want)))
     return load_numpy_params(scope, params, device, program)
+
+
+def load_dygraph_state(layer, state, device=None):
+    """Carry a dygraph model initialised elsewhere (``{name: array}``,
+    e.g. ``paddle_tpu``'s ``Layer.state_pytree()`` read as numpy) into the
+    port's copy of that ``dygraph.Layer``, each parameter by name as an
+    f32 tensor on ``device`` (None = ``CUDAPlace(0)``). Every parameter of
+    the layer must be given, and nothing else. Returns the names set."""
+    params = {p.name: p for p in layer.parameters()}
+    if set(state) != set(params):
+        raise KeyError("parameters missing: %s; unknown: %s"
+                       % (sorted(set(params) - set(state)),
+                          sorted(set(state) - set(params))))
+    device = resolve_device(device)
+    for name, arr in state.items():
+        p = params[name]
+        if tuple(p.shape) != tuple(np.shape(arr)):
+            raise ValueError("%s: shape %s, given %s"
+                             % (name, p.shape, np.shape(arr)))
+        p._value = to_tensor(np.asarray(arr), device).to(p._value.dtype)
+    return sorted(state)
 
 
 def load_reference_params(model_dir, scope, device=None, program=None,

@@ -113,7 +113,7 @@ from .opt_fusion import run_fused_group
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "CPUPlace",
            "CUDAPlace", "resolve_device", "place_for", "CapturedStep",
-           "capture_rule", "state_writes", "step_plan", "remat_segments"]
+           "capture_graph", "capture_rule", "state_writes", "step_plan", "remat_segments"]
 
 
 _AUTODIFF_OPS = ("autodiff", "autodiff_vjp")
@@ -742,6 +742,32 @@ def rng_name(scope, device):
     return RNG_KEY + str(device)
 
 
+def capture_graph(fn, generator, device, **graph_kw):
+    """Record ``fn()`` into a new ``torch.cuda.CUDAGraph`` on ``device``
+    (``graph_kw``: ``torch.cuda.graph``'s pool and stream) and return
+    (graph, what ``fn`` returned, its tensors the graph's outputs, the
+    bytes the capture reserved). Nothing runs until the graph is replayed.
+    ``generator`` is registered with the graph, so each replay advances it
+    as an eager call would (dropout, the flash kernels' seeds)."""
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_reserved(device)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    # no cyclic collection inside the capture: a dead graph it freed (a
+    # dropped engine's, say) would destroy itself with CUDA calls a
+    # capturing thread may not make, and invalidate this capture
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local",
+                              **graph_kw):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
+    return graph, out, torch.cuda.memory_reserved(device) - before
+
+
 class CapturedStep:
     """The step body of one cache entry over static buffers: it reads the
     state from the scope's own tensors and the feed from one buffer per
@@ -817,44 +843,29 @@ class CapturedStep:
         """Record :meth:`body` into a CUDA graph on ``stream``, in the
         executor's shared pool, each fetch but a lent one copied into the
         fetch arena; nothing runs until :meth:`replay`."""
-        graph = torch.cuda.CUDAGraph()
-        # each replay advances the scope's generator as an eager step
-        # would (dropout, the flash kernels' seeds)
-        graph.register_generator_state(self.gen)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         lent = self.entry.lent_out
         meta = [m for n, m in zip(self.fetch_names, self.entry.fetch_meta)
                 if n not in lent]
         views = iter(self.pool.fetch_views(meta))
-        before = torch.cuda.memory_reserved(self.device)
-        # no cyclic collection inside the capture: a dead graph it freed
-        # (a dropped engine's, say) would destroy itself with CUDA calls a
-        # capturing thread may not make, and invalidate this capture
-        collecting = gc.isenabled()
-        gc.disable()
+
+        def recorded():
+            return [f if n in lent else next(views).copy_(f)
+                    for n, f in zip(self.fetch_names, self.body())]
+
         try:
-            with torch.cuda.graph(graph, pool=self.pool.handle(),
-                                  stream=stream,
-                                  capture_error_mode="thread_local"):
-                outs = self.body()
-                fetches = []
-                for n, f in zip(self.fetch_names, outs):
-                    if n not in lent:
-                        f = next(views).copy_(f)
-                    fetches.append(f)
-                del outs
+            # the scope's generator is registered with the graph
+            graph, fetches, pool_bytes = capture_graph(
+                recorded, self.gen, self.device, pool=self.pool.handle(),
+                stream=stream)
         except Exception as e:
             self.pool.discard()
             e.add_note("  [capturing the step as one CUDA graph: the capture "
                        "rule admitted this program, so the failing op above "
                        "is a fault in the rule]")
             raise
-        finally:
-            if collecting:
-                gc.enable()
-        self.entry.pool_bytes = (torch.cuda.memory_reserved(self.device)
-                                 - before)
+        self.entry.pool_bytes = pool_bytes
         self.fetches = fetches
         self.graph = graph
         self.pool.live += 1

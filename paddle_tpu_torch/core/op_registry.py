@@ -82,32 +82,43 @@ class _SingleRounding:
 
 
 @contextlib.contextmanager
-def amp_scope(enabled):
-    """Set the flag for a block and restore it afterwards. Inside an AMP
-    block cuBLAS also reduces bf16 products in f32: with
+def single_rounding(enabled=True):
+    """Inside the block cuBLAS reduces bf16 products in f32: with
     ``allow_bf16_reduced_precision_reduction`` (PyTorch's default) it may
     sum split-K partials in bf16 and round a product twice, where the
     reference's dots (``preferred_element_type=f32``) round once. That
-    setting is restored when the last AMP block of the process ends."""
+    setting is restored when the last such block of the process ends.
+    The AMP blocks and the dygraph tape (``dygraph/base.py``) hold it."""
+    if not enabled:
+        yield
+        return
     matmul = torch.backends.cuda.matmul
-    if enabled:
-        with _SingleRounding.lock:
-            if _SingleRounding.depth == 0:
-                _SingleRounding.saved = \
-                    matmul.allow_bf16_reduced_precision_reduction
-                matmul.allow_bf16_reduced_precision_reduction = False
-            _SingleRounding.depth += 1
-    prev, AMP.enabled = AMP.enabled, bool(enabled)
+    with _SingleRounding.lock:
+        if _SingleRounding.depth == 0:
+            _SingleRounding.saved = \
+                matmul.allow_bf16_reduced_precision_reduction
+            matmul.allow_bf16_reduced_precision_reduction = False
+        _SingleRounding.depth += 1
     try:
         yield
     finally:
+        with _SingleRounding.lock:
+            _SingleRounding.depth -= 1
+            if _SingleRounding.depth == 0:
+                matmul.allow_bf16_reduced_precision_reduction = \
+                    _SingleRounding.saved
+
+
+@contextlib.contextmanager
+def amp_scope(enabled):
+    """Set the flag for a block and restore it afterwards; an AMP block
+    also holds :func:`single_rounding`."""
+    prev, AMP.enabled = AMP.enabled, bool(enabled)
+    try:
+        with single_rounding(enabled):
+            yield
+    finally:
         AMP.enabled = prev
-        if enabled:
-            with _SingleRounding.lock:
-                _SingleRounding.depth -= 1
-                if _SingleRounding.depth == 0:
-                    matmul.allow_bf16_reduced_precision_reduction = \
-                        _SingleRounding.saved
 
 
 def mxu_cast(*xs):

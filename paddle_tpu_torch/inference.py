@@ -16,8 +16,10 @@ CPU (another card goes through ``ServingEngine(device=...)``). Without a CUDA de
 raises. ``clone(device=...)`` pins a replica to one device: its scope is
 a copy of the weights on that ``torch.device`` (the
 ``ServingEngine(placement="per_device")`` building block,
-``paddle_tpu/inference.py:127-134``). ``shard`` (A7), int8 serving and the
-StableHLO predictor (A5b) are not ported.
+``paddle_tpu/inference.py:127-134``). ``enable_int8`` serves from the
+``contrib.quantize`` int8 export beside the model, dequantized onto the
+quantization grid at load (auto-detected unless set). ``shard`` (A7) and
+the StableHLO predictor (A5b) are not ported.
 """
 
 import os
@@ -42,12 +44,19 @@ class AnalysisConfig:
         self.prog_file = prog_file
         self.params_file = params_file
         self.place = CUDAPlace(0)
+        self._int8 = None  # None = auto-detect params.int8.npz in the dir
 
     def set_model(self, model_dir):
         self.model_dir = model_dir
 
     def disable_gpu(self):
         self.place = CPUPlace()
+
+    def enable_int8(self, x=True):
+        """Serve from the ``contrib.quantize`` int8 export
+        (``params.int8.npz`` beside the model). ``True`` requires the
+        export, ``False`` forces fp32, the default ``None`` auto-detects."""
+        self._int8 = bool(x)
 
 
 class ProgramPredictor:
@@ -128,6 +137,8 @@ class ProgramPredictor:
         other.feed_names = list(self.feed_names)
         other._fetch_vars = self._fetch_vars
         other.fetch_names = list(self.fetch_names)
+        if hasattr(self, "int8"):  # a Predictor advertises its weights'
+            other.int8 = self.int8
         if device is not None:
             dev = other._exe.device
             pinned = Scope()
@@ -179,6 +190,14 @@ class Predictor(ProgramPredictor):
                                   scope=scope, place=config.place)
         self.config = config
         self._exe = exe
+        self.int8 = False
+        if config._int8 is not False:
+            from .contrib.quantize.quantize_transpiler import \
+                load_int8_params
+
+            self.int8 = bool(load_int8_params(
+                model_dir, scope, require=config._int8 is True,
+                device=exe.device))
 
 
 def create_paddle_predictor(config):

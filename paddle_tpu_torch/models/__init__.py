@@ -2,6 +2,7 @@
 
 from .common import ModelSpec  # noqa: F401
 from . import bert  # noqa: F401
+from . import bert_dygraph  # noqa: F401
 from . import books  # noqa: F401
 from . import common  # noqa: F401
 from . import deepfm  # noqa: F401

@@ -329,7 +329,7 @@ def _c_fn(entry="fused_ce_fwd"):
 def fused_ce_fwd(x, w, b, y, eps):
     """Launch the CUDA kernel. x: CUDA [T, D]; w: [D, V], both f32 (the
     3xTF32 form) or both bf16 (the bf16 form :func:`ce_form` names); b:
-    [V] in x's dtype, or None; y: int [T]. Returns (loss [T], lse [T]) in
+    [V] in x's dtype or f32, or None; y: int [T]. Returns (loss [T], lse [T]) in
     f32."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError("fused_ce_fwd wants x [T, D] and w [D, V], got %s "
@@ -337,9 +337,11 @@ def fused_ce_fwd(x, w, b, y, eps):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError("fused_ce_fwd takes f32 or bf16 x, got %s" % x.dtype)
     for a in (x, w) + ((b,) if b is not None else ()):
-        if a.dtype != x.dtype:
-            raise TypeError("fused_ce_fwd: x, w and b of one dtype, got %s "
-                            "and %s" % (x.dtype, a.dtype))
+        # the kernels add an f32 bias to the f32 logits: b may be f32 with
+        # bf16 x and w (the dygraph BERT's MLM head, as the reference's)
+        if a.dtype != x.dtype and not (a is b and a.dtype == torch.float32):
+            raise TypeError("fused_ce_fwd: x and w (and b, or an f32 b) of "
+                            "one dtype, got %s and %s" % (x.dtype, a.dtype))
         if a.device != x.device:
             raise ValueError("fused_ce_fwd: tensors on %s and %s"
                              % (x.device, a.device))

@@ -2267,3 +2267,131 @@ def test_py_reader_staged_batches_equal_their_host_arrays(dev):
         np.testing.assert_array_equal(g["pr_slot_0"], h["pr_slot_0"])
         assert g["pr_slot_1"].dtype == np.int32
         np.testing.assert_array_equal(g["pr_slot_1"], h["pr_slot_1"])
+
+
+# -- the dygraph routes (models/bert_dygraph.py) -----------------------------
+
+def _dygraph_bert(place, amp, dropout_rate=0.0, seed=7):
+    """A small BERT from the dygraph modules with BERT-base's head width
+    (64) and a per-key padding bias: the forms the full model takes."""
+    from paddle_tpu_torch.dygraph import layers as dlayers
+    from paddle_tpu_torch.models import bert_dygraph
+
+    dlayers.seed(seed)
+    with t_unique_name.guard(), tfluid.dygraph.guard(place):
+        model = bert_dygraph.bert_base_dygraph(
+            vocab_size=1000, seq_len=128, d_model=256, d_ff=512, n_head=4,
+            n_layer=2, dropout_rate=dropout_rate, amp=amp)[0]
+        for fc in (model.mlm_transform, model.pooler, model.nsp_out):
+            fc._build_once(256)
+    return model
+
+
+def _dygraph_feed(batch=3):
+    from paddle_tpu_torch.models import bert_dygraph
+
+    feed = list(bert_dygraph.sample_batch(batch, 128, 1000,
+                                          np.random.RandomState(5)))
+    feed[2] = np.array([128, 77, 100][:batch], np.int32)
+    return feed
+
+
+def _dygraph_route_calls(monkeypatch, amp):
+    """The small dygraph BERT's eager step on the card, recording the
+    inputs of each call it makes of the flash and fused CE entries (its
+    routes to the kernels: 2 attention calls, 1 CE) and the launches."""
+    calls = {"flash": [], "ce": []}
+    flash, ce = tfa.flash_attention, tfce.linear_smooth_ce
+
+    def spy_flash(q, k, v, num_heads, **kw):
+        calls["flash"].append((q.detach(), k.detach(), v.detach(),
+                               num_heads, kw))
+        return flash(q, k, v, num_heads, **kw)
+
+    def spy_ce(x, w, b, y, eps):
+        calls["ce"].append((x.detach(), w.detach(), b.detach(), y, eps))
+        return ce(x, w, b, y, eps)
+
+    monkeypatch.setattr(tfa, "flash_attention", spy_flash)
+    monkeypatch.setattr(tfce, "linear_smooth_ce", spy_ce)
+    fns = (tfa.flash_attention_fwd, tfa.flash_attention_bwd,
+           tfce.fused_ce_fwd)
+    before = [(f.launches, f.wgmma_launches) for f in fns]
+    model = _dygraph_bert(tfluid.CUDAPlace(0), amp)
+    with tfluid.dygraph.guard(tfluid.CUDAPlace(0)):
+        model(*_dygraph_feed()).backward()
+    launches = [(f.launches - a, f.wgmma_launches - b)
+                for f, (a, b) in zip(fns, before)]
+    return calls, launches
+
+
+@pytest.mark.parametrize("amp", [False, True], ids=["f32", "bf16"])
+def test_dygraph_flash_and_ce_routes_match_plain(dev, monkeypatch, amp):
+    """The dygraph BERT's direct calls of the flash kernels (2 + 2 a step,
+    a per-key padding bias, heads of 64) and the fused CE kernel (1, an f32
+    bias beside bf16 x and W under AMP), on the wgmma forms under bf16,
+    each held on the inputs the model gave it against the plain versions:
+    the attention output and its gradients within 2e-4 (f32) or 2^-7
+    (bf16: one bf16 step) of max(1, max|plain|), the loss and lse within
+    2e-5."""
+    calls, launches = _dygraph_route_calls(monkeypatch, amp)
+    assert launches == [(2, 2 * amp), (2, 2 * amp), (1, 1 * amp)]
+    assert len(calls["flash"]) == 2 and len(calls["ce"]) == 1
+    tol = 2 ** -7 if amp else 2e-4
+    gen = torch.Generator().manual_seed(3)
+    for q, k, v, h, kw in calls["flash"]:
+        assert q.dtype == (torch.bfloat16 if amp else torch.float32)
+        bias = kw.get("bias")
+        dout = torch.randn(q.shape, generator=gen).to(dev, q.dtype)
+        out, lse = tfa.flash_attention_fwd(q, k, v, h, bias)
+        want, want_lse = tfa.attention_plain(q, k, v, h, bias)
+        got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, h, bias)
+        ref = tfa.attention_bwd_plain(q, k, v, out, lse, dout, h, bias)
+        assert _rel_err(out, want) <= tol
+        for g, r in zip(got[:3], ref[:3]):
+            assert _rel_err(g, r) <= tol
+    x, w, b, y, eps = calls["ce"][0]
+    assert b.dtype == torch.float32
+    x, y = x.reshape(-1, x.shape[-1]), y.reshape(-1)
+    loss, lse = tfce.fused_ce_fwd(x, w, b, y, eps)
+    want, want_lse = tfce.linear_smooth_ce_plain(x, w, b, y, eps)
+    assert _rel_err(loss, want) <= 2e-5 and _rel_err(lse, want_lse) <= 2e-5
+
+
+def test_captured_dygraph_step_matches_eager(dev):
+    """``make_train_step`` captured by ``dygraph.CapturedTrainStep`` (call 1
+    eager, call 2 the capture, then replays) against the same step called
+    eagerly, twice, from one state and one generator state, under AMP with
+    dropout 0.1: the captured run's losses and parameters (one relative
+    L2) within twice the two eager runs' distance plus 1e-6 (the flash
+    backward sums dq by atomics, in no fixed order); the capture launches
+    what call 1 launched, a replay nothing from Python."""
+    from paddle_tpu_torch.models import bert_dygraph
+
+    feed = [torch.as_tensor(f).to(dev) for f in _dygraph_feed()]
+    out = []
+    for captured in (False, False, True):
+        model = _dygraph_bert(tfluid.CUDAPlace(0), True, dropout_rate=0.1)
+        step, params, opt = bert_dygraph.make_train_step(model, 1e-3)
+        gen = torch.Generator(dev).manual_seed(11)
+        run = tfluid.dygraph.CapturedTrainStep(step, params, opt, gen) \
+            if captured else (lambda *f: step(params, opt, gen, *f)[0])
+        losses, launches = [], []
+        for _ in range(4):
+            before = tfa.flash_attention_fwd.launches
+            losses.append(run(*feed).double().reshape(1))
+            launches.append(tfa.flash_attention_fwd.launches - before)
+        out.append(torch.cat(losses + [p.reshape(-1).double()
+                                       for p in params.values()]))
+        if captured:
+            rep = run.report()
+            assert rep["captured"] and (rep["interpreted"], rep["captures"],
+                                        rep["replays"]) == (1, 1, 2)
+            assert launches == [2, 2, 0, 0]
+    e0, e1, cap = out
+
+    def dist(a, b):
+        return float((a - b).norm() / b.norm())
+
+    assert dist(cap, e0) <= 2 * dist(e1, e0) + 1e-6, (dist(cap, e0),
+                                                      dist(e1, e0))

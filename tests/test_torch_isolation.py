@@ -102,6 +102,76 @@ def test_the_eight_top_level_names_resolve():
     assert tfluid.data.DataFeeder is tfluid.DataFeeder
 
 
+# the imperative mode, its BERT and the quantization / slim toolkit (A8,
+# A9): each module exists, imports alone, and pulls in neither
+DYGRAPH_MODULES = ["dygraph", "dygraph.base", "dygraph.layers", "dygraph.nn",
+                   "dygraph.optimizer", "dygraph.capture",
+                   "models.bert_dygraph", "core.opimpl.quant_ops",
+                   "contrib", "contrib.quantize",
+                   "contrib.quantize.quantize_transpiler", "contrib.slim",
+                   "contrib.slim.prune", "contrib.slim.distill"]
+
+
+@pytest.mark.parametrize("module", DYGRAPH_MODULES)
+def test_dygraph_module_is_covered(module):
+    mod = importlib.import_module("paddle_tpu_torch." + module)
+    assert mod.__file__ in set(_sources())
+    test_no_source_imports_jax_or_paddle_tpu(mod.__file__)
+
+
+def test_dygraph_modules_alone_pull_in_neither_jax_nor_paddle_tpu():
+    code = (
+        "import importlib, sys\n"
+        "for m in %r:\n"
+        "    importlib.import_module('paddle_tpu_torch.' + m)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n" % (DYGRAPH_MODULES,))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_dygraph_and_contrib_resolve_with_the_reference_names():
+    """``fluid.dygraph`` and ``fluid.contrib`` (and their modules) carry
+    every public name of the reference's; 11 top-level names remain
+    missing (A7's and the TPU-only ones)."""
+    import paddle_tpu as ref
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")}
+
+    no_jax = {"jax", "jnp", "np"}  # the modules each imports
+    for name in ("dygraph", "dygraph.base", "dygraph.layers",
+                 "dygraph.nn", "dygraph.optimizer", "contrib",
+                 "contrib.quantize", "contrib.slim",
+                 "contrib.quantize.quantize_transpiler"):
+        want = importlib.import_module("paddle_tpu." + name)
+        got = importlib.import_module("paddle_tpu_torch." + name)
+        missing = public(want) - public(got) - no_jax
+        assert not missing, (name, missing)
+    assert set(ref.dygraph.nn.__all__) == set(tfluid.dygraph.nn.__all__)
+    assert tfluid.dygraph.nn.Linear is tfluid.dygraph.nn.FC
+    assert public(ref) - public(tfluid) == {
+        "BuildStrategy", "CompiledProgram", "ExecutionStrategy", "TPUPlace",
+        "XLAPlace", "debugger", "distributed", "dlpack", "parallel",
+        "profiler", "version"}
+
+
+def test_dygraph_entry_points_default_to_cuda(monkeypatch):
+    """Outside a ``guard(place)`` new parameters and variables go to
+    ``CUDAPlace(0)``, which raises without a GPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfluid.dygraph.to_variable(np.ones(2, "f4"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfluid.dygraph.nn.LayerNorm(normalized_shape=4)
+    with tfluid.dygraph.guard(tfluid.CPUPlace()):
+        v = tfluid.dygraph.to_variable(np.ones(2, "f4"))
+    assert v.value().device.type == "cpu"
+
+
 def test_package_compiles():
     r = subprocess.run([sys.executable, "-m", "compileall", "-q", PKG],
                        capture_output=True, text=True, timeout=120)

@@ -219,10 +219,22 @@ def _grad_vars(pkg, names):
     return [gb.var(n + "@GRAD") for n in names]
 
 
-def test_transformer_two_adam_steps_match_jax(pallas_interpret):
+# the JAX package's startup seeds for the Transformer's two Adam steps. Its
+# default, 0, draws a new init on every run (from ``secrets``), so each run
+# of the suite tested another init. Adam's first step moves every weight by
+# about the learning rate in its gradient's sign, so the second step is
+# sensitive to gradients within rounding of zero, and the margin under the
+# tolerance varies with the init. Fixed seeds make a failure reproducible;
+# these are the first three, taken without looking at their margins.
+TRANSFORMER_INIT_SEEDS = (1, 2, 3)
+
+
+@pytest.mark.parametrize("init_seed", TRANSFORMER_INIT_SEEDS)
+def test_transformer_two_adam_steps_match_jax(pallas_interpret, init_seed):
     jspec = jmodels.transformer.transformer_base(**TINY)
     fluid.optimizer.Adam(3e-3).minimize(jspec.loss)
     jprog = fluid.default_main_program()
+    fluid.default_startup_program().random_seed = init_seed
     exe = fluid.Executor(fluid.CPUPlace())
     exe.run(fluid.default_startup_program())
     params = jax_params(jprog)
